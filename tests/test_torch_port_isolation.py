@@ -1,0 +1,72 @@
+"""The port stands alone: no module of pytorch_ddp_mnist_tpu_torch, and not
+chip_smoke.py, imports jax or the JAX package. Only tests import both.
+
+Module names are compared exactly, or by the prefix `pytorch_ddp_mnist_tpu.`
+with its dot: `pytorch_ddp_mnist_tpu_torch` itself starts with
+`pytorch_ddp_mnist_tpu`."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "pytorch_ddp_mnist_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "pytorch_ddp_mnist_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_forbidden_matches_exact_names_only():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("pytorch_ddp_mnist_tpu")
+    assert _forbidden("pytorch_ddp_mnist_tpu.data.mnist")
+    assert not _forbidden("pytorch_ddp_mnist_tpu_torch")
+    assert not _forbidden("pytorch_ddp_mnist_tpu_torch.ops.fused_step")
+    assert not _forbidden("jaxtyping")
+
+
+def test_no_port_source_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 15
+    bad = []
+    for path in files:
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(REPO)}:{node.lineno} {n}"
+                    for n in names if _forbidden(n)]
+    assert bad == []
+
+
+def test_importing_the_port_and_chip_smoke_loads_no_jax(tmp_path):
+    code = f"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {str(REPO)!r})
+import pytorch_ddp_mnist_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r}))
+print(len(names), bad)
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 18 and bad == "[]", out.stdout
