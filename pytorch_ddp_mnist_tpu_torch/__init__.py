@@ -8,10 +8,14 @@ ported function is easy to find next to its counterpart:
     data/        IDX reader, MNIST splits + normalisation, batch loader
     parallel/    the epoch-seeded sharded sampler
     models/      the reference 784-128-128-10 MLP as an nn.Module
-    ops/         loss, SGD, and the fused train step with its CUDA kernel
-    train/       config, train/eval loop, .pt checkpoints
+    ops/         loss, SGD, the fused train step (K1) and the whole-epoch
+                 kernel (K2) with their CUDA kernels, the threefry and
+                 Philox dropout streams
+    train/       config, train/eval loop, resident-dataset epochs (scan),
+                 .pt checkpoints
     cli/         the serial trainer (`python -m pytorch_ddp_mnist_tpu_torch
                  train`)
+    bench.py     the single-card train benchmark (`... bench`)
 
 Kernels are built from `csrc/` at first use (ops/_build.py). ROADMAP.md
 lists what is ported and what is still to come.

@@ -1,6 +1,7 @@
 """`python -m pytorch_ddp_mnist_tpu_torch <command>`: the port's front door.
 
     train      the serial trainer (cli/train.py)
+    bench      the single-card train benchmark (bench.py)
 
 The JAX package's other commands (serve, trace, ledger, convert, download,
 lint, audit-program) are not ported yet; naming one exits with a pointer
@@ -13,6 +14,8 @@ import sys
 
 _COMMANDS = {
     "train": ("pytorch_ddp_mnist_tpu_torch.cli.train", "the serial trainer"),
+    "bench": ("pytorch_ddp_mnist_tpu_torch.bench",
+              "the single-card train benchmark"),
 }
 # the JAX package's commands still to port -> ROADMAP.md queue 1 item
 _NOT_YET_PORTED = {

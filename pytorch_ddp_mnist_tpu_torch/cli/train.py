@@ -2,19 +2,25 @@
 `pytorch_ddp_mnist_tpu/cli/train.py`).
 
     python -m pytorch_ddp_mnist_tpu_torch train [--n_epochs N] [--limit N]
-        [--batch_size 128] [--lr 0.01] [--seed 0] [--kernel auto|xla|pallas]
-        [--device 0|cpu] [--checkpoint model.pt] [--path data/]
+        [--batch_size 128] [--lr 0.01] [--seed 0]
+        [--kernel auto|xla|pallas|pallas_epoch] [--cached [--fused]]
+        [--impl threefry2x32|rbg] [--device 0|cpu] [--checkpoint model.pt]
+        [--path data/]
 
 Trains the reference MLP on MNIST (or the synthetic stand-in), prints the
 reference epoch line every epoch and saves the reference `.pt` state_dict at
 the end. It runs on CUDA device `--device` (default 0); with no card it
 exits and names the missing card unless `--device cpu` asks for the CPU.
+Without `--cached` it streams batches from the host (train/loop.py); with
+it the dataset stays on the device (train/scan.py), and `--kernel
+pallas_epoch` runs each epoch as one kernel.
 
 Seeds: the weights come from a CPU `torch.Generator` seeded `--seed` (so
-every device starts from the same weights), and the dropout masks from a
-generator on the run's device seeded `--seed + 1`, as the JAX trainer keys
-its train key. On CUDA that generator is Philox, not jax's threefry: the
-same seed gives other weights and masks than the JAX package.
+every device starts from the same weights). The streaming path draws its
+dropout masks from a generator on the run's device seeded `--seed + 1`; on
+CUDA that is Philox, not jax's threefry. The `--cached` path keys its masks
+by jax's threefry key `--seed + 1` instead, so its masks are the JAX
+package's for the same seed (with `--impl threefry2x32`).
 """
 
 from __future__ import annotations
@@ -28,10 +34,12 @@ from ..data.loader import BatchLoader
 from ..data.mnist import get_mnist, normalize_images
 from ..models.mlp import MLP, param_count
 from ..ops.fused_step import make_fused_train_step
+from ..ops.threefry import key_data
 from ..parallel.sampler import ShardedSampler
 from ..train.checkpoint import save_checkpoint
 from ..train.config import configure, resolve_kernel
 from ..train.loop import TrainState, fit
+from ..train.scan import check_run_args, fit_cached
 
 
 def resolve_device(spec: str) -> torch.device:
@@ -66,6 +74,11 @@ def train(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernel = resolve_kernel(tcfg["kernel"], tcfg["dtype"], device.type)
+    if tcfg["cached"]:
+        try:   # the scan layer's refusals, by name, before any work
+            check_run_args(kernel, tcfg["dtype"], 1, 1, tcfg["impl"])
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
 
     train_split = get_mnist(dcfg["path"], train=True)
     test_split = get_mnist(dcfg["path"], train=False)
@@ -76,24 +89,36 @@ def train(argv=None):
     y_test = test_split.labels.astype(np.int32)
     sampler = ShardedSampler(len(train_split), num_replicas=1, rank=0,
                              shuffle=True, seed=42)
-    loader = BatchLoader(normalize_images(train_split.images),
-                         train_split.labels, sampler,
-                         batch_size=tcfg["batch_size"])
 
     model = MLP(torch.Generator().manual_seed(tcfg["seed"])).to(device)
-    generator = torch.Generator(device=device).manual_seed(tcfg["seed"] + 1)
-    state = TrainState(model, generator)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+    mode = (f" cached{' fused' if tcfg['fused'] else ''} impl={tcfg['impl']}"
+            if tcfg["cached"] else "")
     print(f"pytorch_ddp_mnist_tpu_torch: device={device} ({name}) "
           f"params={param_count(model.params())} "
-          f"batch={tcfg['batch_size']} kernel={kernel}")
+          f"batch={tcfg['batch_size']} kernel={kernel}{mode}")
 
-    step = make_fused_train_step(tcfg["lr"]) if kernel == "pallas" else None
-    state, history = fit(state, loader, x_test, y_test,
-                         epochs=tcfg["n_epochs"],
-                         batch_size=tcfg["batch_size"],
-                         lr=None if step else tcfg["lr"], train_step=step)
+    if tcfg["cached"]:
+        _, history = fit_cached(
+            model, key_data(tcfg["seed"] + 1), train_split.images,
+            train_split.labels.astype(np.int32), sampler, x_test, y_test,
+            epochs=tcfg["n_epochs"], batch_size=tcfg["batch_size"],
+            lr=tcfg["lr"], kernel=kernel, impl=tcfg["impl"],
+            fused=tcfg["fused"], dtype=tcfg["dtype"])
+        state = TrainState(model, None)
+    else:
+        loader = BatchLoader(normalize_images(train_split.images),
+                             train_split.labels, sampler,
+                             batch_size=tcfg["batch_size"])
+        generator = torch.Generator(device=device).manual_seed(
+            tcfg["seed"] + 1)
+        step = (make_fused_train_step(tcfg["lr"]) if kernel == "pallas"
+                else None)
+        state, history = fit(TrainState(model, generator), loader, x_test,
+                             y_test, epochs=tcfg["n_epochs"],
+                             batch_size=tcfg["batch_size"],
+                             lr=None if step else tcfg["lr"], train_step=step)
     if tcfg["checkpoint"]:
         save_checkpoint(tcfg["checkpoint"], state.model.params())
         print(f"saved checkpoint to {tcfg['checkpoint']}")

@@ -1,0 +1,388 @@
+// K2: one whole epoch of SGD for the reference MLP in ONE launch, with the
+// weights carried from step to step inside the kernel.
+//
+// Replaces the TPU kernel pytorch_ddp_mnist_tpu/ops/pallas_step.py
+// `_make_epoch_kernel` in its single-replica, one-step-per-iteration forms,
+// reached through `epoch_fused_sgd`:
+//   K2a  rng="masks", f32 rows      pre-drawn (S*B, 128) masks are read
+//   K2b  uint8_in=True              raw pixels, normalised in the kernel
+//   K2c  rng="core"                 mask drawn in the kernel; the TPU core
+//                                   PRNG becomes Philox4x32-10 keyed by
+//                                   (epoch seed, step), counter row*128+col
+//   K3   rng="threefry"             mask drawn in the kernel by jax's
+//                                   threefry-2x32 from the step's key words,
+//                                   bit for bit dropout_mask(step_key)
+// Per step s (rows s*B .. s*B+B-1 of the gathered epoch): forward, loss,
+// backward, then `w -= lr * g` in place; the step's mean loss goes to
+// losses[s]. The outputs start as a copy of the input weights, which are
+// never written.
+//
+// What bounds it on an H100: at B = 128 each step is 64.9 MFLOP of f32
+// multiply-adds (see fused_step.cu), so a 469-step epoch is 30.5 GFLOP,
+// 0.455 ms at the 67 TFLOP/s f32 CUDA-core peak; its uint8 rows are 47 MB,
+// 0.014 ms at 3.35 TB/s. Operations set the bound. In practice each step is
+// a chain of dependent small products, so latency, not either peak, sets
+// the time.
+//
+// Design, and what it does about the differences from the TPU:
+//  * The TPU ran the steps as a sequential grid over one core, with the
+//    weights resident in VMEM. Here one cooperative launch
+//    (cudaLaunchCooperativeKernel) runs every step, and each step is two
+//    phases, each ended by a grid-wide sync (cooperative_groups): (A) each
+//    block takes ROWS_A batch rows and writes their activations, activation
+//    gradients and losses to scratch, reading the weights that the previous
+//    step wrote (mlp_step.cuh rows_block, K1's row math); (B) every weight
+//    element sums its gradient over rows 0..B-1 in that order and updates
+//    itself (`w -= lr*g`, the product rounded first, as in JAX), and one
+//    thread sums the step's loss in row order. No float atomics: two
+//    launches on the same inputs give the same bits.
+//  * The weights (473,088 B) do not fit one block's 227 KB of shared memory.
+//    They live in global memory and stay in the 50 MB L2; every load of a
+//    weight or of scratch is ld.global.cg (L2, never a stale L1 line).
+//  * The grid is the co-resident maximum (occupancy x SMs) cut to the work
+//    there is: max(B / ROWS_A row groups, 65 gradient-tile pairs + 1). A
+//    refused cooperative launch returns its error; nothing falls back.
+//  * The 256-thread block runs phase B as two halves of 128 threads, each a
+//    gradient tile; both halves take the same code path and barriers.
+//  * Exact f32: built without --use_fast_math; true divisions in the uint8
+//    normalise; the masks' 1/keep is the JAX form's own expression.
+//  * The epoch's rows are gathered outside the kernel (torch indexing), as
+//    JAX gathers them outside Pallas.
+//
+// Plain C interface for ctypes (ops/_build.py, ops/epoch_step.py): launches
+// on the caller's stream, never synchronises, allocates nothing, and
+// returns the CUDA error code (0 on success).
+
+#include <algorithm>
+
+#include <cooperative_groups.h>
+
+#include "mlp_step.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using namespace mlp;
+
+constexpr int THREADS = THREADS_A;                   // 256
+constexpr int HALVES = THREADS / TILE_THREADS;       // 2 gradient tiles at once
+constexpr int TILE_PAIRS = (GRAD_TILES + HALVES - 1) / HALVES;  // 65
+constexpr int N_LAYERS = 5;                          // w1, b1, w2, b2, w3
+
+enum Rng : int { RNG_MASKS = 0, RNG_THREEFRY = 1, RNG_PHILOX = 2 };
+
+constexpr float KEEP = 0.8f;               // f32(1 - DROPOUT_RATE)
+constexpr uint32_t KEEP_THRESH = 3435973837u;  // round(0.8 * 2**32)
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int d) {
+  return (x << d) | (x >> (32 - d));
+}
+
+// jax's threefry-2x32 of counter words (0, idx) under key (k0, k1); the
+// two outputs xor-ed, as jax.random.bits does for 32-bit draws.
+__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
+                                                  uint32_t idx) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  constexpr int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  uint32_t x0 = k0;
+  uint32_t x1 = idx + k1;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[i % 2][r]);
+      x1 ^= x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+  }
+  return x0 ^ x1;
+}
+
+// _threefry_mask_block for one element: uniform's mantissa fill, max 0,
+// `u < keep`, scale f32(1)/keep
+__device__ __forceinline__ float threefry_mask(uint32_t k0, uint32_t k1,
+                                               int row, int col) {
+  const uint32_t bits = threefry_bits(
+      k0, k1, (static_cast<uint32_t>(row) << 7) | static_cast<uint32_t>(col));
+  float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+  u = fmaxf(0.0f, u);
+  return u < KEEP ? 1.0f / KEEP : 0.0f;
+}
+
+// Philox4x32-10 (Random123 constants) of counter (idx, 0, 0, 0) under key
+// (seed, step), output word 0: ops/philox.py computes the same bits.
+__device__ __forceinline__ uint32_t philox_bits(uint32_t seed, uint32_t step,
+                                                uint32_t idx) {
+  uint32_t c0 = idx, c1 = 0, c2 = 0, c3 = 0, k0 = seed, k1 = step;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    const uint32_t n0 = hi1 ^ c1 ^ k0;
+    const uint32_t n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+  }
+  return c0;
+}
+
+// the core form's keep test and scale, f32(1.0 / (1.0 - DROPOUT_RATE))
+__device__ __forceinline__ float philox_mask(uint32_t seed, uint32_t step,
+                                             int row, int col) {
+  return philox_bits(seed, step, static_cast<uint32_t>(row * H1 + col)) <
+                 KEEP_THRESH
+             ? static_cast<float>(1.0 / (1.0 - 0.2))
+             : 0.0f;
+}
+
+struct EpochArgs {
+  const void* xp;       // (S*B, 784) f32 or uint8, the epoch's gathered rows
+  const int* yp;        // (S*B,) labels
+  const float* masks;   // (S*B, 128) pre-scaled masks      (RNG_MASKS)
+  const int* keys;      // (S, 2) per-step key words         (RNG_THREEFRY)
+  uint32_t seed;        // the epoch seed                    (RNG_PHILOX)
+  const float* in[N_LAYERS];
+  float* out[N_LAYERS];
+  float* scratch;       // B * SCRATCH_PER_ROW floats
+  float* losses;        // (S,)
+  int nsteps;
+  int batch;
+  float lr;
+  float inv_batch;
+};
+
+// the dropout mask of one step, as a (row in the step, column) functor
+template <int RNG>
+struct StepMask {
+  const float* masks;
+  uint32_t k0, k1;
+  __device__ float operator()(int row, int col) const {
+    if constexpr (RNG == RNG_MASKS) {
+      return masks[(size_t)row * H1 + col];
+    } else if constexpr (RNG == RNG_THREEFRY) {
+      return threefry_mask(k0, k1, row, col);
+    } else {
+      return philox_mask(k0, k1, row, col);
+    }
+  }
+};
+
+template <int RNG>
+__device__ StepMask<RNG> step_mask(const EpochArgs& a, int step) {
+  if constexpr (RNG == RNG_MASKS) {
+    return {a.masks + (size_t)step * a.batch * H1, 0u, 0u};
+  } else if constexpr (RNG == RNG_THREEFRY) {
+    return {nullptr, static_cast<uint32_t>(a.keys[2 * step]),
+            static_cast<uint32_t>(a.keys[2 * step + 1])};
+  } else {
+    return {nullptr, a.seed, static_cast<uint32_t>(step)};
+  }
+}
+
+// w[k][j] -= lr * g, the product rounded to f32 first (JAX's `w -= lr * g`;
+// a fused multiply-add would round once and differ)
+struct StoreSgd {
+  float* w;
+  int n;
+  float lr;
+  __device__ void operator()(int k, int j, float g) const {
+    float* p = w + k * n + j;
+    *p = __fsub_rn(__ldcg(p), __fmul_rn(lr, g));
+  }
+};
+
+__device__ __forceinline__ int layer_size(int p) {
+  return p == 0 ? IN * H1 : p == 1 ? H1 : p == 2 ? H1 * H2 : p == 3 ? H2 : H2 * NC;
+}
+
+template <class XT, int RNG>
+__global__ void __launch_bounds__(THREADS) epoch_kernel(EpochArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const int nblk = gridDim.x;
+  const int gtid = blockIdx.x * THREADS + threadIdx.x;
+
+  // the TPU kernel's step-0 init: outputs start as a copy of the inputs
+  for (int p = 0; p < N_LAYERS; ++p)
+    for (int i = gtid; i < layer_size(p); i += nblk * THREADS)
+      a.out[p][i] = a.in[p][i];
+  grid.sync();
+
+  float* const w1 = a.out[0];
+  float* const b1 = a.out[1];
+  float* const w2 = a.out[2];
+  float* const b2 = a.out[3];
+  float* const w3 = a.out[4];
+  const int batch = a.batch;
+  float* const d1 = a.scratch;
+  float* const h2 = d1 + (size_t)batch * H1;
+  float* const dz2 = h2 + (size_t)batch * H2;
+  float* const dz1 = dz2 + (size_t)batch * H2;
+  float* const dl = dz1 + (size_t)batch * H1;
+  float* const rl = dl + (size_t)batch * NC;
+
+  __shared__ float as[HALVES][BT][TK];
+  const int half = threadIdx.x / TILE_THREADS;
+  const int lt = threadIdx.x % TILE_THREADS;
+  const int bias_block = TILE_PAIRS % nblk;
+
+  for (int step = 0; step < a.nsteps; ++step) {
+    const XT* x = static_cast<const XT*>(a.xp) + (size_t)step * batch * IN;
+    const int* y = a.yp + (size_t)step * batch;
+
+    // ---- phase A: rows ----
+    const StepMask<RNG> mask = step_mask<RNG>(a, step);
+    for (int g = blockIdx.x; g * ROWS_A < batch; g += nblk)
+      rows_block<CgLoad>(x, y, mask, w1, b1, w2, b2, w3, d1, h2, dz2, dz1,
+                         dl, rl, g * ROWS_A, batch, a.inv_batch);
+    grid.sync();
+
+    // ---- phase B: gradients summed in row order, SGD in place ----
+    for (int pair = blockIdx.x; pair < TILE_PAIRS; pair += nblk) {
+      const int t = pair * HALVES + half;
+      const float* af = nullptr;
+      const uint8_t* au = nullptr;
+      const float* gsrc = nullptr;
+      int lda = 0, ka = 0, n = 0, k0 = 0;
+      float* w = nullptr;
+      if (t < GRAD_TILES) {
+        const GradTile gt = grad_tile(t);
+        k0 = gt.k0;
+        if (gt.which == 0) {
+          if constexpr (sizeof(XT) == 1)
+            au = reinterpret_cast<const uint8_t*>(x);
+          else
+            af = reinterpret_cast<const float*>(x);
+          lda = ka = IN;
+          gsrc = dz1;
+          n = H1;
+          w = w1;
+        } else if (gt.which == 1) {
+          af = d1;
+          lda = ka = H1;
+          gsrc = dz2;
+          n = H2;
+          w = w2;
+        } else {
+          af = h2;
+          lda = ka = H2;
+          gsrc = dl;
+          n = NC;
+          w = w3;
+        }
+      }
+      at_g_tile<CgLoad>(as[half], lt, af, au, lda, ka, gsrc, n, k0, batch,
+                        StoreSgd{w, n, a.lr});
+    }
+    if (blockIdx.x == bias_block && threadIdx.x < H1) {
+      // biases and the step's mean loss, each summed in row order
+      const int j = threadIdx.x;
+      float s1 = 0.f, s2 = 0.f;
+      for (int b = 0; b < batch; ++b) {
+        s1 += __ldcg(dz1 + (size_t)b * H1 + j);
+        s2 += __ldcg(dz2 + (size_t)b * H2 + j);
+      }
+      b1[j] = __fsub_rn(__ldcg(b1 + j), __fmul_rn(a.lr, s1));
+      b2[j] = __fsub_rn(__ldcg(b2 + j), __fmul_rn(a.lr, s2));
+      if (j == 0) {
+        float s = 0.f;
+        for (int b = 0; b < batch; ++b) s += __ldcg(rl + b);
+        a.losses[step] = s / (float)batch;
+      }
+    }
+    grid.sync();
+  }
+}
+
+// the mask block of one step, as the epoch kernel draws it (a debug entry:
+// the card compares it bitwise with the plain version)
+template <int RNG>
+__global__ void mask_kernel(EpochArgs a, int step, float* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < a.batch * H1) out[i] = step_mask<RNG>(a, step)(i / H1, i % H1);
+}
+
+using EpochKernel = void (*)(EpochArgs);
+
+EpochKernel pick(int x_u8, int rng) {
+  static const EpochKernel table[2][3] = {
+      {epoch_kernel<float, RNG_MASKS>, epoch_kernel<float, RNG_THREEFRY>,
+       epoch_kernel<float, RNG_PHILOX>},
+      {epoch_kernel<uint8_t, RNG_MASKS>, epoch_kernel<uint8_t, RNG_THREEFRY>,
+       epoch_kernel<uint8_t, RNG_PHILOX>}};
+  return table[x_u8 ? 1 : 0][rng];
+}
+
+}  // namespace
+
+extern "C" int pdmt_epoch_scratch_per_row() { return SCRATCH_PER_ROW; }
+
+extern "C" const char* pdmt_epoch_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// One epoch: xp (nsteps*batch, 784) f32 or uint8 (x_u8), yp (nsteps*batch,)
+// int32, rng 0/1/2 = masks/threefry/philox with its source (masks, keys or
+// seed), params in (w1, b1, w2, b2, w3) and out (same shapes, written),
+// scratch of batch * SCRATCH_PER_ROW floats, losses (nsteps,). Writes the
+// grid size it launched to *grid_out.
+extern "C" int pdmt_epoch_step(
+    const void* xp, int x_u8, const int* yp, int rng, const float* masks,
+    const int* keys, uint32_t seed, const float* w1, const float* b1,
+    const float* w2, const float* b2, const float* w3, float* ow1, float* ob1,
+    float* ow2, float* ob2, float* ow3, float* scratch, float* losses,
+    int nsteps, int batch, float lr, float inv_batch, int* grid_out,
+    void* stream) {
+  if (rng < 0 || rng > 2 || batch < ROWS_A || batch % ROWS_A != 0 || nsteps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EpochKernel kernel = pick(x_u8, rng);
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, reinterpret_cast<const void*>(kernel), THREADS, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const int need = std::max(batch / ROWS_A, TILE_PAIRS + 1);
+  const int grid = std::min(per_sm * sms, need);
+  EpochArgs a{xp, yp, masks, keys, seed, {w1, b1, w2, b2, w3},
+              {ow1, ob1, ow2, ob2, ow3}, scratch, losses, nsteps, batch, lr,
+              inv_batch};
+  void* args[] = {&a};
+  *grid_out = grid;
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(grid), dim3(THREADS), args,
+      0, static_cast<cudaStream_t>(stream)));
+}
+
+// The (batch, 128) mask the epoch kernel draws at `step` (rng 1 or 2).
+extern "C" int pdmt_epoch_mask(int rng, const int* keys, uint32_t seed,
+                               int step, int batch, float* out, void* stream) {
+  EpochArgs a{};
+  a.keys = keys;
+  a.seed = seed;
+  a.batch = batch;
+  const int n = batch * H1;
+  const dim3 grid((n + 255) / 256), block(256);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rng == RNG_THREEFRY)
+    mask_kernel<RNG_THREEFRY><<<grid, block, 0, s>>>(a, step, out);
+  else if (rng == RNG_PHILOX)
+    mask_kernel<RNG_PHILOX><<<grid, block, 0, s>>>(a, step, out);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

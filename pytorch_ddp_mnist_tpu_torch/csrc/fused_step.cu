@@ -44,38 +44,20 @@
 //  * ReLU's gradient is the strict z > 0, and the mask multiplies both d1
 //    and dz1, as in the TPU kernel.
 //
+// The row and gradient-element math is shared with K2 (epoch_step.cu) and
+// lives in mlp_step.cuh; this file holds K1's two kernels and its entry.
+//
 // Plain C interface for ctypes (ops/_build.py, ops/fused_step.py): launches
 // on the caller's stream, never synchronises, allocates nothing, and
 // returns cudaGetLastError().
 
-#include <cuda_runtime.h>
+#include "mlp_step.cuh"
 
 namespace {
 
-constexpr int IN = 784;
-constexpr int H1 = 128;
-constexpr int H2 = 128;
-constexpr int NC = 10;
+using namespace mlp;
 
-// rows_kernel: ROWS_A rows per block, 256 threads = 2 row groups x 128
-// columns, each thread RPT rows of one column.
-constexpr int ROWS_A = 8;
-constexpr int RPT = 4;
-constexpr int THREADS_A = H1 * ROWS_A / RPT;
-constexpr int KT = 32;  // w2 tile width for dz2 w2^T
-
-// scratch layout per batch row: d1, h2, dz2, dz1 (128 each), dl (10), loss
-constexpr int SCRATCH_PER_ROW = 4 * H1 + NC + 1;
-
-// grads_kernel: each block owns TK rows of one gradient matrix, one thread
-// per column; BT batch rows of the left operand pass through shared memory.
-constexpr int TK = 8;
-constexpr int BT = 32;
-constexpr int THREADS_B = 128;
-constexpr int TILES_GW1 = (IN + TK - 1) / TK;  // 98
-constexpr int TILES_GW2 = H1 / TK;             // 16
-constexpr int TILES_GW3 = H2 / TK;             // 16
-constexpr int BLOCKS_B = TILES_GW1 + TILES_GW2 + TILES_GW3 + 1;
+constexpr int BLOCKS_B = GRAD_TILES + 1;  // + the bias / loss block
 
 __global__ void __launch_bounds__(THREADS_A) rows_kernel(
     const float* __restrict__ x, const int* __restrict__ y,
@@ -87,183 +69,21 @@ __global__ void __launch_bounds__(THREADS_A) rows_kernel(
     float* __restrict__ dz2_out, float* __restrict__ dz1_out,
     float* __restrict__ dl_out, float* __restrict__ row_loss,
     int batch, float inv_batch) {
-  __shared__ float xs[ROWS_A * IN];  // x rows, later the w2 tile
-  __shared__ float d1s[ROWS_A * H1];
-  __shared__ float h2s[ROWS_A * H2];
-  __shared__ float dz2s[ROWS_A * H2];
-  __shared__ float lg[ROWS_A * NC];  // logits, then dl
-
-  const int tid = threadIdx.x;
-  const int j = tid % H1;      // the column this thread owns
-  const int r0 = (tid / H1) * RPT;  // its first row within the block
-  const int row0 = blockIdx.x * ROWS_A;
-
-  for (int i = tid; i < ROWS_A * IN; i += THREADS_A) {
-    const int r = i / IN;
-    const int row = row0 + r;
-    xs[i] = row < batch ? x[(size_t)row * IN + (i - r * IN)] : 0.f;
-  }
-  __syncthreads();
-
-  // ---- forward ----
-  float z1[RPT], m[RPT], z2[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) z1[r] = 0.f;
-  const float* xr = xs + r0 * IN;
-#pragma unroll 4
-  for (int k = 0; k < IN; ++k) {
-    const float w = __ldg(w1 + k * H1 + j);
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) z1[r] = fmaf(xr[r * IN + k], w, z1[r]);
-  }
-  const float bj1 = __ldg(b1 + j);
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = row0 + r0 + r;
-    z1[r] += bj1;
-    m[r] = row < batch ? mask[(size_t)row * H1 + j] : 0.f;
-    const float d1 = fmaxf(z1[r], 0.f) * m[r];
-    d1s[(r0 + r) * H1 + j] = d1;
-    if (row < batch) d1_out[(size_t)row * H1 + j] = d1;
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) z2[r] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < H1; ++k) {
-    const float w = __ldg(w2 + k * H2 + j);
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) z2[r] = fmaf(d1s[(r0 + r) * H1 + k], w, z2[r]);
-  }
-  const float bj2 = __ldg(b2 + j);
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = row0 + r0 + r;
-    z2[r] += bj2;
-    const float h2 = fmaxf(z2[r], 0.f);
-    h2s[(r0 + r) * H2 + j] = h2;
-    if (row < batch) h2_out[(size_t)row * H2 + j] = h2;
-  }
-  __syncthreads();
-
-  if (tid < ROWS_A * NC) {
-    const int r = tid / NC;
-    const int c = tid - r * NC;
-    float acc = 0.f;
-    for (int k = 0; k < H2; ++k) acc = fmaf(h2s[r * H2 + k], __ldg(w3 + k * NC + c), acc);
-    lg[tid] = acc;
-  }
-  __syncthreads();
-
-  // ---- stable softmax cross-entropy, one thread per row ----
-  if (tid < ROWS_A) {
-    const int row = row0 + tid;
-    const bool valid = row < batch;
-    float* l = lg + tid * NC;
-    float mx = l[0];
-    for (int c = 1; c < NC; ++c) mx = fmaxf(mx, l[c]);
-    float ex[NC];
-    float se = 0.f;
-    for (int c = 0; c < NC; ++c) {
-      ex[c] = expf(l[c] - mx);
-      se += ex[c];
-    }
-    const int yr = valid ? y[row] : -1;
-    float logit_y = 0.f;
-    for (int c = 0; c < NC; ++c) logit_y += c == yr ? l[c] : 0.f;
-    const float scale = valid ? inv_batch : 0.f;
-    for (int c = 0; c < NC; ++c) {
-      const float dl = (ex[c] / se - (c == yr ? 1.f : 0.f)) * scale;
-      l[c] = dl;
-      if (valid) dl_out[(size_t)row * NC + c] = dl;
-    }
-    if (valid) row_loss[row] = (mx + logf(se)) - logit_y;
-  }
-  __syncthreads();
-
-  // ---- backward through fc3 and fc2 ----
-  float wj3[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) wj3[c] = __ldg(w3 + j * NC + c);
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = row0 + r0 + r;
-    float dh2 = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dh2 = fmaf(lg[(r0 + r) * NC + c], wj3[c], dh2);
-    const float dz2 = dh2 * (z2[r] > 0.f ? 1.f : 0.f);
-    dz2s[(r0 + r) * H2 + j] = dz2;
-    if (row < batch) dz2_out[(size_t)row * H2 + j] = dz2;
-  }
-
-  // dd1 = dz2 w2^T: w2 is read by rows here, so it passes through shared
-  // memory in (128 x KT) tiles, padded to KT + 1 against bank conflicts.
-  float dd1[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) dd1[r] = 0.f;
-  float* tile = xs;
-  for (int k0 = 0; k0 < H2; k0 += KT) {
-    __syncthreads();  // dz2s complete / previous tile consumed
-    for (int i = tid; i < H1 * KT; i += THREADS_A) {
-      const int jj = i / KT;
-      const int kk = i - jj * KT;
-      tile[jj * (KT + 1) + kk] = __ldg(w2 + jj * H2 + k0 + kk);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < KT; ++kk) {
-      const float w = tile[j * (KT + 1) + kk];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-        dd1[r] = fmaf(dz2s[(r0 + r) * H2 + k0 + kk], w, dd1[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = row0 + r0 + r;
-    if (row < batch)
-      dz1_out[(size_t)row * H1 + j] = (dd1[r] * m[r]) * (z1[r] > 0.f ? 1.f : 0.f);
-  }
+  const auto mask_at = [mask](int row, int col) {
+    return mask[(size_t)row * H1 + col];
+  };
+  rows_block<LdgLoad>(x, y, mask_at, w1, b1, w2, b2, w3, d1_out, h2_out,
+                      dz2_out, dz1_out, dl_out, row_loss,
+                      blockIdx.x * ROWS_A, batch, inv_batch);
 }
 
-// out[k][j] = sum over b = 0..B-1, in order, of a[b][k] * g[b][j], for the
-// TK rows k0 .. k0+TK-1 of out. One thread per column j < n.
-__device__ void at_g_tile(const float* __restrict__ a, int lda, int ka,
-                          const float* __restrict__ g, int n,
-                          float* __restrict__ out, int k0, int batch) {
-  __shared__ float as[BT][TK];
-  const int j = threadIdx.x;
-  float acc[TK];
-#pragma unroll
-  for (int kk = 0; kk < TK; ++kk) acc[kk] = 0.f;
-  for (int b0 = 0; b0 < batch; b0 += BT) {
-    for (int i = threadIdx.x; i < BT * TK; i += THREADS_B) {
-      const int bb = i / TK;
-      const int kk = i - bb * TK;
-      const int b = b0 + bb;
-      const int k = k0 + kk;
-      as[bb][kk] = (b < batch && k < ka) ? a[(size_t)b * lda + k] : 0.f;
-    }
-    __syncthreads();
-    if (j < n) {
-      const int nb = min(BT, batch - b0);
-      for (int bb = 0; bb < nb; ++bb) {
-        const float gv = g[(size_t)(b0 + bb) * n + j];
-#pragma unroll
-        for (int kk = 0; kk < TK; ++kk) acc[kk] = fmaf(as[bb][kk], gv, acc[kk]);
-      }
-    }
-    __syncthreads();
-  }
-  if (j < n) {
-#pragma unroll
-    for (int kk = 0; kk < TK; ++kk)
-      if (k0 + kk < ka) out[(k0 + kk) * n + j] = acc[kk];
-  }
-}
+struct StoreTo {
+  float* out;
+  int n;
+  __device__ void operator()(int k, int j, float v) const { out[k * n + j] = v; }
+};
 
-__global__ void __launch_bounds__(THREADS_B) grads_kernel(
+__global__ void __launch_bounds__(TILE_THREADS) grads_kernel(
     const float* __restrict__ x, const float* __restrict__ d1,
     const float* __restrict__ h2, const float* __restrict__ dz2,
     const float* __restrict__ dz1, const float* __restrict__ dl,
@@ -271,19 +91,19 @@ __global__ void __launch_bounds__(THREADS_B) grads_kernel(
     float* __restrict__ loss, float* __restrict__ gw1, float* __restrict__ gb1,
     float* __restrict__ gw2, float* __restrict__ gb2, float* __restrict__ gw3,
     int batch) {
-  int t = blockIdx.x;
-  if (t < TILES_GW1) {
-    at_g_tile(x, IN, IN, dz1, H1, gw1, t * TK, batch);
-    return;
-  }
-  t -= TILES_GW1;
-  if (t < TILES_GW2) {
-    at_g_tile(d1, H1, H1, dz2, H2, gw2, t * TK, batch);
-    return;
-  }
-  t -= TILES_GW2;
-  if (t < TILES_GW3) {
-    at_g_tile(h2, H2, H2, dl, NC, gw3, t * TK, batch);
+  __shared__ float as[BT][TK];
+  const int t = blockIdx.x;
+  if (t < GRAD_TILES) {
+    const GradTile gt = grad_tile(t);
+    if (gt.which == 0)
+      at_g_tile<LdgLoad>(as, threadIdx.x, x, nullptr, IN, IN, dz1, H1, gt.k0, batch,
+                         StoreTo{gw1, H1});
+    else if (gt.which == 1)
+      at_g_tile<LdgLoad>(as, threadIdx.x, d1, nullptr, H1, H1, dz2, H2, gt.k0, batch,
+                         StoreTo{gw2, H2});
+    else
+      at_g_tile<LdgLoad>(as, threadIdx.x, h2, nullptr, H2, H2, dl, NC, gt.k0, batch,
+                         StoreTo{gw3, NC});
     return;
   }
   // the last block: bias gradients and the mean loss, each summed in row order
@@ -301,8 +121,6 @@ __global__ void __launch_bounds__(THREADS_B) grads_kernel(
     loss[0] = s / (float)batch;
   }
 }
-
-static_assert(THREADS_B == H1 && H1 == H2, "bias block: one thread per unit");
 
 }  // namespace
 
@@ -332,7 +150,7 @@ extern "C" int pdmt_fused_step_f32(
       inv_batch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  grads_kernel<<<BLOCKS_B, THREADS_B, 0, s>>>(
+  grads_kernel<<<BLOCKS_B, TILE_THREADS, 0, s>>>(
       x, d1, h2, dz2, dz1, dl, rl, loss, gw1, gb1, gw2, gb2, gw3, batch);
   return static_cast<int>(cudaGetLastError());
 }

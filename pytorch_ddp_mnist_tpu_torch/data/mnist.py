@@ -1,10 +1,12 @@
 """MNIST dataset: IDX loading, normalisation, synthetic fallback.
 
-A copy of `pytorch_ddp_mnist_tpu/data/mnist.py` (numpy only): the same
+A copy of `pytorch_ddp_mnist_tpu/data/mnist.py`: the same
 bytes from the same IDX files, the reference transform
 `ToTensor() -> Normalize((0.1307,), (0.3081,))` reproduced op for op in
-float32 (/255, then -mean, then /std), and the same deterministic synthetic
-60k/10k stand-in for machines without the dataset.
+float32 (/255, then -mean, then /std) on numpy arrays and, as
+`device_normalize` (the JAX package's `train/scan.py` one), on tensors of
+any device, and the same deterministic synthetic 60k/10k stand-in for
+machines without the dataset.
 
 Downloading (`--download`, `data/download.py`) is not ported yet.
 """
@@ -15,6 +17,7 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from .idx import read_idx
 
@@ -43,6 +46,19 @@ def normalize_images(images: np.ndarray) -> np.ndarray:
     x -= MNIST_MEAN
     x /= MNIST_STD
     return x.reshape(x.shape[0], -1)
+
+
+def device_normalize(x: torch.Tensor) -> torch.Tensor:
+    """normalize_images' op chain on a tensor, on its own device: uint8 (or
+    float) (n, 784) -> float32, /255, then -mean, then /std, each rounded to
+    f32 with true division (bitwise normalize_images). The constants are
+    tensors on x's device because CUDA turns a division by a host scalar
+    into a multiply by its reciprocal, which rounds differently."""
+    def const(v: float) -> torch.Tensor:
+        return torch.full((), v, dtype=torch.float32, device=x.device)
+
+    x = x.to(torch.float32) / const(255.0)
+    return (x - const(MNIST_MEAN)) / const(MNIST_STD)
 
 
 def _find_idx(root: str, stem: str) -> str | None:

@@ -6,8 +6,9 @@ shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. Libraries go under
+The file name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused. Libraries go under
 `build/kernels/` at the root of the checkout (`.gitignore` lists `build/`),
 beside a `.log` holding what `-Xptxas -v` reported. Nothing is built when
 this module is imported: machines without nvcc import it freely.
@@ -27,7 +28,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 
 # kernel library name -> source file under csrc/
-SOURCES = {"fused_step": "fused_step.cu"}
+SOURCES = {"fused_step": "fused_step.cu", "epoch_step": "epoch_step.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,6 +53,7 @@ def find_nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

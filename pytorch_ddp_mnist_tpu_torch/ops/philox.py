@@ -1,0 +1,73 @@
+"""The port's in-kernel dropout stream for `rng_impl="core"`: Philox4x32-10.
+
+The JAX package's `rng="core"` form of the epoch kernel draws its masks
+from the TPU core PRNG (`pltpu.prng_seed(seed, step)`), a hardware
+generator with no CUDA twin. The port draws them from Philox4x32-10
+(Salmon et al., SC'11; the Random123 constants) instead:
+
+    key = (epoch seed, global step), counter = (row * 128 + col, 0, 0, 0),
+    bits = output word 0, keep iff bits < _KEEP_THRESH, value 1/keep.
+
+It is the port's own stream with the same Bernoulli keep distribution, as
+`train/scan.py` of the JAX package says of rbg against threefry: the same
+seed gives other masks than the TPU, and no test compares the two bitwise.
+`csrc/epoch_step.cu` computes the same function as a device function; the
+card checks the two bit for bit.
+
+Like `ops/threefry.py`, the arithmetic runs on Python ints and on int64
+tensors of uint32 values: the 32x32 -> 64-bit products are taken in 16-bit
+halves so that no intermediate leaves int64.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.mlp import DROPOUT_RATE, MLP_DIMS
+
+HIDDEN1 = MLP_DIMS[1]
+M32 = 0xFFFFFFFF
+# P(bits < _KEEP_THRESH) = 1 - DROPOUT_RATE for uniform uint32 bits
+# (pallas_step.py `_KEEP_THRESH`)
+KEEP_THRESH = int(round((1.0 - DROPOUT_RATE) * 2**32))
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57      # round multipliers
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85      # key bumps (golden ratio, sqrt(3)-1)
+ROUNDS = 10
+
+
+def _mulhilo(a: int, b):
+    """(hi, lo) 32-bit words of the 64-bit product a * b (a a constant)."""
+    t1 = (a & 0xFFFF) * b            # < 2**48
+    t2 = (a >> 16) * b               # < 2**48
+    mid = t1 + ((t2 & 0xFFFF) << 16)  # < 2**49
+    return ((t2 >> 16) + (mid >> 32)) & M32, mid & M32
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1, rounds: int = ROUNDS):
+    """Philox4x32-`rounds` of counter (c0..c3) under key (k0, k1) -> four
+    output words (Random123's philox4x32_R)."""
+    for r in range(rounds):
+        if r:
+            k0 = (k0 + _W0) & M32
+            k1 = (k1 + _W1) & M32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def mask_block(seed: int, step: int, rows: int, device="cpu") -> torch.Tensor:
+    """(rows, 128) pre-scaled mask of global step `step` under epoch seed
+    `seed` (both taken mod 2**32): 1/keep where the element's Philox word is
+    below KEEP_THRESH, else 0. The scale is f32(1.0 / (1.0 - DROPOUT_RATE)),
+    the expression of the JAX core form."""
+    idx = torch.arange(rows * HIDDEN1, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(idx)
+    bits = philox4x32(idx, zero, zero, zero, int(seed) & M32,
+                      int(step) & M32)[0]
+    keep = torch.tensor(1.0 / (1.0 - DROPOUT_RATE), dtype=torch.float32,
+                        device=device)
+    return torch.where(bits < KEEP_THRESH, keep,
+                       torch.zeros((), dtype=torch.float32, device=device)
+                       ).reshape(rows, HIDDEN1)

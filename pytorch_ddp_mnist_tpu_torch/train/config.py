@@ -1,6 +1,7 @@
 """Config / CLI layer of the serial trainer (port of a subset of
 `pytorch_ddp_mnist_tpu/train/config.py`, plus the `--kernel auto` policy of
-`train/scan.py::resolve_kernel`).
+`train/scan.py::resolve_kernel` and the JAX CLI's refusals of unsound
+combinations of `--cached`, `--fused` and `--kernel pallas_epoch`).
 
 The ported flags keep the JAX trainer's names and defaults, so launch lines
 carry over, except `--checkpoint`, which defaults to `model.pt` (the port
@@ -14,12 +15,12 @@ from __future__ import annotations
 import argparse
 from typing import Any, Dict
 
+from ..ops.epoch_step import EPOCH_KERNEL_MAX_BATCH
+
 # flag of the JAX trainer -> where ROADMAP.md queues its port
 NOT_YET_PORTED = {
     "--parallel": "queue 1, item 6 (DDP over torch.distributed)",
     "--wireup_method": "queue 1, item 6 (DDP over torch.distributed)",
-    "--cached": "queue 1, item 5 (resident-dataset epochs)",
-    "--fused": "queue 1, item 5 (resident-dataset epochs)",
     "--netcdf": "queue 1, item 1 (data plane)",
     "--download": "queue 1, item 1 (data plane)",
     "--hdf5": "queue 1, item 7 (training CLI)",
@@ -52,11 +53,9 @@ NOT_YET_PORTED = {
     "--metrics_port": "queue 1, item 12 (telemetry)",
     "--elastic": "queue 1, item 13 (elastic training)",
     "--reshape": "queue 1, item 13 (elastic training)",
-    "--impl": "queue 2, K3 and K5 (in-kernel dropout streams)",
 }
 NOT_YET_PORTED_VALUES = {
     ("--kernel", "pallas_rng"): "queue 2, K5 (in-kernel dropout draw)",
-    ("--kernel", "pallas_epoch"): "queue 2, K2 (whole-epoch kernel)",
     ("--dtype", "bfloat16"): "queue 2, K4 (bf16 operands)",
 }
 
@@ -89,8 +88,22 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
                                         "pallas_epoch"), default="auto",
                    help="train step: 'pallas' is the fused step (the CUDA "
                         "kernel on a card, its plain version on the CPU), "
-                        "'xla' the plain autograd step, 'auto' (default) the "
-                        "fused step on CUDA with float32 and 'xla' otherwise")
+                        "'xla' the plain autograd step, 'pallas_epoch' the "
+                        "whole-epoch kernel (--cached only), 'auto' (default) "
+                        "the fused step on CUDA with float32 and 'xla' "
+                        "otherwise")
+    t.add_argument("--cached", action="store_true",
+                   help="keep the dataset on the device as uint8 and run "
+                        "each epoch with no per-step host sync")
+    t.add_argument("--fused", action="store_true",
+                   help="with --cached: run all epochs with one fetch at the "
+                        "end (per-epoch lines printed after)")
+    t.add_argument("--impl", choices=("threefry2x32", "rbg"), default=None,
+                   help="PRNG engine of the train key (--cached only). "
+                        "threefry2x32 (default) is jax's reference stream, "
+                        "drawn in the kernel with --kernel pallas_epoch; rbg "
+                        "selects the epoch kernel's own Philox stream (same "
+                        "keep distribution, other masks)")
     d = p.add_argument_group("data")
     d.add_argument("--path", "--data_path", type=str, default="data/",
                    help="dataset root (IDX files); synthetic data otherwise")
@@ -106,6 +119,23 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
     for (flag, value), where in NOT_YET_PORTED_VALUES.items():
         if getattr(a, flag[2:]) == value:
             raise _not_ported(f"{flag} {value}", where)
+    if a.kernel == "pallas_epoch" and not a.cached:
+        raise SystemExit("--kernel pallas_epoch runs inside the epoch scan; "
+                         "add --cached")
+    if a.kernel == "pallas_epoch" and (
+            a.batch_size % 8 != 0 or a.batch_size > EPOCH_KERNEL_MAX_BATCH):
+        raise SystemExit(
+            f"--kernel pallas_epoch needs a batch divisible by 8 and <= "
+            f"{EPOCH_KERNEL_MAX_BATCH} (one block per step); got "
+            f"{a.batch_size} — use --kernel pallas instead")
+    if a.fused and not a.cached:
+        raise SystemExit("--fused fuses the epoch scan; add --cached")
+    if a.impl is not None and not a.cached:
+        raise SystemExit(
+            "--impl selects the threefry key chain of the resident-dataset "
+            "path (--cached); the streaming path draws its masks from a "
+            "torch generator. --impl there is not ported yet; see "
+            "ROADMAP.md queue 1, item 4")
     if a.checkpoint and not a.checkpoint.endswith((".pt", ".pth")):
         raise SystemExit(f"--checkpoint {a.checkpoint!r}: the PyTorch package "
                          f"writes .pt/.pth state_dicts only (msgpack needs "
@@ -114,7 +144,8 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
         "trainer": {
             "batch_size": a.batch_size, "n_epochs": a.n_epochs, "lr": a.lr,
             "seed": a.seed, "device": a.device, "checkpoint": a.checkpoint,
-            "dtype": a.dtype, "kernel": a.kernel,
+            "dtype": a.dtype, "kernel": a.kernel, "cached": a.cached,
+            "fused": a.fused, "impl": a.impl or "threefry2x32",
         },
         "data": {"path": a.path, "limit": a.limit},
     }

@@ -31,9 +31,10 @@ from ..ops.sgd import sgd_step
 @dataclass
 class TrainState:
     """The model (its parameters are the trained state; SGD has no other)
-    and the dropout generator, which lives on the model's device."""
+    and the dropout generator, which lives on the model's device (None for
+    the resident-dataset path, whose dropout follows a threefry key)."""
     model: MLP
-    generator: torch.Generator
+    generator: torch.Generator | None
 
 
 def make_train_step(lr: float) -> Callable:
@@ -66,6 +67,30 @@ def eval_math(model: MLP, x: torch.Tensor, y: torch.Tensor):
     per_sample = -torch.gather(logz, -1, y.long()[:, None])[:, 0]
     correct = (torch.argmax(logits, dim=-1) == y.long()).float()
     return per_sample, correct
+
+
+def make_snapshot_eval_step() -> Callable:
+    """Eval over STACKED per-epoch params snapshots, for the fused
+    resident-dataset run's per-epoch val lines (the JAX package's
+    `make_snapshot_eval_step`): (p_snaps with an (E, ...) leading axis on
+    every leaf, x (n, 784), y (n,)) -> (per_sample (E, n), correct (E, n)),
+    float32 on x's device. The epoch axis is a batch dimension of the
+    products, so all E evals are one chain of batched matmuls and one
+    fetch."""
+    @torch.no_grad()
+    def step(p_snaps, x, y):
+        fc1, fc2, fc3 = p_snaps["fc1"], p_snaps["fc2"], p_snaps["fc3"]
+        h = torch.relu(x @ fc1["w"] + fc1["b"][:, None, :])
+        h = torch.relu(h @ fc2["w"] + fc2["b"][:, None, :])
+        logits = h @ fc3["w"]
+        logz = torch.log_softmax(logits.float(), dim=-1)
+        labels = y.long()
+        idx = labels[None, :, None].expand(logz.shape[0], -1, 1)
+        per_sample = -torch.gather(logz, -1, idx)[..., 0]
+        correct = (torch.argmax(logits, dim=-1) == labels).float()
+        return per_sample, correct
+
+    return step
 
 
 def evaluate(model: MLP, x_test: torch.Tensor, y_test: torch.Tensor,

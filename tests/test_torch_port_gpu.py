@@ -7,7 +7,13 @@ so it also runs on a machine that has only the port's dependencies:
 
 Tolerances are the JAX package's pins for its fused step
 (tests/test_pallas_step.py): loss rtol 1e-5, grads rtol 2e-4 / atol 1e-6;
-two launches on the same inputs must be bitwise equal (no atomics)."""
+two launches on the same inputs must be bitwise equal (no atomics). The
+whole-epoch kernel (K2) is held bitwise against K1 + SGD per step (the
+same row and gradient code), its in-kernel masks bitwise against the plain
+streams, and against its plain version: losses at rtol 1e-5 / atol 1e-6,
+params in relative Frobenius norm 1e-3 (per element, a ReLU input within
+rounding of 0 may take the other branch in one of the two summation
+orders; chip_smoke.py PARAM_FRO_RTOL says more)."""
 
 import re
 
@@ -16,9 +22,12 @@ import pytest
 import torch
 
 from pytorch_ddp_mnist_tpu_torch.cli import train as port_cli
-from pytorch_ddp_mnist_tpu_torch.data.mnist import normalize_images, synthetic_mnist
+from pytorch_ddp_mnist_tpu_torch.data.mnist import (device_normalize,
+                                                     normalize_images,
+                                                     synthetic_mnist)
 from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
-from pytorch_ddp_mnist_tpu_torch.ops import fused_step
+from pytorch_ddp_mnist_tpu_torch.ops import epoch_step, fused_step, threefry
+from pytorch_ddp_mnist_tpu_torch.ops.sgd import sgd_step
 from pytorch_ddp_mnist_tpu_torch.train.loop import make_train_step
 
 pytestmark = pytest.mark.gpu
@@ -99,3 +108,103 @@ def test_cli_trains_through_the_kernel(cuda, tmp_path, capsys):
     assert re.search(r"^Epoch=0, train_loss=\S+, val_loss=\S+", out, re.M)
     assert fused_step.launch_count["fused_step"] == before + 512 // 64
     assert (tmp_path / "m.pt").exists()
+
+
+# ---- K2, the whole-epoch kernel ----
+
+K2_FORMS = {"K2a": ("f32", "masks"), "K2b": ("uint8", "masks"),
+            "K2c": ("uint8", "core"), "K3": ("uint8", "threefry")}
+
+
+def _epoch_inputs(batch, nsteps, seed, device):
+    rows = batch * nsteps
+    split = synthetic_mnist(rows, seed=seed)
+    rng = np.random.default_rng(seed)
+    masks = (rng.random((rows, 128)) < 0.8).astype(np.float32) / np.float32(0.8)
+    model = MLP(torch.Generator().manual_seed(seed)).to(device)
+    return {
+        "params": {n: {k: v.detach() for k, v in layer.items()}
+                   for n, layer in model.params().items()},
+        "uint8": torch.from_numpy(split.images.reshape(rows, -1)).to(device),
+        "f32": torch.from_numpy(normalize_images(split.images)).to(device),
+        "y": torch.from_numpy(split.labels.astype(np.int32)).to(device),
+        "masks": torch.from_numpy(masks).to(device),
+        "threefry": threefry.to_int32_words(
+            threefry.split(threefry.key_data(seed), nsteps)).to(device),
+        "core": int(rng.integers(0, 2**32)), "batch": batch,
+    }
+
+
+def _epoch(fn, form, inp):
+    pixels, rng = K2_FORMS[form]
+    return fn(inp["params"], inp[pixels], inp["y"],
+              None if rng == "masks" else inp[rng], 0.01, inp["batch"],
+              masks=inp["masks"] if rng == "masks" else None,
+              rng_impl="threefry" if rng == "threefry" else "core")
+
+
+def _k1_epoch(form, inp):
+    pixels, rng = K2_FORMS[form]
+    batch = inp["batch"]
+    params = {n: {k: t.clone() for k, t in layer.items()}
+              for n, layer in inp["params"].items()}
+    losses = []
+    for s in range(inp["y"].shape[0] // batch):
+        rows = slice(s * batch, (s + 1) * batch)
+        x = inp[pixels][rows]
+        x = device_normalize(x) if pixels == "uint8" else x
+        mask = epoch_step.step_mask(rng, inp[rng], inp["masks"], s, batch,
+                                    x.device)
+        loss, grads = fused_step.fused_loss_and_grads(params, x,
+                                                      inp["y"][rows], mask)
+        sgd_step(params, grads, 0.01)
+        losses.append(loss)
+    return params, torch.stack(losses)
+
+
+def _leaves(params, losses):
+    return [losses] + [t for layer in params.values() for t in layer.values()]
+
+
+@pytest.mark.parametrize("form", list(K2_FORMS))
+@pytest.mark.parametrize("batch,nsteps", [(128, 24), (8, 5)])
+def test_epoch_kernel_matches_k1_bitwise_and_its_plain_version(cuda, form,
+                                                               batch, nsteps):
+    inp = _epoch_inputs(batch, nsteps, seed=batch + nsteps, device=cuda)
+    before = epoch_step.launch_count["epoch_step"]
+    got = _leaves(*_epoch(epoch_step.epoch_fused_sgd, form, inp))
+    again = _leaves(*_epoch(epoch_step.epoch_fused_sgd, form, inp))
+    assert epoch_step.launch_count["epoch_step"] == before + 2
+    assert epoch_step.last_launch["form"] == "/".join(K2_FORMS[form])
+    k1 = _leaves(*_k1_epoch(form, inp))
+    ref = _leaves(*_epoch(epoch_step.epoch_fused_sgd_reference, form, inp))
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, k1):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-6)
+    for a, r in zip(got[1:], ref[1:]):
+        assert float((a - r).norm() / r.norm()) <= 1e-3
+
+
+@pytest.mark.parametrize("impl", ["core", "threefry"])
+def test_in_kernel_masks_are_the_plain_streams_bitwise(cuda, impl):
+    inp = _epoch_inputs(64, 6, seed=3, device=cuda)
+    rng = "core" if impl == "core" else "threefry"
+    for step in range(6):
+        km = epoch_step.kernel_mask_block(inp[rng], step, 64, rng_impl=impl,
+                                          device=cuda)
+        pm = epoch_step.step_mask(rng, inp[rng], None, step, 64, cuda)
+        assert torch.equal(km, pm)
+
+
+def test_cached_cli_runs_one_epoch_kernel_launch_per_epoch(cuda, tmp_path,
+                                                           capsys):
+    before = dict(epoch_step.launch_count)
+    rc = port_cli.main(["--cached", "--fused", "--kernel", "pallas_epoch",
+                        "--n_epochs", "2", "--limit", "1024",
+                        "--checkpoint", str(tmp_path / "m.pt"),
+                        "--path", str(tmp_path / "no_mnist")])
+    out = capsys.readouterr().out
+    assert rc == 0 and "kernel=pallas_epoch cached fused" in out
+    assert re.search(r"^Epoch=1, train_loss=\S+, val_loss=\S+", out, re.M)
+    assert epoch_step.launch_count["epoch_step"] == before["epoch_step"] + 2

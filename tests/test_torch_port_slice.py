@@ -183,9 +183,9 @@ def test_cli_without_a_card_exits_naming_it(monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv,name", [
     (["--parallel"], "--parallel"),
-    (["--cached"], "--cached"),
+    (["--ckpt_every_steps", "5"], "--ckpt_every_steps"),
     (["--kernel", "pallas_rng"], "--kernel pallas_rng"),
-    (["--kernel", "pallas_epoch"], "--kernel pallas_epoch"),
+    (["--elastic"], "--elastic"),
     (["--dtype", "bfloat16"], "--dtype bfloat16"),
     (["--download"], "--download"),
     (["--telemetry", "/tmp/t"], "--telemetry"),
@@ -203,7 +203,8 @@ def test_config_defaults_and_checkpoint_format():
     assert cfg["trainer"] == {"batch_size": 128, "n_epochs": 1, "lr": 0.01,
                               "seed": 0, "device": "0",
                               "checkpoint": "model.pt", "dtype": "float32",
-                              "kernel": "auto"}
+                              "kernel": "auto", "cached": False,
+                              "fused": False, "impl": "threefry2x32"}
     assert cfg["data"] == {"path": "data/", "limit": -1}
     with pytest.raises(SystemExit, match="msgpack"):
         configure(["--checkpoint", "model.msgpack"])
