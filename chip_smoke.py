@@ -7,32 +7,50 @@ Phases (any failure exits non-zero; no phase is skipped):
   1. device  — needs torch.cuda.is_available(); prints the card's name,
                the device count and nvidia-smi's name and power limit.
   2. build   — builds every kernel from the sources under
-               pytorch_ddp_mnist_tpu_torch/csrc/ and prints what
-               `nvcc -Xptxas -v` reported.
+               pytorch_ddp_mnist_tpu_torch/csrc/ (one nvcc per source, all
+               started together) and prints what `nvcc -Xptxas -v` reported.
   3. kernels — holds each kernel against its plain PyTorch version on the
                card, on the same numpy-seeded inputs, with the stated
                tolerances, and checks that repeat launches are bitwise equal:
-               K1 (fused_step) at B = 128/1000/3; K2 (epoch_step) in its
-               four forms (K2a f32 rows + masks, K2b uint8 rows + masks, K2c
-               uint8 + in-kernel Philox, K3 uint8 + in-kernel threefry) at
-               B = 128 x 24 steps and B = 8 x 5 steps: in-kernel masks of
-               K2c and K3 bitwise against the plain streams, the epoch
-               bitwise against K1 + SGD per step, and against its plain
-               version (losses per step; params in Frobenius norm).
+               K1 (fused_step) at B = 128/1000/3; K1-bf16 at the same B
+               (and unequal to K1); K1-rng (in-kernel Philox per (seed,
+               batch block)) at B = 128/1000/3 in f32 and bf16, its mask
+               bitwise the plain stream, two seeds apart, and its mean loss
+               over 8 seeds at B = 512 within 5% of K1's over 8 threefry
+               masks; the streaming threefry mask bitwise the plain draw;
+               K2 (epoch_step) in its four forms (K2a f32 rows + masks, K2b
+               uint8 rows + masks, K2c uint8 + in-kernel Philox, K3 uint8 +
+               in-kernel threefry) and K2-bf16 in the three uint8 forms, at
+               B = 128 x 24 steps and B = 8 x 5 steps: in-kernel masks
+               bitwise against the plain streams, the epoch bitwise against
+               K1 (or K1-bf16) + SGD per step, and against its plain version
+               (losses per step; params in Frobenius norm); the superstep
+               K = 2/4/8 bitwise equal to K = 1 on the full 469-step epoch
+               (K = 8 pads 3 steps) and on an 11-step epoch.
   4. main    — the port's main paths through the entry points a user calls,
-               at full width (batch 128, lr 0.01, synthetic MNIST), each with
-               every kernel's launch count set to 0 just before it and read
-               just after:
-               a. `train` streaming, 50 steps, --kernel auto (K1 per step),
-                  held against the same run with the plain autograd step;
-               b. `train --cached --kernel pallas_epoch --impl threefry2x32`,
+               at full width (784-128-128-10, batch 128, lr 0.01, synthetic
+               MNIST 60k/10k), each with every kernel's launch count set to 0
+               just before it and read just after:
+               a. `train` streaming, 50 steps, --kernel auto (K1 and the
+                  threefry mask per step), held against the same run with
+                  the autograd step and against the same run on the CPU;
+               b. `train` streaming --kernel pallas --dtype bfloat16, 50
+                  steps (K1-bf16 per step);
+               c. `train --cached --kernel pallas_epoch --impl threefry2x32`,
                   one full epoch of 469 steps in ONE K2 launch, held against
                   the same run on the CPU (plain versions, same masks);
-               c. `train --cached --fused --n_epochs 2`, two K2 launches;
-               d. `bench --epochs 5`, whose JSON line is printed.
-  5. timing  — CUDA-event times of each kernel and its plain version at the
-               main path's shapes, torch.profiler's device time, beside the
-               bound computed from those shapes.
+               d. `train --cached --fused --n_epochs 2`, two K2 launches;
+               e. `train --cached --kernel pallas_rng`, one epoch: 469 K1-rng
+                  launches and no mask drawn outside the kernel;
+               f. `train --cached --kernel pallas_epoch --dtype bfloat16`,
+                  one epoch in ONE K2-bf16 launch, held against the CPU run;
+               g. `bench --epochs 5`, whose JSON line is printed;
+               h. `bench --kernel pallas_epoch --dtype bfloat16 --superstep
+                  8 --epochs 5` (K2-bf16 with K = 8).
+  5. timing  — CUDA-event times of each kernel and form and its plain
+               version at the main path's shapes, torch.profiler's device
+               time of K1 and the cached epoch, beside the bound computed
+               from those shapes.
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -71,9 +89,30 @@ PARAM_FRO_RTOL = 1e-3
 # differ only in f32 summation order, compounded over the steps (1.05e-5
 # relative over a 469-step epoch, H100 against the CPU)
 TRAIN_RTOL = 1e-3
+# the bf16-operand forms against step_reference_bf16: the JAX package's
+# pins for its bf16 kernels (tests/test_pallas_step.py)
+BF16_LOSS_RTOL = 1e-3
+BF16_GRAD_RTOL, BF16_GRAD_ATOL = 2e-3, 1e-4
+# K2-bf16 against its plain version over an epoch: losses at the JAX pin for
+# its bf16 epoch kernel (rtol 1e-3 / atol 1e-4); params in relative Frobenius
+# norm 2e-3, twice PARAM_FRO_RTOL: besides the ReLU flips, an operand within
+# rounding of a bf16 tie rounds to the other bf16 value in the other
+# summation order and moves by 2**-8 of itself (seen on an H100: 1.95e-4
+# after 24 steps at B = 128)
+BF16_LOSS_ATOL = 1e-4
+BF16_PARAM_FRO_RTOL = 2e-3
+# a bf16 run's per-step losses against the same run on the CPU (plain
+# versions, same masks), for the reason above
+BF16_TRAIN_RTOL = 1e-2
+# K1-rng's keep distribution: mean loss over 8 seeds within 5% of K1's over
+# 8 threefry masks (the JAX package's test_pallas_rng_matches_mask_kernel_
+# in_distribution)
+RNG_MEAN_RTOL = 0.05
 
-# H100 SXM published peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3
+# H100 SXM published peaks (NVIDIA data sheet): f32 on the CUDA cores, bf16
+# on the tensor cores (dense), HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 MAIN_STEPS = 50
@@ -86,6 +125,17 @@ LR = 0.01
 K2_FORMS = {"K2a": ("f32", "masks"), "K2b": ("uint8", "masks"),
             "K2c": ("uint8", "core"), "K3": ("uint8", "threefry")}
 K2_CHECKS = ((128, 24), (8, 5))   # (batch, steps) of the kernel checks
+K2_BF16_FORMS = ("K2b", "K2c", "K3")   # the uint8 forms
+SUPERSTEPS = (2, 4, 8)
+TPU_SRC = "pytorch_ddp_mnist_tpu/ops/pallas_step.py"
+
+
+def expect_launches(got: dict, want: dict, what: str) -> None:
+    """Fail unless the launch counts `got` are `want` for the kernels it
+    names and 0 for every other one."""
+    full = {k: want.get(k, 0) for k in got}
+    if got != full or set(want) - set(got):
+        fail(f"{what}: launches {got}, expected {full}")
 
 
 def fail(msg: str) -> None:
@@ -326,6 +376,232 @@ def phase_kernels_k2(device) -> dict:
     return worst
 
 
+def _check_close(tag, got, ref, loss_rtol, grad_rtol, grad_atol) -> float:
+    """Fail unless (loss, grads) `got` is within the tolerances of `ref`;
+    returns the worst absolute error."""
+    worst = 0.0
+    for (name, a), (_, r) in zip(_flat(*got), _flat(*ref)):
+        if a.shape != r.shape or not torch.isfinite(a).all():
+            fail(f"{tag}: {name} shape {tuple(a.shape)} or non-finite values")
+        diff = (a - r).abs()
+        rtol, atol = ((loss_rtol, 0.0) if name == "loss"
+                      else (grad_rtol, grad_atol))
+        if not bool((diff <= atol + rtol * r.abs()).all()):
+            fail(f"{tag}: {name} off its plain version by "
+                 f"{float(diff.max()):.3e} (rtol {rtol}, atol {atol})")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def _check_repeat(tag, got, again) -> None:
+    for (name, a), (_, b) in zip(_flat(*got), _flat(*again)):
+        if not torch.equal(a, b):
+            fail(f"{tag}: {name} differs between two launches on the same "
+                 f"inputs")
+
+
+def phase_kernels_k1_variants(device) -> dict:
+    """K1-bf16, K1-rng (f32 and bf16) and the streaming threefry mask
+    against their plain versions. Returns the worst absolute error per
+    form."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step, philox, threefry
+    worst = {"fused_step_bf16": 0.0, "fused_step_rng": 0.0,
+             "threefry_mask": 0.0}
+    for batch in (128, 1000, 3):
+        params, x, y, mask = _k1_inputs(batch, seed=batch, device=device)
+        xb = x.to(torch.bfloat16)
+        tag = f"fused_step bf16 B={batch}"
+        got = fused_step.fused_loss_and_grads(params, xb, y, mask)
+        again = fused_step.fused_loss_and_grads(params, xb, y, mask)
+        f32 = fused_step.fused_loss_and_grads(params, x, y, mask)
+        ref = fused_step.step_reference_bf16(params, xb, y, mask)
+        torch.cuda.synchronize()
+        _check_repeat(tag, got, again)
+        err = _check_close(tag, got, ref, BF16_LOSS_RTOL, BF16_GRAD_RTOL,
+                           BF16_GRAD_ATOL)
+        if torch.equal(got[0], f32[0]):
+            fail(f"{tag}: the bf16 loss equals the f32 kernel's")
+        worst["fused_step_bf16"] = max(worst["fused_step_bf16"], err)
+        print(f"[kernels] {tag}: loss {float(got[0]):.7f} vs plain "
+              f"{float(ref[0]):.7f} (f32 kernel {float(f32[0]):.7f}); worst "
+              f"abs err {err:.3e}; repeat launch bitwise equal")
+
+        seed = 0x80000000 + batch
+        km = fused_step.kernel_rng_mask(seed, batch, device)
+        pm = philox.rng_mask(seed, batch, device)
+        if not torch.equal(km, pm):
+            fail(f"fused_step rng B={batch}: in-kernel mask differs from the "
+                 f"plain Philox blocks in {int((km != pm).sum())} elements")
+        for xin, bf16 in ((x, False), (xb, True)):
+            tag = f"fused_step rng{' bf16' if bf16 else ''} B={batch}"
+            got = fused_step.fused_loss_and_grads_rng(params, xin, y, seed)
+            again = fused_step.fused_loss_and_grads_rng(params, xin, y, seed)
+            other = fused_step.fused_loss_and_grads_rng(params, xin, y,
+                                                        seed + 1)
+            ref = (fused_step.step_reference_bf16 if bf16 else
+                   fused_step.fused_loss_and_grads_reference)(params, xin, y,
+                                                              pm)
+            torch.cuda.synchronize()
+            _check_repeat(tag, got, again)
+            if torch.equal(got[0], other[0]):
+                fail(f"{tag}: seeds {seed} and {seed + 1} give one loss")
+            tol = ((BF16_LOSS_RTOL, BF16_GRAD_RTOL, BF16_GRAD_ATOL) if bf16
+                   else (LOSS_RTOL, GRAD_RTOL, GRAD_ATOL))
+            err = _check_close(tag, got, ref, *tol)
+            worst["fused_step_rng"] = max(worst["fused_step_rng"], err)
+            print(f"[kernels] {tag}: loss {float(got[0]):.7f} vs plain "
+                  f"{float(ref[0]):.7f}; worst abs err {err:.3e}; mask "
+                  f"bitwise the Philox (seed, block) stream; repeat bitwise; "
+                  f"seed + 1 differs")
+
+    # the in-kernel stream has the mask kernel's keep distribution
+    params, x, y, _ = _k1_inputs(512, seed=1, device=device)
+    key = threefry.key_data(100)
+    mask_losses, rng_losses = [], []
+    for i in range(8):
+        key, sub = threefry.split(key)
+        mask = fused_step.dropout_mask(sub, 512, device)
+        mask_losses.append(float(fused_step.fused_loss_and_grads(
+            params, x, y, mask)[0]))
+        rng_losses.append(float(fused_step.fused_loss_and_grads_rng(
+            params, x, y, 200 + i)[0]))
+    m, r = np.mean(mask_losses), np.mean(rng_losses)
+    if not abs(m - r) / m < RNG_MEAN_RTOL:
+        fail(f"fused_step rng: mean loss over 8 seeds {r:.6f} vs the mask "
+             f"kernel's {m:.6f} over 8 keys: more than {RNG_MEAN_RTOL:.0%} "
+             f"apart")
+    print(f"[kernels] fused_step rng B=512: mean loss over 8 seeds {r:.6f} "
+          f"vs {m:.6f} over 8 threefry masks ({abs(m - r) / m:.3%} apart, "
+          f"limit {RNG_MEAN_RTOL:.0%})")
+
+    for seed in (0, 7, (1 << 31) + 3):
+        key = threefry.split(threefry.key_data(seed))[1]
+        for batch in (128, 3):
+            got = fused_step.dropout_mask(key, batch, device)
+            ref = threefry.dropout_mask(key, batch, device)
+            if not torch.equal(got, ref):
+                fail(f"threefry_mask key of seed {seed} B={batch}: differs "
+                     f"from the plain draw in {int((got != ref).sum())} "
+                     f"elements")
+    print("[kernels] threefry_mask: bitwise the plain draw (3 keys x "
+          "B = 128, 3)")
+    return worst
+
+
+def _k1_loop_bf16(inp: dict, form: str):
+    """The epoch as K1-bf16 + SGD per step, on the plain stream's masks."""
+    from pytorch_ddp_mnist_tpu_torch.data.mnist import device_normalize
+    from pytorch_ddp_mnist_tpu_torch.ops import epoch_step, fused_step
+    from pytorch_ddp_mnist_tpu_torch.ops.sgd import sgd_step
+    pixels, rng = K2_FORMS[form]
+    batch = inp["batch"]
+    params = {n: {k: t.clone() for k, t in layer.items()}
+              for n, layer in inp["params"].items()}
+    losses = []
+    for step in range(inp["y"].shape[0] // batch):
+        rows = slice(step * batch, (step + 1) * batch)
+        x = inp[pixels][rows]
+        x = (device_normalize(x) if pixels == "uint8" else x).to(
+            torch.bfloat16)
+        mask = epoch_step.step_mask(rng, inp.get(rng), inp["masks"], step,
+                                    batch, x.device)
+        loss, grads = fused_step.fused_loss_and_grads(params, x,
+                                                      inp["y"][rows], mask)
+        sgd_step(params, grads, LR)
+        losses.append(loss)
+    return params, torch.stack(losses)
+
+
+def phase_kernels_k2_bf16(device) -> float:
+    """K2-bf16 in the uint8 forms: bitwise K1-bf16 + SGD per step and a
+    repeat launch, against its plain version by losses (BF16 tolerances)
+    and params' Frobenius norm. Returns the worst absolute error."""
+    from functools import partial
+
+    from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
+    kernel = partial(epoch_step.epoch_fused_sgd, compute_bf16=True)
+    plain = partial(epoch_step.epoch_fused_sgd_reference, compute_bf16=True)
+    worst = 0.0
+    for batch, nsteps in K2_CHECKS:
+        inp = _k2_inputs(batch, nsteps, seed=batch + nsteps + 1, device=device)
+        for form in K2_BF16_FORMS:
+            tag = f"epoch_step bf16 {form} B={batch} S={nsteps}"
+            got = _k2_flat(*_k2_call(kernel, form, inp))
+            if not (epoch_step.last_launch["bf16"] and
+                    epoch_step.last_launch["form"] == "/".join(K2_FORMS[form])):
+                fail(f"{tag}: launched {epoch_step.last_launch}")
+            again = _k2_flat(*_k2_call(kernel, form, inp))
+            k1 = _k2_flat(*_k1_loop_bf16(inp, form))
+            ref = _k2_flat(*_k2_call(plain, form, inp))
+            torch.cuda.synchronize()
+            for (name, a), (_, b), (_, c) in zip(got, again, k1):
+                if not torch.equal(a, b):
+                    fail(f"{tag}: {name} differs between two launches")
+                if not torch.equal(a, c):
+                    fail(f"{tag}: {name} differs from K1-bf16 + SGD per step "
+                         f"by {float((a - c).abs().max()):.3e} (bitwise "
+                         f"expected: the same row and gradient code)")
+            f_abs = f_fro = 0.0
+            for (name, a), (_, r) in zip(got, ref):
+                if a.shape != r.shape or not torch.isfinite(a).all():
+                    fail(f"{tag}: {name} shape or non-finite values")
+                diff = (a - r).abs()
+                if name == "losses":
+                    if not bool((diff <= BF16_LOSS_ATOL
+                                 + BF16_LOSS_RTOL * r.abs()).all()):
+                        fail(f"{tag}: losses off their plain version by "
+                             f"{float(diff.max()):.3e} (rtol "
+                             f"{BF16_LOSS_RTOL}, atol {BF16_LOSS_ATOL})")
+                else:
+                    fro = float(diff.norm() / r.norm())
+                    if fro > BF16_PARAM_FRO_RTOL:
+                        fail(f"{tag}: {name} off its plain version by "
+                             f"{fro:.3e} in relative Frobenius norm (limit "
+                             f"{BF16_PARAM_FRO_RTOL})")
+                    f_fro = max(f_fro, fro)
+                f_abs = max(f_abs, float(diff.max()))
+            worst = max(worst, f_abs)
+            print(f"[kernels] {tag}: final loss {float(got[0][1][-1]):.7f} vs "
+                  f"plain {float(ref[0][1][-1]):.7f}; worst abs err "
+                  f"{f_abs:.3e}, params' worst relative Frobenius err "
+                  f"{f_fro:.3e}; bitwise equal to K1-bf16 + SGD per step and "
+                  f"to a repeat launch")
+    return worst
+
+
+def phase_superstep(device) -> None:
+    """K = 2, 4, 8 bitwise equal to K = 1: the full 469-step epoch of the
+    bench's form (uint8 rows, in-kernel Philox; K = 8 pads 3 steps) in f32
+    and bf16, and an 11-step epoch in the threefry and f32-rows forms."""
+    from functools import partial
+
+    from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
+    cases = [(MAIN_BATCH, EPOCH_STEPS, "K2c"), (64, 11, "K3"), (64, 11, "K2a")]
+    for batch, nsteps, form in cases:
+        inp = _k2_inputs(batch, nsteps, seed=nsteps, device=device)
+        for bf16 in (False, True):
+            fn = partial(epoch_step.epoch_fused_sgd, compute_bf16=bf16)
+            base = _k2_flat(*_k2_call(fn, form, inp))
+            for k in SUPERSTEPS:
+                got = _k2_flat(*_k2_call(partial(fn, steps_per_iter=k), form,
+                                         inp))
+                ll = epoch_step.last_launch
+                if ll["steps_per_iter"] != k or ll["bf16"] != bf16:
+                    fail(f"superstep K={k}: launched {ll}")
+                for (name, a), (_, b) in zip(got, base):
+                    if not torch.equal(a, b):
+                        fail(f"epoch_step {form}{' bf16' if bf16 else ''} "
+                             f"B={batch} S={nsteps} K={k}: {name} differs "
+                             f"from K = 1 by {float((a - b).abs().max()):.3e}"
+                             f" (bitwise expected)")
+            torch.cuda.synchronize()
+            print(f"[kernels] epoch_step superstep {form}"
+                  f"{' bf16' if bf16 else ''} B={batch} S={nsteps}: K = "
+                  f"{', '.join(map(str, SUPERSTEPS))} bitwise equal to K = 1 "
+                  f"(padded to {-(-nsteps // 8) * 8} steps at K = 8; staged "
+                  f"rows: {epoch_step.last_launch['staged']})")
+
+
 def _reset_counts():
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step, fused_step
     for counts in (fused_step.launch_count, epoch_step.launch_count):
@@ -375,9 +651,10 @@ def phase_main_streaming(tmp: str) -> dict:
     if not losses[-10:].mean() < losses[:10].mean():
         fail(f"losses are not falling: first 10 mean {losses[:10].mean()}, "
              f"last 10 mean {losses[-10:].mean()}")
-    if launches != {"fused_step": MAIN_STEPS, "epoch_step": 0}:
-        fail(f"launches {launches} in {MAIN_STEPS} streaming steps (one "
-             f"fused_step wrapper call per step expected, no epoch_step)")
+    expect_launches(launches, {"fused_step": MAIN_STEPS,
+                               "threefry_mask": MAIN_STEPS},
+                    f"{MAIN_STEPS} streaming steps (one fused_step and one "
+                    f"threefry_mask launch per step)")
     saved = load_checkpoint(ckpt)
     for name, layer in state.model.params().items():
         for k, p in layer.items():
@@ -402,6 +679,53 @@ def phase_main_streaming(tmp: str) -> dict:
              f"(rtol {TRAIN_RTOL})")
     print(f"[main] per-step losses vs the autograd step: worst rel diff "
           f"{rel.max():.3e} (rtol {TRAIN_RTOL})")
+
+    # the same run on the CPU, where the step and the mask draw are their
+    # plain versions: the same threefry masks, so only the f32 summation
+    # order differs
+    cpu_argv = list(plain_argv)
+    cpu_argv[1] = "cpu"
+    cpu_argv[cpu_argv.index("xla")] = "pallas"
+    _reset_counts()
+    _, cpu_history, _ = _run_trainer(cli_train, cpu_argv)
+    expect_launches(_counts(), {}, "the streaming run on the CPU")
+    rel = np.abs(losses - cpu_history[0]) / np.abs(cpu_history[0])
+    if not (rel <= TRAIN_RTOL).all():
+        fail(f"streaming per-step losses off the same run on the CPU by up "
+             f"to {rel.max():.3e} (rtol {TRAIN_RTOL})")
+    print(f"[main] per-step losses vs the same run on the CPU (plain "
+          f"versions, the same threefry masks): worst rel diff "
+          f"{rel.max():.3e} (rtol {TRAIN_RTOL})")
+    return launches
+
+
+def phase_main_streaming_bf16(tmp: str) -> dict:
+    """Path b: the streaming trainer with K1-bf16."""
+    from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
+    argv = ["--device", "0", "--n_epochs", "1",
+            "--limit", str(MAIN_STEPS * MAIN_BATCH),
+            "--batch_size", str(MAIN_BATCH), "--lr", str(LR),
+            "--kernel", "pallas", "--dtype", "bfloat16", "--seed", "0",
+            "--path", os.path.join(tmp, "no_mnist_here"), "--checkpoint", ""]
+    _reset_counts()
+    t0 = time.perf_counter()
+    _, history, out = _run_trainer(cli_train, argv)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    if "dtype=bfloat16" not in out or not re.search(r"^Epoch=0, ", out, re.M):
+        fail("the bf16 streaming trainer printed no banner or epoch line")
+    losses = history[0]
+    if losses.shape != (MAIN_STEPS,) or not np.isfinite(losses).all():
+        fail(f"bf16 streaming losses: shape {losses.shape}, finite "
+             f"{bool(np.isfinite(losses).all())}")
+    if not losses[-10:].mean() < losses[:10].mean():
+        fail("bf16 streaming losses are not falling")
+    expect_launches(launches, {"fused_step_bf16": MAIN_STEPS,
+                               "threefry_mask": MAIN_STEPS},
+                    f"{MAIN_STEPS} bf16 streaming steps")
+    print(f"[main] train --kernel pallas --dtype bfloat16: {MAIN_STEPS} steps "
+          f"in {wall:.2f}s (wall); loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"launches {launches}")
     return launches
 
 
@@ -442,9 +766,8 @@ def phase_main_cached(tmp: str) -> dict:
     wall = time.perf_counter() - t0
     cached = _counts()
     _check_epoch_lines(out, history, 1, "train --cached")
-    if cached != {"fused_step": 0, "epoch_step": 1}:
-        fail(f"train --cached --kernel pallas_epoch: launches {cached} in one "
-             f"epoch (one epoch_step launch expected)")
+    expect_launches(cached, {"epoch_step": 1},
+                    "train --cached --kernel pallas_epoch, one epoch")
     if epoch_step.last_launch["form"] != "uint8/threefry":
         fail(f"the cached epoch ran form {epoch_step.last_launch['form']}, "
              f"not uint8/threefry (K3)")
@@ -469,8 +792,7 @@ def phase_main_cached(tmp: str) -> dict:
     cpu_argv[-1] = ""
     _reset_counts()
     _, cpu_history, _ = _run_trainer(cli_train, cpu_argv)
-    if _counts() != {"fused_step": 0, "epoch_step": 0}:
-        fail(f"the CPU run launched a kernel: {_counts()}")
+    expect_launches(_counts(), {}, "the cached run on the CPU")
     rel = np.abs(losses - cpu_history[0]) / np.abs(cpu_history[0])
     if not (rel <= TRAIN_RTOL).all():
         fail(f"cached per-step losses off the plain path on the CPU by up to "
@@ -487,9 +809,8 @@ def phase_main_cached(tmp: str) -> dict:
     wall = time.perf_counter() - t0
     fused = _counts()
     _check_epoch_lines(fused_out, fused_history, 2, "train --cached --fused")
-    if fused != {"fused_step": 0, "epoch_step": 2}:
-        fail(f"train --cached --fused --n_epochs 2: launches {fused} (two "
-             f"epoch_step launches expected)")
+    expect_launches(fused, {"epoch_step": 2},
+                    "train --cached --fused --n_epochs 2")
     if not np.array_equal(fused_history[0], losses):
         fail("the fused run's first epoch differs from the cached run's")
     print(f"[main] train --cached --fused --n_epochs 2: {wall:.2f}s (wall); "
@@ -498,14 +819,84 @@ def phase_main_cached(tmp: str) -> dict:
             fused}
 
 
-def phase_bench() -> tuple:
-    """Path d: the bench entry point; returns (its JSON line, launches)."""
+def phase_main_cached_variants(tmp: str) -> dict:
+    """Paths e and f: the cached trainer through K1-rng and K2-bf16.
+    Returns the launch counts of each path."""
+    from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
+    from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
+    from pytorch_ddp_mnist_tpu_torch.train import scan
+    argv = _cached_argv(tmp, "--kernel", "pallas_rng", "--n_epochs", "1",
+                        "--checkpoint", "")
+    drawn = []
+    draw = scan.dropout_mask
+
+    def watched(*a, **k):      # a mask drawn outside the kernel
+        drawn.append(a)
+        return draw(*a, **k)
+
+    scan.dropout_mask = watched
+    _reset_counts()
+    try:
+        t0 = time.perf_counter()
+        _, history, out = _run_trainer(cli_train, argv)
+        wall = time.perf_counter() - t0
+    finally:
+        scan.dropout_mask = draw
+    rng = _counts()
+    _check_epoch_lines(out, history, 1, "train --cached --kernel pallas_rng")
+    expect_launches(rng, {"fused_step_rng": EPOCH_STEPS},
+                    "train --cached --kernel pallas_rng, one epoch")
+    if drawn:
+        fail(f"train --cached --kernel pallas_rng drew {len(drawn)} masks "
+             f"outside the kernel")
+    print(f"[main] train --cached --kernel pallas_rng: {EPOCH_STEPS} steps in "
+          f"{wall:.2f}s (wall); loss {history[0][0]:.4f} -> "
+          f"{history[0][-1]:.4f}; launches {rng}; no mask tensor drawn")
+
+    argv = _cached_argv(tmp, "--kernel", "pallas_epoch", "--dtype",
+                        "bfloat16", "--n_epochs", "1", "--checkpoint", "")
+    _reset_counts()
+    t0 = time.perf_counter()
+    _, history, out = _run_trainer(cli_train, argv)
+    wall = time.perf_counter() - t0
+    bf16 = _counts()
+    _check_epoch_lines(out, history, 1, "train --cached --dtype bfloat16")
+    expect_launches(bf16, {"epoch_step_bf16": 1},
+                    "train --cached --kernel pallas_epoch --dtype bfloat16")
+    ll = epoch_step.last_launch
+    if not (ll["bf16"] and ll["form"] == "uint8/threefry"):
+        fail(f"the bf16 cached epoch ran {ll}")
+    losses = history[0]
+    cpu_argv = list(argv)
+    cpu_argv[1] = "cpu"
+    _reset_counts()
+    _, cpu_history, _ = _run_trainer(cli_train, cpu_argv)
+    expect_launches(_counts(), {}, "the bf16 cached run on the CPU")
+    rel = np.abs(losses - cpu_history[0]) / np.abs(cpu_history[0])
+    if not (rel <= BF16_TRAIN_RTOL).all():
+        fail(f"bf16 cached per-step losses off the plain path on the CPU by "
+             f"up to {rel.max():.3e} (rtol {BF16_TRAIN_RTOL})")
+    print(f"[main] train --cached --kernel pallas_epoch --dtype bfloat16: "
+          f"{EPOCH_STEPS} steps in {wall:.2f}s (wall); loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}; launches {bf16}; per-step losses vs the same "
+          f"path on the CPU: worst rel diff {rel.max():.3e} (rtol "
+          f"{BF16_TRAIN_RTOL})")
+    return {"train --cached --kernel pallas_rng": rng,
+            "train --cached --kernel pallas_epoch --dtype bfloat16": bf16}
+
+
+def phase_bench(extra=(), key="epoch_step", form="uint8/core", bf16=False,
+                superstep=1) -> tuple:
+    """Paths g and h: the bench entry point with `extra` arguments, whose
+    launches must all be of form `key`; returns (its JSON line,
+    launches)."""
     from pytorch_ddp_mnist_tpu_torch import bench
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
     buf = io.StringIO()
+    argv = ["--epochs", str(BENCH_EPOCHS), *extra]
     _reset_counts()
     with contextlib.redirect_stdout(buf):
-        rc = bench.main(["--epochs", str(BENCH_EPOCHS)])
+        rc = bench.main(argv)
     torch.cuda.synchronize()
     launches = _counts()
     lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
@@ -513,19 +904,21 @@ def phase_bench() -> tuple:
         fail(f"bench exited {rc} with output {buf.getvalue()!r}")
     line = json.loads(lines[-1])
     want = BENCH_EPOCHS * (bench.WINDOWS + 1)
-    if launches != {"fused_step": 0, "epoch_step": want}:
-        fail(f"bench --epochs {BENCH_EPOCHS}: launches {launches} ({want} "
-             f"epoch_step launches expected)")
-    if epoch_step.last_launch["form"] != "uint8/core":
-        fail(f"bench ran form {epoch_step.last_launch['form']}, not "
-             f"uint8/core (K2c)")
+    expect_launches(launches, {key: want}, f"bench {' '.join(argv)}")
+    ll = epoch_step.last_launch
+    if (ll["form"], ll["bf16"], ll["steps_per_iter"]) != (form, bf16,
+                                                          superstep):
+        fail(f"bench {' '.join(argv)} ran {ll}")
+    if (line.get("dtype"), line.get("superstep")) != (
+            "bfloat16" if bf16 else "float32", superstep):
+        fail(f"the bench line's dtype/superstep: {line}")
     for k in ("metric", "value", "unit", "vs_baseline", "tflops",
               "mfu_pct_vs_bf16_peak", "backend", "device"):
         if k not in line:
             fail(f"the bench line has no {k!r}: {line}")
     if not (line["value"] > 0 and line["backend"] == "cuda"):
         fail(f"bench line {line}")
-    print(f"[main] bench --epochs {BENCH_EPOCHS}: launches {launches}")
+    print(f"[main] bench {' '.join(argv)}: launches {launches}")
     print(json.dumps(line))
     return line, launches
 
@@ -597,18 +990,25 @@ def _short(kernel_name: str) -> str:
     return m.group(0) if m else kernel_name[:60]
 
 
-def k1_bound(batch: int):
-    """(bound_ms, bound_by) of one fused step: each input read once, each
-    output written once; the six products' multiply-adds (elementwise work
-    left out) at the f32 CUDA-core peak."""
+def _bound(flops: float, nbytes: float, peak: float):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def k1_bound(batch: int, bf16: bool = False, rng: bool = False):
+    """(bound_ms, bound_by, flop, bytes) of one fused step: each input read
+    once (x, the mask or, with `rng`, a 4-byte seed, labels, weights), each
+    output written once (loss, grads); the six products' multiply-adds
+    (elementwise work and the in-kernel Philox left out) at the f32
+    CUDA-core peak, or the bf16 tensor-core peak for the bf16 form."""
     i, h1, h2, c = 784, 128, 128, 10
     n_params = i * h1 + h1 + h1 * h2 + h2 + h2 * c
     flops = 2 * batch * (2 * (i * h1 + h1 * h2 + h2 * c) + c * h2 + h2 * h1)
-    nbytes = 4 * (batch * i + batch * h1 + batch) + 4 * n_params \
+    nbytes = (2 if bf16 else 4) * batch * i \
+        + (4 if rng else 4 * batch * h1) + 4 * batch + 4 * n_params \
         + 4 * (n_params + 1)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    return _bound(flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
 
 
 def phase_timing(device, launches: dict, max_abs_err: float, card: str,
@@ -645,10 +1045,11 @@ def phase_timing(device, launches: dict, max_abs_err: float, card: str,
     return entry
 
 
-def k2_bound(batch: int, nsteps: int, form: str):
+def k2_bound(batch: int, nsteps: int, form: str, bf16: bool = False):
     """(bound_ms, bound_by, flop, bytes) of one K2 epoch in `form`: each
     input read once (rows, labels, masks or key table, weights), each output
-    written once (weights, losses); the steps' products at the f32 peak."""
+    written once (weights, losses); the steps' products at the f32 peak, or
+    the bf16 peak for K2-bf16."""
     pixels, rng = K2_FORMS[form]
     n_params = 784 * 128 + 128 + 128 * 128 + 128 + 128 * 10
     flops = nsteps * k1_bound(batch)[2]
@@ -657,9 +1058,7 @@ def k2_bound(batch: int, nsteps: int, form: str):
         + (4 * 128 * rows if rng == "masks" else 0) \
         + (8 * nsteps if rng == "threefry" else 0) \
         + 2 * 4 * n_params + 4 * nsteps
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    return _bound(flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
 
 
 def phase_profile(device) -> dict:
@@ -746,30 +1145,174 @@ def phase_timing_k2(device, launches: dict, worst: dict, card: str,
     return entry
 
 
+def _turns(first, second, iters: int, warmup: int):
+    """(first, second, second, first) timed in turns, so that the two are
+    compared within one call: returns (first's best, second's best, the
+    four times)."""
+    a1 = _time_ms(first, iters=iters, warmup=warmup)
+    b1 = _time_ms(second, iters=iters, warmup=warmup)
+    b2 = _time_ms(second, iters=iters, warmup=0)
+    a2 = _time_ms(first, iters=iters, warmup=0)
+    return min(a1, a2), min(b1, b2), (a1, b1, b2, a2)
+
+
+def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
+           bound, card, **extra):
+    bound_ms, bound_by, flops, nbytes = bound
+    return {"name": name, "route": "cuda",
+            "source": f"pytorch_ddp_mnist_tpu_torch/csrc/{source}",
+            "replaces": f"{TPU_SRC}:{replaces}", "launches": launches,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "flop": flops, "bytes": nbytes, "card": card, **extra}
+
+
+def phase_timing_variants(device, launches: dict, worst: dict, card: str):
+    """The new forms at the main path's shapes: K1-bf16, K1-rng and the
+    threefry mask at B = 128; K2-bf16 (uint8 rows, in-kernel Philox) over
+    the 469-step epoch; the superstep K = 8 against K = 1 in that form and
+    in f32. Returns the kernels-line entries."""
+    from functools import partial
+
+    from pytorch_ddp_mnist_tpu_torch.ops import (epoch_step, fused_step,
+                                                 philox, threefry)
+    params, x, y, mask = _k1_inputs(MAIN_BATCH, seed=7, device=device)
+    xb = x.to(torch.bfloat16)
+    out = []
+
+    kernel = lambda: fused_step.fused_loss_and_grads(params, xb, y, mask)  # noqa: E731
+    plain = lambda: fused_step.step_reference_bf16(params, xb, y, mask)  # noqa: E731
+    p, k, t = _turns(plain, kernel, iters=200, warmup=20)
+    kg = _graph_ms(kernel)
+    out.append(_entry(
+        "fused_step_bf16", "fused_step.cu", 191,
+        launches["train --kernel pallas --dtype bfloat16"]["fused_step_bf16"],
+        worst["fused_step_bf16"], k, p, k1_bound(MAIN_BATCH, bf16=True), card,
+        graph_ms=kg, form="K1-bf16 (compute_bf16)", batch=MAIN_BATCH))
+    print(f"[timing] fused_step bf16 B={MAIN_BATCH}: {k * 1e3:.2f} us per "
+          f"wrapper call ({t[1] * 1e3:.2f}, {t[2] * 1e3:.2f}), "
+          f"{kg * 1e3:.2f} us in a CUDA graph; plain {p * 1e3:.2f} us; bound "
+          f"{out[-1]['bound_ms'] * 1e3:.3f} us by {out[-1]['bound_by']} "
+          f"[{card}]")
+
+    seed = 12345
+    kernel = lambda: fused_step.fused_loss_and_grads_rng(params, x, y, seed)  # noqa: E731
+    plain = lambda: fused_step.fused_loss_and_grads_reference(  # noqa: E731
+        params, x, y, philox.rng_mask(seed, MAIN_BATCH, device))
+    p, k, t = _turns(plain, kernel, iters=50, warmup=5)
+    kg = _graph_ms(kernel)
+    out.append(_entry(
+        "fused_step_rng", "fused_step.cu", 333,
+        launches["train --cached --kernel pallas_rng"]["fused_step_rng"],
+        worst["fused_step_rng"], k, p, k1_bound(MAIN_BATCH, rng=True), card,
+        graph_ms=kg, form="K1-rng (in_kernel_rng), f32", batch=MAIN_BATCH))
+    print(f"[timing] fused_step rng B={MAIN_BATCH}: {k * 1e3:.2f} us per "
+          f"wrapper call ({t[1] * 1e3:.2f}, {t[2] * 1e3:.2f}), "
+          f"{kg * 1e3:.2f} us in a CUDA graph; plain (Philox in torch + the "
+          f"plain step) {p * 1e3:.2f} us; bound "
+          f"{out[-1]['bound_ms'] * 1e3:.3f} us by {out[-1]['bound_by']} "
+          f"[{card}]")
+
+    key = threefry.split(threefry.key_data(1))[1]
+    kernel = lambda: fused_step.dropout_mask(key, MAIN_BATCH, device)  # noqa: E731
+    plain = lambda: threefry.dropout_mask(key, MAIN_BATCH, device)  # noqa: E731
+    p, k, t = _turns(plain, kernel, iters=200, warmup=20)
+    kg = _graph_ms(kernel)
+    nbytes = 4 * MAIN_BATCH * 128 + 8
+    out.append(_entry(
+        "threefry_mask", "fused_step.cu", 123,
+        launches["train"]["threefry_mask"], worst["threefry_mask"], k, p,
+        (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes", 0, nbytes), card,
+        graph_ms=kg,
+        form="the streaming trainer's per-step dropout draw (K3's threefry "
+             "device function); its int32 cipher operations are not in the "
+             "bound, which has f32 and bf16 peaks only",
+        batch=MAIN_BATCH))
+    print(f"[timing] threefry_mask B={MAIN_BATCH}: {k * 1e3:.2f} us per "
+          f"launch, {kg * 1e3:.2f} us in a CUDA graph; plain {p * 1e3:.2f} "
+          f"us; bound {out[-1]['bound_ms'] * 1e3:.4f} us by bytes [{card}]")
+
+    inp = _k2_inputs(MAIN_BATCH, EPOCH_STEPS, seed=11, device=device)
+    bf16_kernel = partial(epoch_step.epoch_fused_sgd, compute_bf16=True)
+    kernel = lambda: _k2_call(bf16_kernel, "K2c", inp)  # noqa: E731
+    plain = lambda: _k2_call(partial(  # noqa: E731
+        epoch_step.epoch_fused_sgd_reference, compute_bf16=True), "K2c", inp)
+    p = _time_ms(plain, iters=1, warmup=1)
+    k1 = _time_ms(kernel, iters=5, warmup=1)
+    k8f = lambda: _k2_call(partial(bf16_kernel, steps_per_iter=8), "K2c", inp)  # noqa: E731
+    k1b, k8b, tb = _turns(kernel, k8f, iters=5, warmup=1)
+    f32_k1 = lambda: _k2_call(epoch_step.epoch_fused_sgd, "K2c", inp)  # noqa: E731
+    f32_k8 = lambda: _k2_call(partial(  # noqa: E731
+        epoch_step.epoch_fused_sgd, steps_per_iter=8), "K2c", inp)
+    k1f, k8f_ms, tf = _turns(f32_k1, f32_k8, iters=5, warmup=1)
+    bound = k2_bound(MAIN_BATCH, EPOCH_STEPS, "K2c", bf16=True)
+    out.append(_entry(
+        "epoch_step_bf16", "epoch_step.cu", 497,
+        launches["train --cached --kernel pallas_epoch --dtype bfloat16"]
+        ["epoch_step_bf16"], worst["epoch_step_bf16"], min(k1, k1b), p, bound,
+        card, form="K2-bf16 uint8/core (Philox), K = 1", batch=MAIN_BATCH,
+        steps=EPOCH_STEPS, timed_in_turns=[k1] + list(tb)))
+    out.append(_entry(
+        "epoch_step_superstep", "epoch_step.cu", 505,
+        launches["bench --kernel pallas_epoch --dtype bfloat16 --superstep 8"]
+        ["epoch_step_superstep_bf16"], worst["epoch_step_bf16"], k8b, p,
+        bound, card,
+        form="K2-bf16 uint8/core, superstep K = 8 (staged rows); bitwise "
+             "K = 1 (phase 3), so its error against the plain version is "
+             "K2-bf16's", batch=MAIN_BATCH,
+        steps=EPOCH_STEPS, k1_ms=k1b, f32_k8_ms=k8f_ms, f32_k1_ms=k1f,
+        timed_in_turns={"bf16 K1,K8,K8,K1": tb, "f32 K1,K8,K8,K1": tf}))
+    print(f"[timing] epoch_step bf16 K2c B={MAIN_BATCH} S={EPOCH_STEPS}: "
+          f"{min(k1, k1b):.3f} ms per epoch launch; plain {p:.1f} ms; bound "
+          f"{bound[0]:.4f} ms by {bound[1]} [{card}]")
+    print(f"[timing] epoch_step superstep K2c: bf16 K=1 {k1b:.3f} ms, K=8 "
+          f"{k8b:.3f} ms (turns {', '.join(f'{v:.3f}' for v in tb)}); f32 "
+          f"K=1 {k1f:.3f} ms, K=8 {k8f_ms:.3f} ms (turns "
+          f"{', '.join(f'{v:.3f}' for v in tf)}) [{card}]")
+    return out
+
+
 def main() -> int:
     name, count, card = phase_device()
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     device = torch.device("cuda", 0)
     phase_build()
     max_abs_err = phase_kernels(device)
+    worst = phase_kernels_k1_variants(device)
     k2_worst = phase_kernels_k2(device)
+    worst["epoch_step_bf16"] = phase_kernels_k2_bf16(device)
+    phase_superstep(device)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_main_streaming(tmp)
+        paths = {"train": phase_main_streaming(tmp),
+                 "train --kernel pallas --dtype bfloat16":
+                     phase_main_streaming_bf16(tmp)}
         k2_launches = phase_main_cached(tmp)
+        paths.update(phase_main_cached_variants(tmp))
     _, k2_launches["bench --epochs 5"] = phase_bench()
+    ss = ("--kernel", "pallas_epoch", "--dtype", "bfloat16", "--superstep",
+          "8")
+    _, paths["bench " + " ".join(ss)] = phase_bench(
+        ss, key="epoch_step_superstep_bf16", bf16=True, superstep=8)
     prof = phase_profile(device)
-    entry = phase_timing(device, launches, max_abs_err, card,
+    entry = phase_timing(device, paths["train"], max_abs_err, card,
                          prof["fused_step"])
     k2_entry = phase_timing_k2(device, k2_launches, k2_worst, card, prof)
+    new = phase_timing_variants(device, paths, worst, card)
     times = [entry["ms"], entry["plain_ms"], entry["graph_ms"]]
     times += [f[k] for f in k2_entry["forms"].values()
               for k in ("ms", "plain_ms")]
+    times += [e[k] for e in new for k in ("ms", "plain_ms")]
     for v in times:
         if not (math.isfinite(v) and v > 0):
             fail(f"timing gave {v}")
-    print(json.dumps({"kernels": [entry, k2_entry]}))
+    kernels = [entry, k2_entry] + new
+    for e in kernels:
+        if e["launches"] < 1:
+            fail(f"{e['name']} was launched no time on its main path")
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

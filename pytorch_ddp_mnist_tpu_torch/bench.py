@@ -2,8 +2,9 @@
 single-device train mode of the JAX package's `bench.py`).
 
     python -m pytorch_ddp_mnist_tpu_torch bench [--epochs 400]
-        [--kernel auto|xla|pallas|pallas_epoch] [--impl rbg|threefry2x32]
-        [--batch_size 128]
+        [--kernel auto|xla|pallas|pallas_rng|pallas_epoch]
+        [--dtype auto|float32|bfloat16] [--superstep 0|1|2|4|8]
+        [--impl rbg|threefry2x32] [--batch_size 128]
 
 Prints ONE JSON line:
     {"metric": "mnist_train_images_per_sec_per_chip", "value": N,
@@ -16,9 +17,15 @@ indices. Measured path: the resident-dataset trainer (train/scan.py) with
 `--epochs` epochs run back to back with no host sync between them
 (`make_run_fn`); `--kernel auto` resolves to the whole-epoch kernel
 (`pallas_epoch`) on a card with float32 and a batch it takes, and `--impl
-rbg` (the default) draws its masks in the kernel from Philox. Timing: the
-wall time of a whole run up to the fetch of its loss curve (a full sync),
-best of 5 windows after one warm-up run that builds the kernels.
+rbg` (the default) draws its masks in the kernel from Philox. `--dtype
+bfloat16` runs the kernels' bf16-operand modes (with `--kernel auto` it
+resolves to `xla`, as in the JAX bench), and `--superstep K` runs K steps
+per epoch-kernel iteration (`--kernel pallas_epoch` only). `--dtype auto`
+and `--superstep 0` resolve to float32 and 1: the JAX bench resolves them
+through a calibration measured on a TPU, which is no evidence for a card,
+so the port neither reads nor writes it. Timing: the wall time of a whole
+run up to the fetch of its loss curve (a full sync), best of 5 windows
+after one warm-up run that builds the kernels.
 
 Only the train mode is ported; every other `--mode` of the JAX bench exits
 by name. The JAX bench's registry, statics and ledger stamps are telemetry
@@ -81,8 +88,17 @@ def resolve_bench_kernel(kernel: str, dtype: str, device_type: str,
     return kernel
 
 
+def resolve_bench_config(dtype: str, superstep: int) -> tuple:
+    """bench's `--dtype auto` / `--superstep 0` -> (float32, 1); explicit
+    values pass through. (The JAX bench resolves them through its TPU
+    calibration, scripts/promote_epoch_dtype.py; no card has one yet.)"""
+    return (dtype if dtype != "auto" else "float32",
+            superstep if superstep != 0 else 1)
+
+
 def run_train_bench(device: torch.device, *, epochs: int, batch_size: int,
-                    kernel: str, impl: str, n_train: int = 60000,
+                    kernel: str, impl: str, dtype: str = "float32",
+                    superstep: int = 1, n_train: int = 60000,
                     windows: int = WINDOWS, lr: float = 0.01) -> dict:
     """Time `windows` runs of `epochs` epochs on `device` and return the
     JSON fields (without backend/device). The losses of every run must be
@@ -102,7 +118,8 @@ def run_train_bench(device: torch.device, *, epochs: int, batch_size: int,
         sampler.set_epoch(e)
         idxs.append(epoch_batch_indices(sampler, batch_size))
     idxs = np.stack(idxs)
-    run = make_run_fn(lr, kernel=kernel, impl=impl)
+    run = make_run_fn(lr, kernel=kernel, impl=impl, dtype=dtype,
+                      superstep=superstep)
     params = MLP(torch.Generator().manual_seed(0)).to(device).params()
     key = key_data(1)
 
@@ -123,6 +140,7 @@ def run_train_bench(device: torch.device, *, epochs: int, batch_size: int,
         "unit": "images/sec/chip",
         "vs_baseline": round(imgs_per_sec / NOMINAL_BASELINE_IMGS_PER_SEC, 4),
         **perf_fields(imgs_per_sec),
+        "dtype": dtype, "superstep": superstep,
     }
 
 
@@ -151,33 +169,37 @@ def main(argv=None) -> int:
         raise SystemExit(f"--mode {a.mode} is not ported to the PyTorch "
                          f"package yet; see ROADMAP.md "
                          f"{NOT_YET_PORTED_MODES[a.mode]}")
-    if a.dtype == "bfloat16":
-        raise SystemExit("--dtype bfloat16 is not ported yet; see ROADMAP.md "
-                         "queue 2, K4 (bf16 operands)")
-    if a.superstep not in (0, 1):
-        raise SystemExit(f"--superstep {a.superstep} is not ported yet; see "
-                         f"ROADMAP.md queue 2, K5 (b)")
     if a.ring != "auto":
         raise SystemExit(f"--ring {a.ring} selects the DP epoch kernel's "
                          f"in-kernel allreduce, which needs a multi-card "
                          f"mesh; see ROADMAP.md queue 2, K6")
     if a.epochs < 1:
         p.error("--epochs must be >= 1")
+    # the run's configuration, resolved for the card before any work; dtype
+    # 'auto' is float32 for the kernel's resolution, as in the JAX bench
+    kernel = resolve_bench_kernel(
+        a.kernel, "float32" if a.dtype == "auto" else a.dtype, "cuda",
+        batch=a.batch_size, unroll=a.unroll)
+    dtype, superstep = resolve_bench_config(a.dtype, a.superstep)
+    if superstep != 1 and kernel != "pallas_epoch":
+        raise SystemExit(f"--superstep {superstep} is a whole-epoch-kernel "
+                         f"knob; the resolved kernel is {kernel!r} (use "
+                         f"--kernel pallas_epoch, or drop --superstep)")
+    from .train.scan import check_run_args
+    try:
+        check_run_args(kernel, dtype, a.unroll, superstep, a.impl)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     if not torch.cuda.is_available():
         raise SystemExit("bench measures the card: no CUDA card is available "
                          "(torch.cuda.is_available() is False)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     device = torch.device("cuda", 0)
-    kernel = resolve_bench_kernel(a.kernel, "float32", device.type,
-                                  batch=a.batch_size, unroll=a.unroll)
-    from .train.scan import check_run_args
-    try:
-        check_run_args(kernel, "float32", a.unroll, 1, a.impl)
-    except ValueError as e:
-        raise SystemExit(str(e)) from None
     out = run_train_bench(device, epochs=a.epochs, batch_size=a.batch_size,
-                          kernel=kernel, impl=a.impl)
+                          kernel=kernel, impl=a.impl, dtype=dtype,
+                          superstep=superstep)
     out.update({"backend": "cuda", "device": torch.cuda.get_device_name(device),
                 "kernel": kernel, "impl": a.impl, "epochs": a.epochs,
                 "peak_bf16_of": PEAK_CARD})

@@ -2,8 +2,8 @@
 `pytorch_ddp_mnist_tpu/cli/train.py`).
 
     python -m pytorch_ddp_mnist_tpu_torch train [--n_epochs N] [--limit N]
-        [--batch_size 128] [--lr 0.01] [--seed 0]
-        [--kernel auto|xla|pallas|pallas_epoch] [--cached [--fused]]
+        [--batch_size 128] [--lr 0.01] [--seed 0] [--dtype float32|bfloat16]
+        [--kernel auto|xla|pallas|pallas_rng|pallas_epoch] [--cached [--fused]]
         [--impl threefry2x32|rbg] [--device 0|cpu] [--checkpoint model.pt]
         [--path data/]
 
@@ -12,15 +12,16 @@ reference epoch line every epoch and saves the reference `.pt` state_dict at
 the end. It runs on CUDA device `--device` (default 0); with no card it
 exits and names the missing card unless `--device cpu` asks for the CPU.
 Without `--cached` it streams batches from the host (train/loop.py); with
-it the dataset stays on the device (train/scan.py), and `--kernel
+it the dataset stays on the device (train/scan.py), `--kernel pallas_rng`
+draws each step's dropout inside the fused kernel, and `--kernel
 pallas_epoch` runs each epoch as one kernel.
 
 Seeds: the weights come from a CPU `torch.Generator` seeded `--seed` (so
-every device starts from the same weights). The streaming path draws its
-dropout masks from a generator on the run's device seeded `--seed + 1`; on
-CUDA that is Philox, not jax's threefry. The `--cached` path keys its masks
-by jax's threefry key `--seed + 1` instead, so its masks are the JAX
-package's for the same seed (with `--impl threefry2x32`).
+every device starts from the same weights). Both paths key their dropout
+masks by jax's threefry key `--seed + 1`, split as the JAX trainer splits
+it, so with `--impl threefry2x32` (the default) the masks are the JAX
+package's for the same seed. `--kernel pallas_rng` and `--impl rbg` draw
+the port's own Philox stream instead (the TPU core PRNG has no CUDA twin).
 """
 
 from __future__ import annotations
@@ -70,15 +71,16 @@ def train(argv=None):
     cfg = configure(argv)
     tcfg, dcfg = cfg["trainer"], cfg["data"]
     device = resolve_device(tcfg["device"])
-    # true f32 products, as the JAX package's kernels accumulate
+    # true f32 products, as the JAX package's kernels accumulate, and bf16
+    # products reduced in f32, as XLA's are
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     kernel = resolve_kernel(tcfg["kernel"], tcfg["dtype"], device.type)
-    if tcfg["cached"]:
-        try:   # the scan layer's refusals, by name, before any work
-            check_run_args(kernel, tcfg["dtype"], 1, 1, tcfg["impl"])
-        except ValueError as e:
-            raise SystemExit(str(e)) from None
+    try:   # the scan layer's refusals, by name, before any work
+        check_run_args(kernel, tcfg["dtype"], 1, 1, tcfg["impl"])
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
 
     train_split = get_mnist(dcfg["path"], train=True)
     test_split = get_mnist(dcfg["path"], train=False)
@@ -93,29 +95,31 @@ def train(argv=None):
     model = MLP(torch.Generator().manual_seed(tcfg["seed"])).to(device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    mode = (f" cached{' fused' if tcfg['fused'] else ''} impl={tcfg['impl']}"
+    mode = (f" cached{' fused' if tcfg['fused'] else ''}"
             if tcfg["cached"] else "")
     print(f"pytorch_ddp_mnist_tpu_torch: device={device} ({name}) "
           f"params={param_count(model.params())} "
-          f"batch={tcfg['batch_size']} kernel={kernel}{mode}")
+          f"batch={tcfg['batch_size']} kernel={kernel}{mode} "
+          f"impl={tcfg['impl']} dtype={tcfg['dtype']}")
+    key = key_data(tcfg["seed"] + 1)
 
     if tcfg["cached"]:
-        _, history = fit_cached(
-            model, key_data(tcfg["seed"] + 1), train_split.images,
+        key, history = fit_cached(
+            model, key, train_split.images,
             train_split.labels.astype(np.int32), sampler, x_test, y_test,
             epochs=tcfg["n_epochs"], batch_size=tcfg["batch_size"],
             lr=tcfg["lr"], kernel=kernel, impl=tcfg["impl"],
             fused=tcfg["fused"], dtype=tcfg["dtype"])
-        state = TrainState(model, None)
+        state = TrainState(model, key)
     else:
         loader = BatchLoader(normalize_images(train_split.images),
                              train_split.labels, sampler,
                              batch_size=tcfg["batch_size"])
-        generator = torch.Generator(device=device).manual_seed(
-            tcfg["seed"] + 1)
-        step = (make_fused_train_step(tcfg["lr"]) if kernel == "pallas"
-                else None)
-        state, history = fit(TrainState(model, generator), loader, x_test,
+        # the JAX trainer's streaming `xla` step takes no dtype: it trains
+        # in f32 under --dtype bfloat16, and so does this one
+        step = (make_fused_train_step(tcfg["lr"], dtype=tcfg["dtype"])
+                if kernel == "pallas" else None)
+        state, history = fit(TrainState(model, key), loader, x_test,
                              y_test, epochs=tcfg["n_epochs"],
                              batch_size=tcfg["batch_size"],
                              lr=None if step else tcfg["lr"], train_step=step)

@@ -2,8 +2,8 @@
 // weights carried from step to step inside the kernel.
 //
 // Replaces the TPU kernel pytorch_ddp_mnist_tpu/ops/pallas_step.py
-// `_make_epoch_kernel` in its single-replica, one-step-per-iteration forms,
-// reached through `epoch_fused_sgd`:
+// `_make_epoch_kernel` in its single-replica forms, reached through
+// `epoch_fused_sgd`:
 //   K2a  rng="masks", f32 rows      pre-drawn (S*B, 128) masks are read
 //   K2b  uint8_in=True              raw pixels, normalised in the kernel
 //   K2c  rng="core"                 mask drawn in the kernel; the TPU core
@@ -12,6 +12,10 @@
 //   K3   rng="threefry"             mask drawn in the kernel by jax's
 //                                   threefry-2x32 from the step's key words,
 //                                   bit for bit dropout_mask(step_key)
+// each in f32 or in the bf16-operand mode (compute_bf16, K2-bf16: the cast
+// points of K1-bf16, mlp_step.cuh; the weights are rounded from the f32
+// master copy at every step and the update stays f32), and with K = 1, 2, 4
+// or 8 steps per iteration (steps_per_iter, the superstep; see below).
 // Per step s (rows s*B .. s*B+B-1 of the gathered epoch): forward, loss,
 // backward, then `w -= lr * g` in place; the step's mean loss goes to
 // losses[s]. The outputs start as a copy of the input weights, which are
@@ -48,6 +52,19 @@
 //    normalise; the masks' 1/keep is the JAX form's own expression.
 //  * The epoch's rows are gathered outside the kernel (torch indexing), as
 //    JAX gathers them outside Pallas.
+//  * Superstep K (steps_per_iter): the TPU kernel runs K SGD steps per grid
+//    iteration to spread its fixed per-iteration cost. A cooperative launch
+//    has no per-iteration pipeline to amortise; what K spreads here is the
+//    rows' normalisation. With uint8 rows and K > 1, each iteration first
+//    normalises the rows of its K steps into an f32 staging buffer with
+//    every block of the grid (one grid sync), and the K steps' rows and
+//    gw1 phases then read f32 from it: per step, the normalise work moves
+//    from the 16 busy blocks of the rows phase (and again from the gw1
+//    tiles) to all blocks, once. The staged value is pixel()'s, so the
+//    math is bit for bit K = 1's. Steps at or past `valid_steps` (the
+//    index-level padding of a ragged epoch) are skipped: no update, loss 0
+//    (the TPU kernel runs them with lr 0; a skipped update is that update
+//    exactly). Masks stay keyed by the global step, so K never changes them.
 //
 // Plain C interface for ctypes (ops/_build.py, ops/epoch_step.py): launches
 // on the caller's stream, never synchronises, allocates nothing, and
@@ -72,78 +89,6 @@ constexpr int N_LAYERS = 5;                          // w1, b1, w2, b2, w3
 
 enum Rng : int { RNG_MASKS = 0, RNG_THREEFRY = 1, RNG_PHILOX = 2 };
 
-constexpr float KEEP = 0.8f;               // f32(1 - DROPOUT_RATE)
-constexpr uint32_t KEEP_THRESH = 3435973837u;  // round(0.8 * 2**32)
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int d) {
-  return (x << d) | (x >> (32 - d));
-}
-
-// jax's threefry-2x32 of counter words (0, idx) under key (k0, k1); the
-// two outputs xor-ed, as jax.random.bits does for 32-bit draws.
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
-                                                  uint32_t idx) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  constexpr int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  uint32_t x0 = k0;
-  uint32_t x1 = idx + k1;
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[i % 2][r]);
-      x1 ^= x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-  return x0 ^ x1;
-}
-
-// _threefry_mask_block for one element: uniform's mantissa fill, max 0,
-// `u < keep`, scale f32(1)/keep
-__device__ __forceinline__ float threefry_mask(uint32_t k0, uint32_t k1,
-                                               int row, int col) {
-  const uint32_t bits = threefry_bits(
-      k0, k1, (static_cast<uint32_t>(row) << 7) | static_cast<uint32_t>(col));
-  float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-  u = fmaxf(0.0f, u);
-  return u < KEEP ? 1.0f / KEEP : 0.0f;
-}
-
-// Philox4x32-10 (Random123 constants) of counter (idx, 0, 0, 0) under key
-// (seed, step), output word 0: ops/philox.py computes the same bits.
-__device__ __forceinline__ uint32_t philox_bits(uint32_t seed, uint32_t step,
-                                                uint32_t idx) {
-  uint32_t c0 = idx, c1 = 0, c2 = 0, c3 = 0, k0 = seed, k1 = step;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0;
-    const uint32_t n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  return c0;
-}
-
-// the core form's keep test and scale, f32(1.0 / (1.0 - DROPOUT_RATE))
-__device__ __forceinline__ float philox_mask(uint32_t seed, uint32_t step,
-                                             int row, int col) {
-  return philox_bits(seed, step, static_cast<uint32_t>(row * H1 + col)) <
-                 KEEP_THRESH
-             ? static_cast<float>(1.0 / (1.0 - 0.2))
-             : 0.0f;
-}
-
 struct EpochArgs {
   const void* xp;       // (S*B, 784) f32 or uint8, the epoch's gathered rows
   const int* yp;        // (S*B,) labels
@@ -153,8 +98,11 @@ struct EpochArgs {
   const float* in[N_LAYERS];
   float* out[N_LAYERS];
   float* scratch;       // B * SCRATCH_PER_ROW floats
+  float* stage;         // K * B * 784 floats, or null: no staging
   float* losses;        // (S,)
-  int nsteps;
+  int nsteps;           // S, a multiple of K
+  int valid_steps;      // steps < valid_steps train; the rest are padding
+  int steps_per_iter;   // K
   int batch;
   float lr;
   float inv_batch;
@@ -204,7 +152,94 @@ __device__ __forceinline__ int layer_size(int p) {
   return p == 0 ? IN * H1 : p == 1 ? H1 : p == 2 ? H1 * H2 : p == 3 ? H2 : H2 * NC;
 }
 
-template <class XT, int RNG>
+// One training step at global step `step` on rows x (f32 staged rows, or
+// the XT rows of the epoch): phase A, grid sync, phase B, grid sync.
+template <bool BF, int RNG, class XT>
+__device__ void train_step(const EpochArgs& a, cg::grid_group& grid,
+                           float (*as)[BT][TK], int step, const XT* x) {
+  const int nblk = gridDim.x;
+  const int batch = a.batch;
+  float* const w1 = a.out[0];
+  float* const b1 = a.out[1];
+  float* const w2 = a.out[2];
+  float* const b2 = a.out[3];
+  float* const w3 = a.out[4];
+  float* const d1 = a.scratch;
+  float* const h2 = d1 + (size_t)batch * H1;
+  float* const dz2 = h2 + (size_t)batch * H2;
+  float* const dz1 = dz2 + (size_t)batch * H2;
+  float* const dl = dz1 + (size_t)batch * H1;
+  float* const rl = dl + (size_t)batch * NC;
+  const int* y = a.yp + (size_t)step * batch;
+  const int half = threadIdx.x / TILE_THREADS;
+  const int lt = threadIdx.x % TILE_THREADS;
+  const int bias_block = TILE_PAIRS % nblk;
+
+  // ---- phase A: rows ----
+  const StepMask<RNG> mask = step_mask<RNG>(a, step);
+  for (int g = blockIdx.x; g * ROWS_A < batch; g += nblk)
+    rows_block<CgLoad, BF>(x, y, mask, w1, b1, w2, b2, w3, d1, h2, dz2, dz1,
+                           dl, rl, g * ROWS_A, batch, a.inv_batch);
+  grid.sync();
+
+  // ---- phase B: gradients summed in row order, SGD in place ----
+  for (int pair = blockIdx.x; pair < TILE_PAIRS; pair += nblk) {
+    const int t = pair * HALVES + half;
+    const float* af = nullptr;
+    const uint8_t* au = nullptr;
+    const float* gsrc = nullptr;
+    int lda = 0, ka = 0, n = 0, k0 = 0;
+    float* w = nullptr;
+    if (t < GRAD_TILES) {
+      const GradTile gt = grad_tile(t);
+      k0 = gt.k0;
+      if (gt.which == 0) {
+        if constexpr (sizeof(XT) == 1)
+          au = reinterpret_cast<const uint8_t*>(x);
+        else
+          af = reinterpret_cast<const float*>(x);
+        lda = ka = IN;
+        gsrc = dz1;
+        n = H1;
+        w = w1;
+      } else if (gt.which == 1) {
+        af = d1;
+        lda = ka = H1;
+        gsrc = dz2;
+        n = H2;
+        w = w2;
+      } else {
+        af = h2;
+        lda = ka = H2;
+        gsrc = dl;
+        n = NC;
+        w = w3;
+      }
+    }
+    at_g_tile<CgLoad, BF>(as[half], lt, af, au, nullptr, lda, ka, gsrc, n, k0,
+                          batch, StoreSgd{w, n, a.lr});
+  }
+  if (blockIdx.x == bias_block && threadIdx.x < H1) {
+    // biases (of the unrounded dz1, dz2) and the step's mean loss, each
+    // summed in row order
+    const int j = threadIdx.x;
+    float s1 = 0.f, s2 = 0.f;
+    for (int b = 0; b < batch; ++b) {
+      s1 += __ldcg(dz1 + (size_t)b * H1 + j);
+      s2 += __ldcg(dz2 + (size_t)b * H2 + j);
+    }
+    b1[j] = __fsub_rn(__ldcg(b1 + j), __fmul_rn(a.lr, s1));
+    b2[j] = __fsub_rn(__ldcg(b2 + j), __fmul_rn(a.lr, s2));
+    if (j == 0) {
+      float s = 0.f;
+      for (int b = 0; b < batch; ++b) s += __ldcg(rl + b);
+      a.losses[step] = s / (float)batch;
+    }
+  }
+  grid.sync();
+}
+
+template <class XT, int RNG, bool BF>
 __global__ void __launch_bounds__(THREADS) epoch_kernel(EpochArgs a) {
   cg::grid_group grid = cg::this_grid();
   const int nblk = gridDim.x;
@@ -216,89 +251,33 @@ __global__ void __launch_bounds__(THREADS) epoch_kernel(EpochArgs a) {
       a.out[p][i] = a.in[p][i];
   grid.sync();
 
-  float* const w1 = a.out[0];
-  float* const b1 = a.out[1];
-  float* const w2 = a.out[2];
-  float* const b2 = a.out[3];
-  float* const w3 = a.out[4];
-  const int batch = a.batch;
-  float* const d1 = a.scratch;
-  float* const h2 = d1 + (size_t)batch * H1;
-  float* const dz2 = h2 + (size_t)batch * H2;
-  float* const dz1 = dz2 + (size_t)batch * H2;
-  float* const dl = dz1 + (size_t)batch * H1;
-  float* const rl = dl + (size_t)batch * NC;
-
   __shared__ float as[HALVES][BT][TK];
-  const int half = threadIdx.x / TILE_THREADS;
-  const int lt = threadIdx.x % TILE_THREADS;
-  const int bias_block = TILE_PAIRS % nblk;
-
-  for (int step = 0; step < a.nsteps; ++step) {
-    const XT* x = static_cast<const XT*>(a.xp) + (size_t)step * batch * IN;
-    const int* y = a.yp + (size_t)step * batch;
-
-    // ---- phase A: rows ----
-    const StepMask<RNG> mask = step_mask<RNG>(a, step);
-    for (int g = blockIdx.x; g * ROWS_A < batch; g += nblk)
-      rows_block<CgLoad>(x, y, mask, w1, b1, w2, b2, w3, d1, h2, dz2, dz1,
-                         dl, rl, g * ROWS_A, batch, a.inv_batch);
-    grid.sync();
-
-    // ---- phase B: gradients summed in row order, SGD in place ----
-    for (int pair = blockIdx.x; pair < TILE_PAIRS; pair += nblk) {
-      const int t = pair * HALVES + half;
-      const float* af = nullptr;
-      const uint8_t* au = nullptr;
-      const float* gsrc = nullptr;
-      int lda = 0, ka = 0, n = 0, k0 = 0;
-      float* w = nullptr;
-      if (t < GRAD_TILES) {
-        const GradTile gt = grad_tile(t);
-        k0 = gt.k0;
-        if (gt.which == 0) {
-          if constexpr (sizeof(XT) == 1)
-            au = reinterpret_cast<const uint8_t*>(x);
-          else
-            af = reinterpret_cast<const float*>(x);
-          lda = ka = IN;
-          gsrc = dz1;
-          n = H1;
-          w = w1;
-        } else if (gt.which == 1) {
-          af = d1;
-          lda = ka = H1;
-          gsrc = dz2;
-          n = H2;
-          w = w2;
-        } else {
-          af = h2;
-          lda = ka = H2;
-          gsrc = dl;
-          n = NC;
-          w = w3;
-        }
-      }
-      at_g_tile<CgLoad>(as[half], lt, af, au, lda, ka, gsrc, n, k0, batch,
-                        StoreSgd{w, n, a.lr});
+  const int batch = a.batch;
+  const int K = a.steps_per_iter;
+  for (int base = 0; base < a.nsteps; base += K) {
+    const int kv = min(K, a.valid_steps - base);  // steps of this iteration that train
+    if (a.stage != nullptr && kv > 0) {
+      // the iteration's rows, normalised once by the whole grid
+      const XT* src = static_cast<const XT*>(a.xp) + (size_t)base * batch * IN;
+      const size_t n = (size_t)kv * batch * IN;
+      for (size_t i = gtid; i < n; i += (size_t)nblk * THREADS)
+        a.stage[i] = pixel(src[i]);
+      grid.sync();
     }
-    if (blockIdx.x == bias_block && threadIdx.x < H1) {
-      // biases and the step's mean loss, each summed in row order
-      const int j = threadIdx.x;
-      float s1 = 0.f, s2 = 0.f;
-      for (int b = 0; b < batch; ++b) {
-        s1 += __ldcg(dz1 + (size_t)b * H1 + j);
-        s2 += __ldcg(dz2 + (size_t)b * H2 + j);
+    for (int k = 0; k < K; ++k) {
+      const int step = base + k;
+      if (k >= kv) {  // index-level padding: no update, loss row 0
+        if (blockIdx.x == 0 && threadIdx.x == 0) a.losses[step] = 0.f;
+        continue;
       }
-      b1[j] = __fsub_rn(__ldcg(b1 + j), __fmul_rn(a.lr, s1));
-      b2[j] = __fsub_rn(__ldcg(b2 + j), __fmul_rn(a.lr, s2));
-      if (j == 0) {
-        float s = 0.f;
-        for (int b = 0; b < batch; ++b) s += __ldcg(rl + b);
-        a.losses[step] = s / (float)batch;
-      }
+      if (a.stage != nullptr)
+        train_step<BF, RNG>(a, grid, as, step,
+                            a.stage + (size_t)k * batch * IN);
+      else
+        train_step<BF, RNG>(
+            a, grid, as, step,
+            static_cast<const XT*>(a.xp) + (size_t)step * batch * IN);
     }
-    grid.sync();
   }
 }
 
@@ -312,18 +291,30 @@ __global__ void mask_kernel(EpochArgs a, int step, float* out) {
 
 using EpochKernel = void (*)(EpochArgs);
 
-EpochKernel pick(int x_u8, int rng) {
+template <bool BF>
+EpochKernel pick_mode(int x_u8, int rng) {
   static const EpochKernel table[2][3] = {
-      {epoch_kernel<float, RNG_MASKS>, epoch_kernel<float, RNG_THREEFRY>,
-       epoch_kernel<float, RNG_PHILOX>},
-      {epoch_kernel<uint8_t, RNG_MASKS>, epoch_kernel<uint8_t, RNG_THREEFRY>,
-       epoch_kernel<uint8_t, RNG_PHILOX>}};
+      {epoch_kernel<float, RNG_MASKS, BF>, epoch_kernel<float, RNG_THREEFRY, BF>,
+       epoch_kernel<float, RNG_PHILOX, BF>},
+      {epoch_kernel<uint8_t, RNG_MASKS, BF>,
+       epoch_kernel<uint8_t, RNG_THREEFRY, BF>,
+       epoch_kernel<uint8_t, RNG_PHILOX, BF>}};
   return table[x_u8 ? 1 : 0][rng];
+}
+
+EpochKernel pick(int x_u8, int rng, int bf16) {
+  return bf16 ? pick_mode<true>(x_u8, rng) : pick_mode<false>(x_u8, rng);
 }
 
 }  // namespace
 
 extern "C" int pdmt_epoch_scratch_per_row() { return SCRATCH_PER_ROW; }
+
+// whether a launch with these arguments stages its rows (its caller
+// allocates steps_per_iter * batch * 784 floats for it)
+extern "C" int pdmt_epoch_stages(int x_u8, int steps_per_iter) {
+  return x_u8 && steps_per_iter > 1;
+}
 
 extern "C" const char* pdmt_epoch_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -332,18 +323,24 @@ extern "C" const char* pdmt_epoch_error_string(int err) {
 // One epoch: xp (nsteps*batch, 784) f32 or uint8 (x_u8), yp (nsteps*batch,)
 // int32, rng 0/1/2 = masks/threefry/philox with its source (masks, keys or
 // seed), params in (w1, b1, w2, b2, w3) and out (same shapes, written),
-// scratch of batch * SCRATCH_PER_ROW floats, losses (nsteps,). Writes the
-// grid size it launched to *grid_out.
+// bf16 = the bf16-operand mode, steps_per_iter K (nsteps a multiple of K),
+// valid_steps <= nsteps, scratch of batch * SCRATCH_PER_ROW floats, stage
+// of K * batch * 784 floats where pdmt_epoch_stages says so (else null),
+// losses (nsteps,). Writes the grid size it launched to *grid_out.
 extern "C" int pdmt_epoch_step(
     const void* xp, int x_u8, const int* yp, int rng, const float* masks,
     const int* keys, uint32_t seed, const float* w1, const float* b1,
     const float* w2, const float* b2, const float* w3, float* ow1, float* ob1,
-    float* ow2, float* ob2, float* ow3, float* scratch, float* losses,
-    int nsteps, int batch, float lr, float inv_batch, int* grid_out,
-    void* stream) {
-  if (rng < 0 || rng > 2 || batch < ROWS_A || batch % ROWS_A != 0 || nsteps < 1)
+    float* ow2, float* ob2, float* ow3, int bf16, int steps_per_iter,
+    int valid_steps, float* scratch, float* stage, float* losses, int nsteps,
+    int batch, float lr, float inv_batch, int* grid_out, void* stream) {
+  const int K = steps_per_iter;
+  if (rng < 0 || rng > 2 || batch < ROWS_A || batch % ROWS_A != 0 ||
+      nsteps < 1 || (K != 1 && K != 2 && K != 4 && K != 8) || nsteps % K ||
+      valid_steps < 1 || valid_steps > nsteps ||
+      (stage == nullptr) == (pdmt_epoch_stages(x_u8, K) != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const EpochKernel kernel = pick(x_u8, rng);
+  const EpochKernel kernel = pick(x_u8, rng, bf16);
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -359,8 +356,8 @@ extern "C" int pdmt_epoch_step(
   const int need = std::max(batch / ROWS_A, TILE_PAIRS + 1);
   const int grid = std::min(per_sm * sms, need);
   EpochArgs a{xp, yp, masks, keys, seed, {w1, b1, w2, b2, w3},
-              {ow1, ob1, ow2, ob2, ow3}, scratch, losses, nsteps, batch, lr,
-              inv_batch};
+              {ow1, ob1, ow2, ob2, ow3}, scratch, stage, losses, nsteps,
+              valid_steps, K, batch, lr, inv_batch};
   void* args[] = {&a};
   *grid_out = grid;
   return static_cast<int>(cudaLaunchCooperativeKernel(
@@ -386,3 +383,4 @@ extern "C" int pdmt_epoch_mask(int rng, const int* keys, uint32_t seed,
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
+

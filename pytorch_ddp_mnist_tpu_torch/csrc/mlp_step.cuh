@@ -12,25 +12,40 @@
 // threads, writing each row's activations, activation gradients and loss
 // to scratch. `at_g_tile` is the second: TK rows of one weight gradient,
 // one thread per column, each summing over the batch rows in order 0..B-1
-// (no atomics, so every launch gives the same bits).
+// (no atomics, so every launch gives the same bits). The in-kernel dropout
+// streams both kernels draw from (Philox4x32-10, jax's threefry-2x32) are
+// device functions here too.
 //
-// Three things vary between the kernels:
+// Four things vary between the kernels:
 //  * `L`, how weights and scratch are loaded. K1's weights do not change
 //    during a launch and go through the read-only cache (`LdgLoad`). K2
 //    updates its weights inside the launch, from other blocks, so all its
 //    loads of weights and scratch bypass L1 and read L2 (`CgLoad`,
 //    ld.global.cg): a stale L1 line can never be read after a grid sync.
-//  * the pixel type: f32 rows are taken as they are; uint8 rows are
-//    normalised as they are loaded, (v / 255 - mean) / std in f32 with true
-//    divisions, in the op order of normalize_images (bitwise the same). A
-//    template parameter of rows_block, a run-time choice in at_g_tile.
-//  * `MaskAt` (rows_block), the dropout mask source: a functor (row in the step, column)
-//    -> 0 or 1/keep. K1 reads a mask array; K2 reads one or draws it.
+//  * the pixel type: f32 rows are taken as they are; bf16 rows are widened;
+//    uint8 rows are normalised as they are loaded, (v / 255 - mean) / std in
+//    f32 with true divisions, in the op order of normalize_images (bitwise
+//    the same). A template parameter of rows_block, a run-time choice in
+//    at_g_tile.
+//  * `MaskAt` (rows_block), the dropout mask source: a functor (row in the
+//    step, column) -> 0 or 1/keep. K1 reads a mask array or draws Philox
+//    per (seed, batch block); K2 reads one or draws it per step.
+//  * `BF`, the bf16-operand mode (compute_bf16 of the TPU kernels): every
+//    operand of the six products is rounded to bf16 (round to nearest even)
+//    where it is loaded, and everything else stays f32. A product of two
+//    bf16 values is exact in f32, so each fmaf adds the exact product: the
+//    FFMA loops and their fixed summation order are K1's own. The cast
+//    points are those of pallas_step.py `_make_fused_kernel` and
+//    `step_reference_bf16`: x and the weights at each product; d1 (-> z2,
+//    gw2), h2 (-> logits, gw3) and dl (-> gw3, dh2) rounded once where they
+//    are made; dz2 rounded for dd1 and gw2 but summed unrounded into gb2;
+//    dz1 rounded for gw1 only and summed unrounded into gb1.
 
 #pragma once
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace mlp {
@@ -74,15 +89,146 @@ struct CgLoad {
 
 __device__ __forceinline__ float pixel(float v) { return v; }
 
+__device__ __forceinline__ float pixel(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 __device__ __forceinline__ float pixel(uint8_t v) {
   // normalize_images: /255, then -mean, then /std, each rounded to f32
   // (no --use_fast_math, so `/` is the IEEE division)
   return (static_cast<float>(v) / 255.0f - 0.1307f) / 0.3081f;
 }
 
+// An operand of a product: itself in f32 mode, rounded to bf16 (and held in
+// f32, where it is exact) in bf16 mode. Rounding twice is rounding once.
+template <bool BF>
+__device__ __forceinline__ float opnd(float v) {
+  if constexpr (BF)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
+}
+
+// One x element as f32: f32 rows through L (K2 writes its staged rows
+// inside the launch, so they must not come from a stale L1 line); uint8 and
+// bf16 rows are inputs only.
+template <class L>
+__device__ __forceinline__ float load_x(const float* p) { return L::s(p); }
+template <class L>
+__device__ __forceinline__ float load_x(const uint8_t* p) { return pixel(*p); }
+template <class L>
+__device__ __forceinline__ float load_x(const __nv_bfloat16* p) {
+  return pixel(*p);
+}
+
+// ---- the in-kernel dropout streams ----
+
+constexpr float KEEP = 0.8f;                   // f32(1 - DROPOUT_RATE)
+constexpr uint32_t KEEP_THRESH = 3435973837u;  // round(0.8 * 2**32)
+
+// Philox4x32-10 (Random123 constants) of counter (idx, 0, 0, 0) under key
+// (k0, k1), output word 0: ops/philox.py computes the same bits.
+__device__ __forceinline__ uint32_t philox_bits(uint32_t k0, uint32_t k1,
+                                                uint32_t idx) {
+  uint32_t c0 = idx, c1 = 0, c2 = 0, c3 = 0;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    const uint32_t n0 = hi1 ^ c1 ^ k0;
+    const uint32_t n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+  }
+  return c0;
+}
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int d) {
+  return (x << d) | (x >> (32 - d));
+}
+
+// jax's threefry-2x32 of counter words (0, idx) under key (k0, k1); the
+// two outputs xor-ed, as jax.random.bits does for 32-bit draws.
+__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
+                                                  uint32_t idx) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  constexpr int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  uint32_t x0 = k0;
+  uint32_t x1 = idx + k1;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[i % 2][r]);
+      x1 ^= x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+  }
+  return x0 ^ x1;
+}
+
+// _threefry_mask_block for one element: uniform's mantissa fill, max 0,
+// `u < keep`, scale f32(1)/keep
+__device__ __forceinline__ float threefry_mask(uint32_t k0, uint32_t k1,
+                                               int row, int col) {
+  const uint32_t bits = threefry_bits(
+      k0, k1, (static_cast<uint32_t>(row) << 7) | static_cast<uint32_t>(col));
+  float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+  u = fmaxf(0.0f, u);
+  return u < KEEP ? 1.0f / KEEP : 0.0f;
+}
+
+// the core form's keep test and scale, f32(1.0 / (1.0 - DROPOUT_RATE)), for
+// element (row, col) of the (rows, 128) block keyed (k0, k1)
+__device__ __forceinline__ float philox_mask(uint32_t k0, uint32_t k1,
+                                             int row, int col) {
+  return philox_bits(k0, k1, static_cast<uint32_t>(row * H1 + col)) <
+                 KEEP_THRESH
+             ? static_cast<float>(1.0 / (1.0 - 0.2))
+             : 0.0f;
+}
+
+// K1-rng's mask (pallas_step.py `fused_loss_and_grads_rng`): the TPU seeds
+// its core PRNG per (step seed, batch block of `_run_fused`'s grid) and draws
+// a (block, 128) array per block; here each block is the Philox block keyed
+// (seed, block index), so row r of the batch is row r % block of block
+// r / block.
+struct PhiloxBlockMask {
+  uint32_t seed;
+  int block;
+  __device__ float operator()(int row, int col) const {
+    const int b = row / block;
+    return philox_mask(seed, static_cast<uint32_t>(b), row - b * block, col);
+  }
+};
+
+// rows_block's shared memory. It lives in one non-template function so that
+// every instantiation of rows_block in a kernel (K2's staged and unstaged
+// rows) uses the same 38,720 bytes.
+struct RowsShared {
+  float xs[ROWS_A * IN];  // x rows, later the w2 tile
+  float d1s[ROWS_A * H1];
+  float h2s[ROWS_A * H2];
+  float dz2s[ROWS_A * H2];
+  float lg[ROWS_A * NC];  // logits, then dl
+};
+
+__device__ __forceinline__ RowsShared& rows_shared() {
+  __shared__ RowsShared sm;
+  return sm;
+}
+
 // Rows row0 .. row0 + ROWS_A - 1 of one step. Rows past `batch` load as
 // zeros and are never written. Needs blockDim.x == THREADS_A.
-template <class L, class XT, class MaskAt>
+template <class L, bool BF, class XT, class MaskAt>
 __device__ void rows_block(
     const XT* __restrict__ x, const int* __restrict__ y, MaskAt mask_at,
     const float* w1, const float* b1, const float* w2, const float* b2,
@@ -90,11 +236,12 @@ __device__ void rows_block(
     float* __restrict__ dz2_out, float* __restrict__ dz1_out,
     float* __restrict__ dl_out, float* __restrict__ row_loss, int row0,
     int batch, float inv_batch) {
-  __shared__ float xs[ROWS_A * IN];  // x rows, later the w2 tile
-  __shared__ float d1s[ROWS_A * H1];
-  __shared__ float h2s[ROWS_A * H2];
-  __shared__ float dz2s[ROWS_A * H2];
-  __shared__ float lg[ROWS_A * NC];  // logits, then dl
+  RowsShared& sm = rows_shared();
+  float* const xs = sm.xs;
+  float* const d1s = sm.d1s;
+  float* const h2s = sm.h2s;
+  float* const dz2s = sm.dz2s;
+  float* const lg = sm.lg;
 
   const int tid = threadIdx.x;
   const int j = tid % H1;           // the column this thread owns
@@ -104,7 +251,9 @@ __device__ void rows_block(
   for (int i = tid; i < ROWS_A * IN; i += THREADS_A) {
     const int r = i / IN;
     const int row = row0 + r;
-    xs[i] = row < batch ? pixel(x[(size_t)row * IN + (i - r * IN)]) : 0.f;
+    xs[i] = row < batch
+                ? opnd<BF>(load_x<L>(x + (size_t)row * IN + (i - r * IN)))
+                : 0.f;
   }
   __syncthreads();
 
@@ -115,7 +264,7 @@ __device__ void rows_block(
   const float* xr = xs + r0 * IN;
 #pragma unroll 4
   for (int k = 0; k < IN; ++k) {
-    const float w = L::w(w1 + k * H1 + j);
+    const float w = opnd<BF>(L::w(w1 + k * H1 + j));
 #pragma unroll
     for (int r = 0; r < RPT; ++r) z1[r] = fmaf(xr[r * IN + k], w, z1[r]);
   }
@@ -125,7 +274,7 @@ __device__ void rows_block(
     const int row = row0 + r0 + r;
     z1[r] += bj1;
     m[r] = row < batch ? mask_at(row, j) : 0.f;
-    const float d1 = fmaxf(z1[r], 0.f) * m[r];
+    const float d1 = opnd<BF>(fmaxf(z1[r], 0.f) * m[r]);
     d1s[(r0 + r) * H1 + j] = d1;
     if (row < batch) d1_out[(size_t)row * H1 + j] = d1;
   }
@@ -135,7 +284,7 @@ __device__ void rows_block(
   for (int r = 0; r < RPT; ++r) z2[r] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < H1; ++k) {
-    const float w = L::w(w2 + k * H2 + j);
+    const float w = opnd<BF>(L::w(w2 + k * H2 + j));
 #pragma unroll
     for (int r = 0; r < RPT; ++r) z2[r] = fmaf(d1s[(r0 + r) * H1 + k], w, z2[r]);
   }
@@ -144,7 +293,7 @@ __device__ void rows_block(
   for (int r = 0; r < RPT; ++r) {
     const int row = row0 + r0 + r;
     z2[r] += bj2;
-    const float h2 = fmaxf(z2[r], 0.f);
+    const float h2 = opnd<BF>(fmaxf(z2[r], 0.f));
     h2s[(r0 + r) * H2 + j] = h2;
     if (row < batch) h2_out[(size_t)row * H2 + j] = h2;
   }
@@ -154,7 +303,8 @@ __device__ void rows_block(
     const int r = tid / NC;
     const int c = tid - r * NC;
     float acc = 0.f;
-    for (int k = 0; k < H2; ++k) acc = fmaf(h2s[r * H2 + k], L::w(w3 + k * NC + c), acc);
+    for (int k = 0; k < H2; ++k)
+      acc = fmaf(h2s[r * H2 + k], opnd<BF>(L::w(w3 + k * NC + c)), acc);
     lg[tid] = acc;
   }
   __syncthreads();
@@ -177,7 +327,7 @@ __device__ void rows_block(
     for (int c = 0; c < NC; ++c) logit_y += c == yr ? l[c] : 0.f;
     const float scale = valid ? inv_batch : 0.f;
     for (int c = 0; c < NC; ++c) {
-      const float dl = (ex[c] / se - (c == yr ? 1.f : 0.f)) * scale;
+      const float dl = opnd<BF>((ex[c] / se - (c == yr ? 1.f : 0.f)) * scale);
       l[c] = dl;
       if (valid) dl_out[(size_t)row * NC + c] = dl;
     }
@@ -188,7 +338,7 @@ __device__ void rows_block(
   // ---- backward through fc3 and fc2 ----
   float wj3[NC];
 #pragma unroll
-  for (int c = 0; c < NC; ++c) wj3[c] = L::w(w3 + j * NC + c);
+  for (int c = 0; c < NC; ++c) wj3[c] = opnd<BF>(L::w(w3 + j * NC + c));
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int row = row0 + r0 + r;
@@ -196,8 +346,8 @@ __device__ void rows_block(
 #pragma unroll
     for (int c = 0; c < NC; ++c) dh2 = fmaf(lg[(r0 + r) * NC + c], wj3[c], dh2);
     const float dz2 = dh2 * (z2[r] > 0.f ? 1.f : 0.f);
-    dz2s[(r0 + r) * H2 + j] = dz2;
-    if (row < batch) dz2_out[(size_t)row * H2 + j] = dz2;
+    dz2s[(r0 + r) * H2 + j] = opnd<BF>(dz2);  // for dd1
+    if (row < batch) dz2_out[(size_t)row * H2 + j] = dz2;  // gb2 sums it as is
   }
 
   // dd1 = dz2 w2^T: w2 is read by rows here, so it passes through shared
@@ -211,7 +361,7 @@ __device__ void rows_block(
     for (int i = tid; i < H1 * KT; i += THREADS_A) {
       const int jj = i / KT;
       const int kk = i - jj * KT;
-      tile[jj * (KT + 1) + kk] = L::w(w2 + jj * H2 + k0 + kk);
+      tile[jj * (KT + 1) + kk] = opnd<BF>(L::w(w2 + jj * H2 + k0 + kk));
     }
     __syncthreads();
 #pragma unroll 8
@@ -246,18 +396,20 @@ __device__ __forceinline__ GradTile grad_tile(int t) {
 
 // out[k][j] = sum over b = 0..B-1, in order, of a[b][k] * g[b][j], for the
 // TK rows k0 .. k0+TK-1 of out; `store(k, j, value)` writes each element.
-// The left operand is f32 (`af`: scratch, or f32 rows) or, where `au` is
-// not null, raw uint8 rows normalised as in rows_block: a run-time choice,
-// so that the two halves of a K2 block run one code path with one set of
-// barriers. `lt` in [0, TILE_THREADS) is this thread's index within the
+// The left operand is f32 (`af`: scratch, or f32 rows), or, where `au` or
+// `ab` is not null, raw uint8 rows normalised as in rows_block or bf16 rows:
+// a run-time choice, so that the two halves of a K2 block run one code path
+// with one set of barriers. In bf16 mode both operands are rounded as they
+// are loaded (the scratch keeps dz1 and dz2 unrounded for the biases). `lt` in [0, TILE_THREADS) is this thread's index within the
 // threads that share `as`; every thread of the block must call this the
 // same number of times with the same `batch` (it holds __syncthreads). A
 // call with n = 0 and ka = 0 touches no memory outside `as`: an idle part
 // of the block.
-template <class L, class Store>
+template <class L, bool BF, class Store>
 __device__ void at_g_tile(float (*as)[TK], int lt, const float* af,
-                          const uint8_t* au, int lda, int ka, const float* g,
-                          int n, int k0, int batch, Store store) {
+                          const uint8_t* au, const __nv_bfloat16* ab, int lda,
+                          int ka, const float* g, int n, int k0, int batch,
+                          Store store) {
   const int j = lt;
   float acc[TK];
 #pragma unroll
@@ -271,15 +423,17 @@ __device__ void at_g_tile(float (*as)[TK], int lt, const float* af,
       float v = 0.f;
       if (b < batch && k < ka) {
         const size_t at = (size_t)b * lda + k;
-        v = au != nullptr ? pixel(au[at]) : L::s(af + at);
+        v = au != nullptr   ? pixel(au[at])
+            : ab != nullptr ? pixel(ab[at])
+                            : L::s(af + at);
       }
-      as[bb][kk] = v;
+      as[bb][kk] = opnd<BF>(v);
     }
     __syncthreads();
     if (j < n) {
       const int nb = min(BT, batch - b0);
       for (int bb = 0; bb < nb; ++bb) {
-        const float gv = L::s(g + (size_t)(b0 + bb) * n + j);
+        const float gv = opnd<BF>(L::s(g + (size_t)(b0 + bb) * n + j));
 #pragma unroll
         for (int kk = 0; kk < TK; ++kk) acc[kk] = fmaf(as[bb][kk], gv, acc[kk]);
       }

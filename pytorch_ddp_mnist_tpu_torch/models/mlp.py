@@ -4,7 +4,7 @@
         -> Linear(128, 10, bias=False)
 
 Weights keep the JAX package's (fan_in, fan_out) layout, so the forward
-pass is `x @ w` and a params tree `{"fc1": {"w", "b"}, "fc2": {"w", "b"},
+pass (`mlp_apply`) is `x @ w` and a params tree `{"fc1": {"w", "b"}, "fc2": {"w", "b"},
 "fc3": {"w"}}` carries over between the packages unchanged. Only the
 reference `.pt` state_dict (train/checkpoint.py) uses torch Linear's
 (out, in) layout.
@@ -32,7 +32,8 @@ Params = Dict[str, Dict[str, torch.Tensor]]
 
 
 class Dense(nn.Module):
-    """x @ w (+ b), with w stored (fan_in, fan_out)."""
+    """One layer's parameters: w stored (fan_in, fan_out) and an optional
+    bias. `mlp_apply` computes x @ w (+ b)."""
 
     def __init__(self, fan_in: int, fan_out: int, *, bias: bool,
                  generator: torch.Generator | None = None):
@@ -44,10 +45,6 @@ class Dense(nn.Module):
         self.b = (nn.Parameter(
             torch.empty(fan_out).uniform_(-bound, bound, generator=generator))
                   if bias else None)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w
-        return y + self.b if self.b is not None else y
 
 
 class MLP(nn.Module):
@@ -62,19 +59,12 @@ class MLP(nn.Module):
         self.fc3 = Dense(d2, d3, bias=False, generator=generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                dropout_mask: torch.Tensor | None = None) -> torch.Tensor:
-        """(B, 784) -> (B, 10) logits. In train mode `dropout_mask` is the
-        {0, 1} keep mask of fc1's output, (B, 128); kept units are scaled by
-        1/keep (inverted dropout, as torch.nn.Dropout and `mlp_apply`)."""
-        h = torch.relu(self.fc1(x))
-        if train:
-            if dropout_mask is None:
-                raise ValueError("train=True requires a dropout_mask")
-            keep = 1.0 - DROPOUT_RATE
-            # 1/0.8 = 1.25 is exact, so mask * (1/keep) rounds like JAX's
-            h = h * (dropout_mask.to(h.dtype) * (1.0 / keep))
-        h = torch.relu(self.fc2(h))
-        return self.fc3(h)
+                dropout_mask: torch.Tensor | None = None,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
+        """(B, 784) -> (B, 10) logits: `mlp_apply` on this module's
+        parameters (which see for `train`, `dropout_mask` and `keep`)."""
+        return mlp_apply(self.params(), x, train=train,
+                         dropout_mask=dropout_mask, keep=keep)
 
     def params(self) -> Params:
         """The JAX-layout params tree; its tensors ARE this module's
@@ -88,15 +78,38 @@ class MLP(nn.Module):
         return out
 
 
-def keep_mask(generator: torch.Generator, batch: int,
-              device: torch.device | str) -> torch.Tensor:
-    """The dropout draw for one step: a (batch, 128) bool keep mask,
-    uniform < 1 - DROPOUT_RATE, from `generator` (which must live on
-    `device`). On CUDA the generator is Philox and on the CPU MT19937:
-    neither is jax's threefry, so the same seed gives other masks than the
-    JAX package. Tests that compare the two hand both the same numpy mask."""
-    u = torch.rand((batch, MLP_DIMS[1]), generator=generator, device=device)
-    return u < (1.0 - DROPOUT_RATE)
+def mlp_apply(params: Params, x: torch.Tensor, *, train: bool = False,
+              dropout_mask: torch.Tensor | None = None,
+              keep: torch.Tensor | None = None) -> torch.Tensor:
+    """Forward pass of a params tree (port of the JAX package's
+    `mlp_apply`): (B, 784) -> (B, 10) logits. The compute dtype follows x
+    (float32 or bfloat16); the params are cast to it.
+
+    In train mode exactly one of two dropout forms is given, each as the
+    JAX package writes it, so that the two round alike in bf16:
+      * `keep`, the (B, 128) bool draw of the keyed form (JAX's
+        `dropout_key`): kept units are `h / keep_rate` in x's dtype,
+        `where(keep, h / dt(0.8), 0)`. In bf16, dt(0.8) is 0.80078125, so
+        this is not `h * 1.25`;
+      * `dropout_mask`, a streamed {0, 1} mask: `h * (mask * dt(1.25))`
+        (1/0.8 = 1.25 is exact in both dtypes)."""
+    dt = x.dtype
+    fc1, fc2, fc3 = params["fc1"], params["fc2"], params["fc3"]
+    h = torch.relu(x @ fc1["w"].to(dt) + fc1["b"].to(dt))
+    if train:
+        if (keep is None) == (dropout_mask is None):
+            raise ValueError("train=True requires exactly one of "
+                             "dropout_mask / keep")
+        rate = 1.0 - DROPOUT_RATE
+        if dropout_mask is not None:
+            scale = torch.tensor(1.0 / rate, dtype=dt, device=h.device)
+            h = h * (dropout_mask.to(dt) * scale)
+        else:
+            h = torch.where(keep, h / torch.tensor(rate, dtype=dt,
+                                                   device=h.device),
+                            torch.zeros((), dtype=dt, device=h.device))
+    h = torch.relu(h @ fc2["w"].to(dt) + fc2["b"].to(dt))
+    return h @ fc3["w"].to(dt)
 
 
 def from_jax_params(tree, device="cpu") -> MLP:

@@ -1,17 +1,20 @@
-"""The port's in-kernel dropout stream for `rng_impl="core"`: Philox4x32-10.
+"""The port's in-kernel dropout stream for the TPU core PRNG: Philox4x32-10.
 
-The JAX package's `rng="core"` form of the epoch kernel draws its masks
-from the TPU core PRNG (`pltpu.prng_seed(seed, step)`), a hardware
-generator with no CUDA twin. The port draws them from Philox4x32-10
-(Salmon et al., SC'11; the Random123 constants) instead:
+The JAX package draws two kinds of masks from the TPU core PRNG, a
+hardware generator with no CUDA twin: the epoch kernel's `rng="core"` form
+(`pltpu.prng_seed(seed, step)`) and the per-step kernel's `pallas_rng` form
+(`pltpu.prng_seed(seed, batch block)`). The port draws both from
+Philox4x32-10 (Salmon et al., SC'11; the Random123 constants) instead:
 
-    key = (epoch seed, global step), counter = (row * 128 + col, 0, 0, 0),
+    key = (epoch seed, global step)       the epoch kernel (`mask_block`)
+    key = (step seed, batch block)        the per-step kernel (`rng_mask`)
+    counter = (row * 128 + col, 0, 0, 0), row within the step or block,
     bits = output word 0, keep iff bits < _KEEP_THRESH, value 1/keep.
 
 It is the port's own stream with the same Bernoulli keep distribution, as
 `train/scan.py` of the JAX package says of rbg against threefry: the same
 seed gives other masks than the TPU, and no test compares the two bitwise.
-`csrc/epoch_step.cu` computes the same function as a device function; the
+`csrc/mlp_step.cuh` computes the same function as a device function; the
 card checks the two bit for bit.
 
 Like `ops/threefry.py`, the arithmetic runs on Python ints and on int64
@@ -27,6 +30,9 @@ from ..models.mlp import DROPOUT_RATE, MLP_DIMS
 
 HIDDEN1 = MLP_DIMS[1]
 M32 = 0xFFFFFFFF
+# rows per batch block of the per-step kernel's grid (pallas_step.py
+# MAX_BATCH_BLOCK)
+MAX_BATCH_BLOCK = 512
 # P(bits < _KEEP_THRESH) = 1 - DROPOUT_RATE for uniform uint32 bits
 # (pallas_step.py `_KEEP_THRESH`)
 KEEP_THRESH = int(round((1.0 - DROPOUT_RATE) * 2**32))
@@ -71,3 +77,22 @@ def mask_block(seed: int, step: int, rows: int, device="cpu") -> torch.Tensor:
     return torch.where(bits < KEEP_THRESH, keep,
                        torch.zeros((), dtype=torch.float32, device=device)
                        ).reshape(rows, HIDDEN1)
+
+
+def batch_blocks(batch: int) -> tuple:
+    """(grid, block) of the per-step kernel's batch grid, `_run_fused`'s
+    own: the fewest blocks of at most MAX_BATCH_BLOCK rows, the rows spread
+    evenly over them and rounded up to a multiple of 8."""
+    grid = max(1, -(-batch // MAX_BATCH_BLOCK))
+    block = -(-(-(-batch // grid)) // 8) * 8
+    return grid, block
+
+
+def rng_mask(seed: int, batch: int, device="cpu") -> torch.Tensor:
+    """(batch, 128) pre-scaled mask of the per-step kernel's in-kernel draw
+    for the step seed `seed` (taken mod 2**32): batch block b of
+    `batch_blocks(batch)` is `mask_block(seed, b, block)`, and the rows past
+    `batch` of the last block are dropped."""
+    grid, block = batch_blocks(batch)
+    blocks = [mask_block(seed, b, block, device) for b in range(grid)]
+    return torch.cat(blocks)[:batch]

@@ -54,15 +54,6 @@ NOT_YET_PORTED = {
     "--elastic": "queue 1, item 13 (elastic training)",
     "--reshape": "queue 1, item 13 (elastic training)",
 }
-NOT_YET_PORTED_VALUES = {
-    ("--kernel", "pallas_rng"): "queue 2, K5 (in-kernel dropout draw)",
-    ("--dtype", "bfloat16"): "queue 2, K4 (bf16 operands)",
-}
-
-
-def _not_ported(what: str, where: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported to the PyTorch package yet; "
-                      f"see ROADMAP.md {where}")
 
 
 def configure(argv=None) -> Dict[str, Dict[str, Any]]:
@@ -83,15 +74,21 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
     t.add_argument("--checkpoint", type=str, default="model.pt",
                    help="final save as the reference's torch state_dict "
                         "(.pt/.pth); '' skips the save")
-    t.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    t.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="bfloat16: bf16 operands of the products with f32 "
+                        "master weights in the kernels (and the whole "
+                        "forward/backward of --cached --kernel xla); the "
+                        "streaming --kernel xla step trains in float32, as "
+                        "the JAX trainer's does")
     t.add_argument("--kernel", choices=("auto", "xla", "pallas", "pallas_rng",
                                         "pallas_epoch"), default="auto",
                    help="train step: 'pallas' is the fused step (the CUDA "
                         "kernel on a card, its plain version on the CPU), "
-                        "'xla' the plain autograd step, 'pallas_epoch' the "
-                        "whole-epoch kernel (--cached only), 'auto' (default) "
-                        "the fused step on CUDA with float32 and 'xla' "
-                        "otherwise")
+                        "'pallas_rng' the fused step with its dropout drawn "
+                        "in the kernel (--cached only), 'xla' the plain "
+                        "autograd step, 'pallas_epoch' the whole-epoch kernel "
+                        "(--cached only), 'auto' (default) the fused step on "
+                        "CUDA with float32 and 'xla' otherwise")
     t.add_argument("--cached", action="store_true",
                    help="keep the dataset on the device as uint8 and run "
                         "each epoch with no per-step host sync")
@@ -99,11 +96,12 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
                    help="with --cached: run all epochs with one fetch at the "
                         "end (per-epoch lines printed after)")
     t.add_argument("--impl", choices=("threefry2x32", "rbg"), default=None,
-                   help="PRNG engine of the train key (--cached only). "
-                        "threefry2x32 (default) is jax's reference stream, "
-                        "drawn in the kernel with --kernel pallas_epoch; rbg "
-                        "selects the epoch kernel's own Philox stream (same "
-                        "keep distribution, other masks)")
+                   help="PRNG engine of the train key. threefry2x32 "
+                        "(default) is jax's reference stream: the masks are "
+                        "the JAX trainer's for the same seed; rbg (--cached "
+                        "--kernel pallas_epoch only) selects the epoch "
+                        "kernel's own Philox stream (same keep distribution, "
+                        "other masks)")
     d = p.add_argument_group("data")
     d.add_argument("--path", "--data_path", type=str, default="data/",
                    help="dataset root (IDX files); synthetic data otherwise")
@@ -113,15 +111,13 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
     for arg in rest:
         flag = arg.split("=", 1)[0]
         if flag in NOT_YET_PORTED:
-            raise _not_ported(flag, NOT_YET_PORTED[flag])
+            raise SystemExit(f"{flag} is not ported to the PyTorch package "
+                             f"yet; see ROADMAP.md {NOT_YET_PORTED[flag]}")
     if rest:
         p.error(f"unrecognized arguments: {' '.join(rest)}")
-    for (flag, value), where in NOT_YET_PORTED_VALUES.items():
-        if getattr(a, flag[2:]) == value:
-            raise _not_ported(f"{flag} {value}", where)
-    if a.kernel == "pallas_epoch" and not a.cached:
-        raise SystemExit("--kernel pallas_epoch runs inside the epoch scan; "
-                         "add --cached")
+    if a.kernel in ("pallas_rng", "pallas_epoch") and not a.cached:
+        raise SystemExit(f"--kernel {a.kernel} runs inside the epoch scan; "
+                         f"add --cached")
     if a.kernel == "pallas_epoch" and (
             a.batch_size % 8 != 0 or a.batch_size > EPOCH_KERNEL_MAX_BATCH):
         raise SystemExit(
@@ -130,12 +126,12 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
             f"{a.batch_size} — use --kernel pallas instead")
     if a.fused and not a.cached:
         raise SystemExit("--fused fuses the epoch scan; add --cached")
-    if a.impl is not None and not a.cached:
+    if a.impl == "rbg" and not a.cached:
         raise SystemExit(
-            "--impl selects the threefry key chain of the resident-dataset "
-            "path (--cached); the streaming path draws its masks from a "
-            "torch generator. --impl there is not ported yet; see "
-            "ROADMAP.md queue 1, item 4")
+            "--impl rbg selects the epoch kernel's Philox stream (--cached "
+            "--kernel pallas_epoch); the streaming path draws the TPU rbg "
+            "stream per step in the JAX trainer, which the port does not "
+            "have. Use --impl threefry2x32 here")
     if a.checkpoint and not a.checkpoint.endswith((".pt", ".pth")):
         raise SystemExit(f"--checkpoint {a.checkpoint!r}: the PyTorch package "
                          f"writes .pt/.pth state_dicts only (msgpack needs "

@@ -6,6 +6,12 @@ reshuffle through sampler.set_epoch(e), run the train pass, evaluate the
 FULL test set with dropout off, and print
 `Epoch=e, train_loss=..., val_loss=...` with the reference's units.
 
+The dropout masks follow the JAX trainer's key chain: the train key is
+jax's threefry key `--seed + 1` (ops/threefry.py `key_data`), split once
+per step (`key, sub = split(key)`, as `make_train_step` does), and the
+step's mask is jax's `dropout_mask(sub, B)`, bit for bit, drawn on the card
+by the K3 threefry device function (ops/fused_step.py `dropout_mask`).
+
 As in the JAX package, the per-step losses stay on the device and are
 fetched once per epoch: no per-step `.item()`. The printed train_loss keeps
 the reference accumulator quirk Σ(batch_mean / B), and mean loss, accuracy
@@ -23,7 +29,9 @@ from typing import Callable, List
 import numpy as np
 import torch
 
-from ..models.mlp import MLP, keep_mask
+from ..models.mlp import MLP, mlp_apply
+from ..ops import threefry
+from ..ops.fused_step import dropout_mask
 from ..ops.loss import cross_entropy
 from ..ops.sgd import sgd_step
 
@@ -31,28 +39,42 @@ from ..ops.sgd import sgd_step
 @dataclass
 class TrainState:
     """The model (its parameters are the trained state; SGD has no other)
-    and the dropout generator, which lives on the model's device (None for
-    the resident-dataset path, whose dropout follows a threefry key)."""
+    and the train key: the (k0, k1) words of the threefry key whose split
+    chain keys the dropout masks."""
     model: MLP
-    generator: torch.Generator | None
+    key: tuple
+
+
+def xla_loss_and_grads(params, x, y, keep):
+    """The plain autograd step's (mean loss, grads tree) on a params tree,
+    with the forward's keyed dropout from the bool keep draw `keep`. The
+    forward runs in x's dtype; the grads are f32, as the params are."""
+    names = [(n, k) for n, layer in params.items() for k in layer]
+    leaves = {n: {k: v.detach().requires_grad_(True) for k, v in layer.items()}
+              for n, layer in params.items()}
+    with torch.enable_grad():
+        loss = cross_entropy(mlp_apply(leaves, x, train=True, keep=keep), y)
+        flat = torch.autograd.grad(loss, [leaves[n][k] for n, k in names])
+    grads = {n: {} for n in params}
+    for (n, k), g in zip(names, flat):
+        grads[n][k] = g
+    return loss.detach(), grads
 
 
 def make_train_step(lr: float) -> Callable:
-    """The plain autograd step (`--kernel xla`): step(model, generator, x,
-    y) -> mean loss as a 0-d device tensor. The dropout draw is the fused
-    step's (`keep_mask` from the same generator), so both steps see the same
-    masks from the same seed."""
-    def step(model, generator, x, y):
-        mask = keep_mask(generator, x.shape[0], x.device)
-        loss = cross_entropy(model(x, train=True, dropout_mask=mask), y)
+    """The plain autograd step (`--kernel xla`): step(model, key, x, y) ->
+    (key', mean loss as a 0-d device tensor). As the JAX package's
+    `make_train_step`: `key, sub = split(key)`, then the forward's keyed
+    dropout with the keep draw of `sub` (the fused step's mask, so both
+    steps see the same masks from the same key). It trains in f32, as the
+    JAX trainer's streaming `xla` path does whatever `--dtype` says."""
+    def step(model, key, x, y):
+        key, sub = threefry.split(key)
+        keep = dropout_mask(sub, x.shape[0], x.device) > 0
         params = model.params()
-        names = [(n, k) for n, layer in params.items() for k in layer]
-        flat = torch.autograd.grad(loss, [params[n][k] for n, k in names])
-        grads = {n: {} for n in params}
-        for (n, k), g in zip(names, flat):
-            grads[n][k] = g
+        loss, grads = xla_loss_and_grads(params, x, y, keep)
         sgd_step(params, grads, lr)
-        return loss.detach()
+        return key, loss
 
     return step
 
@@ -152,11 +174,12 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
     """Run the reference training loop for `epochs` epochs on the model's
     device. Exactly one of `lr` (builds the plain autograd step) or
     `train_step` (e.g. ops.fused_step.make_fused_train_step) is given.
-    Returns (state, per-epoch arrays of the per-step losses)."""
+    Returns (state with the advanced key, per-epoch arrays of the per-step
+    losses)."""
     if (train_step is None) == (lr is None):
         raise ValueError("pass exactly one of lr= or train_step=")
     step = train_step if train_step is not None else make_train_step(lr)
-    model, gen = state.model, state.generator
+    model, key = state.model, state.key
     device = next(model.parameters()).device
     # the test set goes to the device once, not once per epoch
     x_test_dev = torch.as_tensor(x_test, device=device)
@@ -176,11 +199,12 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
             io_seconds += time.perf_counter() - t_io
             if batch is None:
                 break
-            losses.append(step(model, gen, x, y))
+            key, loss = step(model, key, x, y)
+            losses.append(loss)
         losses = torch.stack(losses).cpu().numpy()  # the epoch's one fetch
         val = evaluate(model, x_test_dev, y_test_dev, batch_size)
         dt = time.perf_counter() - t0
         log(epoch_summary(epoch, losses, batch_size, val, dt,
                           io_seconds=io_seconds))
         history.append(losses)
-    return state, history
+    return TrainState(model, key), history

@@ -12,12 +12,23 @@ JAX package's), the raw uint8 pixels sit on the device (`resident_images`,
     per-step keys. Under `impl="threefry2x32"` their words go to the kernel,
     which draws jax's exact masks (K3); under `impl="rbg"` word 0 of `sub`
     seeds the kernel's Philox stream (K2c), as word 0 of the rbg key seeds
-    the TPU core PRNG in the JAX package.
-  * `xla` / `pallas`: a host loop of per-step calls on data already on the
-    device, with no per-step sync: `key, sub = split(key)` per step, the
-    mask is `dropout_mask(sub)` (bitwise JAX's), and the step is the plain
-    autograd step or the fused step (K1). JAX runs these steps as one
-    `lax.scan`; capturing them in a CUDA graph is queued in ROADMAP.md.
+    the TPU core PRNG in the JAX package. `superstep` K runs K steps per
+    kernel iteration (the same bits); a ragged epoch is padded at the index
+    level and the kernel skips the padded steps.
+  * `xla` / `pallas` / `pallas_rng`: a host loop of per-step calls on data
+    already on the device, with no per-step sync: `key, sub = split(key)`
+    per step. `xla` and `pallas` draw the mask `dropout_mask(sub)` (bitwise
+    JAX's, on the card by the K3 device function); `xla` is the autograd
+    step with the forward's keyed dropout, `pallas` the fused step (K1).
+    `pallas_rng` hands word 0 of `sub` to the fused step as its seed and the
+    kernel draws the mask itself (K1-rng), as JAX's `_loss_and_grads` does.
+    JAX runs these steps as one `lax.scan`; capturing them in a CUDA graph
+    is queued in ROADMAP.md.
+
+`dtype="bfloat16"` is JAX's recipe: the gathered batch is cast to bf16;
+`xla` then runs the whole forward and backward in bf16 (the params cast to
+it, f32 grads), and the kernels run their bf16-operand modes (K1-bf16,
+K2-bf16) with f32 master weights.
 
 Keys are `(k0, k1)` tuples of the threefry key words (ops/threefry.py).
 The per-step losses stay on the device and are fetched once per epoch
@@ -38,26 +49,33 @@ from ..data.mnist import device_normalize
 from ..models.mlp import MLP
 from ..ops import threefry
 from ..ops.epoch_step import epoch_fused_sgd
-from ..ops.fused_step import fused_loss_and_grads
-from ..ops.loss import cross_entropy
+from ..ops.fused_step import (dropout_mask, fused_loss_and_grads,
+                              fused_loss_and_grads_rng)
 from ..ops.sgd import sgd_step
 from .loop import (_to_device, epoch_summary, evaluate,
-                   make_snapshot_eval_step, val_summary)
+                   make_snapshot_eval_step, val_summary, xla_loss_and_grads)
 
 __all__ = ["device_normalize", "resident_images", "epoch_batch_indices",
            "check_run_args", "make_run_fn", "make_epoch_fn", "fit_cached"]
 
 KERNELS = ("xla", "pallas", "pallas_rng", "pallas_epoch")
+DTYPES = ("float32", "bfloat16")
 IMPLS = ("threefry2x32", "rbg")
 
 
-def _gathered_x(x_all: torch.Tensor, batch_idx: torch.Tensor) -> torch.Tensor:
+def _compute_dtype(dtype: str) -> torch.dtype:
+    return torch.bfloat16 if dtype == "bfloat16" else torch.float32
+
+
+def _gathered_x(x_all: torch.Tensor, batch_idx: torch.Tensor,
+                compute_dt: torch.dtype = torch.float32) -> torch.Tensor:
     """Gather a batch from the resident dataset, normalising on the device
-    when the dataset is uint8-resident. Returns f32 (B, 784)."""
+    (in f32) when the dataset is uint8-resident, then cast to the compute
+    dtype. Returns (B, 784)."""
     x = x_all.index_select(0, batch_idx)
     if x.dtype == torch.uint8:
-        return device_normalize(x)
-    return x.to(torch.float32)
+        x = device_normalize(x)
+    return x.to(torch.float32).to(compute_dt)
 
 
 def resident_images(images: np.ndarray) -> np.ndarray:
@@ -79,16 +97,12 @@ def epoch_batch_indices(sampler, batch_size: int) -> np.ndarray:
 def check_run_args(kernel: str, dtype: str, unroll: int, superstep: int,
                    impl: str) -> None:
     """Raise ValueError, by name, on what the JAX scan layer refuses and on
-    what is not ported yet."""
+    the two JAX options the port has no counterpart for (a step scan to
+    unroll; the TPU rbg stream per step)."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}")
-    if kernel == "pallas_rng":
-        raise ValueError("kernel 'pallas_rng' (in-kernel dropout draw of the "
-                         "per-step kernel) is not ported yet; see ROADMAP.md "
-                         "queue 2, K5")
-    if dtype != "float32":
-        raise ValueError(f"dtype {dtype!r}: only float32 is ported; bf16 "
-                         f"operands are ROADMAP.md queue 2, K4")
+    if dtype not in DTYPES:
+        raise ValueError(f"unknown dtype {dtype!r}")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}; got {impl!r}")
     if superstep != 1:
@@ -97,9 +111,10 @@ def check_run_args(kernel: str, dtype: str, unroll: int, superstep: int,
                 f"superstep={superstep} is a whole-epoch-kernel knob (K SGD "
                 f"sub-steps per grid iteration); kernel={kernel!r} has a "
                 f"per-step loop — use kernel='pallas_epoch'")
-        raise ValueError(f"superstep={superstep} (K sub-steps per kernel "
-                         f"iteration) is not ported yet; see ROADMAP.md "
-                         f"queue 2, K5 (b)")
+        if superstep not in (2, 4, 8):
+            raise ValueError(
+                f"superstep must be 1, 2, 4 or 8 (sub-step loss rows must "
+                f"stay inside one 8-row loss tile); got {superstep}")
     if unroll != 1:
         if kernel == "pallas_epoch":
             raise ValueError(
@@ -121,59 +136,53 @@ def _clone(params):
             for n, layer in params.items()}
 
 
-def _xla_loss_and_grads(params, x, y, mask):
-    """The plain autograd step's loss and grads on a params tree, with a
-    pre-scaled mask (the cached counterpart of loop.make_train_step)."""
-    names = [(n, k) for n, layer in params.items() for k in layer]
-    leaves = {n: {k: v.detach().requires_grad_(True) for k, v in layer.items()}
-              for n, layer in params.items()}
-    with torch.enable_grad():
-        h = torch.relu(x @ leaves["fc1"]["w"] + leaves["fc1"]["b"]) * mask
-        h = torch.relu(h @ leaves["fc2"]["w"] + leaves["fc2"]["b"])
-        loss = cross_entropy(h @ leaves["fc3"]["w"], y)
-        flat = torch.autograd.grad(loss, [leaves[n][k] for n, k in names])
-    grads = {n: {} for n in params}
-    for (n, k), g in zip(names, flat):
-        grads[n][k] = g
-    return loss.detach(), grads
-
-
-def _steps_epoch(params, key, x_all, y_all, idx_e, lr, kernel):
-    """One epoch of per-step calls (`xla` or `pallas`), SGD in place on
-    `params`. Returns (key, losses (S,) on the device)."""
+def _steps_epoch(params, key, x_all, y_all, idx_e, lr, kernel, compute_dt):
+    """One epoch of per-step calls (`xla`, `pallas` or `pallas_rng`), SGD
+    in place on `params`. Returns (key, losses (S,) on the device)."""
     batch = idx_e.shape[1]
     losses = []
     for rows in idx_e:
         key, sub = threefry.split(key)
-        x = _gathered_x(x_all, rows)
+        x = _gathered_x(x_all, rows, compute_dt)
         y = y_all.index_select(0, rows)
-        mask = threefry.dropout_mask(sub, batch, x.device)
-        if kernel == "pallas":
-            loss, grads = fused_loss_and_grads(params, x, y, mask)
+        if kernel == "pallas_rng":
+            loss, grads = fused_loss_and_grads_rng(params, x, y, sub[0])
         else:
-            loss, grads = _xla_loss_and_grads(params, x, y, mask)
+            mask = dropout_mask(sub, batch, x.device)
+            if kernel == "pallas":
+                loss, grads = fused_loss_and_grads(params, x, y, mask)
+            else:
+                loss, grads = xla_loss_and_grads(params, x, y, mask > 0)
         sgd_step(params, grads, lr)
         losses.append(loss)
     return key, torch.stack(losses)
 
 
-def _kernel_epoch(params, key, x_all, y_all, idx_e, lr, impl):
+def _kernel_epoch(params, key, x_all, y_all, idx_e, lr, impl, compute_bf16,
+                  superstep):
     """One epoch through the whole-epoch kernel. Returns (new params, key,
     losses (S,) on the device)."""
     key, sub = threefry.split(key)
     nsteps, batch = idx_e.shape
     rows = idx_e.reshape(-1)
+    # a ragged step count is padded here, at the index level (a few more
+    # gathered rows of row 0); the kernel skips the padded steps
+    pad_steps = (-nsteps) % superstep
+    if pad_steps:
+        rows = torch.cat([rows, rows.new_zeros(pad_steps * batch)])
     # raw uint8 rows go to the kernel as they are; it normalises them
     xp = x_all.index_select(0, rows)
     yp = y_all.index_select(0, rows)
+    kw = dict(compute_bf16=compute_bf16, steps_per_iter=superstep,
+              valid_steps=nsteps)
     if impl == "threefry2x32":
-        keys = _to_device(threefry.to_int32_words(
-            threefry.split(sub, nsteps)).numpy(), xp.device)
+        words = threefry.split(sub, nsteps) + [(0, 0)] * pad_steps
+        keys = _to_device(threefry.to_int32_words(words).numpy(), xp.device)
         params, losses = epoch_fused_sgd(params, xp, yp, keys, lr, batch,
-                                         rng_impl="threefry")
+                                         rng_impl="threefry", **kw)
     else:
         params, losses = epoch_fused_sgd(params, xp, yp, sub[0], lr, batch,
-                                         rng_impl="core")
+                                         rng_impl="core", **kw)
     return params, key, losses
 
 
@@ -186,8 +195,11 @@ def make_run_fn(lr: float, *, dtype: str = "float32", kernel: str = "xla",
     epoch]). Nothing is fetched from the device; `params` is not written.
 
     `impl` names the PRNG engine of the train key, as the JAX package's key
-    type does there (see the module docstring)."""
+    type does there (see the module docstring). `superstep` (kernel
+    'pallas_epoch' only; K in {1, 2, 4, 8}): K steps per epoch-kernel
+    iteration, the same bits."""
     check_run_args(kernel, dtype, unroll, superstep, impl)
+    compute_dt = _compute_dtype(dtype)
 
     def run(params, key, x_all, y_all, idxs):
         params = _clone(params)
@@ -195,11 +207,12 @@ def make_run_fn(lr: float, *, dtype: str = "float32", kernel: str = "xla",
         losses, p_snaps, k_snaps = [], [], []
         for idx_e in idxs:
             if kernel == "pallas_epoch":
-                params, key, ls = _kernel_epoch(params, key, x_all, y_all,
-                                                idx_e, lr, impl)
+                params, key, ls = _kernel_epoch(
+                    params, key, x_all, y_all, idx_e, lr, impl,
+                    dtype == "bfloat16", superstep)
             else:
                 key, ls = _steps_epoch(params, key, x_all, y_all, idx_e, lr,
-                                       kernel)
+                                       kernel, compute_dt)
             losses.append(ls)
             if snapshots:
                 p_snaps.append(_clone(params))

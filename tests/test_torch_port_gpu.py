@@ -16,6 +16,7 @@ rounding of 0 may take the other branch in one of the two summation
 orders; chip_smoke.py PARAM_FRO_RTOL says more)."""
 
 import re
+from functools import partial
 
 import numpy as np
 import pytest
@@ -26,7 +27,8 @@ from pytorch_ddp_mnist_tpu_torch.data.mnist import (device_normalize,
                                                      normalize_images,
                                                      synthetic_mnist)
 from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
-from pytorch_ddp_mnist_tpu_torch.ops import epoch_step, fused_step, threefry
+from pytorch_ddp_mnist_tpu_torch.ops import (epoch_step, fused_step, philox,
+                                             threefry)
 from pytorch_ddp_mnist_tpu_torch.ops.sgd import sgd_step
 from pytorch_ddp_mnist_tpu_torch.train.loop import make_train_step
 
@@ -86,10 +88,13 @@ def test_fused_step_tracks_the_autograd_step_on_card(cuda):
     runs = []
     for step in (make_train_step(0.01), fused_step.make_fused_train_step(0.01)):
         model = MLP(torch.Generator().manual_seed(0)).to(cuda)
-        gen = torch.Generator(device=cuda).manual_seed(1)
+        key = threefry.key_data(1)
         before = fused_step.launch_count["fused_step"]
-        losses = torch.stack([step(model, gen, x[i:i + 128], y[i:i + 128])
-                              for i in range(0, 512, 128)])
+        losses = []
+        for i in range(0, 512, 128):
+            key, loss = step(model, key, x[i:i + 128], y[i:i + 128])
+            losses.append(loss)
+        losses = torch.stack(losses)
         runs.append((losses.cpu(), fused_step.launch_count["fused_step"]
                      - before, model))
     (plain, plain_launches, _), (fused, fused_launches, model) = runs
@@ -208,3 +213,132 @@ def test_cached_cli_runs_one_epoch_kernel_launch_per_epoch(cuda, tmp_path,
     assert rc == 0 and "kernel=pallas_epoch cached fused" in out
     assert re.search(r"^Epoch=1, train_loss=\S+, val_loss=\S+", out, re.M)
     assert epoch_step.launch_count["epoch_step"] == before["epoch_step"] + 2
+
+
+# ---- slice 3: K1-bf16, K1-rng, K2-bf16, K2 superstep, the streaming mask ----
+#
+# bf16 tolerances are the JAX package's pins for its bf16 kernels against
+# step_reference_bf16 (tests/test_pallas_step.py): loss rtol 1e-3, grads
+# rtol 2e-3 / atol 1e-4; over a multi-step epoch, losses rtol 1e-3 / atol
+# 1e-4 and params 2e-3 in relative Frobenius norm (a bf16 rounding that
+# flips in the other summation order moves a value by 2**-8 of itself).
+
+def _bf16_close(got, ref):
+    loss, grads = got
+    ref_loss, ref_grads = ref
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-3, atol=0)
+    for n in ref_grads:
+        for k in ref_grads[n]:
+            torch.testing.assert_close(grads[n][k], ref_grads[n][k],
+                                       rtol=2e-3, atol=1e-4, msg=f"{n}.{k}")
+
+
+@pytest.mark.parametrize("batch", [128, 1000, 3])
+def test_bf16_kernel_matches_its_plain_version(cuda, batch):
+    params, x, y, mask = _inputs(batch, batch, cuda)
+    xb = x.to(torch.bfloat16)
+    before = dict(fused_step.launch_count)
+    got = fused_step.fused_loss_and_grads(params, xb, y, mask)
+    again = fused_step.fused_loss_and_grads(params, xb, y, mask)
+    f32 = fused_step.fused_loss_and_grads(params, x, y, mask)
+    assert fused_step.launch_count["fused_step_bf16"] == \
+        before["fused_step_bf16"] + 2
+    ref = fused_step.step_reference_bf16(params, xb, y, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0])
+    for n in got[1]:
+        for k in got[1][n]:
+            assert torch.equal(got[1][n][k], again[1][n][k])
+    _bf16_close(got, ref)
+    assert not torch.equal(got[0], f32[0])
+
+
+@pytest.mark.parametrize("batch", [128, 600, 3])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_rng_kernel_draws_the_philox_blocks_and_matches_plain(cuda, batch,
+                                                              bf16):
+    params, x, y, _ = _inputs(batch, batch, cuda)
+    x = x.to(torch.bfloat16) if bf16 else x
+    seed = (1 << 31) + batch
+    km = fused_step.kernel_rng_mask(seed, batch, cuda)
+    assert torch.equal(km, philox.rng_mask(seed, batch, cuda))
+    got = fused_step.fused_loss_and_grads_rng(params, x, y, seed)
+    again = fused_step.fused_loss_and_grads_rng(params, x, y, seed)
+    other = fused_step.fused_loss_and_grads_rng(params, x, y, seed + 1)
+    ref = (fused_step.step_reference_bf16 if bf16 else
+           fused_step.fused_loss_and_grads_reference)(params, x, y, km)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and not torch.equal(got[0], other[0])
+    if bf16:
+        _bf16_close(got, ref)
+    else:
+        torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=0)
+        for n in ref[1]:
+            for k in ref[1][n]:
+                torch.testing.assert_close(got[1][n][k], ref[1][n][k],
+                                           rtol=2e-4, atol=1e-6)
+
+
+def test_streaming_mask_is_the_threefry_draw(cuda):
+    for seed in (0, 7, (1 << 31) + 3):
+        key = threefry.split(threefry.key_data(seed))[1]
+        for batch in (128, 3):
+            before = fused_step.launch_count["threefry_mask"]
+            got = fused_step.dropout_mask(key, batch, cuda)
+            assert fused_step.launch_count["threefry_mask"] == before + 1
+            assert torch.equal(got.cpu(),
+                               threefry.dropout_mask(key, batch, "cpu"))
+
+
+def _k1_epoch_bf16(form, inp):
+    pixels, rng = K2_FORMS[form]
+    batch = inp["batch"]
+    params = {n: {k: t.clone() for k, t in layer.items()}
+              for n, layer in inp["params"].items()}
+    losses = []
+    for s in range(inp["y"].shape[0] // batch):
+        rows = slice(s * batch, (s + 1) * batch)
+        x = inp[pixels][rows]
+        x = (device_normalize(x) if pixels == "uint8" else x).to(torch.bfloat16)
+        mask = epoch_step.step_mask(rng, inp[rng], inp["masks"], s, batch,
+                                    x.device)
+        loss, grads = fused_step.fused_loss_and_grads(params, x,
+                                                      inp["y"][rows], mask)
+        sgd_step(params, grads, 0.01)
+        losses.append(loss)
+    return params, torch.stack(losses)
+
+
+@pytest.mark.parametrize("form", list(K2_FORMS))
+def test_bf16_epoch_kernel_matches_k1_bf16_bitwise_and_plain(cuda, form):
+    inp = _epoch_inputs(128, 12, seed=5, device=cuda)
+    before = epoch_step.launch_count["epoch_step_bf16"]
+    got = _leaves(*_epoch(partial(epoch_step.epoch_fused_sgd,
+                                  compute_bf16=True), form, inp))
+    again = _leaves(*_epoch(partial(epoch_step.epoch_fused_sgd,
+                                    compute_bf16=True), form, inp))
+    assert epoch_step.launch_count["epoch_step_bf16"] == before + 2
+    k1 = _leaves(*_k1_epoch_bf16(form, inp))
+    ref = _leaves(*_epoch(partial(epoch_step.epoch_fused_sgd_reference,
+                                  compute_bf16=True), form, inp))
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, k1):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-3, atol=1e-4)
+    for a, r in zip(got[1:], ref[1:]):
+        assert float((a - r).norm() / r.norm()) <= 2e-3
+
+
+@pytest.mark.parametrize("form", ["K2a", "K2c", "K3"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_superstep_is_bitwise_k1_on_a_ragged_epoch(cuda, form, bf16):
+    inp = _epoch_inputs(64, 11, seed=9, device=cuda)
+    fn = partial(epoch_step.epoch_fused_sgd, compute_bf16=bf16)
+    base = _leaves(*_epoch(fn, form, inp))
+    for k in (2, 4, 8):
+        got = _leaves(*_epoch(partial(fn, steps_per_iter=k), form, inp))
+        assert epoch_step.last_launch["steps_per_iter"] == k
+        assert epoch_step.last_launch["staged"] == (form != "K2a")
+        assert got[0].shape == (11,)
+        for a, b in zip(got, base):
+            assert torch.equal(a, b), (form, bf16, k)

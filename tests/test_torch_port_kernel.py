@@ -20,7 +20,7 @@ from pytorch_ddp_mnist_tpu.models.mlp import init_mlp
 from pytorch_ddp_mnist_tpu.ops import pallas_step as jax_k1
 from pytorch_ddp_mnist_tpu_torch.data.mnist import normalize_images, synthetic_mnist
 from pytorch_ddp_mnist_tpu_torch.models.mlp import from_jax_params
-from pytorch_ddp_mnist_tpu_torch.ops import _build, fused_step
+from pytorch_ddp_mnist_tpu_torch.ops import _build, fused_step, threefry
 from pytorch_ddp_mnist_tpu_torch.ops.loss import cross_entropy
 
 LOSS_RTOL = 1e-5
@@ -143,10 +143,12 @@ def test_build_without_nvcc_raises_by_name(monkeypatch, tmp_path):
 
 
 def test_dropout_mask_is_prescaled_keep_draw():
-    gen = torch.Generator().manual_seed(3)
-    m = fused_step.dropout_mask(gen, 512, "cpu")
+    key = threefry.key_data(3)
+    m = fused_step.dropout_mask(key, 512, "cpu")
     assert m.dtype == torch.float32 and m.shape == (512, 128)
     assert set(torch.unique(m).tolist()) == {0.0, 1.25}
     assert abs(float((m > 0).float().mean()) - 0.8) < 0.01
-    again = fused_step.dropout_mask(torch.Generator().manual_seed(3), 512, "cpu")
-    assert torch.equal(m, again)
+    assert torch.equal(m, fused_step.dropout_mask(key, 512, "cpu"))
+    # jax's dropout_mask of the same key, bit for bit
+    ref = jax_k1.dropout_mask(jax.random.key(3), 512)
+    np.testing.assert_array_equal(m.numpy(), np.asarray(ref))

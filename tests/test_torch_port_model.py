@@ -15,9 +15,11 @@ from pytorch_ddp_mnist_tpu.models.mlp import init_mlp, mlp_apply
 from pytorch_ddp_mnist_tpu.ops import loss as jax_loss
 from pytorch_ddp_mnist_tpu.ops.sgd import sgd_step as jax_sgd_step
 from pytorch_ddp_mnist_tpu_torch.models.mlp import (
-    DROPOUT_RATE, MLP, MLP_DIMS, from_jax_params, keep_mask, param_count,
+    DROPOUT_RATE, MLP, MLP_DIMS, from_jax_params, param_count,
     to_numpy_params)
+from pytorch_ddp_mnist_tpu_torch.ops import fused_step
 from pytorch_ddp_mnist_tpu_torch.ops import loss as port_loss
+from pytorch_ddp_mnist_tpu_torch.ops import threefry
 from pytorch_ddp_mnist_tpu_torch.ops.sgd import sgd_step
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -129,8 +131,11 @@ def test_init_is_torch_linear_uniform_and_seeded():
 
 
 def test_keep_mask_rate_and_determinism():
-    m = keep_mask(torch.Generator().manual_seed(0), 1000, "cpu")
+    # the keep draw of the keyed dropout: jax's bernoulli of a threefry key
+    key = threefry.key_data(0)
+    m = fused_step.dropout_mask(key, 1000, "cpu") > 0
     assert m.dtype == torch.bool and m.shape == (1000, 128)
     assert abs(float(m.float().mean()) - (1 - DROPOUT_RATE)) < 0.01
-    assert torch.equal(m, keep_mask(torch.Generator().manual_seed(0), 1000,
-                                    "cpu"))
+    assert torch.equal(m, fused_step.dropout_mask(key, 1000, "cpu") > 0)
+    ref = jax.random.bernoulli(jax.random.key(0), 1 - DROPOUT_RATE, (1000, 128))
+    np.testing.assert_array_equal(m.numpy(), np.asarray(ref))

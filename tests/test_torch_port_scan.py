@@ -136,12 +136,12 @@ def test_epoch_fn_is_the_first_epoch_of_the_run():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"kernel": "pallas_epoch", "superstep": 2}, "superstep=2.*not ported"),
+    ({"kernel": "pallas_epoch", "superstep": 3}, "superstep must be 1, 2, 4 or 8"),
     ({"kernel": "xla", "superstep": 2}, "whole-epoch-kernel knob"),
     ({"kernel": "pallas_epoch", "unroll": 2}, "no per-step scan to unroll"),
     ({"kernel": "pallas", "unroll": 4}, "nothing to unroll"),
-    ({"kernel": "pallas_rng"}, "pallas_rng.*not ported"),
-    ({"kernel": "xla", "dtype": "bfloat16"}, "K4"),
+    ({"kernel": "pallas_rng", "superstep": 4}, "whole-epoch-kernel knob"),
+    ({"kernel": "xla", "dtype": "float16"}, "unknown dtype"),
     ({"kernel": "xla", "impl": "rbg"}, "rbg"),
     ({"kernel": "nope"}, "unknown kernel"),
 ])
@@ -240,7 +240,8 @@ def test_snapshot_eval_matches_jax():
      "<= 1024"),
     (["--fused"], "--fused fuses the epoch scan; add --cached"),
     (["--impl", "rbg"], "--impl.*--cached"),
-    (["--cached", "--kernel", "pallas_rng"], "pallas_rng is not ported"),
+    (["--kernel", "pallas_rng"], "pallas_rng runs inside the epoch scan; "
+     "add --cached"),
 ])
 def test_cli_refuses_unsound_combinations_by_name(argv, match):
     with pytest.raises(SystemExit, match=match):
@@ -288,8 +289,10 @@ def test_bench_kernel_policy_and_refusals(monkeypatch):
     assert bench.resolve_bench_kernel("auto", "float32", "cpu") == "xla"
     assert bench.resolve_bench_kernel("xla", "float32", "cuda") == "xla"
     for argv, match in [(["--mode", "serve"], "--mode serve is not ported"),
-                        (["--dtype", "bfloat16"], "K4"),
-                        (["--superstep", "2"], "K5"),
+                        (["--dtype", "bfloat16", "--superstep", "8"],
+                         "resolved kernel is 'xla'"),
+                        (["--superstep", "2", "--kernel", "xla"],
+                         "whole-epoch-kernel knob"),
                         (["--ring", "allgather"], "K6")]:
         with pytest.raises(SystemExit, match=match):
             bench.main(argv)

@@ -30,6 +30,7 @@ from pytorch_ddp_mnist_tpu_torch.data.loader import BatchLoader
 from pytorch_ddp_mnist_tpu_torch.data.mnist import normalize_images, synthetic_mnist
 from pytorch_ddp_mnist_tpu_torch.models.mlp import from_jax_params, to_numpy_params
 from pytorch_ddp_mnist_tpu_torch.ops import fused_step
+from pytorch_ddp_mnist_tpu_torch.ops.threefry import key_data
 from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
 from pytorch_ddp_mnist_tpu_torch.train import loop
 from pytorch_ddp_mnist_tpu_torch.train.checkpoint import load_checkpoint
@@ -82,8 +83,8 @@ def test_fit_with_the_fused_step_tracks_jax_over_a_run(monkeypatch, epochs):
     # the port: its loop and step factory, fed the same masks
     it = iter(masks)
     monkeypatch.setattr(fused_step, "dropout_mask",
-                        lambda gen, b, device: torch.from_numpy(next(it)))
-    state = loop.TrainState(from_jax_params(tree0), torch.Generator())
+                        lambda key, b, device: torch.from_numpy(next(it)))
+    state = loop.TrainState(from_jax_params(tree0), key_data(1))
     lines = []
     state, history = loop.fit(
         state, BatchLoader(x_all, split.labels, ShardedSampler(n, seed=42),
@@ -105,7 +106,7 @@ def test_fit_with_the_fused_step_tracks_jax_over_a_run(monkeypatch, epochs):
 
 def test_autograd_step_matches_the_fused_step():
     # `--kernel xla` and `--kernel pallas` draw the same masks from the same
-    # generator seed, so their runs agree to f32 rounding
+    # key chain, so their runs agree to f32 rounding
     split = synthetic_mnist(256, 1)
     x = torch.from_numpy(normalize_images(split.images))
     y = torch.from_numpy(split.labels.astype(np.int32))
@@ -113,9 +114,11 @@ def test_autograd_step_matches_the_fused_step():
     runs = []
     for step in (loop.make_train_step(0.01),
                  fused_step.make_fused_train_step(0.01)):
-        model, gen = from_jax_params(tree), torch.Generator().manual_seed(1)
-        losses = [float(step(model, gen, x[i:i + 64], y[i:i + 64]))
-                  for i in range(0, 256, 64)]
+        model, key = from_jax_params(tree), key_data(1)
+        losses = []
+        for i in range(0, 256, 64):
+            key, loss = step(model, key, x[i:i + 64], y[i:i + 64])
+            losses.append(float(loss))
         runs.append((losses, to_numpy_params(model)))
     np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-5)
     _assert_trees_close(runs[0][1], runs[1][1], rtol=1e-4, atol=1e-6)
@@ -184,9 +187,9 @@ def test_cli_without_a_card_exits_naming_it(monkeypatch, capsys):
 @pytest.mark.parametrize("argv,name", [
     (["--parallel"], "--parallel"),
     (["--ckpt_every_steps", "5"], "--ckpt_every_steps"),
-    (["--kernel", "pallas_rng"], "--kernel pallas_rng"),
+    (["--sampler_rng", "torch"], "--sampler_rng"),
     (["--elastic"], "--elastic"),
-    (["--dtype", "bfloat16"], "--dtype bfloat16"),
+    (["--dropout_rng=torch"], "--dropout_rng"),
     (["--download"], "--download"),
     (["--telemetry", "/tmp/t"], "--telemetry"),
     (["--resume=x.pt"], "--resume"),
