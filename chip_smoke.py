@@ -26,7 +26,15 @@ Phases (any failure exits non-zero; no phase is skipped):
                K1 (or K1-bf16) + SGD per step, and against its plain version
                (losses per step; params in Frobenius norm); the superstep
                K = 2/4/8 bitwise equal to K = 1 on the full 469-step epoch
-               (K = 8 pads 3 steps) and on an 11-step epoch.
+               (K = 8 pads 3 steps) and on an 11-step epoch; K6 (the DP
+               epoch kernel's ring) on n replicas of this card, at
+               (all-gather, n = 2, 4) and (reduce-scatter, n = 3, 4), B = 128
+               per replica x 24 steps, uint8 rows, masks/threefry/core:
+               (a) replicas bitwise in lockstep, (b) bitwise K1 per replica
+               + the ring's summation tree + SGD, (c) its plain version,
+               (e) a repeat launch bitwise; (d) a 1-replica ring launch
+               bitwise K2; each replica's in-kernel masks bitwise; one bf16
+               case; a stalled ring ends in RingTimeoutError.
   4. main    — the port's main paths through the entry points a user calls,
                at full width (784-128-128-10, batch 128, lr 0.01, synthetic
                MNIST 60k/10k), each with every kernel's launch count set to 0
@@ -46,11 +54,21 @@ Phases (any failure exits non-zero; no phase is skipped):
                   one epoch in ONE K2-bf16 launch, held against the CPU run;
                g. `bench --epochs 5`, whose JSON line is printed;
                h. `bench --kernel pallas_epoch --dtype bfloat16 --superstep
-                  8 --epochs 5` (K2-bf16 with K = 8).
+                  8 --epochs 5` (K2-bf16 with K = 8);
+               i. `fit_cached(mesh=data_parallel_mesh([cuda:0] * 4))` (what
+                  `--parallel --cached` calls), global batch 512: one
+                  118-step epoch through K6 all-gather (threefry), one
+                  through K6 reduce-scatter (core), 50 steps of `--kernel
+                  pallas` (K1 per replica), each held against the same run
+                  on a 4-replica CPU mesh; `train --parallel --cached
+                  --kernel pallas_epoch` on the 1-card mesh, bitwise the
+                  serial run.
   5. timing  — CUDA-event times of each kernel and form and its plain
                version at the main path's shapes, torch.profiler's device
                time of K1 and the cached epoch, beside the bound computed
-               from those shapes.
+               from those shapes; K6 per (ring, n) over a 118-step epoch
+               beside K2 and a 1-replica ring launch at the same blocks per
+               replica.
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1272,6 +1290,406 @@ def phase_timing_variants(device, launches: dict, worst: dict, card: str):
     return out
 
 
+# ---- slice 4: K6, the DP epoch kernel's ring, on a replica mesh of cuda:0 ----
+
+RING_CASES = (("allgather", 2), ("allgather", 4), ("reduce_scatter", 3),
+              ("reduce_scatter", 4))
+RING_CHECK = (128, 24)       # per-replica batch, steps of the kernel checks
+DP_FORMS = ("K2b", "K3", "K2c")   # uint8 rows; masks, threefry, core
+DP_REPLICAS = 4
+DP_BATCH = DP_REPLICAS * MAIN_BATCH        # the global batch, 512
+DP_EPOCH_STEPS = 118         # 60,000 rows / 512, the last batch wrap-padded
+DP_PALLAS_STEPS = 50
+# K6 against its plain version over a 24-step epoch: losses at TRAIN_RTOL,
+# not LOSS_RTOL. On one of these inputs (all-gather, n = 2, threefry) a
+# ReLU input within rounding of 0 takes the other branch at step 20 in one
+# of the two summation orders and the loss parts by 6.866e-05 (3.4e-05
+# relative; seen on an H100). Two plain versions part by the same 6.866e-05
+# on the CPU (f32 against f64 products, same inputs), and K6 is held
+# BITWISE against K1 + the ring tree + SGD on every case, so this is the
+# plain version's summation order, not the kernel. Params by PARAM_FRO_RTOL.
+K6_LOSS_TOL = (TRAIN_RTOL, 1e-6)
+RING_TPU_LINE = {"allgather": 769, "reduce_scatter": 702}
+N_PARAMS = 784 * 128 + 128 + 128 * 128 + 128 + 128 * 10
+
+
+def _dp_inputs(n: int, batch: int, nsteps: int, seed: int, device) -> dict:
+    """n replicas' K2 inputs (rows, labels, masks, threefry key tables)
+    from seeds seed..seed+n-1, one core seed, the same weights for all."""
+    per = [_k2_inputs(batch, nsteps, seed + r, device) for r in range(n)]
+    inp = {k: [p[k] for p in per] for k in ("uint8", "f32", "y", "masks",
+                                             "threefry")}
+    inp["params"] = [{name: {k: t.clone() for k, t in layer.items()}
+                      for name, layer in per[0]["params"].items()}
+                     for _ in range(n)]
+    inp.update(core=per[0]["core"], batch=batch, n=n)
+    return inp
+
+
+def _dp_call(fn, form: str, inp: dict, ring: str, **kw):
+    pixels, rng = K2_FORMS[form]
+    return fn(inp["params"], inp[pixels], inp["y"],
+              None if rng == "masks" else inp[rng], LR, inp["batch"],
+              masks=inp["masks"] if rng == "masks" else None,
+              rng_impl="threefry" if rng == "threefry" else "core",
+              axis_size=inp["n"], ring=ring, **kw)
+
+
+def _check_dp_case(tag, got, again, k1, ref, n, loss_tol, fro_tol):
+    """K6's checks (a), (b), (e) bitwise and (c) against its plain
+    version; returns the worst absolute error against the plain version
+    and prints the worst relative loss error."""
+    worst = loss_rel = 0.0
+    for r in range(n):
+        mine = _k2_flat(got[0][r], got[1][r])
+        for (name, a), (_, z), (_, b), (_, c) in zip(
+                mine, _k2_flat(got[0][0], got[1][r]),
+                _k2_flat(again[0][r], again[1][r]),
+                _k2_flat(k1[0][r], k1[1][r])):
+            if not torch.equal(a, z):
+                fail(f"{tag}: replica {r}'s {name} differs from replica 0's "
+                     f"(the replicas must stay bitwise in lockstep)")
+            if not torch.equal(a, b):
+                fail(f"{tag}: replica {r}'s {name} differs between two "
+                     f"launches on the same inputs")
+            if not torch.equal(a, c):
+                fail(f"{tag}: replica {r}'s {name} differs from K1 per "
+                     f"replica + the ring's summation tree + SGD by "
+                     f"{float((a - c).abs().max()):.3e} (bitwise expected)")
+        for (name, a), (_, p) in zip(mine, _k2_flat(ref[0][r], ref[1][r])):
+            if a.shape != p.shape or not torch.isfinite(a).all():
+                fail(f"{tag}: {name} shape or non-finite values")
+            diff = (a - p).abs()
+            if name == "losses":
+                rtol, atol = loss_tol
+                if not bool((diff <= atol + rtol * p.abs()).all()):
+                    fail(f"{tag}: replica {r}'s losses off the plain version "
+                         f"by {float(diff.max()):.3e} (rtol {rtol}, atol "
+                         f"{atol})")
+                loss_rel = max(loss_rel, float((diff / p.abs()).max()))
+            else:
+                fro = float(diff.norm() / p.norm())
+                if fro > fro_tol:
+                    fail(f"{tag}: {name} off its plain version by {fro:.3e} "
+                         f"in relative Frobenius norm (limit {fro_tol})")
+            worst = max(worst, float(diff.max()))
+    print(f"[kernels] {tag}: losses' worst relative error against the plain "
+          f"version {loss_rel:.3e} (rtol {loss_tol[0]})")
+    return worst
+
+
+def phase_kernels_k6(device) -> dict:
+    """K6 at B = 128 per replica, 24-step epochs, uint8 rows, in the masks,
+    threefry and core forms, at (all-gather, n = 2, 4) and (reduce-scatter,
+    n = 3, 4): (a) every replica's weights bitwise equal; (b) bitwise K1 per
+    replica + the ring's summation tree as torch adds on the card + SGD,
+    step by step; (c) against epoch_dp_sgd_reference (losses K6_LOSS_TOL,
+    params PARAM_FRO_RTOL); (e) a repeat launch bitwise. Then
+    (d) a 1-replica ring launch bitwise K2, the in-kernel masks of each
+    replica bitwise the plain streams, one bf16 case, and a stalled ring
+    ending in RingTimeoutError. Returns the worst absolute error against
+    the plain version per ring."""
+    from functools import partial
+
+    from pytorch_ddp_mnist_tpu_torch.ops import epoch_step, fused_step
+    batch, nsteps = RING_CHECK
+    worst = {"allgather": 0.0, "reduce_scatter": 0.0}
+    for ring, n in RING_CASES:
+        inp = _dp_inputs(n, batch, nsteps, seed=20 + 10 * n, device=device)
+        for r in range(n):
+            for step in (0, nsteps - 1):
+                for impl, src in (("core", inp["core"]),
+                                  ("threefry", inp["threefry"][r])):
+                    km = epoch_step.kernel_mask_block(
+                        src, step, batch, rng_impl=impl, device=device,
+                        replica=r)
+                    pm = epoch_step.step_mask(impl, src, None, step, batch,
+                                              device, replica=r)
+                    if not torch.equal(km, pm):
+                        fail(f"K6 {ring} n={n}: replica {r}'s in-kernel "
+                             f"{impl} mask of step {step} differs from the "
+                             f"plain stream")
+        for form in DP_FORMS:
+            tag = f"epoch_step_dp_{ring} n={n} {form} B={batch} S={nsteps}"
+            t0 = time.perf_counter()
+            got = _dp_call(epoch_step.epoch_fused_sgd, form, inp, ring)
+            ll = dict(epoch_step.last_launch)
+            if (ll["replicas"], ll["ring"], ll["form"]) != (
+                    n, ring, "/".join(K2_FORMS[form])):
+                fail(f"{tag}: launched {ll}")
+            again = _dp_call(epoch_step.epoch_fused_sgd, form, inp, ring)
+            k1 = _dp_call(epoch_step.epoch_dp_sgd_reference, form, inp, ring,
+                          step_fn=fused_step.fused_loss_and_grads)
+            ref = _dp_call(epoch_step.epoch_dp_sgd_reference, form, inp, ring)
+            torch.cuda.synchronize()
+            err = _check_dp_case(tag, got, again, k1, ref, n, K6_LOSS_TOL,
+                                 PARAM_FRO_RTOL)
+            worst[ring] = max(worst[ring], err)
+            print(f"[kernels] {tag}: final loss of replica 0 "
+                  f"{float(got[1][0][-1]):.7f} vs plain "
+                  f"{float(ref[1][0][-1]):.7f}; worst abs err {err:.3e}; "
+                  f"replicas bitwise in lockstep, bitwise K1 + ring tree + "
+                  f"SGD and a repeat launch ({ll['blocks']} blocks per "
+                  f"replica, {time.perf_counter() - t0:.1f}s)")
+
+    # (d) one replica: the ring kernel is K2 bit for bit
+    inp = _k2_inputs(batch, nsteps, seed=7, device=device)
+    for form in DP_FORMS:
+        pixels, rng = K2_FORMS[form]
+        serial = _k2_flat(*_k2_call(epoch_step.epoch_fused_sgd, form, inp))
+        ps, ls = epoch_step._ring_cuda(
+            [inp["params"]], [inp[pixels]], [inp["y"]], [inp.get(rng)],
+            [inp["masks"] if rng == "masks" else None], LR, batch, rng,
+            nsteps, False, "allgather", 0)
+        for (name, a), (_, b) in zip(_k2_flat(ps[0], ls[0]), serial):
+            if not torch.equal(a, b):
+                fail(f"K6 n=1 {form}: {name} differs from K2 by "
+                     f"{float((a - b).abs().max()):.3e} (bitwise expected)")
+    print(f"[kernels] epoch_step_dp n=1 (one replica's ring launch) bitwise "
+          f"equal to K2 in forms {', '.join(DP_FORMS)} at B={batch} "
+          f"S={nsteps}")
+
+    # bf16: K6 against K1-bf16 per replica + the ring tree + SGD
+    inp = _dp_inputs(2, batch, nsteps, seed=3, device=device)
+    kernel = partial(epoch_step.epoch_fused_sgd, compute_bf16=True)
+    step_bf16 = lambda p, x, y, m: fused_step.fused_loss_and_grads(  # noqa: E731
+        p, x.to(torch.bfloat16), y, m)
+    tag = f"epoch_step_dp_allgather_bf16 n=2 K2c B={batch} S={nsteps}"
+    got = _dp_call(kernel, "K2c", inp, "allgather")
+    again = _dp_call(kernel, "K2c", inp, "allgather")
+    k1 = _dp_call(epoch_step.epoch_dp_sgd_reference, "K2c", inp, "allgather",
+                  step_fn=step_bf16)
+    ref = _dp_call(epoch_step.epoch_dp_sgd_reference, "K2c", inp,
+                   "allgather", compute_bf16=True)
+    torch.cuda.synchronize()
+    err = _check_dp_case(tag, got, again, k1, ref, 2,
+                         (BF16_LOSS_RTOL, BF16_LOSS_ATOL), BF16_PARAM_FRO_RTOL)
+    print(f"[kernels] {tag}: worst abs err {err:.3e}; lockstep, bitwise "
+          f"K1-bf16 + ring tree + SGD and a repeat launch")
+
+    for ring in ("allgather", "reduce_scatter"):
+        t0 = time.perf_counter()
+        e = epoch_step.stalled_ring(device, n=2, ring=ring)
+        if "hop 0" not in str(e):
+            fail(f"a stalled {ring} ring raised {e!r}")
+        print(f"[kernels] stalled {ring} ring (replica 0 never signals hop "
+              f"0): {type(e).__name__} after {time.perf_counter() - t0:.2f}s: "
+              f"{e}")
+    return worst
+
+
+def _dp_fit(device, mesh, tmp: str, *, kernel: str, impl: str, ring: str,
+            limit: int = 0):
+    """fit_cached over `mesh` (the function `--parallel --cached` calls):
+    one epoch of synthetic MNIST at the global batch DP_BATCH, full 10k
+    eval, weights and keys from seeds. Returns (per-step losses, the
+    reference epoch lines, the final params)."""
+    from pytorch_ddp_mnist_tpu_torch.data.mnist import get_mnist, normalize_images
+    from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
+    from pytorch_ddp_mnist_tpu_torch.ops import threefry
+    from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
+    from pytorch_ddp_mnist_tpu_torch.train import scan
+    path = os.path.join(tmp, "no_mnist_here")
+    with contextlib.redirect_stdout(io.StringIO()):
+        train = get_mnist(path, train=True)
+        test = get_mnist(path, train=False)
+    images, labels = train.images, train.labels
+    if limit:
+        images, labels = images[:limit], labels[:limit]
+    model = MLP(torch.Generator().manual_seed(0)).to(device)
+    lines = []
+    _, history = scan.fit_cached(
+        model, threefry.key_data(1), images, labels.astype(np.int32),
+        ShardedSampler(len(images), seed=42), normalize_images(test.images),
+        test.labels.astype(np.int32), epochs=1, batch_size=DP_BATCH, lr=LR,
+        kernel=kernel, impl=impl, mesh=mesh, ring=ring, log=lines.append)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return history[0], lines, {n: {k: v.detach().cpu() for k, v in l.items()}
+                               for n, l in model.params().items()}
+
+
+def phase_main_dp(device, tmp: str) -> dict:
+    """The DP paths at full width on a 4-replica mesh of cuda:0, each held
+    against the same run on a 4-replica CPU mesh (plain versions, the same
+    masks): one 118-step epoch through K6 (all-gather, threefry masks) and
+    one through the reduce-scatter ring (core masks), then 50 steps of
+    `--kernel pallas` (K1 per replica); then `train --parallel --cached
+    --kernel pallas_epoch` through the CLI on the 1-card mesh, equal to the
+    serial run. Returns the launch counts of each path."""
+    from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
+    from pytorch_ddp_mnist_tpu_torch.parallel.mesh import data_parallel_mesh
+    mesh = data_parallel_mesh([device] * DP_REPLICAS)
+    cpu_mesh = data_parallel_mesh(["cpu"] * DP_REPLICAS)
+    cpu = torch.device("cpu")
+    out = {}
+    runs = (("allgather", "threefry2x32", "pallas_epoch", 0,
+             {"epoch_step_dp_allgather": 1}),
+            ("reduce_scatter", "rbg", "pallas_epoch", 0,
+             {"epoch_step_dp_reduce_scatter": 1}),
+            ("auto", "threefry2x32", "pallas", DP_PALLAS_STEPS * DP_BATCH,
+             {"fused_step": DP_PALLAS_STEPS * DP_REPLICAS,
+              "threefry_mask": DP_PALLAS_STEPS * DP_REPLICAS}))
+    for ring, impl, kernel, limit, want in runs:
+        what = (f"fit_cached(mesh=[cuda:0] x {DP_REPLICAS}, kernel={kernel}, "
+                f"impl={impl}, ring={ring})")
+        _reset_counts()
+        t0 = time.perf_counter()
+        losses, lines, params = _dp_fit(device, mesh, tmp, kernel=kernel,
+                                        impl=impl, ring=ring, limit=limit)
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        for line in lines:
+            print(f"[main]   {line}")
+        steps = DP_PALLAS_STEPS if limit else DP_EPOCH_STEPS
+        if not (lines and re.search(r"^Epoch=0, train_loss=[-0-9.e]+, "
+                                    r"val_loss=[-0-9.e]+  \[mean_train=",
+                                    lines[0])):
+            fail(f"{what}: no reference epoch line")
+        if losses.shape != (steps,) or not np.isfinite(losses).all():
+            fail(f"{what}: per-step losses shape {losses.shape}, finite "
+                 f"{bool(np.isfinite(losses).all())}")
+        if not losses[-10:].mean() < losses[:10].mean():
+            fail(f"{what}: losses are not falling")
+        expect_launches(launches, want, what)
+        _reset_counts()
+        cpu_losses, _, cpu_params = _dp_fit(cpu, cpu_mesh, tmp, kernel=kernel,
+                                            impl=impl, ring=ring, limit=limit)
+        expect_launches(_counts(), {}, f"{what} on the CPU mesh")
+        rel = np.abs(losses - cpu_losses) / np.abs(cpu_losses)
+        if not (rel <= TRAIN_RTOL).all():
+            fail(f"{what}: per-step losses off the CPU mesh's by up to "
+                 f"{rel.max():.3e} (rtol {TRAIN_RTOL})")
+        fro = max(float((params[n][k] - cpu_params[n][k]).norm()
+                        / cpu_params[n][k].norm())
+                  for n in params for k in params[n])
+        if fro > PARAM_FRO_RTOL:
+            fail(f"{what}: params off the CPU mesh's by {fro:.3e} in "
+                 f"relative Frobenius norm (limit {PARAM_FRO_RTOL})")
+        print(f"[main] {what}: {steps} steps of {DP_REPLICAS} x {MAIN_BATCH} "
+              f"rows in {wall:.2f}s (wall, upload and eval included); loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; vs the CPU "
+              f"mesh: losses worst rel diff {rel.max():.3e} (rtol "
+              f"{TRAIN_RTOL}), params worst relative Frobenius {fro:.3e} "
+              f"(limit {PARAM_FRO_RTOL})")
+        out[f"fit_cached {kernel} {ring}"] = launches
+
+    argv = _cached_argv(tmp, "--kernel", "pallas_epoch", "--n_epochs", "1",
+                        "--checkpoint", "")
+    _, serial, _ = _run_trainer(cli_train, argv)
+    _reset_counts()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        _, parallel, pout = _run_trainer(cli_train, argv + ["--parallel"])
+    launches = _counts()
+    if "parallel=1x128" not in pout or "ring (K6)" not in err.getvalue():
+        fail(f"train --parallel: banner or note missing: {err.getvalue()!r}")
+    expect_launches(launches, {"epoch_step": 1},
+                    "train --parallel --cached --kernel pallas_epoch on the "
+                    "1-card mesh (the serial kernel: no ring)")
+    if not all(np.array_equal(a, b) for a, b in zip(serial, parallel)):
+        fail("train --parallel on the 1-card mesh differs from the serial run")
+    print("[main] train --parallel --cached --kernel pallas_epoch on the "
+          "1-card mesh: bitwise the serial run's losses; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    out["train --parallel --cached"] = launches
+    return out
+
+
+def k6_bound(n: int, batch: int, nsteps: int, ring: str):
+    """(bound_ms, bound_by, flop, bytes) of one K6 epoch on n replicas,
+    uint8 rows and threefry key tables: the n replicas' products at the f32
+    peak; bytes = each input read once (rows, labels, key tables, weights),
+    each output written once (n weight sets, losses), plus the ring's hops,
+    each hop's bytes written once by the sender and read once by the
+    receiver (all-gather: n (n - 1) gradient blocks a step; reduce-scatter:
+    2 (n - 1) blocks a step, n replicas x 2 (n - 1) hops of a 1/n chunk)."""
+    flops = n * nsteps * k1_bound(batch)[2]
+    rows = n * nsteps * batch
+    blocks = n * (n - 1) if ring == "allgather" else 2 * (n - 1)
+    nbytes = rows * 784 + 4 * rows + 8 * n * nsteps + 2 * 4 * n * N_PARAMS \
+        + 4 * n * nsteps + nsteps * blocks * 2 * 4 * N_PARAMS
+    return _bound(flops, nbytes, PEAK_F32_FLOPS)
+
+
+def phase_timing_k6(device, launches: dict, worst: dict, card: str) -> list:
+    """K6 per (ring, n) at B = 128 per replica over the 4-replica main
+    path's 118-step epoch (uint8 rows, threefry), beside K2 and a 1-replica
+    ring launch at the same blocks per replica, and the plain version."""
+    from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
+    cases = {}
+    for ring, n in RING_CASES:
+        inp = _dp_inputs(n, MAIN_BATCH, DP_EPOCH_STEPS, seed=11, device=device)
+        k6 = lambda: _dp_call(epoch_step.epoch_fused_sgd, "K3", inp, ring)  # noqa: E731
+        k6()
+        G = epoch_step.last_launch["blocks"]
+        one = {k: inp[k][0] for k in ("params", "uint8", "y", "threefry")}
+        one.update(masks=None, batch=MAIN_BATCH)
+        k2 = lambda: _k2_call(lambda *a, **k: epoch_step.epoch_fused_sgd(  # noqa: E731
+            *a, max_blocks=G, **k), "K3", one)
+        ring1 = lambda: epoch_step._ring_cuda(  # noqa: E731
+            [one["params"]], [one["uint8"]], [one["y"]], [one["threefry"]],
+            [None], LR, MAIN_BATCH, "threefry", DP_EPOCH_STEPS, False,
+            "allgather", G)
+        plain = lambda: _dp_call(  # noqa: E731
+            epoch_step.epoch_dp_sgd_reference, "K3", inp, ring)
+        p1 = _time_ms(plain, iters=1, warmup=0)
+        k2_ms, k6_ms, turns = _turns(k2, k6, iters=5, warmup=1)
+        r1 = _time_ms(ring1, iters=5, warmup=1)
+        p2 = _time_ms(plain, iters=1, warmup=0)
+        bound = k6_bound(n, MAIN_BATCH, DP_EPOCH_STEPS, ring)
+        cases[f"{ring} n={n}"] = {
+            "ms": k6_ms, "us_per_step": k6_ms * 1e3 / DP_EPOCH_STEPS,
+            "plain_ms": min(p1, p2), "bound_ms": bound[0],
+            "bound_by": bound[1], "flop": bound[2], "bytes": bound[3],
+            "blocks_per_replica": G, "k2_same_blocks_ms": k2_ms,
+            "ring_n1_same_blocks_ms": r1, "timed_in_turns_k2_k6_k6_k2": turns}
+        print(f"[timing] epoch_step_dp_{ring} n={n} B={MAIN_BATCH} "
+              f"S={DP_EPOCH_STEPS} ({G} blocks per replica): {k6_ms:.3f} ms "
+              f"per epoch launch, {k6_ms * 1e3 / DP_EPOCH_STEPS:.1f} us a "
+              f"step; K2 at {G} blocks {k2_ms:.3f} ms; one replica's ring "
+              f"launch at {G} blocks {r1:.3f} ms; plain {min(p1, p2):.1f} ms; "
+              f"bound {bound[0]:.4f} ms by {bound[1]} (turns "
+              f"{', '.join(f'{v:.3f}' for v in turns)}) [{card}]")
+    # the split of the card at n = 4: fewer blocks per replica than the
+    # co-resident 66, in turns with 66
+    inp = _dp_inputs(DP_REPLICAS, MAIN_BATCH, DP_EPOCH_STEPS, seed=11,
+                     device=device)
+    for ring in ("allgather", "reduce_scatter"):
+        c = cases[f"{ring} n={DP_REPLICAS}"]
+        split = {}
+        for g in (33, 44):
+            fewer = lambda: _dp_call(epoch_step.epoch_fused_sgd, "K3", inp,  # noqa: E731
+                                     ring, max_blocks=g)
+            full = lambda: _dp_call(epoch_step.epoch_fused_sgd, "K3", inp,  # noqa: E731
+                                    ring)
+            split[g], split[c["blocks_per_replica"]], _ = _turns(
+                fewer, full, iters=5, warmup=1)
+        c["ms_by_blocks_per_replica"] = split
+        print(f"[timing] epoch_step_dp_{ring} n={DP_REPLICAS}: ms per epoch "
+              f"launch by blocks per replica "
+              f"{ {g: round(v, 3) for g, v in sorted(split.items())} } "
+              f"[{card}]")
+    out = []
+    for ring, n_main in (("allgather", 4), ("reduce_scatter", 4)):
+        c = cases[f"{ring} n={n_main}"]
+        key = f"epoch_step_dp_{ring}"
+        out.append(_entry(
+            key, "epoch_step.cu", RING_TPU_LINE[ring],
+            launches[f"fit_cached pallas_epoch {ring}"][key], worst[ring],
+            c["ms"], c["plain_ms"],
+            (c["bound_ms"], c["bound_by"], c["flop"], c["bytes"]), card,
+            ring_source="pytorch_ddp_mnist_tpu_torch/csrc/dp_ring.cuh",
+            form=f"K6 {ring}, uint8 rows, threefry masks; n = {n_main} "
+                 f"replicas on one card; top-level numbers at n = {n_main}",
+            batch_per_replica=MAIN_BATCH, steps=DP_EPOCH_STEPS,
+            cases={k: v for k, v in cases.items() if k.startswith(ring)}))
+    print("[timing] epoch_step_dp: no single PyTorch call computes an epoch "
+          "of data-parallel SGD, so library_ms is null")
+    return out
+
+
 def main() -> int:
     name, count, card = phase_device()
     sys.path.insert(0, REPO)
@@ -1285,12 +1703,14 @@ def main() -> int:
     k2_worst = phase_kernels_k2(device)
     worst["epoch_step_bf16"] = phase_kernels_k2_bf16(device)
     phase_superstep(device)
+    k6_worst = phase_kernels_k6(device)
     with tempfile.TemporaryDirectory() as tmp:
         paths = {"train": phase_main_streaming(tmp),
                  "train --kernel pallas --dtype bfloat16":
                      phase_main_streaming_bf16(tmp)}
         k2_launches = phase_main_cached(tmp)
         paths.update(phase_main_cached_variants(tmp))
+        dp_launches = phase_main_dp(device, tmp)
     _, k2_launches["bench --epochs 5"] = phase_bench()
     ss = ("--kernel", "pallas_epoch", "--dtype", "bfloat16", "--superstep",
           "8")
@@ -1301,6 +1721,7 @@ def main() -> int:
                          prof["fused_step"])
     k2_entry = phase_timing_k2(device, k2_launches, k2_worst, card, prof)
     new = phase_timing_variants(device, paths, worst, card)
+    new += phase_timing_k6(device, dp_launches, k6_worst, card)
     times = [entry["ms"], entry["plain_ms"], entry["graph_ms"]]
     times += [f[k] for f in k2_entry["forms"].values()
               for k in ("ms", "plain_ms")]

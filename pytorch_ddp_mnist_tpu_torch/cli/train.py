@@ -4,8 +4,8 @@
     python -m pytorch_ddp_mnist_tpu_torch train [--n_epochs N] [--limit N]
         [--batch_size 128] [--lr 0.01] [--seed 0] [--dtype float32|bfloat16]
         [--kernel auto|xla|pallas|pallas_rng|pallas_epoch] [--cached [--fused]]
-        [--impl threefry2x32|rbg] [--device 0|cpu] [--checkpoint model.pt]
-        [--path data/]
+        [--impl threefry2x32|rbg] [--device 0|cpu] [--parallel]
+        [--checkpoint model.pt] [--path data/]
 
 Trains the reference MLP on MNIST (or the synthetic stand-in), prints the
 reference epoch line every epoch and saves the reference `.pt` state_dict at
@@ -15,6 +15,15 @@ Without `--cached` it streams batches from the host (train/loop.py); with
 it the dataset stays on the device (train/scan.py), `--kernel pallas_rng`
 draws each step's dropout inside the fused kernel, and `--kernel
 pallas_epoch` runs each epoch as one kernel.
+
+`--parallel` trains data parallel over the mesh of every local card
+(parallel/ddp.py; `--device cpu`: one CPU replica), `--batch_size` rows
+per replica: the streaming step with each replica's own mask and the
+fixed-order gradient mean, or `--cached` through the DP scan, where
+`--kernel pallas_epoch` takes the mean in the epoch kernel's ring (K6). A
+machine with one card is a 1-replica mesh. A multi-process world (a
+launcher's RANK/WORLD_SIZE, SLURM, MPI) and `--wireup_method` exit by
+name: the process-level world is not ported.
 
 Seeds: the weights come from a CPU `torch.Generator` seeded `--seed` (so
 every device starts from the same weights). Both paths key their dropout
@@ -26,6 +35,7 @@ the port's own Philox stream instead (the TPU core PRNG has no CUDA twin).
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -34,8 +44,9 @@ import torch
 from ..data.loader import BatchLoader
 from ..data.mnist import get_mnist, normalize_images
 from ..models.mlp import MLP, param_count
-from ..ops.fused_step import make_fused_train_step
+from ..ops.fused_step import make_fused_train_step, make_pallas_dp_train_step
 from ..ops.threefry import key_data
+from ..parallel.ddp import dp_mesh, make_dp_train_step
 from ..parallel.sampler import ShardedSampler
 from ..train.checkpoint import save_checkpoint
 from ..train.config import configure, resolve_kernel
@@ -65,6 +76,41 @@ def resolve_device(spec: str) -> torch.device:
     return torch.device("cuda", index)
 
 
+# launcher variables that announce a multi-process world, as the JAX
+# package's wireup probes them (parallel/wireup.py `detect_method`)
+_WORLD_VARS = (("SLURM_NTASKS", "SLURM_PROCID"),
+               ("OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_RANK"),
+               ("PMI_SIZE", "PMI_RANK"), ("WORLD_SIZE", "RANK"))
+
+
+def launcher_world():
+    """(variable, size) of a multi-process world a launcher announced, or
+    None for a single process."""
+    for size_var, rank_var in _WORLD_VARS:
+        if rank_var in os.environ and size_var in os.environ:
+            try:
+                size = int(os.environ[size_var])
+            except ValueError:
+                continue
+            if size > 1:
+                return size_var, size
+    return None
+
+
+def resolve_mesh(device: torch.device):
+    """The `--parallel` mesh: every local card, or one CPU replica under
+    `--device cpu`. A multi-process world exits by name."""
+    world = launcher_world()
+    if world is not None:
+        raise SystemExit(
+            f"--parallel: the launcher set up a {world[1]}-process world "
+            f"({world[0]}={world[1]}); the process-level world (wireup, gloo "
+            f"on the CPU, NCCL across cards) is not ported to the PyTorch "
+            f"package yet; see ROADMAP.md queue 1, item 6b (the "
+            f"process-level world)")
+    return dp_mesh([device]) if device.type == "cpu" else dp_mesh()
+
+
 def train(argv=None):
     """Everything `main` does; returns (TrainState, per-epoch arrays of the
     per-step losses) for callers that check the run."""
@@ -81,6 +127,25 @@ def train(argv=None):
         check_run_args(kernel, tcfg["dtype"], 1, 1, tcfg["impl"])
     except ValueError as e:
         raise SystemExit(str(e)) from None
+    mesh = resolve_mesh(device) if tcfg["parallel"] else None
+    if mesh is not None:
+        device = mesh[0]
+        if kernel == "pallas_epoch" and len(set(mesh)) > 1:
+            raise SystemExit(
+                f"--parallel --kernel pallas_epoch: the mesh spans "
+                f"{len(set(mesh))} cards; the epoch kernel's ring (K6) runs "
+                f"among replicas of one card, and across cards it needs peer "
+                f"pointers, which wait for a machine with two or more cards "
+                f"(ROADMAP.md queue 2, K6). Use --kernel pallas")
+        if kernel == "pallas_epoch":
+            # stderr: stdout stays the machine-parseable epoch lines
+            print(f"[note] --kernel pallas_epoch --parallel: each step's "
+                  f"gradient mean over the {len(mesh)} replica(s) runs in "
+                  f"the epoch kernel's in-kernel ring (K6)"
+                  f"{'; a 1-replica mesh is the serial kernel' if len(mesh) == 1 else ''}",
+                  file=sys.stderr, flush=True)
+    n_rep = len(mesh) if mesh is not None else 1
+    global_batch = tcfg["batch_size"] * n_rep
 
     train_split = get_mnist(dcfg["path"], train=True)
     test_split = get_mnist(dcfg["path"], train=False)
@@ -97,6 +162,8 @@ def train(argv=None):
             else "cpu")
     mode = (f" cached{' fused' if tcfg['fused'] else ''}"
             if tcfg["cached"] else "")
+    if mesh is not None:
+        mode += f" parallel={n_rep}x{tcfg['batch_size']}"
     print(f"pytorch_ddp_mnist_tpu_torch: device={device} ({name}) "
           f"params={param_count(model.params())} "
           f"batch={tcfg['batch_size']} kernel={kernel}{mode} "
@@ -107,21 +174,27 @@ def train(argv=None):
         key, history = fit_cached(
             model, key, train_split.images,
             train_split.labels.astype(np.int32), sampler, x_test, y_test,
-            epochs=tcfg["n_epochs"], batch_size=tcfg["batch_size"],
+            epochs=tcfg["n_epochs"], batch_size=global_batch,
             lr=tcfg["lr"], kernel=kernel, impl=tcfg["impl"],
-            fused=tcfg["fused"], dtype=tcfg["dtype"])
+            fused=tcfg["fused"], dtype=tcfg["dtype"], mesh=mesh)
         state = TrainState(model, key)
     else:
         loader = BatchLoader(normalize_images(train_split.images),
                              train_split.labels, sampler,
-                             batch_size=tcfg["batch_size"])
-        # the JAX trainer's streaming `xla` step takes no dtype: it trains
-        # in f32 under --dtype bfloat16, and so does this one
-        step = (make_fused_train_step(tcfg["lr"], dtype=tcfg["dtype"])
-                if kernel == "pallas" else None)
+                             batch_size=global_batch)
+        # the JAX trainer's serial streaming `xla` step takes no dtype: it
+        # trains in f32 under --dtype bfloat16, and so does this one; its DP
+        # steps take the dtype
+        if mesh is not None:
+            make = (make_pallas_dp_train_step if kernel == "pallas"
+                    else make_dp_train_step)
+            step = make(mesh, tcfg["lr"], dtype=tcfg["dtype"])
+        else:
+            step = (make_fused_train_step(tcfg["lr"], dtype=tcfg["dtype"])
+                    if kernel == "pallas" else None)
         state, history = fit(TrainState(model, key), loader, x_test,
                              y_test, epochs=tcfg["n_epochs"],
-                             batch_size=tcfg["batch_size"],
+                             batch_size=global_batch,
                              lr=None if step else tcfg["lr"], train_step=step)
     if tcfg["checkpoint"]:
         save_checkpoint(tcfg["checkpoint"], state.model.params())

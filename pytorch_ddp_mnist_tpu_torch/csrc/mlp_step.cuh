@@ -126,11 +126,13 @@ __device__ __forceinline__ float load_x(const __nv_bfloat16* p) {
 constexpr float KEEP = 0.8f;                   // f32(1 - DROPOUT_RATE)
 constexpr uint32_t KEEP_THRESH = 3435973837u;  // round(0.8 * 2**32)
 
-// Philox4x32-10 (Random123 constants) of counter (idx, 0, 0, 0) under key
-// (k0, k1), output word 0: ops/philox.py computes the same bits.
+// Philox4x32-10 (Random123 constants) of counter (idx, word1, 0, 0) under
+// key (k0, k1), output word 0: ops/philox.py computes the same bits. word1
+// is the replica of a data-parallel ring (K6), 0 everywhere else.
 __device__ __forceinline__ uint32_t philox_bits(uint32_t k0, uint32_t k1,
-                                                uint32_t idx) {
-  uint32_t c0 = idx, c1 = 0, c2 = 0, c3 = 0;
+                                                uint32_t idx,
+                                                uint32_t word1 = 0) {
+  uint32_t c0 = idx, c1 = word1, c2 = 0, c3 = 0;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
     if (r) {
@@ -187,10 +189,13 @@ __device__ __forceinline__ float threefry_mask(uint32_t k0, uint32_t k1,
 }
 
 // the core form's keep test and scale, f32(1.0 / (1.0 - DROPOUT_RATE)), for
-// element (row, col) of the (rows, 128) block keyed (k0, k1)
+// element (row, col) of the (rows, 128) block keyed (k0, k1), of replica
+// `replica` of a data-parallel ring
 __device__ __forceinline__ float philox_mask(uint32_t k0, uint32_t k1,
-                                             int row, int col) {
-  return philox_bits(k0, k1, static_cast<uint32_t>(row * H1 + col)) <
+                                             int row, int col,
+                                             uint32_t replica = 0) {
+  return philox_bits(k0, k1, static_cast<uint32_t>(row * H1 + col),
+                     replica) <
                  KEEP_THRESH
              ? static_cast<float>(1.0 / (1.0 - 0.2))
              : 0.0f;

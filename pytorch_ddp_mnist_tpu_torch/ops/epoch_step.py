@@ -19,6 +19,18 @@ at every step, the update stays f32), and with `steps_per_iter` K in
 {1, 2, 4, 8} (the superstep: K steps per kernel iteration, bit for bit the
 K = 1 result; a ragged step count is padded and its padded steps skipped).
 
+With `axis_size=n > 1` it is the DP form (K6, `_make_epoch_kernel` with
+`n_devices > 1`): n replicas each run the epoch on their own rows and
+masks, and every step's gradients are averaged by a ring inside the launch
+(`ring="allgather"`: every replica sums the n origin slots in origin
+order; `"reduce_scatter"`: chunk c of the packed gradient is summed along
+one chain from replica c, then the finished chunks are broadcast), then
+each replica applies `w -= lr * (sum * f32(1/n))`. The replicas end every
+step with bitwise the same weights. The ring's summation trees are the
+TPU kernel's, element by element: the gradients are packed in its row
+layout (`_COMM_LAYOUT`, `EPOCH_COMM_ROWS`, `_rs_chunk_rows`), gw3's rows
+10 wide instead of padded to 128.
+
   * `epoch_fused_sgd(...)` is the public entry. CUDA tensors launch the
     hand-written kernel in `csrc/epoch_step.cu` (one cooperative launch per
     epoch, no float atomics, bitwise repeatable) or raise; it never falls
@@ -31,6 +43,12 @@ K = 1 result; a ragged step count is padded and its padded steps skipped).
   * `kernel_mask_block(...)` returns the mask the kernel draws at one step
     (on CUDA from the kernel's own device function), so a card can compare
     the in-kernel streams with the plain ones bit for bit.
+  * `epoch_dp_sgd_reference` is K6's plain version: each replica's step,
+    then the ring's exact summation tree (`ring_mean`), then SGD.
+    `launch_count` counts K6 as `epoch_step_dp_allgather` and
+    `epoch_step_dp_reduce_scatter` (`_bf16` for the bf16 mode).
+    `stalled_ring(...)` launches K6 with one replica that never signals,
+    to show that a ring wait ends in `RingTimeoutError`, not a hang.
 
 The input params are never written: the kernel copies them to new output
 tensors first, as the TPU kernel does at its step 0.
@@ -39,14 +57,15 @@ tensors first, as the TPU kernel does at its step 0.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from ..data.mnist import device_normalize
 from . import philox, threefry
-from .fused_step import (HIDDEN1, IN_DIM, _WEIGHT_NAMES, _WEIGHT_SHAPES,
-                         _tree, _weights, fused_loss_and_grads_reference,
-                         step_reference_bf16)
+from .fused_step import (HIDDEN1, HIDDEN2, IN_DIM, NUM_CLASSES,
+                         _WEIGHT_NAMES, _WEIGHT_SHAPES, _tree, _weights,
+                         fused_loss_and_grads_reference, step_reference_bf16)
 from .sgd import sgd_step
 
 # Largest per-step batch of the JAX epoch kernel (one VMEM block per step);
@@ -60,15 +79,50 @@ _RNG_CODE = {"masks": 0, "threefry": 1, "core": 2}
 
 STEPS_PER_ITER = (1, 2, 4, 8)
 
+# ---- the DP form (K6) ----
+RINGS = ("auto", "allgather", "reduce_scatter")
+# The JAX kernel keeps one comm slot per replica in VMEM for the all-gather
+# ring and switches to the reduce-scatter ring past this many replicas
+# ('auto'); the port keeps the switch and the refusal for parity.
+EPOCH_KERNEL_MAX_DEVICES = 8
+# the TPU's packed gradient block: (row offset, rows) of gw1, gb1, gw2, gb2
+# and gw3, in pack order; rows are 128 wide (gw3's padded classes)
+PADDED_CLASSES = 128
+_COMM_LAYOUT = (
+    (0, IN_DIM),                                # gw1 rows [0, 784)
+    (IN_DIM, 1),                                # gb1 [784]
+    (IN_DIM + 1, HIDDEN2),                      # gw2 [785, 913)
+    (IN_DIM + 1 + HIDDEN2, 1),                  # gb2 [913]
+    (IN_DIM + 2 + HIDDEN2, PADDED_CLASSES),     # gw3 [914, 1042)
+)
+EPOCH_COMM_ROWS = _COMM_LAYOUT[-1][0] + _COMM_LAYOUT[-1][1]   # 1042
+# the port packs the same rows unpadded: gw3's rows are NUM_CLASSES wide,
+# so the packed block is the weights' own concatenation, w1|b1|w2|b2|w3
+N_PARAMS = (IN_DIM * HIDDEN1 + HIDDEN1 + HIDDEN1 * HIDDEN2 + HIDDEN2
+            + HIDDEN2 * NUM_CLASSES)                           # 118,272
+# the bound of every wait of K6's ring, in seconds: a wait past it ends the
+# launch with RingTimeoutError
+RING_TIMEOUT_S = 5.0
+
 # wrapper calls that launched the CUDA kernel, per form (chip_smoke.py resets
 # and reads them)
 launch_count = {"epoch_step": 0, "epoch_step_bf16": 0,
-                "epoch_step_superstep": 0, "epoch_step_superstep_bf16": 0}
-# what the last launch ran: its grid (blocks of 256 threads), its form
-# ("<uint8|f32>/<masks|threefry|core>"), bf16 mode, steps per iteration and
-# whether it staged its rows, for reports and checks
+                "epoch_step_superstep": 0, "epoch_step_superstep_bf16": 0,
+                "epoch_step_dp_allgather": 0,
+                "epoch_step_dp_allgather_bf16": 0,
+                "epoch_step_dp_reduce_scatter": 0,
+                "epoch_step_dp_reduce_scatter_bf16": 0}
+# what the last launch ran: its blocks (of 256 threads; per replica for K6),
+# its form ("<uint8|f32>/<masks|threefry|core>"), bf16 mode, steps per
+# iteration, whether it staged its rows, its replicas and ring ("" for K2),
+# for reports and checks
 last_launch = {"blocks": 0, "form": "", "bf16": False, "steps_per_iter": 1,
-               "staged": False}
+               "staged": False, "replicas": 1, "ring": ""}
+
+
+class RingTimeoutError(RuntimeError):
+    """A wait of K6's ring passed its bound: a replica never received what
+    it waited for. The message names the wait, the replica, step and hop."""
 
 _lib = None
 
@@ -82,10 +136,20 @@ def _kernel_lib():
         p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
         lib.pdmt_epoch_step.argtypes = ([p, i, p, i, p, p, u] + [p] * 10
                                         + [i, i, i] + [p] * 3
-                                        + [i, i, f, f, ctypes.POINTER(i), p])
+                                        + [i, i, f, f, i, ctypes.POINTER(i),
+                                           p])
         lib.pdmt_epoch_step.restype = i
-        lib.pdmt_epoch_mask.argtypes = [i, p, u, i, i, p, p]
+        lib.pdmt_ring_step.argtypes = ([p, p, p, i, i, i, i, i, u, i, i, f, f,
+                                        f, i, ctypes.c_ulonglong, i, i,
+                                        ctypes.POINTER(i), p])
+        lib.pdmt_ring_step.restype = i
+        lib.pdmt_epoch_mask.argtypes = [i, p, u, i, i, u, p, p]
         lib.pdmt_epoch_mask.restype = i
+        for name in ("pdmt_epoch_n_params", "pdmt_ring_table_fields"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+        lib.pdmt_ring_flags_per_replica.argtypes = [i, i]
+        lib.pdmt_ring_flags_per_replica.restype = i
         lib.pdmt_epoch_stages.argtypes = [i, i]
         lib.pdmt_epoch_stages.restype = i
         lib.pdmt_epoch_scratch_per_row.argtypes = []
@@ -189,9 +253,10 @@ def _check(params, xp, yp, seed_or_keys, batch, masks, rng_impl,
     return rng, nsteps, valid_steps, pad_steps
 
 
-def step_mask(rng, seed_or_keys, masks, step, batch, device):
+def step_mask(rng, seed_or_keys, masks, step, batch, device, replica=0):
     """The plain (batch, 128) mask of `step` in form `rng`; for 'threefry'
-    `seed_or_keys` is the key table (a tensor or its `.tolist()`)."""
+    `seed_or_keys` is the key table (a tensor or its `.tolist()`); for
+    'core' the Philox stream of ring replica `replica` (0: K2's)."""
     if rng == "masks":
         return masks[step * batch:(step + 1) * batch].to(torch.float32)
     if rng == "threefry":
@@ -199,7 +264,8 @@ def step_mask(rng, seed_or_keys, masks, step, batch, device):
         k0, k1 = (int(v) & threefry.M32 for v in
                   (row.tolist() if isinstance(row, torch.Tensor) else row))
         return threefry.mask_block(k0, k1, batch, device)
-    return philox.mask_block(int(seed_or_keys), step, batch, device)
+    return philox.mask_block(int(seed_or_keys), step, batch, device,
+                             replica=replica)
 
 
 @torch.no_grad()
@@ -251,7 +317,8 @@ def _form_key(bf16: bool, steps_per_iter: int) -> str:
 
 
 def _epoch_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
-                compute_bf16, steps_per_iter, valid_steps, pad_steps):
+                compute_bf16, steps_per_iter, valid_steps, pad_steps,
+                max_blocks):
     lib = _kernel_lib()
     dev = xp.device
     x = xp if xp.dtype == torch.uint8 else xp.to(torch.float32)
@@ -282,21 +349,22 @@ def _epoch_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
             *(w.data_ptr() for w in ins), *(w.data_ptr() for w in outs),
             int(compute_bf16), steps_per_iter, valid_steps,
             scratch.data_ptr(), stage.data_ptr() if stage is not None else None,
-            losses.data_ptr(), nsteps, batch, lr, 1.0 / batch,
+            losses.data_ptr(), nsteps, batch, lr, 1.0 / batch, max_blocks,
             ctypes.byref(grid), stream)
     _raise_on(err, "epoch_step kernel launch")
     launch_count[_form_key(compute_bf16, steps_per_iter)] += 1
     last_launch.update(
         blocks=grid.value, bf16=bool(compute_bf16),
         steps_per_iter=steps_per_iter, staged=stage is not None,
-        form=f"{'uint8' if u8 else 'f32'}/{rng}")
+        form=f"{'uint8' if u8 else 'f32'}/{rng}", replicas=1, ring="")
     return _tree(*outs), losses[:valid_steps]
 
 
 def epoch_fused_sgd(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
                     masks=None, rng_impl: str = "core",
                     compute_bf16: bool = False, steps_per_iter: int = 1,
-                    valid_steps=None):
+                    valid_steps=None, axis_size: int = 1, ring: str = "auto",
+                    max_blocks: int = 0):
     """One ENTIRE epoch as one kernel (`--kernel pallas_epoch`): (params, xp
     (S*B, 784) gathered epoch rows, f32 or raw uint8, yp (S*B,) int,
     seed_or_keys, lr, batch=B) -> (new params, losses (S,) f32).
@@ -313,15 +381,31 @@ def epoch_fused_sgd(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
     `valid_steps` losses come back. Masks and keys stay those of the global
     step.
 
+    `axis_size=n > 1` runs the DP form (K6) on n replicas: `params`, `xp`,
+    `yp`, `masks` and the threefry key tables are then sequences of n, one
+    per replica (the params identical), the core seed one int for all (the
+    kernel keys Philox by (seed, step) at counter word 1 = the replica);
+    `ring` picks the allreduce ('auto': all-gather up to
+    EPOCH_KERNEL_MAX_DEVICES replicas, reduce-scatter beyond). Returns
+    (list of n params trees, bitwise equal; list of n per-replica loss
+    tensors). `max_blocks` caps the blocks (per replica for K6; 0: the
+    co-resident maximum cut to the work); the bits do not depend on it.
+
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     version."""
+    if axis_size != 1 or ring != "auto":
+        return _epoch_dp(params, xp, yp, seed_or_keys, lr, batch, masks=masks,
+                         rng_impl=rng_impl, compute_bf16=compute_bf16,
+                         steps_per_iter=steps_per_iter,
+                         valid_steps=valid_steps, axis_size=axis_size,
+                         ring=ring, max_blocks=max_blocks)
     rng, nsteps, valid, pad = _check(params, xp, yp, seed_or_keys, batch,
                                      masks, rng_impl, steps_per_iter,
                                      valid_steps)
     if xp.device.type == "cuda":
         return _epoch_cuda(params, xp, yp, seed_or_keys, lr, batch, masks,
                            rng, nsteps, compute_bf16, steps_per_iter, valid,
-                           pad)
+                           pad, max_blocks)
     if xp.device.type == "cpu":
         return epoch_fused_sgd_reference(
             params, xp, yp, seed_or_keys, lr, batch, masks=masks,
@@ -331,18 +415,331 @@ def epoch_fused_sgd(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
                      f"{xp.device.type}")
 
 
+# ---- K6: the DP form ----
+
+def _rs_chunk_rows(n: int) -> int:
+    """The reduce-scatter ring's chunk height in packed rows:
+    EPOCH_COMM_ROWS split n ways, rounded up to 8 rows (the TPU's f32
+    sublane tile), as the JAX kernel cuts it."""
+    rows = -(-EPOCH_COMM_ROWS // n)
+    return -(-rows // 8) * 8
+
+
+def _row_offset(row: int) -> int:
+    """Floats before packed row `row` (0..EPOCH_COMM_ROWS) in the port's
+    packing: every row 128 wide except gw3's, NUM_CLASSES wide."""
+    w3_row = _COMM_LAYOUT[-1][0]
+    if row <= w3_row:
+        return row * HIDDEN1
+    return w3_row * HIDDEN1 + (row - w3_row) * NUM_CLASSES
+
+
+def rs_chunk_bounds(n: int) -> list:
+    """The n + 1 float offsets of the reduce-scatter ring's chunks in the
+    packed gradient: chunk c holds the packed rows [c*C, (c+1)*C) of the
+    TPU kernel's block, so each element is summed along the same chain as
+    on the TPU. Offsets are multiples of 4 (whole float4s)."""
+    C = _rs_chunk_rows(n)
+    return [_row_offset(min(c * C, EPOCH_COMM_ROWS)) for c in range(n + 1)]
+
+
+def pack(tree) -> torch.Tensor:
+    """A params or grads tree -> the (N_PARAMS,) packed block w1|b1|w2|b2|w3
+    (the TPU's _COMM_LAYOUT rows, gw3 unpadded)."""
+    return torch.cat([t.reshape(-1) for t in _weights(tree)])
+
+
+def unpack(flat: torch.Tensor):
+    """The packed block -> a tree of views into it."""
+    out, at = [], 0
+    for shape in _WEIGHT_SHAPES:
+        size = math.prod(shape)
+        out.append(flat[at:at + size].view(shape))
+        at += size
+    return _tree(*out)
+
+
+def ring_mean(flats, ring: str) -> torch.Tensor:
+    """The mean of n packed gradient blocks by the ring's EXACT summation
+    tree (tests/test_pallas_step.py `_ring_mean_grads`), element by element:
+      allgather       tot = g0; tot = tot + g1; ...; tot * f32(1/n)
+      reduce_scatter  chunk c: s = g_c; s = g_{c+1} + s; ... (ring order
+                      from its origin), then s * f32(1/n)"""
+    n = len(flats)
+    inv = torch.tensor(1.0 / n, dtype=torch.float32, device=flats[0].device)
+    if ring == "allgather":
+        tot = flats[0]
+        for d in range(1, n):
+            tot = tot + flats[d]
+        return tot * inv
+    if ring != "reduce_scatter":
+        raise ValueError(f"ring must be 'allgather' or 'reduce_scatter'; got "
+                         f"{ring!r}")
+    bounds = rs_chunk_bounds(n)
+    out = torch.empty_like(flats[0])
+    for c in range(n):
+        lo, hi = bounds[c], bounds[c + 1]
+        s = flats[c][lo:hi]
+        for k in range(1, n):
+            s = flats[(c + k) % n][lo:hi] + s
+        out[lo:hi] = s * inv
+    return out
+
+
+def _resolve_ring(ring: str, n: int) -> str:
+    """The JAX wrapper's ring checks; returns the strategy to run."""
+    if ring not in RINGS:
+        raise ValueError(f"ring must be 'auto', 'allgather' or "
+                         f"'reduce_scatter'; got {ring!r}")
+    if n == 1 and ring != "auto":
+        raise ValueError(
+            f"ring={ring!r} selects the DP ring allreduce strategy, but "
+            f"axis_size=1 runs the serial kernel (no ring) — a forced "
+            f"strategy here would silently measure the wrong program; drop "
+            f"ring or pass axis_size")
+    if ring == "auto":
+        return ("allgather" if n <= EPOCH_KERNEL_MAX_DEVICES
+                else "reduce_scatter")
+    if ring == "allgather" and n > EPOCH_KERNEL_MAX_DEVICES:
+        raise ValueError(
+            f"ring='allgather' keeps one {EPOCH_COMM_ROWS}x128 f32 comm slot "
+            f"per replica for the fixed-order ring sum; {n} replicas > "
+            f"{EPOCH_KERNEL_MAX_DEVICES} exceeds the JAX kernel's budget. Use "
+            f"ring='reduce_scatter' (the 'auto' default) on larger meshes")
+    return ring
+
+
+def _per_replica(name, value, n):
+    if isinstance(value, (list, tuple)) and len(value) == n:
+        return list(value)
+    raise ValueError(f"axis_size={n}: {name} must be a sequence of {n} "
+                     f"per-replica values; got {type(value).__name__}")
+
+
+def _check_dp(params, xp, yp, seed_or_keys, batch, masks, rng_impl,
+              steps_per_iter, valid_steps, axis_size, ring):
+    """The DP form's validation. Returns (ring, rng, per-replica params,
+    xp, yp, seeds (keys or the shared seed), masks (or Nones), nsteps,
+    valid_steps)."""
+    n = axis_size
+    if not isinstance(n, int) or n < 1:
+        raise ValueError(f"axis_size must be a positive int; got {n!r}")
+    ring = _resolve_ring(ring, n)
+    if steps_per_iter != 1:
+        raise ValueError(
+            "steps_per_iter > 1 is single-replica only: the DP ring "
+            "allreduce handshake is per grid iteration, not per sub-step. "
+            "Use steps_per_iter=1 on DP meshes")
+    params = _per_replica("params", params, n)
+    xp = _per_replica("xp", xp, n)
+    yp = _per_replica("yp", yp, n)
+    masks = ([None] * n if masks is None
+             else _per_replica("masks", masks, n))
+    if rng_impl == "threefry" and masks[0] is None:
+        seeds = _per_replica("seed_or_keys (threefry key tables)",
+                             seed_or_keys, n)
+    else:
+        seeds = [seed_or_keys] * n
+    checked = [_check(params[r], xp[r], yp[r], seeds[r], batch, masks[r],
+                      rng_impl, 1, valid_steps) for r in range(n)]
+    rng, nsteps, valid, _ = checked[0]
+    if any(c[1] != nsteps for c in checked):
+        raise ValueError(f"every replica needs the same step count; got "
+                         f"{[c[1] for c in checked]}")
+    if len({x.dtype for x in xp}) != 1:
+        raise ValueError(f"every replica's rows need one dtype; got "
+                         f"{[x.dtype for x in xp]}")
+    devices = {x.device for x in xp}
+    if len(devices) != 1:
+        raise ValueError(
+            f"the replicas' rows lie on {sorted(map(str, devices))}: K6 runs "
+            f"its ring among replicas of one card (or all on the CPU). "
+            f"Replicas on several cards need peer pointers in its table, "
+            f"which waits for a machine with two or more cards (ROADMAP.md "
+            f"queue 2, K6)")
+    return ring, rng, params, xp, yp, seeds, masks, nsteps, valid
+
+
+@torch.no_grad()
+def epoch_dp_sgd_reference(params, xp, yp, seed_or_keys, lr: float,
+                           batch: int, *, masks=None, rng_impl: str = "core",
+                           compute_bf16: bool = False, axis_size: int,
+                           ring: str = "auto", valid_steps=None,
+                           step_fn=None):
+    """Plain PyTorch version of K6, on any device: per step, each replica's
+    step (`step_fn`, default fused_loss_and_grads_reference, or
+    step_reference_bf16 with `compute_bf16`) on its rows with its mask (the
+    form's stream; core: Philox at counter word 1 = the replica), then the
+    ring's exact summation tree (`ring_mean` on the packed gradients), then
+    sgd_step on every replica's params. Inputs as `epoch_fused_sgd` with
+    `axis_size`; returns (list of n params trees, list of n loss tensors
+    (valid_steps,)). A `step_fn` of the kernel (K1) gives the per-element
+    check of K6 on a card."""
+    ring, rng, params, xp, yp, seeds, masks, nsteps, valid = _check_dp(
+        params, xp, yp, seed_or_keys, batch, masks, rng_impl, 1, valid_steps,
+        axis_size, ring)
+    n = axis_size
+    if step_fn is None:
+        step_fn = (step_reference_bf16 if compute_bf16
+                   else fused_loss_and_grads_reference)
+    ps = [{name: {k: v.detach().to(torch.float32).clone()
+                  for k, v in layer.items()} for name, layer in p.items()}
+          for p in params]
+    if rng == "threefry":   # one fetch of each key table, not one per step
+        seeds = [k.tolist() for k in seeds]
+    losses = [[] for _ in range(n)]
+    for s in range(valid):
+        flats = []
+        for r in range(n):
+            rows = slice(s * batch, (s + 1) * batch)
+            xb = xp[r][rows]
+            xb = device_normalize(xb) if xb.dtype == torch.uint8 else xb.float()
+            mb = step_mask(rng, seeds[r], masks[r], s, batch, xb.device,
+                           replica=r)
+            loss, grads = step_fn(ps[r], xb, yp[r][rows], mb)
+            losses[r].append(loss)
+            flats.append(pack(grads))
+        mean = unpack(ring_mean(flats, ring))
+        for p in ps:
+            sgd_step(p, mean, lr)
+    return ps, [torch.stack(ls) for ls in losses]
+
+
+def _ring_cuda(params, xp, yp, seeds, masks, lr, batch, rng, nsteps,
+               compute_bf16, ring, max_blocks, timeout_s=RING_TIMEOUT_S,
+               fault=-1):
+    """One K6 launch on the replicas' card; raises RingTimeoutError if a
+    wait of the ring passed `timeout_s`. `fault` >= 0 names a replica that
+    never signals its first hop (stalled_ring)."""
+    lib = _kernel_lib()
+    n = len(xp)
+    dev = xp[0].device
+    rs = ring == "reduce_scatter"
+    P = lib.pdmt_epoch_n_params()
+    if P != N_PARAMS or lib.pdmt_ring_table_fields() != 11:
+        raise RuntimeError(f"epoch_step library: {P} params and "
+                           f"{lib.pdmt_ring_table_fields()} table fields, "
+                           f"expected {N_PARAMS} and 11")
+    u8 = int(xp[0].dtype == torch.uint8)
+    xs = [(x if u8 else x.to(torch.float32)).contiguous() for x in xp]
+    ys = [y.to(torch.int32).contiguous() for y in yp]
+    ms = [m.to(torch.float32).contiguous() if m is not None else None
+          for m in masks]
+    keys = [threefry.to_int32_words(k).to(dev) if rng == "threefry" else None
+            for k in seeds]
+    seed = int(seeds[0]) & threefry.M32 if rng == "core" else 0
+    ins = [pack(p).detach().to(torch.float32).contiguous() for p in params]
+    outs = [torch.empty(P, dtype=torch.float32, device=dev) for _ in range(n)]
+    scratch = torch.empty((n, batch * lib.pdmt_epoch_scratch_per_row()),
+                          dtype=torch.float32, device=dev)
+    losses = torch.empty((n, nsteps), dtype=torch.float32, device=dev)
+    comm = torch.empty((n, P if rs else n * P), dtype=torch.float32,
+                       device=dev)
+    bounds = rs_chunk_bounds(n) if rs else None
+    chunk_max = (max(b - a for a, b in zip(bounds, bounds[1:])) if rs else 0)
+    recv = (torch.empty((n, (n - 1) * chunk_max), dtype=torch.float32,
+                        device=dev) if rs else None)
+    flags = torch.zeros((n, lib.pdmt_ring_flags_per_replica(n, int(rs))),
+                        dtype=torch.int32, device=dev)
+    err_rec = torch.zeros(4, dtype=torch.int32, device=dev)
+    ptr = lambda t: t.data_ptr() if t is not None else 0  # noqa: E731
+    table = torch.tensor(
+        [[ptr(xs[r]), ptr(ys[r]), ptr(ms[r]), ptr(keys[r]), ptr(ins[r]),
+          ptr(outs[r]), ptr(scratch[r]), ptr(losses[r]), ptr(comm[r]),
+          ptr(recv[r]) if rs else 0, ptr(flags[r])] for r in range(n)],
+        dtype=torch.int64).to(dev)
+    chunk_lo = (torch.tensor(bounds, dtype=torch.int32).to(dev) if rs
+                else None)
+    group = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pdmt_ring_step(
+            table.data_ptr(), ptr(chunk_lo), err_rec.data_ptr(), n, int(rs),
+            u8, _RNG_CODE[rng], int(compute_bf16), seed, nsteps, batch, lr,
+            1.0 / batch, float(torch.tensor(1.0 / n, dtype=torch.float32)),
+            chunk_max, int(timeout_s * 1e9), fault, max_blocks,
+            ctypes.byref(group), stream)
+    _raise_on(err, "epoch_step ring kernel launch")
+    launch_count[f"epoch_step_dp_{ring}" + ("_bf16" if compute_bf16 else "")] += 1
+    last_launch.update(blocks=group.value, bf16=bool(compute_bf16),
+                       steps_per_iter=1, staged=False,
+                       form=f"{'uint8' if u8 else 'f32'}/{rng}", replicas=n,
+                       ring=ring)
+    what, rep, step, hop = err_rec.tolist()   # the launch's one sync
+    if what:
+        waits = {1: "its replica barrier", 2: "the entry barrier",
+                 3: "the neighbour handshake",
+                 4: f"hop {hop} from its left neighbour"}
+        raise RingTimeoutError(
+            f"K6 {ring} ring of {n} replicas: replica {rep} waited more than "
+            f"{timeout_s} s for {waits.get(what, f'wait {what}')}"
+            f"{f' at step {step}' if step >= 0 else ''}")
+    return [unpack(o) for o in outs], list(losses.unbind(0))
+
+
+def _epoch_dp(params, xp, yp, seed_or_keys, lr, batch, *, masks, rng_impl,
+              compute_bf16, steps_per_iter, valid_steps, axis_size, ring,
+              max_blocks):
+    ring, rng, params, xp, yp, seeds, masks, nsteps, valid = _check_dp(
+        params, xp, yp, seed_or_keys, batch, masks, rng_impl, steps_per_iter,
+        valid_steps, axis_size, ring)
+    if axis_size == 1:     # ring 'auto' only (checked): the serial kernel
+        p, losses = epoch_fused_sgd(
+            params[0], xp[0], yp[0], seeds[0], lr, batch, masks=masks[0],
+            rng_impl=rng_impl, compute_bf16=compute_bf16,
+            valid_steps=valid_steps, max_blocks=max_blocks)
+        return [p], [losses]
+    device = xp[0].device
+    if device.type == "cuda":
+        return _ring_cuda(params, xp, yp, seeds, masks, lr, batch, rng, valid,
+                          compute_bf16, ring, max_blocks)
+    if device.type == "cpu":
+        return epoch_dp_sgd_reference(
+            params, xp, yp, seed_or_keys, lr, batch,
+            masks=None if masks[0] is None else masks,
+            rng_impl=rng_impl, compute_bf16=compute_bf16,
+            axis_size=axis_size, ring=ring, valid_steps=valid_steps)
+    raise ValueError(f"epoch_fused_sgd runs on cuda or cpu, not "
+                     f"{device.type}")
+
+
+def stalled_ring(device, *, n: int = 2, ring: str = "allgather",
+                 timeout_s: float = 0.05):
+    """Launch K6 once on `device` with replica 0 never signalling its first
+    hop (one 1-step epoch at B = 8, zero weights and rows) and return the
+    RingTimeoutError it must end in. A debug entry: it shows that a ring
+    wait is bounded, and is not counted in launch_count."""
+    device = torch.device(device)
+    zeros = unpack(torch.zeros(N_PARAMS, device=device))
+    x = torch.zeros((8, IN_DIM), dtype=torch.uint8, device=device)
+    y = torch.zeros(8, dtype=torch.int32, device=device)
+    before = dict(launch_count)
+    try:
+        _ring_cuda([zeros] * n, [x] * n, [y] * n, [0] * n, [None] * n, 0.0, 8,
+                   "core", 1, False, _resolve_ring(ring, n), 0,
+                   timeout_s=timeout_s, fault=0)
+    except RingTimeoutError as e:
+        return e
+    finally:
+        launch_count.update(before)
+    raise RuntimeError("K6 with a stalled replica finished: its ring waits "
+                       "are not bounded")
+
+
 def kernel_mask_block(seed_or_keys, step: int, batch: int, *,
-                      rng_impl: str, device) -> torch.Tensor:
+                      rng_impl: str, device, replica: int = 0) -> torch.Tensor:
     """The (batch, 128) mask the epoch kernel draws at `step` for rng_impl
-    'core' (seed) or 'threefry' ((S, 2) key words). On a CUDA device it
-    comes from the kernel's own device function (one small launch, not
-    counted in launch_count); on the CPU from the plain version."""
+    'core' (seed; Philox of ring replica `replica`, 0 for K2) or 'threefry'
+    ((S, 2) key words). On a CUDA device it comes from the kernel's own
+    device function (one small launch, not counted in launch_count); on the
+    CPU from the plain version."""
     if rng_impl not in ("core", "threefry"):
         raise ValueError(f"rng_impl must be 'core' or 'threefry'; got "
                          f"{rng_impl!r}")
     device = torch.device(device)
     if device.type == "cpu":
-        return step_mask(rng_impl, seed_or_keys, None, step, batch, device)
+        return step_mask(rng_impl, seed_or_keys, None, step, batch, device,
+                         replica=replica)
     if device.type != "cuda":
         raise ValueError(f"kernel_mask_block runs on cuda or cpu, not "
                          f"{device.type}")
@@ -355,6 +752,7 @@ def kernel_mask_block(seed_or_keys, step: int, batch: int, *,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pdmt_epoch_mask(_RNG_CODE[rng_impl],
                                   keys.data_ptr() if keys is not None else None,
-                                  seed, step, batch, out.data_ptr(), stream)
+                                  seed, step, batch, replica, out.data_ptr(),
+                                  stream)
     _raise_on(err, "epoch_step mask kernel launch")
     return out

@@ -3,7 +3,8 @@
 Port of the K1 part of `pytorch_ddp_mnist_tpu/ops/pallas_step.py`
 (`fused_loss_and_grads` / `fused_loss_and_grads_rng` -> `_run_fused` ->
 `_make_fused_kernel`; `step_reference_bf16`; `dropout_mask`;
-`make_pallas_train_step`), in its four forms:
+`make_pallas_train_step`, `make_pallas_dp_train_step`), in its four
+forms:
 
     K1            f32 x, pre-drawn mask
     K1-bf16       bf16 x: bf16 operands of the six products, f32
@@ -345,3 +346,22 @@ def make_fused_train_step(lr: float, *, dtype: str = "float32"):
         return key, loss
 
     return step
+
+
+def make_pallas_dp_train_step(mesh, lr: float, *, dtype: str = "float32",
+                              comm: str = "pmean"):
+    """The data-parallel `--kernel pallas` step (JAX
+    `make_pallas_dp_train_step`, comm='pmean'): step(model, key, x, y) ->
+    (key', loss). The fused step (K1, or K1-bf16 with `dtype='bfloat16'`)
+    runs once per replica of `mesh` on that replica's shard of the global
+    batch x, with the mask of `fold_in(sub, replica)`; the gradients'
+    fixed-order mean then feeds SGD, and the loss is the replicas' mean
+    (parallel/ddp.py `dp_step`)."""
+    from ..parallel.ddp import dp_step, validate_comm
+    validate_comm(comm)
+    compute_dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+
+    def loss_and_grads(params, x, y, mask):
+        return fused_loss_and_grads(params, x.to(compute_dt), y, mask)
+
+    return dp_step(tuple(mesh), lr, loss_and_grads)

@@ -8,7 +8,9 @@ Philox4x32-10 (Salmon et al., SC'11; the Random123 constants) instead:
 
     key = (epoch seed, global step)       the epoch kernel (`mask_block`)
     key = (step seed, batch block)        the per-step kernel (`rng_mask`)
-    counter = (row * 128 + col, 0, 0, 0), row within the step or block,
+    counter = (row * 128 + col, replica, 0, 0), row within the step or
+    block, replica the data-parallel ring's replica (K6, the TPU's
+    `prng_seed(seed, me, step)`; 0 everywhere else),
     bits = output word 0, keep iff bits < _KEEP_THRESH, value 1/keep.
 
 It is the port's own stream with the same Bernoulli keep distribution, as
@@ -63,15 +65,17 @@ def philox4x32(c0, c1, c2, c3, k0, k1, rounds: int = ROUNDS):
     return c0, c1, c2, c3
 
 
-def mask_block(seed: int, step: int, rows: int, device="cpu") -> torch.Tensor:
+def mask_block(seed: int, step: int, rows: int, device="cpu", *,
+               replica: int = 0) -> torch.Tensor:
     """(rows, 128) pre-scaled mask of global step `step` under epoch seed
-    `seed` (both taken mod 2**32): 1/keep where the element's Philox word is
-    below KEEP_THRESH, else 0. The scale is f32(1.0 / (1.0 - DROPOUT_RATE)),
-    the expression of the JAX core form."""
+    `seed` (both taken mod 2**32), for ring replica `replica` (counter word
+    1; 0 is the single-replica stream): 1/keep where the element's Philox
+    word is below KEEP_THRESH, else 0. The scale is f32(1.0 / (1.0 -
+    DROPOUT_RATE)), the expression of the JAX core form."""
     idx = torch.arange(rows * HIDDEN1, dtype=torch.int64, device=device)
     zero = torch.zeros_like(idx)
-    bits = philox4x32(idx, zero, zero, zero, int(seed) & M32,
-                      int(step) & M32)[0]
+    bits = philox4x32(idx, torch.full_like(idx, int(replica) & M32), zero,
+                      zero, int(seed) & M32, int(step) & M32)[0]
     keep = torch.tensor(1.0 / (1.0 - DROPOUT_RATE), dtype=torch.float32,
                         device=device)
     return torch.where(bits < KEEP_THRESH, keep,

@@ -1,7 +1,8 @@
 """jax's threefry-2x32 stream in plain PyTorch (port of `threefry2x32`,
 `_threefry_mask_block` and `dropout_mask` of
 `pytorch_ddp_mnist_tpu/ops/pallas_step.py`, plus the key chain the
-resident-dataset trainer needs).
+resident-dataset trainer needs, and `fold_in` for the data-parallel
+ones).
 
 Every function here is bit for bit what jax computes under its default
 partitionable threefry (jax >= 0.5), so the port's masks are the JAX
@@ -67,6 +68,15 @@ def split(key, n: int = 2) -> list:
     threefry, split i is both outputs of threefry2x32(k0, k1, 0, i)."""
     k0, k1 = key
     return [threefry2x32(k0, k1, 0, i) for i in range(n)]
+
+
+def fold_in(key, data: int) -> tuple:
+    """`jax.random.fold_in(key, data)` for a threefry key: jax hashes the
+    key with the counter words (0, data mod 2**32), i.e.
+    threefry2x32(k0, k1, 0, data). Every data-parallel path folds the
+    replica index into its key this way."""
+    k0, k1 = key
+    return threefry2x32(k0, k1, 0, int(data) & M32)
 
 
 def to_int32_words(keys) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Config / CLI layer of the serial trainer (port of a subset of
 `pytorch_ddp_mnist_tpu/train/config.py`, plus the `--kernel auto` policy of
 `train/scan.py::resolve_kernel` and the JAX CLI's refusals of unsound
-combinations of `--cached`, `--fused` and `--kernel pallas_epoch`).
+combinations of `--cached`, `--fused` and `--kernel pallas_epoch`), with
+`--parallel` over the single-process mesh of the local cards.
 
 The ported flags keep the JAX trainer's names and defaults, so launch lines
 carry over, except `--checkpoint`, which defaults to `model.pt` (the port
@@ -19,8 +20,7 @@ from ..ops.epoch_step import EPOCH_KERNEL_MAX_BATCH
 
 # flag of the JAX trainer -> where ROADMAP.md queues its port
 NOT_YET_PORTED = {
-    "--parallel": "queue 1, item 6 (DDP over torch.distributed)",
-    "--wireup_method": "queue 1, item 6 (DDP over torch.distributed)",
+    "--wireup_method": "queue 1, item 6b (the process-level world)",
     "--netcdf": "queue 1, item 1 (data plane)",
     "--download": "queue 1, item 1 (data plane)",
     "--hdf5": "queue 1, item 7 (training CLI)",
@@ -68,6 +68,13 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
     t.add_argument("--n_epochs", "--epochs", type=int, default=1)
     t.add_argument("--lr", type=float, default=0.01)
     t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--parallel", action="store_true",
+                   help="data-parallel over the mesh of every local CUDA "
+                        "card (one replica each; one card is a 1-replica "
+                        "mesh), or one CPU replica with --device cpu: the "
+                        "per-rank batch is --batch_size, the per-step "
+                        "gradient mean is in fixed replica order. "
+                        "Multi-process worlds are not ported")
     t.add_argument("--device", type=str, default="0",
                    help="CUDA device ordinal (default 0), or 'cpu' to run "
                         "the plain PyTorch versions of the kernels on the CPU")
@@ -142,6 +149,7 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
             "seed": a.seed, "device": a.device, "checkpoint": a.checkpoint,
             "dtype": a.dtype, "kernel": a.kernel, "cached": a.cached,
             "fused": a.fused, "impl": a.impl or "threefry2x32",
+            "parallel": a.parallel,
         },
         "data": {"path": a.path, "limit": a.limit},
     }

@@ -30,6 +30,19 @@ JAX package's), the raw uint8 pixels sit on the device (`resident_images`,
 it, f32 grads), and the kernels run their bf16-operand modes (K1-bf16,
 K2-bf16) with f32 master weights.
 
+Data parallel (`mesh=`, a tuple of replica devices from
+parallel/mesh.py; `make_dp_run_fn`, `make_dp_epoch_fn`): the index array
+is (E, S, n*B), and each step's global row is split into n consecutive
+B-row shards, one per replica (the JAX package's P(None, None, 'dp')).
+`pallas_epoch` runs each epoch as ONE launch of the DP epoch kernel (K6),
+whose in-kernel ring takes every step's gradient mean; the replicas' keys
+are `split(fold_in(sub, r), S)` (threefry) or the kernel's Philox at
+replica word r (rbg). The per-step kernels fold the replica into each
+step's key (`fold_in(sub, r)`) and average in fixed origin order
+(parallel/ddp.py `replica_mean`). The reported loss is the replicas' mean.
+A 1-replica mesh runs the serial epoch kernel with the serial key chain
+(no ring, as in JAX).
+
 Keys are `(k0, k1)` tuples of the threefry key words (ops/threefry.py).
 The per-step losses stay on the device and are fetched once per epoch
 (once per run with `fused=True`), so `fit_cached` prints the reference
@@ -48,15 +61,18 @@ from ..data.loader import _batched_indices
 from ..data.mnist import device_normalize
 from ..models.mlp import MLP
 from ..ops import threefry
-from ..ops.epoch_step import epoch_fused_sgd
+from ..ops.epoch_step import RINGS, epoch_fused_sgd
 from ..ops.fused_step import (dropout_mask, fused_loss_and_grads,
                               fused_loss_and_grads_rng)
 from ..ops.sgd import sgd_step
+from ..parallel.ddp import (on_device, replica_mean, replicate_state,
+                            validate_comm)
 from .loop import (_to_device, epoch_summary, evaluate,
                    make_snapshot_eval_step, val_summary, xla_loss_and_grads)
 
 __all__ = ["device_normalize", "resident_images", "epoch_batch_indices",
-           "check_run_args", "make_run_fn", "make_epoch_fn", "fit_cached"]
+           "check_run_args", "make_run_fn", "make_epoch_fn", "check_ring",
+           "make_dp_run_fn", "make_dp_epoch_fn", "fit_cached"]
 
 KERNELS = ("xla", "pallas", "pallas_rng", "pallas_epoch")
 DTYPES = ("float32", "bfloat16")
@@ -136,23 +152,28 @@ def _clone(params):
             for n, layer in params.items()}
 
 
+def _loss_and_grads(params, x_all, y_all, rows, key, kernel, compute_dt):
+    """One step's (loss, grads) on the gathered `rows` with the dropout of
+    `key`: `pallas_rng` hands word 0 of the key to the kernel as its seed,
+    `xla` and `pallas` draw the mask `dropout_mask(key)`."""
+    x = _gathered_x(x_all, rows, compute_dt)
+    y = y_all.index_select(0, rows)
+    if kernel == "pallas_rng":
+        return fused_loss_and_grads_rng(params, x, y, key[0])
+    mask = dropout_mask(key, rows.shape[0], x.device)
+    if kernel == "pallas":
+        return fused_loss_and_grads(params, x, y, mask)
+    return xla_loss_and_grads(params, x, y, mask > 0)
+
+
 def _steps_epoch(params, key, x_all, y_all, idx_e, lr, kernel, compute_dt):
     """One epoch of per-step calls (`xla`, `pallas` or `pallas_rng`), SGD
     in place on `params`. Returns (key, losses (S,) on the device)."""
-    batch = idx_e.shape[1]
     losses = []
     for rows in idx_e:
         key, sub = threefry.split(key)
-        x = _gathered_x(x_all, rows, compute_dt)
-        y = y_all.index_select(0, rows)
-        if kernel == "pallas_rng":
-            loss, grads = fused_loss_and_grads_rng(params, x, y, sub[0])
-        else:
-            mask = dropout_mask(sub, batch, x.device)
-            if kernel == "pallas":
-                loss, grads = fused_loss_and_grads(params, x, y, mask)
-            else:
-                loss, grads = xla_loss_and_grads(params, x, y, mask > 0)
+        loss, grads = _loss_and_grads(params, x_all, y_all, rows, sub, kernel,
+                                      compute_dt)
         sgd_step(params, grads, lr)
         losses.append(loss)
     return key, torch.stack(losses)
@@ -241,6 +262,175 @@ def make_epoch_fn(lr: float, *, dtype: str = "float32", kernel: str = "xla",
     return epoch
 
 
+def check_ring(ring: str, kernel: str, n_dev: int) -> None:
+    """`ring` selects the DP epoch kernel's in-kernel allreduce; refused by
+    name wherever it would be a silent no-op (JAX `_check_ring`)."""
+    if ring not in RINGS:
+        raise ValueError(f"ring must be 'auto', 'allgather' or "
+                         f"'reduce_scatter'; got {ring!r}")
+    if ring == "auto":
+        return
+    if kernel != "pallas_epoch" or n_dev == 1:
+        raise ValueError(
+            f"ring={ring!r} selects the DP epoch kernel's in-kernel "
+            f"allreduce strategy; it needs kernel='pallas_epoch' on a "
+            f"multi-device mesh (got kernel={kernel!r}, {n_dev} device(s))")
+
+
+def _dp_steps_epoch(mesh, params, key, data, idx_e, lr, kernel, compute_dt):
+    """One epoch of per-step DP calls: per step `key, sub = split(key)`,
+    replica r takes shard r of the step's rows with the dropout of
+    `fold_in(sub, r)`, then SGD in place on `params` with the replicas'
+    fixed-order mean gradient. Returns (key, losses (S,), the replicas'
+    mean per step)."""
+    n = len(mesh)
+    batch = idx_e.shape[1] // n
+    shards = [data[d][2][:, r * batch:(r + 1) * batch]
+              for r, d in enumerate(mesh)]
+    device = idx_e.device
+    losses = []
+    for s in range(idx_e.shape[0]):
+        key, sub = threefry.split(key)
+        step_losses, grads = [], []
+        for r, dev in enumerate(mesh):
+            x_all, y_all, _ = data[dev]
+            loss, g = _loss_and_grads(on_device(params, dev), x_all, y_all,
+                                      shards[r][s], threefry.fold_in(sub, r),
+                                      kernel, compute_dt)
+            step_losses.append(loss)
+            grads.append(g)
+        sgd_step(params, replica_mean(grads, device), lr)
+        losses.append(replica_mean(step_losses, device))
+    return key, torch.stack(losses)
+
+
+def _dp_kernel_epoch(mesh, reps, key, data, idx_e, lr, impl, compute_bf16,
+                     ring, superstep):
+    """One epoch through the DP epoch kernel (K6) on the per-replica params
+    `reps`. Returns (reps', key, losses (S,): the replicas' mean)."""
+    n = len(mesh)
+    if n == 1:     # the serial kernel and key chain: no ring, as in JAX
+        x_all, y_all, idx = data[mesh[0]]
+        params, key, losses = _kernel_epoch(reps[0], key, x_all, y_all, idx,
+                                            lr, impl, compute_bf16, superstep)
+        return [params], key, losses
+    key, sub = threefry.split(key)
+    nsteps = idx_e.shape[0]
+    batch = idx_e.shape[1] // n
+    xps, yps, seeds = [], [], []
+    for r, dev in enumerate(mesh):
+        x_all, y_all, idx = data[dev]
+        rows = idx[:, r * batch:(r + 1) * batch].reshape(-1)
+        xps.append(x_all.index_select(0, rows))
+        yps.append(y_all.index_select(0, rows))
+        if impl == "threefry2x32":
+            words = threefry.split(threefry.fold_in(sub, r), nsteps)
+            seeds.append(_to_device(threefry.to_int32_words(words).numpy(),
+                                    xps[-1].device))
+    kw = dict(compute_bf16=compute_bf16, axis_size=n, ring=ring)
+    if impl == "threefry2x32":
+        reps, losses = epoch_fused_sgd(reps, xps, yps, seeds, lr, batch,
+                                       rng_impl="threefry", **kw)
+    else:
+        reps, losses = epoch_fused_sgd(reps, xps, yps, sub[0], lr, batch,
+                                       rng_impl="core", **kw)
+    return reps, key, replica_mean(losses, idx_e.device)
+
+
+def check_dp_run_args(mesh, kernel: str, dtype: str, unroll: int,
+                      superstep: int, impl: str, ring: str,
+                      comm: str) -> None:
+    """The DP scan layer's refusals, by name: those of `check_run_args`,
+    the ring's, the comm strategy's, and a superstep on a multi-replica
+    mesh (JAX `make_dp_run_fn`)."""
+    check_run_args(kernel, dtype, unroll, superstep, impl)
+    n = len(mesh)
+    check_ring(ring, kernel, n)
+    validate_comm(comm)
+    if superstep != 1 and n > 1:
+        raise ValueError(
+            f"superstep={superstep} is single-replica only (the DP ring's "
+            f"per-iteration handshake); use superstep=1 on the {n}-device "
+            f"mesh")
+
+
+def _mesh_data(mesh, x_all, y_all, idxs):
+    """{device: (x_all, y_all, idxs)} placed once per distinct device of
+    the mesh (replicas sharing a device share its copy; nothing writes
+    them)."""
+    out = {}
+    for dev in mesh:
+        if dev not in out:
+            out[dev] = (x_all.to(dev), y_all.to(dev), idxs.to(dev))
+    return out
+
+
+def make_dp_run_fn(mesh, lr: float, *, dtype: str = "float32",
+                   kernel: str = "xla", snapshots: bool = False,
+                   unroll: int = 1, superstep: int = 1, ring: str = "auto",
+                   comm: str = "pmean",
+                   impl: str = "threefry2x32") -> Callable:
+    """The whole E-epoch DP run over `mesh` (a tuple of replica devices):
+    run(params, key, x_all, y_all, idxs (E, S, n*B)) -> (params', key',
+    losses (E, S)) or, with `snapshots`, also (p_snaps, [keys]), as
+    `make_run_fn`. The losses are the replicas' mean per step; params'
+    lies on x_all's device. `ring` (kernel 'pallas_epoch' on n > 1
+    replicas) picks K6's allreduce; `superstep` is single-replica only;
+    `comm` must be 'pmean'."""
+    mesh = tuple(mesh)
+    check_dp_run_args(mesh, kernel, dtype, unroll, superstep, impl, ring,
+                      comm)
+    compute_dt = _compute_dtype(dtype)
+
+    def run(params, key, x_all, y_all, idxs):
+        device = x_all.device
+        idxs = _to_device(np.asarray(idxs, np.int32), device)
+        data = _mesh_data(mesh, x_all, y_all, idxs)
+        params = _clone(params)
+        if kernel == "pallas_epoch":
+            reps = replicate_state(mesh, params)
+        losses, p_snaps, k_snaps = [], [], []
+        for e in range(idxs.shape[0]):
+            step_data = {d: (xa, ya, ix[e]) for d, (xa, ya, ix) in data.items()}
+            if kernel == "pallas_epoch":
+                reps, key, ls = _dp_kernel_epoch(
+                    mesh, reps, key, step_data, idxs[e], lr, impl,
+                    dtype == "bfloat16", ring, superstep)
+                params = on_device(reps[0], device)
+            else:
+                key, ls = _dp_steps_epoch(mesh, params, key, step_data,
+                                          idxs[e], lr, kernel, compute_dt)
+            losses.append(ls)
+            if snapshots:
+                p_snaps.append(_clone(params))
+                k_snaps.append(key)
+        losses = torch.stack(losses)
+        if not snapshots:
+            return params, key, losses
+        stacked = {n: {k: torch.stack([p[n][k] for p in p_snaps])
+                       for k in layer} for n, layer in params.items()}
+        return params, key, losses, (stacked, k_snaps)
+
+    return run
+
+
+def make_dp_epoch_fn(mesh, lr: float, *, dtype: str = "float32",
+                     kernel: str = "xla", ring: str = "auto",
+                     comm: str = "pmean",
+                     impl: str = "threefry2x32") -> Callable:
+    """One DP epoch: epoch(params, key, x_all, y_all, idx (S, n*B)) ->
+    (params', key', losses (S,)), the one-element case of make_dp_run_fn."""
+    run = make_dp_run_fn(mesh, lr, dtype=dtype, kernel=kernel, ring=ring,
+                         comm=comm, impl=impl)
+
+    def epoch(params, key, x_all, y_all, idx):
+        params, key, losses = run(params, key, x_all, y_all,
+                                  np.asarray(idx)[None])
+        return params, key, losses[0]
+
+    return epoch
+
+
 def _load_params(model: MLP, params) -> None:
     with torch.no_grad():
         for name, layer in model.params().items():
@@ -251,7 +441,8 @@ def _load_params(model: MLP, params) -> None:
 def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
                epochs: int, batch_size: int, lr: float, kernel: str = "xla",
                impl: str = "threefry2x32", fused: bool = False,
-               dtype: str = "float32", mesh=None, ckpt_every_steps: int = 0,
+               dtype: str = "float32", mesh=None, ring: str = "auto",
+               comm: str = "pmean", ckpt_every_steps: int = 0,
                step_hook=None, start_offset: int = 0, watchdog=None,
                dispatch_profiler=None,
                log: Callable[[str], None] = print):
@@ -264,10 +455,15 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
     lines are still printed, after the device is done; the img/s of the
     line is then the run average.
 
-    The JAX trainer's mesh, step-granular checkpoints, live watchdog and
+    `mesh` (a tuple of replica devices, parallel/mesh.py) trains data
+    parallel (`make_dp_run_fn`): `batch_size` is then the GLOBAL batch,
+    `n` replicas of `batch_size // n` rows each, and the model's device
+    holds the dataset and the eval. `ring` picks K6's allreduce; `comm`
+    must be 'pmean' (the other strategies are refused by name).
+
+    The JAX trainer's step-granular checkpoints, live watchdog and
     dispatch profiler are not ported yet and are refused by name."""
     refused = [
-        (mesh is not None, "a device mesh (DDP)", "queue 1, item 6"),
         (bool(ckpt_every_steps) or step_hook is not None or start_offset,
          "step-granular checkpoints (ckpt_every_steps/step_hook/"
          "start_offset)", "queue 1, item 8"),
@@ -279,6 +475,16 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
         if given:
             raise ValueError(f"{what} is not ported to the PyTorch package "
                              f"yet; see ROADMAP.md {where}")
+    if mesh is not None:
+        mesh = tuple(mesh)
+        if batch_size % len(mesh):
+            raise ValueError(
+                f"fit_cached: global batch {batch_size} does not divide over "
+                f"the {len(mesh)} replicas of the mesh — pass batch_size = "
+                f"per-replica batch x {len(mesh)}")
+        check_dp_run_args(mesh, kernel, dtype, 1, 1, impl, ring, comm)
+    else:
+        check_ring(ring, kernel, 1)
     device = next(model.parameters()).device
     x_all = torch.from_numpy(resident_images(x_train)).to(device)
     y_all = torch.from_numpy(np.asarray(y_train, np.int32)).to(device)
@@ -292,8 +498,10 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
         for epoch in range(epochs):
             sampler.set_epoch(epoch)
             idxs.append(epoch_batch_indices(sampler, batch_size))
-        run = make_run_fn(lr, dtype=dtype, kernel=kernel, snapshots=True,
-                          impl=impl)
+        run = (make_run_fn(lr, dtype=dtype, kernel=kernel, snapshots=True,
+                           impl=impl) if mesh is None else
+               make_dp_run_fn(mesh, lr, dtype=dtype, kernel=kernel,
+                              snapshots=True, ring=ring, impl=impl))
         t0 = time.perf_counter()
         params, key, losses, (p_snaps, _) = run(params, key, x_all, y_all,
                                                 np.stack(idxs))
@@ -310,7 +518,10 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
         _load_params(model, params)
         return key, history
 
-    epoch_fn = make_epoch_fn(lr, dtype=dtype, kernel=kernel, impl=impl)
+    epoch_fn = (make_epoch_fn(lr, dtype=dtype, kernel=kernel, impl=impl)
+                if mesh is None else
+                make_dp_epoch_fn(mesh, lr, dtype=dtype, kernel=kernel,
+                                 ring=ring, impl=impl))
     for epoch in range(epochs):
         t0 = time.perf_counter()
         sampler.set_epoch(epoch)

@@ -13,7 +13,12 @@ same row and gradient code), its in-kernel masks bitwise against the plain
 streams, and against its plain version: losses at rtol 1e-5 / atol 1e-6,
 params in relative Frobenius norm 1e-3 (per element, a ReLU input within
 rounding of 0 may take the other branch in one of the two summation
-orders; chip_smoke.py PARAM_FRO_RTOL says more)."""
+orders; chip_smoke.py PARAM_FRO_RTOL says more). K6, the DP epoch
+kernel's ring, is held on an n-replica mesh on one card: every replica's
+weights bitwise equal after the launch, bitwise equal to K1 per replica +
+the ring's summation tree + SGD (the same row and gradient code), a
+1-replica ring launch bitwise equal to K2, and a stalled ring ending in
+RingTimeoutError."""
 
 import re
 from functools import partial
@@ -30,6 +35,7 @@ from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
 from pytorch_ddp_mnist_tpu_torch.ops import (epoch_step, fused_step, philox,
                                              threefry)
 from pytorch_ddp_mnist_tpu_torch.ops.sgd import sgd_step
+from pytorch_ddp_mnist_tpu_torch.parallel.ddp import make_dp_train_step
 from pytorch_ddp_mnist_tpu_torch.train.loop import make_train_step
 
 pytestmark = pytest.mark.gpu
@@ -342,3 +348,128 @@ def test_superstep_is_bitwise_k1_on_a_ragged_epoch(cuda, form, bf16):
         assert got[0].shape == (11,)
         for a, b in zip(got, base):
             assert torch.equal(a, b), (form, bf16, k)
+
+
+# ---- slice 4: K6, the DP epoch kernel's ring, on a replica mesh of one card ----
+
+RING_CASES = [("allgather", 2), ("allgather", 4), ("reduce_scatter", 3),
+              ("reduce_scatter", 4)]
+DP_FORMS = ("K2b", "K2c", "K3")     # uint8 rows; masks, core, threefry
+
+
+def _dp_inputs(n, batch, nsteps, seed, device):
+    per = [_epoch_inputs(batch, nsteps, seed + r, device) for r in range(n)]
+    inp = {k: [p[k] for p in per] for k in ("uint8", "f32", "y", "masks",
+                                             "threefry")}
+    inp["params"] = [{name: {k: t.clone() for k, t in layer.items()}
+                      for name, layer in per[0]["params"].items()}
+                     for _ in range(n)]
+    inp.update(core=per[0]["core"], batch=batch, n=n)
+    return inp
+
+
+def _dp(fn, form, inp, ring, **kw):
+    pixels, rng = K2_FORMS[form]
+    return fn(inp["params"], inp[pixels], inp["y"],
+              None if rng == "masks" else inp[rng], 0.01, inp["batch"],
+              masks=inp["masks"] if rng == "masks" else None,
+              rng_impl="threefry" if rng == "threefry" else "core",
+              axis_size=inp["n"], ring=ring, **kw)
+
+
+@pytest.mark.parametrize("form", DP_FORMS)
+@pytest.mark.parametrize("ring,n", RING_CASES)
+def test_ring_kernel_keeps_lockstep_and_is_k1_plus_the_ring_tree(cuda, ring,
+                                                                 n, form):
+    inp = _dp_inputs(n, 16, 3, seed=10 * n, device=cuda)
+    key = f"epoch_step_dp_{ring}"
+    before = epoch_step.launch_count[key]
+    ps, ls = _dp(epoch_step.epoch_fused_sgd, form, inp, ring)
+    ps2, ls2 = _dp(epoch_step.epoch_fused_sgd, form, inp, ring)
+    assert epoch_step.launch_count[key] == before + 2
+    assert (epoch_step.last_launch["replicas"],
+            epoch_step.last_launch["ring"]) == (n, ring)
+    k1 = _dp(epoch_step.epoch_dp_sgd_reference, form, inp, ring,
+             step_fn=fused_step.fused_loss_and_grads)
+    ref = _dp(epoch_step.epoch_dp_sgd_reference, form, inp, ring)
+    torch.cuda.synchronize()
+    for r in range(n):
+        got = _leaves(ps[r], ls[r])
+        for a, b, c, d in zip(got, _leaves(ps[0], ls[r]),
+                              _leaves(ps2[r], ls2[r]),
+                              _leaves(k1[0][r], k1[1][r])):
+            assert torch.equal(a, b)        # (a) lockstep
+            assert torch.equal(a, c)        # (e) repeatable
+            assert torch.equal(a, d)        # (b) K1 + ring tree + SGD
+        plain = _leaves(ref[0][r], ref[1][r])
+        torch.testing.assert_close(got[0], plain[0], rtol=1e-5, atol=1e-6)
+        for a, p in zip(got[1:], plain[1:]):
+            assert float((a - p).norm() / p.norm()) <= 1e-3
+
+
+@pytest.mark.parametrize("form", DP_FORMS)
+def test_one_replica_ring_launch_is_the_serial_kernel_bitwise(cuda, form):
+    inp = _epoch_inputs(16, 3, seed=4, device=cuda)
+    serial = _leaves(*_epoch(epoch_step.epoch_fused_sgd, form, inp))
+    pixels, rng = K2_FORMS[form]
+    ps, ls = epoch_step._ring_cuda(
+        [inp["params"]], [inp[pixels]], [inp["y"]], [inp.get(rng)],
+        [inp["masks"] if rng == "masks" else None], 0.01, 16, rng, 3, False,
+        "allgather", 0)
+    for a, b in zip(_leaves(ps[0], ls[0]), serial):
+        assert torch.equal(a, b)
+
+
+def test_in_kernel_philox_of_each_replica_is_the_plain_stream(cuda):
+    seed = (1 << 31) + 5
+    masks = []
+    for replica in (0, 1, 3):
+        km = epoch_step.kernel_mask_block(seed, 2, 64, rng_impl="core",
+                                          device=cuda, replica=replica)
+        pm = epoch_step.step_mask("core", seed, None, 2, 64, cuda,
+                                  replica=replica)
+        assert torch.equal(km, pm)
+        masks.append(km)
+    assert not torch.equal(masks[0], masks[1])
+
+
+@pytest.mark.parametrize("ring", ["allgather", "reduce_scatter"])
+def test_a_stalled_ring_raises_by_name_instead_of_hanging(cuda, ring):
+    err = epoch_step.stalled_ring(cuda, n=2, ring=ring)
+    assert isinstance(err, epoch_step.RingTimeoutError)
+    assert "replica 1" in str(err) and "hop 0" in str(err), str(err)
+
+
+def test_dp_steps_on_a_card_mesh_track_each_other(cuda):
+    split = synthetic_mnist(512, 3)
+    x = torch.from_numpy(normalize_images(split.images)).to(cuda)
+    y = torch.from_numpy(split.labels.astype(np.int32)).to(cuda)
+    mesh = (cuda,) * 2
+    runs = []
+    for make in (make_dp_train_step, fused_step.make_pallas_dp_train_step):
+        model = MLP(torch.Generator().manual_seed(0)).to(cuda)
+        step, key = make(mesh, 0.01), threefry.key_data(1)
+        before = fused_step.launch_count["fused_step"]
+        losses = []
+        for i in range(0, 512, 256):
+            key, loss = step(model, key, x[i:i + 256], y[i:i + 256])
+            losses.append(loss)
+        runs.append((torch.stack(losses).cpu(),
+                     fused_step.launch_count["fused_step"] - before))
+    (plain, plain_k1), (fused, fused_k1) = runs
+    assert (plain_k1, fused_k1) == (0, 4)
+    torch.testing.assert_close(fused, plain, rtol=1e-5, atol=0)
+
+
+def test_parallel_cli_on_one_card_equals_the_serial_run(cuda, tmp_path,
+                                                        capsys):
+    if torch.cuda.device_count() != 1:
+        pytest.skip("--parallel meshes every local card; K6's ring across "
+                    "cards needs peer pointers")
+    argv = ["--cached", "--kernel", "pallas_epoch", "--limit", "1024",
+            "--checkpoint", "", "--path", str(tmp_path / "no_mnist")]
+    _, serial = port_cli.train(argv)
+    _, dp = port_cli.train(argv + ["--parallel"])
+    assert "parallel=1x128" in capsys.readouterr().out
+    for a, b in zip(serial, dp):
+        np.testing.assert_array_equal(a, b)

@@ -198,7 +198,7 @@ def test_fit_cached_prints_jax_epoch_lines(kernel, fused):
 
 
 @pytest.mark.parametrize("kw,where", [
-    ({"mesh": object()}, "item 6"),
+    ({"mesh": (torch.device("cpu"),) * 2, "comm": "int8"}, "item 11"),
     ({"ckpt_every_steps": 5}, "item 8"),
     ({"step_hook": print}, "item 8"),
     ({"start_offset": 3}, "item 8"),

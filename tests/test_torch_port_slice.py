@@ -185,7 +185,7 @@ def test_cli_without_a_card_exits_naming_it(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["--parallel"], "--parallel"),
+    (["--wireup_method", "env"], "--wireup_method"),
     (["--ckpt_every_steps", "5"], "--ckpt_every_steps"),
     (["--sampler_rng", "torch"], "--sampler_rng"),
     (["--elastic"], "--elastic"),
@@ -207,7 +207,8 @@ def test_config_defaults_and_checkpoint_format():
                               "seed": 0, "device": "0",
                               "checkpoint": "model.pt", "dtype": "float32",
                               "kernel": "auto", "cached": False,
-                              "fused": False, "impl": "threefry2x32"}
+                              "fused": False, "impl": "threefry2x32",
+                              "parallel": False}
     assert cfg["data"] == {"path": "data/", "limit": -1}
     with pytest.raises(SystemExit, match="msgpack"):
         configure(["--checkpoint", "model.msgpack"])
