@@ -7,8 +7,9 @@ Phases (any failure exits non-zero; no phase is skipped):
   1. device  — needs torch.cuda.is_available(); prints the card's name,
                the device count and nvidia-smi's name and power limit.
   2. build   — builds every kernel from the sources under
-               pytorch_ddp_mnist_tpu_torch/csrc/ (one nvcc per source, all
-               started together) and prints what `nvcc -Xptxas -v` reported.
+               pytorch_ddp_mnist_tpu_torch/csrc/, and the variant builds of
+               K2-ws (its phase-stamps build), one nvcc per library, all started together, and prints what
+               `nvcc -Xptxas -v` reported.
   3. kernels — holds each kernel against its plain PyTorch version on the
                card, on the same numpy-seeded inputs, with the stated
                tolerances, and checks that repeat launches are bitwise equal:
@@ -20,13 +21,18 @@ Phases (any failure exits non-zero; no phase is skipped):
                masks; the streaming threefry mask bitwise the plain draw;
                K2 (epoch_step) in its four forms (K2a f32 rows + masks, K2b
                uint8 rows + masks, K2c uint8 + in-kernel Philox, K3 uint8 +
-               in-kernel threefry) and K2-bf16 in the three uint8 forms, at
-               B = 128 x 24 steps and B = 8 x 5 steps: in-kernel masks
-               bitwise against the plain streams, the epoch bitwise against
-               K1 (or K1-bf16) + SGD per step, and against its plain version
-               (losses per step; params in Frobenius norm); the superstep
-               K = 2/4/8 bitwise equal to K = 1 on the full 469-step epoch
-               (K = 8 pads 3 steps) and on an 11-step epoch; K6 (the DP
+               in-kernel threefry; the uint8 forms run K2-ws, the
+               weight-stationary design, K2a the rows design, each
+               asserted) and K2-bf16 in the three uint8 forms, at B = 128 x
+               24 steps and B = 8 x 5 steps: in-kernel masks bitwise against
+               the plain streams, the epoch bitwise against K1 (or K1-bf16)
+               + SGD per step, K2-ws bitwise against the rows design on
+               the same inputs, and against its plain version (losses per
+               step; params in Frobenius norm); K2-ws's normalise table
+               bitwise the plain normalise of 0..255; the superstep K =
+               2/4/8 bitwise equal to K = 1 on the full 469-step epoch (K =
+               8 pads 3 steps) and on an 11-step epoch, K2-ws's also
+               bitwise the rows design; K6 (the DP
                epoch kernel's ring) on n replicas of this card, at
                (all-gather, n = 2, 4) and (reduce-scatter, n = 3, 4), B = 128
                per replica x 24 steps, uint8 rows, masks/threefry/core:
@@ -45,30 +51,33 @@ Phases (any failure exits non-zero; no phase is skipped):
                b. `train` streaming --kernel pallas --dtype bfloat16, 50
                   steps (K1-bf16 per step);
                c. `train --cached --kernel pallas_epoch --impl threefry2x32`,
-                  one full epoch of 469 steps in ONE K2 launch, held against
-                  the same run on the CPU (plain versions, same masks);
-               d. `train --cached --fused --n_epochs 2`, two K2 launches;
+                  one full epoch of 469 steps in ONE K2-ws launch, held
+                  against the same run on the CPU (plain versions, same
+                  masks);
+               d. `train --cached --fused --n_epochs 2`, two K2-ws launches;
                e. `train --cached --kernel pallas_rng`, one epoch: 469 K1-rng
                   launches and no mask drawn outside the kernel;
                f. `train --cached --kernel pallas_epoch --dtype bfloat16`,
                   one epoch in ONE K2-bf16 launch, held against the CPU run;
-               g. `bench --epochs 5`, whose JSON line is printed;
+               g. `bench --epochs 5` (K2-ws), whose JSON line is printed;
                h. `bench --kernel pallas_epoch --dtype bfloat16 --superstep
-                  8 --epochs 5` (K2-bf16 with K = 8);
+                  8 --epochs 5` (K2-bf16 with K = 8, the rows design);
                i. `fit_cached(mesh=data_parallel_mesh([cuda:0] * 4))` (what
                   `--parallel --cached` calls), global batch 512: one
                   118-step epoch through K6 all-gather (threefry), one
                   through K6 reduce-scatter (core), 50 steps of `--kernel
                   pallas` (K1 per replica), each held against the same run
                   on a 4-replica CPU mesh; `train --parallel --cached
-                  --kernel pallas_epoch` on the 1-card mesh, bitwise the
-                  serial run.
+                  --kernel pallas_epoch` on the 1-card mesh (K2-ws), bitwise
+                  the serial run.
   5. timing  — CUDA-event times of each kernel and form and its plain
                version at the main path's shapes, torch.profiler's device
                time of K1 and the cached epoch, beside the bound computed
-               from those shapes; K6 per (ring, n) over a 118-step epoch
-               beside K2 and a 1-replica ring launch at the same blocks per
-               replica.
+               from those shapes; K2-ws and the rows design in turns in
+               K2b, K2c, K3 and f32 K = 8, and the per-phase split of a K2c epoch from K2-ws's stamps
+               build; K6 per (ring, n) over a 118-step epoch beside the
+               rows-design K2 and a 1-replica ring launch at the same
+               blocks per replica.
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -146,6 +155,9 @@ K2_CHECKS = ((128, 24), (8, 5))   # (batch, steps) of the kernel checks
 K2_BF16_FORMS = ("K2b", "K2c", "K3")   # the uint8 forms
 SUPERSTEPS = (2, 4, 8)
 TPU_SRC = "pytorch_ddp_mnist_tpu/ops/pallas_step.py"
+# launch_count keys of K2's rows design (csrc/epoch_step.cu epoch_kernel)
+ROWS_DESIGN_KEYS = ("epoch_step", "epoch_step_superstep", "epoch_step_bf16",
+                    "epoch_step_superstep_bf16")
 
 
 def expect_launches(got: dict, want: dict, what: str) -> None:
@@ -182,7 +194,7 @@ def phase_device():
 def phase_build():
     from pytorch_ddp_mnist_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    built = _build.build_all()
+    built = _build.build_all(list(_build.SOURCES) + list(_build.VARIANTS))
     print(f"[build] {len(built)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f}s")
     for name, (so, log) in built.items():
@@ -317,13 +329,33 @@ def _k1_loop(inp: dict, form: str):
     return params, torch.stack(losses)
 
 
+def _design(form: str, batch: int, bf16: bool = False) -> str:
+    """The K2 design the wrapper's rule picks for `form` at `batch`."""
+    from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
+    pixels = K2_FORMS[form][0]
+    return epoch_step.epoch_design(
+        torch.uint8 if pixels == "uint8" else torch.float32, bf16, batch)
+
+
 def phase_kernels_k2(device) -> dict:
     """K2 in every form: its in-kernel masks bitwise against the plain
     streams, a repeat launch bitwise, the epoch bitwise against K1 + SGD
     per step, and the epoch against its plain version (losses at LOSS_RTOL
-    / 1e-6; params by PARAM_FRO_RTOL, see there). Returns the worst absolute
-    error against the plain version per form."""
+    / 1e-6; params by PARAM_FRO_RTOL, see there). The uint8 forms run
+    K2-ws (asserted), held bitwise against the rows design on the same
+    inputs too; K2-ws's normalise table bitwise the plain normalise.
+    Returns the worst absolute error against the plain version per form."""
+    from pytorch_ddp_mnist_tpu_torch.data.mnist import device_normalize
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
+    table = epoch_step.kernel_pixel_table(device)
+    want = device_normalize(torch.arange(256, dtype=torch.uint8,
+                                         device=device))
+    if not torch.equal(table, want[:, None].expand_as(table)):
+        fail(f"K2-ws's normalise table differs from the plain normalise in "
+             f"{int((table != want[:, None]).sum())} of {table.numel()} "
+             f"entries")
+    print(f"[kernels] epoch_ws normalise table: each of its "
+          f"{table.shape[1]} copies bitwise the plain normalise of 0..255")
     worst = {form: 0.0 for form in K2_FORMS}
     for batch, nsteps in K2_CHECKS:
         inp = _k2_inputs(batch, nsteps, seed=batch + nsteps, device=device)
@@ -346,8 +378,22 @@ def phase_kernels_k2(device) -> dict:
             got = _k2_flat(*_k2_call(epoch_step.epoch_fused_sgd, form, inp))
             if epoch_step.last_launch["form"] != "/".join(K2_FORMS[form]):
                 fail(f"{tag}: launched form {epoch_step.last_launch['form']}")
+            design = epoch_step.last_launch["design"]
+            if design != _design(form, batch):
+                fail(f"{tag}: launched the {design!r} design, the rule says "
+                     f"{_design(form, batch)!r}")
             grid = epoch_step.last_launch["blocks"]
             again = _k2_flat(*_k2_call(epoch_step.epoch_fused_sgd, form, inp))
+            if design == "ws":
+                rows = _k2_flat(*_k2_call(epoch_step._epoch_fused_sgd_rows,
+                                          form, inp))
+                if epoch_step.last_launch["design"] != "rows":
+                    fail(f"{tag}: the rows design did not launch")
+                for (name, a), (_, b) in zip(got, rows):
+                    if not torch.equal(a, b):
+                        fail(f"{tag}: K2-ws's {name} differs from the rows "
+                             f"design's by {float((a - b).abs().max()):.3e} "
+                             f"(bitwise expected: the same chains)")
             k1 = _k2_flat(*_k1_loop(inp, form))
             ref = _k2_flat(*_k2_call(epoch_step.epoch_fused_sgd_reference,
                                      form, inp))
@@ -384,10 +430,12 @@ def phase_kernels_k2(device) -> dict:
                 if not torch.equal(inp["params"][n][k], t):
                     fail(f"{tag}: the kernel wrote its input {name}")
             worst[form] = max(worst[form], f_abs)
-            print(f"[kernels] {tag}: final loss {float(got[0][1][-1]):.7f} vs "
-                  f"plain {float(ref[0][1][-1]):.7f}; worst abs err {f_abs:.3e}"
+            print(f"[kernels] {tag}: {design} design; final loss "
+                  f"{float(got[0][1][-1]):.7f} vs plain "
+                  f"{float(ref[0][1][-1]):.7f}; worst abs err {f_abs:.3e}"
                   f", params' worst relative Frobenius err {f_fro:.3e}; "
-                  f"bitwise equal to K1 + SGD per step and to a repeat launch;"
+                  f"bitwise equal to K1 + SGD per step and to a repeat launch"
+                  f"{' and to the rows design' if design == 'ws' else ''};"
                   f" inputs unchanged"
                   f"{'' if rng == 'masks' else '; in-kernel masks bitwise'}"
                   f" (grid {grid} blocks)")
@@ -546,7 +594,8 @@ def phase_kernels_k2_bf16(device) -> float:
             tag = f"epoch_step bf16 {form} B={batch} S={nsteps}"
             got = _k2_flat(*_k2_call(kernel, form, inp))
             if not (epoch_step.last_launch["bf16"] and
-                    epoch_step.last_launch["form"] == "/".join(K2_FORMS[form])):
+                    epoch_step.last_launch["form"] == "/".join(K2_FORMS[form])
+                    and epoch_step.last_launch["design"] == "rows"):
                 fail(f"{tag}: launched {epoch_step.last_launch}")
             again = _k2_flat(*_k2_call(kernel, form, inp))
             k1 = _k2_flat(*_k1_loop_bf16(inp, form))
@@ -590,7 +639,9 @@ def phase_kernels_k2_bf16(device) -> float:
 def phase_superstep(device) -> None:
     """K = 2, 4, 8 bitwise equal to K = 1: the full 469-step epoch of the
     bench's form (uint8 rows, in-kernel Philox; K = 8 pads 3 steps) in f32
-    and bf16, and an 11-step epoch in the threefry and f32-rows forms."""
+    and bf16, and an 11-step epoch in the threefry and f32-rows forms. The
+    design of each launch is asserted; K2-ws's K = 1 (the f32 uint8 cases)
+    is also held bitwise against the rows design."""
     from functools import partial
 
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
@@ -600,12 +651,24 @@ def phase_superstep(device) -> None:
         for bf16 in (False, True):
             fn = partial(epoch_step.epoch_fused_sgd, compute_bf16=bf16)
             base = _k2_flat(*_k2_call(fn, form, inp))
+            design = _design(form, batch, bf16)
+            if design == "ws":
+                rows = _k2_flat(*_k2_call(partial(
+                    epoch_step._epoch_fused_sgd_rows, compute_bf16=bf16),
+                    form, inp))
+                for (name, a), (_, b) in zip(base, rows):
+                    if not torch.equal(a, b):
+                        fail(f"epoch_step {form} B={batch} S={nsteps}: "
+                             f"K2-ws's {name} differs from the rows "
+                             f"design's by {float((a - b).abs().max()):.3e}")
             for k in SUPERSTEPS:
                 got = _k2_flat(*_k2_call(partial(fn, steps_per_iter=k), form,
                                          inp))
                 ll = epoch_step.last_launch
-                if ll["steps_per_iter"] != k or ll["bf16"] != bf16:
-                    fail(f"superstep K={k}: launched {ll}")
+                if (ll["steps_per_iter"], ll["bf16"], ll["design"]) != (
+                        k, bf16, design):
+                    fail(f"superstep K={k}: launched {ll}, expected the "
+                         f"{design!r} design")
                 for (name, a), (_, b) in zip(got, base):
                     if not torch.equal(a, b):
                         fail(f"epoch_step {form}{' bf16' if bf16 else ''} "
@@ -614,10 +677,11 @@ def phase_superstep(device) -> None:
                              f" (bitwise expected)")
             torch.cuda.synchronize()
             print(f"[kernels] epoch_step superstep {form}"
-                  f"{' bf16' if bf16 else ''} B={batch} S={nsteps}: K = "
-                  f"{', '.join(map(str, SUPERSTEPS))} bitwise equal to K = 1 "
-                  f"(padded to {-(-nsteps // 8) * 8} steps at K = 8; staged "
-                  f"rows: {epoch_step.last_launch['staged']})")
+                  f"{' bf16' if bf16 else ''} B={batch} S={nsteps}: {design} "
+                  f"design; K = {', '.join(map(str, SUPERSTEPS))} bitwise "
+                  f"equal to K = 1 (padded to {-(-nsteps // 8) * 8} steps at "
+                  f"K = 8; staged rows: {epoch_step.last_launch['staged']})"
+                  f"{'; K = 1 bitwise the rows design' if design == 'ws' else ''}")
 
 
 def _reset_counts():
@@ -784,11 +848,12 @@ def phase_main_cached(tmp: str) -> dict:
     wall = time.perf_counter() - t0
     cached = _counts()
     _check_epoch_lines(out, history, 1, "train --cached")
-    expect_launches(cached, {"epoch_step": 1},
+    expect_launches(cached, {"epoch_step_ws": 1},
                     "train --cached --kernel pallas_epoch, one epoch")
-    if epoch_step.last_launch["form"] != "uint8/threefry":
-        fail(f"the cached epoch ran form {epoch_step.last_launch['form']}, "
-             f"not uint8/threefry (K3)")
+    if (epoch_step.last_launch["form"], epoch_step.last_launch["design"]) \
+            != ("uint8/threefry", "ws"):
+        fail(f"the cached epoch ran {epoch_step.last_launch}, not "
+             f"uint8/threefry (K3) on K2-ws")
     saved = load_checkpoint(ckpt)
     for name, layer in state.model.params().items():
         for k, t in layer.items():
@@ -827,8 +892,10 @@ def phase_main_cached(tmp: str) -> dict:
     wall = time.perf_counter() - t0
     fused = _counts()
     _check_epoch_lines(fused_out, fused_history, 2, "train --cached --fused")
-    expect_launches(fused, {"epoch_step": 2},
+    expect_launches(fused, {"epoch_step_ws": 2},
                     "train --cached --fused --n_epochs 2")
+    if epoch_step.last_launch["design"] != "ws":
+        fail(f"the fused run ran {epoch_step.last_launch}")
     if not np.array_equal(fused_history[0], losses):
         fail("the fused run's first epoch differs from the cached run's")
     print(f"[main] train --cached --fused --n_epochs 2: {wall:.2f}s (wall); "
@@ -882,7 +949,8 @@ def phase_main_cached_variants(tmp: str) -> dict:
     expect_launches(bf16, {"epoch_step_bf16": 1},
                     "train --cached --kernel pallas_epoch --dtype bfloat16")
     ll = epoch_step.last_launch
-    if not (ll["bf16"] and ll["form"] == "uint8/threefry"):
+    if not (ll["bf16"] and ll["form"] == "uint8/threefry"
+            and ll["design"] == "rows"):
         fail(f"the bf16 cached epoch ran {ll}")
     losses = history[0]
     cpu_argv = list(argv)
@@ -903,11 +971,11 @@ def phase_main_cached_variants(tmp: str) -> dict:
             "train --cached --kernel pallas_epoch --dtype bfloat16": bf16}
 
 
-def phase_bench(extra=(), key="epoch_step", form="uint8/core", bf16=False,
-                superstep=1) -> tuple:
+def phase_bench(extra=(), key="epoch_step_ws", form="uint8/core", bf16=False,
+                superstep=1, design="ws") -> tuple:
     """Paths g and h: the bench entry point with `extra` arguments, whose
-    launches must all be of form `key`; returns (its JSON line,
-    launches)."""
+    launches must all be of form `key` on `design`; returns (its JSON
+    line, launches)."""
     from pytorch_ddp_mnist_tpu_torch import bench
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
     buf = io.StringIO()
@@ -924,8 +992,8 @@ def phase_bench(extra=(), key="epoch_step", form="uint8/core", bf16=False,
     want = BENCH_EPOCHS * (bench.WINDOWS + 1)
     expect_launches(launches, {key: want}, f"bench {' '.join(argv)}")
     ll = epoch_step.last_launch
-    if (ll["form"], ll["bf16"], ll["steps_per_iter"]) != (form, bf16,
-                                                          superstep):
+    if (ll["form"], ll["bf16"], ll["steps_per_iter"], ll["design"]) != (
+            form, bf16, superstep, design):
         fail(f"bench {' '.join(argv)} ran {ll}")
     if (line.get("dtype"), line.get("superstep")) != (
             "bfloat16" if bf16 else "float32", superstep):
@@ -1082,7 +1150,7 @@ def k2_bound(batch: int, nsteps: int, form: str, bf16: bool = False):
 def phase_profile(device) -> dict:
     """The profiler's device time per call of K1 (B = 128) and of one epoch
     of the cached path at the main path's shapes (B = 128, 469 steps,
-    --impl rbg): the gathers of the epoch's rows and K2 (K2c)."""
+    --impl rbg): the gathers of the epoch's rows and K2-ws (K2c)."""
     from pytorch_ddp_mnist_tpu_torch.data.mnist import synthetic_mnist
     from pytorch_ddp_mnist_tpu_torch.ops import fused_step
     from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
@@ -1111,56 +1179,129 @@ def phase_profile(device) -> dict:
 
 
 def phase_timing_k2(device, launches: dict, worst: dict, card: str,
-                    prof: dict):
-    """K2 in each form at the main path's shapes (B = 128, 469 steps)."""
+                    prof: dict, all_paths: dict) -> list:
+    """K2 in each form at the main path's shapes (B = 128, 469 steps): the
+    plain version, and the rows design and K2-ws timed in turns (rows,
+    ws, ws, rows) in the uint8 forms (K2a, f32 rows, has the rows design
+    only); the f32 superstep K = 8 on both designs in turns; and the
+    per-phase split of a K2c epoch from K2-ws's stamps build (held bitwise
+    against the default build). `launches` are the K2 main paths' counts, `all_paths`
+    every main path's. Returns the kernels-line entries of the rows
+    design (f32) and of K2-ws."""
+    from functools import partial
+
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
     inp = _k2_inputs(MAIN_BATCH, EPOCH_STEPS, seed=11, device=device)
     forms = {}
     for form in K2_FORMS:
-        kernel = lambda: _k2_call(epoch_step.epoch_fused_sgd, form, inp)  # noqa: E731
+        ws = lambda: _k2_call(epoch_step.epoch_fused_sgd, form, inp)  # noqa: E731
+        rows = lambda: _k2_call(epoch_step._epoch_fused_sgd_rows, form, inp)  # noqa: E731
         plain = lambda: _k2_call(  # noqa: E731
             epoch_step.epoch_fused_sgd_reference, form, inp)
-        # plain, kernel, kernel, plain: compare within one call, in turns
         p1 = _time_ms(plain, iters=1, warmup=1)
-        k1, k2 = (_time_ms(kernel, iters=5, warmup=1) for _ in range(2))
+        if _design(form, MAIN_BATCH) == "ws":
+            r_ms, w_ms, turns = _turns(rows, ws, iters=5, warmup=1)
+        else:
+            r_ms = min(_time_ms(rows, iters=5, warmup=1) for _ in range(2))
+            w_ms, turns = None, None
         p2 = _time_ms(plain, iters=1, warmup=0)
         bound_ms, bound_by, flops, nbytes = k2_bound(MAIN_BATCH, EPOCH_STEPS,
                                                      form)
-        forms[form] = {"form": "/".join(K2_FORMS[form]), "ms": min(k1, k2),
-                       "plain_ms": min(p1, p2), "bound_ms": bound_ms,
-                       "bound_by": bound_by, "max_abs_err": worst[form],
-                       "flop": flops, "bytes": nbytes,
-                       "grid_blocks": epoch_step.last_launch["blocks"]}
+        forms[form] = {"form": "/".join(K2_FORMS[form]), "rows_ms": r_ms,
+                       "ws_ms": w_ms, "plain_ms": min(p1, p2),
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "max_abs_err": worst[form], "flop": flops,
+                       "bytes": nbytes, "timed_in_turns_rows_ws_ws_rows": turns}
+        ws_txt = (f"K2-ws {w_ms:.3f} ms ({w_ms * 1e3 / EPOCH_STEPS:.2f} us a "
+                  f"step, {bound_ms / w_ms:.2%} of the bound), "
+                  if w_ms is not None else "")
         print(f"[timing] epoch_step {form} ({forms[form]['form']}) "
-              f"B={MAIN_BATCH} S={EPOCH_STEPS}: {min(k1, k2):.3f} ms per "
-              f"epoch launch ({k1:.3f}, {k2:.3f}); plain {min(p1, p2):.1f} ms "
-              f"({p1:.1f}, {p2:.1f}); bound {bound_ms:.4f} ms by {bound_by} "
-              f"[{card}]")
-    main_form = "K2c"       # uint8 rows, in-kernel Philox: the bench default
-    f = forms[main_form]
-    entry = {
+              f"B={MAIN_BATCH} S={EPOCH_STEPS}: {ws_txt}rows design "
+              f"{r_ms:.3f} ms ({r_ms * 1e3 / EPOCH_STEPS:.2f} us a step)"
+              f"{'' if turns is None else ' (turns ' + ', '.join(f'{v:.3f}' for v in turns) + ')'}"
+              f"; plain {min(p1, p2):.1f} ms ({p1:.1f}, {p2:.1f}); bound "
+              f"{bound_ms:.4f} ms by {bound_by} [{card}]")
+
+    # the f32 superstep K = 8 (K2c): K2-ws against the rows design
+    ws8 = lambda: _k2_call(partial(epoch_step.epoch_fused_sgd,  # noqa: E731
+                                   steps_per_iter=8), "K2c", inp)
+    rows8 = lambda: _k2_call(partial(epoch_step._epoch_fused_sgd_rows,  # noqa: E731
+                                     steps_per_iter=8), "K2c", inp)
+    r8, w8, t8 = _turns(rows8, ws8, iters=5, warmup=1)
+    print(f"[timing] epoch_step K2c f32 superstep K = 8: K2-ws {w8:.3f} ms, "
+          f"rows design (staged rows) {r8:.3f} ms (turns "
+          f"{', '.join(f'{v:.3f}' for v in t8)}) [{card}]")
+
+    # the per-phase split of a K2c epoch (stamps build; block 0's clock)
+    args = (inp["params"], inp["uint8"], inp["y"], inp["core"], LR,
+            MAIN_BATCH)
+    base = _k2_flat(*_k2_call(epoch_step.epoch_fused_sgd, "K2c", inp))
+    epoch_step.ws_phase_stamps(*args)                    # warm-up
+    params, losses, split, per_step, mhz = epoch_step.ws_phase_stamps(*args)
+    for (leaf, a), (_, b) in zip(_k2_flat(params, losses), base):
+        if not torch.equal(a, b):
+            fail(f"K2-ws stamps build: {leaf} differs from the default build")
+    print(f"[timing] epoch_ws K2c B={MAIN_BATCH} S={EPOCH_STEPS} phase split "
+          f"(stamps build, block 0, mean over the steps): {per_step:.2f} us "
+          f"a step, SM clock {mhz:.0f} MHz (clock64 over %globaltimer) "
+          f"[{card}]")
+    for phase, us in split.items():
+        print(f"[timing]   {phase:28s} {us:8.3f} us  {us / per_step:6.1%}")
+
+    prof_ws = {k: v for k, v in prof["cached_epoch"].items()
+               if k == "ws_kernel"}
+    k2c = forms["K2c"]
+    rows_entry = {
         "name": "epoch_step", "route": "cuda",
         "source": "pytorch_ddp_mnist_tpu_torch/csrc/epoch_step.cu",
-        "replaces": "pytorch_ddp_mnist_tpu/ops/pallas_step.py:433",
-        "launches": launches["train --cached"]["epoch_step"],
-        "max_abs_err": max(worst.values()),
-        "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
-        "bound_by": f["bound_by"], "library_ms": None,
-        # extras: which form the top-level numbers are, every form's
-        # numbers, the launches of each main path, the profiler's device
-        # time per call
-        "timed_form": main_form, "forms": forms,
-        "launches_by_path": {k: v["epoch_step"] for k, v in launches.items()},
-        "batch": MAIN_BATCH, "steps": EPOCH_STEPS,
-        "profiler_us_per_call": {
-            k: v for k, v in prof["cached_epoch"].items()
-            if k == "epoch_kernel"},
-        "cached_epoch_profiler_us": prof["cached_epoch"],
+        "replaces": f"{TPU_SRC}:433",
+        "launches": sum(v.get(k, 0) for v in all_paths.values()
+                        for k in ROWS_DESIGN_KEYS),
+        "max_abs_err": worst["K2a"],
+        "ms": k2c["rows_ms"], "plain_ms": k2c["plain_ms"],
+        "bound_ms": k2c["bound_ms"], "bound_by": k2c["bound_by"],
+        "library_ms": None,
+        # extras: which form the top-level numbers are, and which forms
+        # the main paths launch this design in
+        "timed_form": "K2c", "design": "rows (csrc/epoch_step.cu)",
+        "main_path": "launches: every launch of this design on the main "
+                     "paths, all in its bf16 forms (timed in the "
+                     "epoch_step_bf16 and epoch_step_superstep entries); "
+                     "the f32 uint8 forms at B <= 128 run epoch_step_ws "
+                     "(epoch_design), and this entry's times are its f32 "
+                     "K2c form, in turns with K2-ws",
+        "forms": forms, "batch": MAIN_BATCH, "steps": EPOCH_STEPS,
         "card": card,
     }
-    print(f"[timing] epoch_step: no single PyTorch call computes an epoch of "
-          f"SGD, so library_ms is null")
-    return entry
+    ws_forms = [f for f in K2_FORMS if forms[f]["ws_ms"] is not None]
+    ws_entry = {
+        "name": "epoch_step_ws", "route": "cuda",
+        "source": "pytorch_ddp_mnist_tpu_torch/csrc/epoch_ws.cu",
+        "replaces": f"{TPU_SRC}:433",
+        "launches": launches["train --cached"]["epoch_step_ws"],
+        "max_abs_err": max(worst[f] for f in ws_forms),
+        "ms": k2c["ws_ms"], "plain_ms": k2c["plain_ms"],
+        "bound_ms": k2c["bound_ms"], "bound_by": k2c["bound_by"],
+        "library_ms": None,
+        # extras: the timed form, every uint8 form on both designs, the
+        # superstep, the phase split, launches by path
+        "timed_form": "K2c", "us_per_step": k2c["ws_ms"] * 1e3 / EPOCH_STEPS,
+        "rows_design_ms": k2c["rows_ms"],
+        "forms": {f: forms[f] for f in ws_forms},
+        "superstep8": {"ws_ms": w8, "rows_ms": r8, "turns_rows_ws_ws_rows": t8},
+        "blocks": epoch_step._ws_lib().pdmt_ws_blocks(),
+        "smem_bytes_per_block": epoch_step._ws_lib().pdmt_ws_smem_bytes(),
+        "phase_split_us": split, "phase_split_step_us": per_step,
+        "phase_split_sm_mhz": mhz,
+        "launches_by_path": {k: v["epoch_step_ws"] for k, v in
+                             launches.items()},
+        "profiler_us_per_call": prof_ws,
+        "cached_epoch_profiler_us": prof["cached_epoch"],
+        "batch": MAIN_BATCH, "steps": EPOCH_STEPS, "card": card,
+    }
+    print("[timing] epoch_step, epoch_step_ws: no single PyTorch call "
+          "computes an epoch of SGD, so library_ms is null")
+    return [rows_entry, ws_entry]
 
 
 def _turns(first, second, iters: int, warmup: int):
@@ -1259,9 +1400,11 @@ def phase_timing_variants(device, launches: dict, worst: dict, card: str):
     k1 = _time_ms(kernel, iters=5, warmup=1)
     k8f = lambda: _k2_call(partial(bf16_kernel, steps_per_iter=8), "K2c", inp)  # noqa: E731
     k1b, k8b, tb = _turns(kernel, k8f, iters=5, warmup=1)
-    f32_k1 = lambda: _k2_call(epoch_step.epoch_fused_sgd, "K2c", inp)  # noqa: E731
+    # f32 on the same rows design: f32 uint8 launches run K2-ws by the
+    # design rule, timed against this in phase_timing_k2
+    f32_k1 = lambda: _k2_call(epoch_step._epoch_fused_sgd_rows, "K2c", inp)  # noqa: E731
     f32_k8 = lambda: _k2_call(partial(  # noqa: E731
-        epoch_step.epoch_fused_sgd, steps_per_iter=8), "K2c", inp)
+        epoch_step._epoch_fused_sgd_rows, steps_per_iter=8), "K2c", inp)
     k1f, k8f_ms, tf = _turns(f32_k1, f32_k8, iters=5, warmup=1)
     bound = k2_bound(MAIN_BATCH, EPOCH_STEPS, "K2c", bf16=True)
     out.append(_entry(
@@ -1585,9 +1728,9 @@ def phase_main_dp(device, tmp: str) -> dict:
     launches = _counts()
     if "parallel=1x128" not in pout or "ring (K6)" not in err.getvalue():
         fail(f"train --parallel: banner or note missing: {err.getvalue()!r}")
-    expect_launches(launches, {"epoch_step": 1},
+    expect_launches(launches, {"epoch_step_ws": 1},
                     "train --parallel --cached --kernel pallas_epoch on the "
-                    "1-card mesh (the serial kernel: no ring)")
+                    "1-card mesh (the serial kernel, K2-ws: no ring)")
     if not all(np.array_equal(a, b) for a, b in zip(serial, parallel)):
         fail("train --parallel on the 1-card mesh differs from the serial run")
     print("[main] train --parallel --cached --kernel pallas_epoch on the "
@@ -1615,8 +1758,9 @@ def k6_bound(n: int, batch: int, nsteps: int, ring: str):
 
 def phase_timing_k6(device, launches: dict, worst: dict, card: str) -> list:
     """K6 per (ring, n) at B = 128 per replica over the 4-replica main
-    path's 118-step epoch (uint8 rows, threefry), beside K2 and a 1-replica
-    ring launch at the same blocks per replica, and the plain version."""
+    path's 118-step epoch (uint8 rows, threefry), beside the rows-design K2
+    (the design K6's replicas run) and a 1-replica ring launch at the same
+    blocks per replica, and the plain version."""
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
     cases = {}
     for ring, n in RING_CASES:
@@ -1626,7 +1770,7 @@ def phase_timing_k6(device, launches: dict, worst: dict, card: str) -> list:
         G = epoch_step.last_launch["blocks"]
         one = {k: inp[k][0] for k in ("params", "uint8", "y", "threefry")}
         one.update(masks=None, batch=MAIN_BATCH)
-        k2 = lambda: _k2_call(lambda *a, **k: epoch_step.epoch_fused_sgd(  # noqa: E731
+        k2 = lambda: _k2_call(lambda *a, **k: epoch_step._epoch_fused_sgd_rows(  # noqa: E731
             *a, max_blocks=G, **k), "K3", one)
         ring1 = lambda: epoch_step._ring_cuda(  # noqa: E731
             [one["params"]], [one["uint8"]], [one["y"]], [one["threefry"]],
@@ -1648,7 +1792,8 @@ def phase_timing_k6(device, launches: dict, worst: dict, card: str) -> list:
         print(f"[timing] epoch_step_dp_{ring} n={n} B={MAIN_BATCH} "
               f"S={DP_EPOCH_STEPS} ({G} blocks per replica): {k6_ms:.3f} ms "
               f"per epoch launch, {k6_ms * 1e3 / DP_EPOCH_STEPS:.1f} us a "
-              f"step; K2 at {G} blocks {k2_ms:.3f} ms; one replica's ring "
+              f"step; the rows-design K2 at {G} blocks {k2_ms:.3f} ms; one "
+              f"replica's ring "
               f"launch at {G} blocks {r1:.3f} ms; plain {min(p1, p2):.1f} ms; "
               f"bound {bound[0]:.4f} ms by {bound[1]} (turns "
               f"{', '.join(f'{v:.3f}' for v in turns)}) [{card}]")
@@ -1715,21 +1860,23 @@ def main() -> int:
     ss = ("--kernel", "pallas_epoch", "--dtype", "bfloat16", "--superstep",
           "8")
     _, paths["bench " + " ".join(ss)] = phase_bench(
-        ss, key="epoch_step_superstep_bf16", bf16=True, superstep=8)
+        ss, key="epoch_step_superstep_bf16", bf16=True, superstep=8,
+        design="rows")
     prof = phase_profile(device)
     entry = phase_timing(device, paths["train"], max_abs_err, card,
                          prof["fused_step"])
-    k2_entry = phase_timing_k2(device, k2_launches, k2_worst, card, prof)
+    k2_entries = phase_timing_k2(device, k2_launches, k2_worst, card, prof,
+                                 {**paths, **k2_launches, **dp_launches})
     new = phase_timing_variants(device, paths, worst, card)
     new += phase_timing_k6(device, dp_launches, k6_worst, card)
     times = [entry["ms"], entry["plain_ms"], entry["graph_ms"]]
-    times += [f[k] for f in k2_entry["forms"].values()
-              for k in ("ms", "plain_ms")]
-    times += [e[k] for e in new for k in ("ms", "plain_ms")]
+    times += [f[k] for f in k2_entries[0]["forms"].values()
+              for k in ("rows_ms", "ws_ms", "plain_ms") if f[k] is not None]
+    times += [e[k] for e in k2_entries + new for k in ("ms", "plain_ms")]
     for v in times:
         if not (math.isfinite(v) and v > 0):
             fail(f"timing gave {v}")
-    kernels = [entry, k2_entry] + new
+    kernels = [entry] + k2_entries + new
     for e in kernels:
         if e["launches"] < 1:
             fail(f"{e['name']} was launched no time on its main path")

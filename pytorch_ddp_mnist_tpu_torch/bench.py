@@ -120,7 +120,7 @@ def run_train_bench(device: torch.device, *, epochs: int, batch_size: int,
     idxs = np.stack(idxs)
     run = make_run_fn(lr, kernel=kernel, impl=impl, dtype=dtype,
                       superstep=superstep)
-    params = MLP(torch.Generator().manual_seed(0)).to(device).params()
+    params = MLP.from_seed(0).to(device).params()
     key = key_data(1)
 
     losses = run(params, key, x_all, y_all, idxs)[2].cpu().numpy()  # warm-up

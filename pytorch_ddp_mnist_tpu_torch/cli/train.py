@@ -157,7 +157,7 @@ def train(argv=None):
     sampler = ShardedSampler(len(train_split), num_replicas=1, rank=0,
                              shuffle=True, seed=42)
 
-    model = MLP(torch.Generator().manual_seed(tcfg["seed"])).to(device)
+    model = MLP.from_seed(tcfg["seed"]).to(device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     mode = (f" cached{' fused' if tcfg['fused'] else ''}"

@@ -263,12 +263,13 @@ __device__ bool ring_step(const RingArgs& a, ReplicaGroup& g, int step) {
   const auto hop_done = [&](int h) {
     return block_wait(flags + F_HOP0 + h, done, a.err, W_HOP, me, step, h);
   };
+  // the test hook: replica `a.fault` never signals hop 0 and leaves the
+  // launch there, so the one wait that times out is its neighbour's wait
+  // for that hop (a wait of its own would race it to the error record)
   const auto signal_hop = [&](int h) {
-    if (me == a.fault && h == 0) {
-      __syncthreads();  // the test hook: this replica never signals hop 0
-      return;
-    }
+    if (me == a.fault && h == 0) return false;
     block_signal(rt.flags + F_HOP0 + h);
+    return true;
   };
 
   if (!a.rs) {
@@ -279,7 +280,7 @@ __device__ bool ring_step(const RingArgs& a, ReplicaGroup& g, int step) {
       const int s = (me - h + n) % n;
       copy_share(rt.comm + (size_t)s * a.P, mine.comm + (size_t)s * a.P, a.P,
                  t, nt);
-      signal_hop(h);
+      if (!signal_hop(h)) return false;
     }
     if (n > 1 && !hop_done(n - 2)) return false;
     // the fixed origin-order sum: tot = g0; tot = tot + g1; ... on every
@@ -303,7 +304,7 @@ __device__ bool ring_step(const RingArgs& a, ReplicaGroup& g, int step) {
       const int sc = (me - h + n) % n;
       copy_share(rt.recv + (size_t)h * a.chunk_max, mine.comm + lo(sc),
                  len(sc), t, nt);
-      signal_hop(h);
+      if (!signal_hop(h)) return false;
       if (!hop_done(h)) return false;
       const int ac = (me - h - 1 + 2 * n) % n;
       add_share(mine.comm + lo(ac), mine.recv + (size_t)h * a.chunk_max,
@@ -316,7 +317,7 @@ __device__ bool ring_step(const RingArgs& a, ReplicaGroup& g, int step) {
       if (k > 0 && !hop_done(n - 1 + k - 1)) return false;
       const int sc = (me + 1 - k + n) % n;
       copy_share(rt.comm + lo(sc), mine.comm + lo(sc), len(sc), t, nt);
-      signal_hop(n - 1 + k);
+      if (!signal_hop(n - 1 + k)) return false;
     }
     if (!hop_done(2 * n - 3)) return false;
     for (int c = 0; c < n; ++c)

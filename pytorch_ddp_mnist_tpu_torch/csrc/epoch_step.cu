@@ -118,8 +118,6 @@ constexpr int OFF_B2 = OFF_W2 + H1 * H2;
 constexpr int OFF_W3 = OFF_B2 + H2;
 constexpr int N_PARAMS = OFF_W3 + H2 * NC;           // 118,272
 
-enum Rng : int { RNG_MASKS = 0, RNG_THREEFRY = 1, RNG_PHILOX = 2 };
-
 // What one replica's steps read and write.
 struct StepIO {
   const int* y;         // (S*B,) labels

@@ -123,6 +123,9 @@ __device__ __forceinline__ float load_x(const __nv_bfloat16* p) {
 
 // ---- the in-kernel dropout streams ----
 
+// the epoch kernels' dropout sources, by the codes ops/epoch_step.py passes
+enum Rng : int { RNG_MASKS = 0, RNG_THREEFRY = 1, RNG_PHILOX = 2 };
+
 constexpr float KEEP = 0.8f;                   // f32(1 - DROPOUT_RATE)
 constexpr uint32_t KEEP_THRESH = 3435973837u;  // round(0.8 * 2**32)
 

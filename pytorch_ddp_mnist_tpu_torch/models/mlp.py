@@ -10,9 +10,11 @@ reference `.pt` state_dict (train/checkpoint.py) uses torch Linear's
 (out, in) layout.
 
 Init follows torch.nn.Linear: weight and bias from U(-1/sqrt(fan_in),
-+1/sqrt(fan_in)), drawn from an explicit `torch.Generator`. The draws are
-not jax's, so the same seed gives other weights than the JAX package;
-`from_jax_params` loads the JAX package's weights where a test needs both.
++1/sqrt(fan_in)). `MLP.from_seed(seed)` (what the CLI and the bench use)
+draws them as the JAX package's `init_mlp(jax.random.key(seed))` does, bit
+for bit (`init_params`); `MLP(generator)` draws them from a
+`torch.Generator` instead, other weights for the same seed.
+`from_jax_params` loads a JAX params tree.
 """
 
 from __future__ import annotations
@@ -57,6 +59,18 @@ class MLP(nn.Module):
         self.fc1 = Dense(d0, d1, bias=True, generator=generator)
         self.fc2 = Dense(d1, d2, bias=True, generator=generator)
         self.fc3 = Dense(d2, d3, bias=False, generator=generator)
+
+    @classmethod
+    def from_seed(cls, seed: int) -> "MLP":
+        """The model `init_mlp(jax.random.key(seed))` gives in the JAX
+        package, bit for bit (see `init_params`)."""
+        model = cls()
+        params = model.params()
+        with torch.no_grad():
+            for name, layer in init_params(seed).items():
+                for k, t in layer.items():
+                    params[name][k].copy_(t)
+        return model
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 dropout_mask: torch.Tensor | None = None,
@@ -110,6 +124,45 @@ def mlp_apply(params: Params, x: torch.Tensor, *, train: bool = False,
                             torch.zeros((), dtype=dt, device=h.device))
     h = torch.relu(h @ fc2["w"].to(dt) + fc2["b"].to(dt))
     return h @ fc3["w"].to(dt)
+
+
+def _jax_uniform(key, shape, bound: float) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, float32, -bound, bound)` for a
+    threefry key: 32 bits per element from the counter words (0, flat
+    index), the mantissa fill `bitcast((bits >> 9) | 0x3f800000) - 1` in
+    f32, then `u * (max - min) + min` and `max(min, .)`. XLA contracts that
+    multiply-add into one fused op, rounded once: here it is taken in f64,
+    where the product (23 + 24 significant bits) and the sum are exact, and
+    rounded once to f32."""
+    from ..ops import threefry
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64)
+    o0, o1 = threefry.threefry2x32(key[0], key[1], torch.zeros_like(idx), idx)
+    bits = ((o0 ^ o1) >> 9) | 0x3F800000
+    u = bits.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(-bound, dtype=torch.float32)
+    hi = torch.tensor(bound, dtype=torch.float32)
+    fused = (u.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, fused).reshape(shape)
+
+
+def init_params(seed: int) -> Params:
+    """The JAX package's `init_mlp(jax.random.key(seed))`, bit for bit, as
+    a params tree of f32 CPU tensors: `split(key, 3)` gives one key per
+    layer, each split again into (wkey, bkey), and each array is
+    `_jax_uniform` with bound 1/sqrt(fan_in)."""
+    from ..ops import threefry
+    d0, d1, d2, d3 = MLP_DIMS
+    out = {}
+    for name, key, (fan_in, fan_out), bias in zip(
+            ("fc1", "fc2", "fc3"), threefry.split(threefry.key_data(seed), 3),
+            ((d0, d1), (d1, d2), (d2, d3)), (True, True, False)):
+        bound = 1.0 / math.sqrt(fan_in)
+        wkey, bkey = threefry.split(key)
+        out[name] = {"w": _jax_uniform(wkey, (fan_in, fan_out), bound)}
+        if bias:
+            out[name]["b"] = _jax_uniform(bkey, (fan_out,), bound)
+    return out
 
 
 def from_jax_params(tree, device="cpu") -> MLP:

@@ -8,7 +8,9 @@ shared library with a plain C interface:
 
 The file name carries a hash of the source, the shared headers
 (`csrc/*.cuh`) and the flags, so an edited source or header is rebuilt
-and an unchanged one is reused. Libraries go under
+and an unchanged one is reused. `VARIANTS` are further builds of a source
+with extra `-D` flags (a debug build with phase stamps); they are built
+only when named. Libraries go under
 `build/kernels/` at the root of the checkout (`.gitignore` lists `build/`),
 beside a `.log` holding what `-Xptxas -v` reported. Nothing is built when
 this module is imported: machines without nvcc import it freely.
@@ -28,7 +30,10 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 
 # kernel library name -> source file under csrc/
-SOURCES = {"fused_step": "fused_step.cu", "epoch_step": "epoch_step.cu"}
+SOURCES = {"fused_step": "fused_step.cu", "epoch_step": "epoch_step.cu",
+           "epoch_ws": "epoch_ws.cu"}
+# variant library name -> (library of SOURCES, its extra nvcc flags)
+VARIANTS = {"epoch_ws_stamps": ("epoch_ws", ("-DWS_STAMPS",))}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -51,16 +56,25 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _spec(name: str) -> tuple:
+    """(source file under csrc/, nvcc flags) of library `name`."""
+    if name in SOURCES:
+        return SOURCES[name], NVCC_FLAGS
+    base, extra = VARIANTS[name]
+    return SOURCES[base], NVCC_FLAGS + tuple(extra)
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    source, flags = _spec(name)
+    src = (CSRC / source).read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
 def build_all(names=None) -> dict:
-    """Build every library in `names` (default: all of SOURCES) that is not
-    built yet, one nvcc process per source, all started together. Returns
+    """Build every library in `names` (of SOURCES or VARIANTS; default:
+    all of SOURCES) that is not built yet, one nvcc process per source, all started together. Returns
     {name: (library path, ptxas report)}; raises KernelBuildError naming
     each source that failed, with nvcc's output."""
     names = list(SOURCES if names is None else names)
@@ -71,15 +85,16 @@ def build_all(names=None) -> dict:
         if so.exists():
             continue
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / SOURCES[name])]
+        source, flags = _spec(name)
+        cmd = [find_nvcc(), *flags, "-o", str(tmp), str(CSRC / source)]
         procs[name] = (so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for name, (so, tmp, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"--- {SOURCES[name]} (nvcc exit {proc.returncode})"
+            failed.append(f"--- {name} ({_spec(name)[0]}, nvcc exit "
+                          f"{proc.returncode})"
                           f"\n{out}")
             tmp.unlink(missing_ok=True)
             continue

@@ -31,18 +31,30 @@ TPU kernel's, element by element: the gradients are packed in its row
 layout (`_COMM_LAYOUT`, `EPOCH_COMM_ROWS`, `_rs_chunk_rows`), gw3's rows
 10 wide instead of padded to 128.
 
-  * `epoch_fused_sgd(...)` is the public entry. CUDA tensors launch the
-    hand-written kernel in `csrc/epoch_step.cu` (one cooperative launch per
-    epoch, no float atomics, bitwise repeatable) or raise; it never falls
-    back. CPU tensors, and only they, run `epoch_fused_sgd_reference`.
+  * `epoch_fused_sgd(...)` is the public entry. CUDA tensors launch a
+    hand-written kernel (one cooperative launch per epoch, no float
+    atomics, bitwise repeatable) or raise; it never falls back. CPU
+    tensors, and only they, run `epoch_fused_sgd_reference`. Two designs
+    of the kernel compute the same bits; `epoch_design(x dtype, bf16,
+    batch)` picks one by form: 'ws' (`csrc/epoch_ws.cu`, K2-ws: the
+    weights held in the SMs' shared memory, one block per group of hidden
+    units) for uint8 rows in f32 at B <= WS_MAX_BATCH, the main path's
+    forms; 'rows' (`csrc/epoch_step.cu`) for f32 rows,
+    the bf16 mode and larger batches. `_epoch_fused_sgd_rows` launches the
+    'rows' design on any inputs, so a card can hold the two against each
+    other.
   * `epoch_fused_sgd_reference` is the plain version on any device: a loop
     of `fused_loss_and_grads_reference` + `sgd_step` with the same masks.
   * `launch_count` counts wrapper calls that launched the epoch kernel,
-    one key per form: `epoch_step` (f32, K = 1), `epoch_step_bf16`,
+    one key per form: `epoch_step_ws` (K2-ws, any K), and for the 'rows'
+    design `epoch_step` (f32, K = 1), `epoch_step_bf16`,
     `epoch_step_superstep` (K > 1) and `epoch_step_superstep_bf16`.
   * `kernel_mask_block(...)` returns the mask the kernel draws at one step
     (on CUDA from the kernel's own device function), so a card can compare
-    the in-kernel streams with the plain ones bit for bit.
+    the in-kernel streams with the plain ones bit for bit;
+    `kernel_pixel_table(device)` the 256-entry normalise table K2-ws fills;
+    `ws_phase_stamps(...)` runs K2-ws's stamps build and returns its
+    per-phase times.
   * `epoch_dp_sgd_reference` is K6's plain version: each replica's step,
     then the ring's exact summation tree (`ring_mean`), then SGD.
     `launch_count` counts K6 as `epoch_step_dp_allgather` and
@@ -79,6 +91,12 @@ _RNG_CODE = {"masks": 0, "threefry": 1, "core": 2}
 
 STEPS_PER_ITER = (1, 2, 4, 8)
 
+# K2-ws takes a step's rows into one block's shared memory, one row per
+# thread of its first half: batches up to this size run it (epoch_design)
+WS_MAX_BATCH = 128
+# K2-ws's normalise table holds one copy per lane of a warp
+WS_TABLE_COPIES = 32
+
 # ---- the DP form (K6) ----
 RINGS = ("auto", "allgather", "reduce_scatter")
 # The JAX kernel keeps one comm slot per replica in VMEM for the all-gather
@@ -106,18 +124,20 @@ RING_TIMEOUT_S = 5.0
 
 # wrapper calls that launched the CUDA kernel, per form (chip_smoke.py resets
 # and reads them)
-launch_count = {"epoch_step": 0, "epoch_step_bf16": 0,
+launch_count = {"epoch_step_ws": 0, "epoch_step": 0, "epoch_step_bf16": 0,
                 "epoch_step_superstep": 0, "epoch_step_superstep_bf16": 0,
                 "epoch_step_dp_allgather": 0,
                 "epoch_step_dp_allgather_bf16": 0,
                 "epoch_step_dp_reduce_scatter": 0,
                 "epoch_step_dp_reduce_scatter_bf16": 0}
-# what the last launch ran: its blocks (of 256 threads; per replica for K6),
-# its form ("<uint8|f32>/<masks|threefry|core>"), bf16 mode, steps per
-# iteration, whether it staged its rows, its replicas and ring ("" for K2),
-# for reports and checks
-last_launch = {"blocks": 0, "form": "", "bf16": False, "steps_per_iter": 1,
-               "staged": False, "replicas": 1, "ring": ""}
+# what the last launch ran: its design ("ws" or "rows"; K6 is "rows"), its
+# blocks (of 256 threads; per replica for K6), its form
+# ("<uint8|f32>/<masks|threefry|core>"), bf16 mode, steps per iteration,
+# whether it staged its rows, its replicas and ring ("" for K2), for reports
+# and checks
+last_launch = {"design": "", "blocks": 0, "form": "", "bf16": False,
+               "steps_per_iter": 1, "staged": False, "replicas": 1,
+               "ring": ""}
 
 
 class RingTimeoutError(RuntimeError):
@@ -125,6 +145,47 @@ class RingTimeoutError(RuntimeError):
     it waited for. The message names the wait, the replica, step and hop."""
 
 _lib = None
+_ws_libs = {}
+
+
+def epoch_design(x_dtype, compute_bf16: bool, batch: int) -> str:
+    """The K2 design a single-replica launch runs: 'ws' (K2-ws) for uint8
+    rows in f32 at batch <= WS_MAX_BATCH, else 'rows' (the design of
+    csrc/epoch_step.cu).
+    Both give the same bits; this picks by form, not on failure."""
+    return ("ws" if x_dtype == torch.uint8 and not compute_bf16
+            and batch <= WS_MAX_BATCH else "rows")
+
+
+def _ws_lib(name: str = "epoch_ws"):
+    """The K2-ws library `name` (the default build, or a variant of
+    ops/_build.py VARIANTS) with its ctypes signatures declared."""
+    if name not in _ws_libs:
+        from . import _build
+        lib = _build.load(name)
+        p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+        lib.pdmt_ws_epoch.argtypes = ([p, p, i, p, p, u] + [p] * 10
+                                      + [i, p, p, p, i, i, f, f, p])
+        lib.pdmt_ws_epoch.restype = i
+        lib.pdmt_ws_table.argtypes = [p, p]
+        lib.pdmt_ws_table.restype = i
+        for fn in ("pdmt_ws_max_batch", "pdmt_ws_blocks",
+                   "pdmt_ws_smem_bytes", "pdmt_ws_stamps_per_step",
+                   "pdmt_ws_table_copies"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i
+        lib.pdmt_ws_xch_floats.argtypes = [i]
+        lib.pdmt_ws_xch_floats.restype = i
+        lib.pdmt_ws_error_string.argtypes = [i]
+        lib.pdmt_ws_error_string.restype = ctypes.c_char_p
+        if (lib.pdmt_ws_max_batch(), lib.pdmt_ws_table_copies()) != (
+                WS_MAX_BATCH, WS_TABLE_COPIES):
+            raise RuntimeError(
+                f"{name}: max batch {lib.pdmt_ws_max_batch()}, table copies "
+                f"{lib.pdmt_ws_table_copies()}; expected {WS_MAX_BATCH}, "
+                f"{WS_TABLE_COPIES}")
+        _ws_libs[name] = lib
+    return _ws_libs[name]
 
 
 def _kernel_lib():
@@ -160,9 +221,10 @@ def _kernel_lib():
     return _lib
 
 
-def _raise_on(err: int, what: str) -> None:
+def _raise_on(err: int, what: str, ws_lib=None) -> None:
     if err != 0:
-        msg = _kernel_lib().pdmt_epoch_error_string(err).decode()
+        msg = (ws_lib.pdmt_ws_error_string(err) if ws_lib is not None
+               else _kernel_lib().pdmt_epoch_error_string(err)).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
@@ -316,9 +378,62 @@ def _form_key(bf16: bool, steps_per_iter: int) -> str:
             + ("_bf16" if bf16 else ""))
 
 
+def _ws_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
+             steps_per_iter, valid_steps, max_blocks, lib_name="epoch_ws"):
+    """One K2-ws launch. K needs no padding here: the steps past
+    `valid_steps` are skipped in the kernel. Returns (params, losses
+    (valid_steps,), the stamps build's (valid_steps, N) u64 stamps or
+    None)."""
+    lib = _ws_lib(lib_name)
+    blocks = lib.pdmt_ws_blocks()
+    if 0 < max_blocks < blocks:
+        raise ValueError(
+            f"K2-ws runs {blocks} blocks, one per two hidden units; "
+            f"max_blocks={max_blocks} caps the 'rows' design only")
+    dev = xp.device
+    x = xp.contiguous()
+    if x.data_ptr() % 16:      # cp.async copies the rows 16 bytes at a time
+        x = x.clone()
+    y32 = yp.to(torch.int32).contiguous()
+    ins = [w.detach().to(torch.float32).contiguous() for w in _weights(params)]
+    outs = [torch.empty_like(w) for w in ins]
+    m = masks.to(torch.float32).contiguous() if rng == "masks" else None
+    keys = threefry.to_int32_words(seed_or_keys) if rng == "threefry" else None
+    seed = int(seed_or_keys) & threefry.M32 if rng == "core" else 0
+    xch = torch.empty(lib.pdmt_ws_xch_floats(batch), dtype=torch.float32,
+                      device=dev)
+    losses = torch.empty(nsteps, dtype=torch.float32, device=dev)
+    per_step = lib.pdmt_ws_stamps_per_step()
+    stamps = (torch.zeros((nsteps, per_step), dtype=torch.int64, device=dev)
+              if per_step else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pdmt_ws_epoch(
+            x.data_ptr(), y32.data_ptr(), _RNG_CODE[rng],
+            m.data_ptr() if m is not None else None,
+            keys.data_ptr() if keys is not None else None, seed,
+            *(w.data_ptr() for w in ins), *(w.data_ptr() for w in outs),
+            valid_steps, xch.data_ptr(), losses.data_ptr(),
+            stamps.data_ptr() if stamps is not None else None, nsteps, batch,
+            lr, 1.0 / batch, stream)
+    _raise_on(err, f"{lib_name} kernel launch", ws_lib=lib)
+    if lib_name == "epoch_ws":
+        launch_count["epoch_step_ws"] += 1
+    last_launch.update(
+        design="ws", blocks=blocks, bf16=False, steps_per_iter=steps_per_iter,
+        staged=False, form=f"uint8/{rng}", replicas=1, ring="")
+    return (_tree(*outs), losses[:valid_steps],
+            stamps[:valid_steps] if stamps is not None else None)
+
+
 def _epoch_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
                 compute_bf16, steps_per_iter, valid_steps, pad_steps,
-                max_blocks):
+                max_blocks, design=None):
+    """One launch of `design` ('rows'), or of the design epoch_design
+    picks (None)."""
+    if (design or epoch_design(xp.dtype, compute_bf16, batch)) == "ws":
+        return _ws_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng,
+                        nsteps, steps_per_iter, valid_steps, max_blocks)[:2]
     lib = _kernel_lib()
     dev = xp.device
     x = xp if xp.dtype == torch.uint8 else xp.to(torch.float32)
@@ -354,7 +469,7 @@ def _epoch_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
     _raise_on(err, "epoch_step kernel launch")
     launch_count[_form_key(compute_bf16, steps_per_iter)] += 1
     last_launch.update(
-        blocks=grid.value, bf16=bool(compute_bf16),
+        design="rows", blocks=grid.value, bf16=bool(compute_bf16),
         steps_per_iter=steps_per_iter, staged=stage is not None,
         form=f"{'uint8' if u8 else 'f32'}/{rng}", replicas=1, ring="")
     return _tree(*outs), losses[:valid_steps]
@@ -364,7 +479,7 @@ def epoch_fused_sgd(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
                     masks=None, rng_impl: str = "core",
                     compute_bf16: bool = False, steps_per_iter: int = 1,
                     valid_steps=None, axis_size: int = 1, ring: str = "auto",
-                    max_blocks: int = 0):
+                    max_blocks: int = 0, _design=None):
     """One ENTIRE epoch as one kernel (`--kernel pallas_epoch`): (params, xp
     (S*B, 784) gathered epoch rows, f32 or raw uint8, yp (S*B,) int,
     seed_or_keys, lr, batch=B) -> (new params, losses (S,) f32).
@@ -388,8 +503,9 @@ def epoch_fused_sgd(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
     `ring` picks the allreduce ('auto': all-gather up to
     EPOCH_KERNEL_MAX_DEVICES replicas, reduce-scatter beyond). Returns
     (list of n params trees, bitwise equal; list of n per-replica loss
-    tensors). `max_blocks` caps the blocks (per replica for K6; 0: the
-    co-resident maximum cut to the work); the bits do not depend on it.
+    tensors). `max_blocks` caps the blocks of the 'rows' design (per
+    replica for K6; 0: the co-resident maximum cut to the work); the bits
+    do not depend on it. K2-ws has a fixed grid and refuses a cap below it.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     version."""
@@ -405,7 +521,7 @@ def epoch_fused_sgd(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
     if xp.device.type == "cuda":
         return _epoch_cuda(params, xp, yp, seed_or_keys, lr, batch, masks,
                            rng, nsteps, compute_bf16, steps_per_iter, valid,
-                           pad, max_blocks)
+                           pad, max_blocks, _design)
     if xp.device.type == "cpu":
         return epoch_fused_sgd_reference(
             params, xp, yp, seed_or_keys, lr, batch, masks=masks,
@@ -413,6 +529,12 @@ def epoch_fused_sgd(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
             steps_per_iter=steps_per_iter, valid_steps=valid_steps)
     raise ValueError(f"epoch_fused_sgd runs on cuda or cpu, not "
                      f"{xp.device.type}")
+
+
+def _epoch_fused_sgd_rows(*args, **kwargs):
+    """`epoch_fused_sgd`, single replica, on the 'rows' design
+    whatever the form: the yardstick K2-ws is held against on a card."""
+    return epoch_fused_sgd(*args, _design="rows", **kwargs)
 
 
 # ---- K6: the DP form ----
@@ -661,7 +783,7 @@ def _ring_cuda(params, xp, yp, seeds, masks, lr, batch, rng, nsteps,
             ctypes.byref(group), stream)
     _raise_on(err, "epoch_step ring kernel launch")
     launch_count[f"epoch_step_dp_{ring}" + ("_bf16" if compute_bf16 else "")] += 1
-    last_launch.update(blocks=group.value, bf16=bool(compute_bf16),
+    last_launch.update(design="rows", blocks=group.value, bf16=bool(compute_bf16),
                        steps_per_iter=1, staged=False,
                        form=f"{'uint8' if u8 else 'f32'}/{rng}", replicas=n,
                        ring=ring)
@@ -756,3 +878,61 @@ def kernel_mask_block(seed_or_keys, step: int, batch: int, *,
                                   stream)
     _raise_on(err, "epoch_step mask kernel launch")
     return out
+
+
+def kernel_pixel_table(device) -> torch.Tensor:
+    """The f32 normalise table K2-ws fills in shared memory: (256,
+    WS_TABLE_COPIES), entry v of each lane's copy the normalised value of
+    pixel v. On a CUDA device it comes from the kernel's own fill (one
+    small launch, not counted in launch_count); on the CPU it is the plain
+    normalise of 0..255 in every copy, which the kernel's must equal
+    bitwise."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        plain = device_normalize(torch.arange(256, dtype=torch.uint8))
+        return plain[:, None].repeat(1, WS_TABLE_COPIES)
+    if device.type != "cuda":
+        raise ValueError(f"kernel_pixel_table runs on cuda or cpu, not "
+                         f"{device.type}")
+    lib = _ws_lib()
+    out = torch.empty((256, WS_TABLE_COPIES), dtype=torch.float32,
+                      device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.pdmt_ws_table(out.data_ptr(), stream)
+    _raise_on(err, "epoch_ws table kernel launch", ws_lib=lib)
+    return out
+
+
+# the phases between K2-ws's stamps (csrc/epoch_ws.cu `Stamp`), in order
+WS_PHASES = ("rows copy", "z1 + mask + d1 out", "barrier 1", "d1 in",
+             "z2 + h2 out", "barrier 2", "h2 in", "logits + loss + dl",
+             "gw3", "dz2 of every unit",
+             "w3/b2 update + dd1 + dz1 + gw2 row", "gb1 + gw1 + w1 update")
+
+
+def ws_phase_stamps(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
+                    masks=None, rng_impl: str = "core", valid_steps=None):
+    """One epoch on K2-ws's stamps build (`-DWS_STAMPS`, ops/_build.py
+    VARIANTS), which reads %globaltimer at each phase boundary of block 0,
+    and its SM clock at the start and end of each step. A debug entry on
+    CUDA tensors, not counted in launch_count. Returns (params, losses,
+    {phase: mean us a step}, mean us a step, mean SM clock in MHz): the
+    phases of WS_PHASES, each averaged over the epoch's steps."""
+    rng, nsteps, valid, _ = _check(params, xp, yp, seed_or_keys, batch,
+                                   masks, rng_impl, 1, valid_steps)
+    if xp.device.type != "cuda" or epoch_design(xp.dtype, False,
+                                                batch) != "ws":
+        raise ValueError("ws_phase_stamps runs K2-ws's form (uint8 rows, "
+                         "f32) on a CUDA device")
+    p, losses, stamps = _ws_cuda(params, xp, yp, seed_or_keys, lr, batch,
+                                 masks, rng, nsteps, 1, valid, 0,
+                                 lib_name="epoch_ws_stamps")
+    n = len(WS_PHASES) + 1
+    t = stamps[:, :n].double()
+    per_phase = (t[:, 1:] - t[:, :-1]).mean(0) / 1e3
+    split = dict(zip(WS_PHASES, per_phase.tolist()))
+    ns = float((t[:, -1] - t[:, 0]).sum())
+    cycles = float((stamps[:, n + 1] - stamps[:, n]).double().sum())
+    return (p, losses, split, ns / valid / 1e3,
+            cycles / ns * 1e3 if ns > 0 else 0.0)

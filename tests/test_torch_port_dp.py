@@ -486,7 +486,7 @@ def test_parallel_streaming_cli_runs_the_dp_step(kernel, tmp_path, capsys):
                          batch_size=64)
     make = (ddp.make_dp_train_step if kernel == "xla"
             else fused_step.make_pallas_dp_train_step)
-    _, want = fit(TrainState(MLP(torch.Generator().manual_seed(0)),
+    _, want = fit(TrainState(MLP.from_seed(0),
                              threefry.key_data(1)), loader,
                   normalize_images(test.images), test.labels.astype(np.int32),
                   epochs=1, batch_size=64, train_step=make((CPU,), 0.01),

@@ -18,7 +18,11 @@ kernel's ring, is held on an n-replica mesh on one card: every replica's
 weights bitwise equal after the launch, bitwise equal to K1 per replica +
 the ring's summation tree + SGD (the same row and gradient code), a
 1-replica ring launch bitwise equal to K2, and a stalled ring ending in
-RingTimeoutError."""
+RingTimeoutError. K2-ws, the weight-stationary design of K2's uint8 f32
+forms, is held bitwise against the rows design on the same inputs and
+against K1 + SGD, its superstep bitwise against K = 1 on a ragged epoch,
+its normalise table bitwise against the plain normalise, and its stamps
+build bitwise against the default build."""
 
 import re
 from functools import partial
@@ -182,11 +186,15 @@ def _leaves(params, losses):
 def test_epoch_kernel_matches_k1_bitwise_and_its_plain_version(cuda, form,
                                                                batch, nsteps):
     inp = _epoch_inputs(batch, nsteps, seed=batch + nsteps, device=cuda)
-    before = epoch_step.launch_count["epoch_step"]
+    design = epoch_step.epoch_design(inp[K2_FORMS[form][0]].dtype, False,
+                                     batch)
+    key = "epoch_step_ws" if design == "ws" else "epoch_step"
+    before = epoch_step.launch_count[key]
     got = _leaves(*_epoch(epoch_step.epoch_fused_sgd, form, inp))
     again = _leaves(*_epoch(epoch_step.epoch_fused_sgd, form, inp))
-    assert epoch_step.launch_count["epoch_step"] == before + 2
+    assert epoch_step.launch_count[key] == before + 2
     assert epoch_step.last_launch["form"] == "/".join(K2_FORMS[form])
+    assert epoch_step.last_launch["design"] == design
     k1 = _leaves(*_k1_epoch(form, inp))
     ref = _leaves(*_epoch(epoch_step.epoch_fused_sgd_reference, form, inp))
     torch.cuda.synchronize()
@@ -218,7 +226,9 @@ def test_cached_cli_runs_one_epoch_kernel_launch_per_epoch(cuda, tmp_path,
     out = capsys.readouterr().out
     assert rc == 0 and "kernel=pallas_epoch cached fused" in out
     assert re.search(r"^Epoch=1, train_loss=\S+, val_loss=\S+", out, re.M)
-    assert epoch_step.launch_count["epoch_step"] == before["epoch_step"] + 2
+    assert epoch_step.launch_count["epoch_step_ws"] == \
+        before["epoch_step_ws"] + 2
+    assert epoch_step.last_launch["design"] == "ws"
 
 
 # ---- slice 3: K1-bf16, K1-rng, K2-bf16, K2 superstep, the streaming mask ----
@@ -343,8 +353,11 @@ def test_superstep_is_bitwise_k1_on_a_ragged_epoch(cuda, form, bf16):
     base = _leaves(*_epoch(fn, form, inp))
     for k in (2, 4, 8):
         got = _leaves(*_epoch(partial(fn, steps_per_iter=k), form, inp))
-        assert epoch_step.last_launch["steps_per_iter"] == k
-        assert epoch_step.last_launch["staged"] == (form != "K2a")
+        ll = epoch_step.last_launch
+        assert ll["steps_per_iter"] == k
+        # the 'rows' design stages uint8 rows; K2-ws (uint8, f32) needs not
+        assert ll["design"] == ("rows" if bf16 or form == "K2a" else "ws")
+        assert ll["staged"] == (ll["design"] == "rows" and form != "K2a")
         assert got[0].shape == (11,)
         for a, b in zip(got, base):
             assert torch.equal(a, b), (form, bf16, k)
@@ -473,3 +486,86 @@ def test_parallel_cli_on_one_card_equals_the_serial_run(cuda, tmp_path,
     assert "parallel=1x128" in capsys.readouterr().out
     for a, b in zip(serial, dp):
         np.testing.assert_array_equal(a, b)
+
+
+# ---- slice 6: K2-ws, the weight-stationary design of K2's uint8 f32 forms ----
+
+WS_FORMS = ("K2b", "K2c", "K3")     # uint8 rows; masks, core, threefry
+
+
+@pytest.mark.parametrize("form", WS_FORMS)
+@pytest.mark.parametrize("batch,nsteps", [(128, 24), (8, 5)])
+def test_ws_kernel_is_bitwise_the_rows_design_and_k1(cuda, form, batch,
+                                                     nsteps):
+    inp = _epoch_inputs(batch, nsteps, seed=batch + nsteps + 2, device=cuda)
+    before = dict(epoch_step.launch_count)
+    got = _leaves(*_epoch(epoch_step.epoch_fused_sgd, form, inp))
+    assert epoch_step.last_launch["design"] == "ws"
+    assert epoch_step.launch_count["epoch_step_ws"] == \
+        before["epoch_step_ws"] + 1
+    again = _leaves(*_epoch(epoch_step.epoch_fused_sgd, form, inp))
+    rows = _leaves(*_epoch(epoch_step._epoch_fused_sgd_rows, form, inp))
+    assert epoch_step.last_launch["design"] == "rows"
+    k1 = _leaves(*_k1_epoch(form, inp))
+    torch.cuda.synchronize()
+    for a, b, c, d in zip(got, again, rows, k1):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+
+
+@pytest.mark.parametrize("form", WS_FORMS)
+def test_ws_superstep_on_a_ragged_epoch_is_bitwise_k1(cuda, form):
+    inp = _epoch_inputs(64, 11, seed=13, device=cuda)
+    base = _leaves(*_epoch(epoch_step.epoch_fused_sgd, form, inp))
+    for k in (2, 4, 8):
+        got = _leaves(*_epoch(partial(epoch_step.epoch_fused_sgd,
+                                      steps_per_iter=k), form, inp))
+        ll = epoch_step.last_launch
+        assert (ll["design"], ll["steps_per_iter"], ll["staged"]) == \
+            ("ws", k, False)
+        assert got[0].shape == (11,)
+        for a, b in zip(got, base):
+            assert torch.equal(a, b), (form, k)
+    # and a ragged epoch passed with valid_steps, as the hot paths pad it
+    pixels, rng = K2_FORMS[form]
+    pad = 5 * 64
+    padded = dict(inp)
+    for name in (pixels, "y", "masks"):
+        t = inp[name]
+        padded[name] = torch.cat([t, t[:pad]])
+    if rng == "threefry":
+        padded["threefry"] = torch.cat([inp["threefry"], inp["threefry"][:5]])
+    got = _leaves(*_epoch(partial(epoch_step.epoch_fused_sgd,
+                                  steps_per_iter=8, valid_steps=11), form,
+                          padded))
+    for a, b in zip(got, base):
+        assert torch.equal(a, b), form
+
+
+def test_ws_table_is_bitwise_the_plain_normalise(cuda):
+    got = epoch_step.kernel_pixel_table(cuda)
+    want = device_normalize(torch.arange(256, dtype=torch.uint8, device=cuda))
+    assert got.shape == (256, epoch_step.WS_TABLE_COPIES)
+    for copy in got.unbind(1):
+        assert torch.equal(copy, want)
+    assert torch.equal(got.cpu(), epoch_step.kernel_pixel_table("cpu"))
+
+
+def test_ws_refuses_a_block_cap_below_its_grid(cuda):
+    inp = _epoch_inputs(8, 2, seed=1, device=cuda)
+    with pytest.raises(ValueError, match="max_blocks"):
+        _epoch(partial(epoch_step.epoch_fused_sgd, max_blocks=4), "K2c", inp)
+
+
+def test_ws_stamps_build_keeps_the_bits_and_splits_the_step(cuda):
+    inp = _epoch_inputs(128, 6, seed=4, device=cuda)
+    base = _leaves(*_epoch(epoch_step.epoch_fused_sgd, "K2c", inp))
+    before = dict(epoch_step.launch_count)
+    params, losses, split, per_step, mhz = epoch_step.ws_phase_stamps(
+        inp["params"], inp["uint8"], inp["y"], inp["core"], 0.01, 128)
+    assert 100 < mhz < 5000
+    assert dict(epoch_step.launch_count) == before
+    for a, b in zip(_leaves(params, losses), base):
+        assert torch.equal(a, b)
+    assert list(split) == list(epoch_step.WS_PHASES)
+    assert all(v >= 0 for v in split.values()) and per_step > 0
+    assert abs(sum(split.values()) - per_step) <= 1e-6 * per_step + 1e-9

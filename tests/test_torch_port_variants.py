@@ -147,23 +147,45 @@ def _epoch_data(nsteps, batch, seed):
             split.labels.astype(np.int32), masks)
 
 
-@pytest.mark.parametrize("k", [2, 4, 8])
-def test_superstep_plain_is_bitwise_k1_and_tracks_jax(k):
-    nsteps, batch, lr = 11, 16, 0.01
+@pytest.mark.parametrize("k,rng,valid", [
+    pytest.param(2, "masks", None, id="2"),
+    pytest.param(4, "masks", None, id="4"),
+    pytest.param(8, "masks", None, id="8"),
+    pytest.param(4, "masks", 11, id="4-masks-ragged"),
+    pytest.param(4, "threefry", 11, id="4-threefry-ragged")])
+def test_superstep_plain_is_bitwise_k1_and_tracks_jax(k, rng, valid):
+    # K steps an iteration is bitwise K = 1 on the real steps. A ragged
+    # epoch (`valid`) is 11 real steps that the hot paths pad to 12 at the
+    # index level; the JAX kernel runs the same launch.
+    nsteps, batch, lr = (11, 16, 0.01) if valid is None else (12, 8, 0.05)
+    real = nsteps if valid is None else valid
     x, y, masks = _epoch_data(nsteps, batch, seed=7)
+    keys = None
+    if rng == "threefry":
+        masks = None
+        keys = threefry.to_int32_words(
+            threefry.split(threefry.key_data(7), nsteps))
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    mt = None if masks is None else torch.from_numpy(masks)
+    impl = "threefry" if rng == "threefry" else "core"
     tree = _jax_params()
-    args = (torch.from_numpy(x), torch.from_numpy(y), None, lr, batch)
-    p1, l1 = epoch_step.epoch_fused_sgd(from_jax_params(tree).params(), *args,
-                                        masks=torch.from_numpy(masks))
-    pk, lk = epoch_step.epoch_fused_sgd(from_jax_params(tree).params(), *args,
-                                        masks=torch.from_numpy(masks),
-                                        steps_per_iter=k)
-    assert lk.shape == (nsteps,) and torch.equal(lk, l1)
+    n = real * batch
+    p1, l1 = epoch_step.epoch_fused_sgd(
+        from_jax_params(tree).params(), xt[:n], yt[:n],
+        None if keys is None else keys[:real], lr, batch,
+        masks=None if mt is None else mt[:n], rng_impl=impl)
+    pk, lk = epoch_step.epoch_fused_sgd(
+        from_jax_params(tree).params(), xt, yt, keys, lr, batch, masks=mt,
+        rng_impl=impl, steps_per_iter=k, valid_steps=valid)
+    assert lk.shape == (real,) and torch.equal(lk, l1)
     _assert_tree_close(pk, to_numpy_params(p1), rtol=0, atol=0)
-    jp, jl = jax_ps.epoch_fused_sgd(tree, jnp.asarray(x), jnp.asarray(y), None,
-                                    lr, batch, masks=jnp.asarray(masks),
-                                    interpret=True, steps_per_iter=k)
-    np.testing.assert_allclose(lk.numpy(), np.asarray(jl), rtol=RTOL, atol=ATOL)
+    jp, jl = jax_ps.epoch_fused_sgd(
+        tree, jnp.asarray(x), jnp.asarray(y),
+        None if keys is None else jnp.asarray(keys.numpy()), lr, batch,
+        masks=None if masks is None else jnp.asarray(masks), rng_impl=impl,
+        interpret=True, steps_per_iter=k, valid_steps=valid)
+    np.testing.assert_allclose(lk.numpy(), np.asarray(jl)[:real], rtol=RTOL,
+                               atol=ATOL)
     _assert_tree_close(pk, jp, rtol=RTOL, atol=ATOL)
 
 
