@@ -13,7 +13,13 @@ Phases (any failure exits non-zero; no phase is skipped):
   3. kernels — holds each kernel against its plain PyTorch version on the
                card, on the same numpy-seeded inputs, with the stated
                tolerances, and checks that repeat launches are bitwise equal:
-               K1 (fused_step) at B = 128/1000/3; K1-bf16 at the same B
+               K1 (fused_step) at B = 128/1000/3, each case asserting the
+               design `fused_design` picks; K1-split (the split design of
+               K1's f32 forms, csrc/fused_split.cu) bitwise the rows design
+               (csrc/fused_step.cu) at B = 128/96/8/3 with a mask and with
+               the in-kernel Philox draw, a repeat bitwise, within the
+               tolerances of the plain version, a misaligned view and a
+               CUDA-graph replay bitwise the eager call; K1-bf16 at the same B
                (and unequal to K1); K1-rng (in-kernel Philox per (seed,
                batch block)) at B = 128/1000/3 in f32 and bf16, its mask
                bitwise the plain stream, two seeds apart, and its mean loss
@@ -46,8 +52,9 @@ Phases (any failure exits non-zero; no phase is skipped):
                MNIST 60k/10k), each with every kernel's launch count set to 0
                just before it and read just after:
                a. `train` streaming, 50 steps, --kernel auto (K1 and the
-                  threefry mask per step), held against the same run with
-                  the autograd step and against the same run on the CPU;
+                  threefry mask per step, every K1 launch on the split
+                  design), held against the same run with the autograd step
+                  and against the same run on the CPU;
                b. `train` streaming --kernel pallas --dtype bfloat16, 50
                   steps (K1-bf16 per step);
                c. `train --cached --kernel pallas_epoch --impl threefry2x32`,
@@ -56,7 +63,11 @@ Phases (any failure exits non-zero; no phase is skipped):
                   masks);
                d. `train --cached --fused --n_epochs 2`, two K2-ws launches;
                e. `train --cached --kernel pallas_rng`, one epoch: 469 K1-rng
-                  launches and no mask drawn outside the kernel;
+                  launches (split design) and no mask drawn outside the
+                  kernel; `train --cached` (--kernel auto: K1 per step), one
+                  epoch on the split design and one with the rows design
+                  forced, in turns (split, rows, rows, split), bitwise equal
+                  losses, the wall time of each;
                f. `train --cached --kernel pallas_epoch --dtype bfloat16`,
                   one epoch in ONE K2-bf16 launch, held against the CPU run;
                g. `bench --epochs 5` (K2-ws), whose JSON line is printed;
@@ -66,14 +77,19 @@ Phases (any failure exits non-zero; no phase is skipped):
                   `--parallel --cached` calls), global batch 512: one
                   118-step epoch through K6 all-gather (threefry), one
                   through K6 reduce-scatter (core), 50 steps of `--kernel
-                  pallas` (K1 per replica), each held against the same run
+                  pallas` (K1 per replica, split design), each held against
+                  the same run
                   on a 4-replica CPU mesh; `train --parallel --cached
                   --kernel pallas_epoch` on the 1-card mesh (K2-ws), bitwise
                   the serial run.
   5. timing  — CUDA-event times of each kernel and form and its plain
                version at the main path's shapes, torch.profiler's device
-               time of K1 and the cached epoch, beside the bound computed
-               from those shapes; K2-ws and the rows design in turns in
+               time of K1 (both designs) and the cached epoch, and its
+               device-busy share of a `train --cached` epoch's per-step loop
+               on each K1 design, beside the bound computed from those
+               shapes; K1-split and the rows design in turns at B = 128,
+               f32 and rng, per wrapper call and in a CUDA graph, and the
+               per-phase split of a K1-split call from its stamps build; K2-ws and the rows design in turns in
                K2b, K2c, K3 and f32 K = 8, and the per-phase split of a K2c epoch from K2-ws's stamps
                build; K6 per (ring, n) over a 118-step epoch beside the
                rows-design K2 and a 1-replica ring launch at the same
@@ -85,6 +101,7 @@ The line before the last is the card's name and power limit; the last is
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import math
@@ -232,6 +249,7 @@ def phase_kernels(device) -> float:
     for batch in (128, 1000, 3):
         params, x, y, mask = _k1_inputs(batch, seed=batch, device=device)
         got = _flat(*fused_step.fused_loss_and_grads(params, x, y, mask))
+        design = _k1_design(x, False)
         again = _flat(*fused_step.fused_loss_and_grads(params, x, y, mask))
         ref = _flat(*fused_step.fused_loss_and_grads_reference(params, x, y,
                                                                mask))
@@ -256,10 +274,107 @@ def phase_kernels(device) -> float:
             if bool(nz.any()):
                 b_rel = max(b_rel, float((diff[nz] / r.abs()[nz]).max()))
         worst_abs = max(worst_abs, b_abs)
-        print(f"[kernels] fused_step B={batch}: loss {float(got[0][1]):.7f} "
-              f"vs plain {float(ref[0][1]):.7f}; worst abs err {b_abs:.3e}, "
-              f"worst rel err {b_rel:.3e}; repeat launch bitwise equal")
+        print(f"[kernels] fused_step B={batch} ({design} design): loss "
+              f"{float(got[0][1]):.7f} vs plain {float(ref[0][1]):.7f}; worst "
+              f"abs err {b_abs:.3e}, worst rel err {b_rel:.3e}; repeat launch "
+              f"bitwise equal")
     return worst_abs
+
+
+def _k1_design(x, rng: bool) -> str:
+    """The design the last K1 launch ran, failing unless it is the one
+    fused_design picks for x's form and batch."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step
+    got = fused_step.last_launch["design"]
+    want = fused_step.fused_design(x.dtype, rng, x.shape[0])
+    if got != want:
+        fail(f"a K1 launch of {x.dtype} B={x.shape[0]} rng={rng} ran the "
+             f"{got!r} design; fused_design picks {want!r}")
+    return got
+
+
+SPLIT_CHECKS = (128, 96, 8, 3)   # the full and the ragged main-path batches
+
+
+def phase_kernels_split(device) -> dict:
+    """K1-split, the split design of K1's f32 forms, at B = 128, 96, 8, 3,
+    with a mask and with the in-kernel Philox draw: its design asserted,
+    bitwise the rows design on the same inputs (the loss and all five
+    gradients), a repeat launch bitwise, within the grads tolerances of the
+    plain version; at B = 128 a view of x at an odd offset and a CUDA-graph
+    replay bitwise the eager call. Returns the worst absolute error against
+    the plain version per form."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step, philox
+    worst = {"fused_split": 0.0, "fused_split_rng": 0.0}
+    for batch in SPLIT_CHECKS:
+        params, x, y, mask = _k1_inputs(batch, seed=batch + 50, device=device)
+        seed = 0x80000000 + 2 * batch
+        for rng in (False, True):
+            key = "fused_split_rng" if rng else "fused_split"
+            tag = f"{key} B={batch}"
+
+            def call(design=None, xin=x):
+                if rng:
+                    return fused_step.fused_loss_and_grads_rng(
+                        params, xin, y, seed, _design=design)
+                return fused_step.fused_loss_and_grads(params, xin, y, mask,
+                                                       _design=design)
+            got = call()
+            if _k1_design(x, rng) != "split":
+                fail(f"{tag}: did not run the split design")
+            again = call()
+            rows = call("rows")
+            ref = fused_step.fused_loss_and_grads_reference(
+                params, x, y, philox.rng_mask(seed, batch, device) if rng
+                else mask)
+            torch.cuda.synchronize()
+            _check_repeat(tag, got, again)
+            for (name, a), (_, b) in zip(_flat(*got), _flat(*rows)):
+                if not torch.equal(a, b):
+                    fail(f"{tag}: {name} differs from the rows design by "
+                         f"{float((a - b).abs().max()):.3e} in "
+                         f"{int((a != b).sum())} elements (bitwise expected)")
+            err = _check_close(tag, got, ref, LOSS_RTOL, GRAD_RTOL, GRAD_ATOL)
+            worst[key] = max(worst[key], err)
+            extra = ""
+            if batch == MAIN_BATCH:
+                # a view of x at an odd offset (copied to 16-byte alignment
+                # by the wrapper) and a CUDA-graph replay
+                flat = torch.empty(x.numel() + 1, device=device)
+                view = flat[1:].view_as(x)
+                view.copy_(x)
+                odd = call(xin=view)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    captured = call()
+                graph.replay()
+                torch.cuda.synchronize()
+                for what, other in (("an odd-offset view", odd),
+                                    ("a CUDA-graph replay", captured)):
+                    for (name, a), (_, b) in zip(_flat(*got), _flat(*other)):
+                        if not torch.equal(a, b):
+                            fail(f"{tag}: {name} of {what} differs from the "
+                                 f"eager call")
+                extra = "; an odd-offset view and a CUDA-graph replay bitwise"
+            print(f"[kernels] {tag}: bitwise the rows design (loss and 5 "
+                  f"grads); repeat bitwise; worst abs err vs plain "
+                  f"{err:.3e}{extra}")
+    # more distinct x and scratch addresses than the wrapper's cache of
+    # tensor maps has slots
+    params, x, y, mask = _k1_inputs(96, seed=9, device=device)
+    xs = [x + 0.0 for _ in range(48)]
+    for i, xi in enumerate(xs):
+        got = fused_step.fused_loss_and_grads(params, xi, y, mask)
+        want = fused_step.fused_loss_and_grads(params, xi, y, mask,
+                                               _design="rows")
+        for (name, a), (_, b) in zip(_flat(*got), _flat(*want)):
+            if not torch.equal(a, b):
+                fail(f"fused_split on the {i}th of 48 distinct inputs: {name} "
+                     f"differs from the rows design")
+    torch.cuda.synchronize()
+    print("[kernels] fused_split on 48 distinct inputs (more than its cache "
+          "of tensor maps holds): every call bitwise the rows design")
+    return worst
 
 
 def _k2_inputs(batch: int, nsteps: int, seed: int, device):
@@ -478,6 +593,7 @@ def phase_kernels_k1_variants(device) -> dict:
         xb = x.to(torch.bfloat16)
         tag = f"fused_step bf16 B={batch}"
         got = fused_step.fused_loss_and_grads(params, xb, y, mask)
+        _k1_design(xb, False)
         again = fused_step.fused_loss_and_grads(params, xb, y, mask)
         f32 = fused_step.fused_loss_and_grads(params, x, y, mask)
         ref = fused_step.step_reference_bf16(params, xb, y, mask)
@@ -501,6 +617,7 @@ def phase_kernels_k1_variants(device) -> dict:
         for xin, bf16 in ((x, False), (xb, True)):
             tag = f"fused_step rng{' bf16' if bf16 else ''} B={batch}"
             got = fused_step.fused_loss_and_grads_rng(params, xin, y, seed)
+            _k1_design(xin, True)
             again = fused_step.fused_loss_and_grads_rng(params, xin, y, seed)
             other = fused_step.fused_loss_and_grads_rng(params, xin, y,
                                                         seed + 1)
@@ -733,10 +850,10 @@ def phase_main_streaming(tmp: str) -> dict:
     if not losses[-10:].mean() < losses[:10].mean():
         fail(f"losses are not falling: first 10 mean {losses[:10].mean()}, "
              f"last 10 mean {losses[-10:].mean()}")
-    expect_launches(launches, {"fused_step": MAIN_STEPS,
+    expect_launches(launches, {"fused_split": MAIN_STEPS,
                                "threefry_mask": MAIN_STEPS},
-                    f"{MAIN_STEPS} streaming steps (one fused_step and one "
-                    f"threefry_mask launch per step)")
+                    f"{MAIN_STEPS} streaming steps (one K1 launch on the split "
+                    f"design and one threefry_mask launch per step)")
     saved = load_checkpoint(ckpt)
     for name, layer in state.model.params().items():
         for k, p in layer.items():
@@ -744,7 +861,8 @@ def phase_main_streaming(tmp: str) -> dict:
                 fail(f"checkpoint {name}.{k} does not load back bitwise")
     print(f"[main] {MAIN_STEPS} steps in {wall:.2f}s (wall, data "
           f"generation and eval included); loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}; fused_step launches {launches['fused_step']}; "
+          f"{losses[-1]:.4f}; K1 launches by design: split "
+          f"{launches['fused_split']}, rows {launches['fused_step']}; "
           f"checkpoint loads back bitwise")
 
     # the same run with the plain autograd step: same seeds, so same
@@ -753,7 +871,7 @@ def phase_main_streaming(tmp: str) -> dict:
     plain_argv[plain_argv.index("auto")] = "xla"
     plain_argv[-1] = ""
     _, plain_history, _ = _run_trainer(cli_train, plain_argv)
-    if fused_step.launch_count["fused_step"] != launches["fused_step"]:
+    if fused_step.launch_count["fused_split"] != launches["fused_split"]:
         fail("--kernel xla launched the fused kernel")
     rel = np.abs(losses - plain_history[0]) / np.abs(plain_history[0])
     if not (rel <= TRAIN_RTOL).all():
@@ -929,8 +1047,9 @@ def phase_main_cached_variants(tmp: str) -> dict:
         scan.dropout_mask = draw
     rng = _counts()
     _check_epoch_lines(out, history, 1, "train --cached --kernel pallas_rng")
-    expect_launches(rng, {"fused_step_rng": EPOCH_STEPS},
-                    "train --cached --kernel pallas_rng, one epoch")
+    expect_launches(rng, {"fused_split_rng": EPOCH_STEPS},
+                    "train --cached --kernel pallas_rng, one epoch (the split "
+                    "design)")
     if drawn:
         fail(f"train --cached --kernel pallas_rng drew {len(drawn)} masks "
              f"outside the kernel")
@@ -969,6 +1088,58 @@ def phase_main_cached_variants(tmp: str) -> dict:
           f"{BF16_TRAIN_RTOL})")
     return {"train --cached --kernel pallas_rng": rng,
             "train --cached --kernel pallas_epoch --dtype bfloat16": bf16}
+
+
+@contextlib.contextmanager
+def _k1_rows_design():
+    """Every K1 launch inside runs the rows design (the card's yardstick
+    for the split design), whatever fused_design picks."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step
+    rule = fused_step.fused_design
+    fused_step.fused_design = lambda *a: "rows"
+    try:
+        yield
+    finally:
+        fused_step.fused_design = rule
+
+
+def phase_main_cached_k1(tmp: str) -> tuple:
+    """`train --cached` with --kernel auto (K1 and the threefry mask per
+    step), one 469-step epoch on the split design and one with the rows
+    design forced, in turns (split, rows, rows, split): launches by design,
+    the two designs' per-step losses bitwise equal, and each run's wall
+    time (dataset upload and eval included). Returns (the split run's
+    launches, {design: [wall s of each run]})."""
+    from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
+    argv = _cached_argv(tmp, "--n_epochs", "1", "--checkpoint", "")
+    walls = {"split": [], "rows": []}
+    runs = {}
+    for design in ("split", "rows", "rows", "split"):
+        _reset_counts()
+        with (_k1_rows_design() if design == "rows"
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            _, history, out = _run_trainer(cli_train, argv)
+            walls[design].append(time.perf_counter() - t0)
+        launches = _counts()
+        what = f"train --cached (--kernel auto), {design} design"
+        _check_epoch_lines(out, history, 1, what)
+        key = "fused_split" if design == "split" else "fused_step"
+        expect_launches(launches, {key: EPOCH_STEPS,
+                                   "threefry_mask": EPOCH_STEPS}, what)
+        if design in runs and not np.array_equal(runs[design][0], history[0]):
+            fail(f"{what}: two runs give different losses")
+        runs[design] = (history[0], launches)
+    if not np.array_equal(runs["split"][0], runs["rows"][0]):
+        fail("train --cached: the split design's per-step losses differ from "
+             "the rows design's (bitwise expected)")
+    print(f"[main] train --cached (--kernel auto: {EPOCH_STEPS} K1 launches): "
+          f"wall s split {', '.join(f'{v:.3f}' for v in walls['split'])}, "
+          f"rows {', '.join(f'{v:.3f}' for v in walls['rows'])} (turns "
+          f"split, rows, rows, split; upload and eval included); per-step "
+          f"losses bitwise equal across the designs; launches "
+          f"{ {k: v for k, v in runs['split'][1].items() if v} }")
+    return runs["split"][1], walls
 
 
 def phase_bench(extra=(), key="epoch_step_ws", form="uint8/core", bf16=False,
@@ -1036,39 +1207,68 @@ def _graph_ms(fn, calls: int = 20, replays: int = 50) -> float:
     return _time_ms(graph.replay, iters=replays, warmup=3) / calls
 
 
-def profile_jobs(jobs: dict) -> dict:
+def profile_jobs(jobs: dict) -> tuple:
     """torch.profiler's device time per call of each CUDA kernel (and copy),
     for jobs {label: (fn, calls, names)} run in turn inside ONE profiler
-    session: a job owns the kernels whose short names it lists, the one job
-    with names None every other one. Returns {label: {name: us per call}},
-    empty where the profiler recorded no device time. One session, taken
-    before any CUDA graph capture: a second session later in the run
-    recorded no device time on the card."""
+    session, each inside a record_function range: a kernel belongs to the
+    job whose range it starts in; a job with names keeps only the kernels
+    whose short names it lists. Returns ({label: {name: us per call}},
+    {label: {"wall_ms", "window_ms", "busy_ms", "busy_share"}}), the second
+    the job's host wall time, its profiler range and the union of its
+    device intervals; empty where the profiler recorded no device time. One
+    session, taken before any CUDA graph capture: a second session later in
+    the run recorded no device time on the card."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     for fn, _, _ in jobs.values():
         fn()
     torch.cuda.synchronize()
+    walls = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for fn, calls, _ in jobs.values():
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-    owner = {name: label for label, (_, _, names) in jobs.items()
-             for name in names or ()}
-    rest = [label for label, (_, _, names) in jobs.items() if names is None]
+        for label, (fn, calls, _) in jobs.items():
+            with record_function(f"job::{label}"):
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                walls[label] = time.perf_counter() - t0
+    events = prof.events()
+    # the ranges on the host; the profiler also records each range's span
+    # on the device, which is no kernel
+    windows = {e.name[len("job::"):]: (e.time_range.start, e.time_range.end)
+               for e in events if e.name.startswith("job::")
+               and getattr(e, "device_type", None) == DeviceType.CPU}
     out = {label: {} for label in jobs}
-    for e in prof.key_averages():
+    spans = {label: [] for label in jobs}
+    for e in events:
         if getattr(e, "device_type", None) != DeviceType.CUDA \
-                or e.device_time_total <= 0:
+                or e.name.startswith("job::") \
+                or e.time_range.end <= e.time_range.start:
             continue
-        name = _short(e.key)
-        label = owner.get(name, rest[0] if rest else None)
-        if label is not None:
-            out[label][name] = (out[label].get(name, 0.0)
-                                + e.device_time_total / jobs[label][1])
-    return out
+        for label, (a, b) in windows.items():
+            if a <= e.time_range.start < b:
+                name = _short(e.name)
+                us = e.time_range.end - e.time_range.start
+                out[label][name] = out[label].get(name, 0.0) + us / jobs[label][1]
+                spans[label].append((e.time_range.start, min(e.time_range.end, b)))
+                break
+    busy = {}
+    for label, (_, _, names) in jobs.items():
+        if names:
+            out[label] = {k: v for k, v in out[label].items() if k in names}
+        if label not in windows or not spans[label]:
+            continue
+        a, b = windows[label]
+        total, end = 0.0, a
+        for lo, hi in sorted(spans[label]):
+            if hi > end:
+                total += hi - max(lo, end)
+                end = hi
+        busy[label] = {"wall_ms": walls[label] * 1e3,
+                       "window_ms": (b - a) / 1e3, "busy_ms": total / 1e3,
+                       "busy_share": total / (b - a)}
+    return out, busy
 
 
 def _short(kernel_name: str) -> str:
@@ -1097,38 +1297,134 @@ def k1_bound(batch: int, bf16: bool = False, rng: bool = False):
     return _bound(flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
 
 
-def phase_timing(device, launches: dict, max_abs_err: float, card: str,
-                 by_kernel: dict):
-    from pytorch_ddp_mnist_tpu_torch.ops import fused_step
+# launch_count keys of K1's rows design (csrc/fused_step.cu)
+ROWS_K1_KEYS = ("fused_step", "fused_step_rng", "fused_step_bf16",
+                "fused_step_rng_bf16")
+
+
+def _sm_max_mhz() -> float:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        return float(smi.stdout.strip().splitlines()[0])
+    except (ValueError, IndexError):
+        fail(f"nvidia-smi gave no SM clock: {smi.stdout!r} {smi.stderr!r}")
+
+
+def phase_timing(device, paths: dict, max_abs_err: float, split_worst: dict,
+                 card: str, prof: dict, busy: dict, cached_walls: dict) -> list:
+    """K1 at B = 128, f32, with a mask and with the in-kernel draw: the split
+    design and the rows design in turns (rows, split, split, rows) per
+    wrapper call and in a CUDA graph, and the plain version; the split
+    design's per-phase split from its stamps build (held bitwise against
+    the default build); the longest chain's latency floor. `paths` are
+    every main path's launches. Returns the kernels-line entries of the
+    split design (mask, rng) and of the rows design (f32 mask)."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step, philox
     params, x, y, mask = _k1_inputs(MAIN_BATCH, seed=7, device=device)
-    kernel = lambda: fused_step.fused_loss_and_grads(params, x, y, mask)  # noqa: E731
-    plain = lambda: fused_step.fused_loss_and_grads_reference(  # noqa: E731
-        params, x, y, mask)
-    # plain, kernel, kernel, plain: compare within one call, in turns
-    p1, k1, k2, p2 = (_time_ms(f) for f in (plain, kernel, kernel, plain))
-    kg = _graph_ms(kernel)
-    bound_ms, bound_by, flops, nbytes = k1_bound(MAIN_BATCH)
-    entry = {
-        "name": "fused_step", "route": "cuda",
-        "source": "pytorch_ddp_mnist_tpu_torch/csrc/fused_step.cu",
-        "replaces": "pytorch_ddp_mnist_tpu/ops/pallas_step.py:191",
-        "launches": launches["fused_step"], "max_abs_err": max_abs_err,
-        "ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
-        # extras: device time per call with no host in the way, the CUDA
-        # launches behind one wrapper call, and the bound's inputs
-        "graph_ms": kg, "cuda_launches_per_call": 2, "batch": MAIN_BATCH,
-        "flop": flops, "bytes": nbytes,
-        "profiler_us_per_call": by_kernel, "card": card,
-    }
-    print(f"[timing] fused_step B={MAIN_BATCH}: {entry['ms'] * 1e3:.2f} us "
-          f"per wrapper call ({k1 * 1e3:.2f}, {k2 * 1e3:.2f}), "
-          f"{kg * 1e3:.2f} us per call in a CUDA graph; plain "
-          f"{entry['plain_ms'] * 1e3:.2f} us ({p1 * 1e3:.2f}, {p2 * 1e3:.2f}); "
-          f"bound {bound_ms * 1e3:.3f} us by {bound_by}; no single PyTorch "
-          f"call computes this fused function, so library_ms is null "
-          f"[{card}]")
-    return entry
+    seed = 12345
+    rows_launches = sum(v.get(k, 0) for v in paths.values()
+                        for k in ROWS_K1_KEYS)
+    mhz = _sm_max_mhz()
+    floor_us = 784 * 4 / mhz
+    lib = fused_step._split_lib()
+    blocks = (ctypes.c_int * 3)()
+    if lib.pdmt_split_blocks(MAIN_BATCH, blocks) != 0:
+        fail("pdmt_split_blocks refused B = 128")
+    out = []
+    for rng in (False, True):
+        key = "fused_split_rng" if rng else "fused_split"
+
+        def call(design=None, rng=rng):
+            if rng:
+                return fused_step.fused_loss_and_grads_rng(params, x, y, seed,
+                                                           _design=design)
+            return fused_step.fused_loss_and_grads(params, x, y, mask,
+                                                   _design=design)
+
+        def plain(rng=rng):
+            return fused_step.fused_loss_and_grads_reference(
+                params, x, y, philox.rng_mask(seed, MAIN_BATCH, device)
+                if rng else mask)
+        split = lambda: call()  # noqa: E731
+        rows = lambda: call("rows")  # noqa: E731
+        p1 = _time_ms(plain, iters=50, warmup=5)
+        r_ms, s_ms, turns = _turns(rows, split, iters=200, warmup=20)
+        graphs = [_graph_ms(f) for f in (rows, split, split, rows)]
+        p2 = _time_ms(plain, iters=50, warmup=0)
+        rg, sg = min(graphs[0], graphs[3]), min(graphs[1], graphs[2])
+        bound = k1_bound(MAIN_BATCH, rng=rng)
+        path = "train" if not rng else "train --cached --kernel pallas_rng"
+        extra = dict(
+            graph_ms=sg, rows_design_ms=r_ms, rows_design_graph_ms=rg,
+            graph_speedup_over_rows_design=rg / sg,
+            turns_rows_split_split_rows={"call_ms": turns, "graph_ms": graphs},
+            form=("K1-rng (in_kernel_rng), f32" if rng
+                  else "K1 f32, mask input"),
+            design="split (csrc/fused_split.cu), by fused_design at f32 "
+                   "B <= SPLIT_MAX_BATCH",
+            launches_by_path={k: v[key] for k, v in paths.items()
+                              if v.get(key)},
+            blocks_per_launch=list(blocks), chain_floor_us=floor_us,
+            sm_max_mhz=mhz, batch=MAIN_BATCH)
+        if not rng:
+            # the per-phase split from the stamps build, bitwise the default
+            # build; the profiler's kernels on each design; the per-step
+            # cached epoch on each design
+            base = _flat(*split())
+            fused_step.split_phase_stamps(params, x, y, mask, calls=5)
+            loss, grads, phases, per_call = fused_step.split_phase_stamps(
+                params, x, y, mask, calls=50)
+            for (leaf, a), (_, b) in zip(_flat(loss, grads), base):
+                if not torch.equal(a, b):
+                    fail(f"K1-split stamps build: {leaf} differs from the "
+                         f"default build")
+            print(f"[timing] fused_split B={MAIN_BATCH} phase split (stamps "
+                  f"build, mean of 50 calls outside a graph; kernel starts "
+                  f"by block 0, ends by the last block): {per_call:.2f} us "
+                  f"from the first kernel's start to the last one's end "
+                  f"[{card}]")
+            for phase, us in phases.items():
+                print(f"[timing]   {phase:36s} {us:8.3f} us  "
+                      f"{us / per_call:6.1%}")
+            extra.update(
+                phase_split_us=phases, phase_split_call_us=per_call,
+                profiler_us_per_call=prof.get("fused_split", {}),
+                rows_design_profiler_us_per_call=prof.get("fused_step", {}),
+                cached_k1_epoch={
+                    "wall_s": cached_walls,
+                    "profiler_split": busy.get("k1_epoch_split"),
+                    "profiler_rows": busy.get("k1_epoch_rows")})
+        out.append(_entry(
+            key, "fused_split.cu", 333 if rng else 191,
+            paths[path][key], split_worst[key], s_ms, min(p1, p2), bound,
+            card, **extra))
+        print(f"[timing] {key} B={MAIN_BATCH}: {sg * 1e3:.2f} us per call in "
+              f"a CUDA graph against the rows design's {rg * 1e3:.2f} "
+              f"({rg / sg:.2f}x; turns rows, split, split, rows: "
+              f"{', '.join(f'{v * 1e3:.2f}' for v in graphs)}); per wrapper "
+              f"call {s_ms * 1e3:.2f} us against {r_ms * 1e3:.2f} "
+              f"({', '.join(f'{v * 1e3:.2f}' for v in turns)}); plain "
+              f"{min(p1, p2) * 1e3:.2f} us; bound {bound[0] * 1e3:.3f} us by "
+              f"{bound[1]}; longest chain's floor {floor_us:.2f} us (784 x 4 "
+              f"cycles at {mhz:.0f} MHz) [{card}]")
+        if not rng:
+            rows_entry = _entry(
+                "fused_step", "fused_step.cu", 191, rows_launches,
+                max_abs_err, r_ms, min(p1, p2), bound, card,
+                graph_ms=rg, cuda_launches_per_call=2, batch=MAIN_BATCH,
+                profiler_us_per_call=prof.get("fused_step", {}),
+                design="rows (csrc/fused_step.cu)",
+                main_path="launches: every launch of this design on the main "
+                          "paths, all in its bf16 forms (timed in the "
+                          "fused_step_bf16 entry); the f32 forms at B <= 128 "
+                          "run the split design (fused_design), and this "
+                          "entry's times are its f32 mask form with the "
+                          "design forced, in turns with the split design")
+    print("[timing] fused_split, fused_split_rng, fused_step: no single "
+          "PyTorch call computes this fused function, so library_ms is null")
+    return out + [rows_entry]
 
 
 def k2_bound(batch: int, nsteps: int, form: str, bf16: bool = False):
@@ -1147,10 +1443,13 @@ def k2_bound(batch: int, nsteps: int, form: str, bf16: bool = False):
     return _bound(flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
 
 
-def phase_profile(device) -> dict:
-    """The profiler's device time per call of K1 (B = 128) and of one epoch
-    of the cached path at the main path's shapes (B = 128, 469 steps,
-    --impl rbg): the gathers of the epoch's rows and K2-ws (K2c)."""
+def phase_profile(device) -> tuple:
+    """The profiler's device time per call of K1 on each design (B = 128),
+    of one epoch of the cached path at the main path's shapes (B = 128, 469
+    steps, --impl rbg: the gathers of the epoch's rows and K2-ws, K2c), and
+    of one epoch of the per-step cached loop (`train --cached`'s default
+    --kernel pallas: K1, its threefry mask, SGD) on each K1 design, with
+    each job's device-busy share. Returns profile_jobs' two dicts."""
     from pytorch_ddp_mnist_tpu_torch.data.mnist import synthetic_mnist
     from pytorch_ddp_mnist_tpu_torch.ops import fused_step
     from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
@@ -1162,20 +1461,39 @@ def phase_profile(device) -> dict:
     sampler = ShardedSampler(60000, seed=42)
     idx = scan.epoch_batch_indices(sampler, MAIN_BATCH)
     epoch = scan.make_epoch_fn(LR, kernel="pallas_epoch", impl="rbg")
+    k1_epoch = scan.make_epoch_fn(LR, kernel="pallas")
+
+    def k1_epoch_rows():
+        with _k1_rows_design():
+            k1_epoch(params, (0, 1), x_all, y_all, idx)
+
     jobs = {
+        "fused_split": (lambda: fused_step.fused_loss_and_grads(
+            params, x, y, mask), 50,
+            ("split_hidden_kernel", "split_rows_kernel", "split_grads_kernel")),
         "fused_step": (lambda: fused_step.fused_loss_and_grads(
-            params, x, y, mask), 50, ("rows_kernel", "grads_kernel")),
+            params, x, y, mask, _design="rows"), 50,
+            ("rows_kernel", "grads_kernel")),
         "cached_epoch": (lambda: epoch(params, (0, 1), x_all, y_all, idx), 3,
                          None),
+        "k1_epoch_split": (lambda: k1_epoch(params, (0, 1), x_all, y_all,
+                                            idx), 1, None),
+        "k1_epoch_rows": (k1_epoch_rows, 1, None),
     }
-    out = profile_jobs(jobs)
+    out, busy = profile_jobs(jobs)
     for label, kernels in out.items():
-        for key, us in sorted(kernels.items(), key=lambda kv: -kv[1]):
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])
+        for key, us in top[:8]:
             print(f"[timing] profiler {label}: {us:12.2f} us/call  {key}")
         if not kernels:
             print(f"[timing] profiler {label}: recorded no device time "
                   f"(not measured)")
-    return out
+        if label in busy:
+            b = busy[label]
+            print(f"[timing] profiler {label}: device busy {b['busy_ms']:.3f} "
+                  f"ms of a {b['window_ms']:.3f} ms range "
+                  f"({b['busy_share']:.1%}); host wall {b['wall_ms']:.3f} ms")
+    return out, busy
 
 
 def phase_timing_k2(device, launches: dict, worst: dict, card: str,
@@ -1355,17 +1673,23 @@ def phase_timing_variants(device, launches: dict, worst: dict, card: str):
           f"[{card}]")
 
     seed = 12345
-    kernel = lambda: fused_step.fused_loss_and_grads_rng(params, x, y, seed)  # noqa: E731
+    kernel = lambda: fused_step.fused_loss_and_grads_rng(  # noqa: E731
+        params, x, y, seed, _design="rows")
     plain = lambda: fused_step.fused_loss_and_grads_reference(  # noqa: E731
         params, x, y, philox.rng_mask(seed, MAIN_BATCH, device))
     p, k, t = _turns(plain, kernel, iters=50, warmup=5)
     kg = _graph_ms(kernel)
     out.append(_entry(
         "fused_step_rng", "fused_step.cu", 333,
-        launches["train --cached --kernel pallas_rng"]["fused_step_rng"],
+        sum(v.get(key, 0) for v in launches.values() for key in ROWS_K1_KEYS),
         worst["fused_step_rng"], k, p, k1_bound(MAIN_BATCH, rng=True), card,
-        graph_ms=kg, form="K1-rng (in_kernel_rng), f32", batch=MAIN_BATCH))
-    print(f"[timing] fused_step rng B={MAIN_BATCH}: {k * 1e3:.2f} us per "
+        graph_ms=kg, form="K1-rng (in_kernel_rng), f32, the rows design "
+        "forced", batch=MAIN_BATCH,
+        main_path="launches: every launch of the rows design on the main "
+                  "paths (its bf16 forms); the f32 rng form at B <= 128 runs "
+                  "the split design (fused_split_rng)"))
+    print(f"[timing] fused_step rng (rows design) B={MAIN_BATCH}: "
+          f"{k * 1e3:.2f} us per "
           f"wrapper call ({t[1] * 1e3:.2f}, {t[2] * 1e3:.2f}), "
           f"{kg * 1e3:.2f} us in a CUDA graph; plain (Philox in torch + the "
           f"plain step) {p * 1e3:.2f} us; bound "
@@ -1671,7 +1995,7 @@ def phase_main_dp(device, tmp: str) -> dict:
             ("reduce_scatter", "rbg", "pallas_epoch", 0,
              {"epoch_step_dp_reduce_scatter": 1}),
             ("auto", "threefry2x32", "pallas", DP_PALLAS_STEPS * DP_BATCH,
-             {"fused_step": DP_PALLAS_STEPS * DP_REPLICAS,
+             {"fused_split": DP_PALLAS_STEPS * DP_REPLICAS,
               "threefry_mask": DP_PALLAS_STEPS * DP_REPLICAS}))
     for ring, impl, kernel, limit, want in runs:
         what = (f"fit_cached(mesh=[cuda:0] x {DP_REPLICAS}, kernel={kernel}, "
@@ -1844,6 +2168,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     phase_build()
     max_abs_err = phase_kernels(device)
+    split_worst = phase_kernels_split(device)
     worst = phase_kernels_k1_variants(device)
     k2_worst = phase_kernels_k2(device)
     worst["epoch_step_bf16"] = phase_kernels_k2_bf16(device)
@@ -1855,6 +2180,8 @@ def main() -> int:
                      phase_main_streaming_bf16(tmp)}
         k2_launches = phase_main_cached(tmp)
         paths.update(phase_main_cached_variants(tmp))
+        paths["train --cached --kernel auto"], cached_walls = \
+            phase_main_cached_k1(tmp)
         dp_launches = phase_main_dp(device, tmp)
     _, k2_launches["bench --epochs 5"] = phase_bench()
     ss = ("--kernel", "pallas_epoch", "--dtype", "bfloat16", "--superstep",
@@ -1862,21 +2189,22 @@ def main() -> int:
     _, paths["bench " + " ".join(ss)] = phase_bench(
         ss, key="epoch_step_superstep_bf16", bf16=True, superstep=8,
         design="rows")
-    prof = phase_profile(device)
-    entry = phase_timing(device, paths["train"], max_abs_err, card,
-                         prof["fused_step"])
+    prof, busy = phase_profile(device)
+    all_paths = {**paths, **k2_launches, **dp_launches}
+    k1_entries = phase_timing(device, all_paths, max_abs_err, split_worst,
+                              card, prof, busy, cached_walls)
     k2_entries = phase_timing_k2(device, k2_launches, k2_worst, card, prof,
-                                 {**paths, **k2_launches, **dp_launches})
-    new = phase_timing_variants(device, paths, worst, card)
+                                 all_paths)
+    new = phase_timing_variants(device, all_paths, worst, card)
     new += phase_timing_k6(device, dp_launches, k6_worst, card)
-    times = [entry["ms"], entry["plain_ms"], entry["graph_ms"]]
+    times = [e[k] for e in k1_entries for k in ("ms", "plain_ms", "graph_ms")]
     times += [f[k] for f in k2_entries[0]["forms"].values()
               for k in ("rows_ms", "ws_ms", "plain_ms") if f[k] is not None]
     times += [e[k] for e in k2_entries + new for k in ("ms", "plain_ms")]
     for v in times:
         if not (math.isfinite(v) and v > 0):
             fail(f"timing gave {v}")
-    kernels = [entry] + k2_entries + new
+    kernels = k1_entries + k2_entries + new
     for e in kernels:
         if e["launches"] < 1:
             fail(f"{e['name']} was launched no time on its main path")

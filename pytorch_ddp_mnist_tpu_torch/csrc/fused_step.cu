@@ -74,13 +74,6 @@ using namespace mlp;
 
 constexpr int BLOCKS_B = GRAD_TILES + 1;  // + the bias / loss block
 
-struct ArrayMask {
-  const float* mask;
-  __device__ float operator()(int row, int col) const {
-    return mask[(size_t)row * H1 + col];
-  }
-};
-
 // RNG: the mask is drawn (PhiloxBlockMask) instead of read (ArrayMask)
 template <class XT, bool BF, bool RNG>
 __global__ void __launch_bounds__(THREADS_A) rows_kernel(

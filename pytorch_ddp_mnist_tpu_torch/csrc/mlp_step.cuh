@@ -1,6 +1,8 @@
 // The per-row and per-gradient-element math of one training step of the
 // reference MLP, shared by K1 (fused_step.cu, one step per call) and K2
-// (epoch_step.cu, a whole epoch per launch).
+// (epoch_step.cu, a whole epoch per launch); K1-split (fused_split.cu) and
+// K2-ws (epoch_ws.cu) keep the same chains in their own loops and take the
+// constants, the mask sources and the pixel normalise from here.
 //
 //   z1 = x w1 + b1          d1 = relu(z1) * m       z2 = d1 w2 + b2
 //   h2 = relu(z2)           logits = h2 w3          loss_b = lse - logit_y
@@ -203,6 +205,14 @@ __device__ __forceinline__ float philox_mask(uint32_t k0, uint32_t k1,
              ? static_cast<float>(1.0 / (1.0 - 0.2))
              : 0.0f;
 }
+
+// K1's mask input: the pre-drawn (batch, 128) array
+struct ArrayMask {
+  const float* mask;
+  __device__ float operator()(int row, int col) const {
+    return mask[(size_t)row * H1 + col];
+  }
+};
 
 // K1-rng's mask (pallas_step.py `fused_loss_and_grads_rng`): the TPU seeds
 // its core PRNG per (step seed, batch block of `_run_fused`'s grid) and draws

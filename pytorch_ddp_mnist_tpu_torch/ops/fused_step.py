@@ -16,9 +16,14 @@ forms:
   * `fused_loss_and_grads(params, x, y, scaled_mask)` and
     `fused_loss_and_grads_rng(params, x, y, seed)` are the public entries;
     a bf16 `x` selects the bf16 mode, as in JAX. For CUDA tensors they
-    launch the hand-written kernel in `csrc/fused_step.cu` (two launches per
-    call, no float atomics, bitwise repeatable) or raise; they never fall
-    back. For CPU tensors, and only then, they run the plain version.
+    launch a hand-written kernel (no float atomics, bitwise repeatable) or
+    raise; they never fall back. For CPU tensors, and only then, they run
+    the plain version. Two designs of the kernel compute the same bits;
+    `fused_design(x dtype, rng, batch)` picks one by form: 'split'
+    (`csrc/fused_split.cu`: the chains spread over the card in three
+    launches) for f32 x at B <= SPLIT_MAX_BATCH, the default trainer's
+    step; 'rows' (`csrc/fused_step.cu`: two launches, 8 batch rows a block
+    in the first) for larger batches and the bf16 forms.
   * `fused_loss_and_grads_reference` (f32) and `step_reference_bf16` spell
     out the same formulas in plain PyTorch (no autograd) on any device: the
     CPU tests hold them against the JAX kernel, and chip_smoke.py holds the
@@ -28,7 +33,12 @@ forms:
     threefry device function (`csrc/mlp_step.cuh`), on the CPU from
     ops/threefry.py.
   * `launch_count` counts wrapper calls that launched a kernel, one key per
-    form, so a run can show that its steps went through it.
+    design and form (`fused_split`, `fused_split_rng` for the split design;
+    `fused_step`, `fused_step_rng`, `fused_step_bf16`,
+    `fused_step_rng_bf16` for the rows design), so a run shows which
+    design its steps went through; `last_launch` names the last call's
+    design and key. `split_phase_stamps(...)` runs the split design's
+    stamps build and returns its per-phase split.
 
 `params` is the JAX-layout tree `{"fc1": {"w", "b"}, "fc2": {"w", "b"},
 "fc3": {"w"}}` with weights (fan_in, fan_out), as `MLP.params()` gives it.
@@ -46,12 +56,20 @@ from .sgd import sgd_step
 
 IN_DIM, HIDDEN1, HIDDEN2, NUM_CLASSES = MLP_DIMS
 
-# wrapper calls that launched a CUDA kernel, per form (chip_smoke.py resets
-# and reads them)
-launch_count = {"fused_step": 0, "fused_step_bf16": 0, "fused_step_rng": 0,
+# f32 batches up to this many rows run the split design (fused_design):
+# its gradient kernel holds the whole batch in shared memory
+SPLIT_MAX_BATCH = 128
+
+# wrapper calls that launched a CUDA kernel, per design and form
+# (chip_smoke.py resets and reads them)
+launch_count = {"fused_split": 0, "fused_split_rng": 0, "fused_step": 0,
+                "fused_step_bf16": 0, "fused_step_rng": 0,
                 "fused_step_rng_bf16": 0, "threefry_mask": 0}
+# the last launch's design ("split" or "rows") and launch_count key
+last_launch = {"design": "", "form": ""}
 
 _lib = None
+_split_libs = {}
 
 
 def _kernel_lib():
@@ -76,9 +94,36 @@ def _kernel_lib():
     return _lib
 
 
-def _raise_on(err: int, what: str) -> None:
+def _split_lib(name: str = "fused_split"):
+    """The split design's library `name` (the default build, or its stamps
+    build) with its ctypes signatures declared and its constants checked
+    against this module's."""
+    if name not in _split_libs:
+        from . import _build
+        lib = _build.load(name)
+        p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+        lib.pdmt_split_step.argtypes = ([p, p, i, p, u, i] + [p] * 13
+                                        + [i, f, p])
+        lib.pdmt_split_step.restype = i
+        for fn in ("pdmt_split_max_batch", "pdmt_split_stamp_words"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i
+        lib.pdmt_split_scratch_floats.argtypes = [i]
+        lib.pdmt_split_scratch_floats.restype = i
+        lib.pdmt_split_blocks.argtypes = [i, p]
+        lib.pdmt_split_blocks.restype = i
+        lib.pdmt_error_string.argtypes = [i]
+        lib.pdmt_error_string.restype = ctypes.c_char_p
+        if lib.pdmt_split_max_batch() != SPLIT_MAX_BATCH:
+            raise RuntimeError(f"{name}: max batch {lib.pdmt_split_max_batch()}"
+                               f", expected {SPLIT_MAX_BATCH}")
+        _split_libs[name] = lib
+    return _split_libs[name]
+
+
+def _raise_on(err: int, what: str, lib) -> None:
     if err != 0:
-        msg = _kernel_lib().pdmt_error_string(err).decode()
+        msg = lib.pdmt_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
@@ -209,14 +254,73 @@ def _reference(params, x, y, scaled_mask):
     return fused_loss_and_grads_reference(params, x, y, scaled_mask)
 
 
+def fused_design(x_dtype, rng: bool, batch: int) -> str:
+    """The K1 design a launch runs: 'split' (csrc/fused_split.cu) for f32 x
+    at batch <= SPLIT_MAX_BATCH, with a mask or the in-kernel Philox draw
+    (`rng`) alike; 'rows' (csrc/fused_step.cu) for larger batches and the
+    bf16 forms. Both give the same bits where both run."""
+    del rng  # both dropout sources take the same design
+    return ("split" if x_dtype == torch.float32 and batch <= SPLIT_MAX_BATCH
+            else "rows")
+
+
 def _form(x, rng: bool) -> str:
     return ("fused_step" + ("_rng" if rng else "")
             + ("_bf16" if x.dtype == torch.bfloat16 else ""))
 
 
-def _fused_cuda(params, x, y, scaled_mask, seed=None):
-    """One launch pair of the kernel: the mask is `scaled_mask`, or drawn
-    in the kernel from the uint32 step seed `seed`."""
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy of it where its data does not start on 16 bytes (the
+    split design's bulk and tensor copies): only a view at an odd offset
+    does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _split_cuda(params, x, y, scaled_mask, seed=None, *, stamps=None,
+                lib_name="fused_split"):
+    """One call of the split design (three launches); `stamps`, a zeroed
+    int64 tensor of the stamps build's words, receives its phase stamps."""
+    batch = x.shape[0]
+    if x.dtype != torch.float32 or not 1 <= batch <= SPLIT_MAX_BATCH:
+        raise ValueError(f"the split design takes f32 x at 1 <= B <= "
+                         f"{SPLIT_MAX_BATCH}; got {x.dtype} B={batch}")
+    lib = _split_lib(lib_name)
+    y32 = y.to(torch.int32).contiguous()
+    w1, b1, w2, b2, w3 = _weights(params)
+    x, w1, w2, w3 = _aligned(x), _aligned(w1), _aligned(w2), _aligned(w3)
+    scratch = torch.empty(lib.pdmt_split_scratch_floats(batch),
+                          dtype=torch.float32, device=x.device)
+    loss = torch.empty((), dtype=torch.float32, device=x.device)
+    grads = [torch.empty_like(w) for w in (w1, b1, w2, b2, w3)]
+    rng = seed is not None
+    _, block = philox.batch_blocks(batch)
+    with torch.cuda.device(x.device):
+        err = lib.pdmt_split_step(
+            x.data_ptr(), y32.data_ptr(), int(rng),
+            None if rng else scaled_mask.data_ptr(), seed if rng else 0,
+            block, w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), w3.data_ptr(), scratch.data_ptr(),
+            loss.data_ptr(), *(g.data_ptr() for g in grads),
+            None if stamps is None else stamps.data_ptr(), batch,
+            1.0 / batch, _stream(x.device))
+    _raise_on(err, "fused_split kernel launch", lib)
+    return loss, _tree(*grads)
+
+
+def _fused_cuda(params, x, y, scaled_mask, seed=None, design=None):
+    """One call of the kernel: the mask is `scaled_mask`, or drawn in the
+    kernel from the uint32 step seed `seed`. `design` ('split' or 'rows')
+    overrides fused_design's choice."""
+    rng = seed is not None
+    design = design or fused_design(x.dtype, rng, x.shape[0])
+    if design == "split":
+        loss, grads = _split_cuda(params, x, y, scaled_mask, seed)
+        key = "fused_split" + ("_rng" if rng else "")
+        launch_count[key] += 1
+        last_launch.update(design=design, form=key)
+        return loss, grads
+    if design != "rows":
+        raise ValueError(f"design must be 'split' or 'rows', not {design!r}")
     lib = _kernel_lib()
     batch = x.shape[0]
     y32 = y.to(torch.int32).contiguous()
@@ -225,7 +329,6 @@ def _fused_cuda(params, x, y, scaled_mask, seed=None):
                           dtype=torch.float32, device=x.device)
     loss = torch.empty((), dtype=torch.float32, device=x.device)
     grads = [torch.empty_like(w) for w in (w1, b1, w2, b2, w3)]
-    rng = seed is not None
     _, block = philox.batch_blocks(batch)
     with torch.cuda.device(x.device):
         err = lib.pdmt_fused_step(
@@ -235,21 +338,25 @@ def _fused_cuda(params, x, y, scaled_mask, seed=None):
             w2.data_ptr(), b2.data_ptr(), w3.data_ptr(), scratch.data_ptr(),
             loss.data_ptr(), *(g.data_ptr() for g in grads), batch,
             1.0 / batch, _stream(x.device))
-    _raise_on(err, "fused_step kernel launch")
-    launch_count[_form(x, rng)] += 1
+    _raise_on(err, "fused_step kernel launch", lib)
+    key = _form(x, rng)
+    launch_count[key] += 1
+    last_launch.update(design=design, form=key)
     return loss, _tree(*grads)
 
 
-def fused_loss_and_grads(params, x, y, scaled_mask):
+def fused_loss_and_grads(params, x, y, scaled_mask, *, _design=None):
     """(params tree, x (B, 784) f32 or bf16, y (B,) int, scaled_mask
     (B, 128) f32 in {0, 1/keep}) -> (mean loss, grads tree), f32. Any B >= 1.
     A bf16 `x` selects the bf16-operand mode.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
-    version. Parameters may require grad: no autograd graph is built."""
+    CUDA tensors launch the kernel of `fused_design`'s design (or raise);
+    `_design` forces one ('rows' is the card's yardstick for 'split'). CPU
+    tensors run the plain version. Parameters may require grad: no
+    autograd graph is built."""
     _check_inputs(params, x, y, scaled_mask)
     if x.device.type == "cuda":
-        return _fused_cuda(params, x, y, scaled_mask)
+        return _fused_cuda(params, x, y, scaled_mask, design=_design)
     if x.device.type == "cpu":
         return _reference(params, x, y, scaled_mask)
     raise ValueError(f"fused_loss_and_grads runs on cuda or cpu, not "
@@ -262,7 +369,7 @@ def rng_seed(seed) -> int:
     return int(seed) & threefry.M32
 
 
-def fused_loss_and_grads_rng(params, x, y, seed):
+def fused_loss_and_grads_rng(params, x, y, seed, *, _design=None):
     """The kernel with its dropout mask drawn INSIDE it (`--kernel
     pallas_rng`): (params, x (B, 784) f32 or bf16, y (B,) int, seed (an
     int, taken mod 2**32)) -> (mean loss, grads tree).
@@ -271,17 +378,51 @@ def fused_loss_and_grads_rng(params, x, y, seed):
     draws the Philox block keyed (seed, block index)
     (ops/philox.py `rng_mask`), with the same keep rate and 1/keep scale as
     every other stream. It is the port's own stream, not the TPU core
-    PRNG's. CUDA tensors launch the kernel (or raise); CPU tensors run the
-    plain version on `philox.rng_mask(seed, B)`."""
+    PRNG's. CUDA tensors launch the kernel of `fused_design`'s design (or
+    raise; `_design` forces one); CPU tensors run the plain version on
+    `philox.rng_mask(seed, B)`."""
     _check_inputs(params, x, y)
     seed = rng_seed(seed)
     if x.device.type == "cuda":
-        return _fused_cuda(params, x, y, None, seed=seed)
+        return _fused_cuda(params, x, y, None, seed=seed, design=_design)
     if x.device.type == "cpu":
         return _reference(params, x, y,
                           philox.rng_mask(seed, x.shape[0], x.device))
     raise ValueError(f"fused_loss_and_grads_rng runs on cuda or cpu, not "
                      f"{x.device.type}")
+
+
+# the phases between the split design's stamps (csrc/fused_split.cu
+# `Stamp`), in order
+SPLIT_PHASES = ("hidden: z1, mask, d1", "gap to the rows launch",
+                "rows: w2 in, z2, h2", "rows: logits, softmax, dl",
+                "rows: dz2, dd1, dz1", "gap to the grads launch",
+                "grads: gw1, gw2, gw3, biases, loss")
+
+
+def split_phase_stamps(params, x, y, scaled_mask=None, seed=None, *,
+                       calls: int = 20):
+    """`calls` calls of the split design's stamps build (`-DSPLIT_STAMPS`,
+    ops/_build.py VARIANTS) on CUDA tensors, with the mask `scaled_mask` or
+    the in-kernel draw of `seed`; not counted in launch_count. Returns
+    (loss, grads) of the last call, {phase: us} for the phases of
+    SPLIT_PHASES averaged over the calls, and the mean us from the hidden
+    kernel's start to the grads kernel's end."""
+    _check_inputs(params, x, y, scaled_mask)
+    if x.device.type != "cuda" or fused_design(x.dtype, seed is not None,
+                                               x.shape[0]) != "split":
+        raise ValueError("split_phase_stamps runs the split design's form "
+                         "(f32 x, B <= SPLIT_MAX_BATCH) on CUDA tensors")
+    seed = None if seed is None else rng_seed(seed)
+    n = _split_lib("fused_split_stamps").pdmt_split_stamp_words()
+    stamps = torch.zeros((calls, n), dtype=torch.int64, device=x.device)
+    for i in range(calls):
+        out = _split_cuda(params, x, y, scaled_mask, seed, stamps=stamps[i],
+                          lib_name="fused_split_stamps")
+    t = stamps.double()
+    per_phase = (t[:, 1:] - t[:, :-1]).mean(dim=0) / 1e3
+    total = float((t[:, -1] - t[:, 0]).mean()) / 1e3
+    return out[0], out[1], dict(zip(SPLIT_PHASES, per_phase.tolist())), total
 
 
 def kernel_rng_mask(seed, batch: int, device) -> torch.Tensor:
@@ -301,7 +442,7 @@ def kernel_rng_mask(seed, batch: int, device) -> torch.Tensor:
     with torch.cuda.device(device):
         err = lib.pdmt_fused_rng_mask(seed, philox.batch_blocks(batch)[1],
                                       batch, out.data_ptr(), _stream(device))
-    _raise_on(err, "fused_step rng mask kernel launch")
+    _raise_on(err, "fused_step rng mask kernel launch", lib)
     return out
 
 
@@ -323,7 +464,7 @@ def dropout_mask(key, batch: int, device) -> torch.Tensor:
     with torch.cuda.device(device):
         err = lib.pdmt_threefry_mask(k0, k1, batch, out.data_ptr(),
                                      _stream(device))
-    _raise_on(err, "threefry mask kernel launch")
+    _raise_on(err, "threefry mask kernel launch", lib)
     launch_count["threefry_mask"] += 1
     return out
 

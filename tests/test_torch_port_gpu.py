@@ -22,7 +22,12 @@ RingTimeoutError. K2-ws, the weight-stationary design of K2's uint8 f32
 forms, is held bitwise against the rows design on the same inputs and
 against K1 + SGD, its superstep bitwise against K = 1 on a ragged epoch,
 its normalise table bitwise against the plain normalise, and its stamps
-build bitwise against the default build."""
+build bitwise against the default build. K1-split, the split design of
+K1's f32 forms, is held bitwise against K1's rows design (the loss and all
+five gradients) at B = 128, 96, 8 and 3 with a mask and with the in-kernel
+draw, on an odd-offset view and in a CUDA-graph replay, its stamps build
+against its default build, and the cached trainer's losses on it against
+the same run on the rows design."""
 
 import re
 from functools import partial
@@ -65,13 +70,25 @@ def _inputs(batch, seed, device):
             torch.from_numpy(mask).to(device))
 
 
+def _k1_key(x, rng=False):
+    """The launch_count key an f32 K1 call on x counts under: its
+    design's."""
+    split = fused_step.fused_design(x.dtype, rng, x.shape[0]) == "split"
+    return ("fused_split" if split else "fused_step") + ("_rng" if rng else "")
+
+
+def _k1_leaves(loss, grads):
+    return [loss] + [grads[n][k] for n in grads for k in grads[n]]
+
+
 @pytest.mark.parametrize("batch", [128, 1000, 700, 3])
 def test_kernel_matches_its_plain_version_and_repeats_bitwise(cuda, batch):
     args = _inputs(batch, batch, cuda)
-    before = fused_step.launch_count["fused_step"]
+    key = _k1_key(args[1])
+    before = fused_step.launch_count[key]
     loss, grads = fused_step.fused_loss_and_grads(*args)
     loss2, grads2 = fused_step.fused_loss_and_grads(*args)
-    assert fused_step.launch_count["fused_step"] == before + 2
+    assert fused_step.launch_count[key] == before + 2
     ref_loss, ref_grads = fused_step.fused_loss_and_grads_reference(*args)
     torch.cuda.synchronize()
     assert torch.equal(loss, loss2)
@@ -99,14 +116,15 @@ def test_fused_step_tracks_the_autograd_step_on_card(cuda):
     for step in (make_train_step(0.01), fused_step.make_fused_train_step(0.01)):
         model = MLP(torch.Generator().manual_seed(0)).to(cuda)
         key = threefry.key_data(1)
-        before = fused_step.launch_count["fused_step"]
+        k1 = _k1_key(x[:128])
+        before = fused_step.launch_count[k1]
         losses = []
         for i in range(0, 512, 128):
             key, loss = step(model, key, x[i:i + 128], y[i:i + 128])
             losses.append(loss)
         losses = torch.stack(losses)
-        runs.append((losses.cpu(), fused_step.launch_count["fused_step"]
-                     - before, model))
+        runs.append((losses.cpu(), fused_step.launch_count[k1] - before,
+                     model))
     (plain, plain_launches, _), (fused, fused_launches, model) = runs
     assert (plain_launches, fused_launches) == (0, 4)
     torch.testing.assert_close(fused, plain, rtol=1e-5, atol=0)
@@ -114,14 +132,15 @@ def test_fused_step_tracks_the_autograd_step_on_card(cuda):
 
 
 def test_cli_trains_through_the_kernel(cuda, tmp_path, capsys):
-    before = fused_step.launch_count["fused_step"]
+    key = "fused_split"    # f32 at B = 64: the split design
+    before = fused_step.launch_count[key]
     rc = port_cli.main(["--limit", "512", "--batch_size", "64",
                         "--checkpoint", str(tmp_path / "m.pt"),
                         "--path", str(tmp_path / "no_mnist")])
     out = capsys.readouterr().out
     assert rc == 0 and "kernel=pallas" in out
     assert re.search(r"^Epoch=0, train_loss=\S+, val_loss=\S+", out, re.M)
-    assert fused_step.launch_count["fused_step"] == before + 512 // 64
+    assert fused_step.launch_count[key] == before + 512 // 64
     assert (tmp_path / "m.pt").exists()
 
 
@@ -462,13 +481,14 @@ def test_dp_steps_on_a_card_mesh_track_each_other(cuda):
     for make in (make_dp_train_step, fused_step.make_pallas_dp_train_step):
         model = MLP(torch.Generator().manual_seed(0)).to(cuda)
         step, key = make(mesh, 0.01), threefry.key_data(1)
-        before = fused_step.launch_count["fused_step"]
+        k1 = _k1_key(x[:128])   # each replica's shard of 256 rows
+        before = fused_step.launch_count[k1]
         losses = []
         for i in range(0, 512, 256):
             key, loss = step(model, key, x[i:i + 256], y[i:i + 256])
             losses.append(loss)
         runs.append((torch.stack(losses).cpu(),
-                     fused_step.launch_count["fused_step"] - before))
+                     fused_step.launch_count[k1] - before))
     (plain, plain_k1), (fused, fused_k1) = runs
     assert (plain_k1, fused_k1) == (0, 4)
     torch.testing.assert_close(fused, plain, rtol=1e-5, atol=0)
@@ -569,3 +589,98 @@ def test_ws_stamps_build_keeps_the_bits_and_splits_the_step(cuda):
     assert list(split) == list(epoch_step.WS_PHASES)
     assert all(v >= 0 for v in split.values()) and per_step > 0
     assert abs(sum(split.values()) - per_step) <= 1e-6 * per_step + 1e-9
+
+
+# ---- slice 7: K1-split, the split design of K1's f32 forms ----
+
+@pytest.mark.parametrize("rng", [False, True], ids=["mask", "rng"])
+@pytest.mark.parametrize("batch", [128, 96, 8, 3])
+def test_split_design_is_bitwise_the_rows_design(cuda, batch, rng):
+    params, x, y, mask = _inputs(batch, batch + 11, cuda)
+    seed = (1 << 31) + 3 * batch
+
+    def call(design=None):
+        if rng:
+            return fused_step.fused_loss_and_grads_rng(params, x, y, seed,
+                                                       _design=design)
+        return fused_step.fused_loss_and_grads(params, x, y, mask,
+                                               _design=design)
+    key = "fused_split_rng" if rng else "fused_split"
+    before = fused_step.launch_count[key]
+    got = call()
+    assert fused_step.last_launch == {"design": "split", "form": key}
+    again = call()
+    assert fused_step.launch_count[key] == before + 2
+    rows = call("rows")
+    assert fused_step.last_launch["design"] == "rows"
+    ref = fused_step.fused_loss_and_grads_reference(
+        params, x, y, philox.rng_mask(seed, batch, cuda) if rng else mask)
+    torch.cuda.synchronize()
+    for a, b, c in zip(_k1_leaves(*got), _k1_leaves(*again),
+                       _k1_leaves(*rows)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=0)
+    for n in ref[1]:
+        for k in ref[1][n]:
+            torch.testing.assert_close(got[1][n][k], ref[1][n][k], rtol=2e-4,
+                                       atol=1e-6, msg=f"{n}.{k}")
+
+
+def test_split_design_takes_odd_offsets_and_replays_in_a_graph(cuda):
+    params, x, y, mask = _inputs(128, 5, cuda)
+    base = _k1_leaves(*fused_step.fused_loss_and_grads(params, x, y, mask))
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    view = flat[1:].view_as(x)
+    view.copy_(x)
+    assert view.data_ptr() % 16 != 0
+    odd = fused_step.fused_loss_and_grads(params, view, y, mask)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused_step.fused_loss_and_grads(params, x, y, mask)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, c in zip(base, _k1_leaves(*odd), _k1_leaves(*captured)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_split_design_keeps_its_tensor_maps_across_many_inputs(cuda):
+    # more distinct x and scratch addresses than the wrapper's cache of
+    # tensor maps has slots: every call bitwise the rows design
+    params, x, y, mask = _inputs(96, 9, cuda)
+    xs = [x + 0.0 for _ in range(48)]
+    for xi in xs:
+        got = fused_step.fused_loss_and_grads(params, xi, y, mask)
+        want = fused_step.fused_loss_and_grads(params, xi, y, mask,
+                                               _design="rows")
+        for a, b in zip(_k1_leaves(*got), _k1_leaves(*want)):
+            assert torch.equal(a, b)
+
+
+def test_split_stamps_build_keeps_the_bits_and_splits_the_call(cuda):
+    params, x, y, mask = _inputs(128, 6, cuda)
+    base = _k1_leaves(*fused_step.fused_loss_and_grads(params, x, y, mask))
+    before = dict(fused_step.launch_count)
+    loss, grads, split, per_call = fused_step.split_phase_stamps(
+        params, x, y, mask, calls=4)
+    assert dict(fused_step.launch_count) == before
+    for a, b in zip(_k1_leaves(loss, grads), base):
+        assert torch.equal(a, b)
+    assert list(split) == list(fused_step.SPLIT_PHASES)
+    assert all(v >= 0 for v in split.values()) and per_call > 0
+    assert abs(sum(split.values()) - per_call) <= 1e-6 * per_call + 1e-9
+
+
+def test_split_and_rows_designs_train_the_same_cached_epoch(cuda, tmp_path,
+                                                            monkeypatch):
+    argv = ["--cached", "--limit", "1024", "--checkpoint", "",
+            "--path", str(tmp_path / "no_mnist")]
+    before = dict(fused_step.launch_count)
+    _, split = port_cli.train(argv)
+    assert fused_step.launch_count["fused_split"] == \
+        before["fused_split"] + 1024 // 128
+    monkeypatch.setattr(fused_step, "fused_design", lambda *a: "rows")
+    _, rows = port_cli.train(argv)
+    assert fused_step.launch_count["fused_step"] == \
+        before["fused_step"] + 1024 // 128
+    for a, b in zip(split, rows):
+        np.testing.assert_array_equal(a, b)
