@@ -19,20 +19,27 @@ Phases (any failure exits non-zero; no phase is skipped):
                (csrc/fused_step.cu) at B = 128/96/8/3 with a mask and with
                the in-kernel Philox draw, a repeat bitwise, within the
                tolerances of the plain version, a misaligned view and a
-               CUDA-graph replay bitwise the eager call; K1-bf16 at the same B
-               (and unequal to K1); K1-rng (in-kernel Philox per (seed,
-               batch block)) at B = 128/1000/3 in f32 and bf16, its mask
+               CUDA-graph replay bitwise the eager call; K1-bf16 on the rows
+               design at the same B (and unequal to K1); K1-rng (in-kernel
+               Philox per (seed, batch block)) at B = 128/1000/3 in f32 and
+               bf16 (the rows design), its mask
                bitwise the plain stream, two seeds apart, and its mean loss
                over 8 seeds at B = 512 within 5% of K1's over 8 threefry
-               masks; the streaming threefry mask bitwise the plain draw;
+               masks; K1-mma (the mma design of the bf16 forms, csrc/
+               fused_mma.cu, the products on the tensor cores) at B =
+               128/96/8/3, mask and Philox, within the JAX bf16 pins of its
+               plain version and of the rows design, a repeat bitwise, the
+               Philox form bitwise the mask form on rng_mask, an odd-offset
+               view and a CUDA-graph replay bitwise, 48 distinct inputs;
+               the streaming threefry mask bitwise the plain draw;
                K2 (epoch_step) in its four forms (K2a f32 rows + masks, K2b
                uint8 rows + masks, K2c uint8 + in-kernel Philox, K3 uint8 +
                in-kernel threefry; the uint8 forms run K2-ws, the
                weight-stationary design, K2a the rows design, each
                asserted) and K2-bf16 in the three uint8 forms, at B = 128 x
                24 steps and B = 8 x 5 steps: in-kernel masks bitwise against
-               the plain streams, the epoch bitwise against K1 (or K1-bf16)
-               + SGD per step, K2-ws bitwise against the rows design on
+               the plain streams, the epoch bitwise against K1 (or K1-bf16
+               on the rows design, the step it shares) + SGD per step, K2-ws bitwise against the rows design on
                the same inputs, and against its plain version (losses per
                step; params in Frobenius norm); K2-ws's normalise table
                bitwise the plain normalise of 0..255; the superstep K =
@@ -56,7 +63,13 @@ Phases (any failure exits non-zero; no phase is skipped):
                   design), held against the same run with the autograd step
                   and against the same run on the CPU;
                b. `train` streaming --kernel pallas --dtype bfloat16, 50
-                  steps (K1-bf16 per step);
+                  steps (K1-bf16 per step on the mma design), and `train
+                  --cached --kernel pallas_rng --dtype bfloat16`, one epoch
+                  (469 K1-rng-bf16 launches on the mma design), each also
+                  with the rows design forced, in turns (mma, rows, rows,
+                  mma): losses within BF16_TRAIN_RTOL across designs, the
+                  wall time of each; the streaming bf16 trainer at
+                  --batch_size 256 (past MMA_MAX_BATCH: the rows design);
                c. `train --cached --kernel pallas_epoch --impl threefry2x32`,
                   one full epoch of 469 steps in ONE K2-ws launch, held
                   against the same run on the CPU (plain versions, same
@@ -89,7 +102,10 @@ Phases (any failure exits non-zero; no phase is skipped):
                on each K1 design, beside the bound computed from those
                shapes; K1-split and the rows design in turns at B = 128,
                f32 and rng, per wrapper call and in a CUDA graph, and the
-               per-phase split of a K1-split call from its stamps build; K2-ws and the rows design in turns in
+               per-phase split of a K1-split call from its stamps build;
+               K1-mma and the rows design in turns at B = 128, bf16 mask and
+               rng, the same ways, K1-mma's stamps split, and the bf16
+               per-step loops' device-busy share on each design; K2-ws and the rows design in turns in
                K2b, K2c, K3 and f32 K = 8, and the per-phase split of a K2c epoch from K2-ws's stamps
                build; K6 per (ring, n) over a 118-step epoch beside the
                rows-design K2 and a 1-replica ring launch at the same
@@ -148,6 +164,13 @@ BF16_PARAM_FRO_RTOL = 2e-3
 # a bf16 run's per-step losses against the same run on the CPU (plain
 # versions, same masks), for the reason above
 BF16_TRAIN_RTOL = 1e-2
+# K1-mma's loss and each grad, in relative Frobenius norm, against its plain
+# version and the rows design, beside the pins: the grads' elements are
+# 2e-3 to 5e-2 in rms at the check inputs, so a fault in part of one tile can
+# stay under atol 1e-4 element by element. f32 summation order and the bf16
+# ties it flips give up to 2.5e-5 (the plain version in f32 against f64 on
+# the CPU at the same inputs); one 16 x 8 tile of gw1 wrong gives ~3.6e-2
+BF16_GRAD_FRO_RTOL = 2e-4
 # K1-rng's keep distribution: mean loss over 8 seeds within 5% of K1's over
 # 8 threefry masks (the JAX package's test_pallas_rng_matches_mask_kernel_
 # in_distribution)
@@ -574,6 +597,20 @@ def _check_close(tag, got, ref, loss_rtol, grad_rtol, grad_atol) -> float:
     return worst
 
 
+def _check_fro(tag, got, ref, limit) -> tuple:
+    """Fail unless every leaf of (loss, grads) `got` is within `limit` of
+    `ref` in relative Frobenius norm; returns (the worst, {leaf: rms of
+    ref})."""
+    worst, rms = 0.0, {}
+    for (name, a), (_, r) in zip(_flat(*got), _flat(*ref)):
+        fro = float((a - r).norm() / r.norm())
+        if not fro <= limit:
+            fail(f"{tag}: {name} off by {fro:.3e} in relative Frobenius norm "
+                 f"(limit {limit})")
+        worst, rms[name] = max(worst, fro), float(r.pow(2).mean().sqrt())
+    return worst, rms
+
+
 def _check_repeat(tag, got, again) -> None:
     for (name, a), (_, b) in zip(_flat(*got), _flat(*again)):
         if not torch.equal(a, b):
@@ -581,20 +618,123 @@ def _check_repeat(tag, got, again) -> None:
                  f"inputs")
 
 
+def _check_mma(device) -> dict:
+    """K1-mma, the mma design of K1's bf16 forms, at B = 128, 96, 8, 3
+    with a mask and with the in-kernel Philox draw: its design asserted,
+    against its plain version and against the rows design at the JAX bf16
+    pins and in relative Frobenius norm per leaf (BF16_GRAD_FRO_RTOL), a
+    repeat launch bitwise, the Philox form bitwise the mask form on
+    philox.rng_mask; at B = 128 a view of x at an odd offset and a
+    CUDA-graph replay bitwise the eager call; 48 distinct inputs (more than
+    the wrapper's cache of tensor maps holds) against the rows design.
+    Returns the worst absolute error against the plain version per form."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step, philox
+    worst = {"fused_mma": 0.0, "fused_mma_rng": 0.0}
+    pins = (BF16_LOSS_RTOL, BF16_GRAD_RTOL, BF16_GRAD_ATOL)
+    for batch in SPLIT_CHECKS:
+        params, x, y, mask = _k1_inputs(batch, seed=batch + 60, device=device)
+        xb = x.to(torch.bfloat16)
+        seed = 0x80000000 + 3 * batch
+        pm = philox.rng_mask(seed, batch, device)
+        for rng in (False, True):
+            key = "fused_mma_rng" if rng else "fused_mma"
+            tag = f"{key} B={batch}"
+
+            def call(design=None, xin=xb):
+                if rng:
+                    return fused_step.fused_loss_and_grads_rng(
+                        params, xin, y, seed, _design=design)
+                return fused_step.fused_loss_and_grads(params, xin, y, mask,
+                                                       _design=design)
+            got = call()
+            if _k1_design(xb, rng) != "mma" or \
+                    fused_step.last_launch["form"] != key:
+                fail(f"{tag}: ran {fused_step.last_launch}")
+            again = call()
+            rows = call("rows")
+            ref = fused_step.step_reference_bf16(params, xb, y,
+                                                 pm if rng else mask)
+            torch.cuda.synchronize()
+            _check_repeat(tag, got, again)
+            err = _check_close(tag, got, ref, *pins)
+            err_rows = _check_close(f"{tag} against the rows design", got,
+                                    rows, *pins)
+            fro, rms = _check_fro(tag, got, ref, BF16_GRAD_FRO_RTOL)
+            fro_rows, _ = _check_fro(f"{tag} against the rows design", got,
+                                     rows, BF16_GRAD_FRO_RTOL)
+            worst[key] = max(worst[key], err)
+            extra = ""
+            if rng:
+                on_mask = fused_step.fused_loss_and_grads(params, xb, y, pm)
+                for (name, a), (_, b) in zip(_flat(*got), _flat(*on_mask)):
+                    if not torch.equal(a, b):
+                        fail(f"{tag}: {name} differs from the mask form on "
+                             f"philox.rng_mask (bitwise expected)")
+                extra = "; bitwise the mask form on rng_mask"
+            if batch == MAIN_BATCH:
+                flat = torch.empty(xb.numel() + 1, dtype=xb.dtype,
+                                   device=device)
+                view = flat[1:].view_as(xb)
+                view.copy_(xb)
+                odd = call(xin=view)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    captured = call()
+                graph.replay()
+                torch.cuda.synchronize()
+                for what, other in (("an odd-offset view", odd),
+                                    ("a CUDA-graph replay", captured)):
+                    for (name, a), (_, b) in zip(_flat(*got), _flat(*other)):
+                        if not torch.equal(a, b):
+                            fail(f"{tag}: {name} of {what} differs from the "
+                                 f"eager call")
+                extra += "; an odd-offset view and a CUDA-graph replay bitwise"
+            sizes = ", ".join(f"{n} {v:.1e}" for n, v in rms.items()
+                              if n != "loss")
+            print(f"[kernels] {tag}: worst abs err vs plain {err:.3e}, vs the "
+                  f"rows design {err_rows:.3e} (rtol {BF16_LOSS_RTOL} loss, "
+                  f"{BF16_GRAD_RTOL} / atol {BF16_GRAD_ATOL} grads; grads' "
+                  f"rms {sizes}); "
+                  f"worst relative Frobenius vs plain {fro:.3e}, vs the rows "
+                  f"design {fro_rows:.3e} (limit {BF16_GRAD_FRO_RTOL}); "
+                  f"repeat bitwise{extra}")
+    params, x, y, mask = _k1_inputs(96, seed=19, device=device)
+    for i in range(48):
+        xi = (x + 0.0).to(torch.bfloat16)
+        got = fused_step.fused_loss_and_grads(params, xi, y, mask)
+        want = fused_step.fused_loss_and_grads(params, xi, y, mask,
+                                               _design="rows")
+        _check_close(f"fused_mma on the {i}th of 48 distinct inputs", got,
+                     want, *pins)
+    torch.cuda.synchronize()
+    print("[kernels] fused_mma on 48 distinct inputs (more than its cache of "
+          "tensor maps holds): every call within the pins of the rows design")
+    return worst
+
+
 def phase_kernels_k1_variants(device) -> dict:
-    """K1-bf16, K1-rng (f32 and bf16) and the streaming threefry mask
-    against their plain versions. Returns the worst absolute error per
-    form."""
+    """K1-bf16 and K1-rng (f32 and bf16) against their plain versions, the
+    bf16 forms on the rows design forced (the design of B > 128, and the
+    step K2-bf16 computes); K1-mma (the mma design of the bf16 forms) at B
+    = 128, 96, 8, 3, mask and Philox, against its plain version and the
+    rows design (the JAX bf16 pins), a repeat bitwise, the Philox form
+    bitwise the mask form on rng_mask, at B = 128 an odd-offset view and a
+    CUDA-graph replay bitwise, 48 distinct inputs; the in-kernel keep
+    distribution; the streaming threefry mask. Returns the worst absolute
+    error per form."""
     from pytorch_ddp_mnist_tpu_torch.ops import fused_step, philox, threefry
     worst = {"fused_step_bf16": 0.0, "fused_step_rng": 0.0,
              "threefry_mask": 0.0}
     for batch in (128, 1000, 3):
         params, x, y, mask = _k1_inputs(batch, seed=batch, device=device)
         xb = x.to(torch.bfloat16)
-        tag = f"fused_step bf16 B={batch}"
-        got = fused_step.fused_loss_and_grads(params, xb, y, mask)
-        _k1_design(xb, False)
-        again = fused_step.fused_loss_and_grads(params, xb, y, mask)
+        tag = f"fused_step bf16 (rows design) B={batch}"
+        got = fused_step.fused_loss_and_grads(params, xb, y, mask,
+                                              _design="rows")
+        if fused_step.last_launch["design"] != "rows":
+            fail(f"{tag}: ran {fused_step.last_launch}")
+        again = fused_step.fused_loss_and_grads(params, xb, y, mask,
+                                                _design="rows")
         f32 = fused_step.fused_loss_and_grads(params, x, y, mask)
         ref = fused_step.step_reference_bf16(params, xb, y, mask)
         torch.cuda.synchronize()
@@ -615,12 +755,20 @@ def phase_kernels_k1_variants(device) -> dict:
             fail(f"fused_step rng B={batch}: in-kernel mask differs from the "
                  f"plain Philox blocks in {int((km != pm).sum())} elements")
         for xin, bf16 in ((x, False), (xb, True)):
-            tag = f"fused_step rng{' bf16' if bf16 else ''} B={batch}"
-            got = fused_step.fused_loss_and_grads_rng(params, xin, y, seed)
-            _k1_design(xin, True)
-            again = fused_step.fused_loss_and_grads_rng(params, xin, y, seed)
+            tag = (f"fused_step rng{' bf16 (rows design)' if bf16 else ''} "
+                   f"B={batch}")
+            design = "rows" if bf16 else None
+            got = fused_step.fused_loss_and_grads_rng(params, xin, y, seed,
+                                                      _design=design)
+            if bf16 and fused_step.last_launch["design"] != "rows":
+                fail(f"{tag}: ran {fused_step.last_launch}")
+            if not bf16:
+                _k1_design(xin, True)
+            again = fused_step.fused_loss_and_grads_rng(params, xin, y, seed,
+                                                        _design=design)
             other = fused_step.fused_loss_and_grads_rng(params, xin, y,
-                                                        seed + 1)
+                                                        seed + 1,
+                                                        _design=design)
             ref = (fused_step.step_reference_bf16 if bf16 else
                    fused_step.fused_loss_and_grads_reference)(params, xin, y,
                                                               pm)
@@ -636,6 +784,8 @@ def phase_kernels_k1_variants(device) -> dict:
                   f"{float(ref[0]):.7f}; worst abs err {err:.3e}; mask "
                   f"bitwise the Philox (seed, block) stream; repeat bitwise; "
                   f"seed + 1 differs")
+
+    worst.update(_check_mma(device))
 
     # the in-kernel stream has the mask kernel's keep distribution
     params, x, y, _ = _k1_inputs(512, seed=1, device=device)
@@ -672,7 +822,8 @@ def phase_kernels_k1_variants(device) -> dict:
 
 
 def _k1_loop_bf16(inp: dict, form: str):
-    """The epoch as K1-bf16 + SGD per step, on the plain stream's masks."""
+    """The epoch as K1-bf16 on the rows design + SGD per step, on the plain
+    stream's masks."""
     from pytorch_ddp_mnist_tpu_torch.data.mnist import device_normalize
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step, fused_step
     from pytorch_ddp_mnist_tpu_torch.ops.sgd import sgd_step
@@ -688,17 +839,19 @@ def _k1_loop_bf16(inp: dict, form: str):
             torch.bfloat16)
         mask = epoch_step.step_mask(rng, inp.get(rng), inp["masks"], step,
                                     batch, x.device)
-        loss, grads = fused_step.fused_loss_and_grads(params, x,
-                                                      inp["y"][rows], mask)
+        # the rows design: the step csrc/epoch_step.cu computes
+        loss, grads = fused_step.fused_loss_and_grads(
+            params, x, inp["y"][rows], mask, _design="rows")
         sgd_step(params, grads, LR)
         losses.append(loss)
     return params, torch.stack(losses)
 
 
 def phase_kernels_k2_bf16(device) -> float:
-    """K2-bf16 in the uint8 forms: bitwise K1-bf16 + SGD per step and a
-    repeat launch, against its plain version by losses (BF16 tolerances)
-    and params' Frobenius norm. Returns the worst absolute error."""
+    """K2-bf16 in the uint8 forms: bitwise K1-bf16 on the rows design (the
+    step it shares) + SGD per step and a repeat launch, against its plain
+    version by losses (BF16 tolerances) and params' Frobenius norm. Returns
+    the worst absolute error."""
     from functools import partial
 
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
@@ -899,34 +1052,98 @@ def phase_main_streaming(tmp: str) -> dict:
     return launches
 
 
-def phase_main_streaming_bf16(tmp: str) -> dict:
-    """Path b: the streaming trainer with K1-bf16."""
-    from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
-    argv = ["--device", "0", "--n_epochs", "1",
-            "--limit", str(MAIN_STEPS * MAIN_BATCH),
-            "--batch_size", str(MAIN_BATCH), "--lr", str(LR),
-            "--kernel", "pallas", "--dtype", "bfloat16", "--seed", "0",
-            "--path", os.path.join(tmp, "no_mnist_here"), "--checkpoint", ""]
-    _reset_counts()
-    t0 = time.perf_counter()
-    _, history, out = _run_trainer(cli_train, argv)
-    wall = time.perf_counter() - t0
-    launches = _counts()
+ROWS_BATCH = 256   # a batch past MMA_MAX_BATCH: the rows design's bf16 step
+ROWS_STEPS = 10
+
+
+def _check_bf16_run(out, history, steps: int, what: str) -> None:
     if "dtype=bfloat16" not in out or not re.search(r"^Epoch=0, ", out, re.M):
-        fail("the bf16 streaming trainer printed no banner or epoch line")
+        fail(f"{what}: no bf16 banner or epoch line")
     losses = history[0]
-    if losses.shape != (MAIN_STEPS,) or not np.isfinite(losses).all():
-        fail(f"bf16 streaming losses: shape {losses.shape}, finite "
+    if losses.shape != (steps,) or not np.isfinite(losses).all():
+        fail(f"{what}: losses shape {losses.shape}, finite "
              f"{bool(np.isfinite(losses).all())}")
-    if not losses[-10:].mean() < losses[:10].mean():
-        fail("bf16 streaming losses are not falling")
-    expect_launches(launches, {"fused_step_bf16": MAIN_STEPS,
-                               "threefry_mask": MAIN_STEPS},
-                    f"{MAIN_STEPS} bf16 streaming steps")
-    print(f"[main] train --kernel pallas --dtype bfloat16: {MAIN_STEPS} steps "
-          f"in {wall:.2f}s (wall); loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
-          f"launches {launches}")
-    return launches
+    if not losses[-steps // 5:].mean() < losses[:steps // 5].mean():
+        fail(f"{what}: losses are not falling")
+
+
+def phase_main_bf16_k1(tmp: str) -> tuple:
+    """Paths b and e': `train --kernel pallas --dtype bfloat16` (streaming,
+    50 steps: K1-bf16 and the threefry mask per step) and `train --cached
+    --kernel pallas_rng --dtype bfloat16` (one 469-step epoch: K1-rng-bf16
+    per step, no mask drawn outside the kernel), each on the mma design
+    and with the rows design forced, in turns (mma, rows, rows, mma):
+    launches by design, the two designs' per-step losses within
+    BF16_TRAIN_RTOL of each other (the tensor cores sum in another order),
+    repeat runs on one design bitwise equal, each run's wall time; then the
+    streaming trainer at --batch_size 256, past MMA_MAX_BATCH, whose K1
+    launches the rule sends to the rows design. Returns ({path: launches of
+    its first run on the design the rule picks}, {path: {design: [wall s
+    of each run]}})."""
+    from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
+    streaming = ["--device", "0", "--n_epochs", "1",
+                 "--limit", str(MAIN_STEPS * MAIN_BATCH),
+                 "--batch_size", str(MAIN_BATCH), "--lr", str(LR),
+                 "--kernel", "pallas", "--dtype", "bfloat16", "--seed", "0",
+                 "--path", os.path.join(tmp, "no_mnist_here"),
+                 "--checkpoint", ""]
+    cached = _cached_argv(tmp, "--kernel", "pallas_rng", "--dtype",
+                          "bfloat16", "--n_epochs", "1", "--checkpoint", "")
+    cases = {"train --kernel pallas --dtype bfloat16":
+             (streaming, MAIN_STEPS, "fused_mma", "fused_step_bf16",
+              {"threefry_mask": MAIN_STEPS}),
+             "train --cached --kernel pallas_rng --dtype bfloat16":
+             (cached, EPOCH_STEPS, "fused_mma_rng", "fused_step_rng_bf16",
+              {})}
+    launches, walls = {}, {}
+    for path, (argv, steps, mma_key, rows_key, other) in cases.items():
+        walls[path] = {"mma": [], "rows": []}
+        runs = {}
+        for design in ("mma", "rows", "rows", "mma"):
+            _reset_counts()
+            with (_k1_rows_design() if design == "rows"
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                _, history, out = _run_trainer(cli_train, argv)
+                walls[path][design].append(time.perf_counter() - t0)
+            what = f"{path}, {design} design"
+            _check_bf16_run(out, history, steps, what)
+            expect_launches(_counts(), {mma_key if design == "mma"
+                                        else rows_key: steps, **other}, what)
+            if design in runs:
+                if not np.array_equal(runs[design], history[0]):
+                    fail(f"{what}: two runs give different losses")
+            else:
+                runs[design] = history[0]
+                if design == "mma":
+                    launches[path] = _counts()
+        rel = np.abs(runs["mma"] - runs["rows"]) / np.abs(runs["rows"])
+        if not (rel <= BF16_TRAIN_RTOL).all():
+            fail(f"{path}: the mma design's per-step losses off the rows "
+                 f"design's by up to {rel.max():.3e} (rtol {BF16_TRAIN_RTOL})")
+        w = walls[path]
+        print(f"[main] {path}: {steps} steps; loss {runs['mma'][0]:.4f} -> "
+              f"{runs['mma'][-1]:.4f}; wall s mma "
+              f"{', '.join(f'{v:.3f}' for v in w['mma'])}, rows "
+              f"{', '.join(f'{v:.3f}' for v in w['rows'])} (turns mma, rows, "
+              f"rows, mma; data and eval included); per-step losses of the "
+              f"two designs within {rel.max():.3e} (rtol {BF16_TRAIN_RTOL}); "
+              f"launches {launches[path]}")
+
+    path = f"train --kernel pallas --dtype bfloat16 --batch_size {ROWS_BATCH}"
+    argv = list(streaming)
+    argv[argv.index("--limit") + 1] = str(ROWS_STEPS * ROWS_BATCH)
+    argv[argv.index("--batch_size") + 1] = str(ROWS_BATCH)
+    _reset_counts()
+    _, history, out = _run_trainer(cli_train, argv)
+    _check_bf16_run(out, history, ROWS_STEPS, path)
+    launches[path] = _counts()
+    expect_launches(launches[path], {"fused_step_bf16": ROWS_STEPS,
+                                     "threefry_mask": ROWS_STEPS}, path)
+    print(f"[main] {path}: {ROWS_STEPS} steps on the rows design; loss "
+          f"{history[0][0]:.4f} -> {history[0][-1]:.4f}; launches "
+          f"{ {k: v for k, v in launches[path].items() if v} }")
+    return launches, walls
 
 
 def _cached_argv(tmp: str, *extra) -> list:
@@ -1328,7 +1545,7 @@ def phase_timing(device, paths: dict, max_abs_err: float, split_worst: dict,
                         for k in ROWS_K1_KEYS)
     mhz = _sm_max_mhz()
     floor_us = 784 * 4 / mhz
-    lib = fused_step._split_lib()
+    lib = fused_step._staged_lib("split")
     blocks = (ctypes.c_int * 3)()
     if lib.pdmt_split_blocks(MAIN_BATCH, blocks) != 0:
         fail("pdmt_split_blocks refused B = 128")
@@ -1417,9 +1634,9 @@ def phase_timing(device, paths: dict, max_abs_err: float, split_worst: dict,
                 profiler_us_per_call=prof.get("fused_step", {}),
                 design="rows (csrc/fused_step.cu)",
                 main_path="launches: every launch of this design on the main "
-                          "paths, all in its bf16 forms (timed in the "
-                          "fused_step_bf16 entry); the f32 forms at B <= 128 "
-                          "run the split design (fused_design), and this "
+                          "paths (bf16 at B > 128, fused_step_bf16); the f32 "
+                          "forms at B <= 128 run the split design and the "
+                          "bf16 forms the mma design (fused_design), and this "
                           "entry's times are its f32 mask form with the "
                           "design forced, in turns with the split design")
     print("[timing] fused_split, fused_split_rng, fused_step: no single "
@@ -1444,17 +1661,22 @@ def k2_bound(batch: int, nsteps: int, form: str, bf16: bool = False):
 
 
 def phase_profile(device) -> tuple:
-    """The profiler's device time per call of K1 on each design (B = 128),
-    of one epoch of the cached path at the main path's shapes (B = 128, 469
-    steps, --impl rbg: the gathers of the epoch's rows and K2-ws, K2c), and
-    of one epoch of the per-step cached loop (`train --cached`'s default
-    --kernel pallas: K1, its threefry mask, SGD) on each K1 design, with
-    each job's device-busy share. Returns profile_jobs' two dicts."""
-    from pytorch_ddp_mnist_tpu_torch.data.mnist import synthetic_mnist
-    from pytorch_ddp_mnist_tpu_torch.ops import fused_step
+    """The profiler's device time per call of K1 on each design (B = 128;
+    f32 and bf16), of one epoch of the cached path at the main path's
+    shapes (B = 128, 469 steps, --impl rbg: the gathers of the epoch's rows
+    and K2-ws, K2c), of one epoch of the per-step cached loop (`train
+    --cached`'s default --kernel pallas: K1, its threefry mask, SGD) on each
+    f32 K1 design, and of the bf16 per-step loops (the cached pallas_rng
+    epoch, 50 streaming steps) on each bf16 K1 design, with each job's
+    device-busy share. Returns profile_jobs' two dicts."""
+    from pytorch_ddp_mnist_tpu_torch.data.mnist import (normalize_images,
+                                                         synthetic_mnist)
+    from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step, threefry
     from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
     from pytorch_ddp_mnist_tpu_torch.train import scan
     params, x, y, mask = _k1_inputs(MAIN_BATCH, seed=7, device=device)
+    xb = x.to(torch.bfloat16)
     split = synthetic_mnist(60000, seed=0)
     x_all = torch.from_numpy(scan.resident_images(split.images)).to(device)
     y_all = torch.from_numpy(split.labels.astype(np.int32)).to(device)
@@ -1466,6 +1688,35 @@ def phase_profile(device) -> tuple:
     def k1_epoch_rows():
         with _k1_rows_design():
             k1_epoch(params, (0, 1), x_all, y_all, idx)
+
+    # the bf16 per-step loops on each K1 design: the cached pallas_rng
+    # epoch, and the streaming trainer's step loop (50 host batches copied
+    # to the card one a step, the threefry mask, K1-bf16, SGD; the loader's
+    # host work is not in it)
+    rng_bf16_epoch = scan.make_epoch_fn(LR, kernel="pallas_rng",
+                                        dtype="bfloat16")
+    stream_step = fused_step.make_fused_train_step(LR, dtype="bfloat16")
+    rows = MAIN_STEPS * MAIN_BATCH
+    host_x = torch.from_numpy(normalize_images(split.images[:rows])) \
+        .pin_memory().split(MAIN_BATCH)
+    host_y = torch.from_numpy(split.labels[:rows].astype(np.int32)) \
+        .pin_memory().split(MAIN_BATCH)
+    model = MLP(torch.Generator().manual_seed(0)).to(device)
+
+    def stream_bf16():
+        key = threefry.key_data(1)
+        for hx, hy in zip(host_x, host_y):
+            key, _ = stream_step(model, key, hx.to(device, non_blocking=True),
+                                 hy.to(device, non_blocking=True))
+
+    def rows_design(fn):
+        def run():
+            with _k1_rows_design():
+                fn()
+        return run
+
+    def rng_bf16():
+        rng_bf16_epoch(params, (0, 1), x_all, y_all, idx)
 
     jobs = {
         "fused_split": (lambda: fused_step.fused_loss_and_grads(
@@ -1479,6 +1730,16 @@ def phase_profile(device) -> tuple:
         "k1_epoch_split": (lambda: k1_epoch(params, (0, 1), x_all, y_all,
                                             idx), 1, None),
         "k1_epoch_rows": (k1_epoch_rows, 1, None),
+        "fused_mma": (lambda: fused_step.fused_loss_and_grads(
+            params, xb, y, mask), 50,
+            ("mma_hidden_kernel", "mma_rows_kernel", "mma_grads_kernel")),
+        "fused_step_bf16": (lambda: fused_step.fused_loss_and_grads(
+            params, xb, y, mask, _design="rows"), 50,
+            ("rows_kernel", "grads_kernel")),
+        "k1_rng_bf16_epoch_mma": (rng_bf16, 1, None),
+        "k1_rng_bf16_epoch_rows": (rows_design(rng_bf16), 1, None),
+        "stream_bf16_mma": (stream_bf16, 1, None),
+        "stream_bf16_rows": (rows_design(stream_bf16), 1, None),
     }
     out, busy = profile_jobs(jobs)
     for label, kernels in out.items():
@@ -1644,33 +1905,163 @@ def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
             "flop": flops, "bytes": nbytes, "card": card, **extra}
 
 
-def phase_timing_variants(device, launches: dict, worst: dict, card: str):
-    """The new forms at the main path's shapes: K1-bf16, K1-rng and the
-    threefry mask at B = 128; K2-bf16 (uint8 rows, in-kernel Philox) over
-    the 469-step epoch; the superstep K = 8 against K = 1 in that form and
-    in f32. Returns the kernels-line entries."""
+def _mma_turns(params, xb, y, mask, seed, rng: bool) -> dict:
+    """K1's bf16 form (the mask `mask`, or the in-kernel draw of `seed`)
+    at xb's batch: the rows design and the mma design in turns (rows, mma,
+    mma, rows) per wrapper call and per call in a CUDA graph, between two
+    timings of the plain version. Returns the best ms of each and the
+    turns."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step, philox
+
+    def call(design=None):
+        if rng:
+            return fused_step.fused_loss_and_grads_rng(params, xb, y, seed,
+                                                       _design=design)
+        return fused_step.fused_loss_and_grads(params, xb, y, mask,
+                                               _design=design)
+
+    def plain():
+        return fused_step.step_reference_bf16(
+            params, xb, y,
+            philox.rng_mask(seed, xb.shape[0], xb.device) if rng else mask)
+    mma = lambda: call()  # noqa: E731
+    rows = lambda: call("rows")  # noqa: E731
+    p1 = _time_ms(plain, iters=50, warmup=5)
+    r_ms, m_ms, turns = _turns(rows, mma, iters=200, warmup=20)
+    graphs = [_graph_ms(f) for f in (rows, mma, mma, rows)]
+    p2 = _time_ms(plain, iters=50, warmup=0)
+    return {"mma_ms": m_ms, "rows_ms": r_ms,
+            "mma_graph_ms": min(graphs[1], graphs[2]),
+            "rows_graph_ms": min(graphs[0], graphs[3]),
+            "plain_ms": min(p1, p2), "call_turns": turns,
+            "graph_turns": graphs}
+
+
+def phase_timing_mma(device, launches: dict, worst: dict, card: str,
+                     prof: dict, busy: dict, walls: dict) -> list:
+    """K1's bf16 forms at B = 128, with a mask and with the in-kernel Philox
+    draw: the mma design and the rows design in turns (rows, mma, mma,
+    rows) per wrapper call and in a CUDA graph, and the plain version; the
+    mma design's per-phase split from its stamps build (held against the
+    default build at the pins; at B = 128); the profiler's kernels of each
+    design, and the bf16 per-step loops' wall time and device-busy share on
+    each. `launches` are every main path's. Returns the kernels-line
+    entries of the mma design (mask, rng) and of the rows design's bf16
+    forms (mask, with the rng form's times as fields of the rows design's
+    rng entry: see phase_timing_variants)."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step
+    params, x, y, mask = _k1_inputs(MAIN_BATCH, seed=7, device=device)
+    xb = x.to(torch.bfloat16)
+    seed = 12345
+    rows_launches = sum(v.get(k, 0) for v in launches.values()
+                        for k in ROWS_K1_KEYS)
+    lib = fused_step._staged_lib("mma")
+    blocks = (ctypes.c_int * 3)()
+    if lib.pdmt_mma_blocks(MAIN_BATCH, blocks) != 0:
+        fail("pdmt_mma_blocks refused B = 128")
+    out, rows_times = [], {}
+    for rng in (False, True):
+        key = "fused_mma_rng" if rng else "fused_mma"
+        t = _mma_turns(params, xb, y, mask, seed, rng)
+        r_ms, m_ms, rg, mg, plain_ms = (t[k] for k in (
+            "rows_ms", "mma_ms", "rows_graph_ms", "mma_graph_ms", "plain_ms"))
+        turns, graphs = t["call_turns"], t["graph_turns"]
+        rows_times[rng] = (r_ms, rg, turns, graphs)
+        bound = k1_bound(MAIN_BATCH, bf16=True, rng=rng)
+        path = ("train --cached --kernel pallas_rng --dtype bfloat16" if rng
+                else "train --kernel pallas --dtype bfloat16")
+        extra = dict(
+            graph_ms=mg, rows_design_ms=r_ms, rows_design_graph_ms=rg,
+            graph_speedup_over_rows_design=rg / mg,
+            turns_rows_mma_mma_rows={"call_ms": turns, "graph_ms": graphs},
+            form=("K1-rng-bf16 (in_kernel_rng, compute_bf16)" if rng
+                  else "K1-bf16 (compute_bf16), mask input"),
+            design="mma (csrc/fused_mma.cu), by fused_design at bf16 "
+                   "B <= MMA_MAX_BATCH; products on the tensor cores "
+                   "(mma.sync m16n8k16, bf16 in, f32 accumulate)",
+            tolerance="JAX bf16 pins vs step_reference_bf16: loss rtol "
+                      f"{BF16_LOSS_RTOL}, grads rtol {BF16_GRAD_RTOL} / atol "
+                      f"{BF16_GRAD_ATOL}",
+            launches_by_path={k: v[key] for k, v in launches.items()
+                              if v.get(key)},
+            blocks_per_launch=list(blocks),
+            per_step_loop={"wall_s": walls.get(path),
+                           "profiler_mma": busy.get(
+                               "k1_rng_bf16_epoch_mma" if rng
+                               else "stream_bf16_mma"),
+                           "profiler_rows": busy.get(
+                               "k1_rng_bf16_epoch_rows" if rng
+                               else "stream_bf16_rows")},
+            batch=MAIN_BATCH)
+        if not rng:
+            base = _flat(*fused_step.fused_loss_and_grads(params, xb, y,
+                                                          mask))
+            fused_step.mma_phase_stamps(params, xb, y, mask, calls=5)
+            loss, grads, phases, per_call = fused_step.mma_phase_stamps(
+                params, xb, y, mask, calls=50)
+            for (leaf, a), (_, b) in zip(_flat(loss, grads), base):
+                if not torch.equal(a, b):
+                    fail(f"K1-mma stamps build: {leaf} differs from the "
+                         f"default build")
+            print(f"[timing] fused_mma B={MAIN_BATCH} phase split (stamps "
+                  f"build, mean of 50 calls outside a graph; kernel starts "
+                  f"by block 0, ends by the last block): {per_call:.2f} us "
+                  f"from the first kernel's start to the last one's end "
+                  f"[{card}]")
+            for phase, us in phases.items():
+                print(f"[timing]   {phase:36s} {us:8.3f} us  "
+                      f"{us / per_call:6.1%}")
+            extra.update(phase_split_us=phases, phase_split_call_us=per_call,
+                         profiler_us_per_call=prof.get("fused_mma", {}),
+                         rows_design_profiler_us_per_call=prof.get(
+                             "fused_step_bf16", {}))
+        out.append(_entry(
+            key, "fused_mma.cu", 333 if rng else 191, launches[path][key],
+            worst[key], m_ms, plain_ms, bound, card, **extra))
+        print(f"[timing] {key} B={MAIN_BATCH}: {mg * 1e3:.2f} us per call in "
+              f"a CUDA graph against the rows design's {rg * 1e3:.2f} "
+              f"({rg / mg:.2f}x; turns rows, mma, mma, rows: "
+              f"{', '.join(f'{v * 1e3:.2f}' for v in graphs)}); per wrapper "
+              f"call {m_ms * 1e3:.2f} us against {r_ms * 1e3:.2f} "
+              f"({', '.join(f'{v * 1e3:.2f}' for v in turns)}); plain "
+              f"{plain_ms * 1e3:.2f} us; bound {bound[0] * 1e3:.3f} us by "
+              f"{bound[1]} [{card}]")
+        if not rng:
+            out.append(_entry(
+                "fused_step_bf16", "fused_step.cu", 191, rows_launches,
+                worst["fused_step_bf16"], r_ms, plain_ms, bound, card,
+                graph_ms=rg, form="K1-bf16 (compute_bf16), the rows design",
+                design="rows (csrc/fused_step.cu)", batch=MAIN_BATCH,
+                profiler_us_per_call=prof.get("fused_step_bf16", {}),
+                main_path="launches: every launch of the rows design on the "
+                          "main paths (bf16 at B > 128); this entry's times "
+                          "are its bf16 mask form at B = 128 with the design "
+                          "forced, in turns with the mma design"))
+    for label in ("stream_bf16", "k1_rng_bf16_epoch"):
+        for design in ("mma", "rows"):
+            b = busy.get(f"{label}_{design}")
+            if b:
+                print(f"[timing] {label} on the {design} design: device busy "
+                      f"{b['busy_ms']:.3f} ms of {b['window_ms']:.3f} "
+                      f"({b['busy_share']:.1%}) [{card}]")
+    print("[timing] fused_mma, fused_mma_rng, fused_step_bf16: no single "
+          "PyTorch call computes this fused function, so library_ms is null")
+    return out, rows_times[True]
+
+
+def phase_timing_variants(device, launches: dict, worst: dict, card: str,
+                          rows_rng_bf16: tuple):
+    """The rows design's K1-rng (f32, forced; its bf16 form's times from
+    phase_timing_mma's turns, `rows_rng_bf16`) and the threefry mask at
+    B = 128; K2-bf16 (uint8 rows, in-kernel Philox) over the 469-step epoch;
+    the superstep K = 8 against K = 1 in that form and in f32. Returns the
+    kernels-line entries."""
     from functools import partial
 
     from pytorch_ddp_mnist_tpu_torch.ops import (epoch_step, fused_step,
                                                  philox, threefry)
     params, x, y, mask = _k1_inputs(MAIN_BATCH, seed=7, device=device)
-    xb = x.to(torch.bfloat16)
     out = []
-
-    kernel = lambda: fused_step.fused_loss_and_grads(params, xb, y, mask)  # noqa: E731
-    plain = lambda: fused_step.step_reference_bf16(params, xb, y, mask)  # noqa: E731
-    p, k, t = _turns(plain, kernel, iters=200, warmup=20)
-    kg = _graph_ms(kernel)
-    out.append(_entry(
-        "fused_step_bf16", "fused_step.cu", 191,
-        launches["train --kernel pallas --dtype bfloat16"]["fused_step_bf16"],
-        worst["fused_step_bf16"], k, p, k1_bound(MAIN_BATCH, bf16=True), card,
-        graph_ms=kg, form="K1-bf16 (compute_bf16)", batch=MAIN_BATCH))
-    print(f"[timing] fused_step bf16 B={MAIN_BATCH}: {k * 1e3:.2f} us per "
-          f"wrapper call ({t[1] * 1e3:.2f}, {t[2] * 1e3:.2f}), "
-          f"{kg * 1e3:.2f} us in a CUDA graph; plain {p * 1e3:.2f} us; bound "
-          f"{out[-1]['bound_ms'] * 1e3:.3f} us by {out[-1]['bound_by']} "
-          f"[{card}]")
 
     seed = 12345
     kernel = lambda: fused_step.fused_loss_and_grads_rng(  # noqa: E731
@@ -1679,22 +2070,27 @@ def phase_timing_variants(device, launches: dict, worst: dict, card: str):
         params, x, y, philox.rng_mask(seed, MAIN_BATCH, device))
     p, k, t = _turns(plain, kernel, iters=50, warmup=5)
     kg = _graph_ms(kernel)
+    b_ms, b_graph, b_turns, b_graphs = rows_rng_bf16
     out.append(_entry(
         "fused_step_rng", "fused_step.cu", 333,
         sum(v.get(key, 0) for v in launches.values() for key in ROWS_K1_KEYS),
         worst["fused_step_rng"], k, p, k1_bound(MAIN_BATCH, rng=True), card,
         graph_ms=kg, form="K1-rng (in_kernel_rng), f32, the rows design "
-        "forced", batch=MAIN_BATCH,
+        "forced", batch=MAIN_BATCH, bf16_ms=b_ms, bf16_graph_ms=b_graph,
+        bf16_turns_rows_mma_mma_rows={"call_ms": b_turns, "graph_ms": b_graphs},
         main_path="launches: every launch of the rows design on the main "
-                  "paths (its bf16 forms); the f32 rng form at B <= 128 runs "
-                  "the split design (fused_split_rng)"))
+                  "paths (bf16 at B > 128); the f32 rng form at B <= 128 runs "
+                  "the split design (fused_split_rng), the bf16 one the mma "
+                  "design (fused_mma_rng); bf16_ms and bf16_graph_ms are its "
+                  "bf16 form's times with the design forced"))
     print(f"[timing] fused_step rng (rows design) B={MAIN_BATCH}: "
           f"{k * 1e3:.2f} us per "
           f"wrapper call ({t[1] * 1e3:.2f}, {t[2] * 1e3:.2f}), "
           f"{kg * 1e3:.2f} us in a CUDA graph; plain (Philox in torch + the "
           f"plain step) {p * 1e3:.2f} us; bound "
-          f"{out[-1]['bound_ms'] * 1e3:.3f} us by {out[-1]['bound_by']} "
-          f"[{card}]")
+          f"{out[-1]['bound_ms'] * 1e3:.3f} us by {out[-1]['bound_by']}; its "
+          f"bf16 form {b_ms * 1e3:.2f} us per call, {b_graph * 1e3:.2f} us in "
+          f"a CUDA graph [{card}]")
 
     key = threefry.split(threefry.key_data(1))[1]
     kernel = lambda: fused_step.dropout_mask(key, MAIN_BATCH, device)  # noqa: E731
@@ -1916,11 +2312,12 @@ def phase_kernels_k6(device) -> dict:
           f"equal to K2 in forms {', '.join(DP_FORMS)} at B={batch} "
           f"S={nsteps}")
 
-    # bf16: K6 against K1-bf16 per replica + the ring tree + SGD
+    # bf16: K6 against K1-bf16 on the rows design (the step it shares) per
+    # replica + the ring tree + SGD
     inp = _dp_inputs(2, batch, nsteps, seed=3, device=device)
     kernel = partial(epoch_step.epoch_fused_sgd, compute_bf16=True)
     step_bf16 = lambda p, x, y, m: fused_step.fused_loss_and_grads(  # noqa: E731
-        p, x.to(torch.bfloat16), y, m)
+        p, x.to(torch.bfloat16), y, m, _design="rows")
     tag = f"epoch_step_dp_allgather_bf16 n=2 K2c B={batch} S={nsteps}"
     got = _dp_call(kernel, "K2c", inp, "allgather")
     again = _dp_call(kernel, "K2c", inp, "allgather")
@@ -1946,7 +2343,7 @@ def phase_kernels_k6(device) -> dict:
 
 
 def _dp_fit(device, mesh, tmp: str, *, kernel: str, impl: str, ring: str,
-            limit: int = 0):
+            limit: int = 0, dtype: str = "float32"):
     """fit_cached over `mesh` (the function `--parallel --cached` calls):
     one epoch of synthetic MNIST at the global batch DP_BATCH, full 10k
     eval, weights and keys from seeds. Returns (per-step losses, the
@@ -1969,7 +2366,8 @@ def _dp_fit(device, mesh, tmp: str, *, kernel: str, impl: str, ring: str,
         model, threefry.key_data(1), images, labels.astype(np.int32),
         ShardedSampler(len(images), seed=42), normalize_images(test.images),
         test.labels.astype(np.int32), epochs=1, batch_size=DP_BATCH, lr=LR,
-        kernel=kernel, impl=impl, mesh=mesh, ring=ring, log=lines.append)
+        kernel=kernel, impl=impl, dtype=dtype, mesh=mesh, ring=ring,
+        log=lines.append)
     if device.type == "cuda":
         torch.cuda.synchronize()
     return history[0], lines, {n: {k: v.detach().cpu() for k, v in l.items()}
@@ -1981,7 +2379,8 @@ def phase_main_dp(device, tmp: str) -> dict:
     against the same run on a 4-replica CPU mesh (plain versions, the same
     masks): one 118-step epoch through K6 (all-gather, threefry masks) and
     one through the reduce-scatter ring (core masks), then 50 steps of
-    `--kernel pallas` (K1 per replica); then `train --parallel --cached
+    `--kernel pallas` (K1 per replica: K1-split in f32, K1-mma in bf16,
+    the bf16 run held at the bf16 limits); then `train --parallel --cached
     --kernel pallas_epoch` through the CLI on the 1-card mesh, equal to the
     serial run. Returns the launch counts of each path."""
     from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
@@ -1990,20 +2389,26 @@ def phase_main_dp(device, tmp: str) -> dict:
     cpu_mesh = data_parallel_mesh(["cpu"] * DP_REPLICAS)
     cpu = torch.device("cpu")
     out = {}
-    runs = (("allgather", "threefry2x32", "pallas_epoch", 0,
+    per_step = DP_PALLAS_STEPS * DP_REPLICAS
+    runs = (("allgather", "threefry2x32", "pallas_epoch", 0, "float32",
              {"epoch_step_dp_allgather": 1}),
-            ("reduce_scatter", "rbg", "pallas_epoch", 0,
+            ("reduce_scatter", "rbg", "pallas_epoch", 0, "float32",
              {"epoch_step_dp_reduce_scatter": 1}),
             ("auto", "threefry2x32", "pallas", DP_PALLAS_STEPS * DP_BATCH,
-             {"fused_split": DP_PALLAS_STEPS * DP_REPLICAS,
-              "threefry_mask": DP_PALLAS_STEPS * DP_REPLICAS}))
-    for ring, impl, kernel, limit, want in runs:
+             "float32", {"fused_split": per_step, "threefry_mask": per_step}),
+            ("auto", "threefry2x32", "pallas", DP_PALLAS_STEPS * DP_BATCH,
+             "bfloat16", {"fused_mma": per_step, "threefry_mask": per_step}))
+    for ring, impl, kernel, limit, dtype, want in runs:
         what = (f"fit_cached(mesh=[cuda:0] x {DP_REPLICAS}, kernel={kernel}, "
-                f"impl={impl}, ring={ring})")
+                f"impl={impl}, ring={ring}, dtype={dtype})")
+        bf16 = dtype == "bfloat16"
+        loss_rtol = BF16_TRAIN_RTOL if bf16 else TRAIN_RTOL
+        fro_rtol = BF16_PARAM_FRO_RTOL if bf16 else PARAM_FRO_RTOL
         _reset_counts()
         t0 = time.perf_counter()
         losses, lines, params = _dp_fit(device, mesh, tmp, kernel=kernel,
-                                        impl=impl, ring=ring, limit=limit)
+                                        impl=impl, ring=ring, limit=limit,
+                                        dtype=dtype)
         wall = time.perf_counter() - t0
         launches = _counts()
         for line in lines:
@@ -2021,26 +2426,27 @@ def phase_main_dp(device, tmp: str) -> dict:
         expect_launches(launches, want, what)
         _reset_counts()
         cpu_losses, _, cpu_params = _dp_fit(cpu, cpu_mesh, tmp, kernel=kernel,
-                                            impl=impl, ring=ring, limit=limit)
+                                            impl=impl, ring=ring, limit=limit,
+                                            dtype=dtype)
         expect_launches(_counts(), {}, f"{what} on the CPU mesh")
         rel = np.abs(losses - cpu_losses) / np.abs(cpu_losses)
-        if not (rel <= TRAIN_RTOL).all():
+        if not (rel <= loss_rtol).all():
             fail(f"{what}: per-step losses off the CPU mesh's by up to "
-                 f"{rel.max():.3e} (rtol {TRAIN_RTOL})")
+                 f"{rel.max():.3e} (rtol {loss_rtol})")
         fro = max(float((params[n][k] - cpu_params[n][k]).norm()
                         / cpu_params[n][k].norm())
                   for n in params for k in params[n])
-        if fro > PARAM_FRO_RTOL:
+        if fro > fro_rtol:
             fail(f"{what}: params off the CPU mesh's by {fro:.3e} in "
-                 f"relative Frobenius norm (limit {PARAM_FRO_RTOL})")
+                 f"relative Frobenius norm (limit {fro_rtol})")
         print(f"[main] {what}: {steps} steps of {DP_REPLICAS} x {MAIN_BATCH} "
               f"rows in {wall:.2f}s (wall, upload and eval included); loss "
               f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches "
               f"{ {k: v for k, v in launches.items() if v} }; vs the CPU "
               f"mesh: losses worst rel diff {rel.max():.3e} (rtol "
-              f"{TRAIN_RTOL}), params worst relative Frobenius {fro:.3e} "
-              f"(limit {PARAM_FRO_RTOL})")
-        out[f"fit_cached {kernel} {ring}"] = launches
+              f"{loss_rtol}), params worst relative Frobenius {fro:.3e} "
+              f"(limit {fro_rtol})")
+        out[f"fit_cached {kernel} {ring} {dtype}"] = launches
 
     argv = _cached_argv(tmp, "--kernel", "pallas_epoch", "--n_epochs", "1",
                         "--checkpoint", "")
@@ -2146,7 +2552,8 @@ def phase_timing_k6(device, launches: dict, worst: dict, card: str) -> list:
         key = f"epoch_step_dp_{ring}"
         out.append(_entry(
             key, "epoch_step.cu", RING_TPU_LINE[ring],
-            launches[f"fit_cached pallas_epoch {ring}"][key], worst[ring],
+            launches[f"fit_cached pallas_epoch {ring} float32"][key],
+            worst[ring],
             c["ms"], c["plain_ms"],
             (c["bound_ms"], c["bound_by"], c["flop"], c["bytes"]), card,
             ring_source="pytorch_ddp_mnist_tpu_torch/csrc/dp_ring.cuh",
@@ -2175,9 +2582,9 @@ def main() -> int:
     phase_superstep(device)
     k6_worst = phase_kernels_k6(device)
     with tempfile.TemporaryDirectory() as tmp:
-        paths = {"train": phase_main_streaming(tmp),
-                 "train --kernel pallas --dtype bfloat16":
-                     phase_main_streaming_bf16(tmp)}
+        paths = {"train": phase_main_streaming(tmp)}
+        bf16_paths, bf16_walls = phase_main_bf16_k1(tmp)
+        paths.update(bf16_paths)
         k2_launches = phase_main_cached(tmp)
         paths.update(phase_main_cached_variants(tmp))
         paths["train --cached --kernel auto"], cached_walls = \
@@ -2195,7 +2602,10 @@ def main() -> int:
                               card, prof, busy, cached_walls)
     k2_entries = phase_timing_k2(device, k2_launches, k2_worst, card, prof,
                                  all_paths)
-    new = phase_timing_variants(device, all_paths, worst, card)
+    new, rows_rng_bf16 = phase_timing_mma(device, all_paths, worst, card,
+                                          prof, busy, bf16_walls)
+    new += phase_timing_variants(device, all_paths, worst, card,
+                                 rows_rng_bf16)
     new += phase_timing_k6(device, dp_launches, k6_worst, card)
     times = [e[k] for e in k1_entries for k in ("ms", "plain_ms", "graph_ms")]
     times += [f[k] for f in k2_entries[0]["forms"].values()

@@ -18,12 +18,16 @@ forms:
     a bf16 `x` selects the bf16 mode, as in JAX. For CUDA tensors they
     launch a hand-written kernel (no float atomics, bitwise repeatable) or
     raise; they never fall back. For CPU tensors, and only then, they run
-    the plain version. Two designs of the kernel compute the same bits;
-    `fused_design(x dtype, rng, batch)` picks one by form: 'split'
-    (`csrc/fused_split.cu`: the chains spread over the card in three
-    launches) for f32 x at B <= SPLIT_MAX_BATCH, the default trainer's
-    step; 'rows' (`csrc/fused_step.cu`: two launches, 8 batch rows a block
-    in the first) for larger batches and the bf16 forms.
+    the plain version. `fused_design(x dtype, rng, batch)` picks one of
+    three designs by form: 'split' (`csrc/fused_split.cu`: the chains
+    spread over the card in three launches) for f32 x at B <=
+    SPLIT_MAX_BATCH, the default trainer's step; 'mma' (`csrc/fused_mma.cu`:
+    the six products on the tensor cores, bf16 operands accumulated in
+    f32, in three launches) for bf16 x at B <= MMA_MAX_BATCH; 'rows'
+    (`csrc/fused_step.cu`: two launches, 8 batch rows a block in the
+    first) for larger batches in either type. 'split' and 'rows' compute
+    the same bits; 'mma' sums in the tensor cores' order and is held to
+    the JAX package's bf16 pins against the plain version.
   * `fused_loss_and_grads_reference` (f32) and `step_reference_bf16` spell
     out the same formulas in plain PyTorch (no autograd) on any device: the
     CPU tests hold them against the JAX kernel, and chip_smoke.py holds the
@@ -34,11 +38,12 @@ forms:
     ops/threefry.py.
   * `launch_count` counts wrapper calls that launched a kernel, one key per
     design and form (`fused_split`, `fused_split_rng` for the split design;
-    `fused_step`, `fused_step_rng`, `fused_step_bf16`,
-    `fused_step_rng_bf16` for the rows design), so a run shows which
-    design its steps went through; `last_launch` names the last call's
-    design and key. `split_phase_stamps(...)` runs the split design's
-    stamps build and returns its per-phase split.
+    `fused_mma`, `fused_mma_rng` for the mma design; `fused_step`,
+    `fused_step_rng`, `fused_step_bf16`, `fused_step_rng_bf16` for the rows
+    design), so a run shows which design its steps went through;
+    `last_launch` names the last call's design and key.
+    `split_phase_stamps(...)` and `mma_phase_stamps(...)` run a design's
+    stamps build and return its per-phase split.
 
 `params` is the JAX-layout tree `{"fc1": {"w", "b"}, "fc2": {"w", "b"},
 "fc3": {"w"}}` with weights (fan_in, fan_out), as `MLP.params()` gives it.
@@ -59,17 +64,21 @@ IN_DIM, HIDDEN1, HIDDEN2, NUM_CLASSES = MLP_DIMS
 # f32 batches up to this many rows run the split design (fused_design):
 # its gradient kernel holds the whole batch in shared memory
 SPLIT_MAX_BATCH = 128
+# bf16 batches up to this many rows run the mma design: its scratch and its
+# gradient kernel's copy groups are sized for them
+MMA_MAX_BATCH = 128
 
 # wrapper calls that launched a CUDA kernel, per design and form
 # (chip_smoke.py resets and reads them)
-launch_count = {"fused_split": 0, "fused_split_rng": 0, "fused_step": 0,
+launch_count = {"fused_split": 0, "fused_split_rng": 0, "fused_mma": 0,
+                "fused_mma_rng": 0, "fused_step": 0,
                 "fused_step_bf16": 0, "fused_step_rng": 0,
                 "fused_step_rng_bf16": 0, "threefry_mask": 0}
-# the last launch's design ("split" or "rows") and launch_count key
+# the last launch's design ("split", "mma" or "rows") and launch_count key
 last_launch = {"design": "", "form": ""}
 
 _lib = None
-_split_libs = {}
+_staged_libs = {}
 
 
 def _kernel_lib():
@@ -94,31 +103,39 @@ def _kernel_lib():
     return _lib
 
 
-def _split_lib(name: str = "fused_split"):
-    """The split design's library `name` (the default build, or its stamps
-    build) with its ctypes signatures declared and its constants checked
-    against this module's."""
-    if name not in _split_libs:
+# the designs that stage operands by TMA, in three launches: (x dtype, the
+# largest batch, the library's default build)
+_STAGED = {"split": (torch.float32, SPLIT_MAX_BATCH, "fused_split"),
+           "mma": (torch.bfloat16, MMA_MAX_BATCH, "fused_mma")}
+
+
+def _staged_lib(design: str, name: str = None):
+    """Library `name` of the split or mma design (its default build unless
+    `name` names its stamps build) with its ctypes signatures declared and
+    its largest batch checked against this module's. Its entries are
+    `pdmt_<design>_...`."""
+    name = name or _STAGED[design][2]
+    if name not in _staged_libs:
         from . import _build
         lib = _build.load(name)
         p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-        lib.pdmt_split_step.argtypes = ([p, p, i, p, u, i] + [p] * 13
-                                        + [i, f, p])
-        lib.pdmt_split_step.restype = i
-        for fn in ("pdmt_split_max_batch", "pdmt_split_stamp_words"):
-            getattr(lib, fn).argtypes = []
-            getattr(lib, fn).restype = i
-        lib.pdmt_split_scratch_floats.argtypes = [i]
-        lib.pdmt_split_scratch_floats.restype = i
-        lib.pdmt_split_blocks.argtypes = [i, p]
-        lib.pdmt_split_blocks.restype = i
+
+        def fn(entry, args, res=i):
+            out = getattr(lib, f"pdmt_{design}_{entry}")
+            out.argtypes, out.restype = args, res
+            return out
+        fn("step", [p, p, i, p, u, i] + [p] * 13 + [i, f, p])
+        max_batch = fn("max_batch", [])
+        fn("stamp_words", [])
+        fn("scratch_floats", [i])
+        fn("blocks", [i, p])
         lib.pdmt_error_string.argtypes = [i]
         lib.pdmt_error_string.restype = ctypes.c_char_p
-        if lib.pdmt_split_max_batch() != SPLIT_MAX_BATCH:
-            raise RuntimeError(f"{name}: max batch {lib.pdmt_split_max_batch()}"
-                               f", expected {SPLIT_MAX_BATCH}")
-        _split_libs[name] = lib
-    return _split_libs[name]
+        got, want = max_batch(), _STAGED[design][1]
+        if got != want:
+            raise RuntimeError(f"{name}: max batch {got}, expected {want}")
+        _staged_libs[name] = lib
+    return _staged_libs[name]
 
 
 def _raise_on(err: int, what: str, lib) -> None:
@@ -256,12 +273,16 @@ def _reference(params, x, y, scaled_mask):
 
 def fused_design(x_dtype, rng: bool, batch: int) -> str:
     """The K1 design a launch runs: 'split' (csrc/fused_split.cu) for f32 x
-    at batch <= SPLIT_MAX_BATCH, with a mask or the in-kernel Philox draw
-    (`rng`) alike; 'rows' (csrc/fused_step.cu) for larger batches and the
-    bf16 forms. Both give the same bits where both run."""
+    at batch <= SPLIT_MAX_BATCH, 'mma' (csrc/fused_mma.cu) for bf16 x at
+    batch <= MMA_MAX_BATCH, with a mask or the in-kernel Philox draw (`rng`)
+    alike; 'rows' (csrc/fused_step.cu) for larger batches. 'split' and
+    'rows' give the same bits where both run."""
     del rng  # both dropout sources take the same design
-    return ("split" if x_dtype == torch.float32 and batch <= SPLIT_MAX_BATCH
-            else "rows")
+    if x_dtype == torch.float32 and batch <= SPLIT_MAX_BATCH:
+        return "split"
+    if x_dtype == torch.bfloat16 and batch <= MMA_MAX_BATCH:
+        return "mma"
+    return "rows"
 
 
 def _form(x, rng: bool) -> str:
@@ -271,31 +292,34 @@ def _form(x, rng: bool) -> str:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """`t`, or a copy of it where its data does not start on 16 bytes (the
-    split design's bulk and tensor copies): only a view at an odd offset
-    does."""
+    split and mma designs' bulk and tensor copies): only a view at an odd
+    offset does."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _split_cuda(params, x, y, scaled_mask, seed=None, *, stamps=None,
-                lib_name="fused_split"):
-    """One call of the split design (three launches); `stamps`, a zeroed
-    int64 tensor of the stamps build's words, receives its phase stamps."""
+def _staged_cuda(design, params, x, y, scaled_mask, seed=None, *,
+                 stamps=None, lib_name=None):
+    """One call of the split or mma design (three launches), of its default
+    build or the build `lib_name`; `stamps`, a zeroed int64 tensor of the
+    stamps build's words, receives its phase stamps."""
+    dtype, max_batch, _ = _STAGED[design]
     batch = x.shape[0]
-    if x.dtype != torch.float32 or not 1 <= batch <= SPLIT_MAX_BATCH:
-        raise ValueError(f"the split design takes f32 x at 1 <= B <= "
-                         f"{SPLIT_MAX_BATCH}; got {x.dtype} B={batch}")
-    lib = _split_lib(lib_name)
+    if x.dtype != dtype or not 1 <= batch <= max_batch:
+        raise ValueError(f"the {design} design takes {dtype} x at 1 <= B <= "
+                         f"{max_batch}; got {x.dtype} B={batch}")
+    lib = _staged_lib(design, lib_name)
     y32 = y.to(torch.int32).contiguous()
     w1, b1, w2, b2, w3 = _weights(params)
     x, w1, w2, w3 = _aligned(x), _aligned(w1), _aligned(w2), _aligned(w3)
-    scratch = torch.empty(lib.pdmt_split_scratch_floats(batch),
+    entry = f"pdmt_{design}_"
+    scratch = torch.empty(getattr(lib, entry + "scratch_floats")(batch),
                           dtype=torch.float32, device=x.device)
     loss = torch.empty((), dtype=torch.float32, device=x.device)
     grads = [torch.empty_like(w) for w in (w1, b1, w2, b2, w3)]
     rng = seed is not None
     _, block = philox.batch_blocks(batch)
     with torch.cuda.device(x.device):
-        err = lib.pdmt_split_step(
+        err = getattr(lib, entry + "step")(
             x.data_ptr(), y32.data_ptr(), int(rng),
             None if rng else scaled_mask.data_ptr(), seed if rng else 0,
             block, w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
@@ -303,24 +327,25 @@ def _split_cuda(params, x, y, scaled_mask, seed=None, *, stamps=None,
             loss.data_ptr(), *(g.data_ptr() for g in grads),
             None if stamps is None else stamps.data_ptr(), batch,
             1.0 / batch, _stream(x.device))
-    _raise_on(err, "fused_split kernel launch", lib)
+    _raise_on(err, f"fused_{design} kernel launch", lib)
     return loss, _tree(*grads)
 
 
 def _fused_cuda(params, x, y, scaled_mask, seed=None, design=None):
     """One call of the kernel: the mask is `scaled_mask`, or drawn in the
-    kernel from the uint32 step seed `seed`. `design` ('split' or 'rows')
-    overrides fused_design's choice."""
+    kernel from the uint32 step seed `seed`. `design` ('split', 'mma' or
+    'rows') overrides fused_design's choice."""
     rng = seed is not None
     design = design or fused_design(x.dtype, rng, x.shape[0])
-    if design == "split":
-        loss, grads = _split_cuda(params, x, y, scaled_mask, seed)
-        key = "fused_split" + ("_rng" if rng else "")
+    if design in _STAGED:
+        loss, grads = _staged_cuda(design, params, x, y, scaled_mask, seed)
+        key = f"fused_{design}" + ("_rng" if rng else "")
         launch_count[key] += 1
         last_launch.update(design=design, form=key)
         return loss, grads
     if design != "rows":
-        raise ValueError(f"design must be 'split' or 'rows', not {design!r}")
+        raise ValueError(f"design must be 'split', 'mma' or 'rows', not "
+                         f"{design!r}")
     lib = _kernel_lib()
     batch = x.shape[0]
     y32 = y.to(torch.int32).contiguous()
@@ -351,8 +376,8 @@ def fused_loss_and_grads(params, x, y, scaled_mask, *, _design=None):
     A bf16 `x` selects the bf16-operand mode.
 
     CUDA tensors launch the kernel of `fused_design`'s design (or raise);
-    `_design` forces one ('rows' is the card's yardstick for 'split'). CPU
-    tensors run the plain version. Parameters may require grad: no
+    `_design` forces one ('rows' is the card's yardstick for 'split' and
+    'mma'). CPU tensors run the plain version. Parameters may require grad: no
     autograd graph is built."""
     _check_inputs(params, x, y, scaled_mask)
     if x.device.type == "cuda":
@@ -398,31 +423,52 @@ SPLIT_PHASES = ("hidden: z1, mask, d1", "gap to the rows launch",
                 "rows: w2 in, z2, h2", "rows: logits, softmax, dl",
                 "rows: dz2, dd1, dz1", "gap to the grads launch",
                 "grads: gw1, gw2, gw3, biases, loss")
+# the same of the mma design (csrc/fused_mma.cu `Stamp`)
+MMA_PHASES = ("hidden: z1, mask, d1, w2 and w3 to bf16",
+              "gap to the rows launch", "rows: w2 in, z2, h2",
+              "rows: logits, softmax, dl", "rows: dh2, dz2, dd1, dz1",
+              "gap to the grads launch", "grads: gw1, gw2, gw3, biases, loss")
+_PHASES = {"split": SPLIT_PHASES, "mma": MMA_PHASES}
+
+
+def _phase_stamps(design, params, x, y, scaled_mask, seed, calls):
+    """`calls` calls of `design`'s stamps build (`-D<DESIGN>_STAMPS`,
+    ops/_build.py VARIANTS) on CUDA tensors, with the mask `scaled_mask` or
+    the in-kernel draw of `seed`; not counted in launch_count. Returns
+    (loss, grads) of the last call, {phase: us} for the design's phases
+    averaged over the calls, and the mean us from the hidden kernel's start
+    to the grads kernel's end."""
+    _check_inputs(params, x, y, scaled_mask)
+    if x.device.type != "cuda" or fused_design(x.dtype, seed is not None,
+                                               x.shape[0]) != design:
+        raise ValueError(f"{design}_phase_stamps runs the {design} design's "
+                         f"forms on CUDA tensors")
+    seed = None if seed is None else rng_seed(seed)
+    name = f"fused_{design}_stamps"
+    n = getattr(_staged_lib(design, name), f"pdmt_{design}_stamp_words")()
+    stamps = torch.zeros((calls, n), dtype=torch.int64, device=x.device)
+    for i in range(calls):
+        out = _staged_cuda(design, params, x, y, scaled_mask, seed,
+                           stamps=stamps[i], lib_name=name)
+    t = stamps.double()
+    per_phase = (t[:, 1:] - t[:, :-1]).mean(dim=0) / 1e3
+    total = float((t[:, -1] - t[:, 0]).mean()) / 1e3
+    return (out[0], out[1], dict(zip(_PHASES[design], per_phase.tolist())),
+            total)
 
 
 def split_phase_stamps(params, x, y, scaled_mask=None, seed=None, *,
                        calls: int = 20):
-    """`calls` calls of the split design's stamps build (`-DSPLIT_STAMPS`,
-    ops/_build.py VARIANTS) on CUDA tensors, with the mask `scaled_mask` or
-    the in-kernel draw of `seed`; not counted in launch_count. Returns
-    (loss, grads) of the last call, {phase: us} for the phases of
-    SPLIT_PHASES averaged over the calls, and the mean us from the hidden
-    kernel's start to the grads kernel's end."""
-    _check_inputs(params, x, y, scaled_mask)
-    if x.device.type != "cuda" or fused_design(x.dtype, seed is not None,
-                                               x.shape[0]) != "split":
-        raise ValueError("split_phase_stamps runs the split design's form "
-                         "(f32 x, B <= SPLIT_MAX_BATCH) on CUDA tensors")
-    seed = None if seed is None else rng_seed(seed)
-    n = _split_lib("fused_split_stamps").pdmt_split_stamp_words()
-    stamps = torch.zeros((calls, n), dtype=torch.int64, device=x.device)
-    for i in range(calls):
-        out = _split_cuda(params, x, y, scaled_mask, seed, stamps=stamps[i],
-                          lib_name="fused_split_stamps")
-    t = stamps.double()
-    per_phase = (t[:, 1:] - t[:, :-1]).mean(dim=0) / 1e3
-    total = float((t[:, -1] - t[:, 0]).mean()) / 1e3
-    return out[0], out[1], dict(zip(SPLIT_PHASES, per_phase.tolist())), total
+    """The split design's per-phase split (f32 x, B <= SPLIT_MAX_BATCH),
+    from its stamps build: see _phase_stamps."""
+    return _phase_stamps("split", params, x, y, scaled_mask, seed, calls)
+
+
+def mma_phase_stamps(params, x, y, scaled_mask=None, seed=None, *,
+                     calls: int = 20):
+    """The mma design's per-phase split (bf16 x, B <= MMA_MAX_BATCH), from
+    its stamps build: see _phase_stamps."""
+    return _phase_stamps("mma", params, x, y, scaled_mask, seed, calls)
 
 
 def kernel_rng_mask(seed, batch: int, device) -> torch.Tensor:

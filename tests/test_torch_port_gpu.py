@@ -27,7 +27,16 @@ K1's f32 forms, is held bitwise against K1's rows design (the loss and all
 five gradients) at B = 128, 96, 8 and 3 with a mask and with the in-kernel
 draw, on an odd-offset view and in a CUDA-graph replay, its stamps build
 against its default build, and the cached trainer's losses on it against
-the same run on the rows design."""
+the same run on the rows design. K1-mma, the mma design of K1's bf16 forms
+(the products on the tensor cores, summed in their order), is held at the
+JAX package's bf16 pins against the plain version and against the rows
+design at B = 128, 96, 8 and 3 with a mask and with the in-kernel draw, a
+repeat launch and a CUDA-graph replay bitwise equal to the first call, the
+Philox form bitwise the mask form on philox.rng_mask, on an odd-offset view
+and 48 distinct inputs, its stamps build bitwise its default build, and
+the cached bf16 trainer's losses on it against the rows design's. The
+K2-bf16, superstep-bf16 and K6-bf16 pins name the rows design's K1-bf16,
+the step those kernels share, and stay bitwise."""
 
 import re
 from functools import partial
@@ -71,10 +80,12 @@ def _inputs(batch, seed, device):
 
 
 def _k1_key(x, rng=False):
-    """The launch_count key an f32 K1 call on x counts under: its
-    design's."""
-    split = fused_step.fused_design(x.dtype, rng, x.shape[0]) == "split"
-    return ("fused_split" if split else "fused_step") + ("_rng" if rng else "")
+    """The launch_count key a K1 call on x counts under: its design's."""
+    design = fused_step.fused_design(x.dtype, rng, x.shape[0])
+    if design != "rows":
+        return f"fused_{design}" + ("_rng" if rng else "")
+    return ("fused_step" + ("_rng" if rng else "")
+            + ("_bf16" if x.dtype == torch.bfloat16 else ""))
 
 
 def _k1_leaves(loss, grads):
@@ -272,12 +283,12 @@ def _bf16_close(got, ref):
 def test_bf16_kernel_matches_its_plain_version(cuda, batch):
     params, x, y, mask = _inputs(batch, batch, cuda)
     xb = x.to(torch.bfloat16)
+    key = _k1_key(xb)       # the mma design at B <= 128, rows past it
     before = dict(fused_step.launch_count)
     got = fused_step.fused_loss_and_grads(params, xb, y, mask)
     again = fused_step.fused_loss_and_grads(params, xb, y, mask)
     f32 = fused_step.fused_loss_and_grads(params, x, y, mask)
-    assert fused_step.launch_count["fused_step_bf16"] == \
-        before["fused_step_bf16"] + 2
+    assert fused_step.launch_count[key] == before[key] + 2
     ref = fused_step.step_reference_bf16(params, xb, y, mask)
     torch.cuda.synchronize()
     assert torch.equal(got[0], again[0])
@@ -337,8 +348,9 @@ def _k1_epoch_bf16(form, inp):
         x = (device_normalize(x) if pixels == "uint8" else x).to(torch.bfloat16)
         mask = epoch_step.step_mask(rng, inp[rng], inp["masks"], s, batch,
                                     x.device)
-        loss, grads = fused_step.fused_loss_and_grads(params, x,
-                                                      inp["y"][rows], mask)
+        # the rows design: the bf16 step csrc/epoch_step.cu computes
+        loss, grads = fused_step.fused_loss_and_grads(
+            params, x, inp["y"][rows], mask, _design="rows")
         sgd_step(params, grads, 0.01)
         losses.append(loss)
     return params, torch.stack(losses)
@@ -492,6 +504,30 @@ def test_dp_steps_on_a_card_mesh_track_each_other(cuda):
     (plain, plain_k1), (fused, fused_k1) = runs
     assert (plain_k1, fused_k1) == (0, 4)
     torch.testing.assert_close(fused, plain, rtol=1e-5, atol=0)
+
+
+def test_bf16_dp_steps_on_a_card_mesh_run_k1_mma_and_track_the_cpu_mesh(cuda):
+    # several replicas of one card share K1-mma's tensor-map cache and each
+    # call's scratch: the card mesh's losses against the CPU mesh's (plain
+    # versions, the same masks) at the JAX bf16 loss pin
+    split = synthetic_mnist(512, 3)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        x = torch.from_numpy(normalize_images(split.images)).to(dev)
+        y = torch.from_numpy(split.labels.astype(np.int32)).to(dev)
+        model = MLP(torch.Generator().manual_seed(0)).to(dev)
+        step = fused_step.make_pallas_dp_train_step((dev,) * 2, 0.01,
+                                                    dtype="bfloat16")
+        key, before = threefry.key_data(1), fused_step.launch_count["fused_mma"]
+        losses = []
+        for i in range(0, 512, 256):
+            key, loss = step(model, key, x[i:i + 256], y[i:i + 256])
+            losses.append(loss)
+        runs.append((torch.stack(losses).cpu(),
+                     fused_step.launch_count["fused_mma"] - before))
+    (card, card_k1), (cpu, cpu_k1) = runs
+    assert (card_k1, cpu_k1) == (4, 0)
+    torch.testing.assert_close(card, cpu, rtol=1e-3, atol=0)
 
 
 def test_parallel_cli_on_one_card_equals_the_serial_run(cuda, tmp_path,
@@ -684,3 +720,105 @@ def test_split_and_rows_designs_train_the_same_cached_epoch(cuda, tmp_path,
         before["fused_step"] + 1024 // 128
     for a, b in zip(split, rows):
         np.testing.assert_array_equal(a, b)
+
+
+# ---- K1-mma, the mma design of K1's bf16 forms ----
+
+def _mma_call(params, x, y, mask, seed, rng, design=None):
+    if rng:
+        return fused_step.fused_loss_and_grads_rng(params, x, y, seed,
+                                                   _design=design)
+    return fused_step.fused_loss_and_grads(params, x, y, mask, _design=design)
+
+
+@pytest.mark.parametrize("rng", [False, True], ids=["mask", "rng"])
+@pytest.mark.parametrize("batch", [128, 96, 8, 3])
+def test_mma_design_holds_the_bf16_pins_and_repeats_bitwise(cuda, batch, rng):
+    params, x, y, mask = _inputs(batch, batch + 23, cuda)
+    xb = x.to(torch.bfloat16)
+    seed = (1 << 31) + 7 * batch
+    key = "fused_mma_rng" if rng else "fused_mma"
+    before = dict(fused_step.launch_count)
+    got = _mma_call(params, xb, y, mask, seed, rng)
+    assert fused_step.last_launch == {"design": "mma", "form": key}
+    again = _mma_call(params, xb, y, mask, seed, rng)
+    assert fused_step.launch_count[key] == before[key] + 2
+    rows = _mma_call(params, xb, y, mask, seed, rng, design="rows")
+    assert fused_step.last_launch["design"] == "rows"
+    pm = philox.rng_mask(seed, batch, cuda)
+    ref = fused_step.step_reference_bf16(params, xb, y, pm if rng else mask)
+    torch.cuda.synchronize()
+    for a, b in zip(_k1_leaves(*got), _k1_leaves(*again)):
+        assert torch.equal(a, b)
+    _bf16_close(got, ref)
+    _bf16_close(got, rows)
+    if rng:
+        on_mask = fused_step.fused_loss_and_grads(params, xb, y, pm)
+        for a, b in zip(_k1_leaves(*got), _k1_leaves(*on_mask)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rng", [False, True], ids=["mask", "rng"])
+def test_mma_design_takes_odd_offsets_and_replays_in_a_graph(cuda, rng):
+    params, x, y, mask = _inputs(128, 15, cuda)
+    xb = x.to(torch.bfloat16)
+    base = _k1_leaves(*_mma_call(params, xb, y, mask, 99, rng))
+    flat = torch.empty(xb.numel() + 1, dtype=xb.dtype, device=cuda)
+    view = flat[1:].view_as(xb)
+    view.copy_(xb)
+    assert view.data_ptr() % 16 != 0
+    odd = _mma_call(params, view, y, mask, 99, rng)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _mma_call(params, xb, y, mask, 99, rng)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, c in zip(base, _k1_leaves(*odd), _k1_leaves(*captured)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_mma_design_keeps_its_tensor_maps_across_many_inputs(cuda):
+    # more distinct x and scratch addresses than the wrapper's cache of
+    # tensor maps has slots: every call within the pins of the rows design
+    params, x, y, mask = _inputs(96, 19, cuda)
+    for _ in range(48):
+        xi = (x + 0.0).to(torch.bfloat16)
+        got = fused_step.fused_loss_and_grads(params, xi, y, mask)
+        assert fused_step.last_launch["design"] == "mma"
+        _bf16_close(got, fused_step.fused_loss_and_grads(params, xi, y, mask,
+                                                         _design="rows"))
+
+
+def test_mma_stamps_build_keeps_the_bits_and_splits_the_call(cuda):
+    params, x, y, mask = _inputs(128, 6, cuda)
+    xb = x.to(torch.bfloat16)
+    base = _k1_leaves(*fused_step.fused_loss_and_grads(params, xb, y, mask))
+    before = dict(fused_step.launch_count)
+    loss, grads, split, per_call = fused_step.mma_phase_stamps(
+        params, xb, y, mask, calls=4)
+    assert dict(fused_step.launch_count) == before
+    for a, b in zip(_k1_leaves(loss, grads), base):
+        assert torch.equal(a, b)
+    assert list(split) == list(fused_step.MMA_PHASES)
+    assert all(v >= 0 for v in split.values()) and per_call > 0
+    assert abs(sum(split.values()) - per_call) <= 1e-6 * per_call + 1e-9
+
+
+def test_mma_and_rows_designs_train_close_cached_bf16_epochs(cuda, tmp_path,
+                                                             monkeypatch):
+    # the tensor cores sum in another order than the rows design, so a
+    # bf16 rounding may go the other way: per-step losses at the bf16
+    # runs' tolerance (rtol 1e-2, chip_smoke.py BF16_TRAIN_RTOL)
+    argv = ["--cached", "--kernel", "pallas_rng", "--dtype", "bfloat16",
+            "--limit", "1024", "--checkpoint", "",
+            "--path", str(tmp_path / "no_mnist")]
+    before = dict(fused_step.launch_count)
+    _, mma = port_cli.train(argv)
+    assert fused_step.launch_count["fused_mma_rng"] == \
+        before["fused_mma_rng"] + 1024 // 128
+    monkeypatch.setattr(fused_step, "fused_design", lambda *a: "rows")
+    _, rows = port_cli.train(argv)
+    assert fused_step.launch_count["fused_step_rng_bf16"] == \
+        before["fused_step_rng_bf16"] + 1024 // 128
+    for a, b in zip(mma, rows):
+        np.testing.assert_allclose(a, b, rtol=1e-2)

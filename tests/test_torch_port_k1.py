@@ -49,12 +49,16 @@ def test_f32_batches_up_to_the_maximum_take_the_split_design(batch, rng):
     assert fused_step.fused_design(torch.float32, rng, batch) == "split"
 
 
+# f32 past the split design's maximum and bf16 past the mma design's keep
+# the rows design; bf16 at B <= 128 (3, 96 and 128 here) runs the mma design
+# (csrc/fused_mma.cu, tests/test_torch_port_k1_mma.py)
 @pytest.mark.parametrize("rng", [False, True], ids=["mask", "rng"])
 @pytest.mark.parametrize("dtype,batch", [
     (torch.float32, 129), (torch.float32, 1000), (torch.bfloat16, 3),
     (torch.bfloat16, 96), (torch.bfloat16, 128), (torch.bfloat16, 1000)])
 def test_larger_batches_and_bf16_keep_the_rows_design(dtype, batch, rng):
-    assert fused_step.fused_design(dtype, rng, batch) == "rows"
+    want = "mma" if dtype == torch.bfloat16 and batch <= 128 else "rows"
+    assert fused_step.fused_design(dtype, rng, batch) == want
 
 
 def test_design_boundary_is_split_max_batch():
@@ -99,7 +103,7 @@ def no_kernels(monkeypatch):
     CUDA wrapper."""
     def boom(*a, **k):
         raise AssertionError("the CPU path must not touch a kernel")
-    for name in ("_split_cuda", "_fused_cuda", "_split_lib", "_kernel_lib"):
+    for name in ("_staged_cuda", "_fused_cuda", "_staged_lib", "_kernel_lib"):
         monkeypatch.setattr(fused_step, name, boom)
     monkeypatch.setattr(_build, "load", boom)
     monkeypatch.setattr(_build, "build_all", boom)
@@ -146,15 +150,16 @@ def test_split_design_refuses_what_it_does_not_take(monkeypatch):
     # by name, before any library is built or loaded
     def boom(*a, **k):
         raise AssertionError("a library was loaded")
-    monkeypatch.setattr(fused_step, "_split_lib", boom)
+    monkeypatch.setattr(fused_step, "_staged_lib", boom)
     monkeypatch.setattr(fused_step, "_kernel_lib", boom)
     monkeypatch.setattr(_build, "load", boom)
     params = from_jax_params(_inputs(1, seed=0)[0]).params()
     for batch, dtype in ((4, torch.bfloat16), (129, torch.float32)):
         _, x, y, mask = _inputs(batch, seed=0)
         with pytest.raises(ValueError, match="split design"):
-            fused_step._split_cuda(params, torch.from_numpy(x).to(dtype),
-                                   torch.from_numpy(y), torch.from_numpy(mask))
+            fused_step._staged_cuda("split", params,
+                                    torch.from_numpy(x).to(dtype),
+                                    torch.from_numpy(y), torch.from_numpy(mask))
     with pytest.raises(ValueError, match="design must be"):
         fused_step._fused_cuda(params, torch.from_numpy(x),
                                torch.from_numpy(y), torch.from_numpy(mask),
