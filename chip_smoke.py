@@ -36,16 +36,21 @@ Phases (any failure exits non-zero; no phase is skipped):
                uint8 rows + masks, K2c uint8 + in-kernel Philox, K3 uint8 +
                in-kernel threefry; the uint8 forms run K2-ws, the
                weight-stationary design, K2a the rows design, each
-               asserted) and K2-bf16 in the three uint8 forms, at B = 128 x
-               24 steps and B = 8 x 5 steps: in-kernel masks bitwise against
-               the plain streams, the epoch bitwise against K1 (or K1-bf16
-               on the rows design, the step it shares) + SGD per step, K2-ws bitwise against the rows design on
-               the same inputs, and against its plain version (losses per
-               step; params in Frobenius norm); K2-ws's normalise table
-               bitwise the plain normalise of 0..255; the superstep K =
-               2/4/8 bitwise equal to K = 1 on the full 469-step epoch (K =
-               8 pads 3 steps) and on an 11-step epoch, K2-ws's also
-               bitwise the rows design; K6 (the DP
+               asserted) at B = 128 x 24 steps and B = 8 x 5 steps:
+               in-kernel masks bitwise against the plain streams, the
+               epoch bitwise against K1 + SGD per step, K2-ws bitwise
+               against the rows design on the same inputs, and against its
+               plain version (losses per step; params in Frobenius norm);
+               K2-ws's normalise table bitwise the plain normalise of
+               0..255; K2-mma (the tensor-core design of the bf16 uint8
+               forms, csrc/epoch_mma.cu) in K2b, K2c and K3 at B = 128 x
+               24, 96 x 6 and 8 x 5: bitwise K1-mma + SGD per step and a
+               repeat launch, within the JAX bf16 pins of its plain
+               version and of the rows design forced, which stays bitwise
+               its own K1-bf16 + SGD; the superstep K = 2/4/8 bitwise
+               equal to K = 1 on the full 469-step epoch (K = 8 pads 3
+               steps) and on an 11-step epoch, K2-ws's also bitwise the
+               rows design; K6 (the DP
                epoch kernel's ring) on n replicas of this card, at
                (all-gather, n = 2, 4) and (reduce-scatter, n = 3, 4), B = 128
                per replica x 24 steps, uint8 rows, masks/threefry/core:
@@ -82,10 +87,13 @@ Phases (any failure exits non-zero; no phase is skipped):
                   forced, in turns (split, rows, rows, split), bitwise equal
                   losses, the wall time of each;
                f. `train --cached --kernel pallas_epoch --dtype bfloat16`,
-                  one epoch in ONE K2-bf16 launch, held against the CPU run;
+                  one epoch in ONE K2-mma launch, held against the CPU run;
+                  the same at --batch_size 256, past MMA_MAX_BATCH: one
+                  K2-bf16 launch on the rows design;
                g. `bench --epochs 5` (K2-ws), whose JSON line is printed;
                h. `bench --kernel pallas_epoch --dtype bfloat16 --superstep
-                  8 --epochs 5` (K2-bf16 with K = 8, the rows design);
+                  8 --epochs 5` (K2-mma with K = 8), and with K = 4 at
+                  --batch_size 256 (the rows design's superstep);
                i. `fit_cached(mesh=data_parallel_mesh([cuda:0] * 4))` (what
                   `--parallel --cached` calls), global batch 512: one
                   118-step epoch through K6 all-gather (threefry), one
@@ -97,7 +105,8 @@ Phases (any failure exits non-zero; no phase is skipped):
                   the serial run.
   5. timing  — CUDA-event times of each kernel and form and its plain
                version at the main path's shapes, torch.profiler's device
-               time of K1 (both designs) and the cached epoch, and its
+               time of K1 (both designs) and the cached epoch (f32 on K2-ws,
+               bf16 on K2-mma), and its
                device-busy share of a `train --cached` epoch's per-step loop
                on each K1 design, beside the bound computed from those
                shapes; K1-split and the rows design in turns at B = 128,
@@ -107,7 +116,9 @@ Phases (any failure exits non-zero; no phase is skipped):
                rng, the same ways, K1-mma's stamps split, and the bf16
                per-step loops' device-busy share on each design; K2-ws and the rows design in turns in
                K2b, K2c, K3 and f32 K = 8, and the per-phase split of a K2c epoch from K2-ws's stamps
-               build; K6 per (ring, n) over a 118-step epoch beside the
+               build; K2-mma and the rows design's bf16 form in turns over
+               the 469-step epoch at K = 1 and K = 8, and K2-mma's phase
+               split from its stamps build; K6 per (ring, n) over a 118-step epoch beside the
                rows-design K2 and a 1-replica ring launch at the same
                blocks per replica.
 The line before the last is the card's name and power limit; the last is
@@ -193,9 +204,19 @@ K2_FORMS = {"K2a": ("f32", "masks"), "K2b": ("uint8", "masks"),
             "K2c": ("uint8", "core"), "K3": ("uint8", "threefry")}
 K2_CHECKS = ((128, 24), (8, 5))   # (batch, steps) of the kernel checks
 K2_BF16_FORMS = ("K2b", "K2c", "K3")   # the uint8 forms
+# (batch, steps) of K2-mma's checks: the main path's full and ragged
+# batches, and a small one
+K2_BF16_CHECKS = ((128, 24), (96, 6), (8, 5))
 SUPERSTEPS = (2, 4, 8)
+ROWS_BATCH = 256   # a batch past MMA_MAX_BATCH: the rows design's bf16 step
+ROWS_STEPS = 10
+ROWS_SUPERSTEP = 4   # the bench's K at ROWS_BATCH: K * B <= 1024, the JAX
+                     # kernel's stream budget
+# (batch, steps) of the rows design's bf16 checks at the main paths' B
+ROWS_CHECK = (ROWS_BATCH, 8)
 TPU_SRC = "pytorch_ddp_mnist_tpu/ops/pallas_step.py"
-# launch_count keys of K2's rows design (csrc/epoch_step.cu epoch_kernel)
+# launch_count keys of K2's rows design (csrc/epoch_step.cu epoch_kernel),
+# every one at B > 128 on the main paths
 ROWS_DESIGN_KEYS = ("epoch_step", "epoch_step_superstep", "epoch_step_bf16",
                     "epoch_step_superstep_bf16")
 
@@ -821,9 +842,10 @@ def phase_kernels_k1_variants(device) -> dict:
     return worst
 
 
-def _k1_loop_bf16(inp: dict, form: str):
-    """The epoch as K1-bf16 on the rows design + SGD per step, on the plain
-    stream's masks."""
+def _k1_loop_bf16(inp: dict, form: str, design: str):
+    """The epoch as K1-bf16 on `design` + SGD per step, on the plain
+    stream's masks: 'mma' (K1-mma, the step K2-mma computes) or 'rows'
+    (the step csrc/epoch_step.cu computes)."""
     from pytorch_ddp_mnist_tpu_torch.data.mnist import device_normalize
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step, fused_step
     from pytorch_ddp_mnist_tpu_torch.ops.sgd import sgd_step
@@ -839,70 +861,142 @@ def _k1_loop_bf16(inp: dict, form: str):
             torch.bfloat16)
         mask = epoch_step.step_mask(rng, inp.get(rng), inp["masks"], step,
                                     batch, x.device)
-        # the rows design: the step csrc/epoch_step.cu computes
         loss, grads = fused_step.fused_loss_and_grads(
-            params, x, inp["y"][rows], mask, _design="rows")
+            params, x, inp["y"][rows], mask, _design=design)
+        if fused_step.last_launch["design"] != design:
+            fail(f"K1-bf16 ran {fused_step.last_launch}, not the {design} "
+                 f"design")
         sgd_step(params, grads, LR)
         losses.append(loss)
     return params, torch.stack(losses)
 
 
-def phase_kernels_k2_bf16(device) -> float:
-    """K2-bf16 in the uint8 forms: bitwise K1-bf16 on the rows design (the
-    step it shares) + SGD per step and a repeat launch, against its plain
-    version by losses (BF16 tolerances) and params' Frobenius norm. Returns
-    the worst absolute error."""
+def _check_bf16_epoch(tag, got, ref) -> tuple:
+    """Fail unless the epoch `got` is within the JAX bf16 epoch pins of
+    `ref` (losses BF16_LOSS_RTOL / BF16_LOSS_ATOL, params
+    BF16_PARAM_FRO_RTOL in relative Frobenius norm); returns the worst
+    absolute error and the worst relative Frobenius error."""
+    f_abs = f_fro = 0.0
+    for (name, a), (_, r) in zip(got, ref):
+        if a.shape != r.shape or not torch.isfinite(a).all():
+            fail(f"{tag}: {name} shape or non-finite values")
+        diff = (a - r).abs()
+        if name == "losses":
+            if not bool((diff <= BF16_LOSS_ATOL
+                         + BF16_LOSS_RTOL * r.abs()).all()):
+                fail(f"{tag}: losses off by {float(diff.max()):.3e} (rtol "
+                     f"{BF16_LOSS_RTOL}, atol {BF16_LOSS_ATOL})")
+        else:
+            fro = float(diff.norm() / r.norm())
+            if fro > BF16_PARAM_FRO_RTOL:
+                fail(f"{tag}: {name} off by {fro:.3e} in relative Frobenius "
+                     f"norm (limit {BF16_PARAM_FRO_RTOL})")
+            f_fro = max(f_fro, fro)
+        f_abs = max(f_abs, float(diff.max()))
+    return f_abs, f_fro
+
+
+def _check_bitwise(tag, got, want, what) -> None:
+    for (name, a), (_, b) in zip(got, want):
+        if not torch.equal(a, b):
+            fail(f"{tag}: {name} differs from {what} by "
+                 f"{float((a - b).abs().max()):.3e} (bitwise expected)")
+
+
+def phase_kernels_k2_bf16(device) -> dict:
+    """K2's bf16 forms (uint8 rows) at K2_BF16_CHECKS: K2-mma (asserted by
+    the rule) bitwise K1-mma + SGD per step and a repeat launch, within the
+    JAX bf16 epoch pins of its plain version and of the rows design forced;
+    the rows design bitwise its own K1-bf16 + SGD per step. Then at
+    ROWS_CHECK, where the rule picks the rows design: bitwise its K1-bf16 +
+    SGD, its staged superstep bitwise K = 1, both within the pins of the
+    plain version. Returns the worst absolute error against the plain
+    version of K2-mma ('mma'), the rows design's K = 1 ('rows') and its
+    superstep at ROWS_CHECK ('rows_superstep')."""
     from functools import partial
 
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
     kernel = partial(epoch_step.epoch_fused_sgd, compute_bf16=True)
+    rows_kernel = partial(epoch_step._epoch_fused_sgd_rows, compute_bf16=True)
     plain = partial(epoch_step.epoch_fused_sgd_reference, compute_bf16=True)
-    worst = 0.0
-    for batch, nsteps in K2_CHECKS:
+    worst = {"mma": 0.0, "rows": 0.0}
+    for batch, nsteps in K2_BF16_CHECKS:
         inp = _k2_inputs(batch, nsteps, seed=batch + nsteps + 1, device=device)
         for form in K2_BF16_FORMS:
             tag = f"epoch_step bf16 {form} B={batch} S={nsteps}"
             got = _k2_flat(*_k2_call(kernel, form, inp))
-            if not (epoch_step.last_launch["bf16"] and
-                    epoch_step.last_launch["form"] == "/".join(K2_FORMS[form])
-                    and epoch_step.last_launch["design"] == "rows"):
-                fail(f"{tag}: launched {epoch_step.last_launch}")
+            ll = dict(epoch_step.last_launch)
+            if not (ll["bf16"] and ll["form"] == "/".join(K2_FORMS[form])
+                    and ll["design"] == "mma" == _design(form, batch, True)):
+                fail(f"{tag}: launched {ll}, not K2-mma")
             again = _k2_flat(*_k2_call(kernel, form, inp))
-            k1 = _k2_flat(*_k1_loop_bf16(inp, form))
+            k1 = _k2_flat(*_k1_loop_bf16(inp, form, "mma"))
+            rows = _k2_flat(*_k2_call(rows_kernel, form, inp))
+            if epoch_step.last_launch["design"] != "rows":
+                fail(f"{tag}: the rows design did not launch")
+            k1_rows = _k2_flat(*_k1_loop_bf16(inp, form, "rows"))
             ref = _k2_flat(*_k2_call(plain, form, inp))
             torch.cuda.synchronize()
-            for (name, a), (_, b), (_, c) in zip(got, again, k1):
-                if not torch.equal(a, b):
-                    fail(f"{tag}: {name} differs between two launches")
-                if not torch.equal(a, c):
-                    fail(f"{tag}: {name} differs from K1-bf16 + SGD per step "
-                         f"by {float((a - c).abs().max()):.3e} (bitwise "
-                         f"expected: the same row and gradient code)")
-            f_abs = f_fro = 0.0
-            for (name, a), (_, r) in zip(got, ref):
-                if a.shape != r.shape or not torch.isfinite(a).all():
-                    fail(f"{tag}: {name} shape or non-finite values")
-                diff = (a - r).abs()
-                if name == "losses":
-                    if not bool((diff <= BF16_LOSS_ATOL
-                                 + BF16_LOSS_RTOL * r.abs()).all()):
-                        fail(f"{tag}: losses off their plain version by "
-                             f"{float(diff.max()):.3e} (rtol "
-                             f"{BF16_LOSS_RTOL}, atol {BF16_LOSS_ATOL})")
-                else:
-                    fro = float(diff.norm() / r.norm())
-                    if fro > BF16_PARAM_FRO_RTOL:
-                        fail(f"{tag}: {name} off its plain version by "
-                             f"{fro:.3e} in relative Frobenius norm (limit "
-                             f"{BF16_PARAM_FRO_RTOL})")
-                    f_fro = max(f_fro, fro)
-                f_abs = max(f_abs, float(diff.max()))
-            worst = max(worst, f_abs)
-            print(f"[kernels] {tag}: final loss {float(got[0][1][-1]):.7f} vs "
-                  f"plain {float(ref[0][1][-1]):.7f}; worst abs err "
-                  f"{f_abs:.3e}, params' worst relative Frobenius err "
-                  f"{f_fro:.3e}; bitwise equal to K1-bf16 + SGD per step and "
-                  f"to a repeat launch")
+            _check_bitwise(tag, got, again, "a repeat launch")
+            _check_bitwise(tag, got, k1, "K1-mma + SGD per step")
+            _check_bitwise(f"{tag} (rows design)", rows, k1_rows,
+                           "the rows design's K1-bf16 + SGD per step")
+            err, fro = _check_bf16_epoch(f"{tag} against the plain version",
+                                         got, ref)
+            err_rows, fro_rows = _check_bf16_epoch(
+                f"{tag} against the rows design", got, rows)
+            r_err, r_fro = _check_bf16_epoch(
+                f"{tag} (rows design) against the plain version", rows, ref)
+            worst["mma"] = max(worst["mma"], err)
+            worst["rows"] = max(worst["rows"], r_err)
+            print(f"[kernels] {tag}: K2-mma ({ll['blocks']} blocks) final "
+                  f"loss {float(got[0][1][-1]):.7f} vs plain "
+                  f"{float(ref[0][1][-1]):.7f}, rows design "
+                  f"{float(rows[0][1][-1]):.7f}; worst abs err vs plain "
+                  f"{err:.3e}, vs the rows design {err_rows:.3e}; params' "
+                  f"worst relative Frobenius err vs plain {fro:.3e}, vs the "
+                  f"rows design {fro_rows:.3e} (limit {BF16_PARAM_FRO_RTOL}); "
+                  f"bitwise K1-mma + SGD per step and a repeat launch; the "
+                  f"rows design bitwise its K1-bf16 + SGD, vs plain "
+                  f"{r_err:.3e} / {r_fro:.3e}")
+
+    # past MMA_MAX_BATCH the rule keeps the rows design: its K2-bf16 and its
+    # staged superstep at the main paths' B (the cached trainer's K = 1, the
+    # bench's K = ROWS_SUPERSTEP)
+    batch, nsteps = ROWS_CHECK
+    inp = _k2_inputs(batch, nsteps, seed=batch + nsteps + 1, device=device)
+    worst["rows_superstep"] = 0.0
+    for form in K2_BF16_FORMS:
+        tag = f"epoch_step bf16 {form} B={batch} S={nsteps}"
+        got = _k2_flat(*_k2_call(kernel, form, inp))
+        ll = dict(epoch_step.last_launch)
+        if ll["design"] != "rows" or _design(form, batch, True) != "rows":
+            fail(f"{tag}: launched {ll}, not the rows design")
+        ss = _k2_flat(*_k2_call(partial(kernel, steps_per_iter=ROWS_SUPERSTEP),
+                                form, inp))
+        ll = dict(epoch_step.last_launch)
+        if not (ll["design"] == "rows" and ll["staged"]
+                and ll["steps_per_iter"] == ROWS_SUPERSTEP):
+            fail(f"{tag} K = {ROWS_SUPERSTEP}: launched {ll}, not the rows "
+                 f"design's staged superstep")
+        k1_rows = _k2_flat(*_k1_loop_bf16(inp, form, "rows"))
+        ref = _k2_flat(*_k2_call(plain, form, inp))
+        torch.cuda.synchronize()
+        _check_bitwise(tag, got, k1_rows,
+                       "the rows design's K1-bf16 + SGD per step")
+        _check_bitwise(f"{tag} K = {ROWS_SUPERSTEP}", ss, got, "its K = 1")
+        err, fro = _check_bf16_epoch(f"{tag} against the plain version", got,
+                                     ref)
+        s_err, _ = _check_bf16_epoch(
+            f"{tag} K = {ROWS_SUPERSTEP} against the plain version", ss, ref)
+        worst["rows"] = max(worst["rows"], err)
+        worst["rows_superstep"] = max(worst["rows_superstep"], s_err)
+        print(f"[kernels] {tag}: the rows design ({ll['blocks']} blocks) "
+              f"bitwise its K1-bf16 + SGD per step; K = {ROWS_SUPERSTEP} "
+              f"(staged uint8 rows) bitwise K = 1; worst abs err vs plain "
+              f"{err:.3e} (K = {ROWS_SUPERSTEP}: {s_err:.3e}), params' worst "
+              f"relative Frobenius err {fro:.3e} (limit "
+              f"{BF16_PARAM_FRO_RTOL})")
     return worst
 
 
@@ -910,18 +1004,28 @@ def phase_superstep(device) -> None:
     """K = 2, 4, 8 bitwise equal to K = 1: the full 469-step epoch of the
     bench's form (uint8 rows, in-kernel Philox; K = 8 pads 3 steps) in f32
     and bf16, and an 11-step epoch in the threefry and f32-rows forms. The
-    design of each launch is asserted; K2-ws's K = 1 (the f32 uint8 cases)
-    is also held bitwise against the rows design."""
+    design of each launch is asserted, and whether it staged its rows;
+    K2-ws's K = 1 (the f32 uint8 cases) is also held bitwise against the
+    rows design. The uint8 bf16 cases also run the rows design forced, whose
+    superstep stages its uint8 rows (the bench's path at B > 128)."""
     from functools import partial
 
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
     cases = [(MAIN_BATCH, EPOCH_STEPS, "K2c"), (64, 11, "K3"), (64, 11, "K2a")]
     for batch, nsteps, form in cases:
         inp = _k2_inputs(batch, nsteps, seed=nsteps, device=device)
-        for bf16 in (False, True):
-            fn = partial(epoch_step.epoch_fused_sgd, compute_bf16=bf16)
+        runs = [(False, None), (True, None)]
+        if _design(form, batch, True) == "mma":
+            runs.append((True, "rows"))
+        for bf16, forced in runs:
+            fn = partial(epoch_step.epoch_fused_sgd, compute_bf16=bf16,
+                         _design=forced)
             base = _k2_flat(*_k2_call(fn, form, inp))
-            design = _design(form, batch, bf16)
+            design = forced or _design(form, batch, bf16)
+            if forced is None and design != (
+                    "rows" if form == "K2a" else "mma" if bf16 else "ws"):
+                fail(f"superstep {form} bf16={bf16}: the rule picks the "
+                     f"{design!r} design")
             if design == "ws":
                 rows = _k2_flat(*_k2_call(partial(
                     epoch_step._epoch_fused_sgd_rows, compute_bf16=bf16),
@@ -931,26 +1035,29 @@ def phase_superstep(device) -> None:
                         fail(f"epoch_step {form} B={batch} S={nsteps}: "
                              f"K2-ws's {name} differs from the rows "
                              f"design's by {float((a - b).abs().max()):.3e}")
+            staged = design == "rows" and form != "K2a"
             for k in SUPERSTEPS:
                 got = _k2_flat(*_k2_call(partial(fn, steps_per_iter=k), form,
                                          inp))
                 ll = epoch_step.last_launch
-                if (ll["steps_per_iter"], ll["bf16"], ll["design"]) != (
-                        k, bf16, design):
+                if (ll["steps_per_iter"], ll["bf16"], ll["design"],
+                        ll["staged"]) != (k, bf16, design, staged):
                     fail(f"superstep K={k}: launched {ll}, expected the "
-                         f"{design!r} design")
+                         f"{design!r} design, staged rows {staged}")
                 for (name, a), (_, b) in zip(got, base):
                     if not torch.equal(a, b):
                         fail(f"epoch_step {form}{' bf16' if bf16 else ''} "
-                             f"B={batch} S={nsteps} K={k}: {name} differs "
-                             f"from K = 1 by {float((a - b).abs().max()):.3e}"
-                             f" (bitwise expected)")
+                             f"B={batch} S={nsteps} K={k} ({design} design): "
+                             f"{name} differs from K = 1 by "
+                             f"{float((a - b).abs().max()):.3e} (bitwise "
+                             f"expected)")
             torch.cuda.synchronize()
             print(f"[kernels] epoch_step superstep {form}"
                   f"{' bf16' if bf16 else ''} B={batch} S={nsteps}: {design} "
-                  f"design; K = {', '.join(map(str, SUPERSTEPS))} bitwise "
+                  f"design{' (forced)' if forced else ''}; K = "
+                  f"{', '.join(map(str, SUPERSTEPS))} bitwise "
                   f"equal to K = 1 (padded to {-(-nsteps // 8) * 8} steps at "
-                  f"K = 8; staged rows: {epoch_step.last_launch['staged']})"
+                  f"K = 8; staged rows: {staged})"
                   f"{'; K = 1 bitwise the rows design' if design == 'ws' else ''}")
 
 
@@ -1050,10 +1157,6 @@ def phase_main_streaming(tmp: str) -> dict:
           f"versions, the same threefry masks): worst rel diff "
           f"{rel.max():.3e} (rtol {TRAIN_RTOL})")
     return launches
-
-
-ROWS_BATCH = 256   # a batch past MMA_MAX_BATCH: the rows design's bf16 step
-ROWS_STEPS = 10
 
 
 def _check_bf16_run(out, history, steps: int, what: str) -> None:
@@ -1240,8 +1343,9 @@ def phase_main_cached(tmp: str) -> dict:
 
 
 def phase_main_cached_variants(tmp: str) -> dict:
-    """Paths e and f: the cached trainer through K1-rng and K2-bf16.
-    Returns the launch counts of each path."""
+    """Paths e and f: the cached trainer through K1-rng, K2-mma and, at
+    --batch_size 256, the rows design's K2-bf16. Returns the launch counts
+    of each path."""
     from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
     from pytorch_ddp_mnist_tpu_torch.train import scan
@@ -1282,12 +1386,12 @@ def phase_main_cached_variants(tmp: str) -> dict:
     wall = time.perf_counter() - t0
     bf16 = _counts()
     _check_epoch_lines(out, history, 1, "train --cached --dtype bfloat16")
-    expect_launches(bf16, {"epoch_step_bf16": 1},
+    expect_launches(bf16, {"epoch_step_mma": 1},
                     "train --cached --kernel pallas_epoch --dtype bfloat16")
     ll = epoch_step.last_launch
     if not (ll["bf16"] and ll["form"] == "uint8/threefry"
-            and ll["design"] == "rows"):
-        fail(f"the bf16 cached epoch ran {ll}")
+            and ll["design"] == "mma"):
+        fail(f"the bf16 cached epoch ran {ll}, not K3 on K2-mma")
     losses = history[0]
     cpu_argv = list(argv)
     cpu_argv[1] = "cpu"
@@ -1302,9 +1406,41 @@ def phase_main_cached_variants(tmp: str) -> dict:
           f"{EPOCH_STEPS} steps in {wall:.2f}s (wall); loss {losses[0]:.4f} "
           f"-> {losses[-1]:.4f}; launches {bf16}; per-step losses vs the same "
           f"path on the CPU: worst rel diff {rel.max():.3e} (rtol "
+          f"{BF16_TRAIN_RTOL}); grid {ll['blocks']} blocks")
+
+    # past MMA_MAX_BATCH the rule keeps the rows design's K2-bf16
+    path = (f"train --cached --kernel pallas_epoch --dtype bfloat16 "
+            f"--batch_size {ROWS_BATCH}")
+    steps = 2 * ROWS_STEPS
+    argv = _cached_argv(tmp, "--kernel", "pallas_epoch", "--dtype",
+                        "bfloat16", "--n_epochs", "1", "--checkpoint", "",
+                        "--batch_size", str(ROWS_BATCH), "--limit",
+                        str(steps * ROWS_BATCH))
+    _reset_counts()
+    _, history, out = _run_trainer(cli_train, argv)
+    rows = _counts()
+    _check_bf16_run(out, history, steps, path)
+    expect_launches(rows, {"epoch_step_bf16": 1}, path)
+    ll = epoch_step.last_launch
+    if not (ll["bf16"] and ll["design"] == "rows"):
+        fail(f"{path} ran {ll}, not the rows design")
+    cpu_argv = list(argv)
+    cpu_argv[1] = "cpu"
+    _reset_counts()
+    _, cpu_history, _ = _run_trainer(cli_train, cpu_argv)
+    expect_launches(_counts(), {}, f"{path} on the CPU")
+    rel = np.abs(history[0] - cpu_history[0]) / np.abs(cpu_history[0])
+    if not (rel <= BF16_TRAIN_RTOL).all():
+        fail(f"{path}: per-step losses off the plain path on the CPU by up "
+             f"to {rel.max():.3e} (rtol {BF16_TRAIN_RTOL})")
+    print(f"[main] {path}: {steps} steps in one launch of the rows design; "
+          f"loss {history[0][0]:.4f} -> {history[0][-1]:.4f}; launches "
+          f"{ {k: v for k, v in rows.items() if v} }; per-step losses vs the "
+          f"same path on the CPU: worst rel diff {rel.max():.3e} (rtol "
           f"{BF16_TRAIN_RTOL})")
     return {"train --cached --kernel pallas_rng": rng,
-            "train --cached --kernel pallas_epoch --dtype bfloat16": bf16}
+            "train --cached --kernel pallas_epoch --dtype bfloat16": bf16,
+            path: rows}
 
 
 @contextlib.contextmanager
@@ -1664,7 +1800,7 @@ def phase_profile(device) -> tuple:
     """The profiler's device time per call of K1 on each design (B = 128;
     f32 and bf16), of one epoch of the cached path at the main path's
     shapes (B = 128, 469 steps, --impl rbg: the gathers of the epoch's rows
-    and K2-ws, K2c), of one epoch of the per-step cached loop (`train
+    and K2-ws, K2c; and in bf16, K2-mma), of one epoch of the per-step cached loop (`train
     --cached`'s default --kernel pallas: K1, its threefry mask, SGD) on each
     f32 K1 design, and of the bf16 per-step loops (the cached pallas_rng
     epoch, 50 streaming steps) on each bf16 K1 design, with each job's
@@ -1683,6 +1819,8 @@ def phase_profile(device) -> tuple:
     sampler = ShardedSampler(60000, seed=42)
     idx = scan.epoch_batch_indices(sampler, MAIN_BATCH)
     epoch = scan.make_epoch_fn(LR, kernel="pallas_epoch", impl="rbg")
+    epoch_bf16 = scan.make_epoch_fn(LR, kernel="pallas_epoch", impl="rbg",
+                                    dtype="bfloat16")
     k1_epoch = scan.make_epoch_fn(LR, kernel="pallas")
 
     def k1_epoch_rows():
@@ -1727,6 +1865,8 @@ def phase_profile(device) -> tuple:
             ("rows_kernel", "grads_kernel")),
         "cached_epoch": (lambda: epoch(params, (0, 1), x_all, y_all, idx), 3,
                          None),
+        "cached_epoch_bf16": (lambda: epoch_bf16(params, (0, 1), x_all,
+                                                 y_all, idx), 3, None),
         "k1_epoch_split": (lambda: k1_epoch(params, (0, 1), x_all, y_all,
                                             idx), 1, None),
         "k1_epoch_rows": (k1_epoch_rows, 1, None),
@@ -1844,7 +1984,7 @@ def phase_timing_k2(device, launches: dict, worst: dict, card: str,
         # the main paths launch this design in
         "timed_form": "K2c", "design": "rows (csrc/epoch_step.cu)",
         "main_path": "launches: every launch of this design on the main "
-                     "paths, all in its bf16 forms (timed in the "
+                     "paths, all in its bf16 forms at B > 128 (timed in the "
                      "epoch_step_bf16 and epoch_step_superstep entries); "
                      "the f32 uint8 forms at B <= 128 run epoch_step_ws "
                      "(epoch_design), and this entry's times are its f32 "
@@ -2053,13 +2193,8 @@ def phase_timing_variants(device, launches: dict, worst: dict, card: str,
                           rows_rng_bf16: tuple):
     """The rows design's K1-rng (f32, forced; its bf16 form's times from
     phase_timing_mma's turns, `rows_rng_bf16`) and the threefry mask at
-    B = 128; K2-bf16 (uint8 rows, in-kernel Philox) over the 469-step epoch;
-    the superstep K = 8 against K = 1 in that form and in f32. Returns the
-    kernels-line entries."""
-    from functools import partial
-
-    from pytorch_ddp_mnist_tpu_torch.ops import (epoch_step, fused_step,
-                                                 philox, threefry)
+    B = 128. Returns the kernels-line entries."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step, philox, threefry
     params, x, y, mask = _k1_inputs(MAIN_BATCH, seed=7, device=device)
     out = []
 
@@ -2111,45 +2246,127 @@ def phase_timing_variants(device, launches: dict, worst: dict, card: str,
           f"launch, {kg * 1e3:.2f} us in a CUDA graph; plain {p * 1e3:.2f} "
           f"us; bound {out[-1]['bound_ms'] * 1e3:.4f} us by bytes [{card}]")
 
+    return out
+
+
+def mma_epoch_times(device, card: str) -> dict:
+    """K2's bf16 forms over the 469-step epoch at B = 128 (uint8 rows,
+    in-kernel Philox, K2c): K2-mma and the rows design forced, in turns
+    (rows, mma, mma, rows) at K = 1 and at K = 8, between two timings of
+    the plain version; K2-mma's per-phase split from its stamps build (held
+    bitwise against the default build). Prints them; returns {K: (mma ms,
+    rows ms, turns)}, the plain version's ms, the bound, the phase split,
+    the us a step of the stamps build and K2-mma's blocks."""
+    from functools import partial
+
+    from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
     inp = _k2_inputs(MAIN_BATCH, EPOCH_STEPS, seed=11, device=device)
-    bf16_kernel = partial(epoch_step.epoch_fused_sgd, compute_bf16=True)
-    kernel = lambda: _k2_call(bf16_kernel, "K2c", inp)  # noqa: E731
-    plain = lambda: _k2_call(partial(  # noqa: E731
-        epoch_step.epoch_fused_sgd_reference, compute_bf16=True), "K2c", inp)
-    p = _time_ms(plain, iters=1, warmup=1)
-    k1 = _time_ms(kernel, iters=5, warmup=1)
-    k8f = lambda: _k2_call(partial(bf16_kernel, steps_per_iter=8), "K2c", inp)  # noqa: E731
-    k1b, k8b, tb = _turns(kernel, k8f, iters=5, warmup=1)
-    # f32 on the same rows design: f32 uint8 launches run K2-ws by the
-    # design rule, timed against this in phase_timing_k2
-    f32_k1 = lambda: _k2_call(epoch_step._epoch_fused_sgd_rows, "K2c", inp)  # noqa: E731
-    f32_k8 = lambda: _k2_call(partial(  # noqa: E731
-        epoch_step._epoch_fused_sgd_rows, steps_per_iter=8), "K2c", inp)
-    k1f, k8f_ms, tf = _turns(f32_k1, f32_k8, iters=5, warmup=1)
+
+    def run(fn, k):
+        return lambda: _k2_call(partial(fn, compute_bf16=True,
+                                        steps_per_iter=k), "K2c", inp)
+    plain = run(epoch_step.epoch_fused_sgd_reference, 1)
+    p1 = _time_ms(plain, iters=1, warmup=1)
+    times = {}
+    for k in (1, 8):
+        r_ms, m_ms, turns = _turns(run(epoch_step._epoch_fused_sgd_rows, k),
+                                   run(epoch_step.epoch_fused_sgd, k),
+                                   iters=5, warmup=1)
+        times[k] = (m_ms, r_ms, turns)
+    p2 = _time_ms(plain, iters=1, warmup=0)
+    plain_ms = min(p1, p2)
     bound = k2_bound(MAIN_BATCH, EPOCH_STEPS, "K2c", bf16=True)
+    for k, (m_ms, r_ms, turns) in times.items():
+        print(f"[timing] epoch_step bf16 K2c B={MAIN_BATCH} S={EPOCH_STEPS} "
+              f"K = {k}: K2-mma {m_ms:.3f} ms ({m_ms * 1e3 / EPOCH_STEPS:.2f} "
+              f"us a step, {bound[0] / m_ms:.2%} of the bound), rows design "
+              f"{r_ms:.3f} ms ({r_ms / m_ms:.2f}x; turns rows, mma, mma, "
+              f"rows: {', '.join(f'{v:.3f}' for v in turns)}); plain "
+              f"{plain_ms:.1f} ms ({p1:.1f}, {p2:.1f}); bound "
+              f"{bound[0]:.4f} ms by {bound[1]} [{card}]")
+
+    args = (inp["params"], inp["uint8"], inp["y"], inp["core"], LR,
+            MAIN_BATCH)
+    base = _k2_flat(*_k2_call(partial(epoch_step.epoch_fused_sgd,
+                                      compute_bf16=True), "K2c", inp))
+    blocks = epoch_step.last_launch["blocks"]
+    epoch_step.mma_epoch_phase_stamps(*args)                 # warm-up
+    params, losses, split, per_step = epoch_step.mma_epoch_phase_stamps(*args)
+    _check_bitwise("K2-mma stamps build", _k2_flat(params, losses), base,
+                   "the default build")
+    print(f"[timing] epoch_mma K2c B={MAIN_BATCH} S={EPOCH_STEPS} phase split "
+          f"(stamps build, mean over the steps; a phase ends at its last "
+          f"block's end, a barrier at block 0's exit): {per_step:.2f} us a "
+          f"step [{card}]")
+    for phase, us in split.items():
+        print(f"[timing]   {phase:48s} {us:8.3f} us  {us / per_step:6.1%}")
+    return {"times": times, "plain_ms": plain_ms, "bound": bound,
+            "split": split, "per_step": per_step, "blocks": blocks}
+
+
+def phase_timing_k2_mma(device, launches: dict, worst: dict, card: str,
+                        prof: dict) -> list:
+    """K2-mma and the rows design's bf16 form timed in turns, and K2-mma's
+    phase split (mma_epoch_times). `launches` are every main path's, `prof`
+    the profiler's jobs (phase_profile).
+    Returns the kernels-line entries of K2-mma and of the rows design's
+    K2-bf16 and bf16 superstep (which the main paths launch at B > 128)."""
+    from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
+    t = mma_epoch_times(device, card)
+    plain_ms, bound, split, per_step, blocks = (
+        t[k] for k in ("plain_ms", "bound", "split", "per_step", "blocks"))
+    cached = "train --cached --kernel pallas_epoch --dtype bfloat16"
+    rows_cached = f"{cached} --batch_size {ROWS_BATCH}"
+    rows_bench = (f"bench --kernel pallas_epoch --dtype bfloat16 --superstep "
+                  f"{ROWS_SUPERSTEP} --batch_size {ROWS_BATCH}")
+    (m1, r1, t1), (m8, r8, t8) = t["times"][1], t["times"][8]
+    out = [_entry(
+        "epoch_step_mma", "epoch_mma.cu", 433, launches[cached]["epoch_step_mma"],
+        worst["mma"], m1, plain_ms, bound, card,
+        form="K2-mma uint8/core (Philox), K = 1; bitwise K1-mma + SGD per step",
+        design="mma (csrc/epoch_mma.cu), by epoch_design at uint8 bf16 B <= "
+               "MMA_MAX_BATCH: K1-mma's three phases a step in one "
+               "cooperative launch, SGD folded into the gradient phase",
+        tolerance=f"JAX bf16 epoch pins vs the plain version and the rows "
+                  f"design: losses rtol {BF16_LOSS_RTOL} / atol "
+                  f"{BF16_LOSS_ATOL}, params {BF16_PARAM_FRO_RTOL} in "
+                  f"relative Frobenius norm",
+        us_per_step=m1 * 1e3 / EPOCH_STEPS, k8_ms=m8, rows_design_ms=r1,
+        rows_design_k8_ms=r8,
+        turns_rows_mma_mma_rows={"K1": t1, "K8": t8},
+        launches_by_path={k: v["epoch_step_mma"] for k, v in launches.items()
+                          if v.get("epoch_step_mma")},
+        blocks=blocks,
+        smem_bytes_per_block=epoch_step._mma_lib().pdmt_emma_smem_bytes(),
+        phase_split_us=split, phase_split_step_us=per_step,
+        cached_epoch_profiler_us=prof.get("cached_epoch_bf16", {}),
+        batch=MAIN_BATCH, steps=EPOCH_STEPS)]
     out.append(_entry(
         "epoch_step_bf16", "epoch_step.cu", 497,
-        launches["train --cached --kernel pallas_epoch --dtype bfloat16"]
-        ["epoch_step_bf16"], worst["epoch_step_bf16"], min(k1, k1b), p, bound,
-        card, form="K2-bf16 uint8/core (Philox), K = 1", batch=MAIN_BATCH,
-        steps=EPOCH_STEPS, timed_in_turns=[k1] + list(tb)))
+        launches[rows_cached]["epoch_step_bf16"], worst["rows"], r1,
+        plain_ms, bound, card,
+        form="K2-bf16 uint8/core (Philox), K = 1, the rows design forced at "
+             "B = 128, in turns with K2-mma; max_abs_err the worst against "
+             "the plain version at B = 128, 96, 8 and the main paths' "
+             f"B = {ROWS_BATCH}", batch=MAIN_BATCH,
+        steps=EPOCH_STEPS,
+        main_path=f"launches: `{rows_cached}` (B > 128); at B <= 128 the "
+                  f"uint8 bf16 forms run epoch_step_mma"))
     out.append(_entry(
         "epoch_step_superstep", "epoch_step.cu", 505,
-        launches["bench --kernel pallas_epoch --dtype bfloat16 --superstep 8"]
-        ["epoch_step_superstep_bf16"], worst["epoch_step_bf16"], k8b, p,
-        bound, card,
-        form="K2-bf16 uint8/core, superstep K = 8 (staged rows); bitwise "
-             "K = 1 (phase 3), so its error against the plain version is "
-             "K2-bf16's", batch=MAIN_BATCH,
-        steps=EPOCH_STEPS, k1_ms=k1b, f32_k8_ms=k8f_ms, f32_k1_ms=k1f,
-        timed_in_turns={"bf16 K1,K8,K8,K1": tb, "f32 K1,K8,K8,K1": tf}))
-    print(f"[timing] epoch_step bf16 K2c B={MAIN_BATCH} S={EPOCH_STEPS}: "
-          f"{min(k1, k1b):.3f} ms per epoch launch; plain {p:.1f} ms; bound "
-          f"{bound[0]:.4f} ms by {bound[1]} [{card}]")
-    print(f"[timing] epoch_step superstep K2c: bf16 K=1 {k1b:.3f} ms, K=8 "
-          f"{k8b:.3f} ms (turns {', '.join(f'{v:.3f}' for v in tb)}); f32 "
-          f"K=1 {k1f:.3f} ms, K=8 {k8f_ms:.3f} ms (turns "
-          f"{', '.join(f'{v:.3f}' for v in tf)}) [{card}]")
+        launches[rows_bench]["epoch_step_superstep_bf16"],
+        worst["rows_superstep"], r8, plain_ms, bound, card,
+        form="K2-bf16 uint8/core, superstep K = 8 (staged rows), the rows "
+             "design forced at B = 128, in turns with K2-mma's K = 8; "
+             f"max_abs_err: K = {ROWS_SUPERSTEP} at B = {ROWS_BATCH} (the "
+             "bench's shape) against the plain version; bitwise its K = 1 "
+             "there and on the 469-step epoch (phase_superstep)",
+        batch=MAIN_BATCH, steps=EPOCH_STEPS, k1_ms=r1,
+        main_path=f"launches: `{rows_bench}` (B > 128); at B <= 128 the "
+                  f"bf16 superstep runs epoch_step_mma"))
+    print("[timing] epoch_step_mma, epoch_step_bf16, epoch_step_superstep: no "
+          "single PyTorch call computes an epoch of SGD, so library_ms is "
+          "null")
     return out
 
 
@@ -2578,7 +2795,7 @@ def main() -> int:
     split_worst = phase_kernels_split(device)
     worst = phase_kernels_k1_variants(device)
     k2_worst = phase_kernels_k2(device)
-    worst["epoch_step_bf16"] = phase_kernels_k2_bf16(device)
+    k2_bf16_worst = phase_kernels_k2_bf16(device)
     phase_superstep(device)
     k6_worst = phase_kernels_k6(device)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2594,7 +2811,12 @@ def main() -> int:
     ss = ("--kernel", "pallas_epoch", "--dtype", "bfloat16", "--superstep",
           "8")
     _, paths["bench " + " ".join(ss)] = phase_bench(
-        ss, key="epoch_step_superstep_bf16", bf16=True, superstep=8,
+        ss, key="epoch_step_mma", bf16=True, superstep=8, design="mma")
+    # past MMA_MAX_BATCH the rows design's superstep
+    ss = ss[:-1] + (str(ROWS_SUPERSTEP), "--batch_size", str(ROWS_BATCH))
+    _, paths["bench " + " ".join(ss)] = phase_bench(
+        ss, key="epoch_step_superstep_bf16", bf16=True,
+        superstep=ROWS_SUPERSTEP,
         design="rows")
     prof, busy = phase_profile(device)
     all_paths = {**paths, **k2_launches, **dp_launches}
@@ -2606,6 +2828,8 @@ def main() -> int:
                                           prof, busy, bf16_walls)
     new += phase_timing_variants(device, all_paths, worst, card,
                                  rows_rng_bf16)
+    new += phase_timing_k2_mma(device, all_paths, k2_bf16_worst, card,
+                               prof)
     new += phase_timing_k6(device, dp_launches, k6_worst, card)
     times = [e[k] for e in k1_entries for k in ("ms", "plain_ms", "graph_ms")]
     times += [f[k] for f in k2_entries[0]["forms"].values()

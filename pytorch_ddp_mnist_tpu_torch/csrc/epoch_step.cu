@@ -143,22 +143,6 @@ struct EpochArgs {
   StepIO io;
 };
 
-// the dropout mask of one step, as a (row in the step, column) functor
-template <int RNG>
-struct StepMask {
-  const float* masks;
-  uint32_t k0, k1, replica;
-  __device__ float operator()(int row, int col) const {
-    if constexpr (RNG == RNG_MASKS) {
-      return masks[(size_t)row * H1 + col];
-    } else if constexpr (RNG == RNG_THREEFRY) {
-      return threefry_mask(k0, k1, row, col);
-    } else {
-      return philox_mask(k0, k1, row, col, replica);
-    }
-  }
-};
-
 template <int RNG>
 __device__ StepMask<RNG> step_mask(const StepIO& io, int step) {
   if constexpr (RNG == RNG_MASKS) {
@@ -228,10 +212,6 @@ struct GridGroup {
     return true;
   }
 };
-
-__device__ __forceinline__ int layer_size(int p) {
-  return p == 0 ? IN * H1 : p == 1 ? H1 : p == 2 ? H1 * H2 : p == 3 ? H2 : H2 * NC;
-}
 
 // One training step at global step `step` on rows x (f32 staged rows, or
 // the XT rows of the epoch) by the blocks of `grp`: phase A, a barrier,

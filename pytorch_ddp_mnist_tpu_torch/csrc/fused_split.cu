@@ -624,10 +624,6 @@ cudaError_t launch(const float* x, const int* y, MaskAt mask_at,
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 }  // namespace
 
 extern "C" int pdmt_split_max_batch() { return B_MAX; }

@@ -2,7 +2,8 @@
 // reference MLP, shared by K1 (fused_step.cu, one step per call) and K2
 // (epoch_step.cu, a whole epoch per launch); K1-split (fused_split.cu) and
 // K2-ws (epoch_ws.cu) keep the same chains in their own loops and take the
-// constants, the mask sources and the pixel normalise from here.
+// constants, the mask sources and the pixel normalise from here, as do the
+// tensor-core designs (mma_step.cuh: K1-mma and K2-mma).
 //
 //   z1 = x w1 + b1          d1 = relu(z1) * m       z2 = d1 w2 + b2
 //   h2 = relu(z2)           logits = h2 w3          loss_b = lse - logit_y
@@ -225,6 +226,30 @@ struct PhiloxBlockMask {
   __device__ float operator()(int row, int col) const {
     const int b = row / block;
     return philox_mask(seed, static_cast<uint32_t>(b), row - b * block, col);
+  }
+};
+
+// the floats of layer p = 0..4 (w1, b1, w2, b2, w3)
+__device__ __forceinline__ int layer_size(int p) {
+  return p == 0 ? IN * H1 : p == 1 ? H1 : p == 2 ? H1 * H2 : p == 3 ? H2 : H2 * NC;
+}
+
+// The epoch kernels' mask of one step (K2, K6, K2-mma), a (row in the
+// step, column) functor: the step's rows of the pre-drawn masks; threefry
+// under the step's key words (k0, k1); or Philox keyed (epoch seed k0, step
+// k1) at counter row*128 + col, word 1 the ring replica (0 but in K6).
+template <int RNG>
+struct StepMask {
+  const float* masks;
+  uint32_t k0, k1, replica;
+  __device__ float operator()(int row, int col) const {
+    if constexpr (RNG == RNG_MASKS) {
+      return masks[(size_t)row * H1 + col];
+    } else if constexpr (RNG == RNG_THREEFRY) {
+      return threefry_mask(k0, k1, row, col);
+    } else {
+      return philox_mask(k0, k1, row, col, replica);
+    }
   }
 };
 

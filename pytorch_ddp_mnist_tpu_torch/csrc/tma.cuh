@@ -1,5 +1,5 @@
 // Staging by the Tensor Memory Accelerator, shared by K1-split
-// (fused_split.cu) and K1-mma (fused_mma.cu).
+// (fused_split.cu), K1-mma (fused_mma.cu) and K2-mma (epoch_mma.cu).
 //
 // A thread that issues cp.async stalls until its copies drain, so per-thread
 // copies held every chain back until nearly all of a block's operands had
@@ -29,7 +29,9 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// one-shot barriers: init by one thread, then every thread syncs
+// barriers: init by one thread, then every thread syncs. A K1 launch uses
+// each once (its phase 0); K2-mma inits them once a launch and uses each
+// once a step, so the phase a wait names is the step's parity.
 __device__ __forceinline__ void bars_init(uint64_t* bars, int n) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < n; ++i)
@@ -41,7 +43,7 @@ __device__ __forceinline__ void bars_init(uint64_t* bars, int n) {
   __syncthreads();
 }
 
-// the one arrival of `bar`'s phase 0, expecting `bytes` of copies
+// the one arrival of `bar`'s current phase, expecting `bytes` of copies
 __device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
@@ -50,8 +52,9 @@ __device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
       : "memory");
 }
 
-// whether `bar`'s phase 0 has completed: its copies have landed
-__device__ __forceinline__ bool bar_done(uint64_t* bar) {
+// whether `bar`'s phase of parity `parity` has completed: its copies have
+// landed
+__device__ __forceinline__ bool bar_done(uint64_t* bar, uint32_t parity) {
   uint32_t done;
   asm volatile(
       "{\n"
@@ -60,18 +63,19 @@ __device__ __forceinline__ bool bar_done(uint64_t* bar) {
       "selp.u32 %0, 1, 0, P1;\n"
       "}\n"
       : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(0u)
+      : "r"(smem_addr(bar)), "r"(parity)
       : "memory");
   return done != 0;
 }
 
-// wait until `bar`'s phase 0 has completed. The wait is bounded: a copy
-// that never lands (a wrong byte count) traps, and the launch fails with a
+// wait until `bar`'s phase of parity `parity` (0: its first) has
+// completed. The wait is bounded: a copy that never lands (a wrong byte
+// count, or a wait on the wrong parity) traps, and the launch fails with a
 // CUDA error instead of holding the card.
 constexpr unsigned BAR_TRIES = 1u << 24;
 
-__device__ __forceinline__ void bar_wait(uint64_t* bar) {
-  for (unsigned i = 0; !bar_done(bar); ++i)
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity = 0) {
+  for (unsigned i = 0; !bar_done(bar, parity); ++i)
     if (i == BAR_TRIES) __trap();
 }
 
@@ -97,6 +101,11 @@ __device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
       "r"(smem_addr(bar))
       : "memory");
+}
+
+// whether p is on 16 bytes, as bulk and tensor copies need
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 __host__ __device__ constexpr unsigned round16(unsigned bytes) {

@@ -34,27 +34,31 @@ layout (`_COMM_LAYOUT`, `EPOCH_COMM_ROWS`, `_rs_chunk_rows`), gw3's rows
   * `epoch_fused_sgd(...)` is the public entry. CUDA tensors launch a
     hand-written kernel (one cooperative launch per epoch, no float
     atomics, bitwise repeatable) or raise; it never falls back. CPU
-    tensors, and only they, run `epoch_fused_sgd_reference`. Two designs
-    of the kernel compute the same bits; `epoch_design(x dtype, bf16,
-    batch)` picks one by form: 'ws' (`csrc/epoch_ws.cu`, K2-ws: the
-    weights held in the SMs' shared memory, one block per group of hidden
-    units) for uint8 rows in f32 at B <= WS_MAX_BATCH, the main path's
-    forms; 'rows' (`csrc/epoch_step.cu`) for f32 rows,
-    the bf16 mode and larger batches. `_epoch_fused_sgd_rows` launches the
-    'rows' design on any inputs, so a card can hold the two against each
-    other.
+    tensors, and only they, run `epoch_fused_sgd_reference`.
+    `epoch_design(x dtype, bf16, batch)` picks one of three designs by
+    form: 'ws' (`csrc/epoch_ws.cu`, K2-ws: the weights held in the SMs'
+    shared memory, one block per group of hidden units) for uint8 rows in
+    f32 at B <= WS_MAX_BATCH; 'mma' (`csrc/epoch_mma.cu`, K2-mma: K1-mma's
+    three tensor-core phases a step with SGD folded in, bitwise K1-mma +
+    SGD per step) for uint8 rows in the bf16 mode at B <= MMA_MAX_BATCH;
+    'rows' (`csrc/epoch_step.cu`) for f32 rows and larger batches. 'ws'
+    and 'rows' compute the same bits; 'mma' is held to the JAX bf16 pins
+    against them. `_epoch_fused_sgd_rows` launches the 'rows' design on
+    any inputs, so a card can hold the others against it.
   * `epoch_fused_sgd_reference` is the plain version on any device: a loop
     of `fused_loss_and_grads_reference` + `sgd_step` with the same masks.
   * `launch_count` counts wrapper calls that launched the epoch kernel,
-    one key per form: `epoch_step_ws` (K2-ws, any K), and for the 'rows'
-    design `epoch_step` (f32, K = 1), `epoch_step_bf16`,
-    `epoch_step_superstep` (K > 1) and `epoch_step_superstep_bf16`.
+    one key per form: `epoch_step_ws` (K2-ws, any K), `epoch_step_mma`
+    (K2-mma, any K), and for the 'rows' design `epoch_step` (f32, K = 1),
+    `epoch_step_bf16`, `epoch_step_superstep` (K > 1) and
+    `epoch_step_superstep_bf16`.
   * `kernel_mask_block(...)` returns the mask the kernel draws at one step
     (on CUDA from the kernel's own device function), so a card can compare
     the in-kernel streams with the plain ones bit for bit;
-    `kernel_pixel_table(device)` the 256-entry normalise table K2-ws fills;
-    `ws_phase_stamps(...)` runs K2-ws's stamps build and returns its
-    per-phase times.
+    `kernel_pixel_table(device)` the 256-entry normalise table K2-ws fills,
+    `pixel_table_bf16(device)` the bf16 one K2-mma converts its rows
+    through; `ws_phase_stamps(...)` and `mma_epoch_phase_stamps(...)` run
+    a design's stamps build and return its per-phase times.
   * `epoch_dp_sgd_reference` is K6's plain version: each replica's step,
     then the ring's exact summation tree (`ring_mean`), then SGD.
     `launch_count` counts K6 as `epoch_step_dp_allgather` and
@@ -75,7 +79,7 @@ import torch
 
 from ..data.mnist import device_normalize
 from . import philox, threefry
-from .fused_step import (HIDDEN1, HIDDEN2, IN_DIM, NUM_CLASSES,
+from .fused_step import (HIDDEN1, HIDDEN2, IN_DIM, MMA_MAX_BATCH, NUM_CLASSES,
                          _WEIGHT_NAMES, _WEIGHT_SHAPES, _tree, _weights,
                          fused_loss_and_grads_reference, step_reference_bf16)
 from .sgd import sgd_step
@@ -96,6 +100,20 @@ STEPS_PER_ITER = (1, 2, 4, 8)
 WS_MAX_BATCH = 128
 # K2-ws's normalise table holds one copy per lane of a warp
 WS_TABLE_COPIES = 32
+
+# K2-mma (csrc/epoch_mma.cu) takes uint8 bf16 batches up to MMA_MAX_BATCH
+# rows (K1-mma's). Its blocks are the hidden phase's, MMA_EPOCH_THREADS
+# threads; its grid is MMA_EPOCH_UNIT_BLOCKS hidden tiles per 16 rows of
+# the batch or the MMA_EPOCH_GRADS_BLOCKS of the gradient phase, whichever
+# is more (mma_epoch_blocks)
+MMA_EPOCH_THREADS = 224
+MMA_EPOCH_UNIT_BLOCKS = 16
+MMA_EPOCH_GRADS_BLOCKS = 66
+
+
+def mma_epoch_blocks(batch: int) -> int:
+    """The blocks of a K2-mma launch at `batch` rows a step."""
+    return max(MMA_EPOCH_UNIT_BLOCKS * -(-batch // 16), MMA_EPOCH_GRADS_BLOCKS)
 
 # ---- the DP form (K6) ----
 RINGS = ("auto", "allgather", "reduce_scatter")
@@ -124,14 +142,15 @@ RING_TIMEOUT_S = 5.0
 
 # wrapper calls that launched the CUDA kernel, per form (chip_smoke.py resets
 # and reads them)
-launch_count = {"epoch_step_ws": 0, "epoch_step": 0, "epoch_step_bf16": 0,
+launch_count = {"epoch_step_ws": 0, "epoch_step_mma": 0, "epoch_step": 0,
+                "epoch_step_bf16": 0,
                 "epoch_step_superstep": 0, "epoch_step_superstep_bf16": 0,
                 "epoch_step_dp_allgather": 0,
                 "epoch_step_dp_allgather_bf16": 0,
                 "epoch_step_dp_reduce_scatter": 0,
                 "epoch_step_dp_reduce_scatter_bf16": 0}
-# what the last launch ran: its design ("ws" or "rows"; K6 is "rows"), its
-# blocks (of 256 threads; per replica for K6), its form
+# what the last launch ran: its design ("ws", "mma" or "rows"; K6 is
+# "rows"), its blocks (per replica for K6), its form
 # ("<uint8|f32>/<masks|threefry|core>"), bf16 mode, steps per iteration,
 # whether it staged its rows, its replicas and ring ("" for K2), for reports
 # and checks
@@ -146,15 +165,20 @@ class RingTimeoutError(RuntimeError):
 
 _lib = None
 _ws_libs = {}
+_mma_libs = {}
 
 
 def epoch_design(x_dtype, compute_bf16: bool, batch: int) -> str:
     """The K2 design a single-replica launch runs: 'ws' (K2-ws) for uint8
-    rows in f32 at batch <= WS_MAX_BATCH, else 'rows' (the design of
-    csrc/epoch_step.cu).
-    Both give the same bits; this picks by form, not on failure."""
-    return ("ws" if x_dtype == torch.uint8 and not compute_bf16
-            and batch <= WS_MAX_BATCH else "rows")
+    rows in f32 at batch <= WS_MAX_BATCH, 'mma' (K2-mma) for uint8 rows in
+    the bf16 mode at batch <= MMA_MAX_BATCH, else 'rows' (the design of
+    csrc/epoch_step.cu). This picks by form, never on failure."""
+    if x_dtype == torch.uint8:
+        if not compute_bf16 and batch <= WS_MAX_BATCH:
+            return "ws"
+        if compute_bf16 and batch <= MMA_MAX_BATCH:
+            return "mma"
+    return "rows"
 
 
 def _ws_lib(name: str = "epoch_ws"):
@@ -186,6 +210,38 @@ def _ws_lib(name: str = "epoch_ws"):
                 f"{WS_TABLE_COPIES}")
         _ws_libs[name] = lib
     return _ws_libs[name]
+
+
+def _mma_lib(name: str = "epoch_mma"):
+    """The K2-mma library `name` (the default build, or its stamps build
+    of ops/_build.py VARIANTS) with its ctypes signatures declared and its
+    constants checked against this module's."""
+    if name not in _mma_libs:
+        from . import _build
+        lib = _build.load(name)
+        p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+        lib.pdmt_emma_epoch.argtypes = ([p, p, i, p, p, u] + [p] * 11
+                                        + [i, p, p, p, i, i, f, f,
+                                           ctypes.POINTER(i), p])
+        lib.pdmt_emma_epoch.restype = i
+        for fn in ("pdmt_emma_max_batch", "pdmt_emma_threads",
+                   "pdmt_emma_smem_bytes", "pdmt_emma_stamps_per_step"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i
+        for fn in ("pdmt_emma_blocks", "pdmt_emma_scratch_bytes"):
+            getattr(lib, fn).argtypes = [i]
+            getattr(lib, fn).restype = i
+        lib.pdmt_emma_error_string.argtypes = [i]
+        lib.pdmt_emma_error_string.restype = ctypes.c_char_p
+        got = (lib.pdmt_emma_max_batch(), lib.pdmt_emma_threads(),
+               lib.pdmt_emma_blocks(MMA_MAX_BATCH))
+        want = (MMA_MAX_BATCH, MMA_EPOCH_THREADS,
+                mma_epoch_blocks(MMA_MAX_BATCH))
+        if got != want:
+            raise RuntimeError(f"{name}: max batch, threads, blocks at the "
+                               f"max batch {got}; expected {want}")
+        _mma_libs[name] = lib
+    return _mma_libs[name]
 
 
 def _kernel_lib():
@@ -221,11 +277,13 @@ def _kernel_lib():
     return _lib
 
 
-def _raise_on(err: int, what: str, ws_lib=None) -> None:
+def _raise_on(err: int, what: str, error_string=None) -> None:
+    """Raise naming `what` and the CUDA error `err`, spelled by the
+    library's `error_string` (default: the rows design's)."""
     if err != 0:
-        msg = (ws_lib.pdmt_ws_error_string(err) if ws_lib is not None
-               else _kernel_lib().pdmt_epoch_error_string(err)).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+        msg = (error_string or _kernel_lib().pdmt_epoch_error_string)(err)
+        raise RuntimeError(f"{what} failed: CUDA error {err} "
+                           f"({msg.decode()})")
 
 
 def _check(params, xp, yp, seed_or_keys, batch, masks, rng_impl,
@@ -378,6 +436,24 @@ def _form_key(bf16: bool, steps_per_iter: int) -> str:
             + ("_bf16" if bf16 else ""))
 
 
+def _launch_inputs(params, xp, yp, seed_or_keys, masks, rng):
+    """What a K2-ws or K2-mma launch reads: the uint8 rows (16-byte
+    aligned: both read them 16 bytes at a time), int32 labels, the f32
+    weights and fresh outputs of their shapes, and the form's dropout
+    source: the f32 masks, the int32 key words or the uint32 seed (None,
+    None or 0 for the other forms)."""
+    x = xp.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    ins = [w.detach().to(torch.float32).contiguous() for w in _weights(params)]
+    return (x, yp.to(torch.int32).contiguous(), ins,
+            [torch.empty_like(w) for w in ins],
+            masks.to(torch.float32).contiguous() if rng == "masks" else None,
+            threefry.to_int32_words(seed_or_keys) if rng == "threefry"
+            else None,
+            int(seed_or_keys) & threefry.M32 if rng == "core" else 0)
+
+
 def _ws_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
              steps_per_iter, valid_steps, max_blocks, lib_name="epoch_ws"):
     """One K2-ws launch. K needs no padding here: the steps past
@@ -391,15 +467,8 @@ def _ws_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
             f"K2-ws runs {blocks} blocks, one per two hidden units; "
             f"max_blocks={max_blocks} caps the 'rows' design only")
     dev = xp.device
-    x = xp.contiguous()
-    if x.data_ptr() % 16:      # cp.async copies the rows 16 bytes at a time
-        x = x.clone()
-    y32 = yp.to(torch.int32).contiguous()
-    ins = [w.detach().to(torch.float32).contiguous() for w in _weights(params)]
-    outs = [torch.empty_like(w) for w in ins]
-    m = masks.to(torch.float32).contiguous() if rng == "masks" else None
-    keys = threefry.to_int32_words(seed_or_keys) if rng == "threefry" else None
-    seed = int(seed_or_keys) & threefry.M32 if rng == "core" else 0
+    x, y32, ins, outs, m, keys, seed = _launch_inputs(
+        params, xp, yp, seed_or_keys, masks, rng)
     xch = torch.empty(lib.pdmt_ws_xch_floats(batch), dtype=torch.float32,
                       device=dev)
     losses = torch.empty(nsteps, dtype=torch.float32, device=dev)
@@ -416,7 +485,7 @@ def _ws_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
             valid_steps, xch.data_ptr(), losses.data_ptr(),
             stamps.data_ptr() if stamps is not None else None, nsteps, batch,
             lr, 1.0 / batch, stream)
-    _raise_on(err, f"{lib_name} kernel launch", ws_lib=lib)
+    _raise_on(err, f"{lib_name} kernel launch", lib.pdmt_ws_error_string)
     if lib_name == "epoch_ws":
         launch_count["epoch_step_ws"] += 1
     last_launch.update(
@@ -426,14 +495,81 @@ def _ws_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
             stamps[:valid_steps] if stamps is not None else None)
 
 
+_bf16_tables = {}
+
+
+def pixel_table_bf16(device) -> torch.Tensor:
+    """The (256,) bf16 table K2-mma converts its uint8 rows through: entry
+    v is the normalised pixel v (`device_normalize`, f32) rounded to bf16,
+    nearest even: bitwise the rows `device_normalize(x).to(bfloat16)` that
+    K1-mma takes. Built here in torch on the CPU and copied to `device`
+    once (a copy from the host at every launch would hold the host until
+    the card had drained the stream)."""
+    device = torch.device(device)
+    if device not in _bf16_tables:
+        table = device_normalize(torch.arange(256, dtype=torch.uint8))
+        _bf16_tables[device] = table.to(torch.bfloat16).to(device)
+    return _bf16_tables[device]
+
+
+def _mma_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
+              steps_per_iter, valid_steps, max_blocks, lib_name="epoch_mma"):
+    """One K2-mma launch. K needs no padding and is not passed: every K
+    runs K = 1's loop, and the steps past `valid_steps` are skipped in the
+    kernel. Returns (params, losses (valid_steps,), the stamps build's
+    (valid_steps, N) u64 stamps or None)."""
+    blocks = mma_epoch_blocks(batch)
+    if 0 < max_blocks < blocks:
+        raise ValueError(
+            f"K2-mma runs {blocks} blocks at batch {batch} (every phase's "
+            f"tiles at once); max_blocks={max_blocks} caps the 'rows' design "
+            f"only")
+    lib = _mma_lib(lib_name)
+    dev = xp.device
+    x, y32, ins, outs, m, keys, seed = _launch_inputs(
+        params, xp, yp, seed_or_keys, masks, rng)
+    table = pixel_table_bf16(dev)
+    scratch = torch.empty(lib.pdmt_emma_scratch_bytes(batch),
+                          dtype=torch.uint8, device=dev)
+    losses = torch.empty(nsteps, dtype=torch.float32, device=dev)
+    per_step = lib.pdmt_emma_stamps_per_step()
+    stamps = (torch.zeros((nsteps, per_step), dtype=torch.int64, device=dev)
+              if per_step else None)
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pdmt_emma_epoch(
+            x.data_ptr(), y32.data_ptr(), _RNG_CODE[rng],
+            m.data_ptr() if m is not None else None,
+            keys.data_ptr() if keys is not None else None, seed,
+            *(w.data_ptr() for w in ins), *(w.data_ptr() for w in outs),
+            table.data_ptr(), valid_steps, scratch.data_ptr(),
+            losses.data_ptr(),
+            stamps.data_ptr() if stamps is not None else None, nsteps, batch,
+            lr, 1.0 / batch, ctypes.byref(grid), stream)
+    _raise_on(err, f"{lib_name} kernel launch", lib.pdmt_emma_error_string)
+    if lib_name == "epoch_mma":
+        launch_count["epoch_step_mma"] += 1
+    last_launch.update(
+        design="mma", blocks=grid.value, bf16=True,
+        steps_per_iter=steps_per_iter, staged=False, form=f"uint8/{rng}",
+        replicas=1, ring="")
+    return (_tree(*outs), losses[:valid_steps],
+            stamps[:valid_steps] if stamps is not None else None)
+
+
 def _epoch_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
                 compute_bf16, steps_per_iter, valid_steps, pad_steps,
                 max_blocks, design=None):
     """One launch of `design` ('rows'), or of the design epoch_design
     picks (None)."""
-    if (design or epoch_design(xp.dtype, compute_bf16, batch)) == "ws":
+    design = design or epoch_design(xp.dtype, compute_bf16, batch)
+    if design == "ws":
         return _ws_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng,
                         nsteps, steps_per_iter, valid_steps, max_blocks)[:2]
+    if design == "mma":
+        return _mma_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng,
+                         nsteps, steps_per_iter, valid_steps, max_blocks)[:2]
     lib = _kernel_lib()
     dev = xp.device
     x = xp if xp.dtype == torch.uint8 else xp.to(torch.float32)
@@ -505,7 +641,8 @@ def epoch_fused_sgd(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
     (list of n params trees, bitwise equal; list of n per-replica loss
     tensors). `max_blocks` caps the blocks of the 'rows' design (per
     replica for K6; 0: the co-resident maximum cut to the work); the bits
-    do not depend on it. K2-ws has a fixed grid and refuses a cap below it.
+    do not depend on it. K2-ws and K2-mma have a fixed grid and refuse a
+    cap below it.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     version."""
@@ -533,7 +670,8 @@ def epoch_fused_sgd(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
 
 def _epoch_fused_sgd_rows(*args, **kwargs):
     """`epoch_fused_sgd`, single replica, on the 'rows' design
-    whatever the form: the yardstick K2-ws is held against on a card."""
+    whatever the form: the yardstick K2-ws and K2-mma are held against on
+    a card."""
     return epoch_fused_sgd(*args, _design="rows", **kwargs)
 
 
@@ -900,7 +1038,7 @@ def kernel_pixel_table(device) -> torch.Tensor:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pdmt_ws_table(out.data_ptr(), stream)
-    _raise_on(err, "epoch_ws table kernel launch", ws_lib=lib)
+    _raise_on(err, "epoch_ws table kernel launch", lib.pdmt_ws_error_string)
     return out
 
 
@@ -936,3 +1074,34 @@ def ws_phase_stamps(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
     cycles = float((stamps[:, n + 1] - stamps[:, n]).double().sum())
     return (p, losses, split, ns / valid / 1e3,
             cycles / ns * 1e3 if ns > 0 else 0.0)
+
+
+# the phases between K2-mma's stamps (csrc/epoch_mma.cu `Stamp`), in order
+MMA_EPOCH_PHASES = ("hidden: z1, mask, d1, w2 and w3 to bf16", "barrier 1",
+                    "rows: z2 to dz1; the next step's rows to bf16",
+                    "barrier 2", "grads: gw1, gw2, gw3, biases, loss, SGD",
+                    "barrier 3")
+
+
+def mma_epoch_phase_stamps(params, xp, yp, seed_or_keys, lr: float,
+                           batch: int, *, masks=None, rng_impl: str = "core",
+                           valid_steps=None):
+    """One epoch on K2-mma's stamps build (`-DEMMA_STAMPS`, ops/_build.py
+    VARIANTS), which reads %globaltimer at each phase's end (the last
+    block's) and after each grid barrier (block 0's). A debug entry on
+    CUDA tensors, not counted in launch_count. Returns (params, losses,
+    {phase: mean us a step}, mean us a step): the phases of
+    MMA_EPOCH_PHASES, each averaged over the epoch's steps."""
+    rng, nsteps, valid, _ = _check(params, xp, yp, seed_or_keys, batch,
+                                   masks, rng_impl, 1, valid_steps)
+    if xp.device.type != "cuda" or epoch_design(xp.dtype, True,
+                                                batch) != "mma":
+        raise ValueError("mma_epoch_phase_stamps runs K2-mma's form (uint8 "
+                         "rows, bf16) on a CUDA device")
+    p, losses, stamps = _mma_cuda(params, xp, yp, seed_or_keys, lr, batch,
+                                  masks, rng, nsteps, 1, valid, 0,
+                                  lib_name="epoch_mma_stamps")
+    t = stamps.double()
+    per_phase = (t[:, 1:] - t[:, :-1]).mean(0) / 1e3
+    split = dict(zip(MMA_EPOCH_PHASES, per_phase.tolist()))
+    return p, losses, split, float((t[:, -1] - t[:, 0]).mean()) / 1e3

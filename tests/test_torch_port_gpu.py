@@ -34,9 +34,14 @@ design at B = 128, 96, 8 and 3 with a mask and with the in-kernel draw, a
 repeat launch and a CUDA-graph replay bitwise equal to the first call, the
 Philox form bitwise the mask form on philox.rng_mask, on an odd-offset view
 and 48 distinct inputs, its stamps build bitwise its default build, and
-the cached bf16 trainer's losses on it against the rows design's. The
-K2-bf16, superstep-bf16 and K6-bf16 pins name the rows design's K1-bf16,
-the step those kernels share, and stay bitwise."""
+the cached bf16 trainer's losses on it against the rows design's. K2-mma,
+the tensor-core design of K2's uint8 bf16 forms (csrc/epoch_mma.cu: K1-mma's
+phases in one cooperative launch, SGD folded in), is held bitwise against
+K1-mma + SGD per step and a repeat launch at B = 128, 96 and 8 in the masks,
+Philox and threefry forms, at the JAX bf16 pins against its plain version
+and the rows design, its superstep bitwise K = 1, its stamps build bitwise
+its default build. The rows design's K2-bf16 stays bitwise the rows
+design's K1-bf16 + SGD, and the K6-bf16 pin names that step too."""
 
 import re
 from functools import partial
@@ -336,7 +341,10 @@ def test_streaming_mask_is_the_threefry_draw(cuda):
                                threefry.dropout_mask(key, batch, "cpu"))
 
 
-def _k1_epoch_bf16(form, inp):
+def _k1_epoch_bf16(form, inp, design=None):
+    """The epoch as K1-bf16 + SGD per step: on K1's own design at this
+    batch (K1-mma at B <= 128, the step K2-mma computes), or on the rows
+    design (`design="rows"`, the step csrc/epoch_step.cu computes)."""
     pixels, rng = K2_FORMS[form]
     batch = inp["batch"]
     params = {n: {k: t.clone() for k, t in layer.items()}
@@ -348,9 +356,8 @@ def _k1_epoch_bf16(form, inp):
         x = (device_normalize(x) if pixels == "uint8" else x).to(torch.bfloat16)
         mask = epoch_step.step_mask(rng, inp[rng], inp["masks"], s, batch,
                                     x.device)
-        # the rows design: the bf16 step csrc/epoch_step.cu computes
         loss, grads = fused_step.fused_loss_and_grads(
-            params, x, inp["y"][rows], mask, _design="rows")
+            params, x, inp["y"][rows], mask, _design=design)
         sgd_step(params, grads, 0.01)
         losses.append(loss)
     return params, torch.stack(losses)
@@ -358,14 +365,21 @@ def _k1_epoch_bf16(form, inp):
 
 @pytest.mark.parametrize("form", list(K2_FORMS))
 def test_bf16_epoch_kernel_matches_k1_bf16_bitwise_and_plain(cuda, form):
+    # the uint8 forms run K2-mma, bitwise K1-mma + SGD; K2a (f32 rows) the
+    # rows design, bitwise the rows design's K1-bf16 + SGD
     inp = _epoch_inputs(128, 12, seed=5, device=cuda)
-    before = epoch_step.launch_count["epoch_step_bf16"]
+    design = epoch_step.epoch_design(inp[K2_FORMS[form][0]].dtype, True, 128)
+    assert design == ("rows" if form == "K2a" else "mma")
+    key = "epoch_step_mma" if design == "mma" else "epoch_step_bf16"
+    before = epoch_step.launch_count[key]
     got = _leaves(*_epoch(partial(epoch_step.epoch_fused_sgd,
                                   compute_bf16=True), form, inp))
+    assert epoch_step.last_launch["design"] == design
     again = _leaves(*_epoch(partial(epoch_step.epoch_fused_sgd,
                                     compute_bf16=True), form, inp))
-    assert epoch_step.launch_count["epoch_step_bf16"] == before + 2
-    k1 = _leaves(*_k1_epoch_bf16(form, inp))
+    assert epoch_step.launch_count[key] == before + 2
+    k1 = _leaves(*_k1_epoch_bf16(form, inp,
+                                 None if design == "mma" else "rows"))
     ref = _leaves(*_epoch(partial(epoch_step.epoch_fused_sgd_reference,
                                   compute_bf16=True), form, inp))
     torch.cuda.synchronize()
@@ -386,12 +400,37 @@ def test_superstep_is_bitwise_k1_on_a_ragged_epoch(cuda, form, bf16):
         got = _leaves(*_epoch(partial(fn, steps_per_iter=k), form, inp))
         ll = epoch_step.last_launch
         assert ll["steps_per_iter"] == k
-        # the 'rows' design stages uint8 rows; K2-ws (uint8, f32) needs not
-        assert ll["design"] == ("rows" if bf16 or form == "K2a" else "ws")
+        # the 'rows' design stages uint8 rows; K2-ws (uint8, f32) and
+        # K2-mma (uint8, bf16) need not
+        assert ll["design"] == ("rows" if form == "K2a" else
+                                "mma" if bf16 else "ws")
         assert ll["staged"] == (ll["design"] == "rows" and form != "K2a")
         assert got[0].shape == (11,)
         for a, b in zip(got, base):
             assert torch.equal(a, b), (form, bf16, k)
+
+
+@pytest.mark.parametrize("batch", [64, 256])
+@pytest.mark.parametrize("form", ["K2c", "K3"])
+def test_rows_design_bf16_superstep_stages_uint8_rows_bitwise_k1(cuda, form,
+                                                                 batch):
+    # the rows design's bf16 superstep: the rule's pick at B > 128 (the
+    # bench's --batch_size 256), forced at B = 64; it stages its uint8 rows
+    assert epoch_step.epoch_design(torch.uint8, True, batch) == (
+        "rows" if batch > 128 else "mma")
+    inp = _epoch_inputs(batch, 11, seed=9, device=cuda)
+    fn = partial(epoch_step._epoch_fused_sgd_rows, compute_bf16=True)
+    base = _leaves(*_epoch(fn, form, inp))
+    for k in (2, 4, 8):
+        if k * batch > epoch_step.EPOCH_KERNEL_MAX_BATCH:
+            continue
+        got = _leaves(*_epoch(partial(fn, steps_per_iter=k), form, inp))
+        ll = epoch_step.last_launch
+        assert (ll["design"], ll["staged"], ll["steps_per_iter"]) == (
+            "rows", True, k)
+        assert got[0].shape == (11,)
+        for a, b in zip(got, base):
+            assert torch.equal(a, b), (form, batch, k)
 
 
 # ---- slice 4: K6, the DP epoch kernel's ring, on a replica mesh of one card ----
@@ -822,3 +861,117 @@ def test_mma_and_rows_designs_train_close_cached_bf16_epochs(cuda, tmp_path,
         before["fused_step_rng_bf16"] + 1024 // 128
     for a, b in zip(mma, rows):
         np.testing.assert_allclose(a, b, rtol=1e-2)
+
+
+# ---- K2-mma, the tensor-core design of K2's uint8 bf16 forms ----
+#
+# K2-mma runs K1-mma's phase code, so it is held bitwise against K1-mma +
+# SGD per step; against its plain version and the rows design (whose sums
+# run in another order) at the bf16 epoch pins: losses rtol 1e-3 / atol
+# 1e-4, params 2e-3 in relative Frobenius norm.
+
+MMA_FORMS = ("K2b", "K2c", "K3")    # uint8 rows; masks, core, threefry
+
+
+def _bf16_epoch_close(got, ref):
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-3, atol=1e-4)
+    for a, r in zip(got[1:], ref[1:]):
+        assert float((a - r).norm() / r.norm()) <= 2e-3
+
+
+@pytest.mark.parametrize("form", MMA_FORMS)
+@pytest.mark.parametrize("batch,nsteps", [(128, 12), (96, 6), (8, 5)])
+def test_mma_epoch_is_bitwise_k1_mma_plus_sgd_and_within_the_pins(
+        cuda, form, batch, nsteps):
+    inp = _epoch_inputs(batch, nsteps, seed=batch + nsteps + 7, device=cuda)
+    kernel = partial(epoch_step.epoch_fused_sgd, compute_bf16=True)
+    before = dict(epoch_step.launch_count)
+    got = _leaves(*_epoch(kernel, form, inp))
+    ll = dict(epoch_step.last_launch)
+    assert (ll["design"], ll["form"], ll["bf16"], ll["blocks"]) == (
+        "mma", "/".join(K2_FORMS[form]), True,
+        epoch_step.mma_epoch_blocks(batch))
+    again = _leaves(*_epoch(kernel, form, inp))
+    assert epoch_step.launch_count["epoch_step_mma"] == \
+        before["epoch_step_mma"] + 2
+    k1 = _leaves(*_k1_epoch_bf16(form, inp))
+    rows = _leaves(*_epoch(partial(epoch_step._epoch_fused_sgd_rows,
+                                   compute_bf16=True), form, inp))
+    assert epoch_step.last_launch["design"] == "rows"
+    k1_rows = _leaves(*_k1_epoch_bf16(form, inp, "rows"))
+    ref = _leaves(*_epoch(partial(epoch_step.epoch_fused_sgd_reference,
+                                  compute_bf16=True), form, inp))
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, k1):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    for a, c in zip(rows, k1_rows):
+        assert torch.equal(a, c)
+    _bf16_epoch_close(got, ref)
+    _bf16_epoch_close(got, rows)
+
+
+@pytest.mark.parametrize("form", MMA_FORMS)
+def test_mma_epoch_superstep_on_a_ragged_epoch_is_bitwise_k1(cuda, form):
+    inp = _epoch_inputs(64, 11, seed=17, device=cuda)
+    fn = partial(epoch_step.epoch_fused_sgd, compute_bf16=True)
+    base = _leaves(*_epoch(fn, form, inp))
+    pixels, rng = K2_FORMS[form]
+    padded = dict(inp)
+    for name in (pixels, "y", "masks"):
+        padded[name] = torch.cat([inp[name], inp[name][:5 * 64]])
+    if rng == "threefry":
+        padded["threefry"] = torch.cat([inp["threefry"], inp["threefry"][:5]])
+    for k in (2, 4, 8):
+        for data, valid in ((inp, None), (padded, 11)):
+            got = _leaves(*_epoch(partial(fn, steps_per_iter=k,
+                                          valid_steps=valid), form, data))
+            ll = epoch_step.last_launch
+            assert (ll["design"], ll["steps_per_iter"], ll["staged"]) == \
+                ("mma", k, False)
+            for a, b in zip(got, base):
+                assert torch.equal(a, b), (form, k, valid)
+
+
+def test_mma_epoch_refuses_a_block_cap_below_its_grid(cuda):
+    inp = _epoch_inputs(8, 2, seed=1, device=cuda)
+    with pytest.raises(ValueError, match="max_blocks"):
+        _epoch(partial(epoch_step.epoch_fused_sgd, compute_bf16=True,
+                       max_blocks=8), "K2c", inp)
+
+
+def test_mma_epoch_table_is_k1_mma_rows_bitwise(cuda):
+    table = epoch_step.pixel_table_bf16(cuda)
+    px = torch.arange(256, dtype=torch.uint8, device=cuda)
+    assert table.dtype == torch.bfloat16
+    assert torch.equal(table, device_normalize(px).to(torch.bfloat16))
+    assert torch.equal(table.cpu(), epoch_step.pixel_table_bf16("cpu"))
+
+
+def test_mma_epoch_stamps_build_keeps_the_bits_and_splits_the_step(cuda):
+    inp = _epoch_inputs(128, 6, seed=4, device=cuda)
+    kernel = partial(epoch_step.epoch_fused_sgd, compute_bf16=True)
+    base = _leaves(*_epoch(kernel, "K2c", inp))
+    before = dict(epoch_step.launch_count)
+    params, losses, split, per_step = epoch_step.mma_epoch_phase_stamps(
+        inp["params"], inp["uint8"], inp["y"], inp["core"], 0.01, 128)
+    assert dict(epoch_step.launch_count) == before
+    for a, b in zip(_leaves(params, losses), base):
+        assert torch.equal(a, b)
+    assert list(split) == list(epoch_step.MMA_EPOCH_PHASES)
+    assert all(v >= 0 for v in split.values()) and per_step > 0
+    assert abs(sum(split.values()) - per_step) <= 1e-6 * per_step + 1e-9
+
+
+def test_cached_bf16_cli_runs_one_mma_epoch_launch_per_epoch(cuda, tmp_path,
+                                                          capsys):
+    before = dict(epoch_step.launch_count)
+    rc = port_cli.main(["--cached", "--kernel", "pallas_epoch", "--dtype",
+                        "bfloat16", "--n_epochs", "2", "--limit", "1024",
+                        "--checkpoint", "", "--path",
+                        str(tmp_path / "no_mnist")])
+    out = capsys.readouterr().out
+    assert rc == 0 and "dtype=bfloat16" in out
+    assert re.search(r"^Epoch=1, train_loss=\S+, val_loss=\S+", out, re.M)
+    assert epoch_step.launch_count["epoch_step_mma"] == \
+        before["epoch_step_mma"] + 2
+    assert epoch_step.last_launch["design"] == "mma"

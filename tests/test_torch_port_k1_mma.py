@@ -82,7 +82,10 @@ def test_design_boundary_is_mma_max_batch():
 # ---- the wrapper, the source and the build ----
 
 def test_wrapper_and_source_share_their_constants():
-    src = (_build.CSRC / "fused_mma.cu").read_text()
+    # the kernels and their entries, and the phase code they share with
+    # K2-mma (csrc/mma_step.cuh)
+    src = "".join((_build.CSRC / name).read_text()
+                  for name in ("fused_mma.cu", "mma_step.cuh"))
     assert int(re.search(r"constexpr int B_MAX = (\d+);", src).group(1)) \
         == fused_step.MMA_MAX_BATCH
     # one stamp more than the phases between them

@@ -65,7 +65,7 @@ def test_design_is_ws_for_the_main_path_forms(batch, rng, k):
 
 @pytest.mark.parametrize("dtype,bf16,batch", [
     (torch.float32, False, 8), (torch.float32, False, 128),
-    (torch.uint8, True, 8), (torch.uint8, True, 128),
+    (torch.float32, True, 8), (torch.float32, True, 128),
     (torch.uint8, False, 136), (torch.uint8, False, 1024),
     (torch.float32, True, 1024)])
 def test_design_is_rows_for_f32_rows_bf16_and_large_batches(dtype, bf16,
