@@ -52,13 +52,19 @@ Phases (any failure exits non-zero; no phase is skipped):
                steps) and on an 11-step epoch, K2-ws's also bitwise the
                rows design; K6 (the DP
                epoch kernel's ring) on n replicas of this card, at
-               (all-gather, n = 2, 4) and (reduce-scatter, n = 3, 4), B = 128
-               per replica x 24 steps, uint8 rows, masks/threefry/core:
-               (a) replicas bitwise in lockstep, (b) bitwise K1 per replica
-               + the ring's summation tree + SGD, (c) its plain version,
-               (e) a repeat launch bitwise; (d) a 1-replica ring launch
-               bitwise K2; each replica's in-kernel masks bitwise; one bf16
-               case; a stalled ring ends in RingTimeoutError.
+               (all-gather, n = 2, 4) and (reduce-scatter, n = 3, 4), B =
+               128 x 24 steps, 96 x 6 and 8 x 5 per replica, uint8 rows,
+               masks/threefry/core, on K6-ws (csrc/ring_ws.cu: K2-ws's
+               column-owner step, one mini-ring per column owner; the
+               design ring_design picks, asserted) and on the rows
+               design's ring forced: (a) replicas bitwise in lockstep, (b)
+               bitwise K1 per replica + the ring's summation tree + SGD,
+               (c) its plain version, (e) a repeat launch bitwise, on each;
+               K6-ws bitwise the rows design's ring; (d) a 1-replica ring
+               launch of each design bitwise K2; each replica's in-kernel
+               masks bitwise; one bf16 case (K6-bf16, the rows design); a
+               stalled ring of each design ends in RingTimeoutError naming
+               hop 0.
   4. main    — the port's main paths through the entry points a user calls,
                at full width (784-128-128-10, batch 128, lr 0.01, synthetic
                MNIST 60k/10k), each with every kernel's launch count set to 0
@@ -96,10 +102,13 @@ Phases (any failure exits non-zero; no phase is skipped):
                   --batch_size 256 (the rows design's superstep);
                i. `fit_cached(mesh=data_parallel_mesh([cuda:0] * 4))` (what
                   `--parallel --cached` calls), global batch 512: one
-                  118-step epoch through K6 all-gather (threefry), one
-                  through K6 reduce-scatter (core), 50 steps of `--kernel
-                  pallas` (K1 per replica, split design), each held against
-                  the same run
+                  118-step epoch through K6-ws all-gather (threefry), one
+                  through K6-ws reduce-scatter (core); 20 steps at 256 rows
+                  per replica through the rows design's all-gather and
+                  reduce-scatter rings, and 20 bf16 steps through K6-bf16
+                  (the rows design); 50 steps of `--kernel pallas` (K1 per
+                  replica, split design, and mma in bf16), each held
+                  against the same run
                   on a 4-replica CPU mesh; `train --parallel --cached
                   --kernel pallas_epoch` on the 1-card mesh (K2-ws), bitwise
                   the serial run.
@@ -118,9 +127,13 @@ Phases (any failure exits non-zero; no phase is skipped):
                K2b, K2c, K3 and f32 K = 8, and the per-phase split of a K2c epoch from K2-ws's stamps
                build; K2-mma and the rows design's bf16 form in turns over
                the 469-step epoch at K = 1 and K = 8, and K2-mma's phase
-               split from its stamps build; K6 per (ring, n) over a 118-step epoch beside the
-               rows-design K2 and a 1-replica ring launch at the same
-               blocks per replica.
+               split from its stamps build; K6 per (ring, n) over a
+               118-step epoch: K6-ws and the rows design's ring in turns,
+               K2-ws alone at K6-ws's blocks and hidden units a block, the
+               rows-design K2 and a 1-replica rows ring at the rows ring's
+               blocks per replica, K6-ws's stamps split a step, the
+               profiler's device time of both designs at n = 4 in turns,
+               and K6-bf16 at n = 2.
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1880,6 +1893,7 @@ def phase_profile(device) -> tuple:
         "k1_rng_bf16_epoch_rows": (rows_design(rng_bf16), 1, None),
         "stream_bf16_mma": (stream_bf16, 1, None),
         "stream_bf16_rows": (rows_design(stream_bf16), 1, None),
+        **k6_profile_jobs(device),
     }
     out, busy = profile_jobs(jobs)
     for label, kernels in out.items():
@@ -2415,17 +2429,21 @@ def _dp_call(fn, form: str, inp: dict, ring: str, **kw):
               axis_size=inp["n"], ring=ring, **kw)
 
 
-def _check_dp_case(tag, got, again, k1, ref, n, loss_tol, fro_tol):
-    """K6's checks (a), (b), (e) bitwise and (c) against its plain
-    version; returns the worst absolute error against the plain version
-    and prints the worst relative loss error."""
+def _check_dp_case(tag, got, again, k1, ref, n, loss_tol, fro_tol,
+                   rows=None):
+    """K6's checks (a), (b), (e) bitwise, bitwise the rows design's ring
+    `rows` where given, and (c) against its plain version; returns the
+    worst absolute error against the plain version and prints the worst
+    relative loss error."""
     worst = loss_rel = 0.0
     for r in range(n):
         mine = _k2_flat(got[0][r], got[1][r])
-        for (name, a), (_, z), (_, b), (_, c) in zip(
+        yard = (_k2_flat(rows[0][r], rows[1][r]) if rows is not None
+                else mine)
+        for (name, a), (_, z), (_, b), (_, c), (_, d) in zip(
                 mine, _k2_flat(got[0][0], got[1][r]),
                 _k2_flat(again[0][r], again[1][r]),
-                _k2_flat(k1[0][r], k1[1][r])):
+                _k2_flat(k1[0][r], k1[1][r]), yard):
             if not torch.equal(a, z):
                 fail(f"{tag}: replica {r}'s {name} differs from replica 0's "
                      f"(the replicas must stay bitwise in lockstep)")
@@ -2436,6 +2454,10 @@ def _check_dp_case(tag, got, again, k1, ref, n, loss_tol, fro_tol):
                 fail(f"{tag}: replica {r}'s {name} differs from K1 per "
                      f"replica + the ring's summation tree + SGD by "
                      f"{float((a - c).abs().max()):.3e} (bitwise expected)")
+            if not torch.equal(a, d):
+                fail(f"{tag}: replica {r}'s {name} differs from the rows "
+                     f"design's ring by {float((a - d).abs().max()):.3e} "
+                     f"(bitwise expected)")
         for (name, a), (_, p) in zip(mine, _k2_flat(ref[0][r], ref[1][r])):
             if a.shape != p.shape or not torch.isfinite(a).all():
                 fail(f"{tag}: {name} shape or non-finite values")
@@ -2458,22 +2480,31 @@ def _check_dp_case(tag, got, again, k1, ref, n, loss_tol, fro_tol):
     return worst
 
 
+# (batch, steps) of K6's checks: RING_CHECK, and the main path's ragged
+# and a small per-replica batch
+K6_CHECKS = (RING_CHECK, (96, 6), (8, 5))
+
+
 def phase_kernels_k6(device) -> dict:
-    """K6 at B = 128 per replica, 24-step epochs, uint8 rows, in the masks,
-    threefry and core forms, at (all-gather, n = 2, 4) and (reduce-scatter,
-    n = 3, 4): (a) every replica's weights bitwise equal; (b) bitwise K1 per
-    replica + the ring's summation tree as torch adds on the card + SGD,
-    step by step; (c) against epoch_dp_sgd_reference (losses K6_LOSS_TOL,
-    params PARAM_FRO_RTOL); (e) a repeat launch bitwise. Then
-    (d) a 1-replica ring launch bitwise K2, the in-kernel masks of each
-    replica bitwise the plain streams, one bf16 case, and a stalled ring
-    ending in RingTimeoutError. Returns the worst absolute error against
-    the plain version per ring."""
+    """K6 in the masks, threefry and core forms (uint8 rows, f32) at
+    (all-gather, n = 2, 4) and (reduce-scatter, n = 3, 4), at B = 128 x 24
+    steps, 96 x 6 and 8 x 5 per replica, on K6-ws (the design ring_design
+    picks, asserted) and on the rows design's ring forced: (a) every
+    replica's weights bitwise equal; (b) bitwise K1 per replica + the
+    ring's summation tree as torch adds on the card + SGD, step by step;
+    (c) against epoch_dp_sgd_reference (losses K6_LOSS_TOL, params
+    PARAM_FRO_RTOL); (e) a repeat launch bitwise, on each design; K6-ws
+    bitwise the rows design's ring. Then (d) a 1-replica ring launch of
+    each design bitwise K2, the in-kernel masks of each replica bitwise
+    the plain streams, one bf16 case (K6-bf16, the rows design), and a
+    stalled ring of each design ending in RingTimeoutError naming hop 0.
+    Returns the worst absolute error against the plain version per ring,
+    and K6-bf16's."""
     from functools import partial
 
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step, fused_step
-    batch, nsteps = RING_CHECK
     worst = {"allgather": 0.0, "reduce_scatter": 0.0}
+    batch, nsteps = RING_CHECK
     for ring, n in RING_CASES:
         inp = _dp_inputs(n, batch, nsteps, seed=20 + 10 * n, device=device)
         for r in range(n):
@@ -2489,45 +2520,69 @@ def phase_kernels_k6(device) -> dict:
                         fail(f"K6 {ring} n={n}: replica {r}'s in-kernel "
                              f"{impl} mask of step {step} differs from the "
                              f"plain stream")
-        for form in DP_FORMS:
-            tag = f"epoch_step_dp_{ring} n={n} {form} B={batch} S={nsteps}"
-            t0 = time.perf_counter()
-            got = _dp_call(epoch_step.epoch_fused_sgd, form, inp, ring)
-            ll = dict(epoch_step.last_launch)
-            if (ll["replicas"], ll["ring"], ll["form"]) != (
-                    n, ring, "/".join(K2_FORMS[form])):
-                fail(f"{tag}: launched {ll}")
-            again = _dp_call(epoch_step.epoch_fused_sgd, form, inp, ring)
-            k1 = _dp_call(epoch_step.epoch_dp_sgd_reference, form, inp, ring,
-                          step_fn=fused_step.fused_loss_and_grads)
-            ref = _dp_call(epoch_step.epoch_dp_sgd_reference, form, inp, ring)
-            torch.cuda.synchronize()
-            err = _check_dp_case(tag, got, again, k1, ref, n, K6_LOSS_TOL,
-                                 PARAM_FRO_RTOL)
-            worst[ring] = max(worst[ring], err)
-            print(f"[kernels] {tag}: final loss of replica 0 "
-                  f"{float(got[1][0][-1]):.7f} vs plain "
-                  f"{float(ref[1][0][-1]):.7f}; worst abs err {err:.3e}; "
-                  f"replicas bitwise in lockstep, bitwise K1 + ring tree + "
-                  f"SGD and a repeat launch ({ll['blocks']} blocks per "
-                  f"replica, {time.perf_counter() - t0:.1f}s)")
+        for batch_c, nsteps_c in K6_CHECKS:
+            inp = _dp_inputs(n, batch_c, nsteps_c, seed=20 + 10 * n + batch_c,
+                             device=device)
+            for form in DP_FORMS:
+                tag = (f"epoch_step_dp_ws_{ring} n={n} {form} B={batch_c} "
+                       f"S={nsteps_c}")
+                t0 = time.perf_counter()
+                got = _dp_call(epoch_step.epoch_fused_sgd, form, inp, ring)
+                ll = dict(epoch_step.last_launch)
+                cols = epoch_step.ring_ws_cols(n)
+                if (ll["design"], ll["replicas"], ll["ring"], ll["form"],
+                        ll["cols"], ll["blocks"]) != (
+                        "ws", n, ring, "/".join(K2_FORMS[form]), cols,
+                        128 // cols):
+                    fail(f"{tag}: launched {ll}")
+                again = _dp_call(epoch_step.epoch_fused_sgd, form, inp, ring)
+                rows = _dp_call(epoch_step.epoch_fused_sgd, form, inp, ring,
+                                _design="rows")
+                if epoch_step.last_launch["design"] != "rows":
+                    fail(f"{tag}: _design='rows' launched "
+                         f"{epoch_step.last_launch}")
+                rows_again = _dp_call(epoch_step.epoch_fused_sgd, form, inp,
+                                      ring, _design="rows")
+                k1 = _dp_call(epoch_step.epoch_dp_sgd_reference, form, inp,
+                              ring, step_fn=fused_step.fused_loss_and_grads)
+                ref = _dp_call(epoch_step.epoch_dp_sgd_reference, form, inp,
+                               ring)
+                torch.cuda.synchronize()
+                err = _check_dp_case(tag, got, again, k1, ref, n, K6_LOSS_TOL,
+                                     PARAM_FRO_RTOL, rows=rows)
+                _check_dp_case(f"epoch_step_dp_{ring} (rows design) n={n} "
+                               f"{form} B={batch_c} S={nsteps_c}", rows,
+                               rows_again, k1, ref, n, K6_LOSS_TOL,
+                               PARAM_FRO_RTOL)
+                worst[ring] = max(worst[ring], err)
+                print(f"[kernels] {tag}: final loss of replica 0 "
+                      f"{float(got[1][0][-1]):.7f} vs plain "
+                      f"{float(ref[1][0][-1]):.7f}; worst abs err {err:.3e}; "
+                      f"K6-ws ({ll['blocks']} blocks of {cols} units per "
+                      f"replica) and the rows design's ring "
+                      f"({epoch_step.last_launch['blocks']} blocks per "
+                      f"replica): each in lockstep, bitwise K1 + ring tree "
+                      f"+ SGD and a repeat launch, and bitwise each other "
+                      f"({time.perf_counter() - t0:.1f}s)")
 
-    # (d) one replica: the ring kernel is K2 bit for bit
+    # (d) one replica: either design's ring kernel is K2 bit for bit
     inp = _k2_inputs(batch, nsteps, seed=7, device=device)
     for form in DP_FORMS:
         pixels, rng = K2_FORMS[form]
         serial = _k2_flat(*_k2_call(epoch_step.epoch_fused_sgd, form, inp))
-        ps, ls = epoch_step._ring_cuda(
-            [inp["params"]], [inp[pixels]], [inp["y"]], [inp.get(rng)],
-            [inp["masks"] if rng == "masks" else None], LR, batch, rng,
-            nsteps, False, "allgather", 0)
-        for (name, a), (_, b) in zip(_k2_flat(ps[0], ls[0]), serial):
-            if not torch.equal(a, b):
-                fail(f"K6 n=1 {form}: {name} differs from K2 by "
-                     f"{float((a - b).abs().max()):.3e} (bitwise expected)")
-    print(f"[kernels] epoch_step_dp n=1 (one replica's ring launch) bitwise "
-          f"equal to K2 in forms {', '.join(DP_FORMS)} at B={batch} "
-          f"S={nsteps}")
+        for design in ("ws", "rows"):
+            ps, ls = epoch_step._ring_cuda(
+                [inp["params"]], [inp[pixels]], [inp["y"]], [inp.get(rng)],
+                [inp["masks"] if rng == "masks" else None], LR, batch, rng,
+                nsteps, False, "allgather", 0, design=design)
+            for (name, a), (_, b) in zip(_k2_flat(ps[0], ls[0]), serial):
+                if not torch.equal(a, b):
+                    fail(f"K6 n=1 {design} {form}: {name} differs from K2 by "
+                         f"{float((a - b).abs().max()):.3e} (bitwise "
+                         f"expected)")
+    print(f"[kernels] epoch_step_dp n=1 (one replica's ring launch, K6-ws "
+          f"and the rows design) bitwise equal to K2 in forms "
+          f"{', '.join(DP_FORMS)} at B={batch} S={nsteps}")
 
     # bf16: K6 against K1-bf16 on the rows design (the step it shares) per
     # replica + the ring tree + SGD
@@ -2537,32 +2592,37 @@ def phase_kernels_k6(device) -> dict:
         p, x.to(torch.bfloat16), y, m, _design="rows")
     tag = f"epoch_step_dp_allgather_bf16 n=2 K2c B={batch} S={nsteps}"
     got = _dp_call(kernel, "K2c", inp, "allgather")
+    if epoch_step.last_launch["design"] != "rows":
+        fail(f"{tag}: launched {epoch_step.last_launch}")
     again = _dp_call(kernel, "K2c", inp, "allgather")
     k1 = _dp_call(epoch_step.epoch_dp_sgd_reference, "K2c", inp, "allgather",
                   step_fn=step_bf16)
     ref = _dp_call(epoch_step.epoch_dp_sgd_reference, "K2c", inp,
                    "allgather", compute_bf16=True)
     torch.cuda.synchronize()
-    err = _check_dp_case(tag, got, again, k1, ref, 2,
-                         (BF16_LOSS_RTOL, BF16_LOSS_ATOL), BF16_PARAM_FRO_RTOL)
-    print(f"[kernels] {tag}: worst abs err {err:.3e}; lockstep, bitwise "
-          f"K1-bf16 + ring tree + SGD and a repeat launch")
+    worst["bf16"] = _check_dp_case(
+        tag, got, again, k1, ref, 2, (BF16_LOSS_RTOL, BF16_LOSS_ATOL),
+        BF16_PARAM_FRO_RTOL)
+    print(f"[kernels] {tag}: worst abs err {worst['bf16']:.3e}; lockstep, "
+          f"bitwise K1-bf16 + ring tree + SGD and a repeat launch")
 
-    for ring in ("allgather", "reduce_scatter"):
-        t0 = time.perf_counter()
-        e = epoch_step.stalled_ring(device, n=2, ring=ring)
-        if "hop 0" not in str(e):
-            fail(f"a stalled {ring} ring raised {e!r}")
-        print(f"[kernels] stalled {ring} ring (replica 0 never signals hop "
-              f"0): {type(e).__name__} after {time.perf_counter() - t0:.2f}s: "
-              f"{e}")
+    for design in ("ws", "rows"):
+        for ring in ("allgather", "reduce_scatter"):
+            t0 = time.perf_counter()
+            e = epoch_step.stalled_ring(device, n=2, ring=ring, design=design)
+            if "hop 0" not in str(e) or f"({design} design)" not in str(e):
+                fail(f"a stalled {ring} ring of the {design} design raised "
+                     f"{e!r}")
+            print(f"[kernels] stalled {ring} ring, {design} design (replica 0 "
+                  f"never signals hop 0): {type(e).__name__} after "
+                  f"{time.perf_counter() - t0:.2f}s: {e}")
     return worst
 
 
 def _dp_fit(device, mesh, tmp: str, *, kernel: str, impl: str, ring: str,
-            limit: int = 0, dtype: str = "float32"):
+            limit: int = 0, dtype: str = "float32", batch: int = DP_BATCH):
     """fit_cached over `mesh` (the function `--parallel --cached` calls):
-    one epoch of synthetic MNIST at the global batch DP_BATCH, full 10k
+    one epoch of synthetic MNIST at the global batch `batch`, full 10k
     eval, weights and keys from seeds. Returns (per-step losses, the
     reference epoch lines, the final params)."""
     from pytorch_ddp_mnist_tpu_torch.data.mnist import get_mnist, normalize_images
@@ -2582,7 +2642,7 @@ def _dp_fit(device, mesh, tmp: str, *, kernel: str, impl: str, ring: str,
     _, history = scan.fit_cached(
         model, threefry.key_data(1), images, labels.astype(np.int32),
         ShardedSampler(len(images), seed=42), normalize_images(test.images),
-        test.labels.astype(np.int32), epochs=1, batch_size=DP_BATCH, lr=LR,
+        test.labels.astype(np.int32), epochs=1, batch_size=batch, lr=LR,
         kernel=kernel, impl=impl, dtype=dtype, mesh=mesh, ring=ring,
         log=lines.append)
     if device.type == "cuda":
@@ -2591,15 +2651,24 @@ def _dp_fit(device, mesh, tmp: str, *, kernel: str, impl: str, ring: str,
                                for n, l in model.params().items()}
 
 
+# the DP epochs that reach the rows design's rings: a batch of ROWS_BATCH
+# per replica (past WS_MAX_BATCH), and the bf16 mode (K6-bf16); each cut
+# to DP_ROWS_STEPS steps
+DP_ROWS_STEPS = 20
+
+
 def phase_main_dp(device, tmp: str) -> dict:
     """The DP paths at full width on a 4-replica mesh of cuda:0, each held
     against the same run on a 4-replica CPU mesh (plain versions, the same
-    masks): one 118-step epoch through K6 (all-gather, threefry masks) and
-    one through the reduce-scatter ring (core masks), then 50 steps of
-    `--kernel pallas` (K1 per replica: K1-split in f32, K1-mma in bf16,
-    the bf16 run held at the bf16 limits); then `train --parallel --cached
-    --kernel pallas_epoch` through the CLI on the 1-card mesh, equal to the
-    serial run. Returns the launch counts of each path."""
+    masks): one 118-step epoch through K6-ws (all-gather, threefry masks)
+    and one through its reduce-scatter ring (core masks); 20 steps at 256
+    rows per replica through the rows design's rings (all-gather and
+    reduce-scatter) and 20 bf16 steps at 128 through K6-bf16 (the rows
+    design's all-gather); then 50 steps of `--kernel pallas` (K1 per
+    replica: K1-split in f32, K1-mma in bf16, the bf16 runs held at the
+    bf16 limits); then `train --parallel --cached --kernel pallas_epoch`
+    through the CLI on the 1-card mesh, equal to the serial run. Returns
+    the launch counts of each path."""
     from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
     from pytorch_ddp_mnist_tpu_torch.parallel.mesh import data_parallel_mesh
     mesh = data_parallel_mesh([device] * DP_REPLICAS)
@@ -2607,17 +2676,31 @@ def phase_main_dp(device, tmp: str) -> dict:
     cpu = torch.device("cpu")
     out = {}
     per_step = DP_PALLAS_STEPS * DP_REPLICAS
+    rows_batch = DP_REPLICAS * ROWS_BATCH
     runs = (("allgather", "threefry2x32", "pallas_epoch", 0, "float32",
+             DP_BATCH, "ws", {"epoch_step_dp_ws_allgather": 1}),
+            ("reduce_scatter", "rbg", "pallas_epoch", 0, "float32", DP_BATCH,
+             "ws", {"epoch_step_dp_ws_reduce_scatter": 1}),
+            ("allgather", "threefry2x32", "pallas_epoch",
+             DP_ROWS_STEPS * rows_batch, "float32", rows_batch, "rows",
              {"epoch_step_dp_allgather": 1}),
-            ("reduce_scatter", "rbg", "pallas_epoch", 0, "float32",
+            ("reduce_scatter", "rbg", "pallas_epoch",
+             DP_ROWS_STEPS * rows_batch, "float32", rows_batch, "rows",
              {"epoch_step_dp_reduce_scatter": 1}),
+            ("allgather", "threefry2x32", "pallas_epoch",
+             DP_ROWS_STEPS * DP_BATCH, "bfloat16", DP_BATCH, "rows",
+             {"epoch_step_dp_allgather_bf16": 1}),
             ("auto", "threefry2x32", "pallas", DP_PALLAS_STEPS * DP_BATCH,
-             "float32", {"fused_split": per_step, "threefry_mask": per_step}),
+             "float32", DP_BATCH, None,
+             {"fused_split": per_step, "threefry_mask": per_step}),
             ("auto", "threefry2x32", "pallas", DP_PALLAS_STEPS * DP_BATCH,
-             "bfloat16", {"fused_mma": per_step, "threefry_mask": per_step}))
-    for ring, impl, kernel, limit, dtype, want in runs:
+             "bfloat16", DP_BATCH, None,
+             {"fused_mma": per_step, "threefry_mask": per_step}))
+    from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
+    for ring, impl, kernel, limit, dtype, batch, design, want in runs:
         what = (f"fit_cached(mesh=[cuda:0] x {DP_REPLICAS}, kernel={kernel}, "
-                f"impl={impl}, ring={ring}, dtype={dtype})")
+                f"impl={impl}, ring={ring}, dtype={dtype}, batch_size="
+                f"{batch})")
         bf16 = dtype == "bfloat16"
         loss_rtol = BF16_TRAIN_RTOL if bf16 else TRAIN_RTOL
         fro_rtol = BF16_PARAM_FRO_RTOL if bf16 else PARAM_FRO_RTOL
@@ -2625,12 +2708,17 @@ def phase_main_dp(device, tmp: str) -> dict:
         t0 = time.perf_counter()
         losses, lines, params = _dp_fit(device, mesh, tmp, kernel=kernel,
                                         impl=impl, ring=ring, limit=limit,
-                                        dtype=dtype)
+                                        dtype=dtype, batch=batch)
         wall = time.perf_counter() - t0
         launches = _counts()
+        ll = dict(epoch_step.last_launch)
+        if design is not None and (ll["design"], ll["replicas"]) != (
+                design, DP_REPLICAS):
+            fail(f"{what}: its K6 launch ran {ll}, expected the {design} "
+                 f"design on {DP_REPLICAS} replicas")
         for line in lines:
             print(f"[main]   {line}")
-        steps = DP_PALLAS_STEPS if limit else DP_EPOCH_STEPS
+        steps = limit // batch if limit else DP_EPOCH_STEPS
         if not (lines and re.search(r"^Epoch=0, train_loss=[-0-9.e]+, "
                                     r"val_loss=[-0-9.e]+  \[mean_train=",
                                     lines[0])):
@@ -2644,7 +2732,7 @@ def phase_main_dp(device, tmp: str) -> dict:
         _reset_counts()
         cpu_losses, _, cpu_params = _dp_fit(cpu, cpu_mesh, tmp, kernel=kernel,
                                             impl=impl, ring=ring, limit=limit,
-                                            dtype=dtype)
+                                            dtype=dtype, batch=batch)
         expect_launches(_counts(), {}, f"{what} on the CPU mesh")
         rel = np.abs(losses - cpu_losses) / np.abs(cpu_losses)
         if not (rel <= loss_rtol).all():
@@ -2656,14 +2744,14 @@ def phase_main_dp(device, tmp: str) -> dict:
         if fro > fro_rtol:
             fail(f"{what}: params off the CPU mesh's by {fro:.3e} in "
                  f"relative Frobenius norm (limit {fro_rtol})")
-        print(f"[main] {what}: {steps} steps of {DP_REPLICAS} x {MAIN_BATCH} "
-              f"rows in {wall:.2f}s (wall, upload and eval included); loss "
+        print(f"[main] {what}: {steps} steps of {DP_REPLICAS} x "
+              f"{batch // DP_REPLICAS} rows in {wall:.2f}s (wall, upload and eval included); loss "
               f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches "
               f"{ {k: v for k, v in launches.items() if v} }; vs the CPU "
               f"mesh: losses worst rel diff {rel.max():.3e} (rtol "
               f"{loss_rtol}), params worst relative Frobenius {fro:.3e} "
               f"(limit {fro_rtol})")
-        out[f"fit_cached {kernel} {ring} {dtype}"] = launches
+        out[f"fit_cached {kernel} {ring} {dtype} {batch}"] = launches
 
     argv = _cached_argv(tmp, "--kernel", "pallas_epoch", "--n_epochs", "1",
                         "--checkpoint", "")
@@ -2687,65 +2775,136 @@ def phase_main_dp(device, tmp: str) -> dict:
     return out
 
 
-def k6_bound(n: int, batch: int, nsteps: int, ring: str):
+def k6_bound(n: int, batch: int, nsteps: int, ring: str,
+             peak: float = PEAK_F32_FLOPS):
     """(bound_ms, bound_by, flop, bytes) of one K6 epoch on n replicas,
-    uint8 rows and threefry key tables: the n replicas' products at the f32
-    peak; bytes = each input read once (rows, labels, key tables, weights),
-    each output written once (n weight sets, losses), plus the ring's hops,
-    each hop's bytes written once by the sender and read once by the
-    receiver (all-gather: n (n - 1) gradient blocks a step; reduce-scatter:
-    2 (n - 1) blocks a step, n replicas x 2 (n - 1) hops of a 1/n chunk)."""
+    uint8 rows and threefry key tables: the n replicas' products at `peak`
+    (the f32 peak; the bf16 one for K6-bf16); bytes = each input read once
+    (rows, labels, key tables, weights), each output written once (n
+    weight sets, losses), plus the ring's hops, each hop's bytes written
+    once by the sender and read once by the receiver (all-gather: n (n - 1)
+    gradient blocks a step; reduce-scatter: 2 (n - 1) blocks a step, n
+    replicas x 2 (n - 1) hops of a 1/n chunk)."""
     flops = n * nsteps * k1_bound(batch)[2]
     rows = n * nsteps * batch
     blocks = n * (n - 1) if ring == "allgather" else 2 * (n - 1)
     nbytes = rows * 784 + 4 * rows + 8 * n * nsteps + 2 * 4 * n * N_PARAMS \
         + 4 * n * nsteps + nsteps * blocks * 2 * 4 * N_PARAMS
-    return _bound(flops, nbytes, PEAK_F32_FLOPS)
+    return _bound(flops, nbytes, peak)
 
 
-def phase_timing_k6(device, launches: dict, worst: dict, card: str) -> list:
+def k6_profile_jobs(device) -> dict:
+    """profile_jobs' jobs for K6 at n = DP_REPLICAS, B = 128, the 118-step
+    epoch, K3: each ring on the rows design and on K6-ws, in turns, three
+    calls each, keeping the ring kernel."""
+    from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
+    inp = _dp_inputs(DP_REPLICAS, MAIN_BATCH, DP_EPOCH_STEPS, seed=11,
+                     device=device)
+    jobs = {}
+    for ring in ("allgather", "reduce_scatter"):
+        for design, kernel in (("rows", "ring_kernel"), ("ws", "ring_ws_kernel"),
+                               ("ws2", "ring_ws_kernel"),
+                               ("rows2", "ring_kernel")):
+            jobs[f"k6_{ring}_{design}"] = (
+                lambda ring=ring, design=design: _dp_call(
+                    epoch_step.epoch_fused_sgd, "K3", inp, ring,
+                    _design=design.rstrip("2")), 3, (kernel,))
+    return jobs
+
+
+def k6_device_us(prof: dict) -> dict:
+    """{(ring, design): the ring kernel's least device time per call of
+    its two turns in k6_profile_jobs, in us} from profile_jobs' first dict
+    (missing where the profiler recorded no device time)."""
+    out = {}
+    for ring in ("allgather", "reduce_scatter"):
+        for design in ("rows", "ws"):
+            times = [t for label in (f"k6_{ring}_{design}",
+                                     f"k6_{ring}_{design}2")
+                     for t in prof.get(label, {}).values()]
+            if times:
+                out[ring, design] = min(times)
+    return out
+
+
+def k6_times(device, card: str, prof=None) -> dict:
     """K6 per (ring, n) at B = 128 per replica over the 4-replica main
-    path's 118-step epoch (uint8 rows, threefry), beside the rows-design K2
-    (the design K6's replicas run) and a 1-replica ring launch at the same
-    blocks per replica, and the plain version."""
+    path's 118-step epoch (uint8 rows, threefry): K6-ws and the rows
+    design's ring in turns (rows, ws, ws, rows), with K2-ws alone at the
+    same blocks and hidden units a block beside them (one replica's
+    epoch: the ring's share reads as the difference), the rows-design K2
+    and a 1-replica rows ring at the rows ring's blocks per replica, the
+    plain version, and K6-ws's stamps split a step; K6-bf16 (the rows
+    design) at n = 2; the profiler's device time of the ring kernels at n
+    = DP_REPLICAS, from `prof` (phase_profile's) or a session of its own.
+    Returns {"cases": {"<ring> n=<n>": {...}}, "bf16": (ms, plain ms,
+    bound)}."""
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
     cases = {}
     for ring, n in RING_CASES:
         inp = _dp_inputs(n, MAIN_BATCH, DP_EPOCH_STEPS, seed=11, device=device)
-        k6 = lambda: _dp_call(epoch_step.epoch_fused_sgd, "K3", inp, ring)  # noqa: E731
-        k6()
-        G = epoch_step.last_launch["blocks"]
+        ws = lambda: _dp_call(epoch_step.epoch_fused_sgd, "K3", inp, ring)  # noqa: E731
+        rows = lambda: _dp_call(epoch_step.epoch_fused_sgd, "K3", inp, ring,  # noqa: E731
+                                _design="rows")
+        ws()
+        G, cols = epoch_step.last_launch["blocks"], epoch_step.last_launch["cols"]
+        rows()
+        Gr = epoch_step.last_launch["blocks"]
         one = {k: inp[k][0] for k in ("params", "uint8", "y", "threefry")}
         one.update(masks=None, batch=MAIN_BATCH)
+        k2ws = lambda: epoch_step._ws_cuda(  # noqa: E731
+            one["params"], one["uint8"], one["y"], one["threefry"], LR,
+            MAIN_BATCH, None, "threefry", DP_EPOCH_STEPS, 1, DP_EPOCH_STEPS,
+            0, cols=cols)
         k2 = lambda: _k2_call(lambda *a, **k: epoch_step._epoch_fused_sgd_rows(  # noqa: E731
-            *a, max_blocks=G, **k), "K3", one)
+            *a, max_blocks=Gr, **k), "K3", one)
         ring1 = lambda: epoch_step._ring_cuda(  # noqa: E731
             [one["params"]], [one["uint8"]], [one["y"]], [one["threefry"]],
             [None], LR, MAIN_BATCH, "threefry", DP_EPOCH_STEPS, False,
-            "allgather", G)
+            "allgather", Gr)
         plain = lambda: _dp_call(  # noqa: E731
             epoch_step.epoch_dp_sgd_reference, "K3", inp, ring)
         p1 = _time_ms(plain, iters=1, warmup=0)
-        k2_ms, k6_ms, turns = _turns(k2, k6, iters=5, warmup=1)
+        rows_ms, ws_ms, turns = _turns(rows, ws, iters=5, warmup=1)
+        k2ws_ms = _time_ms(k2ws, iters=5, warmup=1)
+        k2_ms = _time_ms(k2, iters=5, warmup=1)
         r1 = _time_ms(ring1, iters=5, warmup=1)
         p2 = _time_ms(plain, iters=1, warmup=0)
+        _, _, split, per_step = _dp_call(epoch_step.k6_phase_stamps, "K3",
+                                         inp, ring)
         bound = k6_bound(n, MAIN_BATCH, DP_EPOCH_STEPS, ring)
         cases[f"{ring} n={n}"] = {
-            "ms": k6_ms, "us_per_step": k6_ms * 1e3 / DP_EPOCH_STEPS,
+            "ms": ws_ms, "us_per_step": ws_ms * 1e3 / DP_EPOCH_STEPS,
+            "rows_ms": rows_ms,
+            "rows_us_per_step": rows_ms * 1e3 / DP_EPOCH_STEPS,
             "plain_ms": min(p1, p2), "bound_ms": bound[0],
             "bound_by": bound[1], "flop": bound[2], "bytes": bound[3],
-            "blocks_per_replica": G, "k2_same_blocks_ms": k2_ms,
-            "ring_n1_same_blocks_ms": r1, "timed_in_turns_k2_k6_k6_k2": turns}
-        print(f"[timing] epoch_step_dp_{ring} n={n} B={MAIN_BATCH} "
-              f"S={DP_EPOCH_STEPS} ({G} blocks per replica): {k6_ms:.3f} ms "
-              f"per epoch launch, {k6_ms * 1e3 / DP_EPOCH_STEPS:.1f} us a "
-              f"step; the rows-design K2 at {G} blocks {k2_ms:.3f} ms; one "
-              f"replica's ring "
-              f"launch at {G} blocks {r1:.3f} ms; plain {min(p1, p2):.1f} ms; "
-              f"bound {bound[0]:.4f} ms by {bound[1]} (turns "
+            "blocks_per_replica": G, "cols": cols,
+            "k2_ws_same_blocks_ms": k2ws_ms,
+            "ring_share_us_per_step": (ws_ms - k2ws_ms) * 1e3 / DP_EPOCH_STEPS,
+            "rows_blocks_per_replica": Gr, "k2_rows_same_blocks_ms": k2_ms,
+            "rows_ring_n1_same_blocks_ms": r1,
+            "timed_in_turns_rows_ws_ws_rows": turns,
+            "stamps_us_per_step": per_step, "stamps_split_us": split}
+        print(f"[timing] epoch_step_dp_ws_{ring} n={n} B={MAIN_BATCH} "
+              f"S={DP_EPOCH_STEPS} ({G} blocks of {cols} units per replica): "
+              f"{ws_ms:.3f} ms per epoch launch, "
+              f"{ws_ms * 1e3 / DP_EPOCH_STEPS:.2f} us a step; the rows "
+              f"design's ring ({Gr} blocks per replica) {rows_ms:.3f} ms "
+              f"({rows_ms / ws_ms:.2f}x); K2-ws alone at {G} blocks of {cols} "
+              f"units {k2ws_ms:.3f} ms, so the ring adds "
+              f"{(ws_ms - k2ws_ms) * 1e3 / DP_EPOCH_STEPS:.2f} us a step; the "
+              f"rows-design K2 at {Gr} blocks {k2_ms:.3f} ms, one replica's "
+              f"rows ring {r1:.3f} ms; plain {min(p1, p2):.1f} ms; bound "
+              f"{bound[0]:.4f} ms by {bound[1]} (turns rows, ws, ws, rows: "
               f"{', '.join(f'{v:.3f}' for v in turns)}) [{card}]")
-    # the split of the card at n = 4: fewer blocks per replica than the
-    # co-resident 66, in turns with 66
+        print(f"[timing] epoch_step_dp_ws_{ring} n={n} phase split (stamps "
+              f"build, block 0 of replica 0, mean over the steps): "
+              f"{per_step:.2f} us a step [{card}]")
+        for phase, us in split.items():
+            print(f"[timing]   {phase:46s} {us:8.3f} us  {us / per_step:6.1%}")
+    # the rows ring's split of the card at n = 4: fewer blocks per replica
+    # than the co-resident 66, in turns with 66
     inp = _dp_inputs(DP_REPLICAS, MAIN_BATCH, DP_EPOCH_STEPS, seed=11,
                      device=device)
     for ring in ("allgather", "reduce_scatter"):
@@ -2753,31 +2912,99 @@ def phase_timing_k6(device, launches: dict, worst: dict, card: str) -> list:
         split = {}
         for g in (33, 44):
             fewer = lambda: _dp_call(epoch_step.epoch_fused_sgd, "K3", inp,  # noqa: E731
-                                     ring, max_blocks=g)
+                                     ring, max_blocks=g, _design="rows")
             full = lambda: _dp_call(epoch_step.epoch_fused_sgd, "K3", inp,  # noqa: E731
-                                    ring)
-            split[g], split[c["blocks_per_replica"]], _ = _turns(
+                                    ring, _design="rows")
+            split[g], split[c["rows_blocks_per_replica"]], _ = _turns(
                 fewer, full, iters=5, warmup=1)
-        c["ms_by_blocks_per_replica"] = split
-        print(f"[timing] epoch_step_dp_{ring} n={DP_REPLICAS}: ms per epoch "
-              f"launch by blocks per replica "
+        c["rows_ms_by_blocks_per_replica"] = split
+        print(f"[timing] epoch_step_dp_{ring} (rows design) n={DP_REPLICAS}: "
+              f"ms per epoch launch by blocks per replica "
               f"{ {g: round(v, 3) for g, v in sorted(split.items())} } "
               f"[{card}]")
+    # K6-bf16: the rows design's all-gather in the bf16 mode, n = 2
+    inp = _dp_inputs(2, MAIN_BATCH, DP_EPOCH_STEPS, seed=11, device=device)
+    bf16 = lambda: _dp_call(epoch_step.epoch_fused_sgd, "K3", inp,  # noqa: E731
+                            "allgather", compute_bf16=True)
+    bf16_ms = _time_ms(bf16, iters=5, warmup=1)
+    bf16_plain = _time_ms(lambda: _dp_call(
+        epoch_step.epoch_dp_sgd_reference, "K3", inp, "allgather",
+        compute_bf16=True), iters=1, warmup=0)
+    bf16_bound = k6_bound(2, MAIN_BATCH, DP_EPOCH_STEPS, "allgather",
+                          PEAK_BF16_FLOPS)
+    print(f"[timing] epoch_step_dp_allgather_bf16 (rows design) n=2 "
+          f"B={MAIN_BATCH} S={DP_EPOCH_STEPS}: {bf16_ms:.3f} ms per epoch "
+          f"launch, {bf16_ms * 1e3 / DP_EPOCH_STEPS:.2f} us a step; plain "
+          f"{bf16_plain:.1f} ms; bound {bf16_bound[0]:.4f} ms by "
+          f"{bf16_bound[1]} (bf16 peak) [{card}]")
+    if prof is None:
+        prof, _ = profile_jobs(k6_profile_jobs(device))
+    dev_us = k6_device_us(prof)
+    for ring in ("allgather", "reduce_scatter"):
+        c = cases[f"{ring} n={DP_REPLICAS}"]
+        ws_us, rows_us = dev_us.get((ring, "ws")), dev_us.get((ring, "rows"))
+        c["device_us"] = ws_us
+        c["rows_device_us"] = rows_us
+        if ws_us is None or rows_us is None:
+            print(f"[timing] epoch_step_dp_ws_{ring} n={DP_REPLICAS}: the "
+                  f"profiler recorded no device time (not measured)")
+            continue
+        print(f"[timing] epoch_step_dp_ws_{ring} n={DP_REPLICAS}: device time "
+              f"(profiler, in turns rows, ws, ws, rows) {ws_us:.1f} us a "
+              f"launch against the rows design's {rows_us:.1f} "
+              f"({rows_us / ws_us:.2f}x) [{card}]")
+    return {"cases": cases, "bf16": (bf16_ms, bf16_plain, bf16_bound)}
+
+
+def phase_timing_k6(device, launches: dict, worst: dict, card: str,
+                    prof: dict) -> list:
+    """K6's times (`k6_times`) and its entries of the kernels line: K6-ws's
+    two rings and the rows design's at n = 4, K6-bf16 at n = 2."""
+    times = k6_times(device, card, prof)
+    cases = times["cases"]
+    bf16_ms, bf16_plain, bf16_bound = times["bf16"]
     out = []
-    for ring, n_main in (("allgather", 4), ("reduce_scatter", 4)):
-        c = cases[f"{ring} n={n_main}"]
-        key = f"epoch_step_dp_{ring}"
+    for ring in ("allgather", "reduce_scatter"):
+        c = cases[f"{ring} n={DP_REPLICAS}"]
+        bound = (c["bound_ms"], c["bound_by"], c["flop"], c["bytes"])
+        key = f"epoch_step_dp_ws_{ring}"
         out.append(_entry(
-            key, "epoch_step.cu", RING_TPU_LINE[ring],
-            launches[f"fit_cached pallas_epoch {ring} float32"][key],
-            worst[ring],
-            c["ms"], c["plain_ms"],
-            (c["bound_ms"], c["bound_by"], c["flop"], c["bytes"]), card,
-            ring_source="pytorch_ddp_mnist_tpu_torch/csrc/dp_ring.cuh",
-            form=f"K6 {ring}, uint8 rows, threefry masks; n = {n_main} "
-                 f"replicas on one card; top-level numbers at n = {n_main}",
+            key, "ring_ws.cu", RING_TPU_LINE[ring],
+            launches[f"fit_cached pallas_epoch {ring} float32 {DP_BATCH}"][key],
+            worst[ring], c["ms"], c["plain_ms"], bound, card,
+            ring_source="pytorch_ddp_mnist_tpu_torch/csrc/ws_step.cuh, "
+                        "pytorch_ddp_mnist_tpu_torch/csrc/dp_ring.cuh",
+            form=f"K6-ws {ring}, uint8 rows, threefry masks; n = "
+                 f"{DP_REPLICAS} replicas on one card; top-level numbers "
+                 f"at n = {DP_REPLICAS}",
             batch_per_replica=MAIN_BATCH, steps=DP_EPOCH_STEPS,
             cases={k: v for k, v in cases.items() if k.startswith(ring)}))
+        key = f"epoch_step_dp_{ring}"
+        rows_batch = DP_REPLICAS * ROWS_BATCH
+        out.append(_entry(
+            key, "epoch_step.cu", RING_TPU_LINE[ring],
+            launches[f"fit_cached pallas_epoch {ring} float32 "
+                     f"{rows_batch}"][key],
+            worst[ring], c["rows_ms"], c["plain_ms"], bound, card,
+            ring_source="pytorch_ddp_mnist_tpu_torch/csrc/dp_ring.cuh",
+            form=f"K6 {ring} on the rows design, forced at B = {MAIN_BATCH} "
+                 f"(bitwise K6-ws there) and timed in turns with K6-ws; n = "
+                 f"{DP_REPLICAS}",
+            main_path=f"launched at {ROWS_BATCH} rows per replica (B > "
+                      f"128): fit_cached at batch_size {rows_batch}",
+            device_us=c["rows_device_us"],
+            batch_per_replica=MAIN_BATCH, steps=DP_EPOCH_STEPS))
+    out.append(_entry(
+        "epoch_step_dp_allgather_bf16", "epoch_step.cu",
+        RING_TPU_LINE["allgather"],
+        launches[f"fit_cached pallas_epoch allgather bfloat16 "
+                 f"{DP_BATCH}"]["epoch_step_dp_allgather_bf16"],
+        worst["bf16"], bf16_ms, bf16_plain, bf16_bound, card,
+        ring_source="pytorch_ddp_mnist_tpu_torch/csrc/dp_ring.cuh",
+        form="K6-bf16: the rows design's all-gather ring in the bf16-operand "
+             "mode, uint8 rows, threefry masks; n = 2 replicas on one card; "
+             "bound at the bf16 tensor-core peak",
+        batch_per_replica=MAIN_BATCH, steps=DP_EPOCH_STEPS))
     print("[timing] epoch_step_dp: no single PyTorch call computes an epoch "
           "of data-parallel SGD, so library_ms is null")
     return out
@@ -2830,7 +3057,7 @@ def main() -> int:
                                  rows_rng_bf16)
     new += phase_timing_k2_mma(device, all_paths, k2_bf16_worst, card,
                                prof)
-    new += phase_timing_k6(device, dp_launches, k6_worst, card)
+    new += phase_timing_k6(device, dp_launches, k6_worst, card, prof)
     times = [e[k] for e in k1_entries for k in ("ms", "plain_ms", "graph_ms")]
     times += [f[k] for f in k2_entries[0]["forms"].values()
               for k in ("rows_ms", "ws_ms", "plain_ms") if f[k] is not None]

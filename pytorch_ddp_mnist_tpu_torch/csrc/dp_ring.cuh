@@ -12,9 +12,10 @@
 // only through the per-replica pointer table (`Replica`). A store into the
 // neighbour's buffer plays the remote DMA; a flag counter plays each
 // semaphore:
-//   signal  every block of the sender stores its share, __threadfence(), a
-//           block barrier, then thread 0 adds 1 to the receiver's flag with
-//           red.release.gpu;
+//   signal  every block of the sender stores its share, a block barrier,
+//           then thread 0 fences (__threadfence, cumulative over what the
+//           barrier ordered before it) and adds 1 to the receiver's flag
+//           with red.release.gpu;
 //   wait    thread 0 of every block of the receiver spins on ld.acquire.gpu
 //           of its own flag until it reaches G * k (each of the sender's G
 //           blocks has signalled it k times), then a block barrier; the
@@ -128,12 +129,14 @@ __device__ __forceinline__ bool block_wait(const unsigned* flag,
 }
 
 // Every thread of a block: make the block's stores visible, then add 1 to
-// each non-null flag.
+// each non-null flag. Only thread `by` fences, after the barrier (as a
+// grid sync does), so the other threads go on at once.
 __device__ __forceinline__ void block_signal(unsigned* f0,
-                                             unsigned* f1 = nullptr) {
-  __threadfence();
+                                             unsigned* f1 = nullptr,
+                                             unsigned by = 0) {
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == by) {
+    __threadfence();
     add_release(f0, 1u);
     if (f1 != nullptr) add_release(f1, 1u);
   }
@@ -153,10 +156,10 @@ struct ReplicaGroup {
   // the generation barrier over the replica's G blocks
   __device__ bool sync() {
     ++gen;
-    __threadfence();
     __syncthreads();
     int ok = 1;
     if (threadIdx.x == 0) {
+      __threadfence();
       add_release(bar, 1u);
       ok = spin_geq(bar, gen * static_cast<unsigned>(G), err, W_BARRIER,
                     replica, step, -1);

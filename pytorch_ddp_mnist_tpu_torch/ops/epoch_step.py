@@ -61,10 +61,19 @@ layout (`_COMM_LAYOUT`, `EPOCH_COMM_ROWS`, `_rs_chunk_rows`), gw3's rows
     a design's stamps build and return its per-phase times.
   * `epoch_dp_sgd_reference` is K6's plain version: each replica's step,
     then the ring's exact summation tree (`ring_mean`), then SGD.
-    `launch_count` counts K6 as `epoch_step_dp_allgather` and
-    `epoch_step_dp_reduce_scatter` (`_bf16` for the bf16 mode).
-    `stalled_ring(...)` launches K6 with one replica that never signals,
-    to show that a ring wait ends in `RingTimeoutError`, not a hang.
+    `ring_design(x dtype, bf16, batch, n)` picks K6's design: 'ws'
+    (`csrc/ring_ws.cu`, K6-ws: K2-ws's column-owner step on each replica,
+    one mini-ring per column owner, bitwise the rows design's ring) for
+    uint8 rows in f32 at B <= WS_MAX_BATCH and n <= RING_WS_MAX_REPLICAS,
+    else 'rows' (`csrc/epoch_step.cu` `ring_kernel`); `_design="rows"`
+    forces the latter. `ring_mean_by_owner` is the plain version of
+    K6-ws's schedule (tests only). `launch_count` counts K6 as
+    `epoch_step_dp_ws_allgather` and `epoch_step_dp_ws_reduce_scatter`
+    (K6-ws), `epoch_step_dp_allgather` and `epoch_step_dp_reduce_scatter`
+    (the rows design; `_bf16` for its bf16 mode). `stalled_ring(...)`
+    launches K6 with one replica that never signals, to show that a ring
+    wait ends in `RingTimeoutError`, not a hang; `k6_phase_stamps(...)`
+    runs K6-ws's stamps build and returns its per-phase split.
 
 The input params are never written: the kernel copies them to new output
 tensors first, as the TPU kernel does at its step 0.
@@ -75,6 +84,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from ..data.mnist import device_normalize
@@ -100,6 +110,32 @@ STEPS_PER_ITER = (1, 2, 4, 8)
 WS_MAX_BATCH = 128
 # K2-ws's normalise table holds one copy per lane of a warp
 WS_TABLE_COPIES = 32
+# the shared memory a block may use on the card (227 KB)
+WS_SMEM_LIMIT = 232448
+# K6-ws runs every replica's G = 128 / COLS blocks at one block an SM, COLS
+# growing with n (ring_ws_cols); its COLS fits beside the table up to here
+RING_WS_MAX_REPLICAS = 4
+
+
+def ws_smem_bytes(cols: int) -> int:
+    """The shared memory of a block of K2-ws's step at `cols` hidden units
+    a block (csrc/ws_step.cuh `Shape::SMEM_BYTES`): the step's uint8 rows,
+    the exchange rows (LD = 132 floats), the per-lane table, w1's columns,
+    w2's rows, w2's columns (overlaid by the mask and the row losses), w3
+    in chunks (W3C = 44), the logits (LG = 12, overlaid by dz1), d1 and the
+    biases."""
+    b, h = WS_MAX_BATCH, HIDDEN1
+    return b * IN_DIM + 4 * (b * (h + 4) + 256 * WS_TABLE_COPIES
+                             + cols * IN_DIM + cols * h
+                             + max(cols * h, cols * b, b)
+                             + (h // 4) * (4 * NUM_CLASSES + 4)
+                             + max(b * 12, cols * b) + cols * b + 2 * cols)
+
+
+def ring_ws_cols(n: int) -> int:
+    """The hidden units a K6-ws block owns at n replicas: the least of 2,
+    4, 8 with n * (128 / COLS) <= 128 blocks (0 past 8)."""
+    return next((c for c in (2, 4, 8) if n <= c), 0)
 
 # K2-mma (csrc/epoch_mma.cu) takes uint8 bf16 batches up to MMA_MAX_BATCH
 # rows (K1-mma's). Its blocks are the hidden phase's, MMA_EPOCH_THREADS
@@ -145,18 +181,20 @@ RING_TIMEOUT_S = 5.0
 launch_count = {"epoch_step_ws": 0, "epoch_step_mma": 0, "epoch_step": 0,
                 "epoch_step_bf16": 0,
                 "epoch_step_superstep": 0, "epoch_step_superstep_bf16": 0,
+                "epoch_step_dp_ws_allgather": 0,
+                "epoch_step_dp_ws_reduce_scatter": 0,
                 "epoch_step_dp_allgather": 0,
                 "epoch_step_dp_allgather_bf16": 0,
                 "epoch_step_dp_reduce_scatter": 0,
                 "epoch_step_dp_reduce_scatter_bf16": 0}
-# what the last launch ran: its design ("ws", "mma" or "rows"; K6 is
-# "rows"), its blocks (per replica for K6), its form
-# ("<uint8|f32>/<masks|threefry|core>"), bf16 mode, steps per iteration,
-# whether it staged its rows, its replicas and ring ("" for K2), for reports
-# and checks
-last_launch = {"design": "", "blocks": 0, "form": "", "bf16": False,
-               "steps_per_iter": 1, "staged": False, "replicas": 1,
-               "ring": ""}
+# what the last launch ran: its design ("ws", "mma" or "rows"), its blocks
+# (per replica for K6), the hidden units a block owns (K2-ws, K6-ws; 0
+# otherwise), its form ("<uint8|f32>/<masks|threefry|core>"), bf16 mode,
+# steps per iteration, whether it staged its rows, its replicas and ring
+# ("" for K2), for reports and checks
+last_launch = {"design": "", "blocks": 0, "cols": 0, "form": "",
+               "bf16": False, "steps_per_iter": 1, "staged": False,
+               "replicas": 1, "ring": ""}
 
 
 class RingTimeoutError(RuntimeError):
@@ -166,6 +204,7 @@ class RingTimeoutError(RuntimeError):
 _lib = None
 _ws_libs = {}
 _mma_libs = {}
+_ring_ws_libs = {}
 
 
 def epoch_design(x_dtype, compute_bf16: bool, batch: int) -> str:
@@ -181,6 +220,64 @@ def epoch_design(x_dtype, compute_bf16: bool, batch: int) -> str:
     return "rows"
 
 
+def ring_design(x_dtype, compute_bf16: bool, batch: int, n: int) -> str:
+    """The K6 design an n-replica launch runs: 'ws' (K6-ws) for uint8 rows
+    in f32 at batch <= WS_MAX_BATCH when COLS(n) fits in shared memory
+    (n <= RING_WS_MAX_REPLICAS: n * 128 / COLS blocks, one an SM), else
+    'rows' (the ring of csrc/epoch_step.cu: f32 rows, bf16, larger batches
+    and more replicas). This picks by form, never on failure."""
+    cols = ring_ws_cols(n)
+    if (x_dtype == torch.uint8 and not compute_bf16 and batch <= WS_MAX_BATCH
+            and cols and ws_smem_bytes(cols) <= WS_SMEM_LIMIT):
+        return "ws"
+    return "rows"
+
+
+def _ring_ws_lib(name: str = "ring_ws"):
+    """The K6-ws library `name` (the default build, or its stamps build of
+    ops/_build.py VARIANTS) with its ctypes signatures declared and its
+    constants checked against this module's."""
+    if name not in _ring_ws_libs:
+        from . import _build
+        lib = _build.load(name)
+        p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+        lib.pdmt_ring_ws_step.argtypes = [p, p, p, i, i, i, u, i, i, f, f, f,
+                                          i, ctypes.c_ulonglong, i, p,
+                                          ctypes.POINTER(i), ctypes.POINTER(i),
+                                          p]
+        lib.pdmt_ring_ws_step.restype = i
+        for fn in ("pdmt_ring_ws_n_params", "pdmt_ring_ws_table_fields",
+                   "pdmt_ring_ws_max_batch", "pdmt_ring_ws_max_replicas",
+                   "pdmt_ring_ws_stamp_words"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i
+        for fn in ("pdmt_ring_ws_cols", "pdmt_ring_ws_smem_bytes",
+                   "pdmt_ring_ws_scratch_floats"):
+            getattr(lib, fn).argtypes = [i]
+            getattr(lib, fn).restype = i
+        for fn in ("pdmt_ring_ws_flags_per_replica",
+                   "pdmt_ring_ws_stamps_used"):
+            getattr(lib, fn).argtypes = [i, i]
+            getattr(lib, fn).restype = i
+        lib.pdmt_ring_ws_coresident.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.pdmt_ring_ws_coresident.restype = i
+        lib.pdmt_ring_ws_error_string.argtypes = [i]
+        lib.pdmt_ring_ws_error_string.restype = ctypes.c_char_p
+        got = (lib.pdmt_ring_ws_n_params(), lib.pdmt_ring_ws_table_fields(),
+               lib.pdmt_ring_ws_max_batch(), lib.pdmt_ring_ws_max_replicas(),
+               [lib.pdmt_ring_ws_cols(n) for n in range(1, 10)],
+               [lib.pdmt_ring_ws_smem_bytes(n) for n in range(1, 9)])
+        want = (N_PARAMS, 11, WS_MAX_BATCH, RING_WS_MAX_REPLICAS,
+                [ring_ws_cols(n) for n in range(1, 10)],
+                [ws_smem_bytes(ring_ws_cols(n)) for n in range(1, 9)])
+        if got != want:
+            raise RuntimeError(f"{name}: params, table fields, max batch, max "
+                               f"replicas, COLS and shared memory by n {got}; "
+                               f"expected {want}")
+        _ring_ws_libs[name] = lib
+    return _ring_ws_libs[name]
+
+
 def _ws_lib(name: str = "epoch_ws"):
     """The K2-ws library `name` (the default build, or a variant of
     ops/_build.py VARIANTS) with its ctypes signatures declared."""
@@ -191,6 +288,10 @@ def _ws_lib(name: str = "epoch_ws"):
         lib.pdmt_ws_epoch.argtypes = ([p, p, i, p, p, u] + [p] * 10
                                       + [i, p, p, p, i, i, f, f, p])
         lib.pdmt_ws_epoch.restype = i
+        lib.pdmt_ws_epoch_cols.argtypes = [i] + lib.pdmt_ws_epoch.argtypes
+        lib.pdmt_ws_epoch_cols.restype = i
+        lib.pdmt_ws_smem_bytes_at.argtypes = [i]
+        lib.pdmt_ws_smem_bytes_at.restype = i
         lib.pdmt_ws_table.argtypes = [p, p]
         lib.pdmt_ws_table.restype = i
         for fn in ("pdmt_ws_max_batch", "pdmt_ws_blocks",
@@ -455,16 +556,18 @@ def _launch_inputs(params, xp, yp, seed_or_keys, masks, rng):
 
 
 def _ws_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
-             steps_per_iter, valid_steps, max_blocks, lib_name="epoch_ws"):
-    """One K2-ws launch. K needs no padding here: the steps past
-    `valid_steps` are skipped in the kernel. Returns (params, losses
-    (valid_steps,), the stamps build's (valid_steps, N) u64 stamps or
-    None)."""
+             steps_per_iter, valid_steps, max_blocks, lib_name="epoch_ws",
+             cols=2):
+    """One K2-ws launch, at `cols` hidden units a block (2, the design's;
+    4 builds the step K6-ws runs at n = 3, 4, for comparing the two on a
+    card). K needs no padding here: the steps past `valid_steps` are
+    skipped in the kernel. Returns (params, losses (valid_steps,), the
+    stamps build's (valid_steps, N) u64 stamps or None)."""
     lib = _ws_lib(lib_name)
-    blocks = lib.pdmt_ws_blocks()
+    blocks = HIDDEN1 // cols
     if 0 < max_blocks < blocks:
         raise ValueError(
-            f"K2-ws runs {blocks} blocks, one per two hidden units; "
+            f"K2-ws runs {blocks} blocks, one per {cols} hidden units; "
             f"max_blocks={max_blocks} caps the 'rows' design only")
     dev = xp.device
     x, y32, ins, outs, m, keys, seed = _launch_inputs(
@@ -477,8 +580,8 @@ def _ws_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
               if per_step else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pdmt_ws_epoch(
-            x.data_ptr(), y32.data_ptr(), _RNG_CODE[rng],
+        err = lib.pdmt_ws_epoch_cols(
+            cols, x.data_ptr(), y32.data_ptr(), _RNG_CODE[rng],
             m.data_ptr() if m is not None else None,
             keys.data_ptr() if keys is not None else None, seed,
             *(w.data_ptr() for w in ins), *(w.data_ptr() for w in outs),
@@ -489,8 +592,9 @@ def _ws_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
     if lib_name == "epoch_ws":
         launch_count["epoch_step_ws"] += 1
     last_launch.update(
-        design="ws", blocks=blocks, bf16=False, steps_per_iter=steps_per_iter,
-        staged=False, form=f"uint8/{rng}", replicas=1, ring="")
+        design="ws", blocks=blocks, cols=cols, bf16=False,
+        steps_per_iter=steps_per_iter, staged=False, form=f"uint8/{rng}",
+        replicas=1, ring="")
     return (_tree(*outs), losses[:valid_steps],
             stamps[:valid_steps] if stamps is not None else None)
 
@@ -551,7 +655,7 @@ def _mma_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
     if lib_name == "epoch_mma":
         launch_count["epoch_step_mma"] += 1
     last_launch.update(
-        design="mma", blocks=grid.value, bf16=True,
+        design="mma", blocks=grid.value, cols=0, bf16=True,
         steps_per_iter=steps_per_iter, staged=False, form=f"uint8/{rng}",
         replicas=1, ring="")
     return (_tree(*outs), losses[:valid_steps],
@@ -605,7 +709,7 @@ def _epoch_cuda(params, xp, yp, seed_or_keys, lr, batch, masks, rng, nsteps,
     _raise_on(err, "epoch_step kernel launch")
     launch_count[_form_key(compute_bf16, steps_per_iter)] += 1
     last_launch.update(
-        design="rows", blocks=grid.value, bf16=bool(compute_bf16),
+        design="rows", blocks=grid.value, cols=0, bf16=bool(compute_bf16),
         steps_per_iter=steps_per_iter, staged=stage is not None,
         form=f"{'uint8' if u8 else 'f32'}/{rng}", replicas=1, ring="")
     return _tree(*outs), losses[:valid_steps]
@@ -639,10 +743,11 @@ def epoch_fused_sgd(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
     `ring` picks the allreduce ('auto': all-gather up to
     EPOCH_KERNEL_MAX_DEVICES replicas, reduce-scatter beyond). Returns
     (list of n params trees, bitwise equal; list of n per-replica loss
-    tensors). `max_blocks` caps the blocks of the 'rows' design (per
+    tensors). K6's design is `ring_design`'s ('ws' or 'rows'), or
+    `_design`'s. `max_blocks` caps the blocks of the 'rows' design (per
     replica for K6; 0: the co-resident maximum cut to the work); the bits
-    do not depend on it. K2-ws and K2-mma have a fixed grid and refuse a
-    cap below it.
+    do not depend on it. K2-ws, K2-mma and K6-ws have a fixed grid and
+    refuse a cap below it.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     version."""
@@ -651,7 +756,7 @@ def epoch_fused_sgd(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
                          rng_impl=rng_impl, compute_bf16=compute_bf16,
                          steps_per_iter=steps_per_iter,
                          valid_steps=valid_steps, axis_size=axis_size,
-                         ring=ring, max_blocks=max_blocks)
+                         ring=ring, max_blocks=max_blocks, design=_design)
     rng, nsteps, valid, pad = _check(params, xp, yp, seed_or_keys, batch,
                                      masks, rng_impl, steps_per_iter,
                                      valid_steps)
@@ -744,6 +849,87 @@ def ring_mean(flats, ring: str) -> torch.Tensor:
             s = flats[(c + k) % n][lo:hi] + s
         out[lo:hi] = s * inv
     return out
+
+
+def _owned_offsets(cols: int, g: int) -> torch.Tensor:
+    """The packed offsets of the gradient elements that K6-ws's block g
+    owns at `cols` hidden units a block (units j = g*cols ..): its slice of
+    every row of w1, b1[j], its rows of w2, b2[j], its rows of w3, in the
+    order the block holds them (csrc/ring_ws.cu `unit_off`)."""
+    j = torch.arange(g * cols, (g + 1) * cols)
+    off_b1 = IN_DIM * HIDDEN1
+    off_w2 = off_b1 + HIDDEN1
+    off_b2 = off_w2 + HIDDEN1 * HIDDEN2
+    off_w3 = off_b2 + HIDDEN2
+    return torch.cat([
+        (torch.arange(IN_DIM)[:, None] * HIDDEN1 + j).reshape(-1),
+        off_b1 + j,
+        (off_w2 + j[:, None] * HIDDEN2 + torch.arange(HIDDEN2)).reshape(-1),
+        off_b2 + j,
+        (off_w3 + j[:, None] * NUM_CLASSES
+         + torch.arange(NUM_CLASSES)).reshape(-1)])
+
+
+def ring_mean_by_owner(flats, ring: str, cols: int) -> torch.Tensor:
+    """K6-ws's schedule in plain torch (tests only): each column owner g
+    runs its own mini-ring over the n replicas on the elements it owns
+    (`_owned_offsets`), hop by hop as csrc/ring_ws.cu does, each replica
+    with its own buffers:
+      allgather       hop h: replica r's slot (r - h) mod n goes to its
+                      right neighbour's same slot; then every replica sums
+                      its n slots in origin order;
+      reduce_scatter  an element's chunk is the one its packed offset falls
+                      in (rs_chunk_bounds); hop h: replica r sends its
+                      partial of chunk (r - h) to the right, which adds it
+                      to its own (local + incoming); then n - 1 hops carry
+                      the finished chunks around.
+    Then every replica takes tot * f32(1/n). Returns replica 0's mean
+    (every replica's is checked to be the same bits)."""
+    n = len(flats)
+    if ring not in ("allgather", "reduce_scatter"):
+        raise ValueError(f"ring must be 'allgather' or 'reduce_scatter'; got "
+                         f"{ring!r}")
+    dev = flats[0].device
+    inv = torch.tensor(1.0 / n, dtype=torch.float32, device=dev)
+    means = [torch.empty_like(flats[0]) for _ in range(n)]
+    bounds = torch.tensor(rs_chunk_bounds(n))
+    for g in range(HIDDEN1 // cols):
+        idx = _owned_offsets(cols, g)
+        own = [f[idx.to(dev)] for f in flats]
+        if ring == "allgather":
+            # slots[r][s]: what replica r holds of origin s
+            slots = [{r: own[r]} for r in range(n)]
+            for h in range(n - 1):
+                for r in range(n):
+                    s = (r - h) % n
+                    slots[(r + 1) % n][s] = slots[r][s]
+            for r in range(n):
+                tot = slots[r][0]
+                for d in range(1, n):
+                    tot = tot + slots[r][d]
+                means[r][idx.to(dev)] = tot * inv
+            continue
+        # the owner's positions of each chunk's elements
+        chunk = torch.bucketize(idx, bounds, right=True) - 1
+        pos = [torch.nonzero(chunk == c).flatten().to(dev) for c in range(n)]
+        comm = own
+        for h in range(n - 1):
+            for r in range(n):
+                sc, dst = (r - h) % n, (r + 1) % n
+                # the receiver's local + incoming (its own send this hop is
+                # another chunk)
+                comm[dst][pos[sc]] = comm[dst][pos[sc]] + comm[r][pos[sc]]
+        for k in range(n - 1):
+            for r in range(n):
+                sc = (r + 1 - k) % n
+                comm[(r + 1) % n][pos[sc]] = comm[r][pos[sc]]
+        for r in range(n):
+            means[r][idx.to(dev)] = comm[r] * inv
+    for r in range(1, n):
+        if not torch.equal(means[r], means[0]):
+            raise AssertionError(f"replica {r}'s mean differs from replica "
+                                 f"0's")
+    return means[0]
 
 
 def _resolve_ring(ring: str, n: int) -> str:
@@ -865,33 +1051,72 @@ def epoch_dp_sgd_reference(params, xp, yp, seed_or_keys, lr: float,
     return ps, [torch.stack(ls) for ls in losses]
 
 
-def _ring_cuda(params, xp, yp, seeds, masks, lr, batch, rng, nsteps,
-               compute_bf16, ring, max_blocks, timeout_s=RING_TIMEOUT_S,
-               fault=-1):
-    """One K6 launch on the replicas' card; raises RingTimeoutError if a
-    wait of the ring passed `timeout_s`. `fault` >= 0 names a replica that
-    never signals its first hop (stalled_ring)."""
-    lib = _kernel_lib()
+def _int32_keys(keys, device) -> torch.Tensor:
+    """A replica's threefry key table as the kernel takes it: an (S, 2)
+    int32 table on `device` as it is (the words' bits already), anything
+    else through threefry.to_int32_words."""
+    if (isinstance(keys, torch.Tensor) and keys.dtype == torch.int32
+            and keys.dim() == 2 and keys.is_contiguous()
+            and keys.device == device):
+        return keys
+    return threefry.to_int32_words(keys).to(device)
+
+
+_chunk_los = {}
+
+
+def _chunk_lo(n: int, device) -> torch.Tensor:
+    """rs_chunk_bounds(n) as an int32 tensor on `device`, made once."""
+    if (n, device) not in _chunk_los:
+        _chunk_los[n, device] = torch.tensor(rs_chunk_bounds(n),
+                                             dtype=torch.int32).to(device)
+    return _chunk_los[n, device]
+
+
+def _ring_launch(params, xp, yp, seeds, masks, lr, batch, rng, nsteps,
+                 compute_bf16, ring, max_blocks, timeout_s=RING_TIMEOUT_S,
+                 fault=-1, design="rows", lib_name="ring_ws"):
+    """One K6 launch of `design` ('ws': K6-ws, from library `lib_name`;
+    'rows': csrc/epoch_step.cu's ring) on the replicas' card; raises
+    RingTimeoutError if a wait of the ring passed `timeout_s`. `fault` >= 0
+    names a replica that never signals its first hop (stalled_ring).
+    Returns (params list, losses list, the stamps build's (nsteps, N) u64
+    stamps or None)."""
     n = len(xp)
     dev = xp[0].device
     rs = ring == "reduce_scatter"
-    P = lib.pdmt_epoch_n_params()
-    if P != N_PARAMS or lib.pdmt_ring_table_fields() != 11:
-        raise RuntimeError(f"epoch_step library: {P} params and "
-                           f"{lib.pdmt_ring_table_fields()} table fields, "
-                           f"expected {N_PARAMS} and 11")
+    ws = design == "ws"
+    if ws:
+        lib = _ring_ws_lib(lib_name)
+        G = HIDDEN1 // ring_ws_cols(n)
+        if 0 < max_blocks < G:
+            raise ValueError(
+                f"K6-ws runs {G} blocks a replica at n = {n}; max_blocks="
+                f"{max_blocks} caps the 'rows' design only")
+        error_string = lib.pdmt_ring_ws_error_string
+    else:
+        lib = _kernel_lib()
+        P = lib.pdmt_epoch_n_params()
+        if P != N_PARAMS or lib.pdmt_ring_table_fields() != 11:
+            raise RuntimeError(f"epoch_step library: {P} params and "
+                               f"{lib.pdmt_ring_table_fields()} table fields, "
+                               f"expected {N_PARAMS} and 11")
+        error_string = None
+    P = N_PARAMS
     u8 = int(xp[0].dtype == torch.uint8)
     xs = [(x if u8 else x.to(torch.float32)).contiguous() for x in xp]
+    if ws:   # its rows are copied 16 bytes at a time
+        xs = [x.clone() if x.data_ptr() % 16 else x for x in xs]
     ys = [y.to(torch.int32).contiguous() for y in yp]
     ms = [m.to(torch.float32).contiguous() if m is not None else None
           for m in masks]
-    keys = [threefry.to_int32_words(k).to(dev) if rng == "threefry" else None
-            for k in seeds]
+    keys = [_int32_keys(k, dev) if rng == "threefry" else None for k in seeds]
     seed = int(seeds[0]) & threefry.M32 if rng == "core" else 0
     ins = [pack(p).detach().to(torch.float32).contiguous() for p in params]
     outs = [torch.empty(P, dtype=torch.float32, device=dev) for _ in range(n)]
-    scratch = torch.empty((n, batch * lib.pdmt_epoch_scratch_per_row()),
-                          dtype=torch.float32, device=dev)
+    per_rep = (lib.pdmt_ring_ws_scratch_floats(batch) if ws
+               else batch * lib.pdmt_epoch_scratch_per_row())
+    scratch = torch.empty((n, per_rep), dtype=torch.float32, device=dev)
     losses = torch.empty((n, nsteps), dtype=torch.float32, device=dev)
     comm = torch.empty((n, P if rs else n * P), dtype=torch.float32,
                        device=dev)
@@ -899,30 +1124,49 @@ def _ring_cuda(params, xp, yp, seeds, masks, lr, batch, rng, nsteps,
     chunk_max = (max(b - a for a, b in zip(bounds, bounds[1:])) if rs else 0)
     recv = (torch.empty((n, (n - 1) * chunk_max), dtype=torch.float32,
                         device=dev) if rs else None)
-    flags = torch.zeros((n, lib.pdmt_ring_flags_per_replica(n, int(rs))),
-                        dtype=torch.int32, device=dev)
-    err_rec = torch.zeros(4, dtype=torch.int32, device=dev)
+    nflags = (lib.pdmt_ring_ws_flags_per_replica(n, int(rs)) if ws
+              else lib.pdmt_ring_flags_per_replica(n, int(rs)))
+    # the flag counters and the error record, zeroed by one fill
+    zeroed = torch.zeros(n * nflags + 4, dtype=torch.int32, device=dev)
+    flags, err_rec = zeroed[:-4].view(n, nflags), zeroed[-4:]
     ptr = lambda t: t.data_ptr() if t is not None else 0  # noqa: E731
     table = torch.tensor(
         [[ptr(xs[r]), ptr(ys[r]), ptr(ms[r]), ptr(keys[r]), ptr(ins[r]),
           ptr(outs[r]), ptr(scratch[r]), ptr(losses[r]), ptr(comm[r]),
           ptr(recv[r]) if rs else 0, ptr(flags[r])] for r in range(n)],
         dtype=torch.int64).to(dev)
-    chunk_lo = (torch.tensor(bounds, dtype=torch.int32).to(dev) if rs
-                else None)
-    group = ctypes.c_int(0)
+    chunk_lo = _chunk_lo(n, dev) if rs else None
+    words = lib.pdmt_ring_ws_stamp_words() if ws else 0
+    stamps = (torch.zeros((nsteps, words), dtype=torch.int64, device=dev)
+              if words else None)
+    group, cols = ctypes.c_int(0), ctypes.c_int(0)
+    inv_n = float(np.float32(1.0 / n))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pdmt_ring_step(
-            table.data_ptr(), ptr(chunk_lo), err_rec.data_ptr(), n, int(rs),
-            u8, _RNG_CODE[rng], int(compute_bf16), seed, nsteps, batch, lr,
-            1.0 / batch, float(torch.tensor(1.0 / n, dtype=torch.float32)),
-            chunk_max, int(timeout_s * 1e9), fault, max_blocks,
-            ctypes.byref(group), stream)
-    _raise_on(err, "epoch_step ring kernel launch")
-    launch_count[f"epoch_step_dp_{ring}" + ("_bf16" if compute_bf16 else "")] += 1
-    last_launch.update(design="rows", blocks=group.value, bf16=bool(compute_bf16),
-                       steps_per_iter=1, staged=False,
+        if ws:
+            err = lib.pdmt_ring_ws_step(
+                table.data_ptr(), ptr(chunk_lo), err_rec.data_ptr(), n,
+                int(rs), _RNG_CODE[rng], seed, nsteps, batch, lr, 1.0 / batch,
+                inv_n, chunk_max, int(timeout_s * 1e9), fault, ptr(stamps),
+                ctypes.byref(group), ctypes.byref(cols), stream)
+        else:
+            err = lib.pdmt_ring_step(
+                table.data_ptr(), ptr(chunk_lo), err_rec.data_ptr(), n,
+                int(rs), u8, _RNG_CODE[rng], int(compute_bf16), seed, nsteps,
+                batch, lr, 1.0 / batch, inv_n, chunk_max,
+                int(timeout_s * 1e9), fault, max_blocks, ctypes.byref(group),
+                stream)
+    _raise_on(err, f"{lib_name if ws else 'epoch_step'} ring kernel launch",
+              error_string)
+    if ws:
+        if lib_name == "ring_ws":
+            launch_count[f"epoch_step_dp_ws_{ring}"] += 1
+    else:
+        launch_count[f"epoch_step_dp_{ring}"
+                     + ("_bf16" if compute_bf16 else "")] += 1
+    last_launch.update(design=design, blocks=group.value, cols=cols.value,
+                       bf16=bool(compute_bf16), steps_per_iter=1,
+                       staged=False,
                        form=f"{'uint8' if u8 else 'f32'}/{rng}", replicas=n,
                        ring=ring)
     what, rep, step, hop = err_rec.tolist()   # the launch's one sync
@@ -931,15 +1175,26 @@ def _ring_cuda(params, xp, yp, seeds, masks, lr, batch, rng, nsteps,
                  3: "the neighbour handshake",
                  4: f"hop {hop} from its left neighbour"}
         raise RingTimeoutError(
-            f"K6 {ring} ring of {n} replicas: replica {rep} waited more than "
-            f"{timeout_s} s for {waits.get(what, f'wait {what}')}"
+            f"K6 {ring} ring ({design} design) of {n} replicas: replica {rep} "
+            f"waited more than {timeout_s} s for "
+            f"{waits.get(what, f'wait {what}')}"
             f"{f' at step {step}' if step >= 0 else ''}")
-    return [unpack(o) for o in outs], list(losses.unbind(0))
+    return [unpack(o) for o in outs], list(losses.unbind(0)), stamps
+
+
+def _ring_cuda(params, xp, yp, seeds, masks, lr, batch, rng, nsteps,
+               compute_bf16, ring, max_blocks, timeout_s=RING_TIMEOUT_S,
+               fault=-1, design="rows"):
+    """One K6 launch of `design` (`_ring_launch`); returns (params list,
+    losses list)."""
+    return _ring_launch(params, xp, yp, seeds, masks, lr, batch, rng, nsteps,
+                        compute_bf16, ring, max_blocks, timeout_s, fault,
+                        design)[:2]
 
 
 def _epoch_dp(params, xp, yp, seed_or_keys, lr, batch, *, masks, rng_impl,
               compute_bf16, steps_per_iter, valid_steps, axis_size, ring,
-              max_blocks):
+              max_blocks, design=None):
     ring, rng, params, xp, yp, seeds, masks, nsteps, valid = _check_dp(
         params, xp, yp, seed_or_keys, batch, masks, rng_impl, steps_per_iter,
         valid_steps, axis_size, ring)
@@ -947,12 +1202,14 @@ def _epoch_dp(params, xp, yp, seed_or_keys, lr, batch, *, masks, rng_impl,
         p, losses = epoch_fused_sgd(
             params[0], xp[0], yp[0], seeds[0], lr, batch, masks=masks[0],
             rng_impl=rng_impl, compute_bf16=compute_bf16,
-            valid_steps=valid_steps, max_blocks=max_blocks)
+            valid_steps=valid_steps, max_blocks=max_blocks, _design=design)
         return [p], [losses]
     device = xp[0].device
     if device.type == "cuda":
+        design = design or ring_design(xp[0].dtype, compute_bf16, batch,
+                                       axis_size)
         return _ring_cuda(params, xp, yp, seeds, masks, lr, batch, rng, valid,
-                          compute_bf16, ring, max_blocks)
+                          compute_bf16, ring, max_blocks, design=design)
     if device.type == "cpu":
         return epoch_dp_sgd_reference(
             params, xp, yp, seed_or_keys, lr, batch,
@@ -964,11 +1221,12 @@ def _epoch_dp(params, xp, yp, seed_or_keys, lr, batch, *, masks, rng_impl,
 
 
 def stalled_ring(device, *, n: int = 2, ring: str = "allgather",
-                 timeout_s: float = 0.05):
+                 timeout_s: float = 0.05, design=None):
     """Launch K6 once on `device` with replica 0 never signalling its first
     hop (one 1-step epoch at B = 8, zero weights and rows) and return the
-    RingTimeoutError it must end in. A debug entry: it shows that a ring
-    wait is bounded, and is not counted in launch_count."""
+    RingTimeoutError it must end in; `design` 'ws' or 'rows' (default:
+    `ring_design`'s for that form, 'ws'). A debug entry: it shows that a
+    ring wait is bounded, and is not counted in launch_count."""
     device = torch.device(device)
     zeros = unpack(torch.zeros(N_PARAMS, device=device))
     x = torch.zeros((8, IN_DIM), dtype=torch.uint8, device=device)
@@ -977,7 +1235,8 @@ def stalled_ring(device, *, n: int = 2, ring: str = "allgather",
     try:
         _ring_cuda([zeros] * n, [x] * n, [y] * n, [0] * n, [None] * n, 0.0, 8,
                    "core", 1, False, _resolve_ring(ring, n), 0,
-                   timeout_s=timeout_s, fault=0)
+                   timeout_s=timeout_s, fault=0,
+                   design=design or ring_design(x.dtype, False, 8, n))
     except RingTimeoutError as e:
         return e
     finally:
@@ -1105,3 +1364,62 @@ def mma_epoch_phase_stamps(params, xp, yp, seed_or_keys, lr: float,
     per_phase = (t[:, 1:] - t[:, :-1]).mean(0) / 1e3
     split = dict(zip(MMA_EPOCH_PHASES, per_phase.tolist()))
     return p, losses, split, float((t[:, -1] - t[:, 0]).mean()) / 1e3
+
+
+# the phases between K6-ws's stamps (csrc/ring_ws.cu `K6Stamp` and its ring
+# events), in order, at n replicas of `ring`
+def k6_phases(ring: str, n: int) -> list:
+    out = ["handshake signal + rows + z1 + mask + d1 out", "barrier 1",
+           "d1 in + z2 + h2 out (handshake wait beside)", "barrier 2",
+           "h2 in + logits + gw3 + dz2 + dd1 + gw2 + gw1, hop 0's stores"]
+    signal = lambda h: ("signal hop 0" if h == 0  # noqa: E731
+                        else f"store + signal hop {h}")
+    out += [signal(0)] * (n > 1)
+    if ring == "allgather":
+        for h in range(n - 1):
+            out.append(f"wait + load hop {h}")
+            if h + 1 < n - 1:
+                out.append(signal(h + 1))
+        return out + ["sum + SGD"]
+    for h in range(n - 1):
+        out.append(f"wait + add hop {h}")
+        if h + 1 < n - 1:
+            out.append(signal(h + 1))
+    for k in range(n - 1):
+        if k > 0:
+            out.append(f"wait + load hop {n - 2 + k}")
+        out.append(signal(n - 1 + k))
+    return out + [f"wait + load hop {2 * n - 3}", "SGD"]
+
+
+def k6_phase_stamps(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
+                    masks=None, rng_impl: str = "core", axis_size: int,
+                    ring: str = "auto"):
+    """One n-replica epoch on K6-ws's stamps build (`-DK6_STAMPS`,
+    ops/_build.py VARIANTS), which reads %globaltimer at the phase
+    boundaries of block 0 of replica 0. Inputs as `epoch_fused_sgd` with
+    `axis_size`. A debug entry on CUDA tensors, not counted in
+    launch_count. Returns (params list, losses list, {phase: mean us a
+    step}, mean us a step): the phases of `k6_phases(ring, n)`, each
+    averaged over the epoch's steps."""
+    ring, rng, params, xp, yp, seeds, masks, nsteps, valid = _check_dp(
+        params, xp, yp, seed_or_keys, batch, masks, rng_impl, 1, None,
+        axis_size, ring)
+    if xp[0].device.type != "cuda" or ring_design(
+            xp[0].dtype, False, batch, axis_size) != "ws":
+        raise ValueError("k6_phase_stamps runs K6-ws's form (uint8 rows, "
+                         "f32, B <= 128, n <= RING_WS_MAX_REPLICAS) on a "
+                         "CUDA device")
+    ps, ls, stamps = _ring_launch(params, xp, yp, seeds, masks, lr, batch,
+                                  rng, valid, False, ring, 0, design="ws",
+                                  lib_name="ring_ws_stamps")
+    phases = k6_phases(ring, axis_size)
+    used = _ring_ws_lib("ring_ws_stamps").pdmt_ring_ws_stamps_used(
+        axis_size, int(ring == "reduce_scatter"))
+    if used != len(phases) + 1:
+        raise RuntimeError(f"ring_ws_stamps records {used} stamps a step; "
+                           f"k6_phases names {len(phases) + 1}")
+    t = stamps[:, :used].double()
+    per_phase = (t[:, 1:] - t[:, :-1]).mean(0) / 1e3
+    return (ps, ls, dict(zip(phases, per_phase.tolist())),
+            float((t[:, -1] - t[:, 0]).mean()) / 1e3)

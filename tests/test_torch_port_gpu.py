@@ -41,8 +41,16 @@ K1-mma + SGD per step and a repeat launch at B = 128, 96 and 8 in the masks,
 Philox and threefry forms, at the JAX bf16 pins against its plain version
 and the rows design, its superstep bitwise K = 1, its stamps build bitwise
 its default build. The rows design's K2-bf16 stays bitwise the rows
-design's K1-bf16 + SGD, and the K6-bf16 pin names that step too."""
+design's K1-bf16 + SGD, and the K6-bf16 pin names that step too. K6-ws,
+the DP rings on K2-ws's column-owner step (csrc/ring_ws.cu, one mini-ring
+per column owner), is held bitwise against the rows design's ring and K1
+per replica + the ring tree + SGD at B = 128, 96 and 8 on both rings,
+with the replicas in lockstep and a repeat launch bitwise; its 1-replica
+launch bitwise K2-ws, K2-ws at four units a block bitwise two, its
+constants and co-residency, its stamps build bitwise its default build,
+and a stalled ring of either design raising by name."""
 
+import ctypes
 import re
 from functools import partial
 
@@ -464,14 +472,17 @@ def _dp(fn, form, inp, ring, **kw):
 @pytest.mark.parametrize("ring,n", RING_CASES)
 def test_ring_kernel_keeps_lockstep_and_is_k1_plus_the_ring_tree(cuda, ring,
                                                                  n, form):
+    # the rows design's ring, forced (the main path's forms run K6-ws)
     inp = _dp_inputs(n, 16, 3, seed=10 * n, device=cuda)
     key = f"epoch_step_dp_{ring}"
     before = epoch_step.launch_count[key]
-    ps, ls = _dp(epoch_step.epoch_fused_sgd, form, inp, ring)
-    ps2, ls2 = _dp(epoch_step.epoch_fused_sgd, form, inp, ring)
+    ps, ls = _dp(epoch_step.epoch_fused_sgd, form, inp, ring, _design="rows")
+    ps2, ls2 = _dp(epoch_step.epoch_fused_sgd, form, inp, ring,
+                   _design="rows")
     assert epoch_step.launch_count[key] == before + 2
     assert (epoch_step.last_launch["replicas"],
-            epoch_step.last_launch["ring"]) == (n, ring)
+            epoch_step.last_launch["ring"],
+            epoch_step.last_launch["design"]) == (n, ring, "rows")
     k1 = _dp(epoch_step.epoch_dp_sgd_reference, form, inp, ring,
              step_fn=fused_step.fused_loss_and_grads)
     ref = _dp(epoch_step.epoch_dp_sgd_reference, form, inp, ring)
@@ -516,9 +527,10 @@ def test_in_kernel_philox_of_each_replica_is_the_plain_stream(cuda):
     assert not torch.equal(masks[0], masks[1])
 
 
+@pytest.mark.parametrize("design", ["ws", "rows"])
 @pytest.mark.parametrize("ring", ["allgather", "reduce_scatter"])
-def test_a_stalled_ring_raises_by_name_instead_of_hanging(cuda, ring):
-    err = epoch_step.stalled_ring(cuda, n=2, ring=ring)
+def test_a_stalled_ring_raises_by_name_instead_of_hanging(cuda, ring, design):
+    err = epoch_step.stalled_ring(cuda, n=2, ring=ring, design=design)
     assert isinstance(err, epoch_step.RingTimeoutError)
     assert "replica 1" in str(err) and "hop 0" in str(err), str(err)
 
@@ -975,3 +987,102 @@ def test_cached_bf16_cli_runs_one_mma_epoch_launch_per_epoch(cuda, tmp_path,
     assert epoch_step.launch_count["epoch_step_mma"] == \
         before["epoch_step_mma"] + 2
     assert epoch_step.last_launch["design"] == "mma"
+
+
+# ---- K6-ws, the DP rings on K2-ws's column-owner step ----
+
+RING_WS_CASES = RING_CASES + [("allgather", 3), ("reduce_scatter", 2)]
+
+
+@pytest.mark.parametrize("form", DP_FORMS)
+@pytest.mark.parametrize("batch,nsteps", [(128, 4), (96, 3), (8, 3)])
+@pytest.mark.parametrize("ring,n", RING_WS_CASES)
+def test_ring_ws_is_bitwise_the_rows_ring_and_k1_plus_the_tree(
+        cuda, ring, n, batch, nsteps, form):
+    inp = _dp_inputs(n, batch, nsteps, seed=10 * n + batch, device=cuda)
+    key = f"epoch_step_dp_ws_{ring}"
+    before = dict(epoch_step.launch_count)
+    ps, ls = _dp(epoch_step.epoch_fused_sgd, form, inp, ring)
+    ll = dict(epoch_step.last_launch)
+    cols = epoch_step.ring_ws_cols(n)
+    assert (ll["design"], ll["replicas"], ll["ring"], ll["cols"],
+            ll["blocks"]) == ("ws", n, ring, cols, 128 // cols)
+    ps2, ls2 = _dp(epoch_step.epoch_fused_sgd, form, inp, ring)
+    assert epoch_step.launch_count[key] == before[key] + 2
+    assert epoch_step.launch_count[f"epoch_step_dp_{ring}"] == \
+        before[f"epoch_step_dp_{ring}"]
+    rows = _dp(epoch_step.epoch_fused_sgd, form, inp, ring, _design="rows")
+    k1 = _dp(epoch_step.epoch_dp_sgd_reference, form, inp, ring,
+             step_fn=fused_step.fused_loss_and_grads)
+    torch.cuda.synchronize()
+    for r in range(n):
+        got = _leaves(ps[r], ls[r])
+        for a, b, c, d, e in zip(got, _leaves(ps[0], ls[r]),
+                                 _leaves(ps2[r], ls2[r]),
+                                 _leaves(rows[0][r], rows[1][r]),
+                                 _leaves(k1[0][r], k1[1][r])):
+            assert torch.equal(a, b)        # lockstep
+            assert torch.equal(a, c)        # repeatable
+            assert torch.equal(a, d)        # the rows design's ring
+            assert torch.equal(a, e)        # K1 + ring tree + SGD
+
+
+@pytest.mark.parametrize("form", DP_FORMS)
+def test_one_replica_ring_ws_launch_is_k2_ws_bitwise(cuda, form):
+    inp = _epoch_inputs(128, 3, seed=5, device=cuda)
+    serial = _leaves(*_epoch(epoch_step.epoch_fused_sgd, form, inp))
+    assert epoch_step.last_launch["design"] == "ws"
+    pixels, rng = K2_FORMS[form]
+    ps, ls = epoch_step._ring_cuda(
+        [inp["params"]], [inp[pixels]], [inp["y"]], [inp.get(rng)],
+        [inp["masks"] if rng == "masks" else None], 0.01, 128, rng, 3, False,
+        "allgather", 0, design="ws")
+    assert epoch_step.last_launch["design"] == "ws"
+    for a, b in zip(_leaves(ps[0], ls[0]), serial):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("form", DP_FORMS)
+def test_k2_ws_at_four_columns_a_block_is_bitwise_two(cuda, form):
+    # the step K6-ws runs at n = 3, 4 (32 blocks), alone: K2-ws's bits
+    inp = _epoch_inputs(128, 4, seed=6, device=cuda)
+    base = _leaves(*_epoch(epoch_step.epoch_fused_sgd, form, inp))
+    pixels, rng = K2_FORMS[form]
+    got = epoch_step._ws_cuda(
+        inp["params"], inp[pixels], inp["y"], inp.get(rng), 0.01, 128,
+        inp["masks"] if rng == "masks" else None, rng, 4, 1, 4, 0, cols=4)
+    assert (epoch_step.last_launch["blocks"],
+            epoch_step.last_launch["cols"]) == (32, 4)
+    for a, b in zip(_leaves(*got[:2]), base):
+        assert torch.equal(a, b)
+
+
+def test_ring_ws_library_shares_the_wrappers_constants_and_fits(cuda):
+    lib = epoch_step._ring_ws_lib()      # checks its constants on load
+    ws = epoch_step._ws_lib()
+    for cols in (2, 4, 8):
+        assert ws.pdmt_ws_smem_bytes_at(cols) == \
+            epoch_step.ws_smem_bytes(cols)
+    for n in range(1, epoch_step.RING_WS_MAX_REPLICAS + 1):
+        blocks = ctypes.c_int(0)
+        for rng in range(3):
+            assert lib.pdmt_ring_ws_coresident(n, rng,
+                                               ctypes.byref(blocks)) == 0
+            assert blocks.value >= n * 128 // epoch_step.ring_ws_cols(n)
+
+
+def test_ring_ws_stamps_build_keeps_the_bits_and_splits_the_step(cuda):
+    for ring, n in (("allgather", 4), ("reduce_scatter", 3)):
+        inp = _dp_inputs(n, 128, 3, seed=2, device=cuda)
+        base = _dp(epoch_step.epoch_fused_sgd, "K2c", inp, ring)
+        before = dict(epoch_step.launch_count)
+        ps, ls, split, per_step = _dp(epoch_step.k6_phase_stamps, "K2c", inp,
+                                      ring)
+        assert dict(epoch_step.launch_count) == before
+        for r in range(n):
+            for a, b in zip(_leaves(ps[r], ls[r]),
+                            _leaves(base[0][r], base[1][r])):
+                assert torch.equal(a, b)
+        assert list(split) == epoch_step.k6_phases(ring, n)
+        assert all(v >= 0 for v in split.values()) and per_step > 0
+        assert abs(sum(split.values()) - per_step) <= 1e-6 * per_step + 1e-9

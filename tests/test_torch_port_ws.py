@@ -80,7 +80,10 @@ def test_design_boundary_is_ws_max_batch():
 
 
 def test_wrapper_and_source_share_their_constants():
-    src = (_build.CSRC / "epoch_ws.cu").read_text()
+    # the step's constants and stamps live in the header K2-ws shares with
+    # K6-ws (csrc/ws_step.cuh)
+    src = ((_build.CSRC / "epoch_ws.cu").read_text()
+           + (_build.CSRC / "ws_step.cuh").read_text())
     assert int(re.search(r"constexpr int B_MAX = (\d+);", src).group(1)) \
         == epoch_step.WS_MAX_BATCH
     assert int(re.search(r"constexpr int TCOPIES = (\d+);", src).group(1)) \
