@@ -7,8 +7,9 @@ Phases (any failure exits non-zero; no phase is skipped):
   1. device  — needs torch.cuda.is_available(); prints the card's name,
                the device count and nvidia-smi's name and power limit.
   2. build   — builds every kernel from the sources under
-               pytorch_ddp_mnist_tpu_torch/csrc/, and the variant builds of
-               K2-ws (its phase-stamps build), one nvcc per library, all started together, and prints what
+               pytorch_ddp_mnist_tpu_torch/csrc/, and the variant builds
+               (each design's phase-stamps build), one nvcc per library,
+               all started together, and prints what
                `nvcc -Xptxas -v` reported.
   3. kernels — holds each kernel against its plain PyTorch version on the
                card, on the same numpy-seeded inputs, with the stated
@@ -62,9 +63,17 @@ Phases (any failure exits non-zero; no phase is skipped):
                (c) its plain version, (e) a repeat launch bitwise, on each;
                K6-ws bitwise the rows design's ring; (d) a 1-replica ring
                launch of each design bitwise K2; each replica's in-kernel
-               masks bitwise; one bf16 case (K6-bf16, the rows design); a
-               stalled ring of each design ends in RingTimeoutError naming
-               hop 0.
+               masks bitwise; K6 in bf16 on K6-mma (csrc/ring_mma.cu:
+               K2-mma's tensor-core step on each replica, one mini-ring per
+               gradient-tile owner; asserted) in the same three forms at
+               both rings x n = 2, 3, 4, B = 128 x 24, 96 x 6 and 8 x 5:
+               (a), (e), bitwise K1-mma per replica + the ring tree + SGD,
+               within the JAX bf16 pins of its plain version and of the
+               rows design's ring in bf16 forced (itself bitwise its own
+               K1-bf16 + tree + SGD at n = 2, 4), a 1-replica launch
+               bitwise K2-mma; a stalled ring of each design (K6-ws,
+               K6-mma, rows) ends in RingTimeoutError naming hop 0 and the
+               design.
   4. main    — the port's main paths through the entry points a user calls,
                at full width (784-128-128-10, batch 128, lr 0.01, synthetic
                MNIST 60k/10k), each with every kernel's launch count set to 0
@@ -103,10 +112,11 @@ Phases (any failure exits non-zero; no phase is skipped):
                i. `fit_cached(mesh=data_parallel_mesh([cuda:0] * 4))` (what
                   `--parallel --cached` calls), global batch 512: one
                   118-step epoch through K6-ws all-gather (threefry), one
-                  through K6-ws reduce-scatter (core); 20 steps at 256 rows
-                  per replica through the rows design's all-gather and
-                  reduce-scatter rings, and 20 bf16 steps through K6-bf16
-                  (the rows design); 50 steps of `--kernel pallas` (K1 per
+                  through K6-ws reduce-scatter (core), and the same two in
+                  bf16 through K6-mma; 20 steps at 256 rows per replica
+                  through the rows design's all-gather and reduce-scatter
+                  rings, and 20 bf16 steps through its all-gather (the rows
+                  ring's bf16 form); 50 steps of `--kernel pallas` (K1 per
                   replica, split design, and mma in bf16), each held
                   against the same run
                   on a 4-replica CPU mesh; `train --parallel --cached
@@ -132,8 +142,10 @@ Phases (any failure exits non-zero; no phase is skipped):
                K2-ws alone at K6-ws's blocks and hidden units a block, the
                rows-design K2 and a 1-replica rows ring at the rows ring's
                blocks per replica, K6-ws's stamps split a step, the
-               profiler's device time of both designs at n = 4 in turns,
-               and K6-bf16 at n = 2.
+               profiler's device time of both designs at n = 4 in turns;
+               in bf16, K6-mma and the rows ring's bf16 form in turns at n
+               = 2 and 4, both rings, K6-mma's stamps split a step, and
+               the profiler's device time of both at n = 4 in turns.
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1577,13 +1589,18 @@ def profile_jobs(jobs: dict) -> tuple:
     """torch.profiler's device time per call of each CUDA kernel (and copy),
     for jobs {label: (fn, calls, names)} run in turn inside ONE profiler
     session, each inside a record_function range: a kernel belongs to the
-    job whose range it starts in; a job with names keeps only the kernels
-    whose short names it lists. Returns ({label: {name: us per call}},
-    {label: {"wall_ms", "window_ms", "busy_ms", "busy_share"}}), the second
-    the job's host wall time, its profiler range and the union of its
-    device intervals; empty where the profiler recorded no device time. One
-    session, taken before any CUDA graph capture: a second session later in
-    the run recorded no device time on the card."""
+    job whose range holds the host event that launched it (the profiler's
+    link from a device event to the host op or range active at its launch;
+    the kernel's own start where it has none). A device start read against
+    the host ranges can land in the job before: on an H100 one session's
+    device clock ran tens of ms behind the host's, and a K6 ring kernel
+    was counted in a streaming job. A job with names keeps only the
+    kernels whose short names it lists. Returns ({label: {name: us per
+    call}}, {label: {"wall_ms", "window_ms", "busy_ms", "busy_share"}}),
+    the second the job's host wall time, its profiler range and the union
+    of its device intervals; empty where the profiler recorded no device
+    time. One session, taken before any CUDA graph capture: a second
+    session later in the run recorded no device time on the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     for fn, _, _ in jobs.values():
@@ -1605,6 +1622,10 @@ def profile_jobs(jobs: dict) -> tuple:
     windows = {e.name[len("job::"):]: (e.time_range.start, e.time_range.end)
                for e in events if e.name.startswith("job::")
                and getattr(e, "device_type", None) == DeviceType.CPU}
+    # the host start of every host op and range a device event can link to
+    launched_at = {e.id: e.time_range.start for e in events
+                   if getattr(e, "device_type", None) == DeviceType.CPU
+                   and not getattr(e, "linked_correlation_id", 0)}
     out = {label: {} for label in jobs}
     spans = {label: [] for label in jobs}
     for e in events:
@@ -1612,12 +1633,14 @@ def profile_jobs(jobs: dict) -> tuple:
                 or e.name.startswith("job::") \
                 or e.time_range.end <= e.time_range.start:
             continue
+        at = launched_at.get(getattr(e, "linked_correlation_id", 0),
+                             e.time_range.start)
         for label, (a, b) in windows.items():
-            if a <= e.time_range.start < b:
+            if a <= at < b:
                 name = _short(e.name)
                 us = e.time_range.end - e.time_range.start
                 out[label][name] = out[label].get(name, 0.0) + us / jobs[label][1]
-                spans[label].append((e.time_range.start, min(e.time_range.end, b)))
+                spans[label].append((e.time_range.start, e.time_range.end))
                 break
     busy = {}
     for label, (_, _, names) in jobs.items():
@@ -1626,7 +1649,7 @@ def profile_jobs(jobs: dict) -> tuple:
         if label not in windows or not spans[label]:
             continue
         a, b = windows[label]
-        total, end = 0.0, a
+        total, end = 0.0, float("-inf")
         for lo, hi in sorted(spans[label]):
             if hi > end:
                 total += hi - max(lo, end)
@@ -2495,11 +2518,13 @@ def phase_kernels_k6(device) -> dict:
     (c) against epoch_dp_sgd_reference (losses K6_LOSS_TOL, params
     PARAM_FRO_RTOL); (e) a repeat launch bitwise, on each design; K6-ws
     bitwise the rows design's ring. Then (d) a 1-replica ring launch of
-    each design bitwise K2, the in-kernel masks of each replica bitwise
-    the plain streams, one bf16 case (K6-bf16, the rows design), and a
-    stalled ring of each design ending in RingTimeoutError naming hop 0.
-    Returns the worst absolute error against the plain version per ring,
-    and K6-bf16's."""
+    each design bitwise K2 (K6-mma's bitwise K2-mma), the in-kernel masks
+    of each replica bitwise the plain streams, the bf16 mode
+    (`phase_kernels_k6_mma`: K6-mma, and the rows design's ring forced),
+    and a stalled ring of each design (K6-ws, K6-mma, rows) ending in
+    RingTimeoutError naming hop 0 and the design. Returns the worst
+    absolute error against the plain version per ring, K6-mma's per ring
+    and the rows design's bf16 ring's."""
     from functools import partial
 
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step, fused_step
@@ -2580,33 +2605,26 @@ def phase_kernels_k6(device) -> dict:
                     fail(f"K6 n=1 {design} {form}: {name} differs from K2 by "
                          f"{float((a - b).abs().max()):.3e} (bitwise "
                          f"expected)")
+        bf16 = _k2_flat(*_k2_call(partial(epoch_step.epoch_fused_sgd,
+                                          compute_bf16=True), form, inp))
+        if epoch_step.last_launch["design"] != "mma":
+            fail(f"K2 bf16 {form}: launched {epoch_step.last_launch}")
+        ps, ls = epoch_step._ring_cuda(
+            [inp["params"]], [inp[pixels]], [inp["y"]], [inp.get(rng)],
+            [inp["masks"] if rng == "masks" else None], LR, batch, rng,
+            nsteps, True, "allgather", 0, design="mma")
+        for (name, a), (_, b) in zip(_k2_flat(ps[0], ls[0]), bf16):
+            if not torch.equal(a, b):
+                fail(f"K6 n=1 mma {form}: {name} differs from K2-mma by "
+                     f"{float((a - b).abs().max()):.3e} (bitwise expected)")
     print(f"[kernels] epoch_step_dp n=1 (one replica's ring launch, K6-ws "
-          f"and the rows design) bitwise equal to K2 in forms "
-          f"{', '.join(DP_FORMS)} at B={batch} S={nsteps}")
+          f"and the rows design; K6-mma in bf16) bitwise equal to K2 (K2-mma)"
+          f" in forms {', '.join(DP_FORMS)} at B={batch} S={nsteps}")
 
-    # bf16: K6 against K1-bf16 on the rows design (the step it shares) per
-    # replica + the ring tree + SGD
-    inp = _dp_inputs(2, batch, nsteps, seed=3, device=device)
-    kernel = partial(epoch_step.epoch_fused_sgd, compute_bf16=True)
-    step_bf16 = lambda p, x, y, m: fused_step.fused_loss_and_grads(  # noqa: E731
-        p, x.to(torch.bfloat16), y, m, _design="rows")
-    tag = f"epoch_step_dp_allgather_bf16 n=2 K2c B={batch} S={nsteps}"
-    got = _dp_call(kernel, "K2c", inp, "allgather")
-    if epoch_step.last_launch["design"] != "rows":
-        fail(f"{tag}: launched {epoch_step.last_launch}")
-    again = _dp_call(kernel, "K2c", inp, "allgather")
-    k1 = _dp_call(epoch_step.epoch_dp_sgd_reference, "K2c", inp, "allgather",
-                  step_fn=step_bf16)
-    ref = _dp_call(epoch_step.epoch_dp_sgd_reference, "K2c", inp,
-                   "allgather", compute_bf16=True)
-    torch.cuda.synchronize()
-    worst["bf16"] = _check_dp_case(
-        tag, got, again, k1, ref, 2, (BF16_LOSS_RTOL, BF16_LOSS_ATOL),
-        BF16_PARAM_FRO_RTOL)
-    print(f"[kernels] {tag}: worst abs err {worst['bf16']:.3e}; lockstep, "
-          f"bitwise K1-bf16 + ring tree + SGD and a repeat launch")
+    # bf16: K6-mma, and the rows design's ring in the bf16 mode forced
+    worst.update(phase_kernels_k6_mma(device))
 
-    for design in ("ws", "rows"):
+    for design in ("ws", "mma", "rows"):
         for ring in ("allgather", "reduce_scatter"):
             t0 = time.perf_counter()
             e = epoch_step.stalled_ring(device, n=2, ring=ring, design=design)
@@ -2616,6 +2634,113 @@ def phase_kernels_k6(device) -> dict:
             print(f"[kernels] stalled {ring} ring, {design} design (replica 0 "
                   f"never signals hop 0): {type(e).__name__} after "
                   f"{time.perf_counter() - t0:.2f}s: {e}")
+    return worst
+
+
+# K6-mma's checks: both rings at n = 2..RING_MMA_MAX_REPLICAS, at K6_CHECKS
+MMA_RING_CASES = tuple((ring, n) for ring in ("allgather", "reduce_scatter")
+                       for n in (2, 3, 4))
+
+
+def _check_bf16_pins(tag, got, other, n, what) -> float:
+    """`got` against `other` (n replicas' params and losses) at the JAX
+    bf16 pins: losses BF16_LOSS_RTOL / BF16_LOSS_ATOL, each param in
+    relative Frobenius norm BF16_PARAM_FRO_RTOL; returns the worst absolute
+    difference."""
+    worst = 0.0
+    for r in range(n):
+        for (name, a), (_, p) in zip(_k2_flat(got[0][r], got[1][r]),
+                                     _k2_flat(other[0][r], other[1][r])):
+            diff = (a - p).abs()
+            if name == "losses":
+                if not bool((diff <= BF16_LOSS_ATOL
+                             + BF16_LOSS_RTOL * p.abs()).all()):
+                    fail(f"{tag}: replica {r}'s losses off {what} by "
+                         f"{float(diff.max()):.3e} (rtol {BF16_LOSS_RTOL}, "
+                         f"atol {BF16_LOSS_ATOL})")
+            else:
+                fro = float(diff.norm() / p.norm())
+                if fro > BF16_PARAM_FRO_RTOL:
+                    fail(f"{tag}: {name} off {what} by {fro:.3e} in relative "
+                         f"Frobenius norm (limit {BF16_PARAM_FRO_RTOL})")
+            worst = max(worst, float(diff.max()))
+    return worst
+
+
+def phase_kernels_k6_mma(device) -> dict:
+    """K6 in the bf16 mode: K6-mma (the design ring_design picks, asserted)
+    in the masks, threefry and core forms at (all-gather, reduce-scatter) x
+    n = 2, 3, 4, at B = 128 x 24 steps, 96 x 6 and 8 x 5 per replica: (a)
+    every replica's weights bitwise equal; (b) bitwise K1-mma per replica +
+    the ring's summation tree as torch adds on the card + SGD, step by step;
+    (e) a repeat launch bitwise; within the JAX bf16 pins of the plain
+    version (epoch_dp_sgd_reference with compute_bf16) and of the rows
+    design's ring in the bf16 mode forced on the same inputs (the tensor
+    cores sum in their own order). The rows design's ring stays bitwise its
+    own step (the rows design's K1-bf16) + the tree + SGD, at n = 2 and 4.
+    Returns the worst absolute error against the plain version per ring
+    (`mma_<ring>`) and the rows design's bf16 ring's (`bf16`)."""
+    from functools import partial
+
+    from pytorch_ddp_mnist_tpu_torch.ops import epoch_step, fused_step
+    kernel = partial(epoch_step.epoch_fused_sgd, compute_bf16=True)
+    step_mma = lambda p, x, y, m: fused_step.fused_loss_and_grads(  # noqa: E731
+        p, x.to(torch.bfloat16), y, m)
+    step_rows = lambda p, x, y, m: fused_step.fused_loss_and_grads(  # noqa: E731
+        p, x.to(torch.bfloat16), y, m, _design="rows")
+    worst = {"mma_allgather": 0.0, "mma_reduce_scatter": 0.0, "bf16": 0.0}
+    for ring, n in MMA_RING_CASES:
+        for batch_c, nsteps_c in K6_CHECKS:
+            inp = _dp_inputs(n, batch_c, nsteps_c,
+                             seed=40 + 10 * n + batch_c, device=device)
+            for form in DP_FORMS:
+                tag = (f"epoch_step_dp_mma_{ring} n={n} {form} B={batch_c} "
+                       f"S={nsteps_c}")
+                t0 = time.perf_counter()
+                got = _dp_call(kernel, form, inp, ring)
+                ll = dict(epoch_step.last_launch)
+                if (ll["design"], ll["replicas"], ll["ring"], ll["form"],
+                        ll["bf16"], ll["blocks"]) != (
+                        "mma", n, ring, "/".join(K2_FORMS[form]), True,
+                        epoch_step.RING_MMA_BLOCKS):
+                    fail(f"{tag}: launched {ll}")
+                again = _dp_call(kernel, form, inp, ring)
+                rows = _dp_call(kernel, form, inp, ring, _design="rows")
+                if epoch_step.last_launch["design"] != "rows":
+                    fail(f"{tag}: _design='rows' launched "
+                         f"{epoch_step.last_launch}")
+                k1 = _dp_call(epoch_step.epoch_dp_sgd_reference, form, inp,
+                              ring, step_fn=step_mma)
+                ref = _dp_call(epoch_step.epoch_dp_sgd_reference, form, inp,
+                               ring, compute_bf16=True)
+                torch.cuda.synchronize()
+                err = _check_dp_case(tag, got, again, k1, ref, n,
+                                     (BF16_LOSS_RTOL, BF16_LOSS_ATOL),
+                                     BF16_PARAM_FRO_RTOL)
+                rows_err = _check_bf16_pins(tag, got, rows, n,
+                                            "the rows design's bf16 ring")
+                worst[f"mma_{ring}"] = max(worst[f"mma_{ring}"], err)
+                line = (f"[kernels] {tag}: final loss of replica 0 "
+                        f"{float(got[1][0][-1]):.7f} vs plain "
+                        f"{float(ref[1][0][-1]):.7f}; worst abs err {err:.3e} "
+                        f"(plain), {rows_err:.3e} (the rows ring's bf16 "
+                        f"form); {ll['blocks']} blocks per replica, in "
+                        f"lockstep, bitwise K1-mma + ring tree + SGD and a "
+                        f"repeat launch")
+                if form == "K2c" and batch_c == RING_CHECK[0] and n in (2, 4):
+                    # the rows design's ring: bitwise its own bf16 step
+                    k1_rows = _dp_call(epoch_step.epoch_dp_sgd_reference,
+                                       form, inp, ring, step_fn=step_rows)
+                    rows_again = _dp_call(kernel, form, inp, ring,
+                                          _design="rows")
+                    worst["bf16"] = max(worst["bf16"], _check_dp_case(
+                        f"epoch_step_dp_{ring}_bf16 (rows design) n={n} "
+                        f"{form} B={batch_c} S={nsteps_c}", rows, rows_again,
+                        k1_rows, ref, n, (BF16_LOSS_RTOL, BF16_LOSS_ATOL),
+                        BF16_PARAM_FRO_RTOL))
+                    line += ("; the rows ring's bf16 form bitwise the rows "
+                             "design's K1-bf16 + ring tree + SGD")
+                print(f"{line} ({time.perf_counter() - t0:.1f}s)")
     return worst
 
 
@@ -2652,8 +2777,8 @@ def _dp_fit(device, mesh, tmp: str, *, kernel: str, impl: str, ring: str,
 
 
 # the DP epochs that reach the rows design's rings: a batch of ROWS_BATCH
-# per replica (past WS_MAX_BATCH), and the bf16 mode (K6-bf16); each cut
-# to DP_ROWS_STEPS steps
+# per replica (past WS_MAX_BATCH and MMA_MAX_BATCH), in f32 and in bf16;
+# each cut to DP_ROWS_STEPS steps
 DP_ROWS_STEPS = 20
 
 
@@ -2661,10 +2786,10 @@ def phase_main_dp(device, tmp: str) -> dict:
     """The DP paths at full width on a 4-replica mesh of cuda:0, each held
     against the same run on a 4-replica CPU mesh (plain versions, the same
     masks): one 118-step epoch through K6-ws (all-gather, threefry masks)
-    and one through its reduce-scatter ring (core masks); 20 steps at 256
-    rows per replica through the rows design's rings (all-gather and
-    reduce-scatter) and 20 bf16 steps at 128 through K6-bf16 (the rows
-    design's all-gather); then 50 steps of `--kernel pallas` (K1 per
+    and one through its reduce-scatter ring (core masks), and the same two
+    in bf16 through K6-mma; 20 steps at 256 rows per replica through the
+    rows design's rings (all-gather and reduce-scatter, f32; all-gather in
+    bf16); then 50 steps of `--kernel pallas` (K1 per
     replica: K1-split in f32, K1-mma in bf16, the bf16 runs held at the
     bf16 limits); then `train --parallel --cached --kernel pallas_epoch`
     through the CLI on the 1-card mesh, equal to the serial run. Returns
@@ -2687,8 +2812,12 @@ def phase_main_dp(device, tmp: str) -> dict:
             ("reduce_scatter", "rbg", "pallas_epoch",
              DP_ROWS_STEPS * rows_batch, "float32", rows_batch, "rows",
              {"epoch_step_dp_reduce_scatter": 1}),
+            ("allgather", "threefry2x32", "pallas_epoch", 0, "bfloat16",
+             DP_BATCH, "mma", {"epoch_step_dp_mma_allgather": 1}),
+            ("reduce_scatter", "rbg", "pallas_epoch", 0, "bfloat16",
+             DP_BATCH, "mma", {"epoch_step_dp_mma_reduce_scatter": 1}),
             ("allgather", "threefry2x32", "pallas_epoch",
-             DP_ROWS_STEPS * DP_BATCH, "bfloat16", DP_BATCH, "rows",
+             DP_ROWS_STEPS * rows_batch, "bfloat16", rows_batch, "rows",
              {"epoch_step_dp_allgather_bf16": 1}),
             ("auto", "threefry2x32", "pallas", DP_PALLAS_STEPS * DP_BATCH,
              "float32", DP_BATCH, None,
@@ -2779,8 +2908,8 @@ def k6_bound(n: int, batch: int, nsteps: int, ring: str,
              peak: float = PEAK_F32_FLOPS):
     """(bound_ms, bound_by, flop, bytes) of one K6 epoch on n replicas,
     uint8 rows and threefry key tables: the n replicas' products at `peak`
-    (the f32 peak; the bf16 one for K6-bf16); bytes = each input read once
-    (rows, labels, key tables, weights), each output written once (n
+    (the f32 peak; the bf16 one for the bf16 mode); bytes = each input read
+    once (rows, labels, key tables, weights), each output written once (n
     weight sets, losses), plus the ring's hops, each hop's bytes written
     once by the sender and read once by the receiver (all-gather: n (n - 1)
     gradient blocks a step; reduce-scatter: 2 (n - 1) blocks a step, n
@@ -2793,22 +2922,32 @@ def k6_bound(n: int, batch: int, nsteps: int, ring: str,
     return _bound(flops, nbytes, peak)
 
 
+# K6's designs in the profiler's jobs: (job design, the `_design` it
+# forces, bf16 mode, the ring kernel's short name)
+K6_PROFILED = (("rows", "rows", False, "ring_kernel"),
+               ("ws", "ws", False, "ring_ws_kernel"),
+               ("rowsbf16", "rows", True, "ring_kernel"),
+               ("mma", "mma", True, "ring_mma_kernel"))
+
+
 def k6_profile_jobs(device) -> dict:
     """profile_jobs' jobs for K6 at n = DP_REPLICAS, B = 128, the 118-step
-    epoch, K3: each ring on the rows design and on K6-ws, in turns, three
-    calls each, keeping the ring kernel."""
+    epoch, K3: each ring on the rows design and on K6-ws, in turns, and in
+    the bf16 mode on the rows design and on K6-mma, in turns; three calls
+    each, keeping the ring kernel."""
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
     inp = _dp_inputs(DP_REPLICAS, MAIN_BATCH, DP_EPOCH_STEPS, seed=11,
                      device=device)
     jobs = {}
     for ring in ("allgather", "reduce_scatter"):
-        for design, kernel in (("rows", "ring_kernel"), ("ws", "ring_ws_kernel"),
-                               ("ws2", "ring_ws_kernel"),
-                               ("rows2", "ring_kernel")):
-            jobs[f"k6_{ring}_{design}"] = (
-                lambda ring=ring, design=design: _dp_call(
-                    epoch_step.epoch_fused_sgd, "K3", inp, ring,
-                    _design=design.rstrip("2")), 3, (kernel,))
+        for first, second in (K6_PROFILED[:2], K6_PROFILED[2:]):
+            for label, (design, forced, bf16, kernel) in (
+                    (first[0], first), (second[0], second),
+                    (second[0] + "2", second), (first[0] + "2", first)):
+                jobs[f"k6_{ring}_{label}"] = (
+                    lambda ring=ring, forced=forced, bf16=bf16: _dp_call(
+                        epoch_step.epoch_fused_sgd, "K3", inp, ring,
+                        _design=forced, compute_bf16=bf16), 3, (kernel,))
     return jobs
 
 
@@ -2818,7 +2957,7 @@ def k6_device_us(prof: dict) -> dict:
     (missing where the profiler recorded no device time)."""
     out = {}
     for ring in ("allgather", "reduce_scatter"):
-        for design in ("rows", "ws"):
+        for design, *_ in K6_PROFILED:
             times = [t for label in (f"k6_{ring}_{design}",
                                      f"k6_{ring}_{design}2")
                      for t in prof.get(label, {}).values()]
@@ -2834,11 +2973,11 @@ def k6_times(device, card: str, prof=None) -> dict:
     same blocks and hidden units a block beside them (one replica's
     epoch: the ring's share reads as the difference), the rows-design K2
     and a 1-replica rows ring at the rows ring's blocks per replica, the
-    plain version, and K6-ws's stamps split a step; K6-bf16 (the rows
-    design) at n = 2; the profiler's device time of the ring kernels at n
-    = DP_REPLICAS, from `prof` (phase_profile's) or a session of its own.
-    Returns {"cases": {"<ring> n=<n>": {...}}, "bf16": (ms, plain ms,
-    bound)}."""
+    plain version, and K6-ws's stamps split a step; the bf16 mode
+    (`k6_mma_times`: K6-mma and the rows ring's bf16 form); the profiler's
+    device time of the ring kernels at n = DP_REPLICAS, from `prof`
+    (phase_profile's) or a session of its own. Returns {"cases": {"<ring>
+    n=<n>": {...}}, "mma": k6_mma_times' cases}."""
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
     cases = {}
     for ring, n in RING_CASES:
@@ -2922,21 +3061,7 @@ def k6_times(device, card: str, prof=None) -> dict:
               f"ms per epoch launch by blocks per replica "
               f"{ {g: round(v, 3) for g, v in sorted(split.items())} } "
               f"[{card}]")
-    # K6-bf16: the rows design's all-gather in the bf16 mode, n = 2
-    inp = _dp_inputs(2, MAIN_BATCH, DP_EPOCH_STEPS, seed=11, device=device)
-    bf16 = lambda: _dp_call(epoch_step.epoch_fused_sgd, "K3", inp,  # noqa: E731
-                            "allgather", compute_bf16=True)
-    bf16_ms = _time_ms(bf16, iters=5, warmup=1)
-    bf16_plain = _time_ms(lambda: _dp_call(
-        epoch_step.epoch_dp_sgd_reference, "K3", inp, "allgather",
-        compute_bf16=True), iters=1, warmup=0)
-    bf16_bound = k6_bound(2, MAIN_BATCH, DP_EPOCH_STEPS, "allgather",
-                          PEAK_BF16_FLOPS)
-    print(f"[timing] epoch_step_dp_allgather_bf16 (rows design) n=2 "
-          f"B={MAIN_BATCH} S={DP_EPOCH_STEPS}: {bf16_ms:.3f} ms per epoch "
-          f"launch, {bf16_ms * 1e3 / DP_EPOCH_STEPS:.2f} us a step; plain "
-          f"{bf16_plain:.1f} ms; bound {bf16_bound[0]:.4f} ms by "
-          f"{bf16_bound[1]} (bf16 peak) [{card}]")
+    mma = k6_mma_times(device, card)
     if prof is None:
         prof, _ = profile_jobs(k6_profile_jobs(device))
     dev_us = k6_device_us(prof)
@@ -2953,16 +3078,83 @@ def k6_times(device, card: str, prof=None) -> dict:
               f"(profiler, in turns rows, ws, ws, rows) {ws_us:.1f} us a "
               f"launch against the rows design's {rows_us:.1f} "
               f"({rows_us / ws_us:.2f}x) [{card}]")
-    return {"cases": cases, "bf16": (bf16_ms, bf16_plain, bf16_bound)}
+    for ring in ("allgather", "reduce_scatter"):
+        c = mma[f"{ring} n={DP_REPLICAS}"]
+        mma_us = dev_us.get((ring, "mma"))
+        rows_us = dev_us.get((ring, "rowsbf16"))
+        c["device_us"], c["rows_device_us"] = mma_us, rows_us
+        if mma_us is None or rows_us is None:
+            print(f"[timing] epoch_step_dp_mma_{ring} n={DP_REPLICAS}: the "
+                  f"profiler recorded no device time (not measured)")
+            continue
+        print(f"[timing] epoch_step_dp_mma_{ring} n={DP_REPLICAS}: device "
+              f"time (profiler, in turns rows, mma, mma, rows) {mma_us:.1f} "
+              f"us a launch against the rows design's bf16 form "
+              f"{rows_us:.1f} ({rows_us / mma_us:.2f}x) [{card}]")
+    return {"cases": cases, "mma": mma}
+
+
+def k6_mma_times(device, card: str) -> dict:
+    """K6 in the bf16 mode per (ring, n) at n = 2 and DP_REPLICAS, B = 128
+    per replica, over the 118-step epoch (uint8 rows, threefry): K6-mma and
+    the rows design's ring in the bf16 mode (forced) in turns (rows, mma,
+    mma, rows), the plain version, K6-mma's stamps split a step, and the
+    bound at the bf16 peak. Returns {"<ring> n=<n>": {...}}."""
+    from functools import partial
+
+    from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
+    kernel = partial(epoch_step.epoch_fused_sgd, compute_bf16=True)
+    cases = {}
+    for ring in ("allgather", "reduce_scatter"):
+        for n in (2, DP_REPLICAS):
+            inp = _dp_inputs(n, MAIN_BATCH, DP_EPOCH_STEPS, seed=11,
+                             device=device)
+            mma = lambda: _dp_call(kernel, "K3", inp, ring)  # noqa: E731
+            rows = lambda: _dp_call(kernel, "K3", inp, ring,  # noqa: E731
+                                    _design="rows")
+            rows_ms, mma_ms, turns = _turns(rows, mma, iters=5, warmup=1)
+            plain_ms = _time_ms(lambda: _dp_call(
+                epoch_step.epoch_dp_sgd_reference, "K3", inp, ring,
+                compute_bf16=True), iters=1, warmup=0)
+            _, _, split, per_step = _dp_call(epoch_step.k6_mma_phase_stamps,
+                                             "K3", inp, ring)
+            bound = k6_bound(n, MAIN_BATCH, DP_EPOCH_STEPS, ring,
+                             PEAK_BF16_FLOPS)
+            cases[f"{ring} n={n}"] = {
+                "ms": mma_ms, "us_per_step": mma_ms * 1e3 / DP_EPOCH_STEPS,
+                "rows_ms": rows_ms,
+                "rows_us_per_step": rows_ms * 1e3 / DP_EPOCH_STEPS,
+                "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "flop": bound[2], "bytes": bound[3],
+                "blocks_per_replica": epoch_step.RING_MMA_BLOCKS,
+                "timed_in_turns_rows_mma_mma_rows": turns,
+                "stamps_us_per_step": per_step, "stamps_split_us": split}
+            print(f"[timing] epoch_step_dp_mma_{ring} n={n} B={MAIN_BATCH} "
+                  f"S={DP_EPOCH_STEPS} ({epoch_step.RING_MMA_BLOCKS} blocks "
+                  f"per replica): {mma_ms:.3f} ms per epoch launch, "
+                  f"{mma_ms * 1e3 / DP_EPOCH_STEPS:.2f} us a step; the rows "
+                  f"design's ring in bf16 {rows_ms:.3f} ms "
+                  f"({rows_ms / mma_ms:.2f}x); plain {plain_ms:.1f} ms; bound "
+                  f"{bound[0]:.4f} ms by {bound[1]} (bf16 peak) (turns rows, "
+                  f"mma, mma, rows: {', '.join(f'{v:.3f}' for v in turns)}) "
+                  f"[{card}]")
+            print(f"[timing] epoch_step_dp_mma_{ring} n={n} phase split "
+                  f"(stamps build, block 0 of replica 0, mean over the "
+                  f"steps): {per_step:.2f} us a step [{card}]")
+            for phase, us in split.items():
+                print(f"[timing]   {phase:52s} {us:8.3f} us  "
+                      f"{us / per_step:6.1%}")
+    return cases
 
 
 def phase_timing_k6(device, launches: dict, worst: dict, card: str,
                     prof: dict) -> list:
     """K6's times (`k6_times`) and its entries of the kernels line: K6-ws's
-    two rings and the rows design's at n = 4, K6-bf16 at n = 2."""
+    two rings and the rows design's, K6-mma's two rings and the rows
+    design's all-gather in the bf16 mode, at n = 4."""
     times = k6_times(device, card, prof)
-    cases = times["cases"]
-    bf16_ms, bf16_plain, bf16_bound = times["bf16"]
+    cases, mma = times["cases"], times["mma"]
+    rows_batch = DP_REPLICAS * ROWS_BATCH
     out = []
     for ring in ("allgather", "reduce_scatter"):
         c = cases[f"{ring} n={DP_REPLICAS}"]
@@ -2980,7 +3172,6 @@ def phase_timing_k6(device, launches: dict, worst: dict, card: str,
             batch_per_replica=MAIN_BATCH, steps=DP_EPOCH_STEPS,
             cases={k: v for k, v in cases.items() if k.startswith(ring)}))
         key = f"epoch_step_dp_{ring}"
-        rows_batch = DP_REPLICAS * ROWS_BATCH
         out.append(_entry(
             key, "epoch_step.cu", RING_TPU_LINE[ring],
             launches[f"fit_cached pallas_epoch {ring} float32 "
@@ -2994,17 +3185,40 @@ def phase_timing_k6(device, launches: dict, worst: dict, card: str,
                       f"128): fit_cached at batch_size {rows_batch}",
             device_us=c["rows_device_us"],
             batch_per_replica=MAIN_BATCH, steps=DP_EPOCH_STEPS))
+    for ring in ("allgather", "reduce_scatter"):
+        c = mma[f"{ring} n={DP_REPLICAS}"]
+        bound = (c["bound_ms"], c["bound_by"], c["flop"], c["bytes"])
+        key = f"epoch_step_dp_mma_{ring}"
+        out.append(_entry(
+            key, "ring_mma.cu", RING_TPU_LINE[ring],
+            launches[f"fit_cached pallas_epoch {ring} bfloat16 {DP_BATCH}"][key],
+            worst[key[len("epoch_step_dp_"):]], c["ms"], c["plain_ms"], bound,
+            card,
+            ring_source="pytorch_ddp_mnist_tpu_torch/csrc/mma_step.cuh, "
+                        "pytorch_ddp_mnist_tpu_torch/csrc/dp_ring.cuh",
+            form=f"K6-mma {ring}, uint8 rows, bf16 operands, threefry masks; "
+                 f"n = {DP_REPLICAS} replicas on one card; top-level numbers "
+                 f"at n = {DP_REPLICAS}; bound at the bf16 tensor-core peak",
+            device_us=c["device_us"], batch_per_replica=MAIN_BATCH,
+            steps=DP_EPOCH_STEPS,
+            cases={k: v for k, v in mma.items() if k.startswith(ring)}))
+    c = mma[f"allgather n={DP_REPLICAS}"]
     out.append(_entry(
         "epoch_step_dp_allgather_bf16", "epoch_step.cu",
         RING_TPU_LINE["allgather"],
         launches[f"fit_cached pallas_epoch allgather bfloat16 "
-                 f"{DP_BATCH}"]["epoch_step_dp_allgather_bf16"],
-        worst["bf16"], bf16_ms, bf16_plain, bf16_bound, card,
+                 f"{rows_batch}"]["epoch_step_dp_allgather_bf16"],
+        worst["bf16"], c["rows_ms"], c["plain_ms"],
+        (c["bound_ms"], c["bound_by"], c["flop"], c["bytes"]), card,
         ring_source="pytorch_ddp_mnist_tpu_torch/csrc/dp_ring.cuh",
-        form="K6-bf16: the rows design's all-gather ring in the bf16-operand "
-             "mode, uint8 rows, threefry masks; n = 2 replicas on one card; "
-             "bound at the bf16 tensor-core peak",
-        batch_per_replica=MAIN_BATCH, steps=DP_EPOCH_STEPS))
+        form=f"K6-bf16: the rows design's all-gather ring in the bf16-operand "
+             f"mode, forced at B = {MAIN_BATCH} and timed in turns with "
+             f"K6-mma; n = {DP_REPLICAS} replicas on one card; bound at the "
+             f"bf16 tensor-core peak",
+        main_path=f"launched at {ROWS_BATCH} rows per replica (B > 128): "
+                  f"fit_cached at batch_size {rows_batch}, dtype bfloat16",
+        device_us=c["rows_device_us"], batch_per_replica=MAIN_BATCH,
+        steps=DP_EPOCH_STEPS))
     print("[timing] epoch_step_dp: no single PyTorch call computes an epoch "
           "of data-parallel SGD, so library_ms is null")
     return out

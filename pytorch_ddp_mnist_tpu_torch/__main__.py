@@ -1,6 +1,7 @@
 """`python -m pytorch_ddp_mnist_tpu_torch <command>`: the port's front door.
 
-    train      the serial trainer (cli/train.py)
+    train      the serial and data-parallel trainer (cli/train.py;
+               --parallel for the latter)
     bench      the single-card train benchmark (bench.py)
 
 The JAX package's other commands (serve, trace, ledger, convert, download,

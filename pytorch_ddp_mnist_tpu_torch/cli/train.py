@@ -1,5 +1,5 @@
-"""The serial trainer (port of the serial streaming branch of
-`pytorch_ddp_mnist_tpu/cli/train.py`).
+"""The serial and data-parallel trainer (port of the single-process
+branches of `pytorch_ddp_mnist_tpu/cli/train.py`).
 
     python -m pytorch_ddp_mnist_tpu_torch train [--n_epochs N] [--limit N]
         [--batch_size 128] [--lr 0.01] [--seed 0] [--dtype float32|bfloat16]
@@ -25,12 +25,14 @@ machine with one card is a 1-replica mesh. A multi-process world (a
 launcher's RANK/WORLD_SIZE, SLURM, MPI) and `--wireup_method` exit by
 name: the process-level world is not ported.
 
-Seeds: the weights come from a CPU `torch.Generator` seeded `--seed` (so
-every device starts from the same weights). Both paths key their dropout
-masks by jax's threefry key `--seed + 1`, split as the JAX trainer splits
-it, so with `--impl threefry2x32` (the default) the masks are the JAX
-package's for the same seed. `--kernel pallas_rng` and `--impl rbg` draw
-the port's own Philox stream instead (the TPU core PRNG has no CUDA twin).
+Seeds: the weights are `MLP.from_seed(--seed)`, the JAX package's init
+stream, bit for bit its `init_mlp(jax.random.key(seed))` (models/mlp.py;
+drawn on the host, so every device starts from the same weights). Both
+paths key their dropout masks by jax's threefry key `--seed + 1`, split as
+the JAX trainer splits it, so with `--impl threefry2x32` (the default) the
+masks are the JAX package's for the same seed. `--kernel pallas_rng` and
+`--impl rbg` draw the port's own Philox stream instead (the TPU core PRNG
+has no CUDA twin).
 """
 
 from __future__ import annotations

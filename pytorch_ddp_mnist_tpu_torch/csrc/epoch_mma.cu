@@ -100,14 +100,8 @@ static_assert(THREADS == HIDDEN_THREADS && THREADS >= ROWS_THREADS &&
                   HR == RR,
               "the phases' geometry (mma_step.cuh)");
 
-constexpr size_t max3(size_t a, size_t b, size_t c) {
-  return a > b ? (a > c ? a : c) : (b > c ? b : c);
-}
-// shared memory: the phases overlay one region, then their barriers
-constexpr size_t PHASE_DATA = max3(HIDDEN_DATA, ROWS_DATA, GRADS_DATA);
-constexpr int N_BARS = NKC + NWC + NGC;
-constexpr size_t SMEM_BYTES = PHASE_DATA + sizeof(uint64_t) * N_BARS;
-static_assert(SMEM_BYTES <= 232448, "over the 227 KB a block may use");
+// shared memory: the phases' overlaid region, then their barriers
+constexpr size_t SMEM_BYTES = EPOCH_SMEM;
 
 // The boundaries a step records in the stamps build: block 0's thread 0
 // after a grid barrier, or the last block to end a phase (atomicMax).
@@ -140,12 +134,6 @@ struct EmmaArgs {
   int batch;
   float lr;
   float inv_batch;
-};
-
-// The tensor maps: one step's (x of buffer 0), and x of buffer 1.
-struct EmmaMaps {
-  StepMaps step;
-  CUtensorMap x_rows1, x_cols1;
 };
 
 template <int RNG>
@@ -193,35 +181,12 @@ __device__ __forceinline__ void grid_barrier(cg::grid_group& grid) {
   if (threadIdx.x == 0) proxy_fence();  // every phase's copies issue here
 }
 
-// A step's rows (`chunks` x 16 uint8 pixels at src) to bf16 at dst through
-// the table, chunk i by the thread of index i mod n (i0 this thread's).
-// The rows are an input: never written in the launch.
-__device__ __forceinline__ void rows_to_bf16(const uint8_t* src, bf16* dst,
-                                             const uint16_t* tbl, int chunks,
-                                             int i0, int n) {
-  const uint4* s4 = reinterpret_cast<const uint4*>(src);
-  uint4* d4 = reinterpret_cast<uint4*>(dst);
-  for (int i = i0; i < chunks; i += n) {
-    const uint4 v = __ldg(s4 + i);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    uint32_t o[8];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {  // pixels 2q, 2q+1: bytes of word q / 2
-      const uint32_t word = w[q >> 1], sh = 16 * (q & 1);
-      o[q] = static_cast<uint32_t>(tbl[(word >> sh) & 0xffu]) |
-             static_cast<uint32_t>(tbl[(word >> (sh + 8)) & 0xffu]) << 16;
-    }
-    d4[2 * i] = make_uint4(o[0], o[1], o[2], o[3]);
-    d4[2 * i + 1] = make_uint4(o[4], o[5], o[6], o[7]);
-  }
-}
-
 template <int RNG>
 __global__ void __launch_bounds__(THREADS) emma_kernel(
-    const __grid_constant__ EmmaArgs a, const __grid_constant__ EmmaMaps mp) {
+    const __grid_constant__ EmmaArgs a, const __grid_constant__ EpochMaps mp) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ uint16_t tbl[256];
-  uint64_t* const hbars = reinterpret_cast<uint64_t*>(smem + PHASE_DATA);
+  uint64_t* const hbars = reinterpret_cast<uint64_t*>(smem + EPOCH_DATA);
   uint64_t* const rbars = hbars + NKC;
   uint64_t* const gbars = rbars + NWC;
   cg::grid_group grid = cg::this_grid();
@@ -243,7 +208,7 @@ __global__ void __launch_bounds__(THREADS) emma_kernel(
   for (int i = tid; i < 256; i += THREADS) tbl[i] = a.table[i];
   for (int p = 0; p < 5; ++p)
     for (int i = gtid; i < layer_size(p); i += nthr) a.w[p][i] = a.in[p][i];
-  bars_init(hbars, N_BARS);  // and the table is in
+  bars_init(hbars, EPOCH_BARS);  // and the table is in
   rows_to_bf16(a.x, a.xb, tbl, chunks, gtid, nthr);
   grid_barrier(grid);
 
@@ -297,7 +262,7 @@ __global__ void __launch_bounds__(THREADS) emma_kernel(
       a.losses[s] = 0.f;
 }
 
-using EmmaKernel = void (*)(const EmmaArgs, const EmmaMaps);
+using EmmaKernel = void (*)(const EmmaArgs, const EpochMaps);
 
 EmmaKernel pick(int rng) {
   static const EmmaKernel table[3] = {emma_kernel<RNG_MASKS>,
@@ -308,10 +273,6 @@ EmmaKernel pick(int rng) {
 
 int grid_blocks(int batch) {
   return std::max(UNIT_BLOCKS * ((batch + HR - 1) / HR), GRADS_BLOCKS);
-}
-
-size_t emma_scratch_bytes(int batch) {
-  return scratch_bytes(batch) + 2 * sizeof(bf16) * (size_t)batch * IN;
 }
 
 }  // namespace
@@ -330,7 +291,7 @@ extern "C" int pdmt_emma_smem_bytes() { return static_cast<int>(SMEM_BYTES); }
 // the scratch a launch at `batch` takes, in bytes: the step's exchange
 // (mma_step.cuh scratch_bytes), then the two bf16 row buffers
 extern "C" int pdmt_emma_scratch_bytes(int batch) {
-  return static_cast<int>(emma_scratch_bytes(batch));
+  return static_cast<int>(epoch_scratch_bytes(batch));
 }
 
 // the stamp words a step records in the stamps build (N_STAMPS
@@ -388,12 +349,9 @@ extern "C" int pdmt_emma_epoch(
   const int grid = grid_blocks(batch);
   if (per_sm * sms < grid)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const StepScratch sc = carve(scratch, batch);
-  bf16* const xb = reinterpret_cast<bf16*>(scratch + scratch_bytes(batch));
-  EmmaMaps mp;
-  err = step_maps(&mp.step, xb, ow1, sc, batch);
-  if (err == cudaSuccess)
-    err = x_maps(&mp.x_rows1, &mp.x_cols1, xb + (size_t)batch * IN, batch);
+  bf16* const xb = epoch_rows(scratch, batch);
+  EpochMaps mp;
+  err = epoch_maps(&mp, scratch, ow1, batch);
   if (err != cudaSuccess) return static_cast<int>(err);
   EmmaArgs a{static_cast<const uint8_t*>(x), y, masks, keys, seed,
              {w1, b1, w2, b2, w3}, {ow1, ob1, ow2, ob2, ow3},

@@ -1,12 +1,16 @@
 // The tensor-core step of the bf16 forms: the three phases of one training
 // step with the six products as `mma.sync.m16n8k16` (bf16 operands, f32
-// accumulate), as device functions that two kernels instantiate:
+// accumulate), as device functions that three kernels instantiate:
 //   fused_mma.cu  K1-mma, one step in three launches (a phase a launch)
 //   epoch_mma.cu  K2-mma, a whole epoch in one cooperative launch, the
 //                 phases separated by grid barriers and SGD folded into
 //                 the gradient phase
-// Both run the same MMA sequence for every output element, so an epoch of
-// K2-mma is bitwise K1-mma + SGD per step.
+//   ring_mma.cu   K6-mma, an epoch of n replicas in one cooperative launch,
+//                 the phases separated by replica barriers and the
+//                 gradients averaged by a ring
+// All run the same MMA sequence for every output element, so an epoch of
+// K2-mma is bitwise K1-mma + SGD per step, and K6-mma K1-mma per replica +
+// the ring's tree + SGD.
 //
 // The precision contract (`step_reference_bf16`, ops/fused_step.py): the
 // bf16 operands, each rounded to nearest even from its f32 value, are x and
@@ -41,7 +45,7 @@
 //  * grads_tile: 49 gw1 tiles and 8 gw2 tiles of 16 rows x 128 columns,
 //    one gw3 block, 8 bias blocks of 32 columns; the loss mean. Each
 //    gradient element goes to a `Store`: written out (K1-mma) or applied
-//    as `w -= lr * g` in place (K2-mma).
+//    as `w -= lr * g` in place (K2-mma) or into a ring's buffers (K6-mma).
 //
 // Every global load of a value that is written inside a K2-mma launch
 // (weights, scratch) is ld.global.cg (L2, never a stale L1 line); the
@@ -800,6 +804,70 @@ __device__ __forceinline__ void grads_tile(
       for (int b = 0; b < batch; ++b) s += ls[b];
       *loss = s / (float)batch;
     }
+  }
+}
+
+// ---- what a whole-epoch kernel adds (K2-mma, K6-mma) ----
+
+constexpr size_t max3(size_t a, size_t b, size_t c) {
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
+// shared memory: the phases overlay one region, then their barriers
+constexpr size_t EPOCH_DATA = max3(HIDDEN_DATA, ROWS_DATA, GRADS_DATA);
+constexpr int EPOCH_BARS = NKC + NWC + NGC;
+constexpr size_t EPOCH_SMEM = EPOCH_DATA + sizeof(uint64_t) * EPOCH_BARS;
+static_assert(EPOCH_SMEM <= 232448, "over the 227 KB a block may use");
+
+// An epoch's scratch: the step's exchange (scratch_bytes), then its rows
+// as bf16 in two buffers, (2, batch, 784), the next step's converted while
+// the current step's are read.
+__host__ __device__ constexpr size_t epoch_scratch_bytes(int batch) {
+  return scratch_bytes(batch) + 2 * sizeof(bf16) * (size_t)batch * IN;
+}
+
+__host__ __device__ inline bf16* epoch_rows(unsigned char* scratch,
+                                            int batch) {
+  return reinterpret_cast<bf16*>(scratch + scratch_bytes(batch));
+}
+
+// The tensor maps of an epoch: one step's (x of row buffer 0), and x of
+// buffer 1.
+struct EpochMaps {
+  StepMaps step;
+  CUtensorMap x_rows1, x_cols1;
+};
+
+// The maps of an epoch whose scratch (epoch_scratch_bytes) is at `scratch`
+// and whose f32 w1 is at `w1`.
+inline cudaError_t epoch_maps(EpochMaps* m, unsigned char* scratch,
+                              const float* w1, int batch) {
+  const bf16* xb = epoch_rows(scratch, batch);
+  cudaError_t err = step_maps(&m->step, xb, w1, carve(scratch, batch), batch);
+  if (err == cudaSuccess)
+    err = x_maps(&m->x_rows1, &m->x_cols1, xb + (size_t)batch * IN, batch);
+  return err;
+}
+
+// A step's rows (`chunks` x 16 uint8 pixels at src) to bf16 at dst through
+// the table, chunk i by the thread of index i mod n (i0 this thread's).
+// The rows are an input: never written in the launch.
+__device__ __forceinline__ void rows_to_bf16(const uint8_t* src, bf16* dst,
+                                             const uint16_t* tbl, int chunks,
+                                             int i0, int n) {
+  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+  uint4* d4 = reinterpret_cast<uint4*>(dst);
+  for (int i = i0; i < chunks; i += n) {
+    const uint4 v = __ldg(s4 + i);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t o[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {  // pixels 2q, 2q+1: bytes of word q / 2
+      const uint32_t word = w[q >> 1], sh = 16 * (q & 1);
+      o[q] = static_cast<uint32_t>(tbl[(word >> sh) & 0xffu]) |
+             static_cast<uint32_t>(tbl[(word >> (sh + 8)) & 0xffu]) << 16;
+    }
+    d4[2 * i] = make_uint4(o[0], o[1], o[2], o[3]);
+    d4[2 * i + 1] = make_uint4(o[4], o[5], o[6], o[7]);
   }
 }
 

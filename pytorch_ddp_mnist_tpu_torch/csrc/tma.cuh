@@ -1,5 +1,6 @@
 // Staging by the Tensor Memory Accelerator, shared by K1-split
-// (fused_split.cu), K1-mma (fused_mma.cu) and K2-mma (epoch_mma.cu).
+// (fused_split.cu), K1-mma (fused_mma.cu), K2-mma (epoch_mma.cu) and
+// K6-mma (ring_mma.cu).
 //
 // A thread that issues cp.async stalls until its copies drain, so per-thread
 // copies held every chain back until nearly all of a block's operands had
@@ -157,7 +158,8 @@ inline cudaError_t tensor_map(CUtensorMap* out, const void* base,
     CUtensorMapDataType type;
     int rows, cols, box_rows, box_cols;
   };
-  constexpr int SLOTS = 32;
+  // K6-mma holds 14 maps a replica, 56 at four replicas
+  constexpr int SLOTS = 64;
   static Entry cache[SLOTS];
   static int used = 0, next = 0;
   for (int i = 0; i < used; ++i) {

@@ -33,13 +33,14 @@ BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 SOURCES = {"fused_step": "fused_step.cu", "fused_split": "fused_split.cu",
            "fused_mma": "fused_mma.cu", "epoch_step": "epoch_step.cu",
            "epoch_ws": "epoch_ws.cu", "epoch_mma": "epoch_mma.cu",
-           "ring_ws": "ring_ws.cu"}
+           "ring_ws": "ring_ws.cu", "ring_mma": "ring_mma.cu"}
 # variant library name -> (library of SOURCES, its extra nvcc flags)
 VARIANTS = {"epoch_ws_stamps": ("epoch_ws", ("-DWS_STAMPS",)),
             "fused_split_stamps": ("fused_split", ("-DSPLIT_STAMPS",)),
             "fused_mma_stamps": ("fused_mma", ("-DMMA_STAMPS",)),
             "epoch_mma_stamps": ("epoch_mma", ("-DEMMA_STAMPS",)),
-            "ring_ws_stamps": ("ring_ws", ("-DK6_STAMPS",))}
+            "ring_ws_stamps": ("ring_ws", ("-DK6_STAMPS",)),
+            "ring_mma_stamps": ("ring_mma", ("-DK6M_STAMPS",))}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -64,16 +64,21 @@ layout (`_COMM_LAYOUT`, `EPOCH_COMM_ROWS`, `_rs_chunk_rows`), gw3's rows
     `ring_design(x dtype, bf16, batch, n)` picks K6's design: 'ws'
     (`csrc/ring_ws.cu`, K6-ws: K2-ws's column-owner step on each replica,
     one mini-ring per column owner, bitwise the rows design's ring) for
-    uint8 rows in f32 at B <= WS_MAX_BATCH and n <= RING_WS_MAX_REPLICAS,
-    else 'rows' (`csrc/epoch_step.cu` `ring_kernel`); `_design="rows"`
-    forces the latter. `ring_mean_by_owner` is the plain version of
-    K6-ws's schedule (tests only). `launch_count` counts K6 as
-    `epoch_step_dp_ws_allgather` and `epoch_step_dp_ws_reduce_scatter`
-    (K6-ws), `epoch_step_dp_allgather` and `epoch_step_dp_reduce_scatter`
-    (the rows design; `_bf16` for its bf16 mode). `stalled_ring(...)`
-    launches K6 with one replica that never signals, to show that a ring
-    wait ends in `RingTimeoutError`, not a hang; `k6_phase_stamps(...)`
-    runs K6-ws's stamps build and returns its per-phase split.
+    uint8 rows in f32 at B <= WS_MAX_BATCH and n <= RING_WS_MAX_REPLICAS;
+    'mma' (`csrc/ring_mma.cu`, K6-mma: K2-mma's tensor-core step on each
+    replica, one mini-ring per gradient-tile owner, bitwise K1-mma per
+    replica + the ring tree + SGD) for uint8 rows in the bf16 mode at B <=
+    MMA_MAX_BATCH and n <= RING_MMA_MAX_REPLICAS; else 'rows'
+    (`csrc/epoch_step.cu` `ring_kernel`); `_design="rows"` forces the
+    latter. `ring_mean_by_owner` and `ring_mean_by_grads_owner` are the
+    plain versions of K6-ws's and K6-mma's schedules (tests only).
+    `launch_count` counts K6 as `epoch_step_dp_ws_<ring>` (K6-ws),
+    `epoch_step_dp_mma_<ring>` (K6-mma), `epoch_step_dp_<ring>` (the rows
+    design; `_bf16` for its bf16 mode), ring `allgather` or
+    `reduce_scatter`. `stalled_ring(...)` launches K6 with one replica that
+    never signals, to show that a ring wait ends in `RingTimeoutError`, not
+    a hang; `k6_phase_stamps(...)` and `k6_mma_phase_stamps(...)` run
+    K6-ws's and K6-mma's stamps builds and return their per-phase splits.
 
 The input params are never written: the kernel copies them to new output
 tensors first, as the TPU kernel does at its step 0.
@@ -151,6 +156,37 @@ def mma_epoch_blocks(batch: int) -> int:
     """The blocks of a K2-mma launch at `batch` rows a step."""
     return max(MMA_EPOCH_UNIT_BLOCKS * -(-batch // 16), MMA_EPOCH_GRADS_BLOCKS)
 
+
+def mma_epoch_smem_bytes() -> int:
+    """The dynamic shared memory of a K2-mma or K6-mma block
+    (csrc/mma_step.cuh EPOCH_SMEM): the phases overlay one region, the
+    largest of the hidden tile's (x chunks 7 x 16 x 120 bf16, w1 chunks 7 x
+    112 x 8 f32, partial sums 7 x 16 x 8 f32), the rows tile's (w2 128 x
+    136 and w3 128 x 24 in bf16, three 16 x 136 activation tiles and dl 16
+    x 24 in bf16, logits 16 x 16 f32) and the grads tile's (a 128 x 136 and
+    a 128 x 24 bf16 box, 128 row losses); then their 7 + 4 + 4 mbarriers."""
+    hidden = 7 * (16 * 120 * 2 + 112 * 8 * 4) + 4 * 7 * 16 * 8
+    rows = (2 * HIDDEN1 * 136 + 2 * HIDDEN2 * 24 + 3 * 2 * 16 * 136
+            + 2 * 16 * 24 + 4 * 16 * 16)
+    grads = 2 * MMA_MAX_BATCH * 136 + 2 * MMA_MAX_BATCH * 24 + 4 * MMA_MAX_BATCH
+    return max(hidden, rows, grads) + 8 * (7 + 4 + 4)
+
+
+# K6-mma (csrc/ring_mma.cu) runs K2-mma's step on every replica on the
+# gradient phase's MMA_EPOCH_GRADS_BLOCKS blocks, which own the ring's
+# slices; four replicas of them are co-resident at two blocks an SM, and
+# its kernel parameter holds four replicas' tensor maps
+RING_MMA_MAX_REPLICAS = 4
+RING_MMA_BLOCKS = MMA_EPOCH_GRADS_BLOCKS
+
+
+def ring_mma_flags_per_replica(n: int, rs: bool) -> int:
+    """A K6-mma replica's flag counters: its barrier's, then per ring block
+    the entry barrier's, the handshake's from each side, hop 0's, and one
+    per thread for each later hop."""
+    hops = (2 if rs else 1) * (n - 1)
+    return 1 + RING_MMA_BLOCKS * (4 + max(hops - 1, 0) * MMA_EPOCH_THREADS)
+
 # ---- the DP form (K6) ----
 RINGS = ("auto", "allgather", "reduce_scatter")
 # The JAX kernel keeps one comm slot per replica in VMEM for the all-gather
@@ -183,6 +219,8 @@ launch_count = {"epoch_step_ws": 0, "epoch_step_mma": 0, "epoch_step": 0,
                 "epoch_step_superstep": 0, "epoch_step_superstep_bf16": 0,
                 "epoch_step_dp_ws_allgather": 0,
                 "epoch_step_dp_ws_reduce_scatter": 0,
+                "epoch_step_dp_mma_allgather": 0,
+                "epoch_step_dp_mma_reduce_scatter": 0,
                 "epoch_step_dp_allgather": 0,
                 "epoch_step_dp_allgather_bf16": 0,
                 "epoch_step_dp_reduce_scatter": 0,
@@ -205,6 +243,7 @@ _lib = None
 _ws_libs = {}
 _mma_libs = {}
 _ring_ws_libs = {}
+_ring_mma_libs = {}
 
 
 def epoch_design(x_dtype, compute_bf16: bool, batch: int) -> str:
@@ -223,14 +262,73 @@ def epoch_design(x_dtype, compute_bf16: bool, batch: int) -> str:
 def ring_design(x_dtype, compute_bf16: bool, batch: int, n: int) -> str:
     """The K6 design an n-replica launch runs: 'ws' (K6-ws) for uint8 rows
     in f32 at batch <= WS_MAX_BATCH when COLS(n) fits in shared memory
-    (n <= RING_WS_MAX_REPLICAS: n * 128 / COLS blocks, one an SM), else
-    'rows' (the ring of csrc/epoch_step.cu: f32 rows, bf16, larger batches
-    and more replicas). This picks by form, never on failure."""
-    cols = ring_ws_cols(n)
-    if (x_dtype == torch.uint8 and not compute_bf16 and batch <= WS_MAX_BATCH
-            and cols and ws_smem_bytes(cols) <= WS_SMEM_LIMIT):
-        return "ws"
+    (n <= RING_WS_MAX_REPLICAS: n * 128 / COLS blocks, one an SM); 'mma'
+    (K6-mma) for uint8 rows in the bf16 mode at batch <= MMA_MAX_BATCH and
+    n <= RING_MMA_MAX_REPLICAS; else 'rows' (the ring of csrc/epoch_step.cu:
+    f32 rows, larger batches and more replicas). This picks by form, never
+    on failure. (n = 1 reaches no ring: `_epoch_dp` runs the serial kernel.)"""
+    if x_dtype == torch.uint8:
+        cols = ring_ws_cols(n)
+        if (not compute_bf16 and batch <= WS_MAX_BATCH and cols
+                and ws_smem_bytes(cols) <= WS_SMEM_LIMIT):
+            return "ws"
+        if (compute_bf16 and batch <= MMA_MAX_BATCH
+                and n <= RING_MMA_MAX_REPLICAS):
+            return "mma"
     return "rows"
+
+
+def _ring_mma_lib(name: str = "ring_mma"):
+    """The K6-mma library `name` (the default build, or its stamps build of
+    ops/_build.py VARIANTS) with its ctypes signatures declared and its
+    constants checked against this module's."""
+    if name not in _ring_mma_libs:
+        from . import _build
+        lib = _build.load(name)
+        p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+        lib.pdmt_ring_mma_step.argtypes = [p, p, p, p, i, i, i, u, i, i, f, f,
+                                           f, i, ctypes.c_ulonglong, i, p, p,
+                                           p]
+        lib.pdmt_ring_mma_step.restype = i
+        for fn in ("pdmt_ring_mma_n_params", "pdmt_ring_mma_table_fields",
+                   "pdmt_ring_mma_max_batch", "pdmt_ring_mma_threads",
+                   "pdmt_ring_mma_max_replicas", "pdmt_ring_mma_blocks",
+                   "pdmt_ring_mma_smem_bytes", "pdmt_ring_mma_stamp_words"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i
+        for fn in ("pdmt_ring_mma_scratch_bytes", "pdmt_ring_mma_owner_lo",
+                   "pdmt_ring_mma_owner_len"):
+            getattr(lib, fn).argtypes = [i]
+            getattr(lib, fn).restype = i
+        for fn in ("pdmt_ring_mma_flags_per_replica",
+                   "pdmt_ring_mma_stamps_used"):
+            getattr(lib, fn).argtypes = [i, i]
+            getattr(lib, fn).restype = i
+        lib.pdmt_ring_mma_coresident.argtypes = [i, ctypes.POINTER(i)]
+        lib.pdmt_ring_mma_coresident.restype = i
+        lib.pdmt_ring_mma_error_string.argtypes = [i]
+        lib.pdmt_ring_mma_error_string.restype = ctypes.c_char_p
+        top = RING_MMA_MAX_REPLICAS
+        got = (lib.pdmt_ring_mma_n_params(), lib.pdmt_ring_mma_table_fields(),
+               lib.pdmt_ring_mma_max_batch(), lib.pdmt_ring_mma_threads(),
+               lib.pdmt_ring_mma_max_replicas(), lib.pdmt_ring_mma_blocks(),
+               lib.pdmt_ring_mma_smem_bytes(),
+               [lib.pdmt_ring_mma_flags_per_replica(n, rs)
+                for n in range(1, top + 1) for rs in (0, 1)],
+               [(lib.pdmt_ring_mma_owner_lo(b), lib.pdmt_ring_mma_owner_len(b))
+                for b in range(RING_MMA_BLOCKS)])
+        want = (N_PARAMS, 11, MMA_MAX_BATCH, MMA_EPOCH_THREADS, top,
+                RING_MMA_BLOCKS, mma_epoch_smem_bytes(),
+                [ring_mma_flags_per_replica(n, rs)
+                 for n in range(1, top + 1) for rs in (0, 1)],
+                grads_owner_ranges())
+        if got != want:
+            raise RuntimeError(f"{name}: params, table fields, max batch, "
+                               f"threads, max replicas, blocks, shared "
+                               f"memory, flags and owner slices {got}; "
+                               f"expected {want}")
+        _ring_mma_libs[name] = lib
+    return _ring_mma_libs[name]
 
 
 def _ring_ws_lib(name: str = "ring_ws"):
@@ -743,11 +841,11 @@ def epoch_fused_sgd(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
     `ring` picks the allreduce ('auto': all-gather up to
     EPOCH_KERNEL_MAX_DEVICES replicas, reduce-scatter beyond). Returns
     (list of n params trees, bitwise equal; list of n per-replica loss
-    tensors). K6's design is `ring_design`'s ('ws' or 'rows'), or
+    tensors). K6's design is `ring_design`'s ('ws', 'mma' or 'rows'), or
     `_design`'s. `max_blocks` caps the blocks of the 'rows' design (per
     replica for K6; 0: the co-resident maximum cut to the work); the bits
-    do not depend on it. K2-ws, K2-mma and K6-ws have a fixed grid and
-    refuse a cap below it.
+    do not depend on it. K2-ws, K2-mma, K6-ws and K6-mma pick their own
+    grids and refuse a cap below them.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     version."""
@@ -870,11 +968,28 @@ def _owned_offsets(cols: int, g: int) -> torch.Tensor:
          + torch.arange(NUM_CLASSES)).reshape(-1)])
 
 
-def ring_mean_by_owner(flats, ring: str, cols: int) -> torch.Tensor:
-    """K6-ws's schedule in plain torch (tests only): each column owner g
-    runs its own mini-ring over the n replicas on the elements it owns
-    (`_owned_offsets`), hop by hop as csrc/ring_ws.cu does, each replica
-    with its own buffers:
+def grads_owner_ranges() -> list:
+    """The slices of the packed gradient that K6-mma's ring blocks own, one
+    per block of K2-mma's gradient phase (csrc/mma_step.cuh grads_tile): as
+    (first offset, length in floats), blocks 0..48 the 16-row tiles of gw1,
+    49..56 those of gw2, 57 gw3, 58..61 and 62..65 the column quarters of
+    gb1 and gb2 (csrc/ring_mma.cu `owner_lo`, `owner_len`)."""
+    off_b1 = IN_DIM * HIDDEN1
+    off_w2 = off_b1 + HIDDEN1
+    off_b2 = off_w2 + HIDDEN1 * HIDDEN2
+    off_w3 = off_b2 + HIDDEN2
+    tile, quarter = 16 * HIDDEN1, HIDDEN1 // 4
+    return ([(t * tile, tile) for t in range(IN_DIM // 16)]
+            + [(off_w2 + t * tile, tile) for t in range(HIDDEN1 // 16)]
+            + [(off_w3, HIDDEN2 * NUM_CLASSES)]
+            + [(off + q * quarter, quarter) for off in (off_b1, off_b2)
+               for q in range(4)])
+
+
+def _ring_mean_by_sets(flats, ring: str, owned) -> torch.Tensor:
+    """A ring schedule in plain torch: each owner runs its own mini-ring
+    over the n replicas on the elements it owns (`owned`, one index tensor
+    per owner), hop by hop, each replica with its own buffers:
       allgather       hop h: replica r's slot (r - h) mod n goes to its
                       right neighbour's same slot; then every replica sums
                       its n slots in origin order;
@@ -893,8 +1008,7 @@ def ring_mean_by_owner(flats, ring: str, cols: int) -> torch.Tensor:
     inv = torch.tensor(1.0 / n, dtype=torch.float32, device=dev)
     means = [torch.empty_like(flats[0]) for _ in range(n)]
     bounds = torch.tensor(rs_chunk_bounds(n))
-    for g in range(HIDDEN1 // cols):
-        idx = _owned_offsets(cols, g)
+    for idx in owned:
         own = [f[idx.to(dev)] for f in flats]
         if ring == "allgather":
             # slots[r][s]: what replica r holds of origin s
@@ -930,6 +1044,25 @@ def ring_mean_by_owner(flats, ring: str, cols: int) -> torch.Tensor:
             raise AssertionError(f"replica {r}'s mean differs from replica "
                                  f"0's")
     return means[0]
+
+
+def ring_mean_by_owner(flats, ring: str, cols: int) -> torch.Tensor:
+    """K6-ws's schedule in plain torch (tests only): each column owner g
+    runs its own mini-ring on the elements it owns (`_owned_offsets`), as
+    csrc/ring_ws.cu does (`_ring_mean_by_sets`)."""
+    return _ring_mean_by_sets(
+        flats, ring, [_owned_offsets(cols, g) for g in range(HIDDEN1 // cols)])
+
+
+def ring_mean_by_grads_owner(flats, ring: str) -> torch.Tensor:
+    """K6-mma's schedule in plain torch (tests only): each gradient-tile
+    owner runs its own mini-ring on its slice (`grads_owner_ranges`), as
+    csrc/ring_mma.cu does (`_ring_mean_by_sets`); a reduce-scatter chunk
+    bound may cut a slice, whose elements then move on their chunks'
+    hops."""
+    return _ring_mean_by_sets(
+        flats, ring, [torch.arange(lo, lo + size)
+                      for lo, size in grads_owner_ranges()])
 
 
 def _resolve_ring(ring: str, n: int) -> str:
@@ -1075,18 +1208,19 @@ def _chunk_lo(n: int, device) -> torch.Tensor:
 
 def _ring_launch(params, xp, yp, seeds, masks, lr, batch, rng, nsteps,
                  compute_bf16, ring, max_blocks, timeout_s=RING_TIMEOUT_S,
-                 fault=-1, design="rows", lib_name="ring_ws"):
-    """One K6 launch of `design` ('ws': K6-ws, from library `lib_name`;
-    'rows': csrc/epoch_step.cu's ring) on the replicas' card; raises
-    RingTimeoutError if a wait of the ring passed `timeout_s`. `fault` >= 0
-    names a replica that never signals its first hop (stalled_ring).
-    Returns (params list, losses list, the stamps build's (nsteps, N) u64
-    stamps or None)."""
+                 fault=-1, design="rows", lib_name=None):
+    """One K6 launch of `design` ('ws': K6-ws; 'mma': K6-mma; 'rows':
+    csrc/epoch_step.cu's ring) on the replicas' card, from library
+    `lib_name` (default: the design's own build); raises RingTimeoutError
+    if a wait of the ring passed `timeout_s`. `fault` >= 0 names a replica
+    that never signals its first hop (stalled_ring). Returns (params list,
+    losses list, the stamps build's (nsteps, N) u64 stamps or None)."""
     n = len(xp)
     dev = xp[0].device
     rs = ring == "reduce_scatter"
-    ws = design == "ws"
-    if ws:
+    lib_name = lib_name or {"ws": "ring_ws", "mma": "ring_mma"}.get(
+        design, "epoch_step")
+    if design == "ws":
         lib = _ring_ws_lib(lib_name)
         G = HIDDEN1 // ring_ws_cols(n)
         if 0 < max_blocks < G:
@@ -1094,6 +1228,26 @@ def _ring_launch(params, xp, yp, seeds, masks, lr, batch, rng, nsteps,
                 f"K6-ws runs {G} blocks a replica at n = {n}; max_blocks="
                 f"{max_blocks} caps the 'rows' design only")
         error_string = lib.pdmt_ring_ws_error_string
+        per_rep = lib.pdmt_ring_ws_scratch_floats(batch)
+        nflags = lib.pdmt_ring_ws_flags_per_replica(n, int(rs))
+        words = lib.pdmt_ring_ws_stamp_words()
+    elif design == "mma":
+        if 0 < max_blocks < RING_MMA_BLOCKS:
+            raise ValueError(
+                f"K6-mma runs {RING_MMA_BLOCKS} blocks a replica; max_blocks="
+                f"{max_blocks} caps the 'rows' design only")
+        if (not compute_bf16 or xp[0].dtype != torch.uint8
+                or batch > MMA_MAX_BATCH or n > RING_MMA_MAX_REPLICAS):
+            raise ValueError(
+                f"K6-mma runs uint8 rows in the bf16 mode at B <= "
+                f"{MMA_MAX_BATCH} on n <= {RING_MMA_MAX_REPLICAS} replicas; "
+                f"got {xp[0].dtype}, bf16={bool(compute_bf16)}, B = {batch}, "
+                f"n = {n}")
+        lib = _ring_mma_lib(lib_name)
+        error_string = lib.pdmt_ring_mma_error_string
+        per_rep = lib.pdmt_ring_mma_scratch_bytes(batch)
+        nflags = ring_mma_flags_per_replica(n, rs)
+        words = lib.pdmt_ring_mma_stamp_words()
     else:
         lib = _kernel_lib()
         P = lib.pdmt_epoch_n_params()
@@ -1102,10 +1256,13 @@ def _ring_launch(params, xp, yp, seeds, masks, lr, batch, rng, nsteps,
                                f"{lib.pdmt_ring_table_fields()} table fields, "
                                f"expected {N_PARAMS} and 11")
         error_string = None
+        per_rep = batch * lib.pdmt_epoch_scratch_per_row()
+        nflags = lib.pdmt_ring_flags_per_replica(n, int(rs))
+        words = 0
     P = N_PARAMS
     u8 = int(xp[0].dtype == torch.uint8)
     xs = [(x if u8 else x.to(torch.float32)).contiguous() for x in xp]
-    if ws:   # its rows are copied 16 bytes at a time
+    if design != "rows":   # their rows are read 16 bytes at a time
         xs = [x.clone() if x.data_ptr() % 16 else x for x in xs]
     ys = [y.to(torch.int32).contiguous() for y in yp]
     ms = [m.to(torch.float32).contiguous() if m is not None else None
@@ -1114,9 +1271,11 @@ def _ring_launch(params, xp, yp, seeds, masks, lr, batch, rng, nsteps,
     seed = int(seeds[0]) & threefry.M32 if rng == "core" else 0
     ins = [pack(p).detach().to(torch.float32).contiguous() for p in params]
     outs = [torch.empty(P, dtype=torch.float32, device=dev) for _ in range(n)]
-    per_rep = (lib.pdmt_ring_ws_scratch_floats(batch) if ws
-               else batch * lib.pdmt_epoch_scratch_per_row())
-    scratch = torch.empty((n, per_rep), dtype=torch.float32, device=dev)
+    # K6-mma's scratch is bytes (its exchange and its bf16 rows), a whole
+    # number of 16-byte units a replica
+    scratch = torch.empty((n, per_rep), device=dev,
+                          dtype=torch.uint8 if design == "mma"
+                          else torch.float32)
     losses = torch.empty((n, nsteps), dtype=torch.float32, device=dev)
     comm = torch.empty((n, P if rs else n * P), dtype=torch.float32,
                        device=dev)
@@ -1124,31 +1283,37 @@ def _ring_launch(params, xp, yp, seeds, masks, lr, batch, rng, nsteps,
     chunk_max = (max(b - a for a, b in zip(bounds, bounds[1:])) if rs else 0)
     recv = (torch.empty((n, (n - 1) * chunk_max), dtype=torch.float32,
                         device=dev) if rs else None)
-    nflags = (lib.pdmt_ring_ws_flags_per_replica(n, int(rs)) if ws
-              else lib.pdmt_ring_flags_per_replica(n, int(rs)))
     # the flag counters and the error record, zeroed by one fill
     zeroed = torch.zeros(n * nflags + 4, dtype=torch.int32, device=dev)
     flags, err_rec = zeroed[:-4].view(n, nflags), zeroed[-4:]
     ptr = lambda t: t.data_ptr() if t is not None else 0  # noqa: E731
-    table = torch.tensor(
+    host_table = torch.tensor(
         [[ptr(xs[r]), ptr(ys[r]), ptr(ms[r]), ptr(keys[r]), ptr(ins[r]),
           ptr(outs[r]), ptr(scratch[r]), ptr(losses[r]), ptr(comm[r]),
           ptr(recv[r]) if rs else 0, ptr(flags[r])] for r in range(n)],
-        dtype=torch.int64).to(dev)
+        dtype=torch.int64)
+    table = host_table.to(dev)
     chunk_lo = _chunk_lo(n, dev) if rs else None
-    words = lib.pdmt_ring_ws_stamp_words() if ws else 0
     stamps = (torch.zeros((nsteps, words), dtype=torch.int64, device=dev)
               if words else None)
     group, cols = ctypes.c_int(0), ctypes.c_int(0)
     inv_n = float(np.float32(1.0 / n))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if ws:
+        if design == "ws":
             err = lib.pdmt_ring_ws_step(
                 table.data_ptr(), ptr(chunk_lo), err_rec.data_ptr(), n,
                 int(rs), _RNG_CODE[rng], seed, nsteps, batch, lr, 1.0 / batch,
                 inv_n, chunk_max, int(timeout_s * 1e9), fault, ptr(stamps),
                 ctypes.byref(group), ctypes.byref(cols), stream)
+        elif design == "mma":
+            err = lib.pdmt_ring_mma_step(
+                table.data_ptr(), host_table.data_ptr(), ptr(chunk_lo),
+                err_rec.data_ptr(), n, int(rs), _RNG_CODE[rng], seed, nsteps,
+                batch, lr, 1.0 / batch, inv_n, chunk_max,
+                int(timeout_s * 1e9), fault, pixel_table_bf16(dev).data_ptr(),
+                ptr(stamps), stream)
+            group.value = RING_MMA_BLOCKS
         else:
             err = lib.pdmt_ring_step(
                 table.data_ptr(), ptr(chunk_lo), err_rec.data_ptr(), n,
@@ -1156,12 +1321,10 @@ def _ring_launch(params, xp, yp, seeds, masks, lr, batch, rng, nsteps,
                 batch, lr, 1.0 / batch, inv_n, chunk_max,
                 int(timeout_s * 1e9), fault, max_blocks, ctypes.byref(group),
                 stream)
-    _raise_on(err, f"{lib_name if ws else 'epoch_step'} ring kernel launch",
-              error_string)
-    if ws:
-        if lib_name == "ring_ws":
-            launch_count[f"epoch_step_dp_ws_{ring}"] += 1
-    else:
+    _raise_on(err, f"{lib_name} ring kernel launch", error_string)
+    if lib_name in ("ring_ws", "ring_mma"):
+        launch_count[f"epoch_step_dp_{design}_{ring}"] += 1
+    elif design == "rows":
         launch_count[f"epoch_step_dp_{ring}"
                      + ("_bf16" if compute_bf16 else "")] += 1
     last_launch.update(design=design, blocks=group.value, cols=cols.value,
@@ -1224,19 +1387,21 @@ def stalled_ring(device, *, n: int = 2, ring: str = "allgather",
                  timeout_s: float = 0.05, design=None):
     """Launch K6 once on `device` with replica 0 never signalling its first
     hop (one 1-step epoch at B = 8, zero weights and rows) and return the
-    RingTimeoutError it must end in; `design` 'ws' or 'rows' (default:
-    `ring_design`'s for that form, 'ws'). A debug entry: it shows that a
-    ring wait is bounded, and is not counted in launch_count."""
+    RingTimeoutError it must end in; `design` 'ws', 'mma' (in the bf16
+    mode) or 'rows' (default: `ring_design`'s for the f32 form, 'ws'). A
+    debug entry: it shows that a ring wait is bounded, and is not counted
+    in launch_count."""
     device = torch.device(device)
     zeros = unpack(torch.zeros(N_PARAMS, device=device))
     x = torch.zeros((8, IN_DIM), dtype=torch.uint8, device=device)
     y = torch.zeros(8, dtype=torch.int32, device=device)
+    bf16 = design == "mma"
     before = dict(launch_count)
     try:
         _ring_cuda([zeros] * n, [x] * n, [y] * n, [0] * n, [None] * n, 0.0, 8,
-                   "core", 1, False, _resolve_ring(ring, n), 0,
+                   "core", 1, bf16, _resolve_ring(ring, n), 0,
                    timeout_s=timeout_s, fault=0,
-                   design=design or ring_design(x.dtype, False, 8, n))
+                   design=design or ring_design(x.dtype, bf16, 8, n))
     except RingTimeoutError as e:
         return e
     finally:
@@ -1419,6 +1584,51 @@ def k6_phase_stamps(params, xp, yp, seed_or_keys, lr: float, batch: int, *,
     if used != len(phases) + 1:
         raise RuntimeError(f"ring_ws_stamps records {used} stamps a step; "
                            f"k6_phases names {len(phases) + 1}")
+    t = stamps[:, :used].double()
+    per_phase = (t[:, 1:] - t[:, :-1]).mean(0) / 1e3
+    return (ps, ls, dict(zip(phases, per_phase.tolist())),
+            float((t[:, -1] - t[:, 0]).mean()) / 1e3)
+
+
+# the phases between K6-mma's stamps (csrc/ring_mma.cu `KmStamp`, its ring
+# events, the update's end and replica barrier 3), in order, at n replicas
+# of `ring`: K2-mma's three phases on block 0 of replica 0, its barriers as
+# replica barriers, then K6-ws's ring events (`k6_phases`)
+def k6_mma_phases(ring: str, n: int) -> list:
+    return (["hidden: z1, mask, d1, w2 and w3 to bf16", "replica barrier 1",
+             "rows: z2 to dz1", "replica barrier 2 + handshake wait",
+             "grads: the tile's gradient into comm, hop 0's stores; the "
+             "next step's rows to bf16"]
+            + k6_phases(ring, n)[5:] + ["replica barrier 3"])
+
+
+def k6_mma_phase_stamps(params, xp, yp, seed_or_keys, lr: float, batch: int,
+                        *, masks=None, rng_impl: str = "core",
+                        axis_size: int, ring: str = "auto"):
+    """One n-replica epoch in the bf16 mode on K6-mma's stamps build
+    (`-DK6M_STAMPS`, ops/_build.py VARIANTS), which reads %globaltimer at
+    the phase boundaries of block 0 of replica 0. Inputs as
+    `epoch_fused_sgd` with `axis_size`. A debug entry on CUDA tensors, not
+    counted in launch_count. Returns (params list, losses list, {phase: mean
+    us a step}, mean us a step): the phases of `k6_mma_phases(ring, n)`,
+    each averaged over the epoch's steps."""
+    ring, rng, params, xp, yp, seeds, masks, nsteps, valid = _check_dp(
+        params, xp, yp, seed_or_keys, batch, masks, rng_impl, 1, None,
+        axis_size, ring)
+    if xp[0].device.type != "cuda" or ring_design(
+            xp[0].dtype, True, batch, axis_size) != "mma":
+        raise ValueError("k6_mma_phase_stamps runs K6-mma's form (uint8 "
+                         "rows, bf16, B <= 128, n <= RING_MMA_MAX_REPLICAS) "
+                         "on a CUDA device")
+    ps, ls, stamps = _ring_launch(params, xp, yp, seeds, masks, lr, batch,
+                                  rng, valid, True, ring, 0, design="mma",
+                                  lib_name="ring_mma_stamps")
+    phases = k6_mma_phases(ring, axis_size)
+    used = _ring_mma_lib("ring_mma_stamps").pdmt_ring_mma_stamps_used(
+        axis_size, int(ring == "reduce_scatter"))
+    if used != len(phases) + 1:
+        raise RuntimeError(f"ring_mma_stamps records {used} stamps a step; "
+                           f"k6_mma_phases names {len(phases) + 1}")
     t = stamps[:, :used].double()
     per_phase = (t[:, 1:] - t[:, :-1]).mean(0) / 1e3
     return (ps, ls, dict(zip(phases, per_phase.tolist())),

@@ -332,6 +332,39 @@ def test_dp_epoch_matches_the_jax_ring_kernel_under_the_simulator(ring, n):
     _assert_trees_equal(reps[0], pp)
 
 
+@pytest.mark.parametrize("ring,n", [("allgather", 2), ("reduce_scatter", 3)])
+def test_dp_bf16_epoch_matches_the_jax_ring_kernel_under_the_simulator(ring,
+                                                                       n):
+    """The bf16 mode on both sides: the JAX DP ring kernel with bf16
+    operands under the simulator, and the port's CPU mesh (K6's plain
+    version, step_reference_bf16 per replica + the ring tree + SGD). Both
+    round the same operands to bf16 at the same points and sum in f32, so
+    the f32-rounding pins above hold."""
+    E, S, B = 1, 3, 8
+    rows = S * B * n
+    x_all, y_all = _data(rows, seed=20 + n)
+    idxs = np.random.default_rng(20 + n).permutation(rows).astype(
+        np.int32).reshape(E, S, B * n)
+    run = jax_scan.make_dp_run_fn(_jax_mesh(n), lr=0.05, dtype="bfloat16",
+                                  kernel="pallas_epoch",
+                                  interpret=pltpu.InterpretParams(), ring=ring)
+    jp, jkey, jlosses = run(init_mlp(jax.random.key(0)), jax.random.key(9),
+                            jnp.asarray(x_all), jnp.asarray(y_all),
+                            jnp.asarray(idxs))
+    before = dict(epoch_step.launch_count)
+    port_run = scan.make_dp_run_fn((CPU,) * n, 0.05, dtype="bfloat16",
+                                   kernel="pallas_epoch", ring=ring)
+    pp, pkey, plosses = port_run(_port_params(), threefry.key_data(9),
+                                 torch.from_numpy(x_all),
+                                 torch.from_numpy(y_all), idxs)
+    assert epoch_step.launch_count == before     # the CPU runs the plain version
+    assert pkey == tuple(np.asarray(jax.random.key_data(jkey)).tolist())
+    np.testing.assert_allclose(plosses.numpy(), np.asarray(jlosses),
+                               rtol=LOSS_RTOL, atol=LOSS_ATOL)
+    _assert_tree_close(pp, jax.tree_util.tree_map(np.asarray, jp),
+                       rtol=PARAM_RTOL, atol=PARAM_ATOL)
+
+
 @pytest.mark.parametrize("ring,n", [("allgather", 4), ("reduce_scatter", 4),
                                     ("reduce_scatter", 9)])
 def test_dp_epoch_equals_serial_on_the_global_batch(ring, n):

@@ -48,7 +48,16 @@ per replica + the ring tree + SGD at B = 128, 96 and 8 on both rings,
 with the replicas in lockstep and a repeat launch bitwise; its 1-replica
 launch bitwise K2-ws, K2-ws at four units a block bitwise two, its
 constants and co-residency, its stamps build bitwise its default build,
-and a stalled ring of either design raising by name."""
+and a stalled ring of either design raising by name. K6-mma, the DP rings'
+bf16 forms on K2-mma's tensor-core step (csrc/ring_mma.cu, one mini-ring
+per gradient-tile owner), is held bitwise against K1-mma per replica + the
+ring tree + SGD at B = 128, 96 and 8 on both rings at n = 2, 3, 4, with
+the replicas in lockstep and a repeat launch bitwise, at the JAX bf16 pins
+against its plain version and the rows design's ring in bf16 forced; its
+1-replica launch bitwise K2-mma, its constants and co-residency, its
+stamps build bitwise its default build, a stalled ring raising by name,
+and the bf16 DP scan on a card mesh launching it and tracking the CPU
+mesh."""
 
 import ctypes
 import re
@@ -67,6 +76,7 @@ from pytorch_ddp_mnist_tpu_torch.ops import (epoch_step, fused_step, philox,
                                              threefry)
 from pytorch_ddp_mnist_tpu_torch.ops.sgd import sgd_step
 from pytorch_ddp_mnist_tpu_torch.parallel.ddp import make_dp_train_step
+from pytorch_ddp_mnist_tpu_torch.train import scan
 from pytorch_ddp_mnist_tpu_torch.train.loop import make_train_step
 
 pytestmark = pytest.mark.gpu
@@ -527,12 +537,13 @@ def test_in_kernel_philox_of_each_replica_is_the_plain_stream(cuda):
     assert not torch.equal(masks[0], masks[1])
 
 
-@pytest.mark.parametrize("design", ["ws", "rows"])
+@pytest.mark.parametrize("design", ["ws", "rows", "mma"])
 @pytest.mark.parametrize("ring", ["allgather", "reduce_scatter"])
 def test_a_stalled_ring_raises_by_name_instead_of_hanging(cuda, ring, design):
     err = epoch_step.stalled_ring(cuda, n=2, ring=ring, design=design)
     assert isinstance(err, epoch_step.RingTimeoutError)
     assert "replica 1" in str(err) and "hop 0" in str(err), str(err)
+    assert f"({design} design)" in str(err), str(err)
 
 
 def test_dp_steps_on_a_card_mesh_track_each_other(cuda):
@@ -1086,3 +1097,126 @@ def test_ring_ws_stamps_build_keeps_the_bits_and_splits_the_step(cuda):
         assert list(split) == epoch_step.k6_phases(ring, n)
         assert all(v >= 0 for v in split.values()) and per_step > 0
         assert abs(sum(split.values()) - per_step) <= 1e-6 * per_step + 1e-9
+
+
+# ---- K6-mma, the DP rings' bf16 forms on K2-mma's tensor-core step ----
+# Bitwise against K1-mma per replica + the ring's tree + SGD (the same
+# phase code and trees); against its plain version and the rows design's
+# ring in bf16 (whose sums run in other orders) at the bf16 epoch pins.
+
+RING_MMA_CASES = [(ring, n) for ring in ("allgather", "reduce_scatter")
+                  for n in (2, 3, 4)]
+
+
+def _step_mma(params, x, y, mask):
+    return fused_step.fused_loss_and_grads(params, x.to(torch.bfloat16), y,
+                                           mask)
+
+
+@pytest.mark.parametrize("form", DP_FORMS)
+@pytest.mark.parametrize("batch,nsteps", [(128, 4), (96, 3), (8, 3)])
+@pytest.mark.parametrize("ring,n", RING_MMA_CASES)
+def test_ring_mma_is_bitwise_k1_mma_plus_the_tree_and_within_the_pins(
+        cuda, ring, n, batch, nsteps, form):
+    inp = _dp_inputs(n, batch, nsteps, seed=20 * n + batch, device=cuda)
+    kernel = partial(epoch_step.epoch_fused_sgd, compute_bf16=True)
+    key = f"epoch_step_dp_mma_{ring}"
+    before = dict(epoch_step.launch_count)
+    ps, ls = _dp(kernel, form, inp, ring)
+    ll = dict(epoch_step.last_launch)
+    assert (ll["design"], ll["replicas"], ll["ring"], ll["bf16"],
+            ll["blocks"]) == ("mma", n, ring, True,
+                              epoch_step.RING_MMA_BLOCKS)
+    ps2, ls2 = _dp(kernel, form, inp, ring)
+    assert epoch_step.launch_count[key] == before[key] + 2
+    rows = _dp(kernel, form, inp, ring, _design="rows")
+    assert epoch_step.launch_count[f"epoch_step_dp_{ring}_bf16"] == \
+        before[f"epoch_step_dp_{ring}_bf16"] + 1
+    k1 = _dp(epoch_step.epoch_dp_sgd_reference, form, inp, ring,
+             step_fn=_step_mma)
+    ref = _dp(epoch_step.epoch_dp_sgd_reference, form, inp, ring,
+              compute_bf16=True)
+    torch.cuda.synchronize()
+    for r in range(n):
+        got = _leaves(ps[r], ls[r])
+        for a, b, c, e in zip(got, _leaves(ps[0], ls[r]),
+                              _leaves(ps2[r], ls2[r]),
+                              _leaves(k1[0][r], k1[1][r])):
+            assert torch.equal(a, b)        # lockstep
+            assert torch.equal(a, c)        # repeatable
+            assert torch.equal(a, e)        # K1-mma + ring tree + SGD
+        _bf16_epoch_close(got, _leaves(ref[0][r], ref[1][r]))
+        _bf16_epoch_close(got, _leaves(rows[0][r], rows[1][r]))
+
+
+@pytest.mark.parametrize("form", DP_FORMS)
+def test_one_replica_ring_mma_launch_is_k2_mma_bitwise(cuda, form):
+    inp = _epoch_inputs(128, 3, seed=8, device=cuda)
+    serial = _leaves(*_epoch(partial(epoch_step.epoch_fused_sgd,
+                                     compute_bf16=True), form, inp))
+    assert epoch_step.last_launch["design"] == "mma"
+    pixels, rng = K2_FORMS[form]
+    ps, ls = epoch_step._ring_cuda(
+        [inp["params"]], [inp[pixels]], [inp["y"]], [inp.get(rng)],
+        [inp["masks"] if rng == "masks" else None], 0.01, 128, rng, 3, True,
+        "allgather", 0, design="mma")
+    assert epoch_step.last_launch["design"] == "mma"
+    for a, b in zip(_leaves(ps[0], ls[0]), serial):
+        assert torch.equal(a, b)
+
+
+def test_ring_mma_library_shares_the_wrappers_constants_and_fits(cuda):
+    lib = epoch_step._ring_mma_lib()      # checks its constants on load
+    blocks = ctypes.c_int(0)
+    for rng in range(3):
+        assert lib.pdmt_ring_mma_coresident(rng, ctypes.byref(blocks)) == 0
+        assert blocks.value >= (epoch_step.RING_MMA_MAX_REPLICAS
+                                * epoch_step.RING_MMA_BLOCKS)
+    assert lib.pdmt_ring_mma_scratch_bytes(128) == \
+        epoch_step._mma_lib().pdmt_emma_scratch_bytes(128)
+
+
+def test_ring_mma_stamps_build_keeps_the_bits_and_splits_the_step(cuda):
+    kernel = partial(epoch_step.epoch_fused_sgd, compute_bf16=True)
+    for ring, n in (("allgather", 4), ("reduce_scatter", 3)):
+        inp = _dp_inputs(n, 128, 3, seed=2, device=cuda)
+        base = _dp(kernel, "K2c", inp, ring)
+        before = dict(epoch_step.launch_count)
+        ps, ls, split, per_step = _dp(epoch_step.k6_mma_phase_stamps, "K2c",
+                                      inp, ring)
+        assert dict(epoch_step.launch_count) == before
+        for r in range(n):
+            for a, b in zip(_leaves(ps[r], ls[r]),
+                            _leaves(base[0][r], base[1][r])):
+                assert torch.equal(a, b)
+        assert list(split) == epoch_step.k6_mma_phases(ring, n)
+        assert all(v >= 0 for v in split.values()) and per_step > 0
+        assert abs(sum(split.values()) - per_step) <= 1e-6 * per_step + 1e-9
+
+
+@pytest.mark.parametrize("ring,impl", [("allgather", "threefry2x32"),
+                                       ("reduce_scatter", "rbg")])
+def test_bf16_dp_scan_on_a_card_mesh_runs_ring_mma_and_tracks_the_cpu_mesh(
+        cuda, ring, impl):
+    # the DP scan (what --parallel --cached calls) in bf16: one K6-mma
+    # launch an epoch; its losses against the CPU mesh's (plain versions,
+    # the same masks) at the bf16 epoch pins
+    n, B, S = 2, 128, 6
+    split = synthetic_mnist(n * B * S, seed=4)
+    idxs = np.random.default_rng(4).permutation(n * B * S).astype(
+        np.int32).reshape(1, S, n * B)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        x = torch.from_numpy(split.images.reshape(n * B * S, -1)).to(dev)
+        y = torch.from_numpy(split.labels.astype(np.int32)).to(dev)
+        run = scan.make_dp_run_fn((dev,) * n, 0.01, dtype="bfloat16",
+                                  kernel="pallas_epoch", ring=ring, impl=impl)
+        before = epoch_step.launch_count[f"epoch_step_dp_mma_{ring}"]
+        _, _, losses = run(MLP.from_seed(0).params(), threefry.key_data(1),
+                           x, y, idxs)
+        runs.append((losses.cpu(), epoch_step.launch_count[
+            f"epoch_step_dp_mma_{ring}"] - before))
+    (card, card_k6), (cpu, cpu_k6) = runs
+    assert (card_k6, cpu_k6) == (1, 0)
+    assert epoch_step.last_launch["design"] == "mma"
+    torch.testing.assert_close(card, cpu, rtol=1e-3, atol=1e-4)

@@ -85,8 +85,13 @@ def test_ring_design_is_ws_for_the_main_path_forms_up_to_four(n):
     (torch.float32, False, 8)])
 def test_ring_design_is_rows_for_f32_rows_bf16_and_large_batches(dtype, bf16,
                                                                  batch):
+    # never K6-ws; uint8 rows in bf16 at B <= 128 run K6-mma up to its
+    # replicas (tests/test_torch_port_k6_mma.py), the rows design past them
+    mma = dtype == torch.uint8 and bf16 and batch <= 128
     for n in range(1, 10):
-        assert epoch_step.ring_design(dtype, bf16, batch, n) == "rows"
+        want = ("mma" if mma and n <= epoch_step.RING_MMA_MAX_REPLICAS
+                else "rows")
+        assert epoch_step.ring_design(dtype, bf16, batch, n) == want
 
 
 def test_ring_design_boundaries():
