@@ -121,7 +121,21 @@ Phases (any failure exits non-zero; no phase is skipped):
                   against the same run
                   on a 4-replica CPU mesh; `train --parallel --cached
                   --kernel pallas_epoch` on the 1-card mesh (K2-ws), bitwise
-                  the serial run.
+                  the serial run;
+               j. the process-level world (phase_main_world), ranks spawned
+                  on cuda:0 over gloo, each a process of its own (this
+                  script run with `--world-rank`): 2 and 4 ranks, 50 steps
+                  of `--kernel pallas` a rank at 128 rows, f32 (K1-split)
+                  and bf16 (K1-mma), bitwise in lockstep and bitwise the
+                  single-process n-replica mesh of the card on the world's
+                  rows, each step split into compute and exchange; `train
+                  --parallel --wireup_method env` through torchrun
+                  --standalone --nproc_per_node 4 and 2, one epoch each (118
+                  and 235 K1-split and mask launches a rank), one epoch line
+                  and a rank-0 checkpoint equal to every rank's params;
+                  `--cached --kernel pallas_rng` on 2 ranks in lockstep; an
+                  NCCL world of 1 rank bitwise the serial `--parallel` run,
+                  and NCCL asked for by 2 ranks on the card exiting by name.
   5. timing  — CUDA-event times of each kernel and form and its plain
                version at the main path's shapes, torch.profiler's device
                time of K1 (both designs) and the cached epoch (f32 on K2-ws,
@@ -2275,6 +2289,9 @@ def phase_timing_variants(device, launches: dict, worst: dict, card: str,
         launches["train"]["threefry_mask"], worst["threefry_mask"], k, p,
         (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes", 0, nbytes), card,
         graph_ms=kg,
+        launches_by_path={path: c["threefry_mask"]
+                          for path, c in launches.items()
+                          if c.get("threefry_mask")},
         form="the streaming trainer's per-step dropout draw (K3's threefry "
              "device function); its int32 cipher operations are not in the "
              "bound, which has f32 and bf16 peaks only",
@@ -2904,6 +2921,421 @@ def phase_main_dp(device, tmp: str) -> dict:
     return out
 
 
+# ---- the process-level world: ranks spawned on cuda:0 ----
+
+WORLD_SIZES = (2, 4)
+WORLD_STEPS = DP_PALLAS_STEPS     # the lockstep runs' steps
+WORLD_LIMIT_S = 180               # each spawned world's own time limit
+WORLD_EPOCH_STEPS = {2: 235, 4: 118}   # 60,000 rows / (n x 128), padded
+# launcher variables a spawned rank must not inherit
+_LAUNCHER_VARS = ("SLURM_PROCID", "SLURM_NTASKS", "OMPI_COMM_WORLD_RANK",
+                  "OMPI_COMM_WORLD_SIZE", "PMI_RANK", "PMI_SIZE", "RANK",
+                  "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                  "MASTER_ADDR", "MASTER_PORT")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_env(**extra) -> dict:
+    env = {k: v for k, v in os.environ.items() if k not in _LAUNCHER_VARS}
+    env.update(OMP_NUM_THREADS="1",
+               PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""))
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _spawn(cmds, cwd: str, *, expect_ok: bool = True) -> list:
+    """Run the (argv, env) pairs in `cmds` together, each in a session of
+    its own; kill every session on the first failure (with expect_ok) or
+    at WORLD_LIMIT_S. Retries on a port race only. Returns [(rc, out,
+    err)]."""
+    import signal
+    for attempt in range(3):
+        procs, files = [], []
+        for argv, env in cmds(attempt):
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+            files.append((out, err))
+            procs.append(subprocess.Popen(argv, cwd=cwd, env=env, text=True,
+                                          stdout=out, stderr=err,
+                                          start_new_session=True))
+        deadline = time.monotonic() + WORLD_LIMIT_S
+        try:
+            while any(p.poll() is None for p in procs):
+                failed = any(p.returncode not in (None, 0) for p in procs)
+                if time.monotonic() > deadline or (failed and expect_ok):
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        res = []
+        for p, (out, err) in zip(procs, files):
+            out.seek(0)
+            err.seek(0)
+            res.append((p.returncode, out.read(), err.read()))
+            out.close()
+            err.close()
+        blob = "".join(e for _, _, e in res)
+        if not ("Address already in use" in blob or "EADDRINUSE" in blob):
+            break
+    if expect_ok:
+        for r, (rc, out, err) in enumerate(res):
+            if rc != 0:
+                fail(f"spawned process {r} of {len(res)} exited {rc}:\n"
+                     f"{out[-3000:]}\n{err[-3000:]}")
+    return res
+
+
+def _env_world(n: int, argv: list, **extra):
+    """The (argv, env) pairs of an n-rank world under the env wireup."""
+    def cmds(attempt):
+        port = _free_port()
+        return [(argv, _rank_env(RANK=r, WORLD_SIZE=n, LOCAL_RANK=r,
+                                 LOCAL_WORLD_SIZE=n, MASTER_ADDR="127.0.0.1",
+                                 MASTER_PORT=port, **extra))
+                for r in range(n)]
+    return cmds
+
+
+def _torchrun(n: int, argv: list):
+    """torchrun --standalone --nproc_per_node n (torch.distributed.run, the
+    reference's launch line) of `argv`."""
+    return lambda attempt: [([sys.executable, "-m", "torch.distributed.run",
+                              "--standalone", "--nproc_per_node", str(n),
+                              *argv], _rank_env())]
+
+
+def _main_data(n_rows: int = 60000):
+    from pytorch_ddp_mnist_tpu_torch.data.mnist import (normalize_images,
+                                                         synthetic_mnist)
+    split = synthetic_mnist(n_rows, seed=0)
+    return normalize_images(split.images), split.labels.astype(np.int32)
+
+
+def _world_rows(n: int) -> list:
+    """Each rank's sampler shard of epoch 0 (60,000 rows over n ranks)."""
+    from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
+    out = []
+    for r in range(n):
+        s = ShardedSampler(60000, num_replicas=n, rank=r, seed=42)
+        s.set_epoch(0)
+        out.append(s.indices())
+    return out
+
+
+def _world_train(step, x_all, y_all, rows_of_step, device, barrier=None):
+    """WORLD_STEPS steps of `step` from MLP.from_seed(0) and key 1, the
+    batches uploaded first. Returns (losses, final params on the CPU, ms a
+    step after the first 10)."""
+    from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
+    from pytorch_ddp_mnist_tpu_torch.ops import threefry
+    xs = [torch.from_numpy(x_all[rows_of_step(s)]).to(device)
+          for s in range(WORLD_STEPS)]
+    ys = [torch.from_numpy(y_all[rows_of_step(s)]).to(device)
+          for s in range(WORLD_STEPS)]
+    model = MLP.from_seed(0).to(device)
+    key = threefry.key_data(1)
+    losses = []
+    torch.cuda.synchronize()
+    if barrier:
+        barrier()
+    for s in range(WORLD_STEPS):
+        if s == 10:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        key, loss = step(model, key, xs[s], ys[s])
+        losses.append(loss)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (WORLD_STEPS - 10) * 1e3
+    return (torch.stack(losses).cpu(),
+            {n: {k: v.detach().cpu() for k, v in l.items()}
+             for n, l in model.params().items()}, ms)
+
+
+def world_rank_lockstep(out: str) -> None:
+    """A rank of phase_main_world (a): WORLD_STEPS steps of `--kernel
+    pallas` at MAIN_BATCH rows a rank through make_pallas_dp_train_step on
+    a WorldMesh, in f32 (K1-split) and bf16 (K1-mma). Each step's
+    `world_mean` call is timed between two device syncs (the exchange:
+    staging, the all-gather with its wait for the slowest rank, the
+    ordered sum); gloo's staging syncs the step there anyway. Saves each
+    dtype's losses, params, launches and times to out/rank<r>_<dtype>.pt."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step
+    from pytorch_ddp_mnist_tpu_torch.parallel import ddp
+    from pytorch_ddp_mnist_tpu_torch.parallel.mesh import WorldMesh
+    from pytorch_ddp_mnist_tpu_torch.parallel.wireup import initialize_runtime
+    rt = initialize_runtime("env", device_type="cuda")
+    mesh = WorldMesh([rt.device], world_size=rt.size, rank=rt.rank)
+    x_all, y_all = _main_data()
+    rows = _world_rows(rt.size)[rt.rank]
+    world_mean, spent = ddp.world_mean, []
+
+    def timed_mean(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = world_mean(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    ddp.world_mean = timed_mean
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.reset_peak_memory_stats(rt.device)
+        _reset_counts()
+        spent.clear()
+        step = fused_step.make_pallas_dp_train_step(mesh, LR, dtype=dtype)
+        losses, params, step_ms = _world_train(
+            step, x_all, y_all,
+            lambda s: rows[s * MAIN_BATCH:(s + 1) * MAIN_BATCH], rt.device,
+            rt.barrier)
+        launches = _counts()
+        exchange_ms = sum(spent[10:]) / (WORLD_STEPS - 10) * 1e3
+        torch.save({"losses": losses, "params": params, "launches": launches,
+                    "step_ms": step_ms, "exchange_ms": exchange_ms,
+                    "backend": rt.backend, "device": str(rt.device),
+                    "peak_mib": torch.cuda.max_memory_allocated(rt.device)
+                    / 2**20},
+                   os.path.join(out, f"rank{rt.rank}_{dtype}.pt"))
+    rt.finalize()
+
+
+def world_rank_cli(out: str, argv: list) -> None:
+    """A rank of a world driven through the trainer's entry point
+    (`cli/train.py train`, what `python -m pytorch_ddp_mnist_tpu_torch
+    train` calls): saves its per-step losses, final params, launches and
+    wall time to out/rank<RANK>.pt."""
+    from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _reset_counts()
+    t0 = time.perf_counter()
+    state, history = cli_train.train(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    torch.save({"losses": torch.from_numpy(history[0]),
+                "launches": _counts(), "wall_s": wall, "key": state.key,
+                "params": {n: {k: v.detach().cpu() for k, v in l.items()}
+                           for n, l in state.model.params().items()}},
+               os.path.join(out, f"rank{os.environ['RANK']}.pt"))
+
+
+def _equal_trees(a, b) -> bool:
+    return all(torch.equal(a[n][k], b[n][k]) for n in a for k in a[n])
+
+
+def _world_cli_argv(tmp: str, out: str, *train) -> list:
+    return [os.path.join(REPO, "chip_smoke.py"), "--world-rank", "cli",
+            "--out", out, "--", "--parallel", "--batch_size", str(MAIN_BATCH),
+            "--lr", str(LR), "--seed", "0", "--n_epochs", "1",
+            "--path", os.path.join(tmp, "no_mnist_here"), *train]
+
+
+def _epoch_seconds(line: str, steps: int, global_batch: int) -> float:
+    rate = float(re.search(r" ([0-9.]+) img/s", line).group(1))
+    return steps * global_batch / rate
+
+
+def phase_main_world(device, tmp: str, card: str) -> dict:
+    """The process-level world: ranks spawned on cuda:0 over gloo (NCCL
+    refuses two ranks on one card), each a process of its own.
+      a. 2 and 4 ranks under the env wireup run WORLD_STEPS steps of
+         `--kernel pallas` at MAIN_BATCH rows a rank through
+         make_pallas_dp_train_step on a WorldMesh, f32 (K1-split) and bf16
+         (K1-mma): every rank's losses and params bitwise equal, and
+         bitwise the single-process n-replica mesh of this card fed the
+         world's rows in rank order; each rank's step split into compute
+         and exchange (`world_mean` alone);
+      b. `train --parallel --wireup_method env` through torchrun
+         --standalone --nproc_per_node 4 (and 2), one epoch of synthetic
+         60k at 128 rows a rank, full eval: one Epoch=0 line, a checkpoint
+         from rank 0 equal to every rank's final params, each rank's
+         K1-split and mask launches one a step; the epoch's wall time;
+      c. `train --parallel --cached --kernel pallas_rng` on 2 ranks, one
+         epoch: K1-split's rng form a step, ranks in lockstep;
+      d. an NCCL world of 1 rank bitwise the serial `--parallel` run, and
+         an NCCL request from 2 ranks on this card exiting by name.
+    Returns the launches of each world path, a rank's."""
+    from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step
+    from pytorch_ddp_mnist_tpu_torch.parallel.mesh import data_parallel_mesh
+    from pytorch_ddp_mnist_tpu_torch.train.checkpoint import load_checkpoint
+    paths = {}
+    x_all, y_all = _main_data()
+    t_phase = time.perf_counter()
+    for n in WORLD_SIZES:
+        out = tempfile.mkdtemp(dir=tmp)
+        t0 = time.perf_counter()
+        _spawn(_env_world(n, [sys.executable,
+                              os.path.join(REPO, "chip_smoke.py"),
+                              "--world-rank", "lockstep", "--out", out]), tmp)
+        spawn_s = time.perf_counter() - t0
+        shards = _world_rows(n)
+        for dtype, key in (("float32", "fused_split"),
+                           ("bfloat16", "fused_mma")):
+            what = f"a world of {n} ranks, --kernel pallas, {dtype}"
+            runs = [torch.load(os.path.join(out, f"rank{r}_{dtype}.pt"))
+                    for r in range(n)]
+            for r, run in enumerate(runs):
+                expect_launches(run["launches"], {key: WORLD_STEPS,
+                                                  "threefry_mask": WORLD_STEPS},
+                                f"{what}, rank {r}")
+                if run["backend"] != "gloo" or run["device"] != "cuda:0":
+                    fail(f"{what}, rank {r}: backend {run['backend']} on "
+                         f"{run['device']}, expected gloo on cuda:0")
+                if not (torch.equal(run["losses"], runs[0]["losses"])
+                        and _equal_trees(run["params"], runs[0]["params"])):
+                    fail(f"{what}: rank {r} is not in lockstep with rank 0")
+            losses = runs[0]["losses"].numpy()
+            if not (np.isfinite(losses).all()
+                    and losses[-10:].mean() < losses[:10].mean()):
+                fail(f"{what}: losses not finite and falling: {losses}")
+            _reset_counts()
+            mesh_losses, mesh_params, _ = _world_train(
+                fused_step.make_pallas_dp_train_step(
+                    data_parallel_mesh([device] * n), LR, dtype=dtype),
+                x_all, y_all, lambda s: np.concatenate(
+                    [sh[s * MAIN_BATCH:(s + 1) * MAIN_BATCH] for sh in shards]),
+                device)
+            expect_launches(_counts(), {key: n * WORLD_STEPS,
+                                        "threefry_mask": n * WORLD_STEPS},
+                            f"the {n}-replica mesh of cuda:0, {dtype}")
+            if not (torch.equal(runs[0]["losses"], mesh_losses)
+                    and _equal_trees(runs[0]["params"], mesh_params)):
+                fail(f"{what}: not bitwise the single-process {n}-replica "
+                     f"mesh on the world's rows")
+            slow = max(runs, key=lambda r: r["step_ms"])
+            step_ms, exch_ms = slow["step_ms"], slow["exchange_ms"]
+            peak = max(r["peak_mib"] for r in runs)
+            print(f"[main] {what}: ranks bitwise in lockstep and bitwise the "
+                  f"{n}-replica mesh of cuda:0 on the world's rows; loss "
+                  f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches a rank "
+                  f"{ {k: v for k, v in runs[0]['launches'].items() if v} }")
+            print(f"[timing] world step n={n} {dtype} (gloo, ranks on one "
+                  f"card; slowest rank, steps 10-{WORLD_STEPS - 1}): "
+                  f"{step_ms:.3f} ms a step = compute {step_ms - exch_ms:.3f} "
+                  f"+ exchange {exch_ms:.3f} (world_mean in the step, between "
+                  f"two syncs: the flat buffer through the host, gloo's "
+                  f"all-gather with its wait for the slowest rank, the "
+                  f"ordered sum on the card); peak device memory a rank "
+                  f"{peak:.1f} MiB [{card}]")
+            paths[f"world n={n} --kernel pallas {dtype}, a rank"] = \
+                runs[0]["launches"]
+        print(f"[main] the {n}-rank lockstep world took {spawn_s:.1f}s of "
+              f"wall (process start, data and both dtypes)")
+
+    walls = {}
+    for n in (4, 2):
+        out = tempfile.mkdtemp(dir=tmp)
+        ckpt = os.path.join(out, "model.pt")
+        res = _spawn(_torchrun(n, _world_cli_argv(
+            tmp, out, "--wireup_method", "env", "--checkpoint", ckpt)), tmp)
+        stdout = res[0][1]
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("Epoch=")]
+        what = f"torchrun --standalone --nproc_per_node {n} ... train " \
+               f"--parallel --wireup_method env"
+        if len(lines) != 1 or not lines[0].startswith("Epoch=0, "):
+            fail(f"{what}: epoch lines {lines}, expected one Epoch=0 line")
+        if f"world={n} rank=0 backend=gloo" not in stdout:
+            fail(f"{what}: no banner naming the world: {stdout[-2000:]}")
+        steps = WORLD_EPOCH_STEPS[n]
+        runs = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(n)]
+        saved = load_checkpoint(ckpt)
+        for r, run in enumerate(runs):
+            expect_launches(run["launches"], {"fused_split": steps,
+                                              "threefry_mask": steps},
+                            f"{what}, rank {r}")
+            if not (_equal_trees(run["params"], saved)
+                    and torch.equal(run["losses"], runs[0]["losses"])):
+                fail(f"{what}: rank {r}'s params or losses differ from the "
+                     f"rank-0 checkpoint's")
+        peaks = re.findall(r"peak device memory ([0-9.]+) MiB", res[0][2])
+        walls[n] = (_epoch_seconds(lines[0], steps, n * MAIN_BATCH),
+                    max(r["wall_s"] for r in runs))
+        print(f"[main]   {lines[0]}")
+        print(f"[main] {what}: one Epoch=0 line, from rank 0; the rank-0 "
+              f"checkpoint equals every rank's final params; {steps} K1-split "
+              f"and mask launches a rank; ranks' peak device memory "
+              f"{', '.join(peaks)} MiB")
+        print(f"[timing] world epoch n={n} (torchrun, gloo, ranks on one "
+              f"card, 128 rows a rank, {steps} steps, eval included): "
+              f"{walls[n][0]:.3f} s (the epoch line's); the rank's whole "
+              f"train() {walls[n][1]:.3f} s (data and start-up included) "
+              f"[{card}]")
+        paths[f"world n={n} train --parallel (torchrun), a rank"] = \
+            runs[0]["launches"]
+
+    # c and d together: none of them is timed, and the ranks of each are
+    # processes of their own
+    rng_out, nccl_out = tempfile.mkdtemp(dir=tmp), tempfile.mkdtemp(dir=tmp)
+    limit = ["--limit", str(MAIN_STEPS * MAIN_BATCH), "--kernel", "pallas",
+             "--checkpoint", ""]
+    rng = _torchrun(2, _world_cli_argv(
+        tmp, rng_out, "--wireup_method", "env", "--cached", "--kernel",
+        "pallas_rng", "--checkpoint", ""))
+    nccl = _env_world(1, [sys.executable, *_world_cli_argv(
+        tmp, nccl_out, "--wireup_method", "env", *limit)])
+    refused = [([sys.executable, "-m", "pytorch_ddp_mnist_tpu_torch", "train",
+                 "--parallel", "--wireup_method", "nccl-mpich",
+                 "--checkpoint", "", "--path",
+                 os.path.join(tmp, "no_mnist_here")],
+                _rank_env(PMI_RANK=r, PMI_SIZE=2)) for r in range(2)]
+    t0 = time.perf_counter()
+    res = _spawn(lambda attempt: rng(attempt) + nccl(attempt) + refused, tmp,
+                 expect_ok=False)
+    for what, (rc, o, e) in zip(("the cached pallas_rng world",
+                                 "the 1-rank NCCL world"), res):
+        if rc != 0:
+            fail(f"{what} exited {rc}:\n{o[-3000:]}\n{e[-3000:]}")
+    for r, (rc, o, e) in enumerate(res[2:]):
+        if rc in (0, None, -9) or "2 ranks share this node's 1 card" not in e:
+            fail(f"NCCL from 2 ranks on one card, rank {r}: rc {rc}, "
+                 f"expected an exit by name: {e[-2000:]}")
+    print(f"[main] c and d ran together in {time.perf_counter() - t0:.1f}s "
+          f"(wall); NCCL asked for by 2 ranks on this card: each exited by "
+          f"name")
+
+    runs = [torch.load(os.path.join(rng_out, f"rank{r}.pt"))
+            for r in range(2)]
+    what = "train --parallel --cached --kernel pallas_rng on 2 ranks"
+    for r, run in enumerate(runs):
+        expect_launches(run["launches"],
+                        {"fused_split_rng": WORLD_EPOCH_STEPS[2]},
+                        f"{what}, rank {r}")
+        if not (_equal_trees(run["params"], runs[0]["params"])
+                and torch.equal(run["losses"], runs[0]["losses"])):
+            fail(f"{what}: rank {r} is not in lockstep with rank 0")
+    losses = runs[0]["losses"]
+    if not losses[-20:].mean() < losses[:20].mean():
+        fail(f"{what}: losses are not falling")
+    print(f"[main] {what}: ranks in lockstep, {WORLD_EPOCH_STEPS[2]} "
+          f"K1-split rng launches a rank, no mask drawn outside the kernel")
+    paths["world n=2 train --parallel --cached --kernel pallas_rng, a rank"] \
+        = runs[0]["launches"]
+
+    # NCCL: the world of one rank against the serial --parallel run
+    if "world=1 rank=0 backend=nccl" not in res[1][1]:
+        fail(f"the 1-rank env world did not form over NCCL: {res[1][1][-2000:]}")
+    nccl = torch.load(os.path.join(nccl_out, "rank0.pt"))
+    _, serial, _ = _run_trainer(cli_train, _world_cli_argv(tmp, nccl_out,
+                                                           *limit)[6:])
+    if not np.array_equal(serial[0], nccl["losses"].numpy()):
+        fail("the NCCL world of 1 rank differs from the serial --parallel run")
+    expect_launches(nccl["launches"], {"fused_split": MAIN_STEPS,
+                                       "threefry_mask": MAIN_STEPS},
+                    "the NCCL world of 1 rank")
+    paths["world n=1 NCCL train --parallel --kernel pallas"] = nccl["launches"]
+    print("[main] an NCCL world of 1 rank: bitwise the serial --parallel "
+          "run's losses")
+    print(f"[main] the world phase took {time.perf_counter() - t_phase:.1f}s")
+    return paths
+
+
 def k6_bound(n: int, batch: int, nsteps: int, ring: str,
              peak: float = PEAK_F32_FLOPS):
     """(bound_ms, bound_by, flop, bytes) of one K6 epoch on n replicas,
@@ -3248,6 +3680,7 @@ def main() -> int:
         paths["train --cached --kernel auto"], cached_walls = \
             phase_main_cached_k1(tmp)
         dp_launches = phase_main_dp(device, tmp)
+        world_launches = phase_main_world(device, tmp, card)
     _, k2_launches["bench --epochs 5"] = phase_bench()
     ss = ("--kernel", "pallas_epoch", "--dtype", "bfloat16", "--superstep",
           "8")
@@ -3260,7 +3693,7 @@ def main() -> int:
         superstep=ROWS_SUPERSTEP,
         design="rows")
     prof, busy = phase_profile(device)
-    all_paths = {**paths, **k2_launches, **dp_launches}
+    all_paths = {**paths, **k2_launches, **dp_launches, **world_launches}
     k1_entries = phase_timing(device, all_paths, max_abs_err, split_worst,
                               card, prof, busy, cached_walls)
     k2_entries = phase_timing_k2(device, k2_launches, k2_worst, card, prof,
@@ -3290,5 +3723,21 @@ def main() -> int:
     return 0
 
 
+def world_rank(args: list) -> int:
+    """`chip_smoke.py --world-rank lockstep|cli --out DIR [-- TRAIN ARGS]`:
+    one rank of a world that phase_main_world spawns."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    mode, out = args[0], args[args.index("--out") + 1]
+    if mode == "lockstep":
+        world_rank_lockstep(out)
+    else:
+        world_rank_cli(out, args[args.index("--") + 1:])
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--world-rank"]:
+        sys.exit(world_rank(sys.argv[2:]))
     sys.exit(main())

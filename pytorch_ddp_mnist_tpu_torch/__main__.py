@@ -1,7 +1,10 @@
 """`python -m pytorch_ddp_mnist_tpu_torch <command>`: the port's front door.
 
     train      the serial and data-parallel trainer (cli/train.py;
-               --parallel for the latter)
+               --parallel for the latter: over the local cards, or as one
+               rank of a launcher's world of processes, e.g. `torchrun
+               --nproc_per_node 4 -m pytorch_ddp_mnist_tpu_torch train
+               --parallel`)
     bench      the single-card train benchmark (bench.py)
 
 The JAX package's other commands (serve, trace, ledger, convert, download,
@@ -14,7 +17,8 @@ from __future__ import annotations
 import sys
 
 _COMMANDS = {
-    "train": ("pytorch_ddp_mnist_tpu_torch.cli.train", "the serial trainer"),
+    "train": ("pytorch_ddp_mnist_tpu_torch.cli.train",
+              "the serial and data-parallel trainer"),
     "bench": ("pytorch_ddp_mnist_tpu_torch.bench",
               "the single-card train benchmark"),
 }

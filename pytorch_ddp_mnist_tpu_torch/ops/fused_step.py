@@ -539,16 +539,19 @@ def make_pallas_dp_train_step(mesh, lr: float, *, dtype: str = "float32",
                               comm: str = "pmean"):
     """The data-parallel `--kernel pallas` step (JAX
     `make_pallas_dp_train_step`, comm='pmean'): step(model, key, x, y) ->
-    (key', loss). The fused step (K1, or K1-bf16 with `dtype='bfloat16'`)
-    runs once per replica of `mesh` on that replica's shard of the global
-    batch x, with the mask of `fold_in(sub, replica)`; the gradients'
-    fixed-order mean then feeds SGD, and the loss is the replicas' mean
-    (parallel/ddp.py `dp_step`)."""
+    (key', loss). The fused step (K1-split, or K1-mma with
+    `dtype='bfloat16'`) runs once per local replica of `mesh` on that
+    replica's shard of this process's batch x, with the mask of
+    `fold_in(sub, global replica index)`; the gradients' fixed-order mean
+    over the mesh's world (`world_mean`: the replicas of one process, or
+    of every process of a WorldMesh) then feeds SGD, and the loss is the
+    world's mean (parallel/ddp.py `dp_step`)."""
     from ..parallel.ddp import dp_step, validate_comm
+    from ..parallel.mesh import as_mesh
     validate_comm(comm)
     compute_dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
 
     def loss_and_grads(params, x, y, mask):
         return fused_loss_and_grads(params, x.to(compute_dt), y, mask)
 
-    return dp_step(tuple(mesh), lr, loss_and_grads)
+    return dp_step(as_mesh(mesh), lr, loss_and_grads)

@@ -1,5 +1,6 @@
-"""Data-parallel training over a single-process mesh: the DDP analog (port
-of the `comm="pmean"` subset of `pytorch_ddp_mnist_tpu/parallel/ddp.py`).
+"""Data-parallel training over a mesh of one process or of a world of
+processes: the DDP analog (port of the `comm="pmean"` subset of
+`pytorch_ddp_mnist_tpu/parallel/ddp.py`).
 
 The reference semantics, as the JAX package reproduces them:
   * the params are replicated on every replica;
@@ -22,14 +23,26 @@ which the step updates in place (SGD is redundant per replica in DDP; on
 one device the redundant copies would be the same bits). Replicas on other
 devices than the model's get a copy of the params each step.
 
+Across processes (a `WorldMesh`, parallel/mesh.py, after
+parallel/wireup.py formed the process group) each process runs its local
+replicas, replica r keyed by `fold_in(sub, global index of r)`, and
+`world_mean` takes the mean over the whole world in the same fixed global
+order: every process's flat buffer of grads and loss is all-gathered, then
+summed `tot = v0; tot = tot + v1; ...` and scaled by f32(1/n), so the world
+is bitwise the single-process mesh of as many replicas on the same rows.
+No gradient goes through `dist.all_reduce`, whose order the backend picks.
+Every process builds its params from the same seed; `check_replicated`
+holds them equal at start-up.
+
 The other gradient-communication strategies (`sharded`, `bf16`, `int8`,
-`overlap`) are refused by name (ROADMAP.md queue 1, item 11); the
-process-level world (wireup, gloo, NCCL) is queue 1, item 6b.
+`overlap`) are refused by name (ROADMAP.md queue 1, item 11).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Sequence
+
+import hashlib
 
 import numpy as np
 import torch
@@ -37,11 +50,12 @@ import torch
 from ..ops import threefry
 from ..ops.fused_step import dropout_mask
 from ..ops.sgd import sgd_step
-from .mesh import DATA_AXIS, Mesh, data_parallel_mesh
+from .mesh import (DATA_AXIS, Mesh, WorldMesh, as_mesh, data_parallel_mesh,
+                   first_replica, replicas, world_size)
 
 __all__ = ["DATA_AXIS", "dp_mesh", "shard_batch", "global_batch_from_local",
-           "replicate_state", "replica_mean", "validate_comm",
-           "make_dp_train_step"]
+           "replicate_state", "check_replicated", "replica_mean",
+           "world_mean", "validate_comm", "make_dp_train_step"]
 
 COMMS = ("pmean", "sharded", "bf16", "int8")
 
@@ -94,17 +108,51 @@ def shard_batch(mesh: Mesh, batch) -> list:
 
 
 def global_batch_from_local(mesh: Mesh, local_batch) -> list:
-    """This process's batch as the mesh's per-replica shards. In the JAX
-    package it stitches every process's local rows into one global array;
-    a single process's mesh is all local, so it is `shard_batch` (with the
-    same named error for a ragged batch)."""
+    """This process's batch (its sampler shard's rows) as its local
+    replicas' shards. In the JAX package it stitches every process's local
+    rows into one global array; here each process keeps its own rows, and
+    the global batch exists only as the world's rows in rank order (what
+    `world_mean` averages over). It is `shard_batch` over the local
+    replicas, with the same named error for a ragged batch."""
     return shard_batch(mesh, local_batch)
 
 
+def _digest(tree) -> str:
+    h = hashlib.sha256()
+    for name in sorted(tree):
+        layer = tree[name]
+        for k in (sorted(layer) if isinstance(layer, dict) else [None]):
+            a = layer[k] if k is not None else layer
+            h.update(np.ascontiguousarray(
+                torch.as_tensor(a).detach().cpu().numpy()).tobytes())
+    return h.hexdigest()
+
+
+def check_replicated(mesh: Mesh, tree) -> None:
+    """In a world of processes, gather a checksum of `tree` (every process
+    built it from the same seed) and raise, naming the ranks, if any
+    process's differs. A single process has nothing to check."""
+    if world_size(mesh) == 1:
+        return
+    import torch.distributed as dist
+    digests = [None] * world_size(mesh)
+    dist.all_gather_object(digests, _digest(tree))
+    bad = [r for r, d in enumerate(digests) if d != digests[0]]
+    if bad:
+        raise RuntimeError(
+            f"the initial params differ across the world: rank(s) {bad} hold "
+            f"other params than rank 0 (every rank builds them from the "
+            f"same --seed; check that every rank got the same arguments)")
+
+
 def replicate_state(mesh: Mesh, tree) -> list:
-    """One copy of `tree` (a tensor, array or params tree) per replica, on
-    its device: the DDP construction-time broadcast. Every replica gets its
-    own tensors, so a replica's in-place update never touches another's."""
+    """One copy of `tree` (a tensor, array or params tree) per local
+    replica, on its device: the DDP construction-time broadcast. Every
+    replica gets its own tensors, so a replica's in-place update never
+    touches another's. In a world of processes every process builds `tree`
+    from the same seed, as in JAX; `check_replicated` holds them equal."""
+    check_replicated(mesh, tree)
+
     def place(a, dev):
         if isinstance(a, dict):
             return {k: place(v, dev) for k, v in a.items()}
@@ -130,6 +178,59 @@ def replica_mean(values: Sequence, device=None):
     return tot * torch.tensor(1.0 / n, dtype=torch.float32, device=device)
 
 
+def world_mean(mesh: Mesh, losses: Sequence, grads: Sequence, device=None):
+    """The mean over the world's replicas of each local replica's (loss,
+    grads tree), in FIXED global order: (loss, grads) on `device` (default:
+    the first grads' device), bitwise `replica_mean` over the same values
+    in one process. A single-process mesh is `replica_mean`. On a
+    WorldMesh each local replica's five grads and its loss are flattened
+    into one f32 buffer (118,273 floats for the reference MLP), the
+    buffers are all-gathered over the default process group, and summed
+    in global replica order (`tot = v0; tot = tot + v1; ...`) times
+    f32(1/n) on `device`. Over NCCL the buffers stay on the card; over gloo
+    they go through a host buffer (pinned where `device` is a card), and
+    the sum still runs on `device`."""
+    names = [(n, k) for n, layer in grads[0].items() for k in layer]
+    device = (grads[0][names[0][0]][names[0][1]].device if device is None
+              else torch.device(device))
+    if not isinstance(mesh, WorldMesh):
+        return replica_mean(losses, device), replica_mean(grads, device)
+    import torch.distributed as dist
+    for g, loss in zip(grads, losses):
+        for t in [loss] + [g[n][k] for n, k in names]:
+            if t.dtype != torch.float32:
+                raise ValueError(f"world_mean averages f32 values; got "
+                                 f"{t.dtype}")
+    local = torch.stack([
+        torch.cat([g[n][k].to(device).reshape(-1) for n, k in names]
+                  + [loss.to(device).reshape(1)])
+        for g, loss in zip(grads, losses)])
+    world = world_size(mesh)
+    if dist.get_backend() == "nccl":
+        gathered = torch.empty((world,) + tuple(local.shape),
+                               dtype=local.dtype, device=device)
+        dist.all_gather_into_tensor(gathered, local)
+    else:
+        host = local.cpu()
+        parts = [torch.empty_like(host) for _ in range(world)]
+        dist.all_gather(parts, host)
+        gathered = torch.stack(parts)
+        if device.type == "cuda":
+            gathered = gathered.pin_memory().to(device, non_blocking=True)
+    rows = gathered.reshape(-1, local.shape[1])
+    tot = rows[0]
+    for v in rows[1:]:
+        tot = tot + v
+    tot = tot * torch.tensor(1.0 / replicas(mesh), dtype=torch.float32,
+                             device=device)
+    mean, at = {n: {} for n, _ in names}, 0
+    for n, k in names:
+        leaf = grads[0][n][k]
+        mean[n][k] = tot[at:at + leaf.numel()].reshape(leaf.shape)
+        at += leaf.numel()
+    return tot[at], mean
+
+
 def on_device(tree, device):
     """A params tree on `device` (itself where it lies there already)."""
     return {n: {k: v.to(device) for k, v in layer.items()}
@@ -138,29 +239,32 @@ def on_device(tree, device):
 
 def dp_step(mesh: Mesh, lr: float, loss_and_grads: Callable) -> Callable:
     """The shared body of the streaming DP steps: step(model, key, x, y) ->
-    (key', loss). `key, sub = split(key)`; replica r takes shard r of the
-    global batch and the mask of `fold_in(sub, r)`, and
-    `loss_and_grads(params, x, y, mask, device)` gives its (loss, grads);
-    then SGD in place on the model with the replicas' mean gradient, and
-    the loss is the replicas' mean."""
+    (key', loss). `key, sub = split(key)`; local replica r takes shard r of
+    this process's batch x and the mask of `fold_in(sub, g)`, g its global
+    index, and `loss_and_grads(params, x, y, mask)` gives its (loss,
+    grads); then SGD in place on the model with the world's mean gradient
+    (`world_mean`), and the loss is the world's mean. Every process splits
+    the same replicated key, so no key is exchanged."""
+    first = first_replica(mesh)
+
     def step(model, key, x, y):
         key, sub = threefry.split(key)
         params = model.params()
         losses, grads = [], []
         for r, (xr, yr) in enumerate(shard_batch(mesh, (x, y))):
-            mask = dropout_mask(threefry.fold_in(sub, r), xr.shape[0],
-                                xr.device)
+            mask = dropout_mask(threefry.fold_in(sub, first + r),
+                                xr.shape[0], xr.device)
             loss, g = loss_and_grads(on_device(params, mesh[r]), xr, yr,
                                      mask)
             losses.append(loss)
             grads.append(g)
-        device = x.device
-        sgd_step(params, replica_mean(grads, device), lr)
-        return key, replica_mean(losses, device)
+        loss, mean = world_mean(mesh, losses, grads, x.device)
+        sgd_step(params, mean, lr)
+        return key, loss
 
     step.ddp_comm = "pmean"
     step.ddp_mesh = mesh
-    step.ddp_devices = len(mesh)
+    step.ddp_devices = replicas(mesh)
     return step
 
 
@@ -168,8 +272,9 @@ def make_dp_train_step(mesh: Mesh, lr: float, *, dtype: str = "float32",
                        comm: str = "pmean") -> Callable:
     """The DP step with the plain autograd step per replica (JAX
     `make_dp_train_step`, comm='pmean'): step(model, key, x, y) -> (key',
-    loss as a 0-d tensor), x (global_batch, 784) on the model's device,
-    split over the mesh. Each replica's forward and backward run in
+    loss as a 0-d tensor), x (this process's batch, 784) on the model's
+    device, split over the mesh's local replicas (a WorldMesh: the world's
+    replicas across processes). Each replica's forward and backward run in
     `dtype` (the params cast to it, f32 grads), with the keyed dropout of
     its `fold_in` key; the update is SGD on the fixed-order mean."""
     from ..train.loop import xla_loss_and_grads
@@ -179,4 +284,4 @@ def make_dp_train_step(mesh: Mesh, lr: float, *, dtype: str = "float32",
     def loss_and_grads(params, x, y, mask):
         return xla_loss_and_grads(params, x.to(compute_dt), y, mask > 0)
 
-    return dp_step(tuple(mesh), lr, loss_and_grads)
+    return dp_step(as_mesh(mesh), lr, loss_and_grads)

@@ -2,7 +2,8 @@
 `pytorch_ddp_mnist_tpu/train/config.py`, plus the `--kernel auto` policy of
 `train/scan.py::resolve_kernel` and the JAX CLI's refusals of unsound
 combinations of `--cached`, `--fused` and `--kernel pallas_epoch`), with
-`--parallel` over the single-process mesh of the local cards.
+`--parallel` over the mesh of the local cards or over a world of processes
+(`--wireup_method`, parallel/wireup.py).
 
 The ported flags keep the JAX trainer's names and defaults, so launch lines
 carry over, except `--checkpoint`, which defaults to `model.pt` (the port
@@ -17,10 +18,14 @@ import argparse
 from typing import Any, Dict
 
 from ..ops.epoch_step import EPOCH_KERNEL_MAX_BATCH
+from ..parallel.wireup import METHOD_ALIASES, METHODS
+
+# the JAX trainer's --wireup_method choices and the reference's spellings,
+# which also name a backend (parallel/wireup.py); 'tpu' is refused by name
+WIREUP_CHOICES = METHODS + tuple(METHOD_ALIASES) + ("tpu",)
 
 # flag of the JAX trainer -> where ROADMAP.md queues its port
 NOT_YET_PORTED = {
-    "--wireup_method": "queue 1, item 6b (the process-level world)",
     "--netcdf": "queue 1, item 1 (data plane)",
     "--download": "queue 1, item 1 (data plane)",
     "--hdf5": "queue 1, item 7 (training CLI)",
@@ -69,12 +74,19 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
     t.add_argument("--lr", type=float, default=0.01)
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--parallel", action="store_true",
-                   help="data-parallel over the mesh of every local CUDA "
-                        "card (one replica each; one card is a 1-replica "
-                        "mesh), or one CPU replica with --device cpu: the "
-                        "per-rank batch is --batch_size, the per-step "
-                        "gradient mean is in fixed replica order. "
-                        "Multi-process worlds are not ported")
+                   help="data-parallel: over a launcher's world of processes "
+                        "(one replica a rank, on the card of its local rank "
+                        "or on the CPU with --device cpu), else over the "
+                        "mesh of every local CUDA card (one card is a "
+                        "1-replica mesh) or one CPU replica with --device "
+                        "cpu: the per-rank batch is --batch_size, the "
+                        "per-step gradient mean is in fixed replica order")
+    t.add_argument("--wireup_method", choices=WIREUP_CHOICES, default="auto",
+                   help="how --parallel finds its world: auto (SLURM, Open "
+                        "MPI, MPICH, then RANK/WORLD_SIZE, else one "
+                        "process), single, slurm, openmpi, mpich, env; the "
+                        "reference's nccl-slurm, nccl-openmpi, nccl-mpich "
+                        "ask for NCCL and gloo for gloo")
     t.add_argument("--device", type=str, default="0",
                    help="CUDA device ordinal (default 0), or 'cpu' to run "
                         "the plain PyTorch versions of the kernels on the CPU")
@@ -139,6 +151,15 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
             "--kernel pallas_epoch); the streaming path draws the TPU rbg "
             "stream per step in the JAX trainer, which the port does not "
             "have. Use --impl threefry2x32 here")
+    if a.wireup_method == "tpu":
+        raise SystemExit(
+            "--wireup_method tpu reads a Cloud TPU pod's metadata; it has no "
+            "counterpart on CUDA machines. Launch under torchrun, SLURM or "
+            "MPI (--wireup_method auto), or use --wireup_method env "
+            "(ROADMAP.md queue 1, item 8)")
+    if a.wireup_method != "auto" and not a.parallel:
+        raise SystemExit(f"--wireup_method {a.wireup_method} forms the world "
+                         f"of --parallel; add --parallel")
     if a.checkpoint and not a.checkpoint.endswith((".pt", ".pth")):
         raise SystemExit(f"--checkpoint {a.checkpoint!r}: the PyTorch package "
                          f"writes .pt/.pth state_dicts only (msgpack needs "
@@ -149,7 +170,7 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
             "seed": a.seed, "device": a.device, "checkpoint": a.checkpoint,
             "dtype": a.dtype, "kernel": a.kernel, "cached": a.cached,
             "fused": a.fused, "impl": a.impl or "threefry2x32",
-            "parallel": a.parallel,
+            "parallel": a.parallel, "wireup_method": a.wireup_method,
         },
         "data": {"path": a.path, "limit": a.limit},
     }

@@ -175,7 +175,9 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
     device. Exactly one of `lr` (builds the plain autograd step) or
     `train_step` (e.g. ops.fused_step.make_fused_train_step) is given.
     Returns (state with the advanced key, per-epoch arrays of the per-step
-    losses)."""
+    losses). In a world of processes the train step's loss is the world's
+    mean, so every rank computes the same line; the CLI passes a `log`
+    that prints on rank 0 only."""
     if (train_step is None) == (lr is None):
         raise ValueError("pass exactly one of lr= or train_step=")
     step = train_step if train_step is not None else make_train_step(lr)

@@ -43,6 +43,16 @@ step's key (`fold_in(sub, r)`) and average in fixed origin order
 A 1-replica mesh runs the serial epoch kernel with the serial key chain
 (no ring, as in JAX).
 
+Across processes (a `WorldMesh`, parallel/mesh.py) every process holds the
+dataset on its device and takes its index rows from its own sampler
+shard: the idxs of `make_dp_run_fn` are then this process's, (E, S, L*B)
+for its L local replicas. The per-step kernels fold the GLOBAL replica
+index into the key and take the world's fixed-order mean
+(parallel/ddp.py `world_mean`), so a world is bitwise the single-process
+mesh of as many replicas fed the world's rows in rank order.
+`pallas_epoch` across processes is refused by name: K6's ring runs among
+the replicas of one cooperative launch (ROADMAP.md queue 2, item 6).
+
 Keys are `(k0, k1)` tuples of the threefry key words (ops/threefry.py).
 The per-step losses stay on the device and are fetched once per epoch
 (once per run with `fused=True`), so `fit_cached` prints the reference
@@ -66,7 +76,8 @@ from ..ops.fused_step import (dropout_mask, fused_loss_and_grads,
                               fused_loss_and_grads_rng)
 from ..ops.sgd import sgd_step
 from ..parallel.ddp import (on_device, replica_mean, replicate_state,
-                            validate_comm)
+                            validate_comm, world_mean)
+from ..parallel.mesh import as_mesh, first_replica, replicas, world_size
 from .loop import (_to_device, epoch_summary, evaluate,
                    make_snapshot_eval_step, val_summary, xla_loss_and_grads)
 
@@ -279,11 +290,11 @@ def check_ring(ring: str, kernel: str, n_dev: int) -> None:
 
 def _dp_steps_epoch(mesh, params, key, data, idx_e, lr, kernel, compute_dt):
     """One epoch of per-step DP calls: per step `key, sub = split(key)`,
-    replica r takes shard r of the step's rows with the dropout of
-    `fold_in(sub, r)`, then SGD in place on `params` with the replicas'
-    fixed-order mean gradient. Returns (key, losses (S,), the replicas'
-    mean per step)."""
-    n = len(mesh)
+    local replica r takes shard r of the step's rows with the dropout of
+    `fold_in(sub, g)`, g its global index, then SGD in place on `params`
+    with the world's fixed-order mean gradient. Returns (key, losses (S,),
+    the world's mean per step)."""
+    n, first = len(mesh), first_replica(mesh)
     batch = idx_e.shape[1] // n
     shards = [data[d][2][:, r * batch:(r + 1) * batch]
               for r, d in enumerate(mesh)]
@@ -295,12 +306,14 @@ def _dp_steps_epoch(mesh, params, key, data, idx_e, lr, kernel, compute_dt):
         for r, dev in enumerate(mesh):
             x_all, y_all, _ = data[dev]
             loss, g = _loss_and_grads(on_device(params, dev), x_all, y_all,
-                                      shards[r][s], threefry.fold_in(sub, r),
+                                      shards[r][s],
+                                      threefry.fold_in(sub, first + r),
                                       kernel, compute_dt)
             step_losses.append(loss)
             grads.append(g)
-        sgd_step(params, replica_mean(grads, device), lr)
-        losses.append(replica_mean(step_losses, device))
+        loss, mean = world_mean(mesh, step_losses, grads, device)
+        sgd_step(params, mean, lr)
+        losses.append(loss)
     return key, torch.stack(losses)
 
 
@@ -341,9 +354,16 @@ def check_dp_run_args(mesh, kernel: str, dtype: str, unroll: int,
                       superstep: int, impl: str, ring: str,
                       comm: str) -> None:
     """The DP scan layer's refusals, by name: those of `check_run_args`,
-    the ring's, the comm strategy's, and a superstep on a multi-replica
-    mesh (JAX `make_dp_run_fn`)."""
+    the ring's, the comm strategy's, a superstep on a multi-replica mesh
+    (JAX `make_dp_run_fn`), and the epoch kernel across processes."""
     check_run_args(kernel, dtype, unroll, superstep, impl)
+    if kernel == "pallas_epoch" and world_size(mesh) > 1:
+        raise ValueError(
+            f"kernel='pallas_epoch' across a world of {world_size(mesh)} "
+            f"processes: the DP epoch kernel's ring (K6) runs among the "
+            f"replicas of one cooperative launch, and across processes it "
+            f"needs peer or IPC pointers and co-resident launches "
+            f"(ROADMAP.md queue 2, item 6). Use kernel='pallas'")
     n = len(mesh)
     check_ring(ring, kernel, n)
     validate_comm(comm)
@@ -370,14 +390,15 @@ def make_dp_run_fn(mesh, lr: float, *, dtype: str = "float32",
                    unroll: int = 1, superstep: int = 1, ring: str = "auto",
                    comm: str = "pmean",
                    impl: str = "threefry2x32") -> Callable:
-    """The whole E-epoch DP run over `mesh` (a tuple of replica devices):
-    run(params, key, x_all, y_all, idxs (E, S, n*B)) -> (params', key',
-    losses (E, S)) or, with `snapshots`, also (p_snaps, [keys]), as
-    `make_run_fn`. The losses are the replicas' mean per step; params'
-    lies on x_all's device. `ring` (kernel 'pallas_epoch' on n > 1
+    """The whole E-epoch DP run over `mesh` (a tuple of replica devices, or
+    a WorldMesh of this process's): run(params, key, x_all, y_all, idxs
+    (E, S, n*B)) -> (params', key', losses (E, S)) or, with `snapshots`,
+    also (p_snaps, [keys]), as `make_run_fn`; n is the local replicas and
+    idxs this process's rows. The losses are the world's mean per step;
+    params' lies on x_all's device. `ring` (kernel 'pallas_epoch' on n > 1
     replicas) picks K6's allreduce; `superstep` is single-replica only;
     `comm` must be 'pmean'."""
-    mesh = tuple(mesh)
+    mesh = as_mesh(mesh)
     check_dp_run_args(mesh, kernel, dtype, unroll, superstep, impl, ring,
                       comm)
     compute_dt = _compute_dtype(dtype)
@@ -455,11 +476,13 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
     lines are still printed, after the device is done; the img/s of the
     line is then the run average.
 
-    `mesh` (a tuple of replica devices, parallel/mesh.py) trains data
-    parallel (`make_dp_run_fn`): `batch_size` is then the GLOBAL batch,
-    `n` replicas of `batch_size // n` rows each, and the model's device
-    holds the dataset and the eval. `ring` picks K6's allreduce; `comm`
-    must be 'pmean' (the other strategies are refused by name).
+    `mesh` (a tuple of replica devices, or a WorldMesh, parallel/mesh.py)
+    trains data parallel (`make_dp_run_fn`): `batch_size` is then the
+    GLOBAL batch, `n` replicas of `batch_size // n` rows each over the
+    world, and the model's device holds the dataset and the eval. In a
+    world of W processes `sampler` is this process's shard and gives
+    `batch_size // W` rows a step. `ring` picks K6's allreduce; `comm` must
+    be 'pmean' (the other strategies are refused by name).
 
     The JAX trainer's step-granular checkpoints, live watchdog and
     dispatch profiler are not ported yet and are refused by name."""
@@ -475,14 +498,16 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
         if given:
             raise ValueError(f"{what} is not ported to the PyTorch package "
                              f"yet; see ROADMAP.md {where}")
+    rows = batch_size     # this process's rows a step
     if mesh is not None:
-        mesh = tuple(mesh)
-        if batch_size % len(mesh):
+        mesh = as_mesh(mesh)
+        if batch_size % replicas(mesh):
             raise ValueError(
                 f"fit_cached: global batch {batch_size} does not divide over "
-                f"the {len(mesh)} replicas of the mesh — pass batch_size = "
-                f"per-replica batch x {len(mesh)}")
+                f"the {replicas(mesh)} replicas of the mesh — pass batch_size "
+                f"= per-replica batch x {replicas(mesh)}")
         check_dp_run_args(mesh, kernel, dtype, 1, 1, impl, ring, comm)
+        rows = batch_size // world_size(mesh)
     else:
         check_ring(ring, kernel, 1)
     device = next(model.parameters()).device
@@ -497,7 +522,7 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
         idxs = []
         for epoch in range(epochs):
             sampler.set_epoch(epoch)
-            idxs.append(epoch_batch_indices(sampler, batch_size))
+            idxs.append(epoch_batch_indices(sampler, rows))
         run = (make_run_fn(lr, dtype=dtype, kernel=kernel, snapshots=True,
                            impl=impl) if mesh is None else
                make_dp_run_fn(mesh, lr, dtype=dtype, kernel=kernel,
@@ -525,7 +550,7 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
     for epoch in range(epochs):
         t0 = time.perf_counter()
         sampler.set_epoch(epoch)
-        idx = epoch_batch_indices(sampler, batch_size)
+        idx = epoch_batch_indices(sampler, rows)
         params, key, losses = epoch_fn(params, key, x_all, y_all, idx)
         losses = losses.cpu().numpy()      # the epoch's one fetch
         _load_params(model, params)

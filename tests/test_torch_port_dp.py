@@ -583,14 +583,20 @@ def test_comm_other_than_pmean_is_refused_by_name(comm):
 
 def test_wireup_and_multi_process_worlds_are_refused_by_name(monkeypatch,
                                                              tmp_path):
-    with pytest.raises(SystemExit, match="--wireup_method is not ported.*"
-                                         "process-level world"):
+    """What stays refused of the process-level world (the worlds themselves
+    run: tests/test_torch_port_world.py): the JAX package's `tpu` method, a
+    wireup without --parallel, and NCCL for ranks on the CPU."""
+    with pytest.raises(SystemExit, match="--wireup_method tpu reads a Cloud "
+                                         "TPU pod's metadata"):
+        configure(["--parallel", "--wireup_method", "tpu"])
+    with pytest.raises(SystemExit, match="forms the world of --parallel"):
         configure(["--wireup_method", "env"])
-    monkeypatch.setenv("WORLD_SIZE", "4")
-    monkeypatch.setenv("RANK", "0")
-    with pytest.raises(SystemExit, match="4-process world.*WORLD_SIZE=4"):
-        _cli(["--parallel"], tmp_path)
-    assert configure(["--parallel"])["trainer"]["parallel"] is True
+    monkeypatch.setenv("OMPI_COMM_WORLD_SIZE", "4")
+    monkeypatch.setenv("OMPI_COMM_WORLD_RANK", "0")
+    with pytest.raises(SystemExit, match="NCCL was asked for .* on the CPU"):
+        _cli(["--parallel", "--wireup_method", "nccl-openmpi"], tmp_path)
+    trainer = configure(["--parallel"])["trainer"]
+    assert trainer["parallel"] is True and trainer["wireup_method"] == "auto"
 
 
 def test_parallel_without_a_card_names_it(tmp_path):

@@ -1220,3 +1220,105 @@ def test_bf16_dp_scan_on_a_card_mesh_runs_ring_mma_and_tracks_the_cpu_mesh(
     assert (card_k6, cpu_k6) == (1, 0)
     assert epoch_step.last_launch["design"] == "mma"
     torch.testing.assert_close(card, cpu, rtol=1e-3, atol=1e-4)
+
+
+# ---- the process-level world: 2 ranks on the card (gloo where they share
+# it), each a process of this file run as a script ----
+
+WORLD_STEPS = 10
+
+
+def _world_rank(out, dtype):
+    """A rank: WORLD_STEPS steps of make_pallas_dp_train_step on a
+    WorldMesh at 128 rows a rank; saves losses, params and launches."""
+    from pytorch_ddp_mnist_tpu_torch.ops.fused_step import (
+        make_pallas_dp_train_step)
+    from pytorch_ddp_mnist_tpu_torch.parallel.mesh import WorldMesh
+    from pytorch_ddp_mnist_tpu_torch.parallel.wireup import initialize_runtime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rt = initialize_runtime("env", device_type="cuda")
+    mesh = WorldMesh([rt.device], world_size=rt.size, rank=rt.rank)
+    rows = _world_rows(rt.size)[rt.rank]
+    losses, params = _world_steps(make_pallas_dp_train_step(
+        mesh, 0.01, dtype=dtype), rt.device,
+        lambda s: rows[s * 128:(s + 1) * 128])
+    torch.save({"losses": losses, "params": params,
+                "launches": dict(fused_step.launch_count),
+                "backend": rt.backend},
+               f"{out}/rank{rt.rank}.pt")
+    rt.finalize()
+
+
+def _world_rows(n):
+    from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
+    out = []
+    for r in range(n):
+        s = ShardedSampler(4096, num_replicas=n, rank=r, seed=42)
+        out.append(s.indices())
+    return out
+
+
+def _world_steps(step, device, rows_of_step):
+    split = synthetic_mnist(4096, seed=0)
+    x_all = normalize_images(split.images)
+    y_all = split.labels.astype(np.int32)
+    model = MLP.from_seed(0).to(device)
+    key = threefry.key_data(1)
+    losses = []
+    for s in range(WORLD_STEPS):
+        r = rows_of_step(s)
+        key, loss = step(model, key, torch.from_numpy(x_all[r]).to(device),
+                         torch.from_numpy(y_all[r]).to(device))
+        losses.append(loss)
+    return (torch.stack(losses).cpu(),
+            {n: {k: v.detach().cpu() for k, v in layer.items()}
+             for n, layer in model.params().items()})
+
+
+@pytest.mark.parametrize("dtype,key", [("float32", "fused_split"),
+                                       ("bfloat16", "fused_mma")])
+def test_two_ranks_on_the_card_are_the_two_replica_mesh_bitwise(
+        cuda, tmp_path, dtype, key):
+    import sys
+    from test_torch_port_world import _run_world
+    n = 2
+    _run_world([sys.executable, __file__, "--rank", str(tmp_path), dtype],
+               world=n)
+    runs = [torch.load(tmp_path / f"rank{r}.pt") for r in range(n)]
+    shards = _world_rows(n)
+    want = fused_step.launch_count[key]
+    # the single-process mesh fed the world's rows in rank order
+    losses, params = _world_steps(fused_step.make_pallas_dp_train_step(
+        (cuda,) * n, 0.01, dtype=dtype), cuda, lambda s: np.concatenate(
+            [sh[s * 128:(s + 1) * 128] for sh in shards]))
+    assert fused_step.launch_count[key] - want == n * WORLD_STEPS
+    for run in runs:
+        assert run["backend"] == ("gloo" if torch.cuda.device_count() < n
+                                  else "nccl")
+        assert run["launches"][key] == WORLD_STEPS
+        assert run["launches"]["threefry_mask"] == WORLD_STEPS
+        assert torch.equal(run["losses"], losses)
+        for n_, layer in params.items():
+            for k, v in layer.items():
+                assert torch.equal(run["params"][n_][k], v), f"{n_}.{k}"
+
+
+def test_two_rank_cli_on_the_card_prints_one_epoch_line(cuda, tmp_path):
+    import sys
+    from test_torch_port_world import _run_world
+    ckpt = tmp_path / "model.pt"
+    outs = _run_world([sys.executable, "-m", "pytorch_ddp_mnist_tpu_torch",
+                       "train", "--parallel", "--wireup_method", "env",
+                       "--limit", "2560", "--checkpoint", str(ckpt),
+                       "--path", str(tmp_path / "no_mnist")], world=2,
+                      cwd=tmp_path)
+    assert outs[0][1].count("Epoch=0,") == 1 and "world=2 rank=0" in outs[0][1]
+    assert "Epoch=" not in outs[1][1]
+    assert ckpt.exists()
+    assert "peak device memory" in outs[1][2]
+
+
+if __name__ == "__main__":
+    import sys
+    if sys.argv[1] == "--rank":
+        _world_rank(sys.argv[2], sys.argv[3])

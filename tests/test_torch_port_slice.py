@@ -185,7 +185,7 @@ def test_cli_without_a_card_exits_naming_it(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["--wireup_method", "env"], "--wireup_method"),
+    (["--outage_retries", "1"], "--outage_retries"),
     (["--ckpt_every_steps", "5"], "--ckpt_every_steps"),
     (["--sampler_rng", "torch"], "--sampler_rng"),
     (["--elastic"], "--elastic"),
@@ -208,7 +208,7 @@ def test_config_defaults_and_checkpoint_format():
                               "checkpoint": "model.pt", "dtype": "float32",
                               "kernel": "auto", "cached": False,
                               "fused": False, "impl": "threefry2x32",
-                              "parallel": False}
+                              "parallel": False, "wireup_method": "auto"}
     assert cfg["data"] == {"path": "data/", "limit": -1}
     with pytest.raises(SystemExit, match="msgpack"):
         configure(["--checkpoint", "model.msgpack"])
