@@ -32,7 +32,15 @@ Phases (any failure exits non-zero; no phase is skipped):
                plain version and of the rows design, a repeat bitwise, the
                Philox form bitwise the mask form on rng_mask, an odd-offset
                view and a CUDA-graph replay bitwise, 48 distinct inputs;
-               the streaming threefry mask bitwise the plain draw;
+               the streaming threefry mask (the mask entry) bitwise the
+               plain draw; K1-split's and K1-mma's keyed forms (jax's
+               threefry mask drawn in the hidden phase from the key's
+               words in device memory) at B = 128/96/3 on 48 distinct
+               keys, some with the high bit set, each call bitwise its
+               design's mask-input form on the mask entry's mask, within
+               the tolerances of the plain version, the keyed mask entry
+               and the rows design forced bitwise their mask forms, a
+               graph replay bitwise, a misaligned and a null key refused;
                K2 (epoch_step) in its four forms (K2a f32 rows + masks, K2b
                uint8 rows + masks, K2c uint8 + in-kernel Philox, K3 uint8 +
                in-kernel threefry; the uint8 forms run K2-ws, the
@@ -78,12 +86,13 @@ Phases (any failure exits non-zero; no phase is skipped):
                at full width (784-128-128-10, batch 128, lr 0.01, synthetic
                MNIST 60k/10k), each with every kernel's launch count set to 0
                just before it and read just after:
-               a. `train` streaming, 50 steps, --kernel auto (K1 and the
-                  threefry mask per step, every K1 launch on the split
-                  design), held against the same run with the autograd step
-                  and against the same run on the CPU;
+               a. `train` streaming, 50 steps, --kernel auto (K1-split's
+                  keyed form a step, the mask drawn in it: no mask entry),
+                  held against the same run with the autograd step (`--kernel
+                  xla`: the mask entry a step) and against the same run on
+                  the CPU;
                b. `train` streaming --kernel pallas --dtype bfloat16, 50
-                  steps (K1-bf16 per step on the mma design), and `train
+                  steps (K1-mma's keyed form per step), and `train
                   --cached --kernel pallas_rng --dtype bfloat16`, one epoch
                   (469 K1-rng-bf16 launches on the mma design), each also
                   with the rows design forced, in turns (mma, rows, rows,
@@ -97,10 +106,12 @@ Phases (any failure exits non-zero; no phase is skipped):
                d. `train --cached --fused --n_epochs 2`, two K2-ws launches;
                e. `train --cached --kernel pallas_rng`, one epoch: 469 K1-rng
                   launches (split design) and no mask drawn outside the
-                  kernel; `train --cached` (--kernel auto: K1 per step), one
-                  epoch on the split design and one with the rows design
-                  forced, in turns (split, rows, rows, split), bitwise equal
-                  losses, the wall time of each;
+                  kernel; `train --cached` (--kernel auto: K1 keyed per
+                  step, the keys from the epoch's table), one epoch on the
+                  split design and one with the rows design forced (the
+                  keyed mask entry and the rows design a step), in turns
+                  (split, rows, rows, split), bitwise equal losses, the wall
+                  time of each;
                f. `train --cached --kernel pallas_epoch --dtype bfloat16`,
                   one epoch in ONE K2-mma launch, held against the CPU run;
                   the same at --batch_size 256, past MMA_MAX_BATCH: one
@@ -119,7 +130,8 @@ Phases (any failure exits non-zero; no phase is skipped):
                   ring's bf16 form); 50 steps of `--kernel pallas` (K1 per
                   replica, split design, and mma in bf16), each held
                   against the same run
-                  on a 4-replica CPU mesh; `train --parallel --cached
+                  on a 4-replica CPU mesh (keyed: no mask entry); `train
+                  --parallel --cached
                   --kernel pallas_epoch` on the 1-card mesh (K2-ws), bitwise
                   the serial run;
                j. the process-level world (phase_main_world), ranks spawned
@@ -131,11 +143,18 @@ Phases (any failure exits non-zero; no phase is skipped):
                   rows, each step split into compute and exchange; `train
                   --parallel --wireup_method env` through torchrun
                   --standalone --nproc_per_node 4 and 2, one epoch each (118
-                  and 235 K1-split and mask launches a rank), one epoch line
+                  and 235 keyed K1-split launches a rank), one epoch line
                   and a rank-0 checkpoint equal to every rank's params;
                   `--cached --kernel pallas_rng` on 2 ranks in lockstep; an
                   NCCL world of 1 rank bitwise the serial `--parallel` run,
-                  and NCCL asked for by 2 ranks on the card exiting by name.
+                  and NCCL asked for by 2 ranks on the card exiting by name;
+               k. where a per-step epoch's wall time goes
+                  (phase_epoch_walls): one 469-step epoch of the cached
+                  `--kernel pallas` path in f32 and bf16 and of the
+                  streaming path, each on the keyed step and on the step
+                  before the fold (the mask entry + the mask-input form), in
+                  turns, host stamps between upload, indices, key table,
+                  step loop, loss fetch and eval; the two bitwise equal.
   5. timing  — CUDA-event times of each kernel and form and its plain
                version at the main path's shapes, torch.profiler's device
                time of K1 (both designs) and the cached epoch (f32 on K2-ws,
@@ -159,7 +178,12 @@ Phases (any failure exits non-zero; no phase is skipped):
                profiler's device time of both designs at n = 4 in turns;
                in bf16, K6-mma and the rows ring's bf16 form in turns at n
                = 2 and 4, both rings, K6-mma's stamps split a step, and
-               the profiler's device time of both at n = 4 in turns.
+               the profiler's device time of both at n = 4 in turns;
+               the keyed forms (f32 and bf16) in turns with the mask entry
+               + the mask-input form, per wrapper call and in a CUDA graph,
+               and their stamps splits keyed and on the mask in turns; the
+               `ptxas -v` registers and spills of K1-split, K1-mma, K2-mma
+               and K6-mma (printed after the build).
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -302,6 +326,58 @@ def phase_build():
         for line in log.splitlines():
             if line.strip():
                 print(f"[build]   {line.strip()}")
+    return built
+
+
+PTXAS_LIBS = ("fused_split", "fused_mma", "epoch_mma", "ring_mma")
+
+
+def _demangle(names: list) -> list:
+    """`names` demangled by c++filt where the machine has it."""
+    try:
+        res = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        out = res.stdout.splitlines()
+        if res.returncode == 0 and len(out) == len(names):
+            return out
+    except OSError:
+        pass
+    return names
+
+
+def ptxas_counts(built: dict) -> dict:
+    """{library: [{"kernel", "registers", "spill_stores", "spill_loads"}]}
+    of PTXAS_LIBS' kernels, read from what `nvcc -Xptxas -v` reported at
+    their build: registers a thread, bytes of spill stores and loads."""
+    out = {}
+    for lib in PTXAS_LIBS:
+        rows, entry, props = {}, None, None
+        for line in built[lib][1].splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+                rows.setdefault(entry, {})
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                props = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and props in rows:
+                rows[props].update(spill_stores=int(m.group(1)),
+                                   spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry is not None:
+                rows[entry]["registers"] = int(m.group(1))
+        names = [re.sub(r"^void |\(anonymous namespace\)::|mlp::", "",
+                        name).split("(")[0]
+                 for name in _demangle(list(rows))]
+        out[lib] = [{"kernel": name, **row}
+                    for name, row in zip(names, rows.values())]
+        for r in out[lib]:
+            print(f"[build] ptxas {lib}: {r['kernel']}: {r.get('registers')} "
+                  f"registers, spill stores {r.get('spill_stores')} B, spill "
+                  f"loads {r.get('spill_loads')} B")
+    return out
 
 
 def _k1_inputs(batch: int, seed: int, device):
@@ -881,6 +957,129 @@ def phase_kernels_k1_variants(device) -> dict:
     return worst
 
 
+KEYED_CHECKS = (128, 96, 3)   # the full and ragged main-path batches, a tiny one
+KEYED_KEYS = 48
+
+
+def _keyed_keys() -> list:
+    """KEYED_KEYS distinct threefry keys: a split chain's, and four with
+    chosen words, the high bit set in each (their int32 words negative)."""
+    from pytorch_ddp_mnist_tpu_torch.ops import threefry
+    _, keys = threefry.step_keys(threefry.key_data(5), KEYED_KEYS - 4)
+    keys += [(0x80000000, 0), (0xFFFFFFFF, 0xFFFFFFFF), (3, 0x80000001),
+             (0xDEADBEEF, 0xCAFEF00D)]
+    if len(set(keys)) != KEYED_KEYS:
+        fail("the keyed checks' keys are not distinct")
+    return keys
+
+
+def phase_kernels_keyed(device) -> dict:
+    """K1-split's and K1-mma's keyed forms (jax's threefry mask drawn in the
+    hidden phase, the key's words read from a device table) at B = 128, 96,
+    3 on KEYED_KEYS distinct keys, some with the high bit set: each call
+    bitwise the same design's mask-input form on the mask entry's mask, its
+    design and form asserted; per batch a repeat bitwise, the plain version
+    within K1's tolerances (f32) or the JAX bf16 pins (bf16), the keyed
+    mask entry bitwise the mask entry and the plain draw, the rows design
+    forced (the keyed mask entry, then the rows design) bitwise the rows
+    design on the mask; at B = 128 a CUDA-graph replay bitwise the eager
+    call; a key row off 8 bytes and a null key refused by name. Returns the
+    worst absolute error against the plain version per form."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step, threefry
+    keys = _keyed_keys()
+    table = threefry.to_int32_words(keys).to(device)
+    high = int((table < 0).any(dim=1).sum())
+    worst = {"fused_split_keyed": 0.0, "fused_mma_keyed": 0.0}
+    for batch in KEYED_CHECKS:
+        params, x, y, _ = _k1_inputs(batch, seed=batch + 70, device=device)
+        for bf16 in (False, True):
+            xin = x.to(torch.bfloat16) if bf16 else x
+            design = "mma" if bf16 else "split"
+            form = f"fused_{design}_keyed"
+            tag = f"{form} B={batch}"
+            for i, key in enumerate(keys):
+                mask = fused_step.dropout_mask(key, batch, device)
+                got = fused_step.fused_loss_and_grads_keyed(params, xin, y,
+                                                            table[i])
+                if (fused_step.last_launch["design"],
+                        fused_step.last_launch["form"]) != (design, form):
+                    fail(f"{tag}: ran {fused_step.last_launch}")
+                want = fused_step.fused_loss_and_grads(params, xin, y, mask)
+                _check_bitwise(f"{tag}, key {i}", _flat(*got), _flat(*want),
+                               "the mask-input form on the mask entry's mask")
+                if i:
+                    continue
+                again = fused_step.fused_loss_and_grads_keyed(params, xin, y,
+                                                              table[i])
+                plain = threefry.dropout_mask(key, batch, device)
+                keyed_mask = fused_step.keyed_dropout_mask(table[i], batch,
+                                                           device)
+                if not (torch.equal(keyed_mask, mask)
+                        and torch.equal(mask, plain)):
+                    fail(f"{tag}: the keyed mask entry, the mask entry and "
+                         f"the plain draw disagree")
+                ref = (fused_step.step_reference_bf16 if bf16 else
+                       fused_step.fused_loss_and_grads_reference)(
+                           params, xin, y, plain)
+                rows = fused_step.fused_loss_and_grads_keyed(
+                    params, xin, y, table[i], _design="rows")
+                if fused_step.last_launch["design"] != "rows":
+                    fail(f"{tag}, rows design forced: ran "
+                         f"{fused_step.last_launch}")
+                rows_want = fused_step.fused_loss_and_grads(
+                    params, xin, y, mask, _design="rows")
+                torch.cuda.synchronize()
+                _check_repeat(tag, got, again)
+                _check_bitwise(f"{tag}, rows design forced", _flat(*rows),
+                               _flat(*rows_want),
+                               "the rows design on the mask entry's mask")
+                tol = ((BF16_LOSS_RTOL, BF16_GRAD_RTOL, BF16_GRAD_ATOL)
+                       if bf16 else (LOSS_RTOL, GRAD_RTOL, GRAD_ATOL))
+                err = _check_close(tag, got, ref, *tol)
+                worst[form] = max(worst[form], err)
+                extra = ""
+                if batch == MAIN_BATCH:
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        captured = fused_step.fused_loss_and_grads_keyed(
+                            params, xin, y, table[i])
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    _check_bitwise(f"{tag}, a CUDA-graph replay",
+                                   _flat(*captured), _flat(*got),
+                                   "the eager call")
+                    extra = "; a CUDA-graph replay bitwise"
+                print(f"[kernels] {tag}: worst abs err vs plain {err:.3e}; "
+                      f"repeat bitwise; the keyed mask entry bitwise the mask "
+                      f"entry and the plain draw; the rows design forced "
+                      f"bitwise the rows design on the mask{extra}")
+            torch.cuda.synchronize()
+            print(f"[kernels] {tag}: {KEYED_KEYS} distinct keys ({high} with "
+                  f"a high bit set), each call bitwise the {design} design's "
+                  f"mask-input form on the mask entry's mask")
+    # refusals, by name: a key row off 8 bytes in the wrapper, a null key
+    # in the kernel's entry
+    params, x, y, _ = _k1_inputs(8, seed=3, device=device)
+    odd = torch.zeros(5, dtype=torch.int32, device=device)[1:3]
+    try:
+        fused_step.fused_loss_and_grads_keyed(params, x, y, odd)
+        fail("a key row off 8 bytes was not refused")
+    except ValueError as e:
+        if "8 bytes" not in str(e):
+            fail(f"a key row off 8 bytes: refused as {e}")
+    for design, xin in (("split", x), ("mma", x.to(torch.bfloat16))):
+        lib = fused_step._staged_lib(design)
+        p = xin.data_ptr()
+        err = getattr(lib, f"pdmt_{design}_step")(
+            p, y.data_ptr(), 2, None, None, 0, 1, *([p] * 12), None, 8,
+            1.0 / 8, fused_step._stream(device))
+        if err == 0:
+            fail(f"pdmt_{design}_step took a null key")
+    print("[kernels] keyed forms: a key row off 8 bytes refused by the "
+          "wrapper, a null key by both kernels' entries")
+    return worst
+
+
 def _k1_loop_bf16(inp: dict, form: str, design: str):
     """The epoch as K1-bf16 on `design` + SGD per step, on the plain
     stream's masks: 'mma' (K1-mma, the step K2-mma computes) or 'rows'
@@ -1124,8 +1323,10 @@ def _run_trainer(cli_train, argv):
 
 
 def phase_main_streaming(tmp: str) -> dict:
+    """Path a: `train` streaming (--kernel auto: the keyed K1-split step),
+    and the same run with `--kernel xla` (the mask entry and the autograd
+    step) and on the CPU. Returns the launches of the two card paths."""
     from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
-    from pytorch_ddp_mnist_tpu_torch.ops import fused_step
     from pytorch_ddp_mnist_tpu_torch.train.checkpoint import load_checkpoint
     ckpt = os.path.join(tmp, "model.pt")
     argv = ["--device", "0", "--n_epochs", "1",
@@ -1149,10 +1350,10 @@ def phase_main_streaming(tmp: str) -> dict:
     if not losses[-10:].mean() < losses[:10].mean():
         fail(f"losses are not falling: first 10 mean {losses[:10].mean()}, "
              f"last 10 mean {losses[-10:].mean()}")
-    expect_launches(launches, {"fused_split": MAIN_STEPS,
-                               "threefry_mask": MAIN_STEPS},
-                    f"{MAIN_STEPS} streaming steps (one K1 launch on the split "
-                    f"design and one threefry_mask launch per step)")
+    expect_launches(launches, {"fused_split_keyed": MAIN_STEPS},
+                    f"{MAIN_STEPS} streaming steps (one keyed K1 launch on the "
+                    f"split design per step, the mask drawn in it: no "
+                    f"threefry_mask launch)")
     saved = load_checkpoint(ckpt)
     for name, layer in state.model.params().items():
         for k, p in layer.items():
@@ -1160,18 +1361,23 @@ def phase_main_streaming(tmp: str) -> dict:
                 fail(f"checkpoint {name}.{k} does not load back bitwise")
     print(f"[main] {MAIN_STEPS} steps in {wall:.2f}s (wall, data "
           f"generation and eval included); loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}; K1 launches by design: split "
-          f"{launches['fused_split']}, rows {launches['fused_step']}; "
+          f"{losses[-1]:.4f}; K1 launches by design: split (keyed) "
+          f"{launches['fused_split_keyed']}, rows {launches['fused_step']}; "
           f"checkpoint loads back bitwise")
 
     # the same run with the plain autograd step: same seeds, so same
     # weights, batches and dropout masks
+    # (`--kernel xla` draws its masks with the mask entry: autograd needs
+    # the tensor)
     plain_argv = list(argv)
     plain_argv[plain_argv.index("auto")] = "xla"
     plain_argv[-1] = ""
+    _reset_counts()
     _, plain_history, _ = _run_trainer(cli_train, plain_argv)
-    if fused_step.launch_count["fused_split"] != launches["fused_split"]:
-        fail("--kernel xla launched the fused kernel")
+    xla = _counts()
+    expect_launches(xla, {"threefry_mask": MAIN_STEPS},
+                    f"{MAIN_STEPS} streaming steps of --kernel xla (the mask "
+                    f"entry a step, no fused kernel)")
     rel = np.abs(losses - plain_history[0]) / np.abs(plain_history[0])
     if not (rel <= TRAIN_RTOL).all():
         fail(f"per-step losses off the autograd run by up to {rel.max():.3e} "
@@ -1195,7 +1401,7 @@ def phase_main_streaming(tmp: str) -> dict:
     print(f"[main] per-step losses vs the same run on the CPU (plain "
           f"versions, the same threefry masks): worst rel diff "
           f"{rel.max():.3e} (rtol {TRAIN_RTOL})")
-    return launches
+    return {"train": launches, "train --kernel xla": xla}
 
 
 def _check_bf16_run(out, history, steps: int, what: str) -> None:
@@ -1211,7 +1417,8 @@ def _check_bf16_run(out, history, steps: int, what: str) -> None:
 
 def phase_main_bf16_k1(tmp: str) -> tuple:
     """Paths b and e': `train --kernel pallas --dtype bfloat16` (streaming,
-    50 steps: K1-bf16 and the threefry mask per step) and `train --cached
+    50 steps: K1-bf16 keyed per step, the mask drawn in it; with the rows
+    design forced the keyed mask entry and the rows design) and `train --cached
     --kernel pallas_rng --dtype bfloat16` (one 469-step epoch: K1-rng-bf16
     per step, no mask drawn outside the kernel), each on the mma design
     and with the rows design forced, in turns (mma, rows, rows, mma):
@@ -1232,13 +1439,13 @@ def phase_main_bf16_k1(tmp: str) -> tuple:
     cached = _cached_argv(tmp, "--kernel", "pallas_rng", "--dtype",
                           "bfloat16", "--n_epochs", "1", "--checkpoint", "")
     cases = {"train --kernel pallas --dtype bfloat16":
-             (streaming, MAIN_STEPS, "fused_mma", "fused_step_bf16",
+             (streaming, MAIN_STEPS, "fused_mma_keyed", "fused_step_bf16",
               {"threefry_mask": MAIN_STEPS}),
              "train --cached --kernel pallas_rng --dtype bfloat16":
              (cached, EPOCH_STEPS, "fused_mma_rng", "fused_step_rng_bf16",
               {})}
     launches, walls = {}, {}
-    for path, (argv, steps, mma_key, rows_key, other) in cases.items():
+    for path, (argv, steps, mma_key, rows_key, rows_other) in cases.items():
         walls[path] = {"mma": [], "rows": []}
         runs = {}
         for design in ("mma", "rows", "rows", "mma"):
@@ -1250,8 +1457,8 @@ def phase_main_bf16_k1(tmp: str) -> tuple:
                 walls[path][design].append(time.perf_counter() - t0)
             what = f"{path}, {design} design"
             _check_bf16_run(out, history, steps, what)
-            expect_launches(_counts(), {mma_key if design == "mma"
-                                        else rows_key: steps, **other}, what)
+            expect_launches(_counts(), {mma_key: steps} if design == "mma"
+                            else {rows_key: steps, **rows_other}, what)
             if design in runs:
                 if not np.array_equal(runs[design], history[0]):
                     fail(f"{what}: two runs give different losses")
@@ -1496,9 +1703,11 @@ def _k1_rows_design():
 
 
 def phase_main_cached_k1(tmp: str) -> tuple:
-    """`train --cached` with --kernel auto (K1 and the threefry mask per
-    step), one 469-step epoch on the split design and one with the rows
-    design forced, in turns (split, rows, rows, split): launches by design,
+    """`train --cached` with --kernel auto (K1 keyed per step: K1-split
+    draws the mask from the epoch's key table; with the rows design forced
+    the keyed mask entry and the rows design a step), one 469-step epoch on
+    the split design and one with the rows design forced, in turns (split,
+    rows, rows, split): launches by design,
     the two designs' per-step losses bitwise equal, and each run's wall
     time (dataset upload and eval included). Returns (the split run's
     launches, {design: [wall s of each run]})."""
@@ -1516,9 +1725,10 @@ def phase_main_cached_k1(tmp: str) -> tuple:
         launches = _counts()
         what = f"train --cached (--kernel auto), {design} design"
         _check_epoch_lines(out, history, 1, what)
-        key = "fused_split" if design == "split" else "fused_step"
-        expect_launches(launches, {key: EPOCH_STEPS,
-                                   "threefry_mask": EPOCH_STEPS}, what)
+        expect_launches(launches, {"fused_split_keyed": EPOCH_STEPS}
+                        if design == "split" else
+                        {"fused_step": EPOCH_STEPS,
+                         "threefry_mask": EPOCH_STEPS}, what)
         if design in runs and not np.array_equal(runs[design][0], history[0]):
             fail(f"{what}: two runs give different losses")
         runs[design] = (history[0], launches)
@@ -1685,9 +1895,11 @@ def _bound(flops: float, nbytes: float, peak: float):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def k1_bound(batch: int, bf16: bool = False, rng: bool = False):
+def k1_bound(batch: int, bf16: bool = False, rng: bool = False,
+             keyed: bool = False):
     """(bound_ms, bound_by, flop, bytes) of one fused step: each input read
-    once (x, the mask or, with `rng`, a 4-byte seed, labels, weights), each
+    once (x, the mask or, with `rng`, a 4-byte seed, with `keyed` the key's
+    8 bytes, labels, weights), each
     output written once (loss, grads); the six products' multiply-adds
     (elementwise work and the in-kernel Philox left out) at the f32
     CUDA-core peak, or the bf16 tensor-core peak for the bf16 form."""
@@ -1695,7 +1907,8 @@ def k1_bound(batch: int, bf16: bool = False, rng: bool = False):
     n_params = i * h1 + h1 + h1 * h2 + h2 + h2 * c
     flops = 2 * batch * (2 * (i * h1 + h1 * h2 + h2 * c) + c * h2 + h2 * h1)
     nbytes = (2 if bf16 else 4) * batch * i \
-        + (4 if rng else 4 * batch * h1) + 4 * batch + 4 * n_params \
+        + (4 if rng else 8 if keyed else 4 * batch * h1) + 4 * batch \
+        + 4 * n_params \
         + 4 * (n_params + 1)
     return _bound(flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
 
@@ -1768,7 +1981,9 @@ def phase_timing(device, paths: dict, max_abs_err: float, split_worst: dict,
             design="split (csrc/fused_split.cu), by fused_design at f32 "
                    "B <= SPLIT_MAX_BATCH",
             launches_by_path={k: v[key] for k, v in paths.items()
-                              if v.get(key)},
+                              if v.get(key)} or {
+                k: v[key + "_keyed"] for k, v in paths.items()
+                if v.get(key + "_keyed")},
             blocks_per_launch=list(blocks), chain_floor_us=floor_us,
             sm_max_mhz=mhz, batch=MAIN_BATCH)
         if not rng:
@@ -1799,10 +2014,17 @@ def phase_timing(device, paths: dict, max_abs_err: float, split_worst: dict,
                     "wall_s": cached_walls,
                     "profiler_split": busy.get("k1_epoch_split"),
                     "profiler_rows": busy.get("k1_epoch_rows")})
+        if not rng:
+            # since the fold no main path passes a mask: the design's f32
+            # launches there are its keyed form's (entry fused_split_keyed)
+            extra.update(main_path="launches: the split design's launches "
+                         "on `train` (its keyed form, which draws the mask "
+                         "in this design's hidden kernel); this entry's times "
+                         "are its mask-input form's")
         out.append(_entry(
             key, "fused_split.cu", 333 if rng else 191,
-            paths[path][key], split_worst[key], s_ms, min(p1, p2), bound,
-            card, **extra))
+            paths[path][key] + paths[path].get(key + "_keyed", 0),
+            split_worst[key], s_ms, min(p1, p2), bound, card, **extra))
         print(f"[timing] {key} B={MAIN_BATCH}: {sg * 1e3:.2f} us per call in "
               f"a CUDA graph against the rows design's {rg * 1e3:.2f} "
               f"({rg / sg:.2f}x; turns rows, split, split, rows: "
@@ -1850,10 +2072,12 @@ def phase_profile(device) -> tuple:
     """The profiler's device time per call of K1 on each design (B = 128;
     f32 and bf16), of one epoch of the cached path at the main path's
     shapes (B = 128, 469 steps, --impl rbg: the gathers of the epoch's rows
-    and K2-ws, K2c; and in bf16, K2-mma), of one epoch of the per-step cached loop (`train
-    --cached`'s default --kernel pallas: K1, its threefry mask, SGD) on each
-    f32 K1 design, and of the bf16 per-step loops (the cached pallas_rng
-    epoch, 50 streaming steps) on each bf16 K1 design, with each job's
+    and K2-ws, K2c; and in bf16, K2-mma), of K1-split's and K1-mma's keyed
+    forms, of one epoch of the per-step cached loop (`train --cached`'s
+    default --kernel pallas: K1 keyed, SGD; with the rows design forced the
+    keyed mask entry, K1, SGD) on each f32 K1 design, and of the bf16
+    per-step loops (the cached pallas_rng epoch, 50 streaming steps) on
+    each bf16 K1 design, with each job's
     device-busy share. Returns profile_jobs' two dicts."""
     from pytorch_ddp_mnist_tpu_torch.data.mnist import (normalize_images,
                                                          synthetic_mnist)
@@ -1892,10 +2116,11 @@ def phase_profile(device) -> tuple:
     model = MLP(torch.Generator().manual_seed(0)).to(device)
 
     def stream_bf16():
-        key = threefry.key_data(1)
-        for hx, hy in zip(host_x, host_y):
-            key, _ = stream_step(model, key, hx.to(device, non_blocking=True),
-                                 hy.to(device, non_blocking=True))
+        _, table = stream_step.key_table(threefry.key_data(1), len(host_x),
+                                         device)
+        for s, (hx, hy) in enumerate(zip(host_x, host_y)):
+            stream_step.run(model, table[s], hx.to(device, non_blocking=True),
+                            hy.to(device, non_blocking=True))
 
     def rows_design(fn):
         def run():
@@ -1906,10 +2131,17 @@ def phase_profile(device) -> tuple:
     def rng_bf16():
         rng_bf16_epoch(params, (0, 1), x_all, y_all, idx)
 
+    words = threefry.to_int32_words([(0, 1)]).to(device)[0]
     jobs = {
         "fused_split": (lambda: fused_step.fused_loss_and_grads(
             params, x, y, mask), 50,
             ("split_hidden_kernel", "split_rows_kernel", "split_grads_kernel")),
+        "fused_split_keyed": (lambda: fused_step.fused_loss_and_grads_keyed(
+            params, x, y, words), 50,
+            ("split_hidden_kernel", "split_rows_kernel", "split_grads_kernel")),
+        "fused_mma_keyed": (lambda: fused_step.fused_loss_and_grads_keyed(
+            params, xb, y, words), 50,
+            ("mma_hidden_kernel", "mma_rows_kernel", "mma_grads_kernel")),
         "fused_step": (lambda: fused_step.fused_loss_and_grads(
             params, x, y, mask, _design="rows"), 50,
             ("rows_kernel", "grads_kernel")),
@@ -2174,7 +2406,9 @@ def phase_timing_mma(device, launches: dict, worst: dict, card: str,
                       f"{BF16_LOSS_RTOL}, grads rtol {BF16_GRAD_RTOL} / atol "
                       f"{BF16_GRAD_ATOL}",
             launches_by_path={k: v[key] for k, v in launches.items()
-                              if v.get(key)},
+                              if v.get(key)} or {
+                k: v[key + "_keyed"] for k, v in launches.items()
+                if v.get(key + "_keyed")},
             blocks_per_launch=list(blocks),
             per_step_loop={"wall_s": walls.get(path),
                            "profiler_mma": busy.get(
@@ -2206,8 +2440,15 @@ def phase_timing_mma(device, launches: dict, worst: dict, card: str,
                          profiler_us_per_call=prof.get("fused_mma", {}),
                          rows_design_profiler_us_per_call=prof.get(
                              "fused_step_bf16", {}))
+        if not rng:
+            extra.update(main_path="launches: the mma design's launches on "
+                         "`train --kernel pallas --dtype bfloat16` (its keyed "
+                         "form, which draws the mask in this design's hidden "
+                         "kernel); this entry's times are its mask-input "
+                         "form's")
         out.append(_entry(
-            key, "fused_mma.cu", 333 if rng else 191, launches[path][key],
+            key, "fused_mma.cu", 333 if rng else 191,
+            launches[path][key] + launches[path].get(key + "_keyed", 0),
             worst[key], m_ms, plain_ms, bound, card, **extra))
         print(f"[timing] {key} B={MAIN_BATCH}: {mg * 1e3:.2f} us per call in "
               f"a CUDA graph against the rows design's {rg * 1e3:.2f} "
@@ -2238,6 +2479,287 @@ def phase_timing_mma(device, launches: dict, worst: dict, card: str,
     print("[timing] fused_mma, fused_mma_rng, fused_step_bf16: no single "
           "PyTorch call computes this fused function, so library_ms is null")
     return out, rows_times[True]
+
+
+def phase_timing_keyed(device, paths: dict, worst: dict, card: str) -> list:
+    """The keyed forms at B = 128, f32 (K1-split) and bf16 (K1-mma): the
+    keyed call and the path it replaced (the mask entry, then the
+    mask-input form of the same design) in turns (entry, keyed, keyed,
+    entry) per wrapper call and per call in a CUDA graph, between two
+    timings of the plain version (the plain draw and step); each design's
+    per-phase split from its stamps build, keyed and on the mask in turns
+    (mask, keyed, keyed, mask), the keyed stamps build held bitwise against
+    the default build. `paths` are every main path's launches. Returns the
+    kernels-line entries of the two keyed forms."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step, threefry
+    params, x, y, _ = _k1_inputs(MAIN_BATCH, seed=7, device=device)
+    key = threefry.split(threefry.key_data(1))[1]
+    words = threefry.to_int32_words([key]).to(device)[0]
+    out = []
+    for bf16 in (False, True):
+        xin = x.to(torch.bfloat16) if bf16 else x
+        design = "mma" if bf16 else "split"
+        name = f"fused_{design}_keyed"
+        path = "train --kernel pallas --dtype bfloat16" if bf16 else "train"
+
+        def keyed(xin=xin):
+            return fused_step.fused_loss_and_grads_keyed(params, xin, y,
+                                                         words)
+
+        def entry(xin=xin):
+            return fused_step.fused_loss_and_grads(
+                params, xin, y, fused_step.dropout_mask(key, MAIN_BATCH,
+                                                        device))
+
+        def plain(xin=xin, bf16=bf16):
+            ref = (fused_step.step_reference_bf16 if bf16 else
+                   fused_step.fused_loss_and_grads_reference)
+            return ref(params, xin, y,
+                       threefry.dropout_mask(key, MAIN_BATCH, device))
+        p1 = _time_ms(plain, iters=50, warmup=5)
+        e_ms, k_ms, turns = _turns(entry, keyed, iters=200, warmup=20)
+        graphs = [_graph_ms(f) for f in (entry, keyed, keyed, entry)]
+        p2 = _time_ms(plain, iters=50, warmup=0)
+        eg, kg = min(graphs[0], graphs[3]), min(graphs[1], graphs[2])
+
+        stamps_of = (fused_step.mma_phase_stamps if bf16
+                     else fused_step.split_phase_stamps)
+        mask = fused_step.dropout_mask(key, MAIN_BATCH, device)
+        base = _flat(*keyed())
+        stamps_of(params, xin, y, key_words=words, calls=5)
+        split = {}
+        for form in ("mask", "keyed", "keyed", "mask"):
+            got = (stamps_of(params, xin, y, key_words=words, calls=50)
+                   if form == "keyed" else
+                   stamps_of(params, xin, y, mask, calls=50))
+            if form == "keyed":
+                _check_bitwise(f"{name} stamps build", _flat(got[0], got[1]),
+                               base, "the default build")
+            split.setdefault(form, []).append((got[2], got[3]))
+        best = {form: min(runs, key=lambda r: r[1])
+                for form, runs in split.items()}
+        hidden = next(iter(best["keyed"][0]))
+        print(f"[timing] {name} B={MAIN_BATCH} phase split (stamps build, "
+              f"mean of 50 calls, turns mask, keyed, keyed, mask; the "
+              f"faster of each form's two): keyed {best['keyed'][1]:.2f} us, "
+              f"on the mask {best['mask'][1]:.2f} us from the first kernel's "
+              f"start to the last one's end [{card}]")
+        for phase in best["keyed"][0]:
+            print(f"[timing]   {phase:40s} keyed {best['keyed'][0][phase]:8.3f}"
+                  f" us, mask {best['mask'][0][phase]:8.3f} us")
+        bound = k1_bound(MAIN_BATCH, bf16=bf16, keyed=True)
+        out.append(_entry(
+            name, f"fused_{design}.cu", 191, paths[path].get(name, 0),
+            worst[name], k_ms, min(p1, p2), bound, card, graph_ms=kg,
+            mask_entry_path_ms=e_ms, mask_entry_path_graph_ms=eg,
+            turns_entry_keyed_keyed_entry={"call_ms": turns,
+                                           "graph_ms": graphs},
+            phase_split_us=best["keyed"][0],
+            phase_split_call_us=best["keyed"][1],
+            mask_input_phase_split_us=best["mask"][0],
+            mask_input_phase_split_call_us=best["mask"][1],
+            hidden_phase_us={"keyed": best["keyed"][0][hidden],
+                             "mask": best["mask"][0][hidden]},
+            stamp_turns={f: [r[1] for r in runs] for f, runs in split.items()},
+            form=f"K1{'-bf16' if bf16 else ''} keyed: jax's threefry mask "
+                 f"dropout_mask(key, B) drawn in the hidden phase, the key's "
+                 f"words read from a device key table (pallas_step.py "
+                 f"dropout_mask :1226, threefry2x32 :92, _threefry_mask_block "
+                 f":123)",
+            design=f"{design} (csrc/fused_{design}.cu), by fused_design",
+            replaced="the mask entry (fused_step.cu threefry_mask_kernel) "
+                     "and this design's mask-input form: "
+                     "mask_entry_path_ms, mask_entry_path_graph_ms",
+            launches_by_path={k: v[name] for k, v in paths.items()
+                              if v.get(name)},
+            batch=MAIN_BATCH))
+        print(f"[timing] {name} B={MAIN_BATCH}: {kg * 1e3:.2f} us per call "
+              f"in a CUDA graph against the mask entry + mask-input form's "
+              f"{eg * 1e3:.2f} (turns entry, keyed, keyed, entry: "
+              f"{', '.join(f'{v * 1e3:.2f}' for v in graphs)}); per wrapper "
+              f"call {k_ms * 1e3:.2f} us against {e_ms * 1e3:.2f} "
+              f"({', '.join(f'{v * 1e3:.2f}' for v in turns)}); plain "
+              f"{min(p1, p2) * 1e3:.2f} us; bound {bound[0] * 1e3:.3f} us by "
+              f"{bound[1]} [{card}]")
+    print("[timing] fused_split_keyed, fused_mma_keyed: no single PyTorch "
+          "call computes this fused function, so library_ms is null")
+    return out
+
+
+# a per-step epoch's parts, in order, each the host time since the last
+EPOCH_PARTS = ("upload", "indices", "key table", "step loop", "loss fetch",
+               "eval")
+WALL_PATHS = (("cached", "float32"), ("cached", "bfloat16"),
+              ("streaming", "float32"))
+
+
+def _stamped_epoch(device, data, path: str, dtype: str, folded: bool):
+    """One epoch of a per-step `--kernel pallas` path at B = 128 (`cached`:
+    the dataset on the card, scan.py's step loop; `streaming`: loop.py
+    `fit`'s, a batch copied from the host a step), from MLP.from_seed(0)
+    and key 1, with host stamps between its parts (EPOCH_PARTS; the
+    streaming step loop's host-to-card batches also as "io in the step
+    loop"). `folded`: the port's step (the epoch's key table, the keyed
+    kernel); otherwise the step before the fold, rebuilt from the public
+    entries: `key, sub = split(key)` a step, the mask entry, the
+    mask-input form. Returns ({part: s}, losses, params on the CPU)."""
+    from pytorch_ddp_mnist_tpu_torch.data.loader import BatchLoader
+    from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step, threefry
+    from pytorch_ddp_mnist_tpu_torch.ops.sgd import sgd_step
+    from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
+    from pytorch_ddp_mnist_tpu_torch.train import loop, scan
+    images, labels, x_norm, x_test, y_test = data
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    model = MLP.from_seed(0).to(device)
+    key = threefry.key_data(1)
+    sampler = ShardedSampler(len(labels), shuffle=True, seed=42)
+    sampler.set_epoch(0)
+    parts, io = {}, 0.0
+    torch.cuda.synchronize()
+    last = time.perf_counter()
+
+    def mark(part):
+        nonlocal last
+        now = time.perf_counter()
+        parts[part], last = now - last, now
+
+    if path == "cached":
+        x_all = torch.from_numpy(scan.resident_images(images)).to(device)
+        y_all = torch.from_numpy(labels).to(device)
+    x_test_dev = torch.as_tensor(x_test, device=device)
+    y_test_dev = torch.as_tensor(y_test, device=device)
+    torch.cuda.synchronize()
+    mark("upload")
+    if path == "cached":
+        idx = loop._to_device(scan.epoch_batch_indices(sampler, MAIN_BATCH),
+                              device)
+        nsteps = idx.shape[0]
+    else:
+        loader = BatchLoader(x_norm, labels, sampler, batch_size=MAIN_BATCH)
+        nsteps = len(loader)
+    mark("indices")
+    if folded:
+        key, table = threefry.step_key_table(key, nsteps, device)
+    mark("key table")
+
+    def step_on(params, x, y):      # the step before the fold
+        nonlocal key
+        key, sub = threefry.split(key)
+        mask = fused_step.dropout_mask(sub, x.shape[0], device)
+        return fused_step.fused_loss_and_grads(params, x, y, mask)
+
+    losses = []
+    if path == "cached":
+        params = scan._clone(model.params())
+        for s, rows in enumerate(idx):
+            if folded:
+                loss, grads = scan._loss_and_grads(params, x_all, y_all, rows,
+                                                   table[s], "pallas", dt)
+            else:
+                loss, grads = step_on(params,
+                                      scan._gathered_x(x_all, rows, dt),
+                                      y_all.index_select(0, rows))
+            sgd_step(params, grads, LR)
+            losses.append(loss)
+    else:
+        step = fused_step.make_fused_train_step(LR, dtype=dtype)
+        batches = iter(loader)
+        while True:
+            t_io = time.perf_counter()
+            batch = next(batches, None)
+            if batch is not None:
+                x, y = (loop._to_device(a, device) for a in batch)
+            io += time.perf_counter() - t_io
+            if batch is None:
+                break
+            if folded:
+                loss = step.run(model, table[len(losses)], x, y)
+            else:
+                params = model.params()
+                loss, grads = step_on(params, x.to(dt), y)
+                sgd_step(params, grads, LR)
+            losses.append(loss)
+        params = model.params()
+    mark("step loop")
+    losses = torch.stack(losses).cpu().numpy()
+    mark("loss fetch")
+    if path == "cached":
+        scan._load_params(model, params)
+    loop.evaluate(model, x_test_dev, y_test_dev, MAIN_BATCH)
+    mark("eval")
+    if path == "streaming":
+        parts["io in the step loop"] = io
+    return parts, losses, {n: {k: v.detach().cpu() for k, v in layer.items()}
+                           for n, layer in params.items()}
+
+
+def phase_epoch_walls(device, tmp: str, card: str) -> dict:
+    """Where a per-step epoch's wall time goes: one epoch (469 steps at B =
+    128) of the cached `--kernel pallas` path in f32 and bf16 and of the
+    streaming path in f32, each on the port's step and on the step before
+    the fold (the mask entry + the mask-input form), in turns (before,
+    after, after, before), host stamps between the parts (EPOCH_PARTS).
+    The two steps' losses and params bitwise equal. Before them, what a
+    `train` run does before its first epoch (the data made and normalised,
+    the init), each part timed once. Returns {"setup": {part: s}, path:
+    {"before" | "after": [{part: s} of each run]}}."""
+    from pytorch_ddp_mnist_tpu_torch.data.mnist import (get_mnist,
+                                                         normalize_images)
+    from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
+    # what a `train` run does before its first epoch, each part timed once
+    root = os.path.join(tmp, "no_mnist_here")
+    setup, last = {}, time.perf_counter()
+
+    def mark(part):
+        nonlocal last
+        now = time.perf_counter()
+        setup[part], last = now - last, now
+    train = get_mnist(root, train=True)
+    mark("train split (synthetic 60k)")
+    test = get_mnist(root, train=False)
+    mark("test split (synthetic 10k)")
+    x_norm = normalize_images(train.images)
+    mark("normalize the train split (streaming only)")
+    x_test = normalize_images(test.images)
+    mark("normalize the test split")
+    MLP.from_seed(0).to(device)
+    torch.cuda.synchronize()
+    mark("MLP.from_seed on the card")
+    print(f"[timing] a run's setup before its first epoch: "
+          f"{sum(setup.values()):.4f} s = " + ", ".join(
+              f"{p} {v:.4f}" for p, v in setup.items()) + f" [{card}]")
+    data = (train.images, train.labels.astype(np.int32), x_norm, x_test,
+            test.labels.astype(np.int32))
+    out = {"setup": setup}
+    for path, dtype in WALL_PATHS:
+        what = f"{path} --kernel pallas {dtype}"
+        runs = {"before": [], "after": []}
+        results = {}
+        for folded in (False, True, True, False):
+            label = "after" if folded else "before"
+            parts, losses, params = _stamped_epoch(device, data, path, dtype,
+                                                   folded)
+            runs[label].append(parts)
+            if label in results:
+                continue
+            results[label] = (losses, params)
+        (la, pa), (lb, pb) = results["after"], results["before"]
+        if not (np.array_equal(la, lb) and _equal_trees(pa, pb)):
+            fail(f"epoch of {what}: the keyed step's losses or params differ "
+                 f"from the step before the fold (bitwise expected)")
+        if la.shape != (EPOCH_STEPS,) or not np.isfinite(la).all():
+            fail(f"epoch of {what}: losses shape {la.shape} or not finite")
+        for label in ("before", "after"):
+            for parts in runs[label]:
+                total = sum(parts[p] for p in EPOCH_PARTS)
+                print(f"[timing] epoch {what}, {label} the fold: "
+                      f"{total:.4f} s = " + ", ".join(
+                          f"{p} {parts[p]:.4f}" for p in parts) + f" [{card}]")
+        out[what] = runs
+    print("[timing] epochs: the keyed step's losses and params bitwise the "
+          "step before the fold on each path")
+    return out
 
 
 def phase_timing_variants(device, launches: dict, worst: dict, card: str,
@@ -2286,14 +2808,18 @@ def phase_timing_variants(device, launches: dict, worst: dict, card: str,
     nbytes = 4 * MAIN_BATCH * 128 + 8
     out.append(_entry(
         "threefry_mask", "fused_step.cu", 123,
-        launches["train"]["threefry_mask"], worst["threefry_mask"], k, p,
+        sum(c.get("threefry_mask", 0) for c in launches.values()),
+        worst["threefry_mask"], k, p,
         (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes", 0, nbytes), card,
         graph_ms=kg,
         launches_by_path={path: c["threefry_mask"]
                           for path, c in launches.items()
                           if c.get("threefry_mask")},
-        form="the streaming trainer's per-step dropout draw (K3's threefry "
-             "device function); its int32 cipher operations are not in the "
+        form="the mask entry: the `xla` step's per-step dropout draw, and "
+             "the rows design's keyed step at B > 128 (K3's threefry "
+             "device function); since the fold K1-split and K1-mma draw "
+             "the mask themselves, so no `pallas` or world path at B = 128 "
+             "launches it; its int32 cipher operations are not in the "
              "bound, which has f32 and bf16 peaks only",
         batch=MAIN_BATCH))
     print(f"[timing] threefry_mask B={MAIN_BATCH}: {k * 1e3:.2f} us per "
@@ -2806,7 +3332,7 @@ def phase_main_dp(device, tmp: str) -> dict:
     and one through its reduce-scatter ring (core masks), and the same two
     in bf16 through K6-mma; 20 steps at 256 rows per replica through the
     rows design's rings (all-gather and reduce-scatter, f32; all-gather in
-    bf16); then 50 steps of `--kernel pallas` (K1 per
+    bf16); then 50 steps of `--kernel pallas` (K1 keyed per
     replica: K1-split in f32, K1-mma in bf16, the bf16 runs held at the
     bf16 limits); then `train --parallel --cached --kernel pallas_epoch`
     through the CLI on the 1-card mesh, equal to the serial run. Returns
@@ -2838,10 +3364,10 @@ def phase_main_dp(device, tmp: str) -> dict:
              {"epoch_step_dp_allgather_bf16": 1}),
             ("auto", "threefry2x32", "pallas", DP_PALLAS_STEPS * DP_BATCH,
              "float32", DP_BATCH, None,
-             {"fused_split": per_step, "threefry_mask": per_step}),
+             {"fused_split_keyed": per_step}),
             ("auto", "threefry2x32", "pallas", DP_PALLAS_STEPS * DP_BATCH,
              "bfloat16", DP_BATCH, None,
-             {"fused_mma": per_step, "threefry_mask": per_step}))
+             {"fused_mma_keyed": per_step}))
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
     for ring, impl, kernel, limit, dtype, batch, design, want in runs:
         what = (f"fit_cached(mesh=[cuda:0] x {DP_REPLICAS}, kernel={kernel}, "
@@ -3031,9 +3557,10 @@ def _world_rows(n: int) -> list:
 
 
 def _world_train(step, x_all, y_all, rows_of_step, device, barrier=None):
-    """WORLD_STEPS steps of `step` from MLP.from_seed(0) and key 1, the
-    batches uploaded first. Returns (losses, final params on the CPU, ms a
-    step after the first 10)."""
+    """WORLD_STEPS steps of the KeyedStep `step` from MLP.from_seed(0) and
+    key 1, the batches and the steps' key table uploaded first, as `fit`
+    builds an epoch's. Returns (losses, final params on the CPU, ms a step
+    after the first 10)."""
     from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
     from pytorch_ddp_mnist_tpu_torch.ops import threefry
     xs = [torch.from_numpy(x_all[rows_of_step(s)]).to(device)
@@ -3041,7 +3568,7 @@ def _world_train(step, x_all, y_all, rows_of_step, device, barrier=None):
     ys = [torch.from_numpy(y_all[rows_of_step(s)]).to(device)
           for s in range(WORLD_STEPS)]
     model = MLP.from_seed(0).to(device)
-    key = threefry.key_data(1)
+    _, table = step.key_table(threefry.key_data(1), WORLD_STEPS, device)
     losses = []
     torch.cuda.synchronize()
     if barrier:
@@ -3050,8 +3577,7 @@ def _world_train(step, x_all, y_all, rows_of_step, device, barrier=None):
         if s == 10:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        key, loss = step(model, key, xs[s], ys[s])
-        losses.append(loss)
+        losses.append(step.run(model, table[s], xs[s], ys[s]))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / (WORLD_STEPS - 10) * 1e3
     return (torch.stack(losses).cpu(),
@@ -3155,7 +3681,8 @@ def phase_main_world(device, tmp: str, card: str) -> dict:
          --standalone --nproc_per_node 4 (and 2), one epoch of synthetic
          60k at 128 rows a rank, full eval: one Epoch=0 line, a checkpoint
          from rank 0 equal to every rank's final params, each rank's
-         K1-split and mask launches one a step; the epoch's wall time;
+         keyed K1-split launches one a step (no mask entry); the epoch's
+         wall time;
       c. `train --parallel --cached --kernel pallas_rng` on 2 ranks, one
          epoch: K1-split's rng form a step, ranks in lockstep;
       d. an NCCL world of 1 rank bitwise the serial `--parallel` run, and
@@ -3176,14 +3703,13 @@ def phase_main_world(device, tmp: str, card: str) -> dict:
                               "--world-rank", "lockstep", "--out", out]), tmp)
         spawn_s = time.perf_counter() - t0
         shards = _world_rows(n)
-        for dtype, key in (("float32", "fused_split"),
-                           ("bfloat16", "fused_mma")):
+        for dtype, key in (("float32", "fused_split_keyed"),
+                           ("bfloat16", "fused_mma_keyed")):
             what = f"a world of {n} ranks, --kernel pallas, {dtype}"
             runs = [torch.load(os.path.join(out, f"rank{r}_{dtype}.pt"))
                     for r in range(n)]
             for r, run in enumerate(runs):
-                expect_launches(run["launches"], {key: WORLD_STEPS,
-                                                  "threefry_mask": WORLD_STEPS},
+                expect_launches(run["launches"], {key: WORLD_STEPS},
                                 f"{what}, rank {r}")
                 if run["backend"] != "gloo" or run["device"] != "cuda:0":
                     fail(f"{what}, rank {r}: backend {run['backend']} on "
@@ -3202,8 +3728,7 @@ def phase_main_world(device, tmp: str, card: str) -> dict:
                 x_all, y_all, lambda s: np.concatenate(
                     [sh[s * MAIN_BATCH:(s + 1) * MAIN_BATCH] for sh in shards]),
                 device)
-            expect_launches(_counts(), {key: n * WORLD_STEPS,
-                                        "threefry_mask": n * WORLD_STEPS},
+            expect_launches(_counts(), {key: n * WORLD_STEPS},
                             f"the {n}-replica mesh of cuda:0, {dtype}")
             if not (torch.equal(runs[0]["losses"], mesh_losses)
                     and _equal_trees(runs[0]["params"], mesh_params)):
@@ -3247,8 +3772,7 @@ def phase_main_world(device, tmp: str, card: str) -> dict:
         runs = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(n)]
         saved = load_checkpoint(ckpt)
         for r, run in enumerate(runs):
-            expect_launches(run["launches"], {"fused_split": steps,
-                                              "threefry_mask": steps},
+            expect_launches(run["launches"], {"fused_split_keyed": steps},
                             f"{what}, rank {r}")
             if not (_equal_trees(run["params"], saved)
                     and torch.equal(run["losses"], runs[0]["losses"])):
@@ -3259,8 +3783,9 @@ def phase_main_world(device, tmp: str, card: str) -> dict:
                     max(r["wall_s"] for r in runs))
         print(f"[main]   {lines[0]}")
         print(f"[main] {what}: one Epoch=0 line, from rank 0; the rank-0 "
-              f"checkpoint equals every rank's final params; {steps} K1-split "
-              f"and mask launches a rank; ranks' peak device memory "
+              f"checkpoint equals every rank's final params; {steps} keyed "
+              f"K1-split launches a rank, no mask entry; ranks' peak device "
+              f"memory "
               f"{', '.join(peaks)} MiB")
         print(f"[timing] world epoch n={n} (torchrun, gloo, ranks on one "
               f"card, 128 rows a rank, {steps} steps, eval included): "
@@ -3326,8 +3851,7 @@ def phase_main_world(device, tmp: str, card: str) -> dict:
                                                            *limit)[6:])
     if not np.array_equal(serial[0], nccl["losses"].numpy()):
         fail("the NCCL world of 1 rank differs from the serial --parallel run")
-    expect_launches(nccl["launches"], {"fused_split": MAIN_STEPS,
-                                       "threefry_mask": MAIN_STEPS},
+    expect_launches(nccl["launches"], {"fused_split_keyed": MAIN_STEPS},
                     "the NCCL world of 1 rank")
     paths["world n=1 NCCL train --parallel --kernel pallas"] = nccl["launches"]
     print("[main] an NCCL world of 1 rank: bitwise the serial --parallel "
@@ -3663,16 +4187,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     device = torch.device("cuda", 0)
-    phase_build()
+    ptxas = ptxas_counts(phase_build())
     max_abs_err = phase_kernels(device)
     split_worst = phase_kernels_split(device)
     worst = phase_kernels_k1_variants(device)
+    keyed_worst = phase_kernels_keyed(device)
     k2_worst = phase_kernels_k2(device)
     k2_bf16_worst = phase_kernels_k2_bf16(device)
     phase_superstep(device)
     k6_worst = phase_kernels_k6(device)
     with tempfile.TemporaryDirectory() as tmp:
-        paths = {"train": phase_main_streaming(tmp)}
+        paths = phase_main_streaming(tmp)
         bf16_paths, bf16_walls = phase_main_bf16_k1(tmp)
         paths.update(bf16_paths)
         k2_launches = phase_main_cached(tmp)
@@ -3681,6 +4206,7 @@ def main() -> int:
             phase_main_cached_k1(tmp)
         dp_launches = phase_main_dp(device, tmp)
         world_launches = phase_main_world(device, tmp, card)
+        epoch_walls = phase_epoch_walls(device, tmp, card)
     _, k2_launches["bench --epochs 5"] = phase_bench()
     ss = ("--kernel", "pallas_epoch", "--dtype", "bfloat16", "--superstep",
           "8")
@@ -3702,6 +4228,10 @@ def main() -> int:
                                           prof, busy, bf16_walls)
     new += phase_timing_variants(device, all_paths, worst, card,
                                  rows_rng_bf16)
+    keyed = phase_timing_keyed(device, all_paths, keyed_worst, card)
+    for e in keyed:
+        e.update(ptxas=ptxas, epoch_walls_s=epoch_walls)
+    new += keyed
     new += phase_timing_k2_mma(device, all_paths, k2_bf16_worst, card,
                                prof)
     new += phase_timing_k6(device, dp_launches, k6_worst, card, prof)

@@ -10,6 +10,14 @@
 //   bf16 x, pre-drawn mask           `fused_loss_and_grads`
 //   bf16 x, in-kernel Philox mask    `fused_loss_and_grads_rng` (the Philox
 //                                    block keyed (step seed, batch block))
+//   bf16 x, in-kernel threefry mask  `fused_loss_and_grads_keyed`: jax's
+//                                    `dropout_mask(key, B)` (pallas_step.py
+//                                    :1226, cipher :92, element rule
+//                                    :123), the key's words read from a
+//                                    device table
+// The keyed form is the bf16 `--kernel pallas` step: it takes the place of
+// the streaming mask entry (fused_step.cu `threefry_mask_kernel`), its
+// launch, its host wrapper and the mask's round trip through device memory.
 // ops/fused_step.py `fused_design` sends them here at B <= B_MAX; larger
 // batches stay on the rows design (fused_step.cu).
 //
@@ -39,9 +47,11 @@
 //    112c+111: its x rows and w1 columns come in by one tensor copy each
 //    (x as bf16, w1 as f32, rounded as the B fragments are built) on its
 //    own mbarrier, and it runs 7 MMAs. The 7 partial tiles are summed in
-//    order c = 0..6 by the thread that owns the element, which adds b1,
-//    draws or reads the mask, and writes d1 (bf16), z1 and m. Meanwhile the
-//    grid rounds w2 and w3 to bf16 copies in scratch, once a call.
+//    order c = 0..6 by the thread that owns the element, which adds b1 and
+//    the mask, and writes d1 (bf16), z1 and m. That thread draws or reads
+//    its mask before the chain (hidden_tile's HOIST_MASK), so the draw
+//    overlaps the copies' waits. Meanwhile the grid rounds w2 and w3 to
+//    bf16 copies in scratch, once a call.
 //  * mma_rows_kernel: 16 rows a block (B/16 blocks), warp w owning units
 //    32w .. 32w+31: z2 (8 k-steps), h2, the logits (two class tiles),
 //    softmax, loss and dl in f32 one thread a row, dh2 (one k-step over 16
@@ -138,11 +148,11 @@ __global__ void __launch_bounds__(HIDDEN_THREADS) mma_hidden_kernel(
   uint64_t* const bars = reinterpret_cast<uint64_t*>(smem + HIDDEN_DATA);
   stamp_block0(stamps, ST_HIDDEN_START);
   bars_init(bars, NKC);
-  hidden_tile(smem, bars, 0u, &x_map, mask_at, &w1_map, b1, w2, w3, w2b, w3b,
-              d1_out, z1_out, m_out, batch, blockIdx.x, blockIdx.y,
-              (blockIdx.y * gridDim.x + blockIdx.x) * HIDDEN_THREADS +
-                  threadIdx.x,
-              HIDDEN_THREADS * gridDim.x * gridDim.y);
+  hidden_tile<MaskAt, true>(
+      smem, bars, 0u, &x_map, mask_at, &w1_map, b1, w2, w3, w2b, w3b, d1_out,
+      z1_out, m_out, batch, blockIdx.x, blockIdx.y,
+      (blockIdx.y * gridDim.x + blockIdx.x) * HIDDEN_THREADS + threadIdx.x,
+      HIDDEN_THREADS * gridDim.x * gridDim.y);
   stamp_last(stamps, ST_HIDDEN_END);
 }
 
@@ -203,6 +213,8 @@ cudaError_t allow_smem_once() {
   err = allow_smem(mma_hidden_kernel<ArrayMask>, HIDDEN_SMEM);
   if (err == cudaSuccess)
     err = allow_smem(mma_hidden_kernel<PhiloxBlockMask>, HIDDEN_SMEM);
+  if (err == cudaSuccess)
+    err = allow_smem(mma_hidden_kernel<ThreefryKeyMask>, HIDDEN_SMEM);
   if (err == cudaSuccess) err = allow_smem(mma_rows_kernel, ROWS_SMEM);
   if (err == cudaSuccess) err = allow_smem(mma_grads_kernel, GRADS_SMEM);
   if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
@@ -271,28 +283,36 @@ extern "C" const char* pdmt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// One step. x (batch, 784) bf16; y (batch,) int32; rng = 0 reads `mask`
-// (batch, 128) f32; rng = 1 draws it in the kernel from (seed, batch block
-// of rng_block rows) and `mask` is unused. The weights f32. x, w1, w2, w3
-// and scratch 16-byte aligned; scratch: pdmt_mma_scratch_floats(batch)
-// floats. stamps: pdmt_mma_stamp_words() u64, zeroed, in the stamps build
-// (else ignored). 1 <= batch <= pdmt_mma_max_batch().
+// One step. x (batch, 784) bf16; y (batch,) int32. The mask by `rng`: 0
+// reads `mask` (batch, 128) f32; 1 draws it in the kernel from (seed, batch
+// block of rng_block rows); 2 draws jax's threefry mask under the key words
+// (k0, k1) at `key` (device memory, 8-byte aligned). What a form does not
+// use may be null. The weights f32. x, w1, w2, w3 and scratch 16-byte
+// aligned; scratch: pdmt_mma_scratch_floats(batch) floats. stamps:
+// pdmt_mma_stamp_words() u64, zeroed, in the stamps build (else ignored).
+// 1 <= batch <= pdmt_mma_max_batch().
 extern "C" int pdmt_mma_step(
-    const bf16* x, const int* y, int rng, const float* mask, uint32_t seed,
-    int rng_block, const float* w1, const float* b1, const float* w2,
-    const float* b2, const float* w3, unsigned char* scratch, float* loss,
-    float* gw1, float* gb1, float* gw2, float* gb2, float* gw3,
-    unsigned long long* stamps, int batch, float inv_batch, void* stream) {
-  if (batch < 1 || batch > B_MAX || (rng && rng_block < 1) ||
-      (!rng && mask == nullptr) || !aligned16(x) || !aligned16(w1) ||
-      !aligned16(w2) || !aligned16(w3) || !aligned16(scratch) ||
-      (pdmt_mma_stamp_words() > 0 && stamps == nullptr))
+    const bf16* x, const int* y, int rng, const float* mask,
+    const uint32_t* key, uint32_t seed, int rng_block, const float* w1,
+    const float* b1, const float* w2, const float* b2, const float* w3,
+    unsigned char* scratch, float* loss, float* gw1, float* gb1, float* gw2,
+    float* gb2, float* gw3, unsigned long long* stamps, int batch,
+    float inv_batch, void* stream) {
+  if (batch < 1 || batch > B_MAX || rng < 0 || rng > 2 ||
+      (rng == 1 && rng_block < 1) || (rng == 0 && mask == nullptr) ||
+      (rng == 2 && (key == nullptr || reinterpret_cast<uintptr_t>(key) % 8)) ||
+      !aligned16(x) || !aligned16(w1) || !aligned16(w2) || !aligned16(w3) ||
+      !aligned16(scratch) || (pdmt_mma_stamp_words() > 0 && stamps == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rng)
+  if (rng == 1)
     return static_cast<int>(launch(x, y, PhiloxBlockMask{seed, rng_block}, w1,
                                    b1, w2, b2, w3, scratch, loss, gw1, gb1,
                                    gw2, gb2, gw3, stamps, batch, inv_batch, s));
+  if (rng == 2)
+    return static_cast<int>(launch(x, y, ThreefryKeyMask{key}, w1, b1, w2, b2,
+                                   w3, scratch, loss, gw1, gb1, gw2, gb2, gw3,
+                                   stamps, batch, inv_batch, s));
   return static_cast<int>(launch(x, y, ArrayMask{mask}, w1, b1, w2, b2, w3,
                                  scratch, loss, gw1, gb1, gw2, gb2, gw3, stamps,
                                  batch, inv_batch, s));

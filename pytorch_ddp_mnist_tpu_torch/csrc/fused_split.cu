@@ -9,6 +9,15 @@
 //   f32 x, pre-drawn mask           `fused_loss_and_grads`
 //   f32 x, in-kernel Philox mask    `fused_loss_and_grads_rng` (the Philox
 //                                   block keyed (step seed, batch block))
+//   f32 x, in-kernel threefry mask  `fused_loss_and_grads_keyed`: jax's
+//                                   `dropout_mask(key, B)` (pallas_step.py
+//                                   `dropout_mask` :1226, `threefry2x32`
+//                                   :92, `_threefry_mask_block` :123), the
+//                                   key's words read from a device table
+// The keyed form is the `--kernel pallas` step: it takes the place of the
+// streaming mask entry (fused_step.cu `threefry_mask_kernel`), its launch,
+// its host wrapper and the mask's round trip through device memory, and
+// leaves no per-step host input but the table's row.
 // ops/fused_step.py `fused_design` sends them here at B <= B_MAX; the bf16
 // forms and larger batches stay on the rows design (fused_step.cu).
 //
@@ -259,7 +268,8 @@ __global__ void __launch_bounds__(THREADS) split_hidden_kernel(
   const int r = 4 * (tid >> 5) + ((tid & 31) >> 3);
   const int row = row0 + r, j = j0 + u;
   const bool valid = r < nrows;
-  // the bias and the mask, read before the chain
+  // the bias and the mask, read (or drawn: the keyed form's ~130 dependent
+  // integer operations) before the chain, while the copies are in flight
   const float bj = b1[j];
   const float m = valid ? mask_at(row, j) : 0.f;
   const float* wu = ws + u;
@@ -284,7 +294,7 @@ __global__ void __launch_bounds__(THREADS) split_hidden_kernel(
     const float z1 = acc + bj;
     d1_out[at] = fmaxf(z1, 0.f) * m;
     z1_out[at] = z1;
-    m_out[at] = m;
+    m_out[at] = m;  // drawn or read, the rows phase reads it for dz1
   }
   stamp_last(stamps, ST_HIDDEN_END);
 }
@@ -578,6 +588,8 @@ cudaError_t allow_smem_once() {
   err = allow_smem(split_hidden_kernel<ArrayMask>, HIDDEN_SMEM);
   if (err == cudaSuccess)
     err = allow_smem(split_hidden_kernel<PhiloxBlockMask>, HIDDEN_SMEM);
+  if (err == cudaSuccess)
+    err = allow_smem(split_hidden_kernel<ThreefryKeyMask>, HIDDEN_SMEM);
   if (err == cudaSuccess) err = allow_smem(split_rows_kernel, ROWS_SMEM);
   if (err == cudaSuccess)
     err = allow_smem(split_grads_kernel, grads_smem(B_MAX));
@@ -656,28 +668,37 @@ extern "C" const char* pdmt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// One step. x (batch, 784) f32; y (batch,) int32; rng = 0 reads `mask`
-// (batch, 128); rng = 1 draws it in the kernel from (seed, batch block of
-// rng_block rows) and `mask` is unused. x, w1, w2, w3 and scratch 16-byte
-// aligned; scratch: pdmt_split_scratch_floats(batch) floats. stamps:
-// pdmt_split_stamp_words() u64, zeroed, in the stamps build (else
-// ignored). 1 <= batch <= pdmt_split_max_batch().
+// One step. x (batch, 784) f32; y (batch,) int32. The mask by `rng`: 0
+// reads `mask` (batch, 128); 1 draws it in the kernel from (seed, batch
+// block of rng_block rows); 2 draws jax's threefry mask under the key words
+// (k0, k1) at `key` (device memory, 8-byte aligned). What a form does not
+// use may be null. x, w1, w2, w3 and scratch 16-byte aligned; scratch:
+// pdmt_split_scratch_floats(batch) floats. stamps: pdmt_split_stamp_words()
+// u64, zeroed, in the stamps build (else ignored). 1 <= batch <=
+// pdmt_split_max_batch().
 extern "C" int pdmt_split_step(
-    const float* x, const int* y, int rng, const float* mask, uint32_t seed,
-    int rng_block, const float* w1, const float* b1, const float* w2,
-    const float* b2, const float* w3, float* scratch, float* loss, float* gw1,
-    float* gb1, float* gw2, float* gb2, float* gw3,
-    unsigned long long* stamps, int batch, float inv_batch, void* stream) {
-  if (batch < 1 || batch > B_MAX || (rng && rng_block < 1) ||
-      (!rng && mask == nullptr) || !aligned16(x) || !aligned16(w1) ||
-      !aligned16(w2) || !aligned16(w3) || !aligned16(scratch) ||
+    const float* x, const int* y, int rng, const float* mask,
+    const uint32_t* key, uint32_t seed, int rng_block, const float* w1,
+    const float* b1, const float* w2, const float* b2, const float* w3,
+    float* scratch, float* loss, float* gw1, float* gb1, float* gw2,
+    float* gb2, float* gw3, unsigned long long* stamps, int batch,
+    float inv_batch, void* stream) {
+  if (batch < 1 || batch > B_MAX || rng < 0 || rng > 2 ||
+      (rng == 1 && rng_block < 1) || (rng == 0 && mask == nullptr) ||
+      (rng == 2 && (key == nullptr || reinterpret_cast<uintptr_t>(key) % 8)) ||
+      !aligned16(x) || !aligned16(w1) || !aligned16(w2) || !aligned16(w3) ||
+      !aligned16(scratch) ||
       (pdmt_split_stamp_words() > 0 && stamps == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rng)
+  if (rng == 1)
     return static_cast<int>(launch(x, y, PhiloxBlockMask{seed, rng_block}, w1,
                                    b1, w2, b2, w3, scratch, loss, gw1, gb1,
                                    gw2, gb2, gw3, stamps, batch, inv_batch, s));
+  if (rng == 2)
+    return static_cast<int>(launch(x, y, ThreefryKeyMask{key}, w1, b1, w2, b2,
+                                   w3, scratch, loss, gw1, gb1, gw2, gb2, gw3,
+                                   stamps, batch, inv_batch, s));
   return static_cast<int>(launch(x, y, ArrayMask{mask}, w1, b1, w2, b2, w3,
                                  scratch, loss, gw1, gb1, gw2, gb2, gw3, stamps,
                                  batch, inv_batch, s));

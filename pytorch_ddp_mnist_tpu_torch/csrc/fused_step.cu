@@ -184,11 +184,30 @@ __global__ void rng_mask_kernel(uint32_t seed, int rng_block, int batch,
   if (i < batch * H1) out[i] = PhiloxBlockMask{seed, rng_block}(i / H1, i % H1);
 }
 
-// the streaming trainer's mask for one threefry key (k0, k1): K3's draw
-__global__ void threefry_mask_kernel(uint32_t k0, uint32_t k1, int batch,
-                                     float* out) {
+// the streaming trainer's mask for one threefry key: K3's draw, the key
+// words (k0, k1) given, or read from device memory (a row of the per-step
+// loops' key table: the mask of the rows design's keyed step, B > 128)
+template <class Key>
+__global__ void threefry_mask_kernel(Key key, int batch, float* out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < batch * H1) out[i] = threefry_mask(k0, k1, i / H1, i % H1);
+  if (i < batch * H1) out[i] = key(i / H1, i % H1);
+}
+
+struct WordsKey {
+  uint32_t k0, k1;
+  __device__ float operator()(int row, int col) const {
+    return threefry_mask(k0, k1, row, col);
+  }
+};
+
+template <class Key>
+cudaError_t launch_threefry_mask(Key key, int batch, float* out,
+                                 void* stream) {
+  const int n = batch * H1;
+  threefry_mask_kernel<Key><<<(n + 255) / 256, 256, 0,
+                              static_cast<cudaStream_t>(stream)>>>(key, batch,
+                                                                   out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -238,8 +257,16 @@ extern "C" int pdmt_fused_rng_mask(uint32_t seed, int rng_block, int batch,
 extern "C" int pdmt_threefry_mask(uint32_t k0, uint32_t k1, int batch,
                                   float* out, void* stream) {
   if (batch < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int n = batch * H1;
-  threefry_mask_kernel<<<(n + 255) / 256, 256, 0,
-                         static_cast<cudaStream_t>(stream)>>>(k0, k1, batch, out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_threefry_mask(WordsKey{k0, k1}, batch, out, stream));
+}
+
+// The same mask under the key words (k0, k1) at `key` (device memory,
+// 8-byte aligned).
+extern "C" int pdmt_threefry_mask_keyed(const uint32_t* key, int batch,
+                                        float* out, void* stream) {
+  if (batch < 1 || key == nullptr || reinterpret_cast<uintptr_t>(key) % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch_threefry_mask(ThreefryKeyMask{key}, batch, out, stream));
 }

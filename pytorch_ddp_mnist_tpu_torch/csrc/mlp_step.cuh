@@ -31,8 +31,9 @@
 //    the same). A template parameter of rows_block, a run-time choice in
 //    at_g_tile.
 //  * `MaskAt` (rows_block), the dropout mask source: a functor (row in the
-//    step, column) -> 0 or 1/keep. K1 reads a mask array or draws Philox
-//    per (seed, batch block); K2 reads one or draws it per step.
+//    step, column) -> 0 or 1/keep. K1 reads a mask array, draws Philox
+//    per (seed, batch block) or draws jax's threefry under a key it reads
+//    from device memory; K2 reads one or draws it per step.
 //  * `BF`, the bf16-operand mode (compute_bf16 of the TPU kernels): every
 //    operand of the six products is rounded to bf16 (round to nearest even)
 //    where it is loaded, and everything else stays f32. A product of two
@@ -226,6 +227,21 @@ struct PhiloxBlockMask {
   __device__ float operator()(int row, int col) const {
     const int b = row / block;
     return philox_mask(seed, static_cast<uint32_t>(b), row - b * block, col);
+  }
+};
+
+// K1's keyed mask (K1-split, K1-mma; ops/fused_step.py
+// `fused_loss_and_grads_keyed`): jax's `dropout_mask(key, batch)` drawn in
+// the kernel, the key's two words read from device memory (a row of the
+// per-step loops' key table, ops/threefry.py `step_key_table`), so no key
+// is a launch argument. A thread reads the 8 bytes once, with one load; the
+// threads of a warp read the same address, which the warp serves as one
+// broadcast.
+struct ThreefryKeyMask {
+  const uint32_t* key;  // (k0, k1), 8-byte aligned
+  __device__ float operator()(int row, int col) const {
+    const uint2 k = __ldg(reinterpret_cast<const uint2*>(key));
+    return threefry_mask(k.x, k.y, row, col);
   }
 };
 

@@ -38,8 +38,9 @@
 // The phases (block geometry in fused_mma.cu's header comment):
 //  * hidden_tile: z1 over (16 rows x 8 units) tiles; warp c of 7 owns k =
 //    112c .. 112c+111 (7 MMAs), the 7 partial tiles summed in order; + b1,
-//    the mask, d1 (bf16), z1 and m out. round_w23, run meanwhile by the
-//    grid, rounds w2 and w3 into bf16 scratch for the rows phase.
+//    the mask (drawn or read before the chain in K1-mma, after the sum in
+//    the epoch kernels), d1 (bf16), z1 and m out. round_w23, run meanwhile
+//    by the grid, rounds w2 and w3 into bf16 scratch for the rows phase.
 //  * rows_tile: 16 rows a block, warp w owning units 32w .. 32w+31: z2, h2,
 //    the logits, softmax, loss and dl, dh2, dz2, dd1, dz1.
 //  * grads_tile: 49 gw1 tiles and 8 gw2 tiles of 16 rows x 128 columns,
@@ -325,7 +326,13 @@ __device__ __forceinline__ void round_w23(const float* w2, const float* w3,
 // and not used; past k = 783 they are zeros) and one of w1's rows 112c ..
 // 112c+111 at columns j0 .. j0+7, on barrier c. While the copies land,
 // this block's threads take their share (round_i0, round_n) of round_w23.
-template <class MaskAt>
+// HOIST_MASK (K1-mma): the threads that own an element (tid < HR * HU) draw
+// or read its mask into a register before the chain, so a keyed draw's ~130
+// dependent integer operations (or a mask load's round trip) overlap the
+// copies' waits instead of ending the phase after the cross-chunk sum. The
+// epoch kernels (K2-mma, K6-mma) keep it after the sum: their steps hold
+// more registers, and K6-mma's already spill.
+template <class MaskAt, bool HOIST_MASK = false>
 __device__ __forceinline__ void hidden_tile(
     unsigned char* smem, uint64_t* bars, uint32_t ph,
     const CUtensorMap* x_map, MaskAt mask_at, const CUtensorMap* w1_map,
@@ -348,6 +355,11 @@ __device__ __forceinline__ void hidden_tile(
       tensor_copy(ws + cc * KC * HU, w1_map, j0, cc * KC, bars + cc);
     }
   round_w23(w2, w3, w2b, w3b, round_i0, round_n);
+  float m_pre = 0.f;
+  if constexpr (HOIST_MASK) {
+    const int r = tid / HU, u = tid % HU;
+    if (tid < HR * HU && row0 + r < batch) m_pre = mask_at(row0 + r, j0 + u);
+  }
 
   bar_wait(bars + c, ph);
   const bf16* xc = xs + c * HR * XC;
@@ -375,7 +387,7 @@ __device__ __forceinline__ void hidden_tile(
 #pragma unroll
       for (int cc = 1; cc < NKC; ++cc) s += parts[cc * HR * HU + tid];
       const float z1 = s + __ldcg(b1 + j);
-      const float m = mask_at(row, j);
+      const float m = HOIST_MASK ? m_pre : mask_at(row, j);
       const size_t at = (size_t)row * H1 + j;
       d1_out[at] = __float2bfloat16_rn(fmaxf(z1, 0.f) * m);
       z1_out[at] = z1;

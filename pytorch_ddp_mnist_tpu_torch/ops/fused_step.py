@@ -4,7 +4,7 @@ Port of the K1 part of `pytorch_ddp_mnist_tpu/ops/pallas_step.py`
 (`fused_loss_and_grads` / `fused_loss_and_grads_rng` -> `_run_fused` ->
 `_make_fused_kernel`; `step_reference_bf16`; `dropout_mask`;
 `make_pallas_train_step`, `make_pallas_dp_train_step`), in its four
-forms:
+forms and the keyed draw:
 
     K1            f32 x, pre-drawn mask
     K1-bf16       bf16 x: bf16 operands of the six products, f32
@@ -12,9 +12,14 @@ forms:
     K1-rng        the mask drawn in the kernel per (step seed, batch block)
                   from the port's Philox stream (ops/philox.py `rng_mask`)
     K1-rng-bf16   both
+    keyed         jax's threefry mask `dropout_mask(key, B)` drawn in the
+                  kernel (K1-split, K1-mma), the key's words read from a
+                  device key table: the `--kernel pallas` step
 
-  * `fused_loss_and_grads(params, x, y, scaled_mask)` and
-    `fused_loss_and_grads_rng(params, x, y, seed)` are the public entries;
+  * `fused_loss_and_grads(params, x, y, scaled_mask)`,
+    `fused_loss_and_grads_rng(params, x, y, seed)` and
+    `fused_loss_and_grads_keyed(params, x, y, key_words)` are the public
+    entries;
     a bf16 `x` selects the bf16 mode, as in JAX. For CUDA tensors they
     launch a hand-written kernel (no float atomics, bitwise repeatable) or
     raise; they never fall back. For CPU tensors, and only then, they run
@@ -32,15 +37,22 @@ forms:
     out the same formulas in plain PyTorch (no autograd) on any device: the
     CPU tests hold them against the JAX kernel, and chip_smoke.py holds the
     CUDA kernel against them.
-  * `dropout_mask(key, batch, device)` is the streaming trainer's draw,
-    jax's `dropout_mask(key, batch)` bit for bit: on a card from the K3
-    threefry device function (`csrc/mlp_step.cuh`), on the CPU from
-    ops/threefry.py.
+  * `dropout_mask(key, batch, device)` is the mask entry, jax's
+    `dropout_mask(key, batch)` bit for bit: on a card one launch of the K3
+    threefry device function (`csrc/mlp_step.cuh`), on the CPU
+    ops/threefry.py. The `xla` step draws its mask with it (autograd needs
+    the tensor); the keyed step draws in K1-split and K1-mma instead, and
+    with it (`keyed_dropout_mask`, the key read from the table) only on the
+    rows design, at B > 128.
+  * `KeyedStep` is the `--kernel pallas` step of the per-step loops: before
+    an epoch's first step they build its key table (ops/threefry.py
+    `step_key_table`, one copy to the device), and step s reads row s.
   * `launch_count` counts wrapper calls that launched a kernel, one key per
-    design and form (`fused_split`, `fused_split_rng` for the split design;
-    `fused_mma`, `fused_mma_rng` for the mma design; `fused_step`,
-    `fused_step_rng`, `fused_step_bf16`, `fused_step_rng_bf16` for the rows
-    design), so a run shows which design its steps went through;
+    design and form (`fused_split`, `fused_split_rng`, `fused_split_keyed`
+    for the split design; `fused_mma`, `fused_mma_rng`, `fused_mma_keyed`
+    for the mma design; `fused_step`, `fused_step_rng`, `fused_step_bf16`,
+    `fused_step_rng_bf16` for the rows design; `threefry_mask` for the mask
+    entry), so a run shows which design its steps went through;
     `last_launch` names the last call's design and key.
     `split_phase_stamps(...)` and `mma_phase_stamps(...)` run a design's
     stamps build and return its per-phase split.
@@ -70,8 +82,9 @@ MMA_MAX_BATCH = 128
 
 # wrapper calls that launched a CUDA kernel, per design and form
 # (chip_smoke.py resets and reads them)
-launch_count = {"fused_split": 0, "fused_split_rng": 0, "fused_mma": 0,
-                "fused_mma_rng": 0, "fused_step": 0,
+launch_count = {"fused_split": 0, "fused_split_rng": 0,
+                "fused_split_keyed": 0, "fused_mma": 0,
+                "fused_mma_rng": 0, "fused_mma_keyed": 0, "fused_step": 0,
                 "fused_step_bf16": 0, "fused_step_rng": 0,
                 "fused_step_rng_bf16": 0, "threefry_mask": 0}
 # the last launch's design ("split", "mma" or "rows") and launch_count key
@@ -95,6 +108,8 @@ def _kernel_lib():
         lib.pdmt_fused_rng_mask.restype = i
         lib.pdmt_threefry_mask.argtypes = [u, u, i, p, p]
         lib.pdmt_threefry_mask.restype = i
+        lib.pdmt_threefry_mask_keyed.argtypes = [p, i, p, p]
+        lib.pdmt_threefry_mask_keyed.restype = i
         lib.pdmt_fused_step_scratch_per_row.argtypes = []
         lib.pdmt_fused_step_scratch_per_row.restype = i
         lib.pdmt_error_string.argtypes = [i]
@@ -124,7 +139,7 @@ def _staged_lib(design: str, name: str = None):
             out = getattr(lib, f"pdmt_{design}_{entry}")
             out.argtypes, out.restype = args, res
             return out
-        fn("step", [p, p, i, p, u, i] + [p] * 13 + [i, f, p])
+        fn("step", [p, p, i, p, p, u, i] + [p] * 13 + [i, f, p])
         max_batch = fn("max_batch", [])
         fn("stamp_words", [])
         fn("scratch_floats", [i])
@@ -297,11 +312,17 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+# the kernels' codes for the mask's source (`pdmt_<design>_step` `rng`)
+_MASK, _PHILOX, _KEYED = 0, 1, 2
+
+
 def _staged_cuda(design, params, x, y, scaled_mask, seed=None, *,
-                 stamps=None, lib_name=None):
+                 key_words=None, stamps=None, lib_name=None):
     """One call of the split or mma design (three launches), of its default
-    build or the build `lib_name`; `stamps`, a zeroed int64 tensor of the
-    stamps build's words, receives its phase stamps."""
+    build or the build `lib_name`, with the mask `scaled_mask`, drawn from
+    the Philox seed `seed`, or drawn from the threefry key at `key_words`;
+    `stamps`, a zeroed int64 tensor of the stamps build's words, receives
+    its phase stamps."""
     dtype, max_batch, _ = _STAGED[design]
     batch = x.shape[0]
     if x.dtype != dtype or not 1 <= batch <= max_batch:
@@ -316,12 +337,15 @@ def _staged_cuda(design, params, x, y, scaled_mask, seed=None, *,
                           dtype=torch.float32, device=x.device)
     loss = torch.empty((), dtype=torch.float32, device=x.device)
     grads = [torch.empty_like(w) for w in (w1, b1, w2, b2, w3)]
-    rng = seed is not None
+    source = (_PHILOX if seed is not None else
+              _KEYED if key_words is not None else _MASK)
     _, block = philox.batch_blocks(batch)
     with torch.cuda.device(x.device):
         err = getattr(lib, entry + "step")(
-            x.data_ptr(), y32.data_ptr(), int(rng),
-            None if rng else scaled_mask.data_ptr(), seed if rng else 0,
+            x.data_ptr(), y32.data_ptr(), source,
+            scaled_mask.data_ptr() if source == _MASK else None,
+            key_words.data_ptr() if source == _KEYED else None,
+            seed if source == _PHILOX else 0,
             block, w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), w3.data_ptr(), scratch.data_ptr(),
             loss.data_ptr(), *(g.data_ptr() for g in grads),
@@ -417,6 +441,86 @@ def fused_loss_and_grads_rng(params, x, y, seed, *, _design=None):
                      f"{x.device.type}")
 
 
+def _check_key_words(key_words, device) -> None:
+    """Raise ValueError unless `key_words` is a row of a key table: (2,)
+    int32 on `device`, contiguous, on 8 bytes (the kernels read the two
+    words with one load)."""
+    if not isinstance(key_words, torch.Tensor) or \
+            tuple(key_words.shape) != (2,) or key_words.dtype != torch.int32:
+        raise ValueError(f"key_words must be a (2,) int32 tensor (a row of "
+                         f"threefry.step_key_table); got {key_words!r}")
+    if key_words.device != device:
+        raise ValueError(f"key_words is on {key_words.device}, x on {device}")
+    if key_words.stride() != (1,) or key_words.data_ptr() % 8:
+        raise ValueError("key_words must be contiguous and start on 8 bytes "
+                         "(a row of a contiguous key table)")
+
+
+def keyed_dropout_mask(key_words, batch: int, device) -> torch.Tensor:
+    """`dropout_mask` of the key at `key_words` (a key-table row on
+    `device`): on a card one launch of the mask entry reading the key from
+    device memory (counted as launch_count["threefry_mask"]), on the CPU
+    `dropout_mask` of its words. The two are bitwise equal."""
+    device = torch.device(device)
+    _check_key_words(key_words, device)
+    if device.type == "cpu":
+        return dropout_mask(threefry.words_key(key_words), batch, device)
+    if device.type != "cuda":
+        raise ValueError(f"keyed_dropout_mask runs on cuda or cpu, not "
+                         f"{device.type}")
+    lib = _kernel_lib()
+    out = torch.empty((batch, HIDDEN1), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.pdmt_threefry_mask_keyed(key_words.data_ptr(), batch,
+                                           out.data_ptr(), _stream(device))
+    _raise_on(err, "keyed threefry mask kernel launch", lib)
+    launch_count["threefry_mask"] += 1
+    return out
+
+
+def _keyed_cuda(params, x, y, key_words, design=None):
+    """One keyed call: K1-split or K1-mma drawing the mask in the kernel
+    (counted as `fused_<design>_keyed`); on the rows design (B > 128, or
+    forced) the mask entry reads the key and the rows design takes the
+    mask."""
+    design = design or fused_design(x.dtype, False, x.shape[0])
+    if design not in _STAGED:
+        mask = keyed_dropout_mask(key_words, x.shape[0], x.device)
+        return _fused_cuda(params, x, y, mask, design=design)
+    loss, grads = _staged_cuda(design, params, x, y, None,
+                               key_words=key_words)
+    key = f"fused_{design}_keyed"
+    launch_count[key] += 1
+    last_launch.update(design=design, form=key)
+    return loss, grads
+
+
+def fused_loss_and_grads_keyed(params, x, y, key_words, *, _design=None):
+    """The kernel with jax's threefry mask `dropout_mask(key, B)` drawn
+    INSIDE it (the `--kernel pallas` step): (params, x (B, 784) f32 or bf16,
+    y (B,) int, key_words (2,) int32, a row of a key table on x's device
+    (ops/threefry.py `step_key_table`)) -> (mean loss, grads tree).
+
+    CUDA tensors launch the design `fused_design` picks: K1-split or K1-mma
+    read the key's words from device memory and draw the mask in their
+    hidden phase, so no mask tensor, no mask launch and no host key exist;
+    at B > 128 the rows design takes the mask of `keyed_dropout_mask`. A
+    form that cannot build or launch raises; nothing falls back. `_design`
+    forces a design ('rows': the mask entry + the rows design). CPU
+    tensors run the plain version on `dropout_mask(key, B)`. Bitwise, on
+    each design, `fused_loss_and_grads` with the mask entry's mask."""
+    _check_inputs(params, x, y)
+    _check_key_words(key_words, x.device)
+    if x.device.type == "cuda":
+        return _keyed_cuda(params, x, y, key_words, design=_design)
+    if x.device.type == "cpu":
+        return _reference(params, x, y,
+                          dropout_mask(threefry.words_key(key_words),
+                                       x.shape[0], x.device))
+    raise ValueError(f"fused_loss_and_grads_keyed runs on cuda or cpu, not "
+                     f"{x.device.type}")
+
+
 # the phases between the split design's stamps (csrc/fused_split.cu
 # `Stamp`), in order
 SPLIT_PHASES = ("hidden: z1, mask, d1", "gap to the rows launch",
@@ -431,14 +535,18 @@ MMA_PHASES = ("hidden: z1, mask, d1, w2 and w3 to bf16",
 _PHASES = {"split": SPLIT_PHASES, "mma": MMA_PHASES}
 
 
-def _phase_stamps(design, params, x, y, scaled_mask, seed, calls):
+def _phase_stamps(design, params, x, y, scaled_mask, seed, calls,
+                  key_words=None):
     """`calls` calls of `design`'s stamps build (`-D<DESIGN>_STAMPS`,
-    ops/_build.py VARIANTS) on CUDA tensors, with the mask `scaled_mask` or
-    the in-kernel draw of `seed`; not counted in launch_count. Returns
+    ops/_build.py VARIANTS) on CUDA tensors, with the mask `scaled_mask`,
+    the in-kernel Philox draw of `seed` or the keyed draw of `key_words`;
+    not counted in launch_count. Returns
     (loss, grads) of the last call, {phase: us} for the design's phases
     averaged over the calls, and the mean us from the hidden kernel's start
     to the grads kernel's end."""
     _check_inputs(params, x, y, scaled_mask)
+    if key_words is not None:
+        _check_key_words(key_words, x.device)
     if x.device.type != "cuda" or fused_design(x.dtype, seed is not None,
                                                x.shape[0]) != design:
         raise ValueError(f"{design}_phase_stamps runs the {design} design's "
@@ -449,7 +557,8 @@ def _phase_stamps(design, params, x, y, scaled_mask, seed, calls):
     stamps = torch.zeros((calls, n), dtype=torch.int64, device=x.device)
     for i in range(calls):
         out = _staged_cuda(design, params, x, y, scaled_mask, seed,
-                           stamps=stamps[i], lib_name=name)
+                           key_words=key_words, stamps=stamps[i],
+                           lib_name=name)
     t = stamps.double()
     per_phase = (t[:, 1:] - t[:, :-1]).mean(dim=0) / 1e3
     total = float((t[:, -1] - t[:, 0]).mean()) / 1e3
@@ -458,17 +567,19 @@ def _phase_stamps(design, params, x, y, scaled_mask, seed, calls):
 
 
 def split_phase_stamps(params, x, y, scaled_mask=None, seed=None, *,
-                       calls: int = 20):
+                       key_words=None, calls: int = 20):
     """The split design's per-phase split (f32 x, B <= SPLIT_MAX_BATCH),
     from its stamps build: see _phase_stamps."""
-    return _phase_stamps("split", params, x, y, scaled_mask, seed, calls)
+    return _phase_stamps("split", params, x, y, scaled_mask, seed, calls,
+                         key_words)
 
 
 def mma_phase_stamps(params, x, y, scaled_mask=None, seed=None, *,
-                     calls: int = 20):
+                     key_words=None, calls: int = 20):
     """The mma design's per-phase split (bf16 x, B <= MMA_MAX_BATCH), from
     its stamps build: see _phase_stamps."""
-    return _phase_stamps("mma", params, x, y, scaled_mask, seed, calls)
+    return _phase_stamps("mma", params, x, y, scaled_mask, seed, calls,
+                         key_words)
 
 
 def kernel_rng_mask(seed, batch: int, device) -> torch.Tensor:
@@ -515,43 +626,71 @@ def dropout_mask(key, batch: int, device) -> torch.Tensor:
     return out
 
 
-def make_fused_train_step(lr: float, *, dtype: str = "float32"):
-    """The `--kernel pallas` step (counterpart of `make_pallas_train_step`):
-    step(model, key, x, y) -> (key', mean loss as a 0-d device tensor).
-    Splits the threefry key once (`key, sub = split(key)`), draws the mask
-    `dropout_mask(sub)`, runs the fused step on x cast to `dtype` (bfloat16
-    selects the kernel's bf16 mode), then SGD in place on the model's
-    parameters."""
+class KeyedStep:
+    """A `--kernel pallas` train step of the per-step loops, whose dropout
+    keys come from a key table on the device:
+
+      step.key_table(key, nsteps, device) -> (key after the steps, table):
+          the epoch's keys (ops/threefry.py `step_key_table`, with the
+          step's `fold` of global replica indices), built before its first
+          step and copied to the device once;
+      step.run(model, words, x, y) -> loss: one step on row s of the table
+          (a (2,) row, or (n, 2) for n replicas), SGD in place on the
+          model's parameters;
+      step(model, key, x, y) -> (key', loss): one step from a host key (a
+          one-row table), for callers that step one at a time.
+
+    train/loop.py `fit` builds each epoch's table and runs its rows."""
+
+    def __init__(self, run, fold=None):
+        self.run = run
+        self.fold = fold
+
+    def key_table(self, key, nsteps: int, device):
+        return threefry.step_key_table(key, nsteps, device, self.fold)
+
+    def __call__(self, model, key, x, y):
+        key, table = self.key_table(key, 1, x.device)
+        return key, self.run(model, table[0], x, y)
+
+
+def make_fused_train_step(lr: float, *, dtype: str = "float32") -> KeyedStep:
+    """The `--kernel pallas` step (counterpart of `make_pallas_train_step`)
+    as a KeyedStep: per step `key, sub = split(key)` (the table's row), the
+    fused step on x cast to `dtype` (bfloat16 selects the kernel's bf16
+    mode) with the mask of `sub` drawn in the kernel
+    (`fused_loss_and_grads_keyed`), then SGD in place on the model's
+    parameters. `step(model, key, x, y) -> (key', loss)` as before; the
+    loops run an epoch's rows of its key table."""
     compute_dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
 
-    def step(model, key, x, y):
-        key, sub = threefry.split(key)
+    def run(model, words, x, y):
         params = model.params()
-        mask = dropout_mask(sub, x.shape[0], x.device)
-        loss, grads = fused_loss_and_grads(params, x.to(compute_dt), y, mask)
+        loss, grads = fused_loss_and_grads_keyed(params, x.to(compute_dt), y,
+                                                 words)
         sgd_step(params, grads, lr)
-        return key, loss
+        return loss
 
-    return step
+    return KeyedStep(run)
 
 
 def make_pallas_dp_train_step(mesh, lr: float, *, dtype: str = "float32",
-                              comm: str = "pmean"):
+                              comm: str = "pmean") -> KeyedStep:
     """The data-parallel `--kernel pallas` step (JAX
-    `make_pallas_dp_train_step`, comm='pmean'): step(model, key, x, y) ->
-    (key', loss). The fused step (K1-split, or K1-mma with
-    `dtype='bfloat16'`) runs once per local replica of `mesh` on that
-    replica's shard of this process's batch x, with the mask of
-    `fold_in(sub, global replica index)`; the gradients' fixed-order mean
+    `make_pallas_dp_train_step`, comm='pmean') as a KeyedStep: the fused
+    step (K1-split, or K1-mma with `dtype='bfloat16'`) runs once per local
+    replica of `mesh` on that replica's shard of this process's batch x,
+    with the mask of `fold_in(sub, global replica index)` drawn in the
+    kernel (the key table's row (s, r)); the gradients' fixed-order mean
     over the mesh's world (`world_mean`: the replicas of one process, or
     of every process of a WorldMesh) then feeds SGD, and the loss is the
-    world's mean (parallel/ddp.py `dp_step`)."""
-    from ..parallel.ddp import dp_step, validate_comm
+    world's mean (parallel/ddp.py `dp_keyed_step`)."""
+    from ..parallel.ddp import dp_keyed_step, validate_comm
     from ..parallel.mesh import as_mesh
     validate_comm(comm)
     compute_dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
 
-    def loss_and_grads(params, x, y, mask):
-        return fused_loss_and_grads(params, x.to(compute_dt), y, mask)
+    def loss_and_grads(params, x, y, words):
+        return fused_loss_and_grads_keyed(params, x.to(compute_dt), y, words)
 
-    return dp_step(as_mesh(mesh), lr, loss_and_grads)
+    return dp_keyed_step(as_mesh(mesh), lr, loss_and_grads)

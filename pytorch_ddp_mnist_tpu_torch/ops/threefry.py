@@ -1,8 +1,8 @@
 """jax's threefry-2x32 stream in plain PyTorch (port of `threefry2x32`,
 `_threefry_mask_block` and `dropout_mask` of
 `pytorch_ddp_mnist_tpu/ops/pallas_step.py`, plus the key chain the
-resident-dataset trainer needs, and `fold_in` for the data-parallel
-ones).
+resident-dataset trainer needs, `fold_in` for the data-parallel ones, and
+the per-step loops' key table, which the keyed step reads on the device).
 
 Every function here is bit for bit what jax computes under its default
 partitionable threefry (jax >= 0.5), so the port's masks are the JAX
@@ -86,6 +86,42 @@ def to_int32_words(keys) -> torch.Tensor:
     t = torch.as_tensor(keys, dtype=torch.int64).reshape(-1, 2) & M32
     return torch.where(t >= 1 << 31, t - (1 << 32), t).to(
         torch.int32).contiguous()
+
+
+def step_keys(key, nsteps: int, fold=None) -> tuple:
+    """The per-step loops' key chain over `nsteps` steps: per step `key,
+    sub = split(key)`, as the JAX trainers split it. Returns (the key after
+    the steps, the steps' keys): `sub` a step, or with `fold` (global
+    replica indices) `[fold_in(sub, g) for g in fold]` a step, the keys of
+    a data-parallel step's replicas."""
+    subs = []
+    for _ in range(nsteps):
+        key, sub = split(key)
+        subs.append(sub if fold is None else [fold_in(sub, g) for g in fold])
+    return key, subs
+
+
+def step_key_table(key, nsteps: int, device="cpu", fold=None) -> tuple:
+    """`step_keys` as the table the keyed step reads on the device: (the
+    key after the steps, an int32 (nsteps, 2) table, or (nsteps,
+    len(fold), 2) with `fold`, of the keys' words on `device`, copied there
+    once). Step s's kernel reads row s (its replica r: row (s, r)), so no
+    per-step key is a host input of the step."""
+    key, subs = step_keys(key, nsteps, fold)
+    shape = (nsteps, 2) if fold is None else (nsteps, len(fold), 2)
+    table = to_int32_words(subs).reshape(shape)
+    device = torch.device(device)
+    if device.type == "cuda":
+        # pinned + non_blocking: the copy queues on the stream the steps
+        # launch on, and the host does not wait for it
+        return key, table.pin_memory().to(device, non_blocking=True)
+    return key, table.to(device)
+
+
+def words_key(words) -> tuple:
+    """A key-table row (int32 words, on the CPU) as the (k0, k1) key."""
+    k0, k1 = (int(w) & M32 for w in words.tolist())
+    return (k0, k1)
 
 
 def uniform_keep(bits: torch.Tensor) -> torch.Tensor:

@@ -48,14 +48,15 @@ import numpy as np
 import torch
 
 from ..ops import threefry
-from ..ops.fused_step import dropout_mask
+from ..ops.fused_step import KeyedStep, dropout_mask
 from ..ops.sgd import sgd_step
 from .mesh import (DATA_AXIS, Mesh, WorldMesh, as_mesh, data_parallel_mesh,
                    first_replica, replicas, world_size)
 
 __all__ = ["DATA_AXIS", "dp_mesh", "shard_batch", "global_batch_from_local",
            "replicate_state", "check_replicated", "replica_mean",
-           "world_mean", "validate_comm", "make_dp_train_step"]
+           "world_mean", "validate_comm", "dp_step", "dp_keyed_step",
+           "make_dp_train_step"]
 
 COMMS = ("pmean", "sharded", "bf16", "int8")
 
@@ -237,35 +238,67 @@ def on_device(tree, device):
             for n, layer in tree.items()}
 
 
-def dp_step(mesh: Mesh, lr: float, loss_and_grads: Callable) -> Callable:
-    """The shared body of the streaming DP steps: step(model, key, x, y) ->
-    (key', loss). `key, sub = split(key)`; local replica r takes shard r of
-    this process's batch x and the mask of `fold_in(sub, g)`, g its global
-    index, and `loss_and_grads(params, x, y, mask)` gives its (loss,
-    grads); then SGD in place on the model with the world's mean gradient
-    (`world_mean`), and the loss is the world's mean. Every process splits
-    the same replicated key, so no key is exchanged."""
-    first = first_replica(mesh)
+def _dp_update(mesh: Mesh, lr: float, model, x, y, replica_step):
+    """One DP step's body: local replica r takes shard r of this process's
+    batch x and `replica_step(r, params on its device, x_r, y_r)` gives its
+    (loss, grads); then SGD in place on the model with the world's mean
+    gradient (`world_mean`). Returns the world's mean loss."""
+    params = model.params()
+    losses, grads = [], []
+    for r, (xr, yr) in enumerate(shard_batch(mesh, (x, y))):
+        loss, g = replica_step(r, on_device(params, mesh[r]), xr, yr)
+        losses.append(loss)
+        grads.append(g)
+    loss, mean = world_mean(mesh, losses, grads, x.device)
+    sgd_step(params, mean, lr)
+    return loss
 
-    def step(model, key, x, y):
-        key, sub = threefry.split(key)
-        params = model.params()
-        losses, grads = [], []
-        for r, (xr, yr) in enumerate(shard_batch(mesh, (x, y))):
-            mask = dropout_mask(threefry.fold_in(sub, first + r),
-                                xr.shape[0], xr.device)
-            loss, g = loss_and_grads(on_device(params, mesh[r]), xr, yr,
-                                     mask)
-            losses.append(loss)
-            grads.append(g)
-        loss, mean = world_mean(mesh, losses, grads, x.device)
-        sgd_step(params, mean, lr)
-        return key, loss
 
+def _tag(step, mesh: Mesh):
     step.ddp_comm = "pmean"
     step.ddp_mesh = mesh
     step.ddp_devices = replicas(mesh)
     return step
+
+
+def dp_step(mesh: Mesh, lr: float, loss_and_grads: Callable) -> Callable:
+    """The streaming DP step of a mask input (the `xla` step):
+    step(model, key, x, y) -> (key', loss). `key, sub = split(key)`; local
+    replica r takes shard r of this process's batch x and the mask of
+    `fold_in(sub, g)`, g its global index, drawn by the mask entry, and
+    `loss_and_grads(params, x, y, mask)` gives its (loss, grads); then SGD
+    in place on the model with the world's mean gradient (`world_mean`),
+    and the loss is the world's mean. Every process splits the same
+    replicated key, so no key is exchanged."""
+    first = first_replica(mesh)
+
+    def step(model, key, x, y):
+        key, sub = threefry.split(key)
+
+        def replica_step(r, params, xr, yr):
+            mask = dropout_mask(threefry.fold_in(sub, first + r),
+                                xr.shape[0], xr.device)
+            return loss_and_grads(params, xr, yr, mask)
+        return key, _dp_update(mesh, lr, model, x, y, replica_step)
+
+    return _tag(step, mesh)
+
+
+def dp_keyed_step(mesh: Mesh, lr: float, loss_and_grads: Callable):
+    """The streaming DP step whose masks are drawn in the kernel (the
+    `pallas` step), as an ops/fused_step.py `KeyedStep` whose table folds
+    the local replicas' global indices into each step's key: row (s, r) is
+    `fold_in(sub, g)` of step s's `sub`, g replica r's global index, and
+    `loss_and_grads(params, x, y, words)` takes replica r's row (on its
+    device). Then SGD on the world's mean gradient, as `dp_step`."""
+    first = first_replica(mesh)
+
+    def run(model, words, x, y):
+        def replica_step(r, params, xr, yr):
+            return loss_and_grads(params, xr, yr, words[r].to(mesh[r]))
+        return _dp_update(mesh, lr, model, x, y, replica_step)
+
+    return _tag(KeyedStep(run, fold=range(first, first + len(mesh))), mesh)
 
 
 def make_dp_train_step(mesh: Mesh, lr: float, *, dtype: str = "float32",

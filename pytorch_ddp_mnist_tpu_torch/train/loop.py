@@ -9,8 +9,11 @@ FULL test set with dropout off, and print
 The dropout masks follow the JAX trainer's key chain: the train key is
 jax's threefry key `--seed + 1` (ops/threefry.py `key_data`), split once
 per step (`key, sub = split(key)`, as `make_train_step` does), and the
-step's mask is jax's `dropout_mask(sub, B)`, bit for bit, drawn on the card
-by the K3 threefry device function (ops/fused_step.py `dropout_mask`).
+step's mask is jax's `dropout_mask(sub, B)`, bit for bit. The `xla` step
+draws it with the mask entry (ops/fused_step.py `dropout_mask`: autograd
+needs the tensor); the `pallas` step (a `KeyedStep`) draws it inside
+K1-split or K1-mma, from the epoch's key table, which `fit` builds on the
+host before the epoch's first step and copies to the device once.
 
 As in the JAX package, the per-step losses stay on the device and are
 fetched once per epoch: no per-step `.item()`. The printed train_loss keeps
@@ -31,7 +34,7 @@ import torch
 
 from ..models.mlp import MLP, mlp_apply
 from ..ops import threefry
-from ..ops.fused_step import dropout_mask
+from ..ops.fused_step import KeyedStep, dropout_mask
 from ..ops.loss import cross_entropy
 from ..ops.sgd import sgd_step
 
@@ -181,6 +184,7 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
     if (train_step is None) == (lr is None):
         raise ValueError("pass exactly one of lr= or train_step=")
     step = train_step if train_step is not None else make_train_step(lr)
+    keyed = isinstance(step, KeyedStep)
     model, key = state.model, state.key
     device = next(model.parameters()).device
     # the test set goes to the device once, not once per epoch
@@ -191,6 +195,9 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
         t0 = time.perf_counter()
         io_seconds = 0.0
         train_loader.sampler.set_epoch(epoch)
+        if keyed:   # the epoch's step keys on the device, one copy
+            nsteps = len(train_loader)
+            epoch_key, table = step.key_table(key, nsteps, device)
         losses = []
         batches = iter(train_loader)
         while True:
@@ -201,8 +208,16 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
             io_seconds += time.perf_counter() - t_io
             if batch is None:
                 break
-            key, loss = step(model, key, x, y)
+            if keyed:
+                loss = step.run(model, table[len(losses)], x, y)
+            else:
+                key, loss = step(model, key, x, y)
             losses.append(loss)
+        if keyed:
+            if len(losses) != nsteps:
+                raise RuntimeError(f"the loader gave {len(losses)} batches "
+                                   f"where its len() said {nsteps}")
+            key = epoch_key
         losses = torch.stack(losses).cpu().numpy()  # the epoch's one fetch
         val = evaluate(model, x_test_dev, y_test_dev, batch_size)
         dt = time.perf_counter() - t0

@@ -17,9 +17,13 @@ JAX package's), the raw uint8 pixels sit on the device (`resident_images`,
     level and the kernel skips the padded steps.
   * `xla` / `pallas` / `pallas_rng`: a host loop of per-step calls on data
     already on the device, with no per-step sync: `key, sub = split(key)`
-    per step. `xla` and `pallas` draw the mask `dropout_mask(sub)` (bitwise
-    JAX's, on the card by the K3 device function); `xla` is the autograd
-    step with the forward's keyed dropout, `pallas` the fused step (K1).
+    per step. `xla` draws the mask `dropout_mask(sub)` (bitwise JAX's, on
+    the card by the mask entry, the K3 device function) for the autograd
+    step with the forward's keyed dropout; `pallas` runs the fused step
+    (K1) with the same mask drawn inside it (`fused_loss_and_grads_keyed`),
+    the epoch's keys built on the host before its first step and copied to
+    the device once as a table (ops/threefry.py `step_key_table`), step s
+    reading row s.
     `pallas_rng` hands word 0 of `sub` to the fused step as its seed and the
     kernel draws the mask itself (K1-rng), as JAX's `_loss_and_grads` does.
     JAX runs these steps as one `lax.scan`; capturing them in a CUDA graph
@@ -72,7 +76,7 @@ from ..data.mnist import device_normalize
 from ..models.mlp import MLP
 from ..ops import threefry
 from ..ops.epoch_step import RINGS, epoch_fused_sgd
-from ..ops.fused_step import (dropout_mask, fused_loss_and_grads,
+from ..ops.fused_step import (dropout_mask, fused_loss_and_grads_keyed,
                               fused_loss_and_grads_rng)
 from ..ops.sgd import sgd_step
 from ..parallel.ddp import (on_device, replica_mean, replicate_state,
@@ -165,24 +169,33 @@ def _clone(params):
 
 def _loss_and_grads(params, x_all, y_all, rows, key, kernel, compute_dt):
     """One step's (loss, grads) on the gathered `rows` with the dropout of
-    `key`: `pallas_rng` hands word 0 of the key to the kernel as its seed,
-    `xla` and `pallas` draw the mask `dropout_mask(key)`."""
+    `key`: `pallas` takes the key as its row of the epoch's key table on
+    the device and draws the mask in the kernel; `pallas_rng` hands word 0
+    of the key (a host tuple) to the kernel as its seed; `xla` draws the
+    mask `dropout_mask(key)` with the mask entry."""
     x = _gathered_x(x_all, rows, compute_dt)
     y = y_all.index_select(0, rows)
+    if kernel == "pallas":
+        return fused_loss_and_grads_keyed(params, x, y, key)
     if kernel == "pallas_rng":
         return fused_loss_and_grads_rng(params, x, y, key[0])
     mask = dropout_mask(key, rows.shape[0], x.device)
-    if kernel == "pallas":
-        return fused_loss_and_grads(params, x, y, mask)
     return xla_loss_and_grads(params, x, y, mask > 0)
 
 
 def _steps_epoch(params, key, x_all, y_all, idx_e, lr, kernel, compute_dt):
     """One epoch of per-step calls (`xla`, `pallas` or `pallas_rng`), SGD
-    in place on `params`. Returns (key, losses (S,) on the device)."""
+    in place on `params`. `pallas` takes its keys from the epoch's key
+    table, built before the first step. Returns (key, losses (S,) on the
+    device)."""
+    if kernel == "pallas":   # the epoch's keys on the device, one copy
+        key, table = threefry.step_key_table(key, len(idx_e), x_all.device)
     losses = []
-    for rows in idx_e:
-        key, sub = threefry.split(key)
+    for s, rows in enumerate(idx_e):
+        if kernel == "pallas":
+            sub = table[s]
+        else:
+            key, sub = threefry.split(key)
         loss, grads = _loss_and_grads(params, x_all, y_all, rows, sub, kernel,
                                       compute_dt)
         sgd_step(params, grads, lr)
@@ -292,23 +305,30 @@ def _dp_steps_epoch(mesh, params, key, data, idx_e, lr, kernel, compute_dt):
     """One epoch of per-step DP calls: per step `key, sub = split(key)`,
     local replica r takes shard r of the step's rows with the dropout of
     `fold_in(sub, g)`, g its global index, then SGD in place on `params`
-    with the world's fixed-order mean gradient. Returns (key, losses (S,),
-    the world's mean per step)."""
+    with the world's fixed-order mean gradient. `pallas` takes the replicas'
+    keys from the epoch's (S, n, 2) key table, built before the first step.
+    Returns (key, losses (S,), the world's mean per step)."""
     n, first = len(mesh), first_replica(mesh)
     batch = idx_e.shape[1] // n
     shards = [data[d][2][:, r * batch:(r + 1) * batch]
               for r, d in enumerate(mesh)]
     device = idx_e.device
+    if kernel == "pallas":   # the epoch's keys on the device, one copy
+        key, table = threefry.step_key_table(key, idx_e.shape[0], device,
+                                             range(first, first + n))
     losses = []
     for s in range(idx_e.shape[0]):
-        key, sub = threefry.split(key)
+        if kernel == "pallas":
+            subs = [table[s, r].to(dev) for r, dev in enumerate(mesh)]
+        else:
+            key, sub = threefry.split(key)
+            subs = [threefry.fold_in(sub, first + r) for r in range(n)]
         step_losses, grads = [], []
         for r, dev in enumerate(mesh):
             x_all, y_all, _ = data[dev]
             loss, g = _loss_and_grads(on_device(params, dev), x_all, y_all,
-                                      shards[r][s],
-                                      threefry.fold_in(sub, first + r),
-                                      kernel, compute_dt)
+                                      shards[r][s], subs[r], kernel,
+                                      compute_dt)
             step_losses.append(loss)
             grads.append(g)
         loss, mean = world_mean(mesh, step_losses, grads, device)

@@ -57,7 +57,14 @@ against its plain version and the rows design's ring in bf16 forced; its
 1-replica launch bitwise K2-mma, its constants and co-residency, its
 stamps build bitwise its default build, a stalled ring raising by name,
 and the bf16 DP scan on a card mesh launching it and tracking the CPU
-mesh."""
+mesh. The keyed forms of K1-split and K1-mma (jax's threefry mask drawn in
+the hidden phase, the key read from a device table) are held bitwise
+against their mask-input forms on the mask entry's mask at B = 128, 96
+and 3, with keys whose words have the high bit set; the keyed rows step
+past 128 rows launches the mask entry; a captured keyed call reads the key
+the table holds when it replays; their stamps builds, the refusals of a
+null or misaligned key, and a cached `pallas` epoch that launches no mask
+entry."""
 
 import ctypes
 import re
@@ -102,11 +109,13 @@ def _inputs(batch, seed, device):
             torch.from_numpy(mask).to(device))
 
 
-def _k1_key(x, rng=False):
-    """The launch_count key a K1 call on x counts under: its design's."""
+def _k1_key(x, rng=False, keyed=False):
+    """The launch_count key a K1 call on x counts under: its design's (the
+    keyed form's: the `--kernel pallas` step's)."""
     design = fused_step.fused_design(x.dtype, rng, x.shape[0])
     if design != "rows":
-        return f"fused_{design}" + ("_rng" if rng else "")
+        return (f"fused_{design}" + ("_rng" if rng else "")
+                + ("_keyed" if keyed else ""))
     return ("fused_step" + ("_rng" if rng else "")
             + ("_bf16" if x.dtype == torch.bfloat16 else ""))
 
@@ -150,7 +159,7 @@ def test_fused_step_tracks_the_autograd_step_on_card(cuda):
     for step in (make_train_step(0.01), fused_step.make_fused_train_step(0.01)):
         model = MLP(torch.Generator().manual_seed(0)).to(cuda)
         key = threefry.key_data(1)
-        k1 = _k1_key(x[:128])
+        k1 = _k1_key(x[:128], keyed=True)
         before = fused_step.launch_count[k1]
         losses = []
         for i in range(0, 512, 128):
@@ -166,15 +175,17 @@ def test_fused_step_tracks_the_autograd_step_on_card(cuda):
 
 
 def test_cli_trains_through_the_kernel(cuda, tmp_path, capsys):
-    key = "fused_split"    # f32 at B = 64: the split design
-    before = fused_step.launch_count[key]
+    key = "fused_split_keyed"    # f32 at B = 64: the split design, keyed
+    before = dict(fused_step.launch_count)
     rc = port_cli.main(["--limit", "512", "--batch_size", "64",
                         "--checkpoint", str(tmp_path / "m.pt"),
                         "--path", str(tmp_path / "no_mnist")])
     out = capsys.readouterr().out
     assert rc == 0 and "kernel=pallas" in out
     assert re.search(r"^Epoch=0, train_loss=\S+, val_loss=\S+", out, re.M)
-    assert fused_step.launch_count[key] == before + 512 // 64
+    assert fused_step.launch_count[key] == before[key] + 512 // 64
+    # the mask is drawn in the kernel: no launch of the mask entry
+    assert fused_step.launch_count["threefry_mask"] == before["threefry_mask"]
     assert (tmp_path / "m.pt").exists()
 
 
@@ -555,7 +566,7 @@ def test_dp_steps_on_a_card_mesh_track_each_other(cuda):
     for make in (make_dp_train_step, fused_step.make_pallas_dp_train_step):
         model = MLP(torch.Generator().manual_seed(0)).to(cuda)
         step, key = make(mesh, 0.01), threefry.key_data(1)
-        k1 = _k1_key(x[:128])   # each replica's shard of 256 rows
+        k1 = _k1_key(x[:128], keyed=True)   # each replica's shard of 256 rows
         before = fused_step.launch_count[k1]
         losses = []
         for i in range(0, 512, 256):
@@ -580,13 +591,14 @@ def test_bf16_dp_steps_on_a_card_mesh_run_k1_mma_and_track_the_cpu_mesh(cuda):
         model = MLP(torch.Generator().manual_seed(0)).to(dev)
         step = fused_step.make_pallas_dp_train_step((dev,) * 2, 0.01,
                                                     dtype="bfloat16")
-        key, before = threefry.key_data(1), fused_step.launch_count["fused_mma"]
+        key = threefry.key_data(1)
+        before = fused_step.launch_count["fused_mma_keyed"]
         losses = []
         for i in range(0, 512, 256):
             key, loss = step(model, key, x[i:i + 256], y[i:i + 256])
             losses.append(loss)
         runs.append((torch.stack(losses).cpu(),
-                     fused_step.launch_count["fused_mma"] - before))
+                     fused_step.launch_count["fused_mma_keyed"] - before))
     (card, card_k1), (cpu, cpu_k1) = runs
     assert (card_k1, cpu_k1) == (4, 0)
     torch.testing.assert_close(card, cpu, rtol=1e-3, atol=0)
@@ -774,14 +786,147 @@ def test_split_and_rows_designs_train_the_same_cached_epoch(cuda, tmp_path,
             "--path", str(tmp_path / "no_mnist")]
     before = dict(fused_step.launch_count)
     _, split = port_cli.train(argv)
-    assert fused_step.launch_count["fused_split"] == \
-        before["fused_split"] + 1024 // 128
+    assert fused_step.launch_count["fused_split_keyed"] == \
+        before["fused_split_keyed"] + 1024 // 128
     monkeypatch.setattr(fused_step, "fused_design", lambda *a: "rows")
     _, rows = port_cli.train(argv)
-    assert fused_step.launch_count["fused_step"] == \
-        before["fused_step"] + 1024 // 128
+    # the rows design's keyed step: the mask entry reads the key, then K1
+    for key in ("fused_step", "threefry_mask"):
+        assert fused_step.launch_count[key] == before[key] + 1024 // 128
     for a, b in zip(split, rows):
         np.testing.assert_array_equal(a, b)
+
+
+# ---- the keyed forms: jax's threefry mask drawn in K1-split and K1-mma ----
+
+# keys whose words span the int32 bitcast, and a split chain's
+KEYED_KEYS = [(0x80000000, 0x7FFFFFFF), (0xFFFFFFFF, 0x80000001),
+              (0xDEADBEEF, 12345)] + threefry.step_keys((0, 9), 5)[1]
+
+
+def _equal(got, want):
+    assert torch.equal(got[0], want[0])
+    for n in want[1]:
+        for k in want[1][n]:
+            assert torch.equal(got[1][n][k], want[1][n][k]), f"{n}.{k}"
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["split", "mma"])
+@pytest.mark.parametrize("batch", [128, 96, 3])
+def test_keyed_form_is_its_mask_input_form_bitwise(cuda, batch, bf16):
+    params, x, y, _ = _inputs(batch, batch + 40, cuda)
+    if bf16:
+        x = x.to(torch.bfloat16)
+    table = threefry.to_int32_words(KEYED_KEYS).to(cuda)
+    key = _k1_key(x, keyed=True)
+    for i, k in enumerate(KEYED_KEYS):
+        before = dict(fused_step.launch_count)
+        got = fused_step.fused_loss_and_grads_keyed(params, x, y, table[i])
+        assert fused_step.launch_count[key] == before[key] + 1
+        assert fused_step.launch_count["threefry_mask"] == \
+            before["threefry_mask"]
+        mask = fused_step.dropout_mask(k, batch, cuda)
+        _equal(got, fused_step.fused_loss_and_grads(params, x, y, mask))
+
+
+@pytest.mark.parametrize("dtype,key", [(torch.float32, "fused_step"),
+                                       (torch.bfloat16, "fused_step_bf16")])
+def test_keyed_step_past_128_rows_keeps_the_mask_entry(cuda, dtype, key):
+    params, x, y, _ = _inputs(256, 5, cuda)
+    x = x.to(dtype)
+    words = threefry.to_int32_words([KEYED_KEYS[0]]).to(cuda)[0]
+    before = dict(fused_step.launch_count)
+    got = fused_step.fused_loss_and_grads_keyed(params, x, y, words)
+    for k in (key, "threefry_mask"):
+        assert fused_step.launch_count[k] == before[k] + 1
+    assert fused_step.last_launch["design"] == "rows"
+    mask = fused_step.dropout_mask(KEYED_KEYS[0], 256, cuda)
+    _equal(got, fused_step.fused_loss_and_grads(params, x, y, mask))
+
+
+def test_keyed_mask_entry_reads_the_key_from_the_card(cuda):
+    table = threefry.to_int32_words(KEYED_KEYS).to(cuda)
+    for i, k in enumerate(KEYED_KEYS):
+        for batch in (128, 3):
+            got = fused_step.keyed_dropout_mask(table[i], batch, cuda)
+            assert torch.equal(got, fused_step.dropout_mask(k, batch, cuda))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["split", "mma"])
+def test_keyed_call_in_a_graph_reads_the_key_at_replay(cuda, bf16):
+    # the key is device memory, not a launch argument: a captured call
+    # draws the mask of whatever key the table holds when it replays
+    params, x, y, _ = _inputs(128, 2, cuda)
+    if bf16:
+        x = x.to(torch.bfloat16)
+    words = threefry.to_int32_words([KEYED_KEYS[0]]).to(cuda)[0]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused_step.fused_loss_and_grads_keyed(params, x, y, words)
+    for k in KEYED_KEYS[:3]:
+        words.copy_(threefry.to_int32_words([k])[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        mask = fused_step.dropout_mask(k, 128, cuda)
+        _equal(captured, fused_step.fused_loss_and_grads(params, x, y, mask))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["split", "mma"])
+def test_keyed_stamps_build_is_its_default_build(cuda, bf16):
+    params, x, y, _ = _inputs(128, 3, cuda)
+    if bf16:
+        x = x.to(torch.bfloat16)
+    words = threefry.to_int32_words([KEYED_KEYS[1]]).to(cuda)[0]
+    base = fused_step.fused_loss_and_grads_keyed(params, x, y, words)
+    stamps = (fused_step.mma_phase_stamps if bf16
+              else fused_step.split_phase_stamps)
+    before = dict(fused_step.launch_count)
+    loss, grads, split, per_call = stamps(params, x, y, key_words=words,
+                                          calls=4)
+    assert dict(fused_step.launch_count) == before
+    _equal((loss, grads), base)
+    assert per_call > 0 and all(v >= 0 for v in split.values())
+
+
+def test_keyed_entries_refuse_a_null_or_misaligned_key(cuda):
+    params, x, y, _ = _inputs(8, 1, cuda)
+    odd = torch.zeros(5, dtype=torch.int32, device=cuda)[1:3]
+    with pytest.raises(ValueError, match="8 bytes"):
+        fused_step.fused_loss_and_grads_keyed(params, x, y, odd)
+    for design, xin in (("split", x), ("mma", x.to(torch.bfloat16))):
+        lib = fused_step._staged_lib(design)
+        p = xin.data_ptr()
+        for key in (None, odd.data_ptr()):
+            err = getattr(lib, f"pdmt_{design}_step")(
+                p, y.data_ptr(), 2, None, key, 0, 1, *([p] * 12), None, 8,
+                1.0 / 8, fused_step._stream(cuda))
+            assert err != 0, (design, key)
+    lib = fused_step._kernel_lib()
+    out = torch.empty((8, 128), device=cuda)
+    for key in (None, odd.data_ptr()):
+        assert lib.pdmt_threefry_mask_keyed(key, 8, out.data_ptr(),
+                                            fused_step._stream(cuda)) != 0
+
+
+def test_cached_pallas_epoch_draws_no_mask_outside_the_kernel(cuda):
+    split = synthetic_mnist(1024, seed=0)
+    x_all = torch.from_numpy(scan.resident_images(split.images)).to(cuda)
+    y_all = torch.from_numpy(split.labels.astype(np.int32)).to(cuda)
+    idx = np.arange(1024, dtype=np.int32).reshape(8, 128)
+    params = MLP.from_seed(0).to(cuda).params()
+    runs = []
+    for dtype in ("float32", "bfloat16"):
+        before = dict(fused_step.launch_count)
+        _, key, losses = scan.make_epoch_fn(0.01, kernel="pallas",
+                                            dtype=dtype)(params, (0, 1),
+                                                         x_all, y_all, idx)
+        got = {k: v - before[k] for k, v in fused_step.launch_count.items()
+               if v != before[k]}
+        assert got == {f"fused_{'mma' if dtype == 'bfloat16' else 'split'}"
+                       f"_keyed": 8}
+        assert key == threefry.step_key_table((0, 1), 8)[0]
+        runs.append(losses)
+    assert all(torch.isfinite(ls).all() for ls in runs)
 
 
 # ---- K1-mma, the mma design of K1's bf16 forms ----
@@ -1263,20 +1408,21 @@ def _world_steps(step, device, rows_of_step):
     x_all = normalize_images(split.images)
     y_all = split.labels.astype(np.int32)
     model = MLP.from_seed(0).to(device)
-    key = threefry.key_data(1)
+    # the steps' key table, as `fit` builds an epoch's
+    _, table = step.key_table(threefry.key_data(1), WORLD_STEPS, device)
     losses = []
     for s in range(WORLD_STEPS):
         r = rows_of_step(s)
-        key, loss = step(model, key, torch.from_numpy(x_all[r]).to(device),
-                         torch.from_numpy(y_all[r]).to(device))
-        losses.append(loss)
+        losses.append(step.run(model, table[s],
+                               torch.from_numpy(x_all[r]).to(device),
+                               torch.from_numpy(y_all[r]).to(device)))
     return (torch.stack(losses).cpu(),
             {n: {k: v.detach().cpu() for k, v in layer.items()}
              for n, layer in model.params().items()})
 
 
-@pytest.mark.parametrize("dtype,key", [("float32", "fused_split"),
-                                       ("bfloat16", "fused_mma")])
+@pytest.mark.parametrize("dtype,key", [("float32", "fused_split_keyed"),
+                                       ("bfloat16", "fused_mma_keyed")])
 def test_two_ranks_on_the_card_are_the_two_replica_mesh_bitwise(
         cuda, tmp_path, dtype, key):
     import sys
@@ -1296,7 +1442,8 @@ def test_two_ranks_on_the_card_are_the_two_replica_mesh_bitwise(
         assert run["backend"] == ("gloo" if torch.cuda.device_count() < n
                                   else "nccl")
         assert run["launches"][key] == WORLD_STEPS
-        assert run["launches"]["threefry_mask"] == WORLD_STEPS
+        # the masks are drawn in the kernel: no launch of the mask entry
+        assert run["launches"]["threefry_mask"] == 0
         assert torch.equal(run["losses"], losses)
         for n_, layer in params.items():
             for k, v in layer.items():

@@ -126,7 +126,10 @@ def test_the_epoch_runs_k1_mma_phase_code_in_one_cooperative_launch():
         _src("mma_step.cuh")
     for text in (src, k1):
         assert '#include "mma_step.cuh"' in text
-        for body in ("hidden_tile(", "rows_tile<", "grads_tile("):
+        # a call of each phase (K1-mma's hidden_tile names its template
+        # arguments: it draws the mask before the chain)
+        assert re.search(r"hidden_tile(<MaskAt, true>)?\(", text)
+        for body in ("rows_tile<", "grads_tile("):
             assert body in text
     # the products on the tensor cores, in the shared header only
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in hdr
