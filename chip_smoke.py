@@ -41,6 +41,13 @@ Phases (any failure exits non-zero; no phase is skipped):
                the tolerances of the plain version, the keyed mask entry
                and the rows design forced bitwise their mask forms, a
                graph replay bitwise, a misaligned and a null key refused;
+               K1-rng's device-seed forms (the seed read from word 0 of a
+               key-table row: what a captured pallas_rng step launches) on
+               K1-split, K1-mma (B = 128/96/3) and the rows design (B =
+               256, f32 and bf16), bitwise the scalar-seed forms on 48
+               seeds, some with the high bit set, within the tolerances of
+               the plain version, and a graph replayed after the seed word
+               changes drawing the new seed's mask;
                K2 (epoch_step) in its four forms (K2a f32 rows + masks, K2b
                uint8 rows + masks, K2c uint8 + in-kernel Philox, K3 uint8 +
                in-kernel threefry; the uint8 forms run K2-ws, the
@@ -148,13 +155,35 @@ Phases (any failure exits non-zero; no phase is skipped):
                   `--cached --kernel pallas_rng` on 2 ranks in lockstep; an
                   NCCL world of 1 rank bitwise the serial `--parallel` run,
                   and NCCL asked for by 2 ranks on the card exiting by name;
+                  every rank on the eager loop, no graph captured;
                k. where a per-step epoch's wall time goes
                   (phase_epoch_walls): one 469-step epoch of the cached
                   `--kernel pallas` path in f32 and bf16 and of the
                   streaming path, each on the keyed step and on the step
                   before the fold (the mask entry + the mask-input form), in
                   turns, host stamps between upload, indices, key table,
-                  step loop, loss fetch and eval; the two bitwise equal.
+                  step loop, loss fetch and eval; the two bitwise equal;
+               l. the capture phase (phase_capture): every per-step path
+                  on a step captured as a CUDA graph (train/graphs.py) —
+                  cached xla, pallas, pallas_rng in f32 and bf16, the
+                  4-replica mesh (pallas, f32 and bf16), streaming pallas
+                  and xla — 3 epochs captured and eager in turns (captured,
+                  eager, eager, captured), losses and params bitwise, one
+                  capture a captured run, the eager run's launch counts,
+                  the same epochs through fit_cached / fit bitwise, each
+                  epoch's wall with host stamps; the stale-input check (a
+                  step captured on epoch 0's buffers replayed on epoch 1's
+                  new indices or batches and keys, bitwise the eager epoch
+                  1 from the same state); after the profiler session each
+                  path's epoch wall, step-loop share and card-busy share,
+                  captured against eager, the busy shares marked checked
+                  where the two forms' device times agree within
+                  PLACEMENT_RTOL;
+               m. the 10-epoch golden (phase_golden): docs/golden_accuracy.
+                  json's config through the captured make_run_fn with
+                  kernel xla and pallas, f32, each held to the golden's
+                  accuracy and val-loss-ratio bounds against its torch
+                  runs, each curve beside the JAX framework curve.
   5. timing  — CUDA-event times of each kernel and form and its plain
                version at the main path's shapes, torch.profiler's device
                time of K1 (both designs) and the cached epoch (f32 on K2-ws,
@@ -182,6 +211,9 @@ Phases (any failure exits non-zero; no phase is skipped):
                the keyed forms (f32 and bf16) in turns with the mask entry
                + the mask-input form, per wrapper call and in a CUDA graph,
                and their stamps splits keyed and on the mask in turns; the
+               device-seed K1-rng forms in turns with the scalar-seed
+               forms, per wrapper call and in a graph (the rows design's
+               too); the
                `ptxas -v` registers and spills of K1-split, K1-mma, K2-mma
                and K6-mma (printed after the build).
 The line before the last is the card's name and power limit; the last is
@@ -190,6 +222,7 @@ The line before the last is the card's name and power limit; the last is
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import ctypes
 import io
@@ -1442,8 +1475,8 @@ def phase_main_bf16_k1(tmp: str) -> tuple:
              (streaming, MAIN_STEPS, "fused_mma_keyed", "fused_step_bf16",
               {"threefry_mask": MAIN_STEPS}),
              "train --cached --kernel pallas_rng --dtype bfloat16":
-             (cached, EPOCH_STEPS, "fused_mma_rng", "fused_step_rng_bf16",
-              {})}
+             (cached, EPOCH_STEPS, "fused_mma_rng_dev",
+              "fused_step_rng_dev_bf16", {})}
     launches, walls = {}, {}
     for path, (argv, steps, mma_key, rows_key, rows_other) in cases.items():
         walls[path] = {"mma": [], "rows": []}
@@ -1598,25 +1631,26 @@ def phase_main_cached_variants(tmp: str) -> dict:
     argv = _cached_argv(tmp, "--kernel", "pallas_rng", "--n_epochs", "1",
                         "--checkpoint", "")
     drawn = []
-    draw = scan.dropout_mask
+    draw = scan.keyed_dropout_mask
 
     def watched(*a, **k):      # a mask drawn outside the kernel
         drawn.append(a)
         return draw(*a, **k)
 
-    scan.dropout_mask = watched
+    scan.keyed_dropout_mask = watched
     _reset_counts()
     try:
         t0 = time.perf_counter()
         _, history, out = _run_trainer(cli_train, argv)
         wall = time.perf_counter() - t0
     finally:
-        scan.dropout_mask = draw
+        scan.keyed_dropout_mask = draw
     rng = _counts()
     _check_epoch_lines(out, history, 1, "train --cached --kernel pallas_rng")
-    expect_launches(rng, {"fused_split_rng": EPOCH_STEPS},
+    expect_launches(rng, {"fused_split_rng_dev": EPOCH_STEPS},
                     "train --cached --kernel pallas_rng, one epoch (the split "
-                    "design)")
+                    "design's device-seed form: the captured step reads its "
+                    "seed from the key table)")
     if drawn:
         fail(f"train --cached --kernel pallas_rng drew {len(drawn)} masks "
              f"outside the kernel")
@@ -1809,22 +1843,34 @@ def _graph_ms(fn, calls: int = 20, replays: int = 50) -> float:
     return _time_ms(graph.replay, iters=replays, warmup=3) / calls
 
 
+def _holder(ranges: dict, at: float):
+    """The label of the first range [a, b) of `ranges` that holds `at`."""
+    return next((label for label, (a, b) in ranges.items() if a <= at < b),
+                None)
+
+
 def profile_jobs(jobs: dict) -> tuple:
     """torch.profiler's device time per call of each CUDA kernel (and copy),
     for jobs {label: (fn, calls, names)} run in turn inside ONE profiler
-    session, each inside a record_function range: a kernel belongs to the
-    job whose range holds the host event that launched it (the profiler's
-    link from a device event to the host op or range active at its launch;
-    the kernel's own start where it has none). A device start read against
-    the host ranges can land in the job before: on an H100 one session's
-    device clock ran tens of ms behind the host's, and a K6 ring kernel
-    was counted in a streaming job. A job with names keeps only the
+    session, each inside a record_function range that ends after a sync:
+    a kernel belongs to the job whose range's span on the device (the
+    profiler's annotation of the range on the device timeline, on the
+    device's clock) holds its start; where no span holds it, the job whose
+    host range holds the host event that launched it (the profiler's link
+    from a device event to the host op), or else its own start. A device
+    start read against the host ranges can land in a neighbouring job: on
+    an H100 one session's device clock ran tens of ms behind the host's, a
+    K6 ring kernel was counted in a streaming job, and the short captured
+    jobs lost kernels to the eager job after them; on the card the
+    profiler has linked no kernel to its host op. A capture path's
+    captured and eager jobs run the same kernels, so their device times
+    check the placement (report_capture). A job with names keeps only the
     kernels whose short names it lists. Returns ({label: {name: us per
     call}}, {label: {"wall_ms", "window_ms", "busy_ms", "busy_share"}}),
     the second the job's host wall time, its profiler range and the union
     of its device intervals; empty where the profiler recorded no device
-    time. One session, taken before any CUDA graph capture: a second
-    session later in the run recorded no device time on the card."""
+    time. One session: a second session later in the run recorded no
+    device time on the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     for fn, _, _ in jobs.values():
@@ -1840,32 +1886,50 @@ def profile_jobs(jobs: dict) -> tuple:
                     fn()
                 torch.cuda.synchronize()
                 walls[label] = time.perf_counter() - t0
+    t_events = time.perf_counter()
     events = prof.events()
-    # the ranges on the host; the profiler also records each range's span
-    # on the device, which is no kernel
+    # the ranges on the host, and their spans on the device (one a stream
+    # the range launched on), which are no kernels
     windows = {e.name[len("job::"):]: (e.time_range.start, e.time_range.end)
                for e in events if e.name.startswith("job::")
                and getattr(e, "device_type", None) == DeviceType.CPU}
+    on_device = {}
+    for e in events:
+        if e.name.startswith("job::") and getattr(
+                e, "device_type", None) == DeviceType.CUDA:
+            label = e.name[len("job::"):]
+            a, b = on_device.get(label, (math.inf, -math.inf))
+            on_device[label] = (min(a, e.time_range.start),
+                                max(b, e.time_range.end))
+    # the jobs' device spans do not overlap (each range ends after a sync)
+    on_device = sorted((a, b, label) for label, (a, b) in on_device.items())
+    on_device_starts = [a for a, _, _ in on_device]
     # the host start of every host op and range a device event can link to
     launched_at = {e.id: e.time_range.start for e in events
                    if getattr(e, "device_type", None) == DeviceType.CPU
                    and not getattr(e, "linked_correlation_id", 0)}
+    kernels = [e for e in events
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and not e.name.startswith("job::")
+               and e.time_range.end > e.time_range.start]
+    print(f"[timing] profiler: {len(jobs)} jobs ran {sum(walls.values()):.1f}"
+          f" s; their {len(kernels)} device events took "
+          f"{time.perf_counter() - t_events:.1f} s to read")
     out = {label: {} for label in jobs}
     spans = {label: [] for label in jobs}
-    for e in events:
-        if getattr(e, "device_type", None) != DeviceType.CUDA \
-                or e.name.startswith("job::") \
-                or e.time_range.end <= e.time_range.start:
+    for e in kernels:
+        at = bisect.bisect_right(on_device_starts, e.time_range.start) - 1
+        label = (on_device[at][2] if at >= 0
+                 and e.time_range.start <= on_device[at][1] else None)
+        if label is None:
+            label = _holder(windows, launched_at.get(
+                getattr(e, "linked_correlation_id", 0), e.time_range.start))
+        if label is None:
             continue
-        at = launched_at.get(getattr(e, "linked_correlation_id", 0),
-                             e.time_range.start)
-        for label, (a, b) in windows.items():
-            if a <= at < b:
-                name = _short(e.name)
-                us = e.time_range.end - e.time_range.start
-                out[label][name] = out[label].get(name, 0.0) + us / jobs[label][1]
-                spans[label].append((e.time_range.start, e.time_range.end))
-                break
+        name = _short(e.name)
+        us = e.time_range.end - e.time_range.start
+        out[label][name] = out[label].get(name, 0.0) + us / jobs[label][1]
+        spans[label].append((e.time_range.start, e.time_range.end))
     busy = {}
     for label, (_, _, names) in jobs.items():
         if names:
@@ -1915,7 +1979,8 @@ def k1_bound(batch: int, bf16: bool = False, rng: bool = False,
 
 # launch_count keys of K1's rows design (csrc/fused_step.cu)
 ROWS_K1_KEYS = ("fused_step", "fused_step_rng", "fused_step_bf16",
-                "fused_step_rng_bf16")
+                "fused_step_rng_bf16", "fused_step_rng_dev",
+                "fused_step_rng_dev_bf16")
 
 
 def _sm_max_mhz() -> float:
@@ -1980,10 +2045,7 @@ def phase_timing(device, paths: dict, max_abs_err: float, split_worst: dict,
                   else "K1 f32, mask input"),
             design="split (csrc/fused_split.cu), by fused_design at f32 "
                    "B <= SPLIT_MAX_BATCH",
-            launches_by_path={k: v[key] for k, v in paths.items()
-                              if v.get(key)} or {
-                k: v[key + "_keyed"] for k, v in paths.items()
-                if v.get(key + "_keyed")},
+            launches_by_path=_design_launches(paths, key),
             blocks_per_launch=list(blocks), chain_floor_us=floor_us,
             sm_max_mhz=mhz, batch=MAIN_BATCH)
         if not rng:
@@ -2021,9 +2083,15 @@ def phase_timing(device, paths: dict, max_abs_err: float, split_worst: dict,
                          "on `train` (its keyed form, which draws the mask "
                          "in this design's hidden kernel); this entry's times "
                          "are its mask-input form's")
+        else:
+            extra.update(main_path="launches: the split design's K1-rng "
+                         "launches on the path, its device-seed form's (the "
+                         "captured step reads its seed from the key table; "
+                         "entry fused_split_rng_dev); this entry's times are "
+                         "its scalar-seed form's")
         out.append(_entry(
             key, "fused_split.cu", 333 if rng else 191,
-            paths[path][key] + paths[path].get(key + "_keyed", 0),
+            sum(_design_launches({path: paths[path]}, key).values()),
             split_worst[key], s_ms, min(p1, p2), bound, card, **extra))
         print(f"[timing] {key} B={MAIN_BATCH}: {sg * 1e3:.2f} us per call in "
               f"a CUDA graph against the rows design's {rg * 1e3:.2f} "
@@ -2068,7 +2136,7 @@ def k2_bound(batch: int, nsteps: int, form: str, bf16: bool = False):
     return _bound(flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
 
 
-def phase_profile(device) -> tuple:
+def phase_profile(device, data: dict) -> tuple:
     """The profiler's device time per call of K1 on each design (B = 128;
     f32 and bf16), of one epoch of the cached path at the main path's
     shapes (B = 128, 469 steps, --impl rbg: the gathers of the epoch's rows
@@ -2078,7 +2146,10 @@ def phase_profile(device) -> tuple:
     keyed mask entry, K1, SGD) on each f32 K1 design, and of the bf16
     per-step loops (the cached pallas_rng epoch, 50 streaming steps) on
     each bf16 K1 design, with each job's
-    device-busy share. Returns profile_jobs' two dicts."""
+    device-busy share; and one epoch of each per-step path of the capture
+    phase, captured and eager (capture_profile_jobs). The per-step cached
+    epochs replay steps captured before the profiler session. Returns
+    profile_jobs' two dicts."""
     from pytorch_ddp_mnist_tpu_torch.data.mnist import (normalize_images,
                                                          synthetic_mnist)
     from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
@@ -2087,26 +2158,27 @@ def phase_profile(device) -> tuple:
     from pytorch_ddp_mnist_tpu_torch.train import scan
     params, x, y, mask = _k1_inputs(MAIN_BATCH, seed=7, device=device)
     xb = x.to(torch.bfloat16)
-    split = synthetic_mnist(60000, seed=0)
-    x_all = torch.from_numpy(scan.resident_images(split.images)).to(device)
-    y_all = torch.from_numpy(split.labels.astype(np.int32)).to(device)
+    split = data["train"]
+    x_all, y_all = data["x_all"], data["y_all"]
     sampler = ShardedSampler(60000, seed=42)
     idx = scan.epoch_batch_indices(sampler, MAIN_BATCH)
     epoch = scan.make_epoch_fn(LR, kernel="pallas_epoch", impl="rbg")
     epoch_bf16 = scan.make_epoch_fn(LR, kernel="pallas_epoch", impl="rbg",
                                     dtype="bfloat16")
-    k1_epoch = scan.make_epoch_fn(LR, kernel="pallas")
 
-    def k1_epoch_rows():
-        with _k1_rows_design():
-            k1_epoch(params, (0, 1), x_all, y_all, idx)
+    def captured_epoch(kernel, dtype="float32", rows=False):
+        """An epoch of the cached per-step loop on a step captured here,
+        before the profiler session (on the rows design if `rows`)."""
+        steps = scan.CachedSteps(scan._clone(params), x_all, y_all, idx.shape,
+                                 LR, kernel, _torch_dtype(dtype))
+        with (_k1_rows_design() if rows else contextlib.nullcontext()):
+            steps.epoch((0, 1), idx)
+        return lambda: steps.epoch((0, 1), idx)
 
     # the bf16 per-step loops on each K1 design: the cached pallas_rng
     # epoch, and the streaming trainer's step loop (50 host batches copied
     # to the card one a step, the threefry mask, K1-bf16, SGD; the loader's
     # host work is not in it)
-    rng_bf16_epoch = scan.make_epoch_fn(LR, kernel="pallas_rng",
-                                        dtype="bfloat16")
     stream_step = fused_step.make_fused_train_step(LR, dtype="bfloat16")
     rows = MAIN_STEPS * MAIN_BATCH
     host_x = torch.from_numpy(normalize_images(split.images[:rows])) \
@@ -2128,8 +2200,6 @@ def phase_profile(device) -> tuple:
                 fn()
         return run
 
-    def rng_bf16():
-        rng_bf16_epoch(params, (0, 1), x_all, y_all, idx)
 
     words = threefry.to_int32_words([(0, 1)]).to(device)[0]
     jobs = {
@@ -2149,20 +2219,22 @@ def phase_profile(device) -> tuple:
                          None),
         "cached_epoch_bf16": (lambda: epoch_bf16(params, (0, 1), x_all,
                                                  y_all, idx), 3, None),
-        "k1_epoch_split": (lambda: k1_epoch(params, (0, 1), x_all, y_all,
-                                            idx), 1, None),
-        "k1_epoch_rows": (k1_epoch_rows, 1, None),
+        "k1_epoch_split": (captured_epoch("pallas"), 1, None),
+        "k1_epoch_rows": (captured_epoch("pallas", rows=True), 1, None),
         "fused_mma": (lambda: fused_step.fused_loss_and_grads(
             params, xb, y, mask), 50,
             ("mma_hidden_kernel", "mma_rows_kernel", "mma_grads_kernel")),
         "fused_step_bf16": (lambda: fused_step.fused_loss_and_grads(
             params, xb, y, mask, _design="rows"), 50,
             ("rows_kernel", "grads_kernel")),
-        "k1_rng_bf16_epoch_mma": (rng_bf16, 1, None),
-        "k1_rng_bf16_epoch_rows": (rows_design(rng_bf16), 1, None),
+        "k1_rng_bf16_epoch_mma": (captured_epoch("pallas_rng", "bfloat16"),
+                                  1, None),
+        "k1_rng_bf16_epoch_rows": (captured_epoch("pallas_rng", "bfloat16",
+                                                  rows=True), 1, None),
         "stream_bf16_mma": (stream_bf16, 1, None),
         "stream_bf16_rows": (rows_design(stream_bf16), 1, None),
         **k6_profile_jobs(device),
+        **capture_profile_jobs(device, data),
     }
     out, busy = profile_jobs(jobs)
     for label, kernels in out.items():
@@ -2317,6 +2389,19 @@ def _turns(first, second, iters: int, warmup: int):
     return min(a1, a2), min(b1, b2), (a1, b1, b2, a2)
 
 
+def _design_launches(paths: dict, key: str) -> dict:
+    """{path: launches} of a design's form `key` on each path that ran it,
+    with the launches of the same design's keyed form (`key` + "_keyed",
+    the mask drawn in the kernel) and device-seed form (`key` + "_dev",
+    the seed read from the key table by a captured step) on that path."""
+    out = {}
+    for path, counts in paths.items():
+        n = sum(counts.get(k, 0) for k in (key, key + "_keyed", key + "_dev"))
+        if n:
+            out[path] = n
+    return out
+
+
 def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
            bound, card, **extra):
     bound_ms, bound_by, flops, nbytes = bound
@@ -2405,10 +2490,7 @@ def phase_timing_mma(device, launches: dict, worst: dict, card: str,
             tolerance="JAX bf16 pins vs step_reference_bf16: loss rtol "
                       f"{BF16_LOSS_RTOL}, grads rtol {BF16_GRAD_RTOL} / atol "
                       f"{BF16_GRAD_ATOL}",
-            launches_by_path={k: v[key] for k, v in launches.items()
-                              if v.get(key)} or {
-                k: v[key + "_keyed"] for k, v in launches.items()
-                if v.get(key + "_keyed")},
+            launches_by_path=_design_launches(launches, key),
             blocks_per_launch=list(blocks),
             per_step_loop={"wall_s": walls.get(path),
                            "profiler_mma": busy.get(
@@ -2446,9 +2528,14 @@ def phase_timing_mma(device, launches: dict, worst: dict, card: str,
                          "form, which draws the mask in this design's hidden "
                          "kernel); this entry's times are its mask-input "
                          "form's")
+        else:
+            extra.update(main_path="launches: the mma design's K1-rng "
+                         "launches on the path, its device-seed form's (entry "
+                         "fused_mma_rng_dev); this entry's times are its "
+                         "scalar-seed form's")
         out.append(_entry(
             key, "fused_mma.cu", 333 if rng else 191,
-            launches[path][key] + launches[path].get(key + "_keyed", 0),
+            sum(_design_launches({path: launches[path]}, key).values()),
             worst[key], m_ms, plain_ms, bound, card, **extra))
         print(f"[timing] {key} B={MAIN_BATCH}: {mg * 1e3:.2f} us per call in "
               f"a CUDA graph against the rows design's {rg * 1e3:.2f} "
@@ -3635,20 +3722,30 @@ def world_rank_lockstep(out: str) -> None:
 def world_rank_cli(out: str, argv: list) -> None:
     """A rank of a world driven through the trainer's entry point
     (`cli/train.py train`, what `python -m pytorch_ddp_mnist_tpu_torch
-    train` calls): saves its per-step losses, final params, launches and
-    wall time to out/rank<RANK>.pt."""
+    train` calls): saves its per-step losses, final params, launches, CUDA
+    graph captures and wall time to out/rank<RANK>.pt."""
     from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
+    from pytorch_ddp_mnist_tpu_torch.train import graphs
     torch.backends.cuda.matmul.allow_tf32 = False
     _reset_counts()
+    captures = graphs.counts["captures"]
     t0 = time.perf_counter()
     state, history = cli_train.train(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     torch.save({"losses": torch.from_numpy(history[0]),
                 "launches": _counts(), "wall_s": wall, "key": state.key,
+                "captures": graphs.counts["captures"] - captures,
                 "params": {n: {k: v.detach().cpu() for k, v in l.items()}
                            for n, l in state.model.params().items()}},
                os.path.join(out, f"rank{os.environ['RANK']}.pt"))
+
+
+def _expect_eager(run: dict, what: str) -> None:
+    """A world rank keeps the eager loop: it captured no CUDA graph."""
+    if run["captures"] != 0:
+        fail(f"{what}: {run['captures']} CUDA graph captures; a world keeps "
+             f"the eager loop")
 
 
 def _equal_trees(a, b) -> bool:
@@ -3684,9 +3781,13 @@ def phase_main_world(device, tmp: str, card: str) -> dict:
          keyed K1-split launches one a step (no mask entry); the epoch's
          wall time;
       c. `train --parallel --cached --kernel pallas_rng` on 2 ranks, one
-         epoch: K1-split's rng form a step, ranks in lockstep;
+         epoch: K1-split's rng form a step (its device-seed form: a
+         world's eager loop reads its keys from the key table too), ranks
+         in lockstep;
       d. an NCCL world of 1 rank bitwise the serial `--parallel` run, and
          an NCCL request from 2 ranks on this card exiting by name.
+    A world of any size, one rank too, keeps the eager loop: every rank
+    of b, c and d captures no CUDA graph.
     Returns the launches of each world path, a rank's."""
     from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
     from pytorch_ddp_mnist_tpu_torch.ops import fused_step
@@ -3774,6 +3875,7 @@ def phase_main_world(device, tmp: str, card: str) -> dict:
         for r, run in enumerate(runs):
             expect_launches(run["launches"], {"fused_split_keyed": steps},
                             f"{what}, rank {r}")
+            _expect_eager(run, f"{what}, rank {r}")
             if not (_equal_trees(run["params"], saved)
                     and torch.equal(run["losses"], runs[0]["losses"])):
                 fail(f"{what}: rank {r}'s params or losses differ from the "
@@ -3830,8 +3932,9 @@ def phase_main_world(device, tmp: str, card: str) -> dict:
     what = "train --parallel --cached --kernel pallas_rng on 2 ranks"
     for r, run in enumerate(runs):
         expect_launches(run["launches"],
-                        {"fused_split_rng": WORLD_EPOCH_STEPS[2]},
+                        {"fused_split_rng_dev": WORLD_EPOCH_STEPS[2]},
                         f"{what}, rank {r}")
+        _expect_eager(run, f"{what}, rank {r}")
         if not (_equal_trees(run["params"], runs[0]["params"])
                 and torch.equal(run["losses"], runs[0]["losses"])):
             fail(f"{what}: rank {r} is not in lockstep with rank 0")
@@ -3839,7 +3942,8 @@ def phase_main_world(device, tmp: str, card: str) -> dict:
     if not losses[-20:].mean() < losses[:20].mean():
         fail(f"{what}: losses are not falling")
     print(f"[main] {what}: ranks in lockstep, {WORLD_EPOCH_STEPS[2]} "
-          f"K1-split rng launches a rank, no mask drawn outside the kernel")
+          f"K1-split device-seed rng launches a rank, no mask drawn outside "
+          f"the kernel, no graph captured")
     paths["world n=2 train --parallel --cached --kernel pallas_rng, a rank"] \
         = runs[0]["launches"]
 
@@ -3853,9 +3957,10 @@ def phase_main_world(device, tmp: str, card: str) -> dict:
         fail("the NCCL world of 1 rank differs from the serial --parallel run")
     expect_launches(nccl["launches"], {"fused_split_keyed": MAIN_STEPS},
                     "the NCCL world of 1 rank")
+    _expect_eager(nccl, "the NCCL world of 1 rank")
     paths["world n=1 NCCL train --parallel --kernel pallas"] = nccl["launches"]
     print("[main] an NCCL world of 1 rank: bitwise the serial --parallel "
-          "run's losses")
+          "run's losses, on the eager loop (no capture)")
     print(f"[main] the world phase took {time.perf_counter() - t_phase:.1f}s")
     return paths
 
@@ -4180,7 +4285,646 @@ def phase_timing_k6(device, launches: dict, worst: dict, card: str,
     return out
 
 
+# ---- the per-step loops captured as CUDA graphs (train/graphs.py) ----
+
+CAPTURE_EPOCHS = 3
+# (label, kind, kernel, dtype, replicas of the card or None)
+CAPTURE_PATHS = (
+    ("cached xla float32", "cached", "xla", "float32", None),
+    ("cached xla bfloat16", "cached", "xla", "bfloat16", None),
+    ("cached pallas float32", "cached", "pallas", "float32", None),
+    ("cached pallas bfloat16", "cached", "pallas", "bfloat16", None),
+    ("cached pallas_rng float32", "cached", "pallas_rng", "float32", None),
+    ("cached pallas_rng bfloat16", "cached", "pallas_rng", "bfloat16", None),
+    ("mesh4 pallas float32", "cached", "pallas", "float32", DP_REPLICAS),
+    ("mesh4 pallas bfloat16", "cached", "pallas", "bfloat16", DP_REPLICAS),
+    ("streaming pallas float32", "streaming", "pallas", "float32", None),
+    ("streaming xla float32", "streaming", "xla", "float32", None),
+)
+# K1-rng's device-seed form against its scalar-seed form: (B, x dtype, the
+# design fused_design picks)
+SEED_ROW_CHECKS = ((128, "float32", "split"), (96, "float32", "split"),
+                   (3, "float32", "split"), (128, "bfloat16", "mma"),
+                   (96, "bfloat16", "mma"), (3, "bfloat16", "mma"),
+                   (ROWS_BATCH, "float32", "rows"),
+                   (ROWS_BATCH, "bfloat16", "rows"))
+SEED_ROW_SEEDS = 48
+GOLDEN_KERNELS = ("xla", "pallas")
+
+
+def _torch_dtype(dtype: str) -> torch.dtype:
+    return torch.bfloat16 if dtype == "bfloat16" else torch.float32
+
+
+def capture_data(device, n_train: int = 60000, n_test: int = 10000) -> dict:
+    """The synthetic MNIST 60k/10k that the capture, golden and profile
+    phases share, made once (the golden's own data: train seed 0, test
+    seed 1): the uint8 train rows and labels resident on the card, the
+    normalised train rows for the streaming loop, the normalised test
+    split."""
+    from pytorch_ddp_mnist_tpu_torch.data.mnist import (normalize_images,
+                                                         synthetic_mnist)
+    from pytorch_ddp_mnist_tpu_torch.train import scan
+    train, test = synthetic_mnist(n_train, seed=0), synthetic_mnist(n_test,
+                                                                     seed=1)
+    labels = train.labels.astype(np.int32)
+    return {"train": train, "labels": labels,
+            "x_norm": normalize_images(train.images),
+            "x_test": normalize_images(test.images),
+            "y_test": test.labels.astype(np.int32),
+            "x_all": torch.from_numpy(
+                scan.resident_images(train.images)).to(device),
+            "y_all": torch.from_numpy(labels).to(device)}
+
+
+class _PathRun:
+    """One per-step path built as its trainer builds it, from
+    MLP.from_seed(0) and the train key 1 at B = 128 a replica: the cached
+    paths on scan.CachedSteps (fit_cached's loop; a mesh of `n_rep`
+    replicas of the card), the streaming paths on loop.fit's captured step
+    fed by device_prefetch. `eager` runs the same step without a graph."""
+
+    def __init__(self, device, data, kind, kernel, dtype, n_rep, eager,
+                 x_all=None, y_all=None):
+        from pytorch_ddp_mnist_tpu_torch.data.loader import BatchLoader
+        from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
+        from pytorch_ddp_mnist_tpu_torch.ops import fused_step, threefry
+        from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
+        from pytorch_ddp_mnist_tpu_torch.train import loop, scan
+        self.kind, self.device = kind, device
+        self.model = MLP.from_seed(0).to(device)
+        self.key = threefry.key_data(1)
+        rows = data["labels"].shape[0]
+        self.sampler = ShardedSampler(rows, seed=42)
+        self.batch = MAIN_BATCH * (n_rep or 1)
+        self.fold = None if n_rep is None else range(n_rep)
+        if kind == "cached":
+            x_all = data["x_all"] if x_all is None else x_all
+            y_all = data["y_all"] if y_all is None else y_all
+            self.nsteps = math.ceil(rows / self.batch)
+            self.params = scan._clone(self.model.params())
+            self.steps = scan.CachedSteps(
+                self.params, x_all, y_all, (self.nsteps, self.batch), LR,
+                kernel, _torch_dtype(dtype),
+                None if n_rep is None else (device,) * n_rep, eager=eager)
+            self.loop = self.steps.loop
+        else:
+            step = (loop.make_train_step(LR) if kernel == "xla" else
+                    fused_step.make_fused_train_step(LR, dtype=dtype))
+            self.step = step
+            self.loader = BatchLoader(data["x_norm"], data["train"].labels,
+                                      self.sampler, self.batch)
+            self.nsteps = len(self.loader)
+            self.loop, self.slots, self.keys = loop._captured_steps(
+                step, self.model, self.nsteps, self.batch, device, eager)
+            self.pinned = tuple(torch.empty(s.shape, dtype=s.dtype,
+                                            pin_memory=True)
+                                for s in self.slots)
+        self.epoch = 0
+
+    def load(self) -> None:
+        """The epoch's indices (cached) and key table into the buffers."""
+        from pytorch_ddp_mnist_tpu_torch.ops import threefry
+        from pytorch_ddp_mnist_tpu_torch.train import scan
+        self.sampler.set_epoch(self.epoch)
+        self.key, words = threefry.step_key_words(self.key, self.nsteps,
+                                                  self.fold)
+        if self.kind == "cached":
+            self.steps.idx.load(scan.epoch_batch_indices(self.sampler,
+                                                         self.batch))
+            self.steps.keys.load(words)
+        else:
+            self.keys.load(words)
+        self.epoch += 1
+
+    def run_steps(self, steps: int | None = None) -> None:
+        """The epoch's steps (its first `steps` of them, if given)."""
+        from pytorch_ddp_mnist_tpu_torch.data.loader import device_prefetch
+        steps = self.nsteps if steps is None else min(steps, self.nsteps)
+        self.loop.start_epoch()
+        if self.kind == "cached":
+            for _ in range(steps):
+                self.loop.step()
+            return
+        for k, _ in enumerate(device_prefetch(iter(self.loader), self.slots,
+                                              self.pinned)):
+            self.loop.step()
+            if k + 1 == steps:
+                break
+
+    def fetch(self) -> np.ndarray:
+        return self.loop.losses().cpu().numpy()
+
+    def state(self) -> dict:
+        params = self.params if self.kind == "cached" else self.model.params()
+        return {n: {k: v.detach().cpu().clone() for k, v in layer.items()}
+                for n, layer in params.items()}
+
+    def evaluate(self, x_test, y_test) -> None:
+        from pytorch_ddp_mnist_tpu_torch.train import loop, scan
+        if self.kind == "cached":
+            scan._load_params(self.model, self.params)
+        loop.evaluate(self.model, x_test, y_test, MAIN_BATCH)
+
+    def one_epoch(self, steps: int | None = None) -> None:
+        self.load()
+        self.run_steps(steps)
+        self.fetch()
+
+
+CAPTURE_PARTS = ("upload", "buffers", "key table", "step loop", "loss fetch",
+                 "eval")
+
+
+def _graph_run(device, data, kind, kernel, dtype, n_rep, eager) -> tuple:
+    """CAPTURE_EPOCHS epochs of a per-step path (_PathRun), host stamps
+    between the parts of each epoch (CAPTURE_PARTS; the first epoch's
+    upload of its data, the static buffers made before it; "key table" is
+    the epoch's indices and keys loaded into the buffers; the first step
+    loop of a captured run holds the capture). Returns ([{part: s} an
+    epoch], losses (E, S), params on the CPU, launches added, captures
+    added)."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step
+    from pytorch_ddp_mnist_tpu_torch.train import graphs, scan
+    before, caps = dict(fused_step.launch_count), graphs.counts["captures"]
+    torch.cuda.synchronize()
+    last = time.perf_counter()
+    parts = {}
+
+    def mark(part):
+        nonlocal last
+        now = time.perf_counter()
+        parts[part], last = now - last, now
+
+    x_all = y_all = None
+    if kind == "cached":   # the trainer's upload of the dataset
+        x_all = torch.from_numpy(scan.resident_images(
+            data["train"].images)).to(device)
+        y_all = torch.from_numpy(data["labels"]).to(device)
+    x_test = torch.as_tensor(data["x_test"], device=device)
+    y_test = torch.as_tensor(data["y_test"], device=device)
+    torch.cuda.synchronize()
+    mark("upload")
+    run = _PathRun(device, data, kind, kernel, dtype, n_rep, eager, x_all,
+                   y_all)
+    mark("buffers")
+    epochs, losses = [], []
+    for _ in range(CAPTURE_EPOCHS):
+        run.load()
+        mark("key table")
+        run.run_steps()
+        mark("step loop")
+        losses.append(run.fetch())
+        mark("loss fetch")
+        run.evaluate(x_test, y_test)
+        mark("eval")
+        epochs.append(dict(parts))
+        parts.clear()
+    added = {k: v - before[k] for k, v in fused_step.launch_count.items()
+             if v != before[k]}
+    return (epochs, np.stack(losses), run.state(), added,
+            graphs.counts["captures"] - caps)
+
+
+def _entry_run(device, data, kind, kernel, dtype, n_rep) -> tuple:
+    """The same path's CAPTURE_EPOCHS epochs through the entry point a user
+    calls (fit_cached, what `train --cached [--parallel]` runs; fit, what
+    streaming `train` runs), captured. Returns (losses (E, S), params on
+    the CPU, captures added)."""
+    from pytorch_ddp_mnist_tpu_torch.data.loader import BatchLoader
+    from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step, threefry
+    from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
+    from pytorch_ddp_mnist_tpu_torch.train import graphs, loop, scan
+    caps = graphs.counts["captures"]
+    model = MLP.from_seed(0).to(device)
+    batch = MAIN_BATCH * (n_rep or 1)
+    quiet = lambda line: None  # noqa: E731
+    if kind == "cached":
+        _, history = scan.fit_cached(
+            model, threefry.key_data(1), data["train"].images, data["labels"],
+            ShardedSampler(len(data["labels"]), seed=42), data["x_test"],
+            data["y_test"],
+            epochs=CAPTURE_EPOCHS, batch_size=batch, lr=LR, kernel=kernel,
+            dtype=dtype, mesh=None if n_rep is None else (device,) * n_rep,
+            log=quiet)
+    else:
+        step = (loop.make_train_step(LR) if kernel == "xla" else
+                fused_step.make_fused_train_step(LR, dtype=dtype))
+        _, history = loop.fit(
+            loop.TrainState(model, threefry.key_data(1)),
+            BatchLoader(data["x_norm"], data["train"].labels,
+                        ShardedSampler(len(data["labels"]), seed=42), batch),
+            data["x_test"], data["y_test"], epochs=CAPTURE_EPOCHS,
+            batch_size=batch, train_step=step, log=quiet)
+    params = {n: {k: v.detach().cpu().clone() for k, v in layer.items()}
+              for n, layer in model.params().items()}
+    return np.stack(history), params, graphs.counts["captures"] - caps
+
+
+def _stale_input_check(device, data) -> list:
+    """A step captured on epoch 0's buffers, then replayed on epoch 1's
+    new indices (or batches) and keys, against the same step run eagerly
+    on epoch 1 from the same state: the cached f32 paths of each kernel
+    and the streaming pallas path. Returns the paths checked."""
+    checked = []
+    for kind, kernel in (("cached", "xla"), ("cached", "pallas"),
+                         ("cached", "pallas_rng"), ("streaming", "pallas")):
+        what = f"{kind} {kernel} float32"
+        run = _PathRun(device, data, kind, kernel, "float32", None, False)
+        run.one_epoch()
+        if run.loop.graph is None:
+            fail(f"stale-input check, {what}: epoch 0 captured no graph")
+        eager = _PathRun(device, data, kind, kernel, "float32", None, True)
+        with torch.no_grad():    # the eager run from the captured's state
+            src = run.params if kind == "cached" else run.model.params()
+            dst = eager.params if kind == "cached" else eager.model.params()
+            for n, layer in src.items():
+                for k, v in layer.items():
+                    dst[n][k].copy_(v)
+        eager.key, eager.epoch = run.key, run.epoch
+        run.load()
+        run.run_steps()
+        eager.load()
+        eager.run_steps()
+        got, want = run.fetch(), eager.fetch()
+        if not (np.array_equal(got, want) and
+                _equal_trees(run.state(), eager.state())):
+            fail(f"stale-input check, {what}: the replays of epoch 1 on new "
+                 f"inputs differ from the eager epoch 1 from the same state "
+                 f"(bitwise expected)")
+        if run.key != eager.key or not np.isfinite(got).all():
+            fail(f"stale-input check, {what}: keys differ or losses not "
+                 f"finite")
+        checked.append(what)
+    print(f"[capture] stale-input check: a step captured on epoch 0's "
+          f"buffers, replayed on epoch 1's new indices (batches) and keys, "
+          f"bitwise the eager epoch 1 from the same state: "
+          f"{', '.join(checked)}")
+    return checked
+
+
+def phase_capture(device, data: dict, card: str) -> dict:
+    """Every per-step path on a captured step (CAPTURE_PATHS): CAPTURE_EPOCHS
+    epochs captured and eager in turns (captured, eager, eager, captured),
+    per-step losses and final params bitwise equal across all four, one
+    capture a captured run and none an eager one, the launch counts of a
+    captured run the eager run's; the same epochs through the entry point
+    a user calls (fit_cached, fit), captured once and bitwise the turns;
+    each run's epoch walls with host stamps (CAPTURE_PARTS); then the
+    stale-input check. Returns {label: results}."""
+    out = {}
+    for label, kind, kernel, dtype, n_rep in CAPTURE_PATHS:
+        runs = {"captured": [], "eager": []}
+        results = {}
+        for eager in (False, True, True, False):
+            which = "eager" if eager else "captured"
+            epochs, losses, params, added, caps = _graph_run(
+                device, data, kind, kernel, dtype, n_rep, eager)
+            if caps != (0 if eager else 1):
+                fail(f"capture {label}, {which}: {caps} captures in a run "
+                     f"(expected {0 if eager else 1})")
+            if not np.isfinite(losses).all() or losses.shape[0] != \
+                    CAPTURE_EPOCHS:
+                fail(f"capture {label}, {which}: losses {losses.shape} or "
+                     f"not finite")
+            runs[which].append(epochs)
+            if "ref" not in results:
+                results["ref"] = (losses, params, added)
+            ref_l, ref_p, ref_n = results["ref"]
+            if not (np.array_equal(losses, ref_l)
+                    and _equal_trees(params, ref_p)):
+                fail(f"capture {label}: the {which} run's losses or params "
+                     f"differ from the first run's (bitwise expected)")
+            if added != ref_n or not added:
+                fail(f"capture {label}: the {which} run's launches {added} "
+                     f"are not the first run's {ref_n}")
+        entry_l, entry_p, entry_caps = _entry_run(device, data, kind, kernel,
+                                                  dtype, n_rep)
+        if entry_caps != 1 or not (np.array_equal(entry_l, results["ref"][0])
+                                   and _equal_trees(entry_p,
+                                                    results["ref"][1])):
+            fail(f"capture {label}: the entry point's run ({entry_caps} "
+                 f"captures) differs from the turns (bitwise expected)")
+        walls = {w: [[sum(e.values()) for e in r] for r in rs]
+                 for w, rs in runs.items()}
+        loops = {w: [[e["step loop"] + e["loss fetch"] for e in r]
+                     for r in rs] for w, rs in runs.items()}
+        out[label] = {"epochs": runs, "walls_s": walls,
+                      "steps_s": loops, "launches": results["ref"][2],
+                      "nsteps": results["ref"][0].shape[1]}
+        for which in ("captured", "eager"):
+            for r, (w, lp) in enumerate(zip(walls[which], loops[which])):
+                print(f"[capture] {label}, {which} run {r}: epoch walls "
+                      f"{', '.join(f'{v:.4f}' for v in w)} s (epoch 0 with "
+                      f"the upload{' and the capture' if which == 'captured' else ''}); "
+                      f"the step loop with its loss fetch "
+                      f"{', '.join(f'{v:.4f}' for v in lp)} s "
+                      f"({', '.join(f'{a / b:.1%}' for a, b in zip(lp, w))}) "
+                      f"[{card}]")
+        parts = runs["captured"][0][0]
+        print(f"[capture] {label}: {CAPTURE_EPOCHS} epochs of "
+              f"{out[label]['nsteps']} steps bitwise equal captured and "
+              f"eager (turns captured, eager, eager, captured) and through "
+              f"the entry point; one capture a captured run; launches "
+              f"{results['ref'][2]} in each; captured epoch 0 = "
+              + ", ".join(f"{p} {parts[p]:.4f}" for p in CAPTURE_PARTS
+                          if p in parts) + f" s [{card}]")
+    out["stale_input_checked"] = _stale_input_check(device, data)
+    return out
+
+
+PROFILE_STEPS = 100   # a capture path's profiler job's steps (of 469 / 118)
+# a path's captured and eager device times an epoch, which run the same
+# kernels, agree within this share where the profiler placed every kernel
+# in its own job
+PLACEMENT_RTOL = 0.10
+
+
+def capture_profile_jobs(device, data: dict) -> dict:
+    """Profiler jobs, the first PROFILE_STEPS steps of each capture path's
+    epoch with its loss fetch, on an epoch's buffers loaded here: on the
+    step captured here, before the profiler session, and on the same step
+    run eagerly (a steady share needs no whole epoch, and every event the
+    profiler records costs the session time to read)."""
+    def job(run):
+        run.load()
+
+        def steps_and_fetch():
+            run.run_steps(PROFILE_STEPS)
+            run.fetch()
+        return (steps_and_fetch, 1, None)
+    jobs = {}
+    for label, kind, kernel, dtype, n_rep in CAPTURE_PATHS:
+        run = _PathRun(device, data, kind, kernel, dtype, n_rep, False)
+        run.one_epoch(1)
+        jobs[f"capture {label} captured"] = job(run)
+        jobs[f"capture {label} eager"] = job(
+            _PathRun(device, data, kind, kernel, dtype, n_rep, True))
+    return jobs
+
+
+def report_capture(capture: dict, busy: dict, card: str) -> dict:
+    """Each capture path's epoch wall, captured against eager (the best of
+    each's runs, epochs 1.. and epoch 0 with the upload and capture), the
+    step loop's share, and the card's busy share from the profiler. The
+    profiler places each kernel in a job by its device start (profile_jobs),
+    which can fall into a neighbouring job; the two forms run the same
+    kernels, so a path's busy shares are marked checked only where its
+    captured and eager device times agree within PLACEMENT_RTOL, and
+    unchecked otherwise. Returns the summary."""
+    summary = {}
+    for label, *_ in CAPTURE_PATHS:
+        c = capture[label]
+        row = {}
+        for which in ("captured", "eager"):
+            walls, loops = c["walls_s"][which], c["steps_s"][which]
+            steady = [w for r in walls for w in r[1:]]
+            steady_loop = [v for r in loops for v in r[1:]]
+            b = busy.get(f"capture {label} {which}")
+            row[which] = {
+                "epoch0_s": min(r[0] for r in walls),
+                "epoch_s": min(steady), "step_loop_s": min(steady_loop),
+                "step_loop_share": min(steady_loop) / min(steady),
+                "busy_share": b["busy_share"] if b else None,
+                "busy_ms": b["busy_ms"] if b else None}
+        # the two forms run the same kernels: their device times check the
+        # profiler's placement of the kernels in the jobs
+        cap, eag = row["captured"], row["eager"]
+        row["placement_checked"] = False
+        if cap["busy_ms"] is not None and eag["busy_ms"] is not None:
+            scale = c["nsteps"] / min(PROFILE_STEPS, c["nsteps"])
+            dev = {"captured": cap["busy_ms"] * scale,
+                   "eager": eag["busy_ms"] * scale}
+            row["device_ms_epoch"] = dev
+            row["placement_checked"] = abs(
+                dev["captured"] - dev["eager"]) <= PLACEMENT_RTOL * max(
+                dev["captured"], dev["eager"])
+        summary[label] = row
+        busy_txt = ", ".join(
+            f"{w} {row[w]['busy_share']:.1%}" if row[w]["busy_share"]
+            is not None else f"{w} not measured" for w in ("captured",
+                                                          "eager"))
+        busy_txt += (f" (the first {PROFILE_STEPS} steps and the fetch; "
+                     + ("placement checked" if row["placement_checked"] else
+                        "placement UNCHECKED: the forms' device times differ "
+                        f"by more than {PLACEMENT_RTOL:.0%}") + ")")
+        dev = row.get("device_ms_epoch")
+        dev_txt = (f"{dev['captured']:.2f} ms captured, {dev['eager']:.2f} "
+                   f"eager (scaled from its steps)" if dev else "not measured")
+        print(f"[capture] {label}: epoch {cap['epoch_s']:.4f} s captured "
+              f"against {eag['epoch_s']:.4f} eager ({eag['epoch_s'] / cap['epoch_s']:.2f}x; "
+              f"epoch 0 {cap['epoch0_s']:.4f} against {eag['epoch0_s']:.4f}); "
+              f"step loop + fetch {cap['step_loop_s']:.4f} s "
+              f"({cap['step_loop_share']:.1%}) against "
+              f"{eag['step_loop_s']:.4f} ({eag['step_loop_share']:.1%}); "
+              f"card busy {busy_txt} (profiler); device time an epoch "
+              f"{dev_txt} [{card}]")
+    return summary
+
+
+def phase_kernels_seed_row(device) -> dict:
+    """K1-rng's device-seed forms (the seed read from word 0 of a key-table
+    row: what a captured `pallas_rng` step launches) at SEED_ROW_CHECKS,
+    each on the design fused_design picks (asserted by its launch key):
+    bitwise the scalar-seed form on SEED_ROW_SEEDS seeds, some with the
+    high bit set, within the tolerances of the plain version on the
+    seed's philox.rng_mask; a call captured in a CUDA graph, replayed after
+    the row's seed word changes, bitwise the scalar-seed form of the new
+    seed. Returns {launch key: worst abs err against the plain version}."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step, philox, threefry
+    rng = np.random.default_rng(14)
+    seeds = [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF] + [
+        int(v) for v in rng.integers(0, 1 << 32, SEED_ROW_SEEDS - 5,
+                                     dtype=np.uint64)]
+    high = sum(s >= 1 << 31 for s in seeds)
+    worst = {}
+    for batch, dtype, design in SEED_ROW_CHECKS:
+        params, x, y, _ = _k1_inputs(batch, seed=batch + 1, device=device)
+        x = x.to(_torch_dtype(dtype))
+        bf16 = dtype == "bfloat16"
+        key = (f"fused_{design}_rng_dev" if design != "rows" else
+               f"fused_step_rng_dev{'_bf16' if bf16 else ''}")
+        table = threefry.to_int32_words([(s, i) for i, s in
+                                         enumerate(seeds)]).to(device)
+        tag = f"K1-rng device-seed, {design} design, {dtype} B={batch}"
+        err = 0.0
+        for s, row in zip(seeds, table):
+            before = fused_step.launch_count[key]
+            got_out = fused_step.fused_loss_and_grads_rng(params, x, y, row)
+            got = _flat(*got_out)
+            if fused_step.launch_count[key] != before + 1:
+                fail(f"{tag}: the call did not launch {key}")
+            want = _flat(*fused_step.fused_loss_and_grads_rng(params, x, y,
+                                                              s))
+            _check_bitwise(f"{tag}, seed {s:#x}", got, want,
+                           "the scalar-seed form")
+            if s in seeds[:8]:
+                ref = fused_step._reference(params, x, y,
+                                            philox.rng_mask(s, batch, device))
+                pins = ((BF16_LOSS_RTOL, BF16_GRAD_RTOL, BF16_GRAD_ATOL)
+                        if bf16 else (LOSS_RTOL, GRAD_RTOL, GRAD_ATOL))
+                err = max(err, _check_close(f"{tag}, seed {s:#x}", got_out,
+                                            ref, *pins))
+        # a captured call reads the seed word the row holds at replay
+        row = table[0].clone()
+        fused_step.fused_loss_and_grads_rng(params, x, y, row)
+        torch.cuda.synchronize()
+        graph, held = torch.cuda.CUDAGraph(), {}
+        with torch.cuda.graph(graph):
+            held["out"] = fused_step.fused_loss_and_grads_rng(params, x, y,
+                                                              row)
+        for s, src in zip(seeds[1:4], table[1:4]):
+            row.copy_(src)
+            graph.replay()
+            _check_bitwise(f"{tag}, a replay after the seed word changed to "
+                           f"{s:#x}", _flat(*held["out"]),
+                           _flat(*fused_step.fused_loss_and_grads_rng(
+                               params, x, y, s)), "the new seed's call")
+        worst[key] = max(worst.get(key, 0.0), err)
+        print(f"[kernels] {tag}: bitwise the scalar-seed form on "
+              f"{len(seeds)} seeds ({high} with the high bit set); a graph "
+              f"replay after the seed word changed draws the new seed's "
+              f"mask; worst abs err against the plain version {err:.3e}")
+    return worst
+
+
+def phase_timing_seed_row(device, paths: dict, worst: dict,
+                          card: str) -> list:
+    """K1-rng's device-seed form at B = 128, f32 (K1-split) and bf16
+    (K1-mma): against the scalar-seed form in turns (scalar, device,
+    device, scalar) per wrapper call and per call in a CUDA graph, between
+    two timings of the plain version; the rows design's two forms in a
+    graph with the design forced, in turns. `paths` are every main path's
+    launches. Returns the kernels-line entries of the two device-seed
+    forms."""
+    from pytorch_ddp_mnist_tpu_torch.ops import fused_step, philox, threefry
+    params, x, y, _ = _k1_inputs(MAIN_BATCH, seed=7, device=device)
+    seed = 0x9E3779B9
+    row = threefry.to_int32_words([(seed, 5)]).to(device)[0]
+    out = []
+    for bf16 in (False, True):
+        xin = x.to(torch.bfloat16) if bf16 else x
+        design = "mma" if bf16 else "split"
+        name = f"fused_{design}_rng_dev"
+
+        def dev(xin=xin, design=None):
+            return fused_step.fused_loss_and_grads_rng(params, xin, y, row,
+                                                       _design=design)
+
+        def scalar(xin=xin, design=None):
+            return fused_step.fused_loss_and_grads_rng(params, xin, y, seed,
+                                                       _design=design)
+
+        def plain(xin=xin):
+            return fused_step._reference(params, xin, y, philox.rng_mask(
+                seed, MAIN_BATCH, device))
+        p1 = _time_ms(plain, iters=50, warmup=5)
+        s_ms, d_ms, turns = _turns(scalar, dev, iters=200, warmup=20)
+        graphs = [_graph_ms(f) for f in (scalar, dev, dev, scalar)]
+        p2 = _time_ms(plain, iters=50, warmup=0)
+        sg, dg = min(graphs[0], graphs[3]), min(graphs[1], graphs[2])
+        rows = [_graph_ms(lambda f=f: f(design="rows"))
+                for f in (scalar, dev, dev, scalar)]
+        bound = k1_bound(MAIN_BATCH, bf16=bf16, rng=True)
+        out.append(_entry(
+            name, f"fused_{design}.cu", 333, sum(
+                v.get(name, 0) for v in paths.values()),
+            worst[name], d_ms, min(p1, p2), bound, card, graph_ms=dg,
+            scalar_seed_ms=s_ms, scalar_seed_graph_ms=sg,
+            turns_scalar_dev_dev_scalar={"call_ms": turns, "graph_ms": graphs},
+            rows_design_graph_ms={"scalar": min(rows[0], rows[3]),
+                                  "device_seed": min(rows[1], rows[2]),
+                                  "turns": rows},
+            form=f"K1-rng{'-bf16' if bf16 else ''} with its seed read from "
+                 f"word 0 of a key-table row (PhiloxKeyMask): the form a "
+                 f"captured pallas_rng step launches",
+            design=f"{design} (csrc/fused_{design}.cu), by fused_design",
+            launches_by_path={k: v[name] for k, v in paths.items()
+                              if v.get(name)},
+            batch=MAIN_BATCH))
+        print(f"[timing] {name} B={MAIN_BATCH}: {dg * 1e3:.2f} us per call "
+              f"in a CUDA graph against the scalar-seed form's "
+              f"{sg * 1e3:.2f} (turns scalar, device, device, scalar: "
+              f"{', '.join(f'{v * 1e3:.2f}' for v in graphs)}); per wrapper "
+              f"call {d_ms * 1e3:.2f} us against {s_ms * 1e3:.2f}; the rows "
+              f"design forced in a graph: "
+              f"{', '.join(f'{v * 1e3:.2f}' for v in rows)}; plain "
+              f"{min(p1, p2) * 1e3:.2f} us; bound {bound[0] * 1e3:.3f} us by "
+              f"{bound[1]} [{card}]")
+    print("[timing] fused_split_rng_dev, fused_mma_rng_dev: no single "
+          "PyTorch call computes this fused function, so library_ms is null")
+    return out
+
+
+def phase_golden(device, data: dict, card: str) -> dict:
+    """The 10-epoch golden on the card: `docs/golden_accuracy.json`'s
+    config (synthetic 60k/10k, batch 128, lr 0.01, init
+    build_reference_model(7), the batch order of shared_batch_indices)
+    through the captured make_run_fn (utils/golden.py `train_port`) with
+    kernel `xla` (the golden's own) and `pallas` (K1-split keyed), f32,
+    each held to the golden's accuracy bound and val-loss-ratio bound
+    against the file's torch runs; each curve printed beside the JAX
+    framework curve the file holds. Returns {kernel: (run, verdict)}."""
+    from pytorch_ddp_mnist_tpu_torch.train import graphs
+    from pytorch_ddp_mnist_tpu_torch.utils import golden, torch_ref
+    with open(os.path.join(REPO, "docs", "golden_accuracy.json")) as f:
+        art = json.load(f)
+    cfg = art["config"]
+    want = {"epochs": 10, "batch": MAIN_BATCH, "lr": LR, "train_n": 60000,
+            "test_n": 10000, "data": "synthetic", "sampler_seed": 42,
+            "init_seed": 7}
+    if {k: cfg[k] for k in want} != want:
+        fail(f"the golden's config {cfg} is not {want}")
+    if (len(data["labels"]), len(data["y_test"])) != (cfg["train_n"],
+                                                      cfg["test_n"]):
+        fail("the golden needs the synthetic 60k/10k splits")
+    idxs = golden.shared_batch_indices(cfg["train_n"], cfg["epochs"],
+                                       cfg["batch"])
+    params0 = torch_ref.params_from_torch(
+        torch_ref.build_reference_model(cfg["init_seed"]))
+    jax_curve = art["framework_run"]["curve"]
+    out = {}
+    for kernel in GOLDEN_KERNELS:
+        caps = graphs.counts["captures"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = golden.train_port(params0, data["train"].images, data["labels"],
+                                idxs, data["x_test"], data["y_test"],
+                                cfg["lr"], device, kernel=kernel)
+        wall = time.perf_counter() - t0
+        if graphs.counts["captures"] - caps != 1:
+            fail(f"golden {kernel}: {graphs.counts['captures'] - caps} "
+                 f"captures (one expected: the captured make_run_fn)")
+        v = golden.verdict(run, art["torch_runs"], cfg["test_n"])
+        out[kernel] = {"run": run, "verdict": v, "wall_s": wall}
+        for e, (c, j) in enumerate(zip(run["curve"], jax_curve)):
+            print(f"[golden] {kernel} epoch {e}: acc {c['accuracy']:.4f} "
+                  f"mean val loss {c['mean_val_loss']:.8f}; the JAX "
+                  f"framework run: acc {j['accuracy']:.4f} mean val loss "
+                  f"{j['mean_val_loss']:.8f}")
+        print(f"[golden] {kernel} f32, 10 epochs on the captured step "
+              f"({wall:.3f} s with the eval): final acc "
+              f"{v['final_accuracy']:.4f} against torch's "
+              f"{v['torch_final_accuracy']:.4f} (gap {v['accuracy_gap']:.4f}, "
+              f"bound {v['accuracy_bound']:.4f}); final mean val loss "
+              f"{v['final_mean_val_loss']:.8f} against torch's "
+              f"{v['torch_final_mean_val_loss']:.8f} (ratio gap "
+              f"{v['val_loss_ratio_gap']:.6f}, bound "
+              f"{v['val_loss_ratio_bound']}) -> "
+              f"{'PASS' if v['pass'] else 'FAIL'} [{card}]")
+        if not v["pass"]:
+            fail(f"the 10-epoch golden fails on the card with kernel "
+                 f"{kernel}: {v}")
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
+
+    def elapsed(what):
+        print(f"[time] {what}: {time.perf_counter() - t_start:.1f} s from "
+              f"the start")
     name, count, card = phase_device()
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4188,14 +4932,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     device = torch.device("cuda", 0)
     ptxas = ptxas_counts(phase_build())
+    elapsed("build")
     max_abs_err = phase_kernels(device)
     split_worst = phase_kernels_split(device)
     worst = phase_kernels_k1_variants(device)
     keyed_worst = phase_kernels_keyed(device)
+    seed_worst = phase_kernels_seed_row(device)
     k2_worst = phase_kernels_k2(device)
     k2_bf16_worst = phase_kernels_k2_bf16(device)
     phase_superstep(device)
     k6_worst = phase_kernels_k6(device)
+    elapsed("kernel checks")
     with tempfile.TemporaryDirectory() as tmp:
         paths = phase_main_streaming(tmp)
         bf16_paths, bf16_walls = phase_main_bf16_k1(tmp)
@@ -4207,6 +4954,12 @@ def main() -> int:
         dp_launches = phase_main_dp(device, tmp)
         world_launches = phase_main_world(device, tmp, card)
         epoch_walls = phase_epoch_walls(device, tmp, card)
+    elapsed("main paths")
+    data = capture_data(device)
+    capture = phase_capture(device, data, card)
+    elapsed("capture phase")
+    golden = phase_golden(device, data, card)
+    elapsed("golden phase")
     _, k2_launches["bench --epochs 5"] = phase_bench()
     ss = ("--kernel", "pallas_epoch", "--dtype", "bfloat16", "--superstep",
           "8")
@@ -4218,7 +4971,10 @@ def main() -> int:
         ss, key="epoch_step_superstep_bf16", bf16=True,
         superstep=ROWS_SUPERSTEP,
         design="rows")
-    prof, busy = phase_profile(device)
+    elapsed("benches")
+    prof, busy = phase_profile(device, data)
+    elapsed("profiler session")
+    capture_summary = report_capture(capture, busy, card)
     all_paths = {**paths, **k2_launches, **dp_launches, **world_launches}
     k1_entries = phase_timing(device, all_paths, max_abs_err, split_worst,
                               card, prof, busy, cached_walls)
@@ -4235,6 +4991,14 @@ def main() -> int:
     new += phase_timing_k2_mma(device, all_paths, k2_bf16_worst, card,
                                prof)
     new += phase_timing_k6(device, dp_launches, k6_worst, card, prof)
+    seed_rows = phase_timing_seed_row(device, all_paths, seed_worst, card)
+    for e in seed_rows:
+        e.update(capture=capture_summary,
+                 capture_stale_input_checked=capture["stale_input_checked"],
+                 golden={k: {"verdict": v["verdict"], "wall_s": v["wall_s"],
+                             "curve": v["run"]["curve"]}
+                         for k, v in golden.items()})
+    new += seed_rows
     times = [e[k] for e in k1_entries for k in ("ms", "plain_ms", "graph_ms")]
     times += [f[k] for f in k2_entries[0]["forms"].values()
               for k in ("rows_ms", "ws_ms", "plain_ms") if f[k] is not None]
@@ -4246,6 +5010,8 @@ def main() -> int:
     for e in kernels:
         if e["launches"] < 1:
             fail(f"{e['name']} was launched no time on its main path")
+    print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s "
+          f"from start to the kernels line, the build included [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

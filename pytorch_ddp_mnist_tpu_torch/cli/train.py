@@ -15,7 +15,11 @@ exits and names the missing card unless `--device cpu` asks for the CPU.
 Without `--cached` it streams batches from the host (train/loop.py); with
 it the dataset stays on the device (train/scan.py), `--kernel pallas_rng`
 draws each step's dropout inside the fused kernel, and `--kernel
-pallas_epoch` runs each epoch as one kernel.
+pallas_epoch` runs each epoch as one kernel. On a card the per-step
+kernels (`xla`, `pallas`, `pallas_rng`) run one step captured as a CUDA
+graph and replayed once a step (train/graphs.py), serially or over a mesh
+of one card; a world of processes and a mesh across cards keep an eager
+loop.
 
 `--parallel` trains data parallel (parallel/ddp.py), `--batch_size` rows
 per replica: the streaming step with each replica's own mask and the

@@ -9,7 +9,10 @@
 // products :246-291), reached through `_run_fused` (:350), in two forms:
 //   bf16 x, pre-drawn mask           `fused_loss_and_grads`
 //   bf16 x, in-kernel Philox mask    `fused_loss_and_grads_rng` (the Philox
-//                                    block keyed (step seed, batch block))
+//                                    block keyed (step seed, batch block)),
+//                                    the seed a launch argument or read
+//                                    from word 0 of a key-table row in
+//                                    device memory (a captured step's)
 //   bf16 x, in-kernel threefry mask  `fused_loss_and_grads_keyed`: jax's
 //                                    `dropout_mask(key, B)` (pallas_step.py
 //                                    :1226, cipher :92, element rule
@@ -215,6 +218,8 @@ cudaError_t allow_smem_once() {
     err = allow_smem(mma_hidden_kernel<PhiloxBlockMask>, HIDDEN_SMEM);
   if (err == cudaSuccess)
     err = allow_smem(mma_hidden_kernel<ThreefryKeyMask>, HIDDEN_SMEM);
+  if (err == cudaSuccess)
+    err = allow_smem(mma_hidden_kernel<PhiloxKeyMask>, HIDDEN_SMEM);
   if (err == cudaSuccess) err = allow_smem(mma_rows_kernel, ROWS_SMEM);
   if (err == cudaSuccess) err = allow_smem(mma_grads_kernel, GRADS_SMEM);
   if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
@@ -286,7 +291,9 @@ extern "C" const char* pdmt_error_string(int err) {
 // One step. x (batch, 784) bf16; y (batch,) int32. The mask by `rng`: 0
 // reads `mask` (batch, 128) f32; 1 draws it in the kernel from (seed, batch
 // block of rng_block rows); 2 draws jax's threefry mask under the key words
-// (k0, k1) at `key` (device memory, 8-byte aligned). What a form does not
+// (k0, k1) at `key` (device memory, 8-byte aligned); 3 draws it as 1 does
+// with the seed read from word 0 at `key` (a key-table row, so that a
+// captured launch reads the seed at replay). What a form does not
 // use may be null. The weights f32. x, w1, w2, w3 and scratch 16-byte
 // aligned; scratch: pdmt_mma_scratch_floats(batch) floats. stamps:
 // pdmt_mma_stamp_words() u64, zeroed, in the stamps build (else ignored).
@@ -298,15 +305,20 @@ extern "C" int pdmt_mma_step(
     unsigned char* scratch, float* loss, float* gw1, float* gb1, float* gw2,
     float* gb2, float* gw3, unsigned long long* stamps, int batch,
     float inv_batch, void* stream) {
-  if (batch < 1 || batch > B_MAX || rng < 0 || rng > 2 ||
-      (rng == 1 && rng_block < 1) || (rng == 0 && mask == nullptr) ||
-      (rng == 2 && (key == nullptr || reinterpret_cast<uintptr_t>(key) % 8)) ||
+  if (batch < 1 || batch > B_MAX || rng < 0 || rng > 3 ||
+      ((rng == 1 || rng == 3) && rng_block < 1) ||
+      (rng == 0 && mask == nullptr) ||
+      (rng >= 2 && (key == nullptr || reinterpret_cast<uintptr_t>(key) % 8)) ||
       !aligned16(x) || !aligned16(w1) || !aligned16(w2) || !aligned16(w3) ||
       !aligned16(scratch) || (pdmt_mma_stamp_words() > 0 && stamps == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rng == 1)
     return static_cast<int>(launch(x, y, PhiloxBlockMask{seed, rng_block}, w1,
+                                   b1, w2, b2, w3, scratch, loss, gw1, gb1,
+                                   gw2, gb2, gw3, stamps, batch, inv_batch, s));
+  if (rng == 3)
+    return static_cast<int>(launch(x, y, PhiloxKeyMask{key, rng_block}, w1,
                                    b1, w2, b2, w3, scratch, loss, gw1, gb1,
                                    gw2, gb2, gw3, stamps, batch, inv_batch, s));
   if (rng == 2)

@@ -10,6 +10,9 @@
 //             seed, batch block), no mask
 //             array in memory
 //   K1-rng-bf16  both
+// The K1-rng forms take their seed as a launch argument or, for a step
+// captured in a CUDA graph, read it from word 0 of a key-table row in
+// device memory (`fused_loss_and_grads_rng` of a row; PhiloxKeyMask).
 // Same math, same outputs: the mean cross-entropy loss and the gradients of
 // fc1 (w, b), fc2 (w, b) and fc3 (w). SGD runs outside, in the caller.
 //
@@ -74,11 +77,11 @@ using namespace mlp;
 
 constexpr int BLOCKS_B = GRAD_TILES + 1;  // + the bias / loss block
 
-// RNG: the mask is drawn (PhiloxBlockMask) instead of read (ArrayMask)
-template <class XT, bool BF, bool RNG>
+// MaskAt: the mask is read (ArrayMask) or drawn (PhiloxBlockMask, or
+// PhiloxKeyMask with the seed read from device memory)
+template <class XT, bool BF, class MaskAt>
 __global__ void __launch_bounds__(THREADS_A) rows_kernel(
-    const XT* __restrict__ x, const int* __restrict__ y,
-    const float* __restrict__ mask, uint32_t seed, int rng_block,
+    const XT* __restrict__ x, const int* __restrict__ y, MaskAt mask_at,
     const float* __restrict__ w1, const float* __restrict__ b1,
     const float* __restrict__ w2, const float* __restrict__ b2,
     const float* __restrict__ w3,
@@ -86,16 +89,9 @@ __global__ void __launch_bounds__(THREADS_A) rows_kernel(
     float* __restrict__ dz2_out, float* __restrict__ dz1_out,
     float* __restrict__ dl_out, float* __restrict__ row_loss,
     int batch, float inv_batch) {
-  if constexpr (RNG) {
-    rows_block<LdgLoad, BF>(x, y, PhiloxBlockMask{seed, rng_block}, w1, b1,
-                            w2, b2, w3, d1_out, h2_out, dz2_out, dz1_out,
-                            dl_out, row_loss, blockIdx.x * ROWS_A, batch,
-                            inv_batch);
-  } else {
-    rows_block<LdgLoad, BF>(x, y, ArrayMask{mask}, w1, b1, w2, b2, w3, d1_out,
-                            h2_out, dz2_out, dz1_out, dl_out, row_loss,
-                            blockIdx.x * ROWS_A, batch, inv_batch);
-  }
+  rows_block<LdgLoad, BF>(x, y, mask_at, w1, b1, w2, b2, w3, d1_out, h2_out,
+                          dz2_out, dz1_out, dl_out, row_loss,
+                          blockIdx.x * ROWS_A, batch, inv_batch);
 }
 
 struct StoreTo {
@@ -152,13 +148,12 @@ __global__ void __launch_bounds__(TILE_THREADS) grads_kernel(
   }
 }
 
-template <class XT, bool BF, bool RNG>
-cudaError_t launch(const void* xv, const int* y, const float* mask,
-                   uint32_t seed, int rng_block, const float* w1,
-                   const float* b1, const float* w2, const float* b2,
-                   const float* w3, float* scratch, float* loss, float* gw1,
-                   float* gb1, float* gw2, float* gb2, float* gw3, int batch,
-                   float inv_batch, cudaStream_t s) {
+template <class XT, bool BF, class MaskAt>
+cudaError_t launch(const void* xv, const int* y, MaskAt mask_at,
+                   const float* w1, const float* b1, const float* w2,
+                   const float* b2, const float* w3, float* scratch,
+                   float* loss, float* gw1, float* gb1, float* gw2, float* gb2,
+                   float* gw3, int batch, float inv_batch, cudaStream_t s) {
   const XT* x = static_cast<const XT*>(xv);
   float* d1 = scratch;
   float* h2 = d1 + (size_t)batch * H1;
@@ -166,14 +161,34 @@ cudaError_t launch(const void* xv, const int* y, const float* mask,
   float* dz1 = dz2 + (size_t)batch * H2;
   float* dl = dz1 + (size_t)batch * H1;
   float* rl = dl + (size_t)batch * NC;
-  rows_kernel<XT, BF, RNG><<<(batch + ROWS_A - 1) / ROWS_A, THREADS_A, 0, s>>>(
-      x, y, mask, seed, rng_block, w1, b1, w2, b2, w3, d1, h2, dz2, dz1, dl,
-      rl, batch, inv_batch);
+  rows_kernel<XT, BF, MaskAt><<<(batch + ROWS_A - 1) / ROWS_A, THREADS_A, 0,
+                                s>>>(x, y, mask_at, w1, b1, w2, b2, w3, d1,
+                                     h2, dz2, dz1, dl, rl, batch, inv_batch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   grads_kernel<XT, BF><<<BLOCKS_B, TILE_THREADS, 0, s>>>(
       x, d1, h2, dz2, dz1, dl, rl, loss, gw1, gb1, gw2, gb2, gw3, batch);
   return cudaGetLastError();
+}
+
+template <class XT, bool BF>
+cudaError_t launch_form(const void* x, const int* y, int rng,
+                        const float* mask, const uint32_t* key, uint32_t seed,
+                        int rng_block, const float* w1, const float* b1,
+                        const float* w2, const float* b2, const float* w3,
+                        float* scratch, float* loss, float* gw1, float* gb1,
+                        float* gw2, float* gb2, float* gw3, int batch,
+                        float inv_batch, cudaStream_t s) {
+  if (rng == 1)
+    return launch<XT, BF>(x, y, PhiloxBlockMask{seed, rng_block}, w1, b1, w2,
+                          b2, w3, scratch, loss, gw1, gb1, gw2, gb2, gw3,
+                          batch, inv_batch, s);
+  if (rng == 3)
+    return launch<XT, BF>(x, y, PhiloxKeyMask{key, rng_block}, w1, b1, w2,
+                          b2, w3, scratch, loss, gw1, gb1, gw2, gb2, gw3,
+                          batch, inv_batch, s);
+  return launch<XT, BF>(x, y, ArrayMask{mask}, w1, b1, w2, b2, w3, scratch,
+                        loss, gw1, gb1, gw2, gb2, gw3, batch, inv_batch, s);
 }
 
 // K1-rng's mask as rows_kernel draws it (a debug entry: the card compares
@@ -220,25 +235,30 @@ extern "C" const char* pdmt_error_string(int err) {
 
 // One step. x (batch, 784): f32, or bf16 (x_bf16 = 1: the bf16-operand
 // form). rng = 0 reads `mask` (batch, 128); rng = 1 draws it in the kernel
-// from (seed, batch block of rng_block rows) and `mask` is unused.
+// from (seed, batch block of rng_block rows); rng = 3 draws it as 1 does
+// with the seed read from word 0 at `key` (device memory, 8-byte aligned: a
+// row of the per-step loops' key table, so that a captured launch reads the
+// seed at replay). What a form does not use may be null.
 // scratch: batch * SCRATCH_PER_ROW floats, carved into d1, h2, dz2, dz1
 // (batch x 128 each), dl (batch x 10) and the per-row losses.
 extern "C" int pdmt_fused_step(
     const void* x, int x_bf16, const int* y, int rng, const float* mask,
-    uint32_t seed, int rng_block, const float* w1, const float* b1,
-    const float* w2, const float* b2, const float* w3, float* scratch,
-    float* loss, float* gw1, float* gb1, float* gw2, float* gb2, float* gw3,
-    int batch, float inv_batch, void* stream) {
-  if (batch < 1 || (rng && rng_block < 1))
+    const uint32_t* key, uint32_t seed, int rng_block, const float* w1,
+    const float* b1, const float* w2, const float* b2, const float* w3,
+    float* scratch, float* loss, float* gw1, float* gb1, float* gw2,
+    float* gb2, float* gw3, int batch, float inv_batch, void* stream) {
+  if (batch < 1 || !(rng == 0 || rng == 1 || rng == 3) ||
+      (rng != 0 && rng_block < 1) || (rng == 0 && mask == nullptr) ||
+      (rng == 3 && (key == nullptr || reinterpret_cast<uintptr_t>(key) % 8)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using LaunchFn = decltype(&launch<float, false, false>);
-  static const LaunchFn table[2][2] = {
-      {launch<float, false, false>, launch<float, false, true>},
-      {launch<__nv_bfloat16, true, false>, launch<__nv_bfloat16, true, true>}};
-  return static_cast<int>(table[x_bf16 ? 1 : 0][rng ? 1 : 0](
-      x, y, mask, seed, rng_block, w1, b1, w2, b2, w3, scratch, loss, gw1,
-      gb1, gw2, gb2, gw3, batch, inv_batch, s));
+  if (x_bf16)
+    return static_cast<int>(launch_form<__nv_bfloat16, true>(
+        x, y, rng, mask, key, seed, rng_block, w1, b1, w2, b2, w3, scratch,
+        loss, gw1, gb1, gw2, gb2, gw3, batch, inv_batch, s));
+  return static_cast<int>(launch_form<float, false>(
+      x, y, rng, mask, key, seed, rng_block, w1, b1, w2, b2, w3, scratch, loss,
+      gw1, gb1, gw2, gb2, gw3, batch, inv_batch, s));
 }
 
 // The (batch, 128) mask K1-rng draws for `seed` with batch blocks of

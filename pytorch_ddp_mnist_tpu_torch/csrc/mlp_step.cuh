@@ -230,6 +230,19 @@ struct PhiloxBlockMask {
   }
 };
 
+// K1-rng's mask with its seed read from device memory: word 0 of a row of
+// the per-step loops' key table (ops/threefry.py `step_key_words`), so a
+// step captured in a CUDA graph draws the seed the table holds at replay,
+// not the one it held at capture. The same draw as PhiloxBlockMask of that
+// word, bit for bit.
+struct PhiloxKeyMask {
+  const uint32_t* key;  // word 0 is the seed; 8-byte aligned (a table row)
+  int block;
+  __device__ float operator()(int row, int col) const {
+    return PhiloxBlockMask{__ldg(key), block}(row, col);
+  }
+};
+
 // K1's keyed mask (K1-split, K1-mma; ops/fused_step.py
 // `fused_loss_and_grads_keyed`): jax's `dropout_mask(key, batch)` drawn in
 // the kernel, the key's two words read from device memory (a row of the

@@ -115,12 +115,15 @@ def mlp_apply(params: Params, x: torch.Tensor, *, train: bool = False,
             raise ValueError("train=True requires exactly one of "
                              "dropout_mask / keep")
         rate = 1.0 - DROPOUT_RATE
+        # the constants are made on the device by fill kernels (no
+        # host-to-device copy, so a captured step can make them), with the
+        # bits of torch.tensor(v, dtype=dt)
         if dropout_mask is not None:
-            scale = torch.tensor(1.0 / rate, dtype=dt, device=h.device)
+            scale = torch.full((), 1.0 / rate, dtype=dt, device=h.device)
             h = h * (dropout_mask.to(dt) * scale)
         else:
-            h = torch.where(keep, h / torch.tensor(rate, dtype=dt,
-                                                   device=h.device),
+            h = torch.where(keep, h / torch.full((), rate, dtype=dt,
+                                                 device=h.device),
                             torch.zeros((), dtype=dt, device=h.device))
     h = torch.relu(h @ fc2["w"].to(dt) + fc2["b"].to(dt))
     return h @ fc3["w"].to(dt)

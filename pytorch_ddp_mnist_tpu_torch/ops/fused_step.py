@@ -10,7 +10,10 @@ forms and the keyed draw:
     K1-bf16       bf16 x: bf16 operands of the six products, f32
                   accumulation, f32 everything else (compute_bf16)
     K1-rng        the mask drawn in the kernel per (step seed, batch block)
-                  from the port's Philox stream (ops/philox.py `rng_mask`)
+                  from the port's Philox stream (ops/philox.py `rng_mask`);
+                  the seed a host int, or word 0 of a key-table row on the
+                  device (the device-seed form, which a captured step reads
+                  at replay)
     K1-rng-bf16   both
     keyed         jax's threefry mask `dropout_mask(key, B)` drawn in the
                   kernel (K1-split, K1-mma), the key's words read from a
@@ -19,7 +22,7 @@ forms and the keyed draw:
   * `fused_loss_and_grads(params, x, y, scaled_mask)`,
     `fused_loss_and_grads_rng(params, x, y, seed)` and
     `fused_loss_and_grads_keyed(params, x, y, key_words)` are the public
-    entries;
+    entries (`seed` an int, or a key-table row: the device-seed form);
     a bf16 `x` selects the bf16 mode, as in JAX. For CUDA tensors they
     launch a hand-written kernel (no float atomics, bitwise repeatable) or
     raise; they never fall back. For CPU tensors, and only then, they run
@@ -40,19 +43,22 @@ forms and the keyed draw:
   * `dropout_mask(key, batch, device)` is the mask entry, jax's
     `dropout_mask(key, batch)` bit for bit: on a card one launch of the K3
     threefry device function (`csrc/mlp_step.cuh`), on the CPU
-    ops/threefry.py. The `xla` step draws its mask with it (autograd needs
-    the tensor); the keyed step draws in K1-split and K1-mma instead, and
-    with it (`keyed_dropout_mask`, the key read from the table) only on the
-    rows design, at B > 128.
-  * `KeyedStep` is the `--kernel pallas` step of the per-step loops: before
-    an epoch's first step they build its key table (ops/threefry.py
-    `step_key_table`, one copy to the device), and step s reads row s.
+    ops/threefry.py. The `xla` steps draw their mask with it (autograd
+    needs the tensor), the key read from the table (`keyed_dropout_mask`);
+    the keyed step draws in K1-split and K1-mma instead, and with the mask
+    entry only on the rows design, at B > 128.
+  * `KeyedStep` is the step of the streaming loop (`pallas`, and with the
+    mask entry `xla`): before an epoch's first step the loop loads its key
+    table (ops/threefry.py `step_key_words`) into the static buffer its
+    captured step reads (train/graphs.py), and step s reads row s.
   * `launch_count` counts wrapper calls that launched a kernel, one key per
     design and form (`fused_split`, `fused_split_rng`, `fused_split_keyed`
     for the split design; `fused_mma`, `fused_mma_rng`, `fused_mma_keyed`
     for the mma design; `fused_step`, `fused_step_rng`, `fused_step_bf16`,
-    `fused_step_rng_bf16` for the rows design; `threefry_mask` for the mask
-    entry), so a run shows which design its steps went through;
+    `fused_step_rng_bf16` for the rows design; `_rng_dev` in place of
+    `_rng` for the device-seed forms; `threefry_mask` for the mask entry),
+    so a run shows which design its steps went through. A step captured in
+    a CUDA graph (train/graphs.py) adds its launches on every replay;
     `last_launch` names the last call's design and key.
     `split_phase_stamps(...)` and `mma_phase_stamps(...)` run a design's
     stamps build and return its per-phase split.
@@ -83,10 +89,12 @@ MMA_MAX_BATCH = 128
 # wrapper calls that launched a CUDA kernel, per design and form
 # (chip_smoke.py resets and reads them)
 launch_count = {"fused_split": 0, "fused_split_rng": 0,
-                "fused_split_keyed": 0, "fused_mma": 0,
-                "fused_mma_rng": 0, "fused_mma_keyed": 0, "fused_step": 0,
-                "fused_step_bf16": 0, "fused_step_rng": 0,
-                "fused_step_rng_bf16": 0, "threefry_mask": 0}
+                "fused_split_rng_dev": 0, "fused_split_keyed": 0,
+                "fused_mma": 0, "fused_mma_rng": 0, "fused_mma_rng_dev": 0,
+                "fused_mma_keyed": 0, "fused_step": 0, "fused_step_bf16": 0,
+                "fused_step_rng": 0, "fused_step_rng_bf16": 0,
+                "fused_step_rng_dev": 0, "fused_step_rng_dev_bf16": 0,
+                "threefry_mask": 0}
 # the last launch's design ("split", "mma" or "rows") and launch_count key
 last_launch = {"design": "", "form": ""}
 
@@ -101,7 +109,7 @@ def _kernel_lib():
         from . import _build
         lib = _build.load("fused_step")
         p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-        lib.pdmt_fused_step.argtypes = ([p, i, p, i, p, u, i] + [p] * 12
+        lib.pdmt_fused_step.argtypes = ([p, i, p, i, p, p, u, i] + [p] * 12
                                         + [i, f, p])
         lib.pdmt_fused_step.restype = i
         lib.pdmt_fused_rng_mask.argtypes = [u, i, i, p, p]
@@ -300,8 +308,9 @@ def fused_design(x_dtype, rng: bool, batch: int) -> str:
     return "rows"
 
 
-def _form(x, rng: bool) -> str:
+def _form(x, rng: bool, seed_words=None) -> str:
     return ("fused_step" + ("_rng" if rng else "")
+            + ("_dev" if seed_words is not None else "")
             + ("_bf16" if x.dtype == torch.bfloat16 else ""))
 
 
@@ -312,17 +321,19 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-# the kernels' codes for the mask's source (`pdmt_<design>_step` `rng`)
-_MASK, _PHILOX, _KEYED = 0, 1, 2
+# the kernels' codes for the mask's source (`pdmt_<design>_step` `rng`):
+# read, Philox of a seed argument, threefry of the key at `key`, Philox of
+# the seed at word 0 of `key`
+_MASK, _PHILOX, _KEYED, _PHILOX_AT = 0, 1, 2, 3
 
 
 def _staged_cuda(design, params, x, y, scaled_mask, seed=None, *,
-                 key_words=None, stamps=None, lib_name=None):
+                 key_words=None, seed_words=None, stamps=None, lib_name=None):
     """One call of the split or mma design (three launches), of its default
     build or the build `lib_name`, with the mask `scaled_mask`, drawn from
-    the Philox seed `seed`, or drawn from the threefry key at `key_words`;
-    `stamps`, a zeroed int64 tensor of the stamps build's words, receives
-    its phase stamps."""
+    the Philox seed `seed` or from the seed at word 0 of `seed_words`, or
+    drawn from the threefry key at `key_words`; `stamps`, a zeroed int64
+    tensor of the stamps build's words, receives its phase stamps."""
     dtype, max_batch, _ = _STAGED[design]
     batch = x.shape[0]
     if x.dtype != dtype or not 1 <= batch <= max_batch:
@@ -338,13 +349,15 @@ def _staged_cuda(design, params, x, y, scaled_mask, seed=None, *,
     loss = torch.empty((), dtype=torch.float32, device=x.device)
     grads = [torch.empty_like(w) for w in (w1, b1, w2, b2, w3)]
     source = (_PHILOX if seed is not None else
+              _PHILOX_AT if seed_words is not None else
               _KEYED if key_words is not None else _MASK)
+    words = seed_words if source == _PHILOX_AT else key_words
     _, block = philox.batch_blocks(batch)
     with torch.cuda.device(x.device):
         err = getattr(lib, entry + "step")(
             x.data_ptr(), y32.data_ptr(), source,
             scaled_mask.data_ptr() if source == _MASK else None,
-            key_words.data_ptr() if source == _KEYED else None,
+            words.data_ptr() if source in (_KEYED, _PHILOX_AT) else None,
             seed if source == _PHILOX else 0,
             block, w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), w3.data_ptr(), scratch.data_ptr(),
@@ -355,15 +368,19 @@ def _staged_cuda(design, params, x, y, scaled_mask, seed=None, *,
     return loss, _tree(*grads)
 
 
-def _fused_cuda(params, x, y, scaled_mask, seed=None, design=None):
+def _fused_cuda(params, x, y, scaled_mask, seed=None, design=None,
+                seed_words=None):
     """One call of the kernel: the mask is `scaled_mask`, or drawn in the
-    kernel from the uint32 step seed `seed`. `design` ('split', 'mma' or
-    'rows') overrides fused_design's choice."""
-    rng = seed is not None
+    kernel from the uint32 step seed `seed` or from the seed at word 0 of
+    the key-table row `seed_words` (the device-seed form). `design`
+    ('split', 'mma' or 'rows') overrides fused_design's choice."""
+    rng = seed is not None or seed_words is not None
     design = design or fused_design(x.dtype, rng, x.shape[0])
     if design in _STAGED:
-        loss, grads = _staged_cuda(design, params, x, y, scaled_mask, seed)
-        key = f"fused_{design}" + ("_rng" if rng else "")
+        loss, grads = _staged_cuda(design, params, x, y, scaled_mask, seed,
+                                   seed_words=seed_words)
+        key = (f"fused_{design}" + ("_rng" if rng else "")
+               + ("_dev" if seed_words is not None else ""))
         launch_count[key] += 1
         last_launch.update(design=design, form=key)
         return loss, grads
@@ -379,16 +396,19 @@ def _fused_cuda(params, x, y, scaled_mask, seed=None, design=None):
     loss = torch.empty((), dtype=torch.float32, device=x.device)
     grads = [torch.empty_like(w) for w in (w1, b1, w2, b2, w3)]
     _, block = philox.batch_blocks(batch)
+    source = (_PHILOX_AT if seed_words is not None else
+              _PHILOX if rng else _MASK)
     with torch.cuda.device(x.device):
         err = lib.pdmt_fused_step(
             x.data_ptr(), int(x.dtype == torch.bfloat16), y32.data_ptr(),
-            int(rng), None if rng else scaled_mask.data_ptr(),
-            seed if rng else 0, block, w1.data_ptr(), b1.data_ptr(),
+            source, None if rng else scaled_mask.data_ptr(),
+            None if seed_words is None else seed_words.data_ptr(),
+            seed if seed is not None else 0, block, w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), w3.data_ptr(), scratch.data_ptr(),
             loss.data_ptr(), *(g.data_ptr() for g in grads), batch,
             1.0 / batch, _stream(x.device))
     _raise_on(err, "fused_step kernel launch", lib)
-    key = _form(x, rng)
+    key = _form(x, rng, seed_words)
     launch_count[key] += 1
     last_launch.update(design=design, form=key)
     return loss, _tree(*grads)
@@ -420,8 +440,12 @@ def rng_seed(seed) -> int:
 
 def fused_loss_and_grads_rng(params, x, y, seed, *, _design=None):
     """The kernel with its dropout mask drawn INSIDE it (`--kernel
-    pallas_rng`): (params, x (B, 784) f32 or bf16, y (B,) int, seed (an
-    int, taken mod 2**32)) -> (mean loss, grads tree).
+    pallas_rng`): (params, x (B, 784) f32 or bf16, y (B,) int, seed) ->
+    (mean loss, grads tree). `seed` is an int, taken mod 2**32, or (the
+    device-seed form) a (2,) int32 key-table row on x's device
+    (ops/threefry.py `step_key_words`) whose word 0 the kernel reads as the
+    seed, so a step captured in a CUDA graph draws the seed the table holds
+    at replay; the two forms are bitwise equal for the same word.
 
     No (B, 128) mask tensor exists: each batch block of `_run_fused`'s grid
     draws the Philox block keyed (seed, block index)
@@ -429,12 +453,22 @@ def fused_loss_and_grads_rng(params, x, y, seed, *, _design=None):
     every other stream. It is the port's own stream, not the TPU core
     PRNG's. CUDA tensors launch the kernel of `fused_design`'s design (or
     raise; `_design` forces one); CPU tensors run the plain version on
-    `philox.rng_mask(seed, B)`."""
+    `philox.rng_mask(seed, B)` of the seed (the row's word 0)."""
     _check_inputs(params, x, y)
-    seed = rng_seed(seed)
+    seed_words = None
+    if isinstance(seed, torch.Tensor):
+        _check_key_words(seed, x.device)
+        seed_words = seed
+    else:
+        seed = rng_seed(seed)
     if x.device.type == "cuda":
+        if seed_words is not None:
+            return _fused_cuda(params, x, y, None, design=_design,
+                               seed_words=seed_words)
         return _fused_cuda(params, x, y, None, seed=seed, design=_design)
     if x.device.type == "cpu":
+        if seed_words is not None:
+            seed = rng_seed(seed_words[0])
         return _reference(params, x, y,
                           philox.rng_mask(seed, x.shape[0], x.device))
     raise ValueError(f"fused_loss_and_grads_rng runs on cuda or cpu, not "
@@ -627,24 +661,32 @@ def dropout_mask(key, batch: int, device) -> torch.Tensor:
 
 
 class KeyedStep:
-    """A `--kernel pallas` train step of the per-step loops, whose dropout
-    keys come from a key table on the device:
+    """A train step of the streaming loop (`--kernel pallas` or `xla`,
+    serial or data parallel), whose dropout keys come from a key table on
+    the device:
 
+      step.key_words(key, nsteps) -> (key after the steps, host words):
+          the epoch's keys (ops/threefry.py `step_key_words`, with the
+          step's `fold` of global replica indices), which train/loop.py
+          `fit` loads into the static key buffer of its captured step;
       step.key_table(key, nsteps, device) -> (key after the steps, table):
-          the epoch's keys (ops/threefry.py `step_key_table`, with the
-          step's `fold` of global replica indices), built before its first
-          step and copied to the device once;
+          the same words copied to the device once, for the loops that run
+          eagerly;
       step.run(model, words, x, y) -> loss: one step on row s of the table
           (a (2,) row, or (n, 2) for n replicas), SGD in place on the
-          model's parameters;
+          model's parameters; it reads its key from device memory only, so
+          it can be captured in a CUDA graph;
       step(model, key, x, y) -> (key', loss): one step from a host key (a
           one-row table), for callers that step one at a time.
 
-    train/loop.py `fit` builds each epoch's table and runs its rows."""
+    A data-parallel step carries its mesh as `ddp_mesh` (parallel/ddp.py)."""
 
     def __init__(self, run, fold=None):
         self.run = run
         self.fold = fold
+
+    def key_words(self, key, nsteps: int):
+        return threefry.step_key_words(key, nsteps, self.fold)
 
     def key_table(self, key, nsteps: int, device):
         return threefry.step_key_table(key, nsteps, device, self.fold)

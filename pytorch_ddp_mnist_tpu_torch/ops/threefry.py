@@ -2,7 +2,7 @@
 `_threefry_mask_block` and `dropout_mask` of
 `pytorch_ddp_mnist_tpu/ops/pallas_step.py`, plus the key chain the
 resident-dataset trainer needs, `fold_in` for the data-parallel ones, and
-the per-step loops' key table, which the keyed step reads on the device).
+the per-step loops' key table, which their steps read on the device).
 
 Every function here is bit for bit what jax computes under its default
 partitionable threefry (jax >= 0.5), so the port's masks are the JAX
@@ -101,15 +101,23 @@ def step_keys(key, nsteps: int, fold=None) -> tuple:
     return key, subs
 
 
-def step_key_table(key, nsteps: int, device="cpu", fold=None) -> tuple:
-    """`step_keys` as the table the keyed step reads on the device: (the
-    key after the steps, an int32 (nsteps, 2) table, or (nsteps,
-    len(fold), 2) with `fold`, of the keys' words on `device`, copied there
-    once). Step s's kernel reads row s (its replica r: row (s, r)), so no
-    per-step key is a host input of the step."""
+def step_key_words(key, nsteps: int, fold=None) -> tuple:
+    """`step_keys` as the int32 words of a key table, on the host: (the key
+    after the steps, an (nsteps, 2) table, or (nsteps, len(fold), 2) with
+    `fold`). The per-step loops write it into the static key buffer their
+    captured step reads (train/graphs.py `StaticInput`): step s reads row
+    s (its replica r: row (s, r))."""
     key, subs = step_keys(key, nsteps, fold)
     shape = (nsteps, 2) if fold is None else (nsteps, len(fold), 2)
-    table = to_int32_words(subs).reshape(shape)
+    return key, to_int32_words(subs).reshape(shape)
+
+
+def step_key_table(key, nsteps: int, device="cpu", fold=None) -> tuple:
+    """`step_key_words` as a table on `device`, copied there once: (the key
+    after the steps, the table). The loops that run eagerly (a world of
+    processes, a mesh across cards, a step taken from a host key) read it;
+    the captured loops load the words into their static buffer instead."""
+    key, table = step_key_words(key, nsteps, fold)
     device = torch.device(device)
     if device.type == "cuda":
         # pinned + non_blocking: the copy queues on the stream the steps

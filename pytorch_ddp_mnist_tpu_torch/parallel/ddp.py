@@ -47,8 +47,7 @@ import hashlib
 import numpy as np
 import torch
 
-from ..ops import threefry
-from ..ops.fused_step import KeyedStep, dropout_mask
+from ..ops.fused_step import KeyedStep, keyed_dropout_mask
 from ..ops.sgd import sgd_step
 from .mesh import (DATA_AXIS, Mesh, WorldMesh, as_mesh, data_parallel_mesh,
                    first_replica, replicas, world_size)
@@ -176,7 +175,14 @@ def replica_mean(values: Sequence, device=None):
     tot = values[0].to(device)
     for v in values[1:]:
         tot = tot + v.to(device)
-    return tot * torch.tensor(1.0 / n, dtype=torch.float32, device=device)
+    return tot * _inverse(n, device)
+
+
+def _inverse(n: int, device) -> torch.Tensor:
+    """f32(1/n) as a 0-d tensor on `device`, made by a fill kernel: no
+    host-to-device copy, so a step captured in a CUDA graph can make it.
+    The bits are those of `torch.tensor(1.0 / n, dtype=torch.float32)`."""
+    return torch.full((), 1.0 / n, dtype=torch.float32, device=device)
 
 
 def world_mean(mesh: Mesh, losses: Sequence, grads: Sequence, device=None):
@@ -222,8 +228,7 @@ def world_mean(mesh: Mesh, losses: Sequence, grads: Sequence, device=None):
     tot = rows[0]
     for v in rows[1:]:
         tot = tot + v
-    tot = tot * torch.tensor(1.0 / replicas(mesh), dtype=torch.float32,
-                             device=device)
+    tot = tot * _inverse(replicas(mesh), device)
     mean, at = {n: {} for n, _ in names}, 0
     for n, k in names:
         leaf = grads[0][n][k]
@@ -261,36 +266,16 @@ def _tag(step, mesh: Mesh):
     return step
 
 
-def dp_step(mesh: Mesh, lr: float, loss_and_grads: Callable) -> Callable:
-    """The streaming DP step of a mask input (the `xla` step):
-    step(model, key, x, y) -> (key', loss). `key, sub = split(key)`; local
-    replica r takes shard r of this process's batch x and the mask of
-    `fold_in(sub, g)`, g its global index, drawn by the mask entry, and
-    `loss_and_grads(params, x, y, mask)` gives its (loss, grads); then SGD
-    in place on the model with the world's mean gradient (`world_mean`),
-    and the loss is the world's mean. Every process splits the same
-    replicated key, so no key is exchanged."""
-    first = first_replica(mesh)
-
-    def step(model, key, x, y):
-        key, sub = threefry.split(key)
-
-        def replica_step(r, params, xr, yr):
-            mask = dropout_mask(threefry.fold_in(sub, first + r),
-                                xr.shape[0], xr.device)
-            return loss_and_grads(params, xr, yr, mask)
-        return key, _dp_update(mesh, lr, model, x, y, replica_step)
-
-    return _tag(step, mesh)
-
-
 def dp_keyed_step(mesh: Mesh, lr: float, loss_and_grads: Callable):
-    """The streaming DP step whose masks are drawn in the kernel (the
-    `pallas` step), as an ops/fused_step.py `KeyedStep` whose table folds
-    the local replicas' global indices into each step's key: row (s, r) is
-    `fold_in(sub, g)` of step s's `sub`, g replica r's global index, and
+    """The streaming DP step whose replicas read their keys from the key
+    table (the `pallas` step, and under `dp_step` the `xla` one), as an
+    ops/fused_step.py `KeyedStep` whose table folds the local replicas'
+    global indices into each step's key: row (s, r) is `fold_in(sub, g)`
+    of step s's `sub`, g replica r's global index, and
     `loss_and_grads(params, x, y, words)` takes replica r's row (on its
-    device). Then SGD on the world's mean gradient, as `dp_step`."""
+    device). Then SGD in place on the model with the world's mean gradient
+    (`world_mean`), and the loss is the world's mean. Every process splits
+    the same replicated key, so no key is exchanged."""
     first = first_replica(mesh)
 
     def run(model, words, x, y):
@@ -301,15 +286,31 @@ def dp_keyed_step(mesh: Mesh, lr: float, loss_and_grads: Callable):
     return _tag(KeyedStep(run, fold=range(first, first + len(mesh))), mesh)
 
 
+def dp_step(mesh: Mesh, lr: float, loss_and_grads: Callable) -> KeyedStep:
+    """The streaming DP step of a mask input (the `xla` step): as
+    `dp_keyed_step`, where replica r's mask is drawn by the mask entry
+    reading the key of its table row (s, r) from device memory
+    (`keyed_dropout_mask`, bitwise `dropout_mask(fold_in(sub, g))`) and
+    `loss_and_grads(params, x, y, mask)` gives its (loss, grads).
+    `step(model, key, x, y) -> (key', loss)` splits a host key as the JAX
+    step does."""
+    def masked(params, x, y, words):
+        return loss_and_grads(params, x, y,
+                              keyed_dropout_mask(words, x.shape[0], x.device))
+
+    return dp_keyed_step(mesh, lr, masked)
+
+
 def make_dp_train_step(mesh: Mesh, lr: float, *, dtype: str = "float32",
-                       comm: str = "pmean") -> Callable:
+                       comm: str = "pmean") -> KeyedStep:
     """The DP step with the plain autograd step per replica (JAX
-    `make_dp_train_step`, comm='pmean'): step(model, key, x, y) -> (key',
-    loss as a 0-d tensor), x (this process's batch, 784) on the model's
-    device, split over the mesh's local replicas (a WorldMesh: the world's
-    replicas across processes). Each replica's forward and backward run in
-    `dtype` (the params cast to it, f32 grads), with the keyed dropout of
-    its `fold_in` key; the update is SGD on the fixed-order mean."""
+    `make_dp_train_step`, comm='pmean') as a KeyedStep (`dp_step`):
+    step(model, key, x, y) -> (key', loss as a 0-d tensor), x (this
+    process's batch, 784) on the model's device, split over the mesh's
+    local replicas (a WorldMesh: the world's replicas across processes).
+    Each replica's forward and backward run in `dtype` (the params cast to
+    it, f32 grads), with the keyed dropout of its `fold_in` key, read from
+    the key table; the update is SGD on the fixed-order mean."""
     from ..train.loop import xla_loss_and_grads
     validate_comm(comm)
     compute_dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32

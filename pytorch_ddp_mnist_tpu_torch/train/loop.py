@@ -9,11 +9,24 @@ FULL test set with dropout off, and print
 The dropout masks follow the JAX trainer's key chain: the train key is
 jax's threefry key `--seed + 1` (ops/threefry.py `key_data`), split once
 per step (`key, sub = split(key)`, as `make_train_step` does), and the
-step's mask is jax's `dropout_mask(sub, B)`, bit for bit. The `xla` step
-draws it with the mask entry (ops/fused_step.py `dropout_mask`: autograd
-needs the tensor); the `pallas` step (a `KeyedStep`) draws it inside
-K1-split or K1-mma, from the epoch's key table, which `fit` builds on the
-host before the epoch's first step and copies to the device once.
+step's mask is jax's `dropout_mask(sub, B)`, bit for bit. Both steps are
+`KeyedStep`s that read `sub` from the epoch's key table on the device: the
+`xla` step draws the mask with the mask entry (ops/fused_step.py
+`keyed_dropout_mask`: autograd needs the tensor); the `pallas` step draws
+it inside K1-split or K1-mma.
+
+JAX runs the streaming step as one `jax.jit` program fed by
+`device_prefetch`; here, on a card, `fit` captures the step as a CUDA
+graph and replays it once a batch (train/graphs.py `StepLoop`): the
+epoch's key table is loaded into a static buffer before its first step,
+each batch is copied by data/loader.py `device_prefetch` into one of two
+static batch slots on a side stream while the step before runs, and the
+step reads its slot and its key row through a device cursor. Serial, or
+over a single-process mesh of the model's card; a world of processes (one
+rank too), a mesh across cards and a step that is not a `KeyedStep` keep
+the eager loop, a batch copied to the card a step. `_captured_steps` built
+with `eager=True` (chip_smoke.py's turns and the card tests) runs the
+captured loop's step eagerly on its buffers.
 
 As in the JAX package, the per-step losses stay on the device and are
 fetched once per epoch: no per-step `.item()`. The printed train_loss keeps
@@ -32,11 +45,12 @@ from typing import Callable, List
 import numpy as np
 import torch
 
-from ..models.mlp import MLP, mlp_apply
-from ..ops import threefry
-from ..ops.fused_step import KeyedStep, dropout_mask
+from ..data.loader import device_prefetch
+from ..models.mlp import MLP, MLP_DIMS, mlp_apply
+from ..ops.fused_step import KeyedStep, dropout_mask, keyed_dropout_mask
 from ..ops.loss import cross_entropy
 from ..ops.sgd import sgd_step
+from . import graphs
 
 
 @dataclass
@@ -64,22 +78,23 @@ def xla_loss_and_grads(params, x, y, keep):
     return loss.detach(), grads
 
 
-def make_train_step(lr: float) -> Callable:
-    """The plain autograd step (`--kernel xla`): step(model, key, x, y) ->
-    (key', mean loss as a 0-d device tensor). As the JAX package's
-    `make_train_step`: `key, sub = split(key)`, then the forward's keyed
-    dropout with the keep draw of `sub` (the fused step's mask, so both
-    steps see the same masks from the same key). It trains in f32, as the
-    JAX trainer's streaming `xla` path does whatever `--dtype` says."""
-    def step(model, key, x, y):
-        key, sub = threefry.split(key)
-        keep = dropout_mask(sub, x.shape[0], x.device) > 0
+def make_train_step(lr: float) -> KeyedStep:
+    """The plain autograd step (`--kernel xla`) as a KeyedStep:
+    step(model, key, x, y) -> (key', mean loss as a 0-d device tensor). As
+    the JAX package's `make_train_step`: `key, sub = split(key)` (the key
+    table's row), then the forward's keyed dropout with the keep draw of
+    `sub`, drawn by the mask entry reading the row from device memory (the
+    fused step's mask, so both steps see the same masks from the same
+    key). It trains in f32, as the JAX trainer's streaming `xla` path does
+    whatever `--dtype` says."""
+    def run(model, words, x, y):
+        keep = keyed_dropout_mask(words, x.shape[0], x.device) > 0
         params = model.params()
         loss, grads = xla_loss_and_grads(params, x, y, keep)
         sgd_step(params, grads, lr)
-        return key, loss
+        return loss
 
-    return step
+    return KeyedStep(run)
 
 
 @torch.no_grad()
@@ -170,6 +185,37 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def _captured_steps(step: KeyedStep, model: MLP, nsteps: int, batch: int,
+                    device, eager: bool = False):
+    """The streaming loop's step as a train/graphs.py StepLoop: its static
+    buffers are two batch slots (x (2, B, 784) f32, y (2, B) int32; step s
+    reads slot s % 2, which `device_prefetch` fills) and the epoch's key
+    table. `eager` runs the step without a graph on a card. Returns (the
+    loop, its slots, its key table's StaticInput)."""
+    x_slots = torch.zeros((2, batch, MLP_DIMS[0]), dtype=torch.float32,
+                          device=device)
+    y_slots = torch.zeros((2, batch), dtype=torch.int32, device=device)
+    fold = step.fold
+    keys = graphs.StaticInput(
+        (nsteps, 2) if fold is None else (nsteps, len(fold), 2), torch.int32,
+        device)
+    table = keys.buf
+
+    def body(model, cursor, losses):
+        at = cursor.view(1)
+        slot = torch.remainder(at, 2)
+        loss = step.run(model, table.index_select(0, at)[0],
+                        x_slots.index_select(0, slot)[0],
+                        y_slots.index_select(0, slot)[0])
+        losses.index_copy_(0, at, loss.reshape(1))
+        cursor.add_(1)
+
+    loop = graphs.StepLoop(body, model, nsteps, device,
+                           capture=device.type == "cuda" and not eager,
+                           what="the streaming step")
+    return loop, (x_slots, y_slots), keys
+
+
 def fit(state: TrainState, train_loader, x_test: np.ndarray,
         y_test: np.ndarray, *, epochs: int, batch_size: int,
         lr: float | None = None, train_step: Callable | None = None,
@@ -180,13 +226,22 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
     Returns (state with the advanced key, per-epoch arrays of the per-step
     losses). In a world of processes the train step's loss is the world's
     mean, so every rank computes the same line; the CLI passes a `log`
-    that prints on rank 0 only."""
+    that prints on rank 0 only. A `KeyedStep` on one device runs captured
+    on a card (see the module docstring)."""
     if (train_step is None) == (lr is None):
         raise ValueError("pass exactly one of lr= or train_step=")
     step = train_step if train_step is not None else make_train_step(lr)
-    keyed = isinstance(step, KeyedStep)
     model, key = state.model, state.key
     device = next(model.parameters()).device
+    keyed = isinstance(step, KeyedStep)
+    nsteps = len(train_loader) if keyed else None
+    captured = keyed and graphs.on_one_device(getattr(step, "ddp_mesh", None),
+                                              device)
+    if captured:
+        loop, slots, keys = _captured_steps(step, model, nsteps,
+                                            train_loader.batch_size, device)
+        pinned = (tuple(torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
+                        for s in slots) if device.type == "cuda" else None)
     # the test set goes to the device once, not once per epoch
     x_test_dev = torch.as_tensor(x_test, device=device)
     y_test_dev = torch.as_tensor(y_test, device=device)
@@ -195,30 +250,43 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
         t0 = time.perf_counter()
         io_seconds = 0.0
         train_loader.sampler.set_epoch(epoch)
-        if keyed:   # the epoch's step keys on the device, one copy
-            nsteps = len(train_loader)
-            epoch_key, table = step.key_table(key, nsteps, device)
-        losses = []
-        batches = iter(train_loader)
+        if captured:
+            epoch_key, words = step.key_words(key, nsteps)
+            keys.load(words)
+            loop.start_epoch()
+            batches = device_prefetch(iter(train_loader), slots, pinned)
+        else:
+            if keyed:   # the epoch's step keys on the device, one copy
+                epoch_key, table = step.key_table(key, nsteps, device)
+            batches = iter(train_loader)
+        losses, taken = [], 0
         while True:
             t_io = time.perf_counter()
             batch = next(batches, None)
-            if batch is not None:
+            if batch is not None and not captured:
                 x, y = (_to_device(a, device) for a in batch)
             io_seconds += time.perf_counter() - t_io
             if batch is None:
                 break
-            if keyed:
-                loss = step.run(model, table[len(losses)], x, y)
+            if keyed and taken == nsteps:
+                raise RuntimeError(f"the loader gave more than the {nsteps} "
+                                   f"batches its len() said")
+            if captured:
+                loop.step()
+            elif keyed:
+                losses.append(step.run(model, table[taken], x, y))
             else:
                 key, loss = step(model, key, x, y)
-            losses.append(loss)
+                losses.append(loss)
+            taken += 1
         if keyed:
-            if len(losses) != nsteps:
-                raise RuntimeError(f"the loader gave {len(losses)} batches "
-                                   f"where its len() said {nsteps}")
+            if taken != nsteps:
+                raise RuntimeError(f"the loader gave {taken} batches where "
+                                   f"its len() said {nsteps}")
             key = epoch_key
-        losses = torch.stack(losses).cpu().numpy()  # the epoch's one fetch
+        # the epoch's one fetch
+        losses = (loop.losses() if captured else torch.stack(losses)) \
+            .cpu().numpy()
         val = evaluate(model, x_test_dev, y_test_dev, batch_size)
         dt = time.perf_counter() - t0
         log(epoch_summary(epoch, losses, batch_size, val, dt,

@@ -15,19 +15,25 @@ JAX package's), the raw uint8 pixels sit on the device (`resident_images`,
     the TPU core PRNG in the JAX package. `superstep` K runs K steps per
     kernel iteration (the same bits); a ragged epoch is padded at the index
     level and the kernel skips the padded steps.
-  * `xla` / `pallas` / `pallas_rng`: a host loop of per-step calls on data
-    already on the device, with no per-step sync: `key, sub = split(key)`
-    per step. `xla` draws the mask `dropout_mask(sub)` (bitwise JAX's, on
-    the card by the mask entry, the K3 device function) for the autograd
-    step with the forward's keyed dropout; `pallas` runs the fused step
-    (K1) with the same mask drawn inside it (`fused_loss_and_grads_keyed`),
-    the epoch's keys built on the host before its first step and copied to
-    the device once as a table (ops/threefry.py `step_key_table`), step s
-    reading row s.
-    `pallas_rng` hands word 0 of `sub` to the fused step as its seed and the
-    kernel draws the mask itself (K1-rng), as JAX's `_loss_and_grads` does.
-    JAX runs these steps as one `lax.scan`; capturing them in a CUDA graph
-    is queued in ROADMAP.md.
+  * `xla` / `pallas` / `pallas_rng`: per-step calls on data already on
+    the device, the key chain `key, sub = split(key)` per step. JAX runs
+    these steps as one `lax.scan`; here one step is captured as a CUDA
+    graph and replayed once a step (`CachedSteps` on train/graphs.py
+    `StepLoop`): the epoch's batch indices and its keys (ops/threefry.py
+    `step_key_words`) are loaded into static device buffers before its
+    first step, and step s reads row s of each through a device cursor, so
+    the host only replays the graph and fetches the losses once an epoch.
+    `xla` draws the mask `dropout_mask(sub)` (bitwise JAX's, by the mask
+    entry reading the key from the table, `keyed_dropout_mask`) for the
+    autograd step with the forward's keyed dropout; `pallas` runs the
+    fused step (K1) with the same mask drawn inside it
+    (`fused_loss_and_grads_keyed`); `pallas_rng` hands word 0 of `sub` to
+    the fused step as its seed, read by the kernel from the table, and the
+    kernel draws the mask itself (K1-rng), as JAX's `_loss_and_grads`
+    does. The graph gives the bits of the same step run eagerly on the
+    same buffers, which the CPU runs, and which a card runs only in a
+    `CachedSteps` built with `eager=True` (chip_smoke.py's turns and the
+    card tests).
 
 `dtype="bfloat16"` is JAX's recipe: the gathered batch is cast to bf16;
 `xla` then runs the whole forward and backward in bf16 (the params cast to
@@ -42,8 +48,10 @@ B-row shards, one per replica (the JAX package's P(None, None, 'dp')).
 whose in-kernel ring takes every step's gradient mean; the replicas' keys
 are `split(fold_in(sub, r), S)` (threefry) or the kernel's Philox at
 replica word r (rbg). The per-step kernels fold the replica into each
-step's key (`fold_in(sub, r)`) and average in fixed origin order
-(parallel/ddp.py `replica_mean`). The reported loss is the replicas' mean.
+step's key (`fold_in(sub, r)`, the (S, n, 2) key table) and average in
+fixed origin order (parallel/ddp.py `replica_mean`); on a mesh whose
+replicas share the dataset's device the whole mesh step is the captured
+step. The reported loss is the replicas' mean.
 A 1-replica mesh runs the serial epoch kernel with the serial key chain
 (no ring, as in JAX).
 
@@ -53,7 +61,10 @@ shard: the idxs of `make_dp_run_fn` are then this process's, (E, S, L*B)
 for its L local replicas. The per-step kernels fold the GLOBAL replica
 index into the key and take the world's fixed-order mean
 (parallel/ddp.py `world_mean`), so a world is bitwise the single-process
-mesh of as many replicas fed the world's rows in rank order.
+mesh of as many replicas fed the world's rows in rank order. A world,
+one rank too, and a mesh across cards run their steps in an eager host
+loop (`_dp_steps_epoch`) on the same (S, n, 2) key table: a world's mean
+is a collective (over gloo through the host).
 `pallas_epoch` across processes is refused by name: K6's ring runs among
 the replicas of one cooperative launch (ROADMAP.md queue 2, item 6).
 
@@ -65,6 +76,7 @@ epoch line as `fit` does.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable, List
 
@@ -76,18 +88,19 @@ from ..data.mnist import device_normalize
 from ..models.mlp import MLP
 from ..ops import threefry
 from ..ops.epoch_step import RINGS, epoch_fused_sgd
-from ..ops.fused_step import (dropout_mask, fused_loss_and_grads_keyed,
-                              fused_loss_and_grads_rng)
+from ..ops.fused_step import (fused_loss_and_grads_keyed,
+                              fused_loss_and_grads_rng, keyed_dropout_mask)
 from ..ops.sgd import sgd_step
 from ..parallel.ddp import (on_device, replica_mean, replicate_state,
                             validate_comm, world_mean)
 from ..parallel.mesh import as_mesh, first_replica, replicas, world_size
+from . import graphs
 from .loop import (_to_device, epoch_summary, evaluate,
                    make_snapshot_eval_step, val_summary, xla_loss_and_grads)
 
 __all__ = ["device_normalize", "resident_images", "epoch_batch_indices",
-           "check_run_args", "make_run_fn", "make_epoch_fn", "check_ring",
-           "make_dp_run_fn", "make_dp_epoch_fn", "fit_cached"]
+           "check_run_args", "CachedSteps", "make_run_fn", "make_epoch_fn",
+           "check_ring", "make_dp_run_fn", "make_dp_epoch_fn", "fit_cached"]
 
 KERNELS = ("xla", "pallas", "pallas_rng", "pallas_epoch")
 DTYPES = ("float32", "bfloat16")
@@ -152,8 +165,8 @@ def check_run_args(kernel: str, dtype: str, unroll: int, superstep: int,
                 "kernel 'pallas_epoch' has no per-step scan to unroll (the "
                 "whole epoch is one kernel); drop unroll")
         raise ValueError(f"unroll={unroll} unrolls the JAX package's step "
-                         f"scan; the port's steps are a host loop with "
-                         f"nothing to unroll — drop unroll")
+                         f"scan; the port replays one captured step a step, "
+                         f"with nothing to unroll — drop unroll")
     if impl == "rbg" and kernel != "pallas_epoch":
         raise ValueError(
             f"impl 'rbg' with kernel={kernel!r} would draw the TPU rbg stream "
@@ -169,38 +182,81 @@ def _clone(params):
 
 def _loss_and_grads(params, x_all, y_all, rows, key, kernel, compute_dt):
     """One step's (loss, grads) on the gathered `rows` with the dropout of
-    `key`: `pallas` takes the key as its row of the epoch's key table on
-    the device and draws the mask in the kernel; `pallas_rng` hands word 0
-    of the key (a host tuple) to the kernel as its seed; `xla` draws the
-    mask `dropout_mask(key)` with the mask entry."""
+    `key`, a row of the epoch's key table on the device, which every kernel
+    reads there: `pallas` draws the mask in the kernel, `pallas_rng` takes
+    word 0 as the kernel's seed, `xla` draws `dropout_mask` of the key with
+    the mask entry."""
     x = _gathered_x(x_all, rows, compute_dt)
     y = y_all.index_select(0, rows)
     if kernel == "pallas":
         return fused_loss_and_grads_keyed(params, x, y, key)
     if kernel == "pallas_rng":
-        return fused_loss_and_grads_rng(params, x, y, key[0])
-    mask = dropout_mask(key, rows.shape[0], x.device)
+        return fused_loss_and_grads_rng(params, x, y, key)
+    mask = keyed_dropout_mask(key, rows.shape[0], x.device)
     return xla_loss_and_grads(params, x, y, mask > 0)
 
 
-def _steps_epoch(params, key, x_all, y_all, idx_e, lr, kernel, compute_dt):
-    """One epoch of per-step calls (`xla`, `pallas` or `pallas_rng`), SGD
-    in place on `params`. `pallas` takes its keys from the epoch's key
-    table, built before the first step. Returns (key, losses (S,) on the
-    device)."""
-    if kernel == "pallas":   # the epoch's keys on the device, one copy
-        key, table = threefry.step_key_table(key, len(idx_e), x_all.device)
-    losses = []
-    for s, rows in enumerate(idx_e):
-        if kernel == "pallas":
-            sub = table[s]
-        else:
-            key, sub = threefry.split(key)
-        loss, grads = _loss_and_grads(params, x_all, y_all, rows, sub, kernel,
-                                      compute_dt)
-        sgd_step(params, grads, lr)
-        losses.append(loss)
-    return key, torch.stack(losses)
+class CachedSteps:
+    """The per-step loop of kernel `xla`, `pallas` or `pallas_rng` over the
+    resident dataset (x_all, y_all), serial or over a single-process `mesh`
+    whose replicas share the dataset's device, with SGD in place on
+    `params`: one step captured as a CUDA graph on a card (train/graphs.py
+    `StepLoop`), run eagerly on the CPU or with `eager`.
+
+    Its static buffers are the epoch's (S, rows) batch indices (`rows` =
+    n * B on a mesh: replica r takes columns r*B..(r+1)*B) and its (S, 2)
+    key table, (S, n, 2) on a mesh (the replicas' `fold_in(sub, g)`).
+    `epoch(key, idx)` loads them, runs the S steps and returns (key after
+    the epoch, the (S,) losses on the device: the replicas' mean on a
+    mesh)."""
+
+    def __init__(self, params, x_all, y_all, idx_shape, lr: float,
+                 kernel: str, compute_dt, mesh=None, *, eager: bool = False):
+        device = x_all.device
+        nsteps, rows = idx_shape
+        self.params = params
+        self.fold = (None if mesh is None else
+                     range(first_replica(mesh), first_replica(mesh) + len(mesh)))
+        self.idx = graphs.StaticInput((nsteps, rows), torch.int32, device)
+        self.keys = graphs.StaticInput(
+            (nsteps, 2) if mesh is None else (nsteps, len(mesh), 2),
+            torch.int32, device)
+        idx, keys = self.idx.buf, self.keys.buf
+
+        def step_grads(params, step_rows, words):
+            if mesh is None:
+                return _loss_and_grads(params, x_all, y_all, step_rows, words,
+                                       kernel, compute_dt)
+            batch = rows // len(mesh)
+            losses, grads = [], []
+            for r in range(len(mesh)):
+                loss, g = _loss_and_grads(
+                    params, x_all, y_all,
+                    step_rows[r * batch:(r + 1) * batch], words[r], kernel,
+                    compute_dt)
+                losses.append(loss)
+                grads.append(g)
+            return world_mean(mesh, losses, grads, device)
+
+        def body(params, cursor, losses):
+            at = cursor.view(1)
+            loss, grads = step_grads(params, idx.index_select(0, at)[0],
+                                     keys.index_select(0, at)[0])
+            sgd_step(params, grads, lr)
+            losses.index_copy_(0, at, loss.reshape(1))
+            cursor.add_(1)
+
+        where = "" if mesh is None else f" over {len(mesh)} replicas"
+        self.loop = graphs.StepLoop(
+            body, params, nsteps, device,
+            capture=device.type == "cuda" and not eager,
+            what=f"the cached {kernel} step ({compute_dt}){where}")
+
+    def epoch(self, key, idx):
+        key, words = threefry.step_key_words(key, self.loop.nsteps, self.fold)
+        self.idx.load(np.asarray(idx, np.int32))
+        self.keys.load(words)
+        return key, self.loop.epoch()
 
 
 def _kernel_epoch(params, key, x_all, y_all, idx_e, lr, impl, compute_bf16,
@@ -242,22 +298,27 @@ def make_run_fn(lr: float, *, dtype: str = "float32", kernel: str = "xla",
     `impl` names the PRNG engine of the train key, as the JAX package's key
     type does there (see the module docstring). `superstep` (kernel
     'pallas_epoch' only; K in {1, 2, 4, 8}): K steps per epoch-kernel
-    iteration, the same bits."""
+    iteration, the same bits. The per-step kernels run one captured step a
+    step on a card, one capture a run (`CachedSteps`)."""
     check_run_args(kernel, dtype, unroll, superstep, impl)
     compute_dt = _compute_dtype(dtype)
 
     def run(params, key, x_all, y_all, idxs):
         params = _clone(params)
-        idxs = _to_device(np.asarray(idxs, np.int32), x_all.device)
+        idxs = np.asarray(idxs, np.int32)
+        if kernel == "pallas_epoch":
+            idx_dev = _to_device(idxs, x_all.device)
+        else:
+            steps = CachedSteps(params, x_all, y_all, idxs.shape[1:], lr,
+                                kernel, compute_dt)
         losses, p_snaps, k_snaps = [], [], []
-        for idx_e in idxs:
+        for e in range(idxs.shape[0]):
             if kernel == "pallas_epoch":
                 params, key, ls = _kernel_epoch(
-                    params, key, x_all, y_all, idx_e, lr, impl,
+                    params, key, x_all, y_all, idx_dev[e], lr, impl,
                     dtype == "bfloat16", superstep)
             else:
-                key, ls = _steps_epoch(params, key, x_all, y_all, idx_e, lr,
-                                       kernel, compute_dt)
+                key, ls = steps.epoch(key, idxs[e])
             losses.append(ls)
             if snapshots:
                 p_snaps.append(_clone(params))
@@ -302,33 +363,29 @@ def check_ring(ring: str, kernel: str, n_dev: int) -> None:
 
 
 def _dp_steps_epoch(mesh, params, key, data, idx_e, lr, kernel, compute_dt):
-    """One epoch of per-step DP calls: per step `key, sub = split(key)`,
+    """One epoch of per-step DP calls in an eager host loop, for a world of
+    processes and a mesh across cards: per step `key, sub = split(key)`,
     local replica r takes shard r of the step's rows with the dropout of
-    `fold_in(sub, g)`, g its global index, then SGD in place on `params`
-    with the world's fixed-order mean gradient. `pallas` takes the replicas'
-    keys from the epoch's (S, n, 2) key table, built before the first step.
-    Returns (key, losses (S,), the world's mean per step)."""
+    `fold_in(sub, g)`, g its global index, read from row (s, r) of the
+    epoch's (S, n, 2) key table, built before the first step; then SGD in
+    place on `params` with the world's fixed-order mean gradient. Returns
+    (key, losses (S,), the world's mean per step)."""
     n, first = len(mesh), first_replica(mesh)
     batch = idx_e.shape[1] // n
     shards = [data[d][2][:, r * batch:(r + 1) * batch]
               for r, d in enumerate(mesh)]
     device = idx_e.device
-    if kernel == "pallas":   # the epoch's keys on the device, one copy
-        key, table = threefry.step_key_table(key, idx_e.shape[0], device,
-                                             range(first, first + n))
+    # the epoch's keys on the device, one copy
+    key, table = threefry.step_key_table(key, idx_e.shape[0], device,
+                                         range(first, first + n))
     losses = []
     for s in range(idx_e.shape[0]):
-        if kernel == "pallas":
-            subs = [table[s, r].to(dev) for r, dev in enumerate(mesh)]
-        else:
-            key, sub = threefry.split(key)
-            subs = [threefry.fold_in(sub, first + r) for r in range(n)]
         step_losses, grads = [], []
         for r, dev in enumerate(mesh):
             x_all, y_all, _ = data[dev]
             loss, g = _loss_and_grads(on_device(params, dev), x_all, y_all,
-                                      shards[r][s], subs[r], kernel,
-                                      compute_dt)
+                                      shards[r][s], table[s, r].to(dev),
+                                      kernel, compute_dt)
             step_losses.append(loss)
             grads.append(g)
         loss, mean = world_mean(mesh, step_losses, grads, device)
@@ -417,7 +474,9 @@ def make_dp_run_fn(mesh, lr: float, *, dtype: str = "float32",
     idxs this process's rows. The losses are the world's mean per step;
     params' lies on x_all's device. `ring` (kernel 'pallas_epoch' on n > 1
     replicas) picks K6's allreduce; `superstep` is single-replica only;
-    `comm` must be 'pmean'."""
+    `comm` must be 'pmean'. The per-step kernels on a mesh whose replicas
+    share x_all's device run one captured step a step (`CachedSteps`; a
+    world and a mesh across cards, `_dp_steps_epoch`)."""
     mesh = as_mesh(mesh)
     check_dp_run_args(mesh, kernel, dtype, unroll, superstep, impl, ring,
                       comm)
@@ -425,22 +484,33 @@ def make_dp_run_fn(mesh, lr: float, *, dtype: str = "float32",
 
     def run(params, key, x_all, y_all, idxs):
         device = x_all.device
-        idxs = _to_device(np.asarray(idxs, np.int32), device)
-        data = _mesh_data(mesh, x_all, y_all, idxs)
         params = _clone(params)
+        idxs = np.asarray(idxs, np.int32)
+        if kernel != "pallas_epoch" and graphs.on_one_device(mesh, device):
+            steps = CachedSteps(params, x_all, y_all, idxs.shape[1:], lr,
+                                kernel, compute_dt, mesh)
+        else:
+            steps = None
+            idx_dev = _to_device(idxs, device)
+            data = _mesh_data(mesh, x_all, y_all, idx_dev)
         if kernel == "pallas_epoch":
             reps = replicate_state(mesh, params)
         losses, p_snaps, k_snaps = [], [], []
         for e in range(idxs.shape[0]):
-            step_data = {d: (xa, ya, ix[e]) for d, (xa, ya, ix) in data.items()}
-            if kernel == "pallas_epoch":
+            if steps is not None:
+                key, ls = steps.epoch(key, idxs[e])
+            elif kernel == "pallas_epoch":
+                step_data = {d: (xa, ya, ix[e])
+                             for d, (xa, ya, ix) in data.items()}
                 reps, key, ls = _dp_kernel_epoch(
-                    mesh, reps, key, step_data, idxs[e], lr, impl,
+                    mesh, reps, key, step_data, idx_dev[e], lr, impl,
                     dtype == "bfloat16", ring, superstep)
                 params = on_device(reps[0], device)
             else:
+                step_data = {d: (xa, ya, ix[e])
+                             for d, (xa, ya, ix) in data.items()}
                 key, ls = _dp_steps_epoch(mesh, params, key, step_data,
-                                          idxs[e], lr, kernel, compute_dt)
+                                          idx_dev[e], lr, kernel, compute_dt)
             losses.append(ls)
             if snapshots:
                 p_snaps.append(_clone(params))
@@ -504,6 +574,10 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
     `batch_size // W` rows a step. `ring` picks K6's allreduce; `comm` must
     be 'pmean' (the other strategies are refused by name).
 
+    The per-step kernels run one captured step a step on a card, one
+    capture a fit (`CachedSteps`; `fused=True`: one a run of
+    make_run_fn).
+
     The JAX trainer's step-granular checkpoints, live watchdog and
     dispatch profiler are not ported yet and are refused by name."""
     refused = [
@@ -563,15 +637,24 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
         _load_params(model, params)
         return key, history
 
-    epoch_fn = (make_epoch_fn(lr, dtype=dtype, kernel=kernel, impl=impl)
-                if mesh is None else
-                make_dp_epoch_fn(mesh, lr, dtype=dtype, kernel=kernel,
-                                 ring=ring, impl=impl))
+    steps = None     # the captured step, one for the whole fit
+    if kernel != "pallas_epoch" and graphs.on_one_device(mesh, device):
+        nsteps = math.ceil(len(sampler) / rows)
+        steps = CachedSteps(params, x_all, y_all, (nsteps, rows), lr, kernel,
+                            _compute_dtype(dtype), mesh)
+    else:
+        epoch_fn = (make_epoch_fn(lr, dtype=dtype, kernel=kernel, impl=impl)
+                    if mesh is None else
+                    make_dp_epoch_fn(mesh, lr, dtype=dtype, kernel=kernel,
+                                     ring=ring, impl=impl))
     for epoch in range(epochs):
         t0 = time.perf_counter()
         sampler.set_epoch(epoch)
         idx = epoch_batch_indices(sampler, rows)
-        params, key, losses = epoch_fn(params, key, x_all, y_all, idx)
+        if steps is not None:
+            key, losses = steps.epoch(key, idx)
+        else:
+            params, key, losses = epoch_fn(params, key, x_all, y_all, idx)
         losses = losses.cpu().numpy()      # the epoch's one fetch
         _load_params(model, params)
         val = evaluate(model, x_test_dev, y_test_dev, batch_size)

@@ -64,7 +64,20 @@ and 3, with keys whose words have the high bit set; the keyed rows step
 past 128 rows launches the mask entry; a captured keyed call reads the key
 the table holds when it replays; their stamps builds, the refusals of a
 null or misaligned key, and a cached `pallas` epoch that launches no mask
-entry."""
+entry. The per-step loops captured as CUDA graphs (train/graphs.py; `-k
+graph`): each cached path (`xla`, `pallas`, `pallas_rng` in f32 and bf16,
+a 4-replica mesh of the card) and the streaming `fit` (`pallas`, `xla`)
+bitwise the same step run eagerly on the same buffers, in losses and
+params, with one capture a run and the eager run's launch counts; a
+replay on new indices and keys bitwise the eager epoch on them; K1-rng's
+device-seed forms (K1-split, K1-mma, the rows design) bitwise their
+scalar-seed forms, and a replay after the seed word changes drawing the
+new seed's mask; a body that syncs inside capture raising by name; a
+world of one rank (a WorldMesh, over gloo and over NCCL), cached and
+streaming, on the eager loop with no capture, bitwise the captured
+1-replica mesh. The eager side of each pin is the loop built with
+`eager=True` (scan.CachedSteps, loop._captured_steps); no entry point
+takes it."""
 
 import ctypes
 import re
@@ -1019,14 +1032,16 @@ def test_mma_and_rows_designs_train_close_cached_bf16_epochs(cuda, tmp_path,
     argv = ["--cached", "--kernel", "pallas_rng", "--dtype", "bfloat16",
             "--limit", "1024", "--checkpoint", "",
             "--path", str(tmp_path / "no_mnist")]
+    # the captured step reads its seed from the key table: the device-seed
+    # forms
     before = dict(fused_step.launch_count)
     _, mma = port_cli.train(argv)
-    assert fused_step.launch_count["fused_mma_rng"] == \
-        before["fused_mma_rng"] + 1024 // 128
+    assert fused_step.launch_count["fused_mma_rng_dev"] == \
+        before["fused_mma_rng_dev"] + 1024 // 128
     monkeypatch.setattr(fused_step, "fused_design", lambda *a: "rows")
     _, rows = port_cli.train(argv)
-    assert fused_step.launch_count["fused_step_rng_bf16"] == \
-        before["fused_step_rng_bf16"] + 1024 // 128
+    assert fused_step.launch_count["fused_step_rng_dev_bf16"] == \
+        before["fused_step_rng_dev_bf16"] + 1024 // 128
     for a, b in zip(mma, rows):
         np.testing.assert_allclose(a, b, rtol=1e-2)
 
@@ -1464,6 +1479,260 @@ def test_two_rank_cli_on_the_card_prints_one_epoch_line(cuda, tmp_path):
     assert ckpt.exists()
     assert "peak device memory" in outs[1][2]
 
+
+
+# ---- the per-step loops captured as CUDA graphs (train/graphs.py) ----
+
+GRAPH_ROWS, GRAPH_EPOCHS = 1024, 2
+
+
+def _graph_data(device, n_rep=1, seed=3):
+    split = synthetic_mnist(GRAPH_ROWS, seed=seed)
+    x = torch.from_numpy(scan.resident_images(split.images)).to(device)
+    y = torch.from_numpy(split.labels.astype(np.int32)).to(device)
+    rng = np.random.default_rng(seed)
+    idxs = np.stack([rng.permutation(GRAPH_ROWS).reshape(-1, 128 * n_rep)
+                     for _ in range(GRAPH_EPOCHS)]).astype(np.int32)
+    return x, y, idxs
+
+
+def _counted(fn):
+    """fn()'s result, the launch counts it added and its captures."""
+    from pytorch_ddp_mnist_tpu_torch.train import graphs
+    before, caps = dict(fused_step.launch_count), graphs.counts["captures"]
+    out = fn()
+    torch.cuda.synchronize()
+    added = {k: v - before[k] for k, v in fused_step.launch_count.items()
+             if v != before[k]}
+    return out, added, graphs.counts["captures"] - caps
+
+
+def _eager_cached_run(params, key, x, y, idxs, kernel, dtype, mesh):
+    """make_run_fn's (params', key', losses (E, S)) on scan.CachedSteps
+    built with eager=True: the same step without the graph."""
+    params = scan._clone(params)
+    steps = scan.CachedSteps(params, x, y, idxs.shape[1:], 0.01, kernel,
+                             torch.bfloat16 if dtype == "bfloat16"
+                             else torch.float32, mesh, eager=True)
+    losses = []
+    for idx in idxs:
+        key, ls = steps.epoch(key, idx)
+        losses.append(ls)
+    return params, key, torch.stack(losses)
+
+
+@pytest.mark.parametrize("mesh", [None, 4], ids=["serial", "mesh4"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["xla", "pallas", "pallas_rng"])
+def test_graph_cached_loop_is_the_eager_loop_bitwise(cuda, kernel, dtype,
+                                                     mesh):
+    x, y, idxs = _graph_data(cuda, mesh or 1)
+    params = MLP.from_seed(0).to(cuda).params()
+    replicas = None if mesh is None else (cuda,) * mesh
+    run = (scan.make_run_fn(0.01, kernel=kernel, dtype=dtype)
+           if mesh is None else
+           scan.make_dp_run_fn(replicas, 0.01, kernel=kernel, dtype=dtype))
+    runs = [_counted(lambda: run(params, threefry.key_data(1), x, y, idxs)),
+            _counted(lambda: _eager_cached_run(
+                params, threefry.key_data(1), x, y, idxs, kernel, dtype,
+                replicas))]
+    (got, got_n, got_caps), (want, want_n, want_caps) = runs
+    assert (got_caps, want_caps) == (1, 0)
+    assert got_n == want_n and sum(got_n.values()) > 0
+    assert got[1] == want[1] and torch.equal(got[2], want[2])
+    assert torch.isfinite(got[2]).all()
+    for n in got[0]:
+        for k in got[0][n]:
+            assert torch.equal(got[0][n][k], want[0][n][k]), f"{n}.{k}"
+
+
+def _streaming_loader(split):
+    from pytorch_ddp_mnist_tpu_torch.data.loader import BatchLoader
+    from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
+    return BatchLoader(normalize_images(split.images), split.labels,
+                       ShardedSampler(GRAPH_ROWS, seed=42), 128)
+
+
+def _eager_fit(step, model, key, loader):
+    """fit's captured epochs (keys, batches through device_prefetch, the
+    step loop, the loss fetch) on loop._captured_steps built with
+    eager=True: (key', per-epoch losses)."""
+    from pytorch_ddp_mnist_tpu_torch.data.loader import device_prefetch
+    from pytorch_ddp_mnist_tpu_torch.train import loop
+    nsteps = len(loader)
+    device = next(model.parameters()).device
+    steps, slots, keys = loop._captured_steps(step, model, nsteps, 128,
+                                              device, eager=True)
+    pinned = tuple(torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
+                   for s in slots)
+    history = []
+    for epoch in range(GRAPH_EPOCHS):
+        loader.sampler.set_epoch(epoch)
+        key, words = step.key_words(key, nsteps)
+        keys.load(words)
+        steps.start_epoch()
+        for _ in device_prefetch(iter(loader), slots, pinned):
+            steps.step()
+        history.append(steps.losses().cpu().numpy())
+    return key, history
+
+
+@pytest.mark.parametrize("kind,dtype", [("pallas", "float32"),
+                                        ("pallas", "bfloat16"),
+                                        ("xla", "float32")])
+def test_graph_streaming_fit_is_the_eager_loop_bitwise(cuda, kind, dtype):
+    from pytorch_ddp_mnist_tpu_torch.train import loop
+    split = synthetic_mnist(GRAPH_ROWS, seed=6)
+    test = synthetic_mnist(256, seed=7)
+
+    def step():
+        return (make_train_step(0.01) if kind == "xla" else
+                fused_step.make_fused_train_step(0.01, dtype=dtype))
+    model, eager_model = (MLP.from_seed(0).to(cuda) for _ in range(2))
+    got, got_n, got_caps = _counted(lambda: loop.fit(
+        loop.TrainState(model, threefry.key_data(1)), _streaming_loader(split),
+        normalize_images(test.images), test.labels.astype(np.int32),
+        epochs=GRAPH_EPOCHS, batch_size=128, train_step=step(),
+        log=lambda line: None))
+    want, want_n, want_caps = _counted(lambda: _eager_fit(
+        step(), eager_model, threefry.key_data(1), _streaming_loader(split)))
+    assert (got_caps, want_caps) == (1, 0)
+    assert got_n == want_n and sum(got_n.values()) == \
+        GRAPH_EPOCHS * GRAPH_ROWS // 128
+    assert got[0].key == want[0]
+    np.testing.assert_array_equal(np.stack(got[1]), np.stack(want[1]))
+    for a, b in zip(model.parameters(), eager_model.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["cached", "streaming"])
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_graph_one_rank_world_keeps_the_eager_loop_bitwise(cuda, backend,
+                                                           kind):
+    # a WorldMesh of one rank is a world: its mean is a collective, which
+    # is not captured; it stays bitwise the captured 1-replica mesh
+    import torch.distributed as dist
+    from test_torch_port_world import _free_port
+    from pytorch_ddp_mnist_tpu_torch.parallel.mesh import WorldMesh
+    from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
+    from pytorch_ddp_mnist_tpu_torch.train import loop
+    split = synthetic_mnist(GRAPH_ROWS, seed=6)
+    test = synthetic_mnist(256, seed=7)
+    x_test = normalize_images(test.images)
+    y_test = test.labels.astype(np.int32)
+
+    def run(mesh):
+        model = MLP.from_seed(0).to(cuda)
+        if kind == "cached":
+            key, history = scan.fit_cached(
+                model, threefry.key_data(1), split.images,
+                split.labels.astype(np.int32),
+                ShardedSampler(GRAPH_ROWS, seed=42), x_test, y_test,
+                epochs=GRAPH_EPOCHS, batch_size=128, lr=0.01, kernel="pallas",
+                mesh=mesh, log=lambda line: None)
+        else:
+            state, history = loop.fit(
+                loop.TrainState(model, threefry.key_data(1)),
+                _streaming_loader(split), x_test, y_test,
+                epochs=GRAPH_EPOCHS, batch_size=128,
+                train_step=fused_step.make_pallas_dp_train_step(mesh, 0.01),
+                log=lambda line: None)
+            key = state.key
+        return key, np.stack(history), [p.detach().clone()
+                                        for p in model.parameters()]
+
+    want, want_n, want_caps = _counted(lambda: run((cuda,)))
+    dist.init_process_group(backend,
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        assert dist.get_backend() == backend
+        got, got_n, got_caps = _counted(lambda: run(
+            WorldMesh([cuda], world_size=1, rank=0)))
+    finally:
+        dist.destroy_process_group()
+    assert (want_caps, got_caps) == (1, 0)
+    assert got_n == want_n and got_n.get("fused_split_keyed") == \
+        GRAPH_EPOCHS * GRAPH_ROWS // 128
+    assert got[0] == want[0]
+    np.testing.assert_array_equal(got[1], want[1])
+    for a, b in zip(got[2], want[2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", ["xla", "pallas", "pallas_rng"])
+def test_graph_replay_on_new_indices_and_keys_is_the_eager_epoch(cuda,
+                                                                 kernel):
+    # captured on epoch 0's buffers; epoch 1 loads new rows and keys into
+    # the same buffers, and its replays must read them
+    x, y, idxs = _graph_data(cuda, seed=8)
+    params = scan._clone(MLP.from_seed(0).to(cuda).params())
+    steps = scan.CachedSteps(params, x, y, idxs.shape[1:], 0.01, kernel,
+                             torch.float32)
+    key, _ = steps.epoch(threefry.key_data(2), idxs[0])
+    state = scan._clone(params)
+    eager = scan.CachedSteps(state, x, y, idxs.shape[1:], 0.01, kernel,
+                             torch.float32, eager=True)
+    got_key, got = steps.epoch(key, idxs[1])
+    want_key, want = eager.epoch(key, idxs[1])
+    assert steps.loop.graph is not None and eager.loop.graph is None
+    assert got_key == want_key and torch.equal(got, want)
+    for n in params:
+        for k in params[n]:
+            assert torch.equal(params[n][k], state[n][k]), f"{n}.{k}"
+
+
+@pytest.mark.parametrize("batch,dtype,design", [
+    (128, torch.float32, "split"), (96, torch.float32, "split"),
+    (3, torch.float32, "split"), (128, torch.bfloat16, "mma"),
+    (96, torch.bfloat16, "mma"), (3, torch.bfloat16, "mma"),
+    (256, torch.float32, "rows"), (256, torch.bfloat16, "rows")])
+def test_graph_device_seed_forms_are_the_scalar_seed_forms(cuda, batch, dtype,
+                                                           design):
+    params, x, y, _ = _inputs(batch, batch, cuda)
+    x = x.to(dtype)
+    assert fused_step.fused_design(dtype, True, batch) == design
+    seeds = [0, 1, 0x7FFFFFFF, 0x80000000, 0x9E3779B9, 0xFFFFFFFF]
+    table = threefry.to_int32_words([(s, 77) for s in seeds]).to(cuda)
+    for s, row in zip(seeds, table):
+        got = fused_step.fused_loss_and_grads_rng(params, x, y, row)
+        want = fused_step.fused_loss_and_grads_rng(params, x, y, s)
+        for a, b in zip(_k1_leaves(*got), _k1_leaves(*want)):
+            assert torch.equal(a, b), (design, batch, s)
+    # a captured call reads the seed word the row holds at replay
+    row = table[0].clone()
+    out = {}
+    fused_step.fused_loss_and_grads_rng(params, x, y, row)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out["r"] = fused_step.fused_loss_and_grads_rng(params, x, y, row)
+    for s, src in zip(seeds[1:3], table[1:3]):
+        row.copy_(src)
+        graph.replay()
+        want = fused_step.fused_loss_and_grads_rng(params, x, y, s)
+        for a, b in zip(_k1_leaves(*out["r"]), _k1_leaves(*want)):
+            assert torch.equal(a, b), (design, batch, s)
+
+
+def test_graph_capture_of_a_syncing_body_raises_by_name(cuda):
+    from pytorch_ddp_mnist_tpu_torch.train import graphs
+    state = {"w": torch.ones(4, device=cuda)}
+
+    def body(state, cursor, losses):
+        losses.index_copy_(0, cursor.view(1), state["w"][:1])
+        if float(state["w"].sum()) > 0:     # a host sync
+            cursor.add_(1)
+
+    loop = graphs.StepLoop(body, state, 3, cuda, capture=True,
+                           what="the syncing test step")
+    before = graphs.counts["captures"]
+    with pytest.raises(RuntimeError, match="the syncing test step: "
+                                           "capturing the step"):
+        loop.step()
+    assert graphs.counts["captures"] == before and loop.graph is None
+    # the card is usable afterwards
+    assert float(torch.ones(2, device=cuda).sum()) == 2.0
 
 if __name__ == "__main__":
     import sys

@@ -258,25 +258,46 @@ def _fit_cached(mesh, dtype, n_rows, batch):
     return key, np.concatenate(history), model.params()
 
 
+def _before_fit_cached(mesh, dtype, n_rows, batch):
+    """`_fit_cached`'s two epochs on the epochs before the fold above, over
+    the same sampler's rows (fit_cached's step loop is captured on a card
+    and runs its step eagerly on static buffers here)."""
+    images, _, labels = _data(n_rows)
+    x_all = torch.from_numpy(scan.resident_images(images))
+    y_all = torch.from_numpy(labels)
+    params = scan._clone(MLP.from_seed(0).params())
+    key, sampler, history = threefry.key_data(1), ShardedSampler(
+        n_rows, seed=42), []
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    for epoch in range(2):
+        sampler.set_epoch(epoch)
+        idx = torch.from_numpy(scan.epoch_batch_indices(sampler, batch))
+        if mesh is None:
+            key, losses = _before_steps_epoch(params, key, x_all, y_all, idx,
+                                              LR, "pallas", dt)
+        else:
+            key, losses = _before_dp_steps_epoch(
+                mesh, params, key, {CPU: (x_all, y_all, idx)}, idx, LR,
+                "pallas", dt)
+        history.append(losses.numpy())
+    return key, np.concatenate(history), params
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fit_cached_pallas_is_the_path_before_the_fold_bitwise(monkeypatch,
-                                                               dtype):
+def test_fit_cached_pallas_is_the_path_before_the_fold_bitwise(dtype):
     counts = dict(fused_step.launch_count)
     got = _fit_cached(None, dtype, 96, 16)
-    monkeypatch.setattr(scan, "_steps_epoch", _before_steps_epoch)
-    want = _fit_cached(None, dtype, 96, 16)
+    want = _before_fit_cached(None, dtype, 96, 16)
     assert got[0] == want[0] and got[1].shape == (12,)
     np.testing.assert_array_equal(got[1], want[1])
     _assert_trees_equal(got[2], want[2])
     assert fused_step.launch_count == counts
 
 
-def test_fit_cached_pallas_on_a_four_replica_mesh_is_the_path_before_the_fold(
-        monkeypatch):
+def test_fit_cached_pallas_on_a_four_replica_mesh_is_the_path_before_the_fold():
     mesh = (CPU,) * 4
     got = _fit_cached(mesh, "float32", 128, 32)
-    monkeypatch.setattr(scan, "_dp_steps_epoch", _before_dp_steps_epoch)
-    want = _fit_cached(mesh, "float32", 128, 32)
+    want = _before_fit_cached(mesh, "float32", 128, 32)
     assert got[0] == want[0] and got[1].shape == (8,)
     np.testing.assert_array_equal(got[1], want[1])
     _assert_trees_equal(got[2], want[2])
