@@ -183,7 +183,31 @@ Phases (any failure exits non-zero; no phase is skipped):
                   json's config through the captured make_run_fn with
                   kernel xla and pallas, f32, each held to the golden's
                   accuracy and val-loss-ratio bounds against its torch
-                  runs, each curve beside the JAX framework curve.
+                  runs, each curve beside the JAX framework curve;
+               n. the reference's five configurations (phase_main_reference):
+                  a synthetic 60k/10k set converted to .nc by `python -m
+                  pytorch_ddp_mnist_tpu_torch convert`, then `python -m
+                  pytorch_ddp_mnist_tpu_torch train` at full width, one
+                  epoch cut to --limit REF_LIMIT rows: serial (IDX, the
+                  synthetic stand-in), serial --netcdf, --parallel under
+                  torchrun with 2 ranks on cuda:0, --parallel over 2 ranks
+                  of the env wireup (the mpiexec world of mnist_cpu_mp.py;
+                  the machine has no mpiexec) and --netcdf --parallel over 2
+                  ranks of the mpich wireup on the variables mpiexec sets
+                  (the 4 mpich ranks of mnist_pnetcdf_cpu_mp.py); each epoch
+                  line held against the same command on the CPU (--kernel
+                  pallas: the same step's plain version, the same masks),
+                  each --netcdf run bitwise its IDX run (the line's numbers
+                  and the rank-0 checkpoint), the native reader core named
+                  on the [data] line, every rank's K1-split launches; the
+                  `--dropout_rng torch` step captured for 3 steps bitwise
+                  the same steps eagerly on the same masks, the third a
+                  replay after its mask slot changed, and `train
+                  --sampler_rng torch --dropout_rng torch --eval_shuffle`
+                  against its CPU run (no hand-written kernel launched);
+                  whether this machine's torch CPU randperm and bernoulli_
+                  draw the port's copy's streams; the `bench --mode stream`
+                  and `bench --mode accuracy` lines.
   5. timing  — CUDA-event times of each kernel and form and its plain
                version at the main path's shapes, torch.profiler's device
                time of K1 (both designs) and the cached epoch (f32 on K2-ws,
@@ -4919,6 +4943,305 @@ def phase_golden(device, data: dict, card: str) -> dict:
     return out
 
 
+# the reference configurations' depth: one epoch of REF_LIMIT rows, 128
+# steps serially and 64 a rank on REF_RANKS ranks
+REF_LIMIT = 16384
+REF_RANKS = 2
+# an epoch line's accuracy against the CPU run's: the losses are held at
+# TRAIN_RTOL; a test sample within rounding of a tie may flip its argmax
+REF_ACC_ATOL = 0.002
+# (name, reference script, launcher, train arguments)
+REF_CONFIGS = (
+    ("serial", "ddp_tutorial_cpu.py", "serial", ()),
+    ("serial --netcdf", "mnist_pnetcdf_cpu.py", "serial", ("--netcdf",)),
+    ("torchrun x2 --parallel", "ddp_tutorial_multi_gpu.py", "torchrun",
+     ("--parallel",)),
+    ("env x2 --parallel", "mnist_cpu_mp.py", "env",
+     ("--parallel", "--wireup_method", "env")),
+    ("mpich x2 --netcdf --parallel", "mnist_pnetcdf_cpu_mp.py", "mpich",
+     ("--netcdf", "--parallel", "--wireup_method", "mpich")),
+)
+# each --netcdf run and the IDX run it must equal bitwise
+REF_NETCDF_TWINS = {"serial --netcdf": "serial",
+                    "mpich x2 --netcdf --parallel": "env x2 --parallel"}
+_NUMS = re.compile(r"^Epoch=0, train_loss=([-0-9.e]+), val_loss=([-0-9.e]+)  "
+                   r"\[mean_train=([-0-9.e]+) mean_val=([-0-9.e]+) "
+                   r"acc=([-0-9.e]+) ", re.M)
+
+
+def world_rank_front(out: str, argv: list) -> None:
+    """A process that runs `python -m pytorch_ddp_mnist_tpu_torch train
+    ARGV` (the package's __main__, through runpy) and saves its launches and
+    CUDA graph captures to out/front-rank<rank>.json."""
+    import runpy
+    from pytorch_ddp_mnist_tpu_torch.train import graphs
+    _reset_counts()
+    captures = graphs.counts["captures"]
+    sys.argv = ["pytorch_ddp_mnist_tpu_torch", "train", *argv]
+    try:
+        runpy.run_module("pytorch_ddp_mnist_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    rank = os.environ.get("RANK", os.environ.get("PMI_RANK", "0"))
+    with open(os.path.join(out, f"front-rank{rank}.json"), "w") as f:
+        json.dump({"launches": _counts(),
+                   "captures": graphs.counts["captures"] - captures}, f)
+
+
+def _ref_cmds(name: str, launcher: str, train: list, out: str):
+    """(argv, env) pairs of one configuration's processes, as a function of
+    the attempt (a new port each); rank 0 first."""
+    front = [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--world-rank", "front", "--out", out, "--", *train]
+    if launcher == "serial":
+        return lambda attempt: [(front, _rank_env())]
+    if launcher == "torchrun":
+        return _torchrun(REF_RANKS, front[1:])
+    if launcher == "env":
+        return _env_world(REF_RANKS, front)
+
+    def mpich(attempt):   # the variables MPICH's mpiexec (Hydra) sets
+        port = _free_port()
+        return [(front, _rank_env(PMI_RANK=r, PMI_SIZE=REF_RANKS,
+                                  MPI_LOCALRANKID=r,
+                                  MPI_LOCALNRANKS=REF_RANKS,
+                                  MASTER_ADDR="127.0.0.1", MASTER_PORT=port))
+                for r in range(REF_RANKS)]
+    return mpich
+
+
+def _ref_line(out: str, what: str) -> tuple:
+    found = _NUMS.findall(out)
+    if len(found) != 1:
+        fail(f"{what}: {len(found)} epoch lines in its output:\n{out[-2000:]}")
+    return found[0]
+
+
+def _ref_wave(where: str, tmp: str, nc_dir: str, idx_dir: str) -> dict:
+    """The five configurations on the card (`where` = "card") or the CPU,
+    all at once: {(where, name): {"out": rank 0's stdout, "line": its
+    epoch line's numbers, "ranks": each rank's launches and captures,
+    "ckpt": rank 0's checkpoint}}."""
+    cmds, tags = [], []
+    for name, _, launcher, extra in REF_CONFIGS:
+        out = os.path.join(tmp, "ref", where, name.replace(" ", "_"))
+        os.makedirs(out, exist_ok=True)
+        train = ["--n_epochs", "1", "--limit", str(REF_LIMIT),
+                 "--batch_size", str(MAIN_BATCH), "--lr", str(LR),
+                 "--seed", "0", "--checkpoint", os.path.join(out, "model.pt"),
+                 "--path", nc_dir if "--netcdf" in extra else idx_dir,
+                 *extra]
+        if where == "cpu":   # the same step's plain version, same masks
+            train += ["--device", "cpu", "--kernel", "pallas"]
+        tags.append((name, out))
+        cmds.append(_ref_cmds(name, launcher, train, out))
+    res = _spawn(lambda attempt: [pair for c in cmds for pair in c(attempt)],
+                 tmp)
+    runs, at = {}, 0
+    for (name, out), c in zip(tags, cmds):
+        text = res[at][1]           # rank 0's (or torchrun's) stdout
+        at += len(c(0))
+        ranks = [json.load(open(os.path.join(out, f)))
+                 for f in sorted(os.listdir(out)) if f.startswith("front")]
+        runs[where, name] = {"out": text, "ranks": ranks,
+                             "line": _ref_line(text, f"{name} on the {where}"),
+                             "ckpt": os.path.join(out, "model.pt")}
+    return runs
+
+
+def phase_main_reference(device, tmp: str, card: str) -> dict:
+    """The reference's five configurations through `python -m
+    pytorch_ddp_mnist_tpu_torch train` (see the module docstring, n), the
+    card runs all at once, then their CPU runs all at once. Returns each
+    card configuration's rank-0 launches."""
+    from pytorch_ddp_mnist_tpu_torch.data import native
+    t0 = time.perf_counter()
+    nc_dir, idx_dir = os.path.join(tmp, "ref_nc"), os.path.join(tmp, "ref_no")
+    conv = subprocess.run([sys.executable, "-m", "pytorch_ddp_mnist_tpu_torch",
+                           "convert", "--synthetic", "60000:10000",
+                           "--out_dir", nc_dir], cwd=REPO, env=_rank_env(),
+                          capture_output=True, text=True, timeout=300)
+    if conv.returncode != 0:
+        fail(f"convert exited {conv.returncode}: {conv.stderr[-2000:]}")
+    if not native.native_available():
+        fail(f"the native reader core did not build on this machine: "
+             f"{native.native_build_error()}")
+    runs = {}
+    for where in ("card", "cpu"):
+        runs.update(_ref_wave(where, tmp, nc_dir, idx_dir))
+        print(f"[ref] {where}: the five configurations in "
+              f"{time.perf_counter() - t0:.1f}s from the phase's start")
+    launches = {}
+    for name, script, launcher, extra in REF_CONFIGS:
+        card_run, cpu_run = runs["card", name], runs["cpu", name]
+        n_rank = 1 if launcher == "serial" else REF_RANKS
+        steps = REF_LIMIT // (MAIN_BATCH * n_rank)
+        if len(card_run["ranks"]) != n_rank:
+            fail(f"{name}: {len(card_run['ranks'])} ranks reported, "
+                 f"expected {n_rank}")
+        for r, rank in enumerate(card_run["ranks"]):
+            expect_launches(rank["launches"], {"fused_split_keyed": steps},
+                            f"reference config {name!r}, rank {r}")
+            want = 1 if launcher == "serial" else 0
+            if rank["captures"] != want:
+                fail(f"{name}: rank {r} captured {rank['captures']} CUDA "
+                     f"graphs, expected {want}")
+        for rank in cpu_run["ranks"]:
+            expect_launches(rank["launches"], {}, f"{name} on the CPU")
+        if "--netcdf" in extra and "read by the native core" not in \
+                card_run["out"]:
+            fail(f"{name}: the [data] line does not name the native reader "
+                 f"core:\n{card_run['out'][-1500:]}")
+        got = [float(v) for v in card_run["line"]]
+        ref = [float(v) for v in cpu_run["line"]]
+        rel = max(abs(g - c) / abs(c) for g, c in zip(got[:4], ref[:4]))
+        if rel > TRAIN_RTOL or abs(got[4] - ref[4]) > REF_ACC_ATOL:
+            fail(f"{name}: epoch line {card_run['line']} off the CPU run's "
+                 f"{cpu_run['line']} (losses rtol {TRAIN_RTOL}, acc atol "
+                 f"{REF_ACC_ATOL})")
+        launches[f"reference {name}"] = card_run["ranks"][0]["launches"]
+        print(f"[ref] {name} ({script}, {launcher}): {steps} steps a rank, "
+              f"line {card_run['line']}; the CPU run's {cpu_run['line']}, "
+              f"worst loss rel diff {rel:.3e} (rtol {TRAIN_RTOL})")
+    for nc_name, idx_name in REF_NETCDF_TWINS.items():
+        for where in ("card", "cpu"):
+            a, b = runs[where, nc_name], runs[where, idx_name]
+            sa = torch.load(a["ckpt"])
+            sb = torch.load(b["ckpt"])
+            if a["line"] != b["line"] or not all(
+                    torch.equal(sa[k], sb[k]) for k in sb):
+                fail(f"{nc_name} on the {where} is not bitwise {idx_name} "
+                     f"on the same bytes: {a['line']} vs {b['line']}")
+        print(f"[ref] {nc_name} bitwise {idx_name} (epoch line and rank-0 "
+              f"checkpoint), on the card and on the CPU")
+    print(f"[ref] the five configurations: "
+          f"{time.perf_counter() - t0:.1f}s [{card}]")
+    return launches
+
+
+def phase_streams() -> None:
+    """Whether this machine's torch CPU randperm and bernoulli_ draw the
+    port's copy's streams (parallel/torch_rng.py calls torch's own; the
+    copy is their plain version). Fails where they do not."""
+    from pytorch_ddp_mnist_tpu_torch.parallel import torch_rng as tr
+    perms = [(n, s) for n in (60000, 10000, 1877, 7) for s in (0, 42, 43)]
+    for n, seed in perms:
+        if not np.array_equal(tr.torch_randperm(n, seed),
+                              tr.torch_randperm_plain(n, seed)):
+            fail(f"torch.randperm({n}) seeded {seed} is not the copy's "
+                 f"stream on this machine ({torch.__version__})")
+    draws = 0
+    for seed in (0, 1, 12345, 2**31 + 7):
+        stream, plain = tr.MaskStream(seed), tr.TorchMT19937(seed)
+        for n, p in ((128 * 128, 0.8), (3 * 128, 0.8), (1000, 0.5)):
+            draws += n
+            if not np.array_equal(stream.draw(n, p),
+                                  tr.torch_bernoulli_plain(plain, n, p)):
+                fail(f"bernoulli_({p}) seeded {seed} is not the copy's "
+                     f"stream on this machine ({torch.__version__})")
+    print(f"[streams] torch {torch.__version__}: CPU randperm draws the "
+          f"copy's stream ({len(perms)} permutations) and CPU bernoulli_ "
+          f"draws it ({draws} values over 4 seeds)")
+
+
+def phase_torch_dropout(device, tmp: str) -> dict:
+    """`--dropout_rng torch` on the card: 3 captured steps bitwise the same
+    steps run eagerly on the same masks (step 2 replays slot 0 after its
+    mask changed), no hand-written kernel launched; then `train
+    --sampler_rng torch --dropout_rng torch --eval_shuffle` against the same
+    command on the CPU. Returns the CLI run's launches."""
+    from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
+    from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
+    from pytorch_ddp_mnist_tpu_torch.train import graphs, loop
+    x_all, y_all = _main_data(3 * MAIN_BATCH)
+    x_all = x_all.reshape(3, MAIN_BATCH, -1)
+    y_all = y_all.reshape(3, MAIN_BATCH)
+    step = loop.make_torch_dropout_train_step(LR, 0)
+    masks = [step.draw(MAIN_BATCH) for _ in range(3)]
+    if np.array_equal(masks[0], masks[2]):
+        fail("the torch mask stream repeated a mask")
+    out = {}
+    _reset_counts()
+    captures = graphs.counts["captures"]
+    for eager in (False, True):
+        model = MLP.from_seed(0).to(device)
+        steps, slots, _ = loop._captured_steps(step, model, 3, MAIN_BATCH,
+                                               device, eager=eager)
+        steps.start_epoch()
+        for s in range(3):
+            for slot, a in zip(slots, (x_all[s], y_all[s], masks[s])):
+                slot[s % 2].copy_(torch.from_numpy(a))
+            steps.step()
+        out[eager] = (steps.losses().cpu(), {n: {k: v.detach().cpu()
+                      for k, v in l.items()} for n, l in model.params().items()})
+    if graphs.counts["captures"] - captures != 1:
+        fail("the captured --dropout_rng torch loop did not capture once")
+    expect_launches(_counts(), {}, "the --dropout_rng torch steps")
+    if not (torch.equal(out[False][0], out[True][0])
+            and _equal_trees(out[False][1], out[True][1])):
+        fail(f"--dropout_rng torch: the captured steps' losses "
+             f"{out[False][0].tolist()} are not the eager steps' "
+             f"{out[True][0].tolist()} bitwise")
+    print(f"[dropout] 3 captured --dropout_rng torch steps bitwise the eager "
+          f"steps on the same masks, step 2 replayed on slot 0's new mask; "
+          f"losses {out[False][0].tolist()}")
+    argv = ["--n_epochs", "1", "--limit", str(20 * MAIN_BATCH), "--seed", "0",
+            "--sampler_rng", "torch", "--dropout_rng", "torch",
+            "--eval_shuffle", "--checkpoint", "",
+            "--path", os.path.join(tmp, "no_mnist_here")]
+    _reset_counts()
+    _, history, text = _run_trainer(cli_train, argv)
+    launches = _counts()
+    expect_launches(launches, {}, "train --dropout_rng torch")
+    _, cpu_history, cpu_text = _run_trainer(cli_train,
+                                            ["--device", "cpu", *argv])
+    rel = np.abs(history[0] - cpu_history[0]) / np.abs(cpu_history[0])
+    got, ref = _ref_line(text, "torch streams"), _ref_line(cpu_text, "cpu")
+    line_rel = max(abs(float(g) - float(c)) / abs(float(c))
+                   for g, c in zip(got[:4], ref[:4]))
+    if not (rel <= TRAIN_RTOL).all() or line_rel > TRAIN_RTOL:
+        fail(f"train --dropout_rng torch: per-step losses off the CPU run's "
+             f"by {rel.max():.3e}, the line by {line_rel:.3e} (rtol "
+             f"{TRAIN_RTOL})")
+    print(f"[dropout] train --sampler_rng torch --dropout_rng torch "
+          f"--eval_shuffle, 20 steps: per-step losses vs the CPU run worst "
+          f"rel diff {rel.max():.3e}, line {line_rel:.3e} (rtol "
+          f"{TRAIN_RTOL}); no hand-written kernel launched")
+    return launches
+
+
+def phase_data_benches(card: str) -> None:
+    """`bench --mode stream` and `bench --mode accuracy` through the front
+    door, each line printed and checked."""
+    lines = {}
+    for mode in ("stream", "accuracy"):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "pytorch_ddp_mnist_tpu_torch",
+                            "bench", "--mode", mode], cwd=REPO,
+                           env=_rank_env(), capture_output=True, text=True,
+                           timeout=600)
+        if r.returncode != 0:
+            fail(f"bench --mode {mode} exited {r.returncode}: "
+                 f"{r.stderr[-2000:]}")
+        line = r.stdout.strip().splitlines()[-1]
+        lines[mode] = json.loads(line)
+        print(f"[bench] --mode {mode} ({time.perf_counter() - t0:.1f}s, "
+              f"{card}): {line}")
+    stream, acc = lines["stream"], lines["accuracy"]
+    if stream["core"] != "native" or not stream["value"] > 0 \
+            or "mfu_pct_vs_bf16_peak" in stream:
+        fail(f"bench --mode stream: {stream}")
+    ratio = acc["mean_val_loss"] / acc["ref_mean_val_loss"]
+    if not (abs(acc["vs_baseline"] - 1) <= 0.01 and abs(ratio - 1) <= 0.05):
+        fail(f"bench --mode accuracy: the resolved configuration's accuracy "
+             f"ratio {acc['vs_baseline']} or val-loss ratio {ratio:.4f} is "
+             f"off the reference configuration's (bounds 0.01, 0.05)")
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -4954,7 +5277,13 @@ def main() -> int:
         dp_launches = phase_main_dp(device, tmp)
         world_launches = phase_main_world(device, tmp, card)
         epoch_walls = phase_epoch_walls(device, tmp, card)
-    elapsed("main paths")
+        elapsed("main paths")
+        phase_streams()
+        world_launches.update(phase_main_reference(device, tmp, card))
+        world_launches["train --dropout_rng torch"] = phase_torch_dropout(
+            device, tmp)
+        phase_data_benches(card)
+        elapsed("the reference configurations")
     data = capture_data(device)
     capture = phase_capture(device, data, card)
     elapsed("capture phase")
@@ -5020,14 +5349,17 @@ def main() -> int:
 
 
 def world_rank(args: list) -> int:
-    """`chip_smoke.py --world-rank lockstep|cli --out DIR [-- TRAIN ARGS]`:
-    one rank of a world that phase_main_world spawns."""
+    """`chip_smoke.py --world-rank lockstep|cli|front --out DIR [-- TRAIN
+    ARGS]`: one rank of a world that phase_main_world or
+    phase_main_reference spawns (front: a serial run too)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     mode, out = args[0], args[args.index("--out") + 1]
     if mode == "lockstep":
         world_rank_lockstep(out)
+    elif mode == "front":
+        world_rank_front(out, args[args.index("--") + 1:])
     else:
         world_rank_cli(out, args[args.index("--") + 1:])
     return 0

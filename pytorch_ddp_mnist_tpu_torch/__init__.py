@@ -5,8 +5,11 @@ package imports torch and never jax, and nothing of the JAX package (whose
 own `__init__` imports jax). It keeps that package's module paths so each
 ported function is easy to find next to its counterpart:
 
-    data/        IDX reader, MNIST splits + normalisation, batch loader
-    parallel/    the epoch-seeded sharded sampler, the replica mesh of one
+    data/        IDX reader, MNIST splits + normalisation, batch loaders
+                 (in memory and sharded from NetCDF), the CDF-5 NetCDF
+                 reader/writer and its native C++ core, convert, download
+    parallel/    the epoch-seeded sharded sampler and torch's CPU
+                 randperm / bernoulli_ streams, the replica mesh of one
                  process or of a world, the DDP steps and their fixed-order
                  gradient mean, the multi-process wireup (torchrun, SLURM,
                  Open MPI, MPICH, env; gloo or NCCL)
@@ -18,8 +21,10 @@ ported function is easy to find next to its counterpart:
                  .pt checkpoints
     cli/         the serial and data-parallel trainer (`python -m
                  pytorch_ddp_mnist_tpu_torch train [--parallel]`)
-    bench.py     the single-card train benchmark (`... bench`)
+    bench.py     the single-card benchmark (`... bench`: train, stream,
+                 accuracy)
 
-Kernels are built from `csrc/` at first use (ops/_build.py). ROADMAP.md
+Kernels, and the native reader core, are built from `csrc/` at first use
+(ops/_build.py). ROADMAP.md
 lists what is ported and what is still to come.
 """

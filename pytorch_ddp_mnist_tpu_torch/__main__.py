@@ -5,11 +5,15 @@
                rank of a launcher's world of processes, e.g. `torchrun
                --nproc_per_node 4 -m pytorch_ddp_mnist_tpu_torch train
                --parallel`)
-    bench      the single-card train benchmark (bench.py)
+    bench      the single-card benchmark: train, stream, accuracy (bench.py)
+    convert    IDX (or --synthetic N:M) -> mnist_{train,test}_images.nc
+               (data/convert.py)
+    download   the MNIST IDX files from the mirrors, checksum-verified
+               (data/download.py)
 
-The JAX package's other commands (serve, trace, ledger, convert, download,
-lint, audit-program) are not ported yet; naming one exits with a pointer
-to ROADMAP.md.
+The JAX package's other commands (serve, trace, ledger, lint,
+audit-program) are not ported yet; naming one exits with a pointer to
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -20,12 +24,15 @@ _COMMANDS = {
     "train": ("pytorch_ddp_mnist_tpu_torch.cli.train",
               "the serial and data-parallel trainer"),
     "bench": ("pytorch_ddp_mnist_tpu_torch.bench",
-              "the single-card train benchmark"),
+              "the single-card benchmark: train, stream, accuracy"),
+    "convert": ("pytorch_ddp_mnist_tpu_torch.data.convert",
+                "IDX or synthetic MNIST -> CDF-5 NetCDF files"),
+    "download": ("pytorch_ddp_mnist_tpu_torch.data.download",
+                 "fetch the MNIST IDX files, checksum-verified"),
 }
 # the JAX package's commands still to port -> ROADMAP.md queue 1 item
 _NOT_YET_PORTED = {
-    "serve": 9, "trace": 12, "ledger": 12, "convert": 1, "download": 1,
-    "lint": 14, "audit-program": 14,
+    "serve": 9, "trace": 12, "ledger": 12, "lint": 14, "audit-program": 14,
 }
 
 

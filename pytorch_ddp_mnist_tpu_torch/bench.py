@@ -27,15 +27,26 @@ so the port neither reads nor writes it. Timing: the wall time of a whole
 run up to the fetch of its loss curve (a full sync), best of 5 windows
 after one warm-up run that builds the kernels.
 
-Only the train mode is ported; every other `--mode` of the JAX bench exits
-by name. The JAX bench's registry, statics and ledger stamps are telemetry
-(ROADMAP.md queue 1, item 12) and are left out. A run needs a card: no
-number is taken on the CPU.
+`--mode stream` times the NetCDF streaming loader (data/loader.py
+`NetCDFShardLoader`): gather and normalise of a shuffled 60k-row epoch of
+a converted synthetic file, best of 3 epochs after a warm one, with
+`--num_workers` read-ahead threads; it names the reader core and has no
+tflops or mfu field (it measures the host's disk loader, not the card).
+`--mode accuracy` trains the resolved configuration and the reference
+configuration (xla, float32, threefry2x32) for `--epochs` epochs (default
+10, ACCURACY_EPOCHS) each on the bench workload and reports the first's
+final test accuracy with vs_baseline the ratio to the second's
+(`measure_train_accuracy`). The JAX bench's other modes exit by name. The
+JAX bench's registry, statics and ledger stamps are telemetry (ROADMAP.md
+queue 1, item 12) and are left out. A run needs a card: no number is taken
+on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import sys
 import time
@@ -44,7 +55,11 @@ import numpy as np
 import torch
 
 FUSED_EPOCHS = 400
+# --mode accuracy trains real epochs; the north-star acceptance names 10
+# (BASELINE.json / ddp_tutorial_multi_gpu.py:127)
+ACCURACY_EPOCHS = 10
 NOMINAL_BASELINE_IMGS_PER_SEC = 1_000_000.0
+NOMINAL_BASELINE_STREAM_IMGS_PER_SEC = 1_000_000.0
 # model cost per image: 118,016 forward multiply-adds, backward ~2x forward,
 # 2 FLOP per multiply-add -> 6 x 118,016 FLOP (the JAX bench's perf_fields)
 MACS_FWD_PER_IMG = 784 * 128 + 128 * 128 + 128 * 10
@@ -56,9 +71,7 @@ WINDOWS = 5
 
 # the JAX bench's other modes -> where ROADMAP.md queues them
 NOT_YET_PORTED_MODES = {
-    "stream": "queue 1, item 1 (data plane)",
     "eval": "queue 1, item 9 (eval bench + serving)",
-    "accuracy": "queue 1, item 7 (training CLI)",
     "serve": "queue 1, item 9 (eval bench + serving)",
     "ddp": "queue 1, item 11 (gradient communication)",
     "input": "queue 1, item 10 (input pipeline)",
@@ -144,37 +157,159 @@ def run_train_bench(device: torch.device, *, epochs: int, batch_size: int,
     }
 
 
+def run_stream_bench(num_workers: int = 0, trials: int = 4,
+                     n_train: int = 60000) -> dict:
+    """NetCDF streaming-loader throughput (the JAX bench's `--mode stream`):
+    converts a synthetic `n_train`-row train split to a .nc file in a
+    temporary directory, then times gather + normalise of whole shuffled
+    epochs of batch 128 through `NetCDFShardLoader`; trial 0 warms the page
+    cache, the best of the rest counts (the reads are warm). No device
+    work, so no tflops or mfu field."""
+    import os
+    import tempfile
+
+    from .data.convert import main as convert_main
+    from .data.loader import NetCDFShardLoader
+    from .parallel.sampler import ShardedSampler
+
+    with tempfile.TemporaryDirectory() as td:
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert_main(["--synthetic", f"{n_train}:16", "--out_dir", td])
+        ldr = NetCDFShardLoader(os.path.join(td, "mnist_train_images.nc"),
+                                batch_size=128, num_workers=num_workers)
+        ldr.sampler = ShardedSampler(n_train, num_replicas=1, rank=0,
+                                     shuffle=True, seed=42)
+        best, n = float("inf"), 0
+        for trial in range(trials):
+            ldr.sampler.set_epoch(trial)
+            t0 = time.perf_counter()
+            n = sum(len(x) for x, _ in ldr)
+            if trial:
+                best = min(best, time.perf_counter() - t0)
+    rate = n / best
+    return {"metric": "mnist_netcdf_stream_images_per_sec",
+            "value": round(rate, 1), "unit": "images/sec",
+            "vs_baseline": round(rate / NOMINAL_BASELINE_STREAM_IMGS_PER_SEC,
+                                 4),
+            "core": ldr.core, "num_workers": num_workers}
+
+
+def measure_train_accuracy(device: torch.device, kernel: str, dtype: str,
+                           superstep: int, impl: str, epochs: int,
+                           n_train: int = 60000, n_test: int = 10000
+                           ) -> tuple:
+    """(final test accuracy, mean val loss) of an `epochs`-epoch run of the
+    given configuration on the bench workload (synthetic MNIST, batch 128,
+    SGD 0.01, sampler seed 42, weights MLP.from_seed(0), train key 1): the
+    JAX bench's `measure_train_accuracy`, the one helper that `--mode
+    accuracy` and the promotion gate's accuracy runs call. The epochs run
+    back to back through `make_run_fn`; their losses must be finite."""
+    from .data.mnist import normalize_images, synthetic_mnist
+    from .models.mlp import MLP
+    from .ops.threefry import key_data
+    from .parallel.sampler import ShardedSampler
+    from .train.loop import evaluate
+    from .train.scan import (_load_params, epoch_batch_indices, make_run_fn,
+                             resident_images)
+
+    train = synthetic_mnist(n_train, seed=0)
+    test = synthetic_mnist(n_test, seed=1)
+    x_all = torch.from_numpy(resident_images(train.images)).to(device)
+    y_all = torch.from_numpy(train.labels.astype(np.int32)).to(device)
+    sampler = ShardedSampler(n_train, num_replicas=1, rank=0, seed=42)
+    idxs = []
+    for e in range(epochs):
+        sampler.set_epoch(e)
+        idxs.append(epoch_batch_indices(sampler, 128))
+    run = make_run_fn(0.01, kernel=kernel, impl=impl, dtype=dtype,
+                      superstep=superstep)
+    model = MLP.from_seed(0).to(device)
+    params, _, losses = run(model.params(), key_data(1), x_all, y_all,
+                            np.stack(idxs))
+    if not np.isfinite(losses.cpu().numpy()).all():
+        raise RuntimeError(f"accuracy run ({kernel}, {dtype}) gave "
+                           f"non-finite losses")
+    _load_params(model, params)
+    _, mean_loss, acc = evaluate(
+        model, torch.from_numpy(normalize_images(test.images)).to(device),
+        torch.from_numpy(test.labels.astype(np.int32)).to(device), 128)
+    return float(acc), float(mean_loss)
+
+
+def run_accuracy_bench(device: torch.device, kernel: str, dtype: str,
+                       superstep: int, impl: str, epochs: int,
+                       **workload) -> dict:
+    """`--mode accuracy`: the resolved configuration and the reference
+    configuration (xla, float32, threefry2x32, the ddp_tutorial script
+    restated) trained `epochs` epochs each; the first's final test
+    accuracy with vs_baseline the ratio of the two (1.0 when the kernels
+    kept the training outcome) and both mean val losses (the finer
+    signal: accuracy saturates on the synthetic stand-in)."""
+    acc, loss = measure_train_accuracy(device, kernel, dtype, superstep,
+                                       impl, epochs, **workload)
+    acc_ref, loss_ref = measure_train_accuracy(device, "xla", "float32", 1,
+                                               "threefry2x32", epochs,
+                                               **workload)
+    return {"metric": f"mnist_{epochs}epoch_test_accuracy",
+            "value": round(acc, 4), "unit": "fraction",
+            "vs_baseline": round(acc / acc_ref, 4) if acc_ref else None,
+            "mean_val_loss": round(loss, 6),
+            "ref_mean_val_loss": round(loss_ref, 6),
+            "kernel": kernel, "dtype": dtype, "superstep": superstep,
+            "impl": impl, "epochs": epochs}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m pytorch_ddp_mnist_tpu_torch bench",
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--mode", default="train",
-                   choices=("train",) + tuple(NOT_YET_PORTED_MODES))
+                   choices=("train", "stream", "accuracy")
+                   + tuple(NOT_YET_PORTED_MODES))
     p.add_argument("--kernel", default="auto",
                    choices=("auto", "xla", "pallas", "pallas_rng",
                             "pallas_epoch"))
     p.add_argument("--dtype", default="auto",
                    choices=("auto", "float32", "bfloat16"))
     p.add_argument("--impl", default="rbg", choices=("threefry2x32", "rbg"))
-    p.add_argument("--epochs", type=int, default=FUSED_EPOCHS,
-                   help=f"epochs per timing window (default {FUSED_EPOCHS})")
+    p.add_argument("--epochs", type=int, default=None,
+                   help=f"train: epochs per timing window (default "
+                        f"{FUSED_EPOCHS}); accuracy: epochs trained (default "
+                        f"{ACCURACY_EPOCHS}); never read by --mode stream")
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--superstep", type=int, default=0,
                    choices=(0, 1, 2, 4, 8))
     p.add_argument("--ring", default="auto",
                    choices=("auto", "allgather", "reduce_scatter"))
     p.add_argument("--unroll", type=int, default=1)
+    p.add_argument("--num_workers", type=int, default=0,
+                   help="stream mode: read-ahead threads")
     a = p.parse_args(argv)
-    if a.mode != "train":
+    if a.mode in NOT_YET_PORTED_MODES:
         raise SystemExit(f"--mode {a.mode} is not ported to the PyTorch "
                          f"package yet; see ROADMAP.md "
                          f"{NOT_YET_PORTED_MODES[a.mode]}")
+    if a.epochs is None:
+        a.epochs = ACCURACY_EPOCHS if a.mode == "accuracy" else FUSED_EPOCHS
+    if a.epochs < 1:
+        p.error("--epochs must be >= 1")
+    # a knob the mode never reads would label a number with a configuration
+    # it did not run: refused by name, as in the JAX bench
+    blocked = (() if a.mode == "train" else
+               ("unroll", "ring", "batch_size") if a.mode == "accuracy" else
+               ("kernel", "dtype", "impl", "superstep", "unroll", "ring",
+                "batch_size"))
+    for dest in blocked:
+        if getattr(a, dest) != p.get_default(dest):
+            p.error(f"--{dest} {getattr(a, dest)} is a train-mode variant "
+                    f"knob; --mode {a.mode} never reads it")
+    if a.mode != "stream" and a.num_workers != 0:
+        p.error(f"--num_workers is a stream-mode knob; --mode {a.mode} "
+                f"never reads it")
     if a.ring != "auto":
         raise SystemExit(f"--ring {a.ring} selects the DP epoch kernel's "
                          f"in-kernel allreduce, which needs a multi-card "
                          f"mesh; see ROADMAP.md queue 2, K6")
-    if a.epochs < 1:
-        p.error("--epochs must be >= 1")
     # the run's configuration, resolved for the card before any work; dtype
     # 'auto' is float32 for the kernel's resolution, as in the JAX bench
     kernel = resolve_bench_kernel(
@@ -197,12 +332,18 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     device = torch.device("cuda", 0)
-    out = run_train_bench(device, epochs=a.epochs, batch_size=a.batch_size,
-                          kernel=kernel, impl=a.impl, dtype=dtype,
-                          superstep=superstep)
-    out.update({"backend": "cuda", "device": torch.cuda.get_device_name(device),
-                "kernel": kernel, "impl": a.impl, "epochs": a.epochs,
-                "peak_bf16_of": PEAK_CARD})
+    stamp = {"backend": "cuda", "device": torch.cuda.get_device_name(device)}
+    if a.mode == "stream":
+        out = {**run_stream_bench(a.num_workers), **stamp}
+    elif a.mode == "accuracy":
+        out = {**run_accuracy_bench(device, kernel, dtype, superstep, a.impl,
+                                    a.epochs), **stamp}
+    else:
+        out = run_train_bench(device, epochs=a.epochs,
+                              batch_size=a.batch_size, kernel=kernel,
+                              impl=a.impl, dtype=dtype, superstep=superstep)
+        out.update({**stamp, "kernel": kernel, "impl": a.impl,
+                    "epochs": a.epochs, "peak_bf16_of": PEAK_CARD})
     print(json.dumps(out), flush=True)
     return 0
 

@@ -7,6 +7,8 @@ branches of `pytorch_ddp_mnist_tpu/cli/train.py`).
         [--impl threefry2x32|rbg] [--device 0|cpu] [--parallel
         [--wireup_method auto|single|slurm|openmpi|mpich|env|nccl-slurm|
         nccl-openmpi|nccl-mpich|gloo]] [--checkpoint model.pt] [--path data/]
+        [--netcdf] [--download] [--sampler_rng pcg64|torch]
+        [--dropout_rng jax|torch] [--eval_shuffle]
 
 Trains the reference MLP on MNIST (or the synthetic stand-in), prints the
 reference epoch line every epoch and saves the reference `.pt` state_dict at
@@ -46,18 +48,30 @@ paths key their dropout masks by jax's threefry key `--seed + 1`, split as
 the JAX trainer splits it, so with `--impl threefry2x32` (the default) the
 masks are the JAX package's for the same seed. `--kernel pallas_rng` and
 `--impl rbg` draw the port's own Philox stream instead (the TPU core PRNG
-has no CUDA twin).
+has no CUDA twin). The reference's own streams are there too: `--sampler_rng
+torch` shuffles with torch's CPU `randperm` (DistributedSampler's),
+`--dropout_rng torch` draws the masks from torch's CPU `bernoulli_` seeded
+`--seed` (serial streaming only, on the plain autograd step), and
+`--eval_shuffle` segments the val loss in torch's `randperm` order.
+
+Data: the IDX files under `--path` (`--download` fetches them first), the
+synthetic stand-in where there are none, or with `--netcdf` the converter's
+mnist_{train,test}_images.nc, read through the native reader core
+(csrc/reader.cc) where it builds; the `[data]` line names the core.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
 import torch
 
-from ..data.loader import BatchLoader
+from ..data.download import download_mnist
+from ..data.loader import BatchLoader, NetCDFShardLoader, open_reader
 from ..data.mnist import get_mnist, normalize_images
+from ..data.native import native_available, native_build_error
 from ..models.mlp import MLP, param_count
 from ..ops import _build
 from ..ops.fused_step import make_fused_train_step, make_pallas_dp_train_step
@@ -65,10 +79,11 @@ from ..ops.threefry import key_data
 from ..parallel.ddp import check_replicated, dp_mesh, make_dp_train_step
 from ..parallel.mesh import WorldMesh, replicas
 from ..parallel.sampler import ShardedSampler
+from ..parallel.torch_rng import torch_randperm
 from ..parallel.wireup import Runtime, initialize_runtime
 from ..train.checkpoint import save_checkpoint
 from ..train.config import configure, resolve_kernel
-from ..train.loop import TrainState, fit
+from ..train.loop import TrainState, fit, make_torch_dropout_train_step
 from ..train.scan import check_dp_run_args, check_run_args, fit_cached
 
 
@@ -159,27 +174,35 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
                   f"{'; a 1-replica mesh is the serial kernel' if len(mesh) == 1 else ''}",
                   file=sys.stderr, flush=True)
     rank, world = runtime.rank, runtime.size
-    if runtime.initialized and device.type == "cuda":
+    if runtime.initialized and (device.type == "cuda" or dcfg["netcdf"]):
         # one build a node, before the first collective: the other ranks
-        # load what local rank 0 built
+        # load what local rank 0 built (the kernels on a card, the native
+        # reader core for --netcdf)
         if runtime.local_rank == 0:
-            _build.build_all()
+            if device.type == "cuda":
+                _build.build_all()
+            if dcfg["netcdf"]:
+                native_available()
         runtime.barrier()
     log = print if rank == 0 else (lambda line: None)
     n_rep = replicas(mesh) if mesh is not None else 1
     global_batch = tcfg["batch_size"] * n_rep
     local_batch = tcfg["batch_size"] * (len(mesh) if mesh is not None else 1)
 
-    train_split = get_mnist(dcfg["path"], train=True)
-    test_split = get_mnist(dcfg["path"], train=False)
-    if dcfg["limit"] and dcfg["limit"] > 0:
-        train_split.images = train_split.images[:dcfg["limit"]]
-        train_split.labels = train_split.labels[:dcfg["limit"]]
-    x_test = normalize_images(test_split.images)
-    y_test = test_split.labels.astype(np.int32)
+    data = load_data(dcfg, runtime, local_batch, tcfg["cached"], log)
+    x_test = normalize_images(data["test_images"])
+    y_test = data["test_labels"].astype(np.int32)
     # a world's ranks each take their own shard of the sampler
-    sampler = ShardedSampler(len(train_split), num_replicas=world, rank=rank,
-                             shuffle=True, seed=42)
+    sampler = ShardedSampler(data["n_train"], num_replicas=world, rank=rank,
+                             shuffle=True, seed=42,
+                             permutation=tcfg["sampler_rng"])
+    eval_perm = None
+    if tcfg["eval_shuffle"]:
+        # the reference's shuffled test loader, from torch's own randperm
+        # seeded --seed + epoch (its loader is unseeded): only the ref-unit
+        # val_loss's batch segmentation changes
+        n_test = len(y_test)
+        eval_perm = lambda e: torch_randperm(n_test, tcfg["seed"] + e)  # noqa: E731
 
     model = MLP.from_seed(tcfg["seed"]).to(device)
     if mesh is not None:
@@ -196,6 +219,9 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
     if runtime.initialized:
         mode += (f" world={world} rank={rank} backend={runtime.backend} "
                  f"wireup={runtime.method}")
+    for flag, default in (("sampler_rng", "pcg64"), ("dropout_rng", "jax")):
+        if tcfg[flag] != default:
+            mode += f" {flag}={tcfg[flag]}"
     log(f"pytorch_ddp_mnist_tpu_torch: device={device} ({name}) "
         f"params={param_count(model.params())} "
         f"batch={tcfg['batch_size']} kernel={kernel}{mode} "
@@ -204,16 +230,20 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
 
     if tcfg["cached"]:
         key, history = fit_cached(
-            model, key, train_split.images,
-            train_split.labels.astype(np.int32), sampler, x_test, y_test,
+            model, key, data["train_images"],
+            data["train_labels"].astype(np.int32), sampler, x_test, y_test,
             epochs=tcfg["n_epochs"], batch_size=global_batch,
             lr=tcfg["lr"], kernel=kernel, impl=tcfg["impl"],
-            fused=tcfg["fused"], dtype=tcfg["dtype"], mesh=mesh, log=log)
+            fused=tcfg["fused"], dtype=tcfg["dtype"], mesh=mesh,
+            eval_perm=eval_perm, log=log)
         state = TrainState(model, key)
     else:
-        loader = BatchLoader(normalize_images(train_split.images),
-                             train_split.labels, sampler,
-                             batch_size=local_batch)
+        loader = data["loader"]
+        if loader is None:
+            loader = BatchLoader(normalize_images(data["train_images"]),
+                                 data["train_labels"], None,
+                                 batch_size=local_batch)
+        loader.sampler = sampler
         # the JAX trainer's serial streaming `xla` step takes no dtype: it
         # trains in f32 under --dtype bfloat16, and so does this one; its DP
         # steps take the dtype
@@ -221,6 +251,8 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
             make = (make_pallas_dp_train_step if kernel == "pallas"
                     else make_dp_train_step)
             step = make(mesh, tcfg["lr"], dtype=tcfg["dtype"])
+        elif tcfg["dropout_rng"] == "torch":
+            step = make_torch_dropout_train_step(tcfg["lr"], tcfg["seed"])
         else:
             step = (make_fused_train_step(tcfg["lr"], dtype=tcfg["dtype"])
                     if kernel == "pallas" else None)
@@ -228,7 +260,7 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
                              y_test, epochs=tcfg["n_epochs"],
                              batch_size=global_batch,
                              lr=None if step else tcfg["lr"], train_step=step,
-                             log=log)
+                             eval_perm=eval_perm, log=log)
     if runtime.initialized and device.type == "cuda":
         # stderr: stdout stays the machine-parseable epoch lines
         print(f"[world] rank {rank}: peak device memory "
@@ -238,6 +270,62 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
         save_checkpoint(tcfg["checkpoint"], state.model.params())
         print(f"saved checkpoint to {tcfg['checkpoint']}")
     return state, history
+
+
+def load_data(dcfg, runtime: Runtime, local_batch: int, cached: bool,
+              log) -> dict:
+    """The run's data: {"n_train", "test_images", "test_labels", and either
+    "loader" (the streaming --netcdf loader, its sampler still to assign)
+    or "train_images"/"train_labels" (uint8 (n, 28, 28) and labels)}.
+
+    --netcdf reads mnist_{train,test}_images.nc under --path (the PnetCDF
+    configurations): the streaming path gathers each batch's rows from the
+    train file, the resident path reads its first --limit rows whole, and
+    the test file is read whole by every rank, as the serial reference's
+    collective read does (mnist_pnetcdf_cpu.py:47). The `[data]` line names
+    the reader core. Otherwise the IDX files under --path, fetched first
+    with --download (in a world: rank 0 fetches, then every rank waits at a
+    barrier before it probes the path), else the synthetic stand-in."""
+    limit = dcfg["limit"] if dcfg["limit"] and dcfg["limit"] > 0 else None
+    if dcfg["netcdf"]:
+        train_nc, test_nc = (os.path.join(dcfg["path"], f"mnist_{s}_images.nc")
+                             for s in ("train", "test"))
+        for path in (train_nc, test_nc):
+            if not os.path.exists(path):
+                raise SystemExit(
+                    f"--netcdf: {path} not found; produce it with `python -m "
+                    f"pytorch_ddp_mnist_tpu_torch convert`")
+        loader = NetCDFShardLoader(train_nc, batch_size=local_batch)
+        n_train = min(loader.num_samples, limit or loader.num_samples)
+        test_reader, _ = open_reader(test_nc)
+        out = {"n_train": n_train, "loader": loader,
+               "test_images": test_reader.read("images"),
+               "test_labels": test_reader.read("labels")}
+        why = ("" if loader.core == "native" else
+               f" (the native core is off: {native_build_error()})")
+        log(f"[data] --netcdf {train_nc}: {n_train} of {loader.num_samples} "
+            f"rows, read by the {loader.core} core{why}")
+        if cached:
+            out["train_images"], out["train_labels"] = loader.read_head(
+                n_train)
+            out["loader"] = None
+        return out
+    if dcfg["download"] and runtime.initialized and runtime.size > 1:
+        if runtime.rank == 0:
+            try:
+                download_mnist(dcfg["path"])
+            except Exception as e:  # noqa: BLE001 — rank 0 must reach the
+                # barrier or every other rank waits in it for good; any
+                # failure lands every rank on the synthetic fallback
+                print(f"[data] MNIST download failed ({e}); synthetic "
+                      f"fallback will be used")
+        runtime.barrier()
+    train = get_mnist(dcfg["path"], train=True, download=dcfg["download"])
+    test = get_mnist(dcfg["path"], train=False, download=dcfg["download"])
+    return {"n_train": len(train.images[:limit]), "loader": None,
+            "train_images": train.images[:limit],
+            "train_labels": train.labels[:limit],
+            "test_images": test.images, "test_labels": test.labels}
 
 
 def main(argv=None) -> int:

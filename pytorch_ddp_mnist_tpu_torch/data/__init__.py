@@ -1,1 +1,2 @@
-"""Data plane: IDX files, MNIST splits, normalisation and the batch loader."""
+"""Data plane: IDX and NetCDF files (and the native reader core), MNIST
+splits, normalisation, the batch loaders, convert and download."""

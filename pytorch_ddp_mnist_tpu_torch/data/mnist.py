@@ -6,9 +6,9 @@ bytes from the same IDX files, the reference transform
 float32 (/255, then -mean, then /std) on numpy arrays and, as
 `device_normalize` (the JAX package's `train/scan.py` one), on tensors of
 any device, and the same deterministic synthetic 60k/10k stand-in for
-machines without the dataset.
-
-Downloading (`--download`, `data/download.py`) is not ported yet.
+machines without the dataset. `get_mnist(download=True)` keeps the JAX
+package's probe order: files on disk, then a checksum-verified download
+(data/download.py), then the synthetic stand-in.
 """
 
 from __future__ import annotations
@@ -101,14 +101,29 @@ def synthetic_mnist(n: int, seed: int = 0) -> Split:
 
 
 def get_mnist(root: str, train: bool = True, *, synthetic_n: int | None = None,
-              quiet: bool = False) -> Split:
-    """Load a split from disk, falling back to the synthetic stand-in of the
-    canonical split size (60k/10k; `synthetic_n` overrides)."""
+              quiet: bool = False, download: bool = False) -> Split:
+    """Load a split from disk; with `download`, fetch the IDX files from the
+    mirrors first when they are absent (data/download.py); fall back to the
+    synthetic stand-in of the canonical split size (60k/10k; `synthetic_n`
+    overrides). The probe order of `datasets.MNIST(download=True)`
+    (ddp_tutorial_cpu.py:22) and of the JAX package's get_mnist."""
     split = load_mnist(root, train)
     if split is not None:
         return split
+    if download:
+        from .download import DownloadError, download_mnist
+        try:
+            download_mnist(root, quiet=quiet)
+            split = load_mnist(root, train)
+            if split is not None:
+                return split
+        except DownloadError as e:
+            if not quiet:
+                print(f"[data] MNIST download failed ({e}); "
+                      f"falling back to synthetic data")
     n = synthetic_n if synthetic_n is not None else (60000 if train else 10000)
     if not quiet:
+        hint = "" if download else " (pass --download to fetch real MNIST)"
         print(f"[data] no MNIST IDX files under {root!r}; using synthetic "
-              f"{'train' if train else 'test'} split of {n} samples")
+              f"{'train' if train else 'test'} split of {n} samples{hint}")
     return synthetic_mnist(n, seed=0 if train else 1)

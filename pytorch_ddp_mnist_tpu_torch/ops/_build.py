@@ -12,8 +12,12 @@ and an unchanged one is reused. `VARIANTS` are further builds of a source
 with extra `-D` flags (a debug build with phase stamps); they are built
 only when named. Libraries go under
 `build/kernels/` at the root of the checkout (`.gitignore` lists `build/`),
-beside a `.log` holding what `-Xptxas -v` reported. Nothing is built when
-this module is imported: machines without nvcc import it freely.
+beside a `.log` holding what `-Xptxas -v` reported.
+
+`HOST_SOURCES` are host libraries, built the same way by the C++ compiler
+(`$CXX`, else g++) into `build/native/`: the NetCDF/IDX reader core
+(`csrc/reader.cc`, data/native.py). Nothing is built when this module is
+imported: machines without nvcc or g++ import it freely.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
+NATIVE_DIR = PKG_DIR.parent / "build" / "native"
 
 # kernel library name -> source file under csrc/
 SOURCES = {"fused_step": "fused_step.cu", "fused_split": "fused_split.cu",
@@ -42,8 +47,12 @@ VARIANTS = {"epoch_ws_stamps": ("epoch_ws", ("-DWS_STAMPS",)),
             "ring_ws_stamps": ("ring_ws", ("-DK6_STAMPS",)),
             "ring_mma_stamps": ("ring_mma", ("-DK6M_STAMPS",))}
 
+# host library name -> C++ source file under csrc/
+HOST_SOURCES = {"reader": "reader.cc"}
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
 class KernelBuildError(RuntimeError):
@@ -63,10 +72,22 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def find_cxx() -> str:
+    cxx = os.environ.get("CXX") or "g++"
+    path = shutil.which(cxx)
+    if path is None:
+        raise KernelBuildError(
+            f"C++ compiler {cxx!r} not found ($CXX, else g++); the native "
+            f"reader core is built with it at first use")
+    return path
+
+
 def _spec(name: str) -> tuple:
-    """(source file under csrc/, nvcc flags) of library `name`."""
+    """(source file under csrc/, compiler flags) of library `name`."""
     if name in SOURCES:
         return SOURCES[name], NVCC_FLAGS
+    if name in HOST_SOURCES:
+        return HOST_SOURCES[name], CXX_FLAGS
     base, extra = VARIANTS[name]
     return SOURCES[base], NVCC_FLAGS + tuple(extra)
 
@@ -74,33 +95,40 @@ def _spec(name: str) -> tuple:
 def _target(name: str) -> Path:
     source, flags = _spec(name)
     src = (CSRC / source).read_bytes()
+    if name in HOST_SOURCES:   # a host library includes no csrc/ header
+        digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
+        return NATIVE_DIR / f"{name}-{digest[:16]}.so"
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
 def build_all(names=None) -> dict:
-    """Build every library in `names` (of SOURCES or VARIANTS; default:
-    all of SOURCES) that is not built yet, one nvcc process per source, all started together. Returns
-    {name: (library path, ptxas report)}; raises KernelBuildError naming
-    each source that failed, with nvcc's output."""
+    """Build every library in `names` (of SOURCES, VARIANTS or
+    HOST_SOURCES; default: all of SOURCES) that is not built yet, one
+    compiler process per source (nvcc, or the C++ compiler for
+    HOST_SOURCES), all started together. Returns {name: (library path,
+    compiler report)}; raises KernelBuildError naming each source that
+    failed, with the compiler's output."""
     names = list(SOURCES if names is None else names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         so = _target(name)
         if so.exists():
             continue
+        so.parent.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
         source, flags = _spec(name)
-        cmd = [find_nvcc(), *flags, "-o", str(tmp), str(CSRC / source)]
+        compiler = find_cxx() if name in HOST_SOURCES else find_nvcc()
+        cmd = [compiler, *flags, "-o", str(tmp), str(CSRC / source)]
         procs[name] = (so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for name, (so, tmp, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"--- {name} ({_spec(name)[0]}, nvcc exit "
+            failed.append(f"--- {name} ({_spec(name)[0]}, "
+                          f"{os.path.basename(proc.args[0])} exit "
                           f"{proc.returncode})"
                           f"\n{out}")
             tmp.unlink(missing_ok=True)
@@ -108,7 +136,7 @@ def build_all(names=None) -> dict:
         so.with_suffix(".log").write_text(out)
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     if failed:
-        raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
+        raise KernelBuildError("build failed:\n" + "\n".join(failed))
     out = {}
     for name in names:
         so = _target(name)

@@ -1,1 +1,2 @@
-"""Data-parallel pieces: so far the sharded sampler (DDP is a later slice)."""
+"""Data-parallel pieces: the sharded sampler and the reference's torch
+streams, the replica mesh, the DDP steps and the multi-process wireup."""

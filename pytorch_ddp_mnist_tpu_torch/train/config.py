@@ -3,11 +3,15 @@
 `train/scan.py::resolve_kernel` and the JAX CLI's refusals of unsound
 combinations of `--cached`, `--fused` and `--kernel pallas_epoch`), with
 `--parallel` over the mesh of the local cards or over a world of processes
-(`--wireup_method`, parallel/wireup.py).
+(`--wireup_method`, parallel/wireup.py), the data plane's `--netcdf` and
+`--download`, and the reference's own random streams (`--sampler_rng
+torch`, `--dropout_rng torch`, `--eval_shuffle`).
 
 The ported flags keep the JAX trainer's names and defaults, so launch lines
 carry over, except `--checkpoint`, which defaults to `model.pt` (the port
-writes the reference's torch state_dict; msgpack needs flax). Every other
+writes the reference's torch state_dict; msgpack needs flax). `--hdf5` and
+`--label_map` are the dead keys of the reference's config that the JAX
+trainer keeps for launch-line parity, and so does this one. Every other
 flag of the JAX trainer is recognised and rejected by name, with the
 ROADMAP.md item that will port it.
 """
@@ -26,13 +30,6 @@ WIREUP_CHOICES = METHODS + tuple(METHOD_ALIASES) + ("tpu",)
 
 # flag of the JAX trainer -> where ROADMAP.md queues its port
 NOT_YET_PORTED = {
-    "--netcdf": "queue 1, item 1 (data plane)",
-    "--download": "queue 1, item 1 (data plane)",
-    "--hdf5": "queue 1, item 7 (training CLI)",
-    "--label_map": "queue 1, item 7 (training CLI)",
-    "--sampler_rng": "queue 1, item 3 (sampler)",
-    "--dropout_rng": "queue 1, item 4 (train loop)",
-    "--eval_shuffle": "queue 1, item 4 (train loop)",
     "--resume": "queue 1, item 8 (step checkpoints)",
     "--start_epoch": "queue 1, item 8 (step checkpoints)",
     "--ckpt_every_steps": "queue 1, item 8 (step checkpoints)",
@@ -121,11 +118,50 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
                         "--kernel pallas_epoch only) selects the epoch "
                         "kernel's own Philox stream (same keep distribution, "
                         "other masks)")
+    t.add_argument("--sampler_rng", choices=("pcg64", "torch"),
+                   default="pcg64",
+                   help="train-shard permutation source: pcg64 (default) or "
+                        "torch, the MT19937 randperm of torch's "
+                        "DistributedSampler (ddp_tutorial_multi_gpu.py:26-30), "
+                        "making every epoch's shards a reference run's at "
+                        "the same seed, index for index")
+    t.add_argument("--dropout_rng", choices=("jax", "torch"), default="jax",
+                   help="dropout mask source: jax (default; the --impl key "
+                        "chain) or torch, torch's CPU bernoulli stream "
+                        "seeded --seed (the nn.Dropout draw of "
+                        "ddp_tutorial_cpu.py:47), drawn on the host a step "
+                        "at a time for the plain autograd step (--kernel "
+                        "auto resolves to xla). Serial streaming only: no "
+                        "--parallel, no --cached")
+    t.add_argument("--eval_shuffle", action="store_true",
+                   help="segment each epoch's val_loss in a shuffled batch "
+                        "order like the reference's test DataLoader("
+                        "shuffle=True) (ddp_tutorial_multi_gpu.py:43-47), "
+                        "from torch's MT19937 randperm seeded --seed + "
+                        "epoch. Only the ref-unit val_loss changes; mean "
+                        "loss and accuracy do not, and no device work is "
+                        "added")
     d = p.add_argument_group("data")
     d.add_argument("--path", "--data_path", type=str, default="data/",
-                   help="dataset root (IDX files); synthetic data otherwise")
+                   help="dataset root (IDX files, or the .nc files of "
+                        "--netcdf); synthetic data otherwise")
+    d.add_argument("--netcdf", action="store_true",
+                   help="read mnist_{train,test}_images.nc under --path (the "
+                        "PnetCDF configurations; write them with `python -m "
+                        "pytorch_ddp_mnist_tpu_torch convert`): each rank "
+                        "gathers its own shard's rows from the train file")
+    d.add_argument("--download", action="store_true",
+                   help="fetch the MNIST IDX files (checksum-verified "
+                        "mirrors) when they are absent from --path, the "
+                        "datasets.MNIST(download=True) analog "
+                        "(ddp_tutorial_cpu.py:22); in a world rank 0 "
+                        "fetches and the others wait at a barrier")
     d.add_argument("--limit", "--data_limit", type=int, default=-1,
                    help="truncate the train set to N samples")
+    d.add_argument("--hdf5", action="store_true",
+                   help="dead flag kept for reference-CLI parity")
+    d.add_argument("--label_map", type=int, nargs="*", default=None,
+                   help="dead key kept for reference-CLI parity")
     a, rest = p.parse_known_args(argv)
     for arg in rest:
         flag = arg.split("=", 1)[0]
@@ -160,6 +196,25 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
     if a.wireup_method != "auto" and not a.parallel:
         raise SystemExit(f"--wireup_method {a.wireup_method} forms the world "
                          f"of --parallel; add --parallel")
+    if a.dropout_rng == "torch":
+        # the torch mask stream is drawn on the host a step at a time, as
+        # torch draws it: that fits the serial streaming loop only
+        if a.parallel:
+            raise SystemExit(
+                "--dropout_rng torch is serial-only: DDP replicas draw "
+                "per-rank dropout streams, and the reference's single "
+                "global torch generator has no per-rank split to mirror")
+        if a.cached:
+            raise SystemExit(
+                "--dropout_rng torch streams host-drawn masks per step; "
+                "the --cached/--fused epoch programs draw masks on the "
+                "device — drop --cached (the streaming loop) to use it")
+        if a.kernel not in ("auto", "xla"):
+            raise SystemExit(
+                f"--dropout_rng torch uses the plain autograd step with "
+                f"streamed masks; --kernel {a.kernel} draws its own masks "
+                f"in the kernel")
+        a.kernel = "xla"
     if a.checkpoint and not a.checkpoint.endswith((".pt", ".pth")):
         raise SystemExit(f"--checkpoint {a.checkpoint!r}: the PyTorch package "
                          f"writes .pt/.pth state_dicts only (msgpack needs "
@@ -171,8 +226,12 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
             "dtype": a.dtype, "kernel": a.kernel, "cached": a.cached,
             "fused": a.fused, "impl": a.impl or "threefry2x32",
             "parallel": a.parallel, "wireup_method": a.wireup_method,
+            "sampler_rng": a.sampler_rng, "dropout_rng": a.dropout_rng,
+            "eval_shuffle": a.eval_shuffle,
         },
-        "data": {"path": a.path, "limit": a.limit},
+        "data": {"path": a.path, "limit": a.limit, "netcdf": a.netcdf,
+                 "download": a.download, "hdf5": a.hdf5,
+                 "label_map": a.label_map},
     }
 
 

@@ -28,12 +28,23 @@ the eager loop, a batch copied to the card a step. `_captured_steps` built
 with `eager=True` (chip_smoke.py's turns and the card tests) runs the
 captured loop's step eagerly on its buffers.
 
+`--dropout_rng torch` (`make_torch_dropout_train_step`, a `MaskedStep`)
+takes the reference's own mask stream instead: torch's CPU `bernoulli_` on
+a generator seeded `--seed` (parallel/torch_rng.py), drawn on the host a
+batch at a time in step order and handed to the plain autograd step as a
+(B, 128) mask. On a card the mask rides with its batch: `device_prefetch`
+copies it into a third pair of static slots on the same side stream as
+the batch, so the captured step reads slot s % 2 of the masks as it does
+of the rows, and every replay trains on its own batch's mask.
+
 As in the JAX package, the per-step losses stay on the device and are
 fetched once per epoch: no per-step `.item()`. The printed train_loss keeps
 the reference accumulator quirk Σ(batch_mean / B), and mean loss, accuracy
-and throughput ride alongside. Telemetry, the input pipeline's workers,
-fault points, the collective journal, the health watchdog and mid-epoch
-resume are not ported yet (ROADMAP.md queue 1).
+and throughput ride alongside; `eval_perm` (`--eval_shuffle`) segments the
+val loss's batches in a shuffled order, as the reference's shuffled test
+loader does. Telemetry, the input pipeline's workers, fault points, the
+collective journal, the health watchdog and mid-epoch resume are not
+ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -46,10 +57,11 @@ import numpy as np
 import torch
 
 from ..data.loader import device_prefetch
-from ..models.mlp import MLP, MLP_DIMS, mlp_apply
+from ..models.mlp import DROPOUT_RATE, MLP, MLP_DIMS, mlp_apply
 from ..ops.fused_step import KeyedStep, dropout_mask, keyed_dropout_mask
 from ..ops.loss import cross_entropy
 from ..ops.sgd import sgd_step
+from ..parallel.torch_rng import MaskStream
 from . import graphs
 
 
@@ -62,15 +74,18 @@ class TrainState:
     key: tuple
 
 
-def xla_loss_and_grads(params, x, y, keep):
+def xla_loss_and_grads(params, x, y, keep=None, *, dropout_mask=None):
     """The plain autograd step's (mean loss, grads tree) on a params tree,
-    with the forward's keyed dropout from the bool keep draw `keep`. The
-    forward runs in x's dtype; the grads are f32, as the params are."""
+    with the forward's dropout from the bool keep draw `keep` (the keyed
+    form) or from a streamed {0, 1} `dropout_mask` (the `--dropout_rng
+    torch` form). The forward runs in x's dtype; the grads are f32, as the
+    params are."""
     names = [(n, k) for n, layer in params.items() for k in layer]
     leaves = {n: {k: v.detach().requires_grad_(True) for k, v in layer.items()}
               for n, layer in params.items()}
     with torch.enable_grad():
-        loss = cross_entropy(mlp_apply(leaves, x, train=True, keep=keep), y)
+        loss = cross_entropy(mlp_apply(leaves, x, train=True, keep=keep,
+                                       dropout_mask=dropout_mask), y)
         flat = torch.autograd.grad(loss, [leaves[n][k] for n, k in names])
     grads = {n: {} for n in params}
     for (n, k), g in zip(names, flat):
@@ -95,6 +110,52 @@ def make_train_step(lr: float) -> KeyedStep:
         return loss
 
     return KeyedStep(run)
+
+
+class MaskedStep:
+    """A train step of the streaming loop whose dropout masks come from
+    the host (`--dropout_rng torch`):
+
+      step.draw(batch) -> the next (batch, 128) float32 {0, 1} mask of the
+          stream, drawn in step order;
+      step.run(model, mask, x, y) -> loss: one step on a mask on x's
+          device, SGD in place on the model's parameters; it reads the
+          mask from device memory only, so it can be captured.
+
+    `fit` runs it serially through the captured loop's slots; the train
+    key passes through untouched (the TrainState keeps its form)."""
+
+    def __init__(self, run, stream: MaskStream):
+        self.run = run
+        self.stream = stream
+
+    def draw(self, batch: int) -> np.ndarray:
+        hidden = MLP_DIMS[1]
+        return self.stream.draw(batch * hidden, 1.0 - DROPOUT_RATE).reshape(
+            batch, hidden)
+
+    def with_masks(self, batches):
+        """(x, y) host batches -> (x, y, mask), one draw a batch in order."""
+        for x, y in batches:
+            yield x, y, self.draw(len(x))
+
+
+def make_torch_dropout_train_step(lr: float, seed: int) -> MaskedStep:
+    """The `--dropout_rng torch` step (the JAX package's
+    `make_torch_dropout_train_step`): the plain autograd step in f32 whose
+    masks stream from torch's CPU `bernoulli_(0.8)` on a generator seeded
+    `seed` (the nn.Dropout draw of ddp_tutorial_cpu.py:47), drawn on the
+    host a step at a time. With `--sampler_rng torch` the serial run's
+    shards, masks and SGD are a live torch run's that reseeds its global
+    generator with `seed` after the model's init. The resume fast-forward
+    of the stream belongs to `--start_epoch` (ROADMAP.md queue 1, item 8)."""
+    def run(model, mask, x, y):
+        params = model.params()
+        loss, grads = xla_loss_and_grads(params, x, y, dropout_mask=mask)
+        sgd_step(params, grads, lr)
+        return loss
+
+    return MaskedStep(run, MaskStream(seed))
 
 
 @torch.no_grad()
@@ -134,21 +195,26 @@ def make_snapshot_eval_step() -> Callable:
 
 
 def evaluate(model: MLP, x_test: torch.Tensor, y_test: torch.Tensor,
-             batch_size: int):
+             batch_size: int, perm=None):
     """Full-test-set eval in one forward, one fetch: (val_loss_ref_unit,
     mean_loss, acc), see val_summary."""
     per_sample, correct = eval_math(model, x_test, y_test)
     return val_summary(per_sample.cpu().numpy(), correct.cpu().numpy(),
-                       batch_size)
+                       batch_size, perm=perm)
 
 
 def val_summary(per_sample: np.ndarray, correct: np.ndarray,
-                batch_size: int):
+                batch_size: int, perm=None):
     """Fetched per-sample eval values -> (val_loss_ref_unit, mean_loss,
     acc). The ref unit replicates the reference accumulator Σ(batch_mean/B)
-    over sequential test batches, including the short last batch."""
+    over the test batches, including the short last batch: sequential, or
+    in the order `perm` (`--eval_shuffle`: the per-sample losses are
+    permuted before they are segmented; accuracy is order-free, so
+    `correct` is not)."""
     n = per_sample.shape[0]
     per_sample = np.asarray(per_sample, np.float64)
+    if perm is not None:
+        per_sample = per_sample[np.asarray(perm)]
     val_loss_ref_unit = 0.0
     for start in range(0, n, batch_size):
         b = min(batch_size, n - start)
@@ -185,26 +251,40 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _captured_steps(step: KeyedStep, model: MLP, nsteps: int, batch: int,
-                    device, eager: bool = False):
-    """The streaming loop's step as a train/graphs.py StepLoop: its static
-    buffers are two batch slots (x (2, B, 784) f32, y (2, B) int32; step s
-    reads slot s % 2, which `device_prefetch` fills) and the epoch's key
-    table. `eager` runs the step without a graph on a card. Returns (the
-    loop, its slots, its key table's StaticInput)."""
+def _captured_steps(step, model: MLP, nsteps: int, batch: int, device,
+                    eager: bool = False):
+    """The streaming loop's step (a KeyedStep or a MaskedStep) as a
+    train/graphs.py StepLoop: its static buffers are two batch slots (x (2,
+    B, 784) f32, y (2, B) int32; step s reads slot s % 2, which
+    `device_prefetch` fills) and the epoch's key table, or, for a
+    MaskedStep, two mask slots (2, B, 128) f32 filled with the batch.
+    `eager` runs the step without a graph on a card. Returns (the loop, its
+    slots, its key table's StaticInput or None)."""
     x_slots = torch.zeros((2, batch, MLP_DIMS[0]), dtype=torch.float32,
                           device=device)
     y_slots = torch.zeros((2, batch), dtype=torch.int32, device=device)
-    fold = step.fold
-    keys = graphs.StaticInput(
-        (nsteps, 2) if fold is None else (nsteps, len(fold), 2), torch.int32,
-        device)
-    table = keys.buf
+    if isinstance(step, MaskedStep):
+        m_slots = torch.zeros((2, batch, MLP_DIMS[1]), dtype=torch.float32,
+                              device=device)
+        slots, keys = (x_slots, y_slots, m_slots), None
+
+        def inputs(at, slot):
+            return m_slots.index_select(0, slot)[0]
+    else:
+        fold = step.fold
+        keys = graphs.StaticInput(
+            (nsteps, 2) if fold is None else (nsteps, len(fold), 2),
+            torch.int32, device)
+        table = keys.buf
+        slots = (x_slots, y_slots)
+
+        def inputs(at, slot):
+            return table.index_select(0, at)[0]
 
     def body(model, cursor, losses):
         at = cursor.view(1)
         slot = torch.remainder(at, 2)
-        loss = step.run(model, table.index_select(0, at)[0],
+        loss = step.run(model, inputs(at, slot),
                         x_slots.index_select(0, slot)[0],
                         y_slots.index_select(0, slot)[0])
         losses.index_copy_(0, at, loss.reshape(1))
@@ -213,12 +293,13 @@ def _captured_steps(step: KeyedStep, model: MLP, nsteps: int, batch: int,
     loop = graphs.StepLoop(body, model, nsteps, device,
                            capture=device.type == "cuda" and not eager,
                            what="the streaming step")
-    return loop, (x_slots, y_slots), keys
+    return loop, slots, keys
 
 
 def fit(state: TrainState, train_loader, x_test: np.ndarray,
         y_test: np.ndarray, *, epochs: int, batch_size: int,
         lr: float | None = None, train_step: Callable | None = None,
+        eval_perm: Callable | None = None,
         log: Callable[[str], None] = print):
     """Run the reference training loop for `epochs` epochs on the model's
     device. Exactly one of `lr` (builds the plain autograd step) or
@@ -226,17 +307,21 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
     Returns (state with the advanced key, per-epoch arrays of the per-step
     losses). In a world of processes the train step's loss is the world's
     mean, so every rank computes the same line; the CLI passes a `log`
-    that prints on rank 0 only. A `KeyedStep` on one device runs captured
-    on a card (see the module docstring)."""
+    that prints on rank 0 only. A `KeyedStep` or `MaskedStep` on one
+    device runs captured on a card (see the module docstring).
+    `eval_perm(epoch)`, when given, is the order of the epoch's val-loss
+    segmentation (`--eval_shuffle`)."""
     if (train_step is None) == (lr is None):
         raise ValueError("pass exactly one of lr= or train_step=")
     step = train_step if train_step is not None else make_train_step(lr)
     model, key = state.model, state.key
     device = next(model.parameters()).device
     keyed = isinstance(step, KeyedStep)
-    nsteps = len(train_loader) if keyed else None
-    captured = keyed and graphs.on_one_device(getattr(step, "ddp_mesh", None),
-                                              device)
+    masked = isinstance(step, MaskedStep)
+    nsteps = len(train_loader) if keyed or masked else None
+    # a MaskedStep is serial, so always on one device
+    captured = masked or (keyed and graphs.on_one_device(
+        getattr(step, "ddp_mesh", None), device))
     if captured:
         loop, slots, keys = _captured_steps(step, model, nsteps,
                                             train_loader.batch_size, device)
@@ -250,15 +335,17 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
         t0 = time.perf_counter()
         io_seconds = 0.0
         train_loader.sampler.set_epoch(epoch)
-        if captured:
+        batches = iter(train_loader)
+        if masked:   # each batch with its mask, drawn in step order
+            batches = step.with_masks(batches)
+        if keyed and captured:
             epoch_key, words = step.key_words(key, nsteps)
             keys.load(words)
+        elif keyed:   # the epoch's step keys on the device, one copy
+            epoch_key, table = step.key_table(key, nsteps, device)
+        if captured:
             loop.start_epoch()
-            batches = device_prefetch(iter(train_loader), slots, pinned)
-        else:
-            if keyed:   # the epoch's step keys on the device, one copy
-                epoch_key, table = step.key_table(key, nsteps, device)
-            batches = iter(train_loader)
+            batches = device_prefetch(batches, slots, pinned)
         losses, taken = [], 0
         while True:
             t_io = time.perf_counter()
@@ -268,7 +355,7 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
             io_seconds += time.perf_counter() - t_io
             if batch is None:
                 break
-            if keyed and taken == nsteps:
+            if nsteps is not None and taken == nsteps:
                 raise RuntimeError(f"the loader gave more than the {nsteps} "
                                    f"batches its len() said")
             if captured:
@@ -279,15 +366,16 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
                 key, loss = step(model, key, x, y)
                 losses.append(loss)
             taken += 1
+        if nsteps is not None and taken != nsteps:
+            raise RuntimeError(f"the loader gave {taken} batches where its "
+                               f"len() said {nsteps}")
         if keyed:
-            if taken != nsteps:
-                raise RuntimeError(f"the loader gave {taken} batches where "
-                                   f"its len() said {nsteps}")
             key = epoch_key
         # the epoch's one fetch
         losses = (loop.losses() if captured else torch.stack(losses)) \
             .cpu().numpy()
-        val = evaluate(model, x_test_dev, y_test_dev, batch_size)
+        val = evaluate(model, x_test_dev, y_test_dev, batch_size,
+                       perm=eval_perm(epoch) if eval_perm else None)
         dt = time.perf_counter() - t0
         log(epoch_summary(epoch, losses, batch_size, val, dt,
                           io_seconds=io_seconds))

@@ -555,7 +555,7 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
                dtype: str = "float32", mesh=None, ring: str = "auto",
                comm: str = "pmean", ckpt_every_steps: int = 0,
                step_hook=None, start_offset: int = 0, watchdog=None,
-               dispatch_profiler=None,
+               dispatch_profiler=None, eval_perm: Callable | None = None,
                log: Callable[[str], None] = print):
     """The `fit` loop with the dataset resident on the model's device.
     Prints the reference epoch line per epoch; writes the trained weights
@@ -577,6 +577,9 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
     The per-step kernels run one captured step a step on a card, one
     capture a fit (`CachedSteps`; `fused=True`: one a run of
     make_run_fn).
+
+    `eval_perm(epoch)`, when given, is the order of the epoch's val-loss
+    segmentation (`--eval_shuffle`), on every path.
 
     The JAX trainer's step-granular checkpoints, live watchdog and
     dispatch profiler are not ported yet and are refused by name."""
@@ -630,7 +633,8 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
                                                         y_test_dev)
         per_sample, correct = per_sample.cpu().numpy(), correct.cpu().numpy()
         for epoch in range(epochs):
-            val = val_summary(per_sample[epoch], correct[epoch], batch_size)
+            val = val_summary(per_sample[epoch], correct[epoch], batch_size,
+                              perm=eval_perm(epoch) if eval_perm else None)
             log(epoch_summary(epoch, losses[epoch], batch_size, val,
                               per_epoch_dt))
             history.append(losses[epoch])
@@ -657,7 +661,8 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
             params, key, losses = epoch_fn(params, key, x_all, y_all, idx)
         losses = losses.cpu().numpy()      # the epoch's one fetch
         _load_params(model, params)
-        val = evaluate(model, x_test_dev, y_test_dev, batch_size)
+        val = evaluate(model, x_test_dev, y_test_dev, batch_size,
+                       perm=eval_perm(epoch) if eval_perm else None)
         log(epoch_summary(epoch, losses, batch_size, val,
                           time.perf_counter() - t0))
         history.append(losses)

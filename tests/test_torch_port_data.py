@@ -76,8 +76,16 @@ def test_sampler_without_shuffle_and_torch_permutation():
     b = JaxSampler(10, num_replicas=3, rank=1, shuffle=False)
     assert np.array_equal(a.indices(), b.indices())
     assert list(a) == list(b)
-    with pytest.raises(ValueError, match="not ported"):
-        ShardedSampler(10, permutation="torch")
+    # the torch permutation source: DistributedSampler's own randperm
+    for world, rank in ((1, 0), (3, 2)):
+        a = ShardedSampler(10, num_replicas=world, rank=rank,
+                           permutation="torch")
+        b = JaxSampler(10, num_replicas=world, rank=rank, permutation="torch")
+        a.set_epoch(3)
+        b.set_epoch(3)
+        assert np.array_equal(a.indices(), b.indices())
+    with pytest.raises(ValueError, match="permutation must be"):
+        ShardedSampler(10, permutation="mt")
     with pytest.raises(ValueError, match="out of range"):
         ShardedSampler(10, num_replicas=2, rank=2)
 

@@ -1605,6 +1605,38 @@ def test_graph_streaming_fit_is_the_eager_loop_bitwise(cuda, kind, dtype):
         assert torch.equal(a, b)
 
 
+def test_graph_torch_dropout_fit_is_the_eager_loop_bitwise(cuda):
+    # --dropout_rng torch: each batch's host-drawn mask rides in the mask
+    # slots beside its rows, so every replay trains on its own step's mask
+    from pytorch_ddp_mnist_tpu_torch.data.loader import device_prefetch
+    from pytorch_ddp_mnist_tpu_torch.train import loop
+    split = synthetic_mnist(GRAPH_ROWS, seed=6)
+    test = synthetic_mnist(256, seed=7)
+    model, eager_model = (MLP.from_seed(0).to(cuda) for _ in range(2))
+    got, got_n, got_caps = _counted(lambda: loop.fit(
+        loop.TrainState(model, None), _streaming_loader(split),
+        normalize_images(test.images), test.labels.astype(np.int32),
+        epochs=GRAPH_EPOCHS, batch_size=128,
+        train_step=loop.make_torch_dropout_train_step(0.01, 3),
+        log=lambda line: None))
+    step = loop.make_torch_dropout_train_step(0.01, 3)
+    loader = _streaming_loader(split)
+    steps, slots, keys = loop._captured_steps(step, eager_model, len(loader),
+                                              128, cuda, eager=True)
+    assert keys is None
+    want = []
+    for epoch in range(GRAPH_EPOCHS):
+        loader.sampler.set_epoch(epoch)
+        steps.start_epoch()
+        for _ in device_prefetch(step.with_masks(iter(loader)), slots):
+            steps.step()
+        want.append(steps.losses().cpu().numpy())
+    assert (got_caps, got_n) == (1, {})
+    np.testing.assert_array_equal(np.stack(got[1]), np.stack(want))
+    for a, b in zip(model.parameters(), eager_model.parameters()):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("kind", ["cached", "streaming"])
 @pytest.mark.parametrize("backend", ["gloo", "nccl"])
 def test_graph_one_rank_world_keeps_the_eager_loop_bitwise(cuda, backend,

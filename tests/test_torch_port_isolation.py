@@ -70,3 +70,42 @@ print(len(names), bad)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
     assert int(count) >= 18 and bad == "[]", out.stdout
+
+
+# the data plane and the reference's streams: each module on its own, in a
+# fresh interpreter, loads neither jax nor the JAX package, and the native
+# core is built from the port's own copy of its source
+DATA_PLANE_MODULES = (
+    "pytorch_ddp_mnist_tpu_torch.data.netcdf",
+    "pytorch_ddp_mnist_tpu_torch.data.native",
+    "pytorch_ddp_mnist_tpu_torch.data.loader",
+    "pytorch_ddp_mnist_tpu_torch.data.convert",
+    "pytorch_ddp_mnist_tpu_torch.data.download",
+    "pytorch_ddp_mnist_tpu_torch.parallel.torch_rng",
+    "pytorch_ddp_mnist_tpu_torch.parallel.sampler",
+    "pytorch_ddp_mnist_tpu_torch.bench",
+)
+
+
+def test_the_data_plane_and_stream_modules_stand_alone(tmp_path):
+    code = f"""
+import importlib, sys
+sys.path.insert(0, {str(REPO)!r})
+for name in {DATA_PLANE_MODULES!r}:
+    importlib.import_module(name)
+from pytorch_ddp_mnist_tpu_torch.ops import _build
+print(_build.CSRC / _build.HOST_SOURCES["reader"])
+print(sorted(m for m in sys.modules
+             if any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r})))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    source, bad = out.stdout.strip().splitlines()
+    assert bad == "[]"
+    assert Path(source) == PORT / "csrc" / "reader.cc"
+    assert (PORT / "csrc" / "reader.cc").exists()
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    for name in DATA_PLANE_MODULES:
+        assert name.replace(".", "/") + ".py" in names

@@ -187,10 +187,10 @@ def test_cli_without_a_card_exits_naming_it(monkeypatch, capsys):
 @pytest.mark.parametrize("argv,name", [
     (["--outage_retries", "1"], "--outage_retries"),
     (["--ckpt_every_steps", "5"], "--ckpt_every_steps"),
-    (["--sampler_rng", "torch"], "--sampler_rng"),
+    (["--num_workers", "2"], "--num_workers"),
     (["--elastic"], "--elastic"),
-    (["--dropout_rng=torch"], "--dropout_rng"),
-    (["--download"], "--download"),
+    (["--ddp_comm=int8"], "--ddp_comm"),
+    (["--start_epoch", "1"], "--start_epoch"),
     (["--telemetry", "/tmp/t"], "--telemetry"),
     (["--resume=x.pt"], "--resume"),
 ])
@@ -208,8 +208,12 @@ def test_config_defaults_and_checkpoint_format():
                               "checkpoint": "model.pt", "dtype": "float32",
                               "kernel": "auto", "cached": False,
                               "fused": False, "impl": "threefry2x32",
-                              "parallel": False, "wireup_method": "auto"}
-    assert cfg["data"] == {"path": "data/", "limit": -1}
+                              "parallel": False, "wireup_method": "auto",
+                              "sampler_rng": "pcg64", "dropout_rng": "jax",
+                              "eval_shuffle": False}
+    assert cfg["data"] == {"path": "data/", "limit": -1, "netcdf": False,
+                           "download": False, "hdf5": False,
+                           "label_map": None}
     with pytest.raises(SystemExit, match="msgpack"):
         configure(["--checkpoint", "model.msgpack"])
     with pytest.raises(SystemExit):
