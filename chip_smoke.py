@@ -207,7 +207,23 @@ Phases (any failure exits non-zero; no phase is skipped):
                   against its CPU run (no hand-written kernel launched);
                   whether this machine's torch CPU randperm and bernoulli_
                   draw the port's copy's streams; the `bench --mode stream`
-                  and `bench --mode accuracy` lines.
+                  and `bench --mode accuracy` lines;
+               o. the serving path (phase_serve), from n's first checkpoint:
+                  an InferenceEngine of max_batch 64 in f32 and uint8 rows
+                  captures its 7 bucket graphs at construction and none
+                  after; its logits within rtol 1e-5 / atol 1e-6 of the CPU
+                  engine's and its preds equal on every bucket and a
+                  chunked batch; each bucket's staged flush, dispatched
+                  under set_sync_debug_mode("error"), bitwise the direct
+                  forward; the fast batcher (its dispatches under the same
+                  mode) and the legacy one bitwise the direct preds; 2000
+                  requests at 4000 rps answered with the direct preds; no
+                  hand-written kernel launched; one flush's CUDA-event time
+                  at every bucket; `serve --selftest 2000`; one TCP request
+                  through `serve --port 0`, drained on SIGTERM; `bench
+                  --mode eval`, `bench --mode serve` (500 rps, 1000
+                  requests) and one offered rate past saturation, each on
+                  a [serve] line.
   5. timing  — CUDA-event times of each kernel and form and its plain
                version at the main path's shapes, torch.profiler's device
                time of K1 (both designs) and the cached epoch (f32 on K2-ws,
@@ -5242,6 +5258,298 @@ def phase_data_benches(card: str) -> None:
              f"off the reference configuration's (bounds 0.01, 0.05)")
 
 
+# the serve phase (phase_serve): the engine's ladder at max_batch 64 (7
+# buckets), the card's logits against the CPU engine's at the port's forward
+# tolerance (f32 summation order only), the flush times' buckets, the
+# in-process load and the offered rate of the saturation sweep
+SERVE_MAX_BATCH = 64
+SERVE_BUCKETS = 7
+SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-6
+SERVE_LOAD = (2000, 4000.0)           # requests, offered rps
+# past what one event loop answers on the card's host (18,940 of 20,000
+# offered were answered in the first card run): the saturation sweep
+SERVE_SATURATE = (6000, 60000.0)      # requests, offered rps
+SERVE_LIMIT_S = 300                   # each serve subprocess's own limit
+
+
+@contextlib.contextmanager
+def _graph_captures():
+    """Count every CUDA-graph capture begun in this process while open."""
+    n = [0]
+    orig = torch.cuda.CUDAGraph.capture_begin
+
+    def counting(self, *a, **kw):
+        n[0] += 1
+        return orig(self, *a, **kw)
+
+    torch.cuda.CUDAGraph.capture_begin = counting
+    try:
+        yield n
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = orig
+
+
+def _serve_groups(service, groups) -> list:
+    """Each group of rows submitted together and flushed as ONE batch;
+    returns the served preds per group."""
+    import asyncio
+
+    async def scenario():
+        out = []
+        for rows in groups:
+            subs = [asyncio.ensure_future(service.handle(r)) for r in rows]
+            await asyncio.sleep(0)
+            service.batcher.flush()
+            out.append(np.asarray(await asyncio.gather(*subs), np.int32))
+        await service.shutdown()
+        return out
+
+    return asyncio.run(scenario())
+
+
+def _flush_ms(engine, bucket: int, replay_only: bool, iters: int = 200,
+              warmup: int = 20) -> float:
+    """CUDA-event time on the engine's stream of one flush of `bucket` (H2D
+    from a pinned slab, replay, D2H into its pinned buffers), or of the
+    bucket graph's replay alone."""
+    slab = engine._new_slab(bucket)
+    stream = engine._stream
+    rung = engine._rungs[bucket]
+
+    def once():
+        if replay_only:
+            with torch.cuda.stream(stream):
+                rung.graph.replay()
+        else:
+            engine._launch(slab, bucket)
+    for _ in range(warmup):
+        once()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    for _ in range(iters):
+        once()
+    end.record(stream)
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _serve_cli(argv: list, what: str) -> tuple:
+    """`python -m pytorch_ddp_mnist_tpu_torch <argv>` on the card: (its last
+    stdout line as JSON, stderr, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "pytorch_ddp_mnist_tpu_torch",
+                        *argv], cwd=REPO, env=_rank_env(),
+                       capture_output=True, text=True, timeout=SERVE_LIMIT_S)
+    if r.returncode != 0:
+        fail(f"{what} exited {r.returncode}: {r.stderr[-3000:]}")
+    return (json.loads(r.stdout.strip().splitlines()[-1]), r.stderr,
+            time.perf_counter() - t0)
+
+
+def _serve_tcp_request(ckpt: str, row: np.ndarray) -> tuple:
+    """`serve --port 0 --checkpoint ckpt` in a session of its own: one
+    pixels request and one metrics request over TCP, then SIGTERM and the
+    drain. Returns (pred, the metrics answer, the final snapshot)."""
+    import signal
+    import socket
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "pytorch_ddp_mnist_tpu_torch", "serve", "--port",
+                             "0", "--checkpoint", ckpt], cwd=REPO,
+                            env=_rank_env(), text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, start_new_session=True)
+    try:
+        deadline = time.monotonic() + SERVE_LIMIT_S
+        err = []
+        while time.monotonic() < deadline:
+            line = proc.stderr.readline()
+            if not line:
+                fail(f"serve --port 0 exited {proc.wait()} before serving: "
+                     f"{''.join(err)[-3000:]}")
+            err.append(line)
+            if line.startswith("serving on "):
+                host, port = line.split()[-1].rsplit(":", 1)
+                break
+        else:
+            fail("serve --port 0 did not start serving in time")
+        # the file object holds the socket open: close both before the
+        # drain, which waits for every connection to end
+        with socket.create_connection((host, int(port)), timeout=60) as sock, \
+                sock.makefile("rw") as f:
+            f.write(json.dumps({"pixels": row.tolist()}) + "\n")
+            f.flush()
+            pixels = json.loads(f.readline())
+            f.write(json.dumps({"op": "metrics"}) + "\n")
+            f.flush()
+            metrics = json.loads(f.readline())
+        os.killpg(proc.pid, signal.SIGTERM)
+        out, rest = proc.communicate(timeout=SERVE_LIMIT_S)
+    finally:
+        if proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if proc.returncode != 0 or not pixels.get("ok"):
+        fail(f"serve over TCP: rc {proc.returncode}, answer {pixels}: "
+             f"{''.join(err)[-2000:]}{rest[-2000:]}")
+    return pixels["pred"], metrics, json.loads(out.strip().splitlines()[-1])
+
+
+def phase_serve(device, tmp: str, card: str) -> dict:
+    """The serving path on the card (serve/, cli/serve.py, bench --mode eval
+    and serve), from the checkpoint phase_main_streaming saved: for f32 and
+    uint8 rows, an engine of max_batch 64 captures its 7 bucket graphs and
+    no more (none during the checks and an in-process load); its logits
+    within SERVE_RTOL / SERVE_ATOL of the CPU engine's on every bucket and
+    a chunked batch, its preds equal; each bucket's staged flush, launched
+    under torch.cuda.set_sync_debug_mode("error"), bitwise the direct
+    forward; the fast and the legacy batcher bitwise the direct preds; no
+    hand-written kernel launched. Then one captured flush's time at every
+    bucket; `serve --selftest 2000`; one TCP request through `serve --port
+    0`; `bench --mode eval` and `bench --mode serve` at the JAX defaults and
+    one offered rate past saturation, each printed on a [serve] line."""
+    from pytorch_ddp_mnist_tpu_torch.serve import InferenceEngine, ServeService
+    from pytorch_ddp_mnist_tpu_torch.serve.loadgen import (request_rows,
+                                                           run_loadgen)
+    from pytorch_ddp_mnist_tpu_torch.train.graphs import _set_sync_debug_mode
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "model.pt")
+    if not os.path.exists(ckpt):
+        fail(f"phase_serve: no checkpoint at {ckpt}")
+    report = {}
+    _reset_counts()
+    for dtype in ("float32", "uint8"):
+        with _graph_captures() as built:
+            eng = InferenceEngine.from_checkpoint(
+                ckpt, max_batch=SERVE_MAX_BATCH, device=device,
+                input_dtype=dtype)
+        if not (len(eng.buckets) == SERVE_BUCKETS == eng.capture_count
+                == built[0]):
+            fail(f"serve engine ({dtype}): buckets {eng.buckets}, "
+                 f"capture_count {eng.capture_count}, captures {built[0]}")
+        cpu = InferenceEngine.from_checkpoint(
+            ckpt, max_batch=SERVE_MAX_BATCH, device="cpu", input_dtype=dtype)
+        worst = 0.0
+        with _graph_captures() as later:
+            for n in eng.buckets + (3, 150):
+                rows = request_rows(n, dtype, seed=100 + n)
+                got, want = eng.forward(rows), cpu.forward(rows)
+                if not (np.allclose(got, want, rtol=SERVE_RTOL,
+                                    atol=SERVE_ATOL)
+                        and np.array_equal(eng.predict(rows),
+                                           cpu.predict(rows))):
+                    fail(f"serve engine ({dtype}) at {n} rows: the card's "
+                         f"logits are off the CPU engine's by "
+                         f"{np.abs(got - want).max():.3e}, or the preds "
+                         f"differ")
+                worst = max(worst, float(np.abs(got - want).max()))
+            for b in eng.buckets:
+                n = max(1, b - 1)               # a pad row where b > 1
+                rows = request_rows(n, dtype, seed=200 + b)
+                eng.staging()[:n] = rows
+                mode = torch.cuda.get_sync_debug_mode()
+                _set_sync_debug_mode("error")
+                try:
+                    handle = eng.dispatch_staged(n)
+                finally:
+                    _set_sync_debug_mode(mode)
+                logits, preds = eng.fetch_staged(handle)
+                if not (np.array_equal(logits, eng.forward(rows))
+                        and np.array_equal(preds, eng.predict(rows))):
+                    fail(f"serve engine ({dtype}): the staged flush of {n} "
+                         f"rows (bucket {b}) is not the direct forward "
+                         f"bitwise")
+            groups = [request_rows(n, dtype, seed=300 + n)
+                      for n in (1, 2, 3, 5, 8, 13, 32, 64)]
+            dispatch = eng.dispatch_staged
+
+            def no_sync_dispatch(n, bctx=None):
+                # the loop's dispatch may not wait for the card
+                mode = torch.cuda.get_sync_debug_mode()
+                _set_sync_debug_mode("error")
+                try:
+                    return dispatch(n, bctx)
+                finally:
+                    _set_sync_debug_mode(mode)
+            for fast in (True, False):
+                svc = ServeService(eng, max_delay_ms=1000.0, max_depth=256,
+                                   fast=fast)
+                eng.dispatch_staged = no_sync_dispatch
+                try:
+                    served_groups = _serve_groups(svc, groups)
+                finally:
+                    del eng.dispatch_staged
+                for rows, served in zip(groups, served_groups):
+                    if not np.array_equal(served, eng.predict(rows)):
+                        fail(f"serve ({dtype}, fast={fast}): {len(rows)} "
+                             f"served preds are not the direct preds")
+            n_load, rps = SERVE_LOAD
+            svc = ServeService(eng, max_delay_ms=2.0, max_depth=256)
+            load = run_loadgen(svc, offered_rps=rps, n_requests=n_load,
+                               seed=7)
+            rows = request_rows(n_load, dtype, seed=8)
+            if load["completed"] != n_load or not np.array_equal(
+                    np.asarray(load["predictions"], np.int32),
+                    eng.predict(rows)):
+                fail(f"serve ({dtype}): the load answered "
+                     f"{load['completed']} of {n_load}, or not the direct "
+                     f"preds")
+        if later[0] or eng.capture_count != SERVE_BUCKETS:
+            fail(f"serve ({dtype}): {later[0]} captures after warm-up "
+                 f"(capture_count {eng.capture_count})")
+        print(f"[serve] engine {dtype}, max_batch {SERVE_MAX_BATCH}: "
+              f"buckets {list(eng.buckets)}, {eng.capture_count} captures "
+              f"at construction and none after ({n_load} requests at "
+              f"{rps:.0f} rps, {load['batches']} flushes, p99 "
+              f"{load['latency_ms']['p99']} ms); card vs CPU engine worst "
+              f"|logit diff| {worst:.3e} (rtol {SERVE_RTOL}, atol "
+              f"{SERVE_ATOL}), preds equal; staged flush bitwise direct at "
+              f"every bucket with no sync in its dispatch; fast (no sync in "
+              f"the loop's dispatches) and legacy batcher bitwise direct "
+              f"[{card}]")
+        report[f"worst_{dtype}"] = worst
+        if dtype == "float32":
+            report["flush_ms"] = {
+                b: (_flush_ms(eng, b, False), _flush_ms(eng, b, True))
+                for b in eng.buckets}
+            row = request_rows(1, dtype, seed=9)[0]
+            tcp_want = int(eng.predict(row[None])[0])
+        eng.close()
+    expect_launches(_counts(), {}, "the serve path")
+    for b, (flush, replay) in report["flush_ms"].items():
+        print(f"[serve] one captured flush at bucket {b}: {flush * 1e3:.2f} "
+              f"us on the engine's stream (H2D + replay + D2H), the replay "
+              f"alone {replay * 1e3:.2f} us (CUDA events, 200 calls) [{card}]")
+    st, err, dt = _serve_cli(["serve", "--selftest", "2000", "--checkpoint",
+                              ckpt], "serve --selftest 2000")
+    if st["completed"] + st["rejected"] != 2000 or "captures=7" not in err:
+        fail(f"serve --selftest 2000: {st}; {err[-1000:]}")
+    print(f"[serve] serve --selftest 2000 ({dt:.1f}s): {json.dumps(st)} "
+          f"[{card}]")
+    pred, metrics, final = _serve_tcp_request(ckpt, row)
+    if pred != tcp_want or metrics.get("completed") != 1 \
+            or final.get("completed") != 1:
+        fail(f"serve over TCP: pred {pred} (direct {tcp_want}), metrics "
+             f"{metrics}, final {final}")
+    print(f"[serve] serve --port 0: one TCP pixels request answered pred "
+          f"{pred} (the direct engine's), metrics op answered, drained on "
+          f"SIGTERM [{card}]")
+    for argv in (["--mode", "eval"], ["--mode", "serve"],
+                 ["--mode", "serve", "--offered_rps", str(SERVE_SATURATE[1]),
+                  "--requests", str(SERVE_SATURATE[0])]):
+        line, _, dt = _serve_cli(["bench", *argv], f"bench {' '.join(argv)}")
+        if not (line["value"] and line["value"] > 0):
+            fail(f"bench {' '.join(argv)}: {line}")
+        if argv[1] == "serve" and (line["compile_count"] != SERVE_BUCKETS
+                                   or line["availability"] != 1.0):
+            fail(f"bench {' '.join(argv)}: {line}")
+        report[" ".join(argv)] = line
+        print(f"[serve] bench {' '.join(argv)} ({dt:.1f}s): "
+              f"{json.dumps(line)} [{card}]")
+    print(f"[serve] phase_serve: {time.perf_counter() - t0:.1f}s")
+    return report
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -5284,6 +5592,8 @@ def main() -> int:
             device, tmp)
         phase_data_benches(card)
         elapsed("the reference configurations")
+        phase_serve(device, tmp, card)
+        elapsed("serve phase")
     data = capture_data(device)
     capture = phase_capture(device, data, card)
     elapsed("capture phase")

@@ -5,15 +5,17 @@
                rank of a launcher's world of processes, e.g. `torchrun
                --nproc_per_node 4 -m pytorch_ddp_mnist_tpu_torch train
                --parallel`)
-    bench      the single-card benchmark: train, stream, accuracy (bench.py)
+    bench      the single-card benchmark: train, stream, accuracy, eval,
+               serve (bench.py)
     convert    IDX (or --synthetic N:M) -> mnist_{train,test}_images.nc
                (data/convert.py)
     download   the MNIST IDX files from the mirrors, checksum-verified
                (data/download.py)
+    serve      the micro-batching inference server on the card: TCP
+               JSON lines or --selftest N (cli/serve.py)
 
-The JAX package's other commands (serve, trace, ledger, lint,
-audit-program) are not ported yet; naming one exits with a pointer to
-ROADMAP.md.
+The JAX package's other commands (trace, ledger, lint, audit-program) are
+not ported yet; naming one exits with a pointer to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -24,15 +26,18 @@ _COMMANDS = {
     "train": ("pytorch_ddp_mnist_tpu_torch.cli.train",
               "the serial and data-parallel trainer"),
     "bench": ("pytorch_ddp_mnist_tpu_torch.bench",
-              "the single-card benchmark: train, stream, accuracy"),
+              "the single-card benchmark: train, stream, accuracy, eval, "
+              "serve"),
     "convert": ("pytorch_ddp_mnist_tpu_torch.data.convert",
                 "IDX or synthetic MNIST -> CDF-5 NetCDF files"),
     "download": ("pytorch_ddp_mnist_tpu_torch.data.download",
                  "fetch the MNIST IDX files, checksum-verified"),
+    "serve": ("pytorch_ddp_mnist_tpu_torch.cli.serve",
+              "the micro-batching inference server"),
 }
 # the JAX package's commands still to port -> ROADMAP.md queue 1 item
 _NOT_YET_PORTED = {
-    "serve": 9, "trace": 12, "ledger": 12, "lint": 14, "audit-program": 14,
+    "trace": 12, "ledger": 12, "lint": 14, "audit-program": 14,
 }
 
 

@@ -36,10 +36,30 @@ tflops or mfu field (it measures the host's disk loader, not the card).
 configuration (xla, float32, threefry2x32) for `--epochs` epochs (default
 10, ACCURACY_EPOCHS) each on the bench workload and reports the first's
 final test accuracy with vs_baseline the ratio to the second's
-(`measure_train_accuracy`). The JAX bench's other modes exit by name. The
-JAX bench's registry, statics and ledger stamps are telemetry (ROADMAP.md
-queue 1, item 12) and are left out. A run needs a card: no number is taken
-on the CPU.
+(`measure_train_accuracy`).
+
+`--mode eval` (the JAX bench's `make_eval_program` / `_eval_bench`):
+`--epochs` (default 400) reference eval passes of the 10k synthetic test
+set (`synthetic_mnist(10000, seed=1)`, uint8 on the card, normalised in
+each pass) with `init_params(0)`, each pass's fc1 bias carrying `+ 1e-30 *
+mean loss` of the pass before so no pass can be folded away; the window's
+passes are ONE captured CUDA graph, best of 5 windows;
+`mnist_eval_images_per_sec_per_chip` with forward-only perf fields (2 FLOP
+a multiply-add).
+
+`--mode serve` (the JAX bench's `_serve_bench`): the open-loop load
+generator (serve/loadgen.py) drives `--requests` single-row requests at
+`--offered_rps` (`--shape`) through admission, the micro-batcher and the
+engine's captured bucket graphs (`--max_batch`, `--max_delay_ms`,
+`--queue_depth`, `--no_fast`); the line reports the achieved rate, p50 /
+p95 / p99, batch occupancy, rejects, the front-door overhead, the stage
+attribution and `compile_count` (the engine's capture count);
+`retried_requests` and `reloads` are 0 (no fleet; `--replicas` > 1 exits
+by name, ROADMAP.md queue 1, item 9b).
+
+The JAX bench's other modes exit by name. The JAX bench's registry,
+statics and ledger stamps are telemetry (ROADMAP.md queue 1, item 12) and
+are left out. A run needs a card: no number is taken on the CPU.
 """
 
 from __future__ import annotations
@@ -60,6 +80,10 @@ FUSED_EPOCHS = 400
 ACCURACY_EPOCHS = 10
 NOMINAL_BASELINE_IMGS_PER_SEC = 1_000_000.0
 NOMINAL_BASELINE_STREAM_IMGS_PER_SEC = 1_000_000.0
+# the JAX bench's nominals of its eval and serve lines (an inference-pass
+# rate, an open-loop request rate)
+NOMINAL_BASELINE_EVAL_IMGS_PER_SEC = 1_000_000.0
+NOMINAL_BASELINE_SERVE_RPS = 1_000.0
 # model cost per image: 118,016 forward multiply-adds, backward ~2x forward,
 # 2 FLOP per multiply-add -> 6 x 118,016 FLOP (the JAX bench's perf_fields)
 MACS_FWD_PER_IMG = 784 * 128 + 128 * 128 + 128 * 10
@@ -71,16 +95,18 @@ WINDOWS = 5
 
 # the JAX bench's other modes -> where ROADMAP.md queues them
 NOT_YET_PORTED_MODES = {
-    "eval": "queue 1, item 9 (eval bench + serving)",
-    "serve": "queue 1, item 9 (eval bench + serving)",
     "ddp": "queue 1, item 11 (gradient communication)",
     "input": "queue 1, item 10 (input pipeline)",
 }
 
 
-def perf_fields(per_chip_imgs_per_sec: float) -> dict:
-    """{tflops, mfu_pct_vs_bf16_peak} for a measured per-card image rate."""
-    tf = per_chip_imgs_per_sec * 6 * MACS_FWD_PER_IMG / 1e12
+def perf_fields(per_chip_imgs_per_sec: float, *,
+                fwd_only: bool = False) -> dict:
+    """{tflops, mfu_pct_vs_bf16_peak} for a measured per-card image rate;
+    `fwd_only` for inference rates (eval mode): 2 FLOP a multiply-add, no
+    backward."""
+    tf = (per_chip_imgs_per_sec * (2 if fwd_only else 6) * MACS_FWD_PER_IMG
+          / 1e12)
     return {"tflops": round(tf, 2),
             "mfu_pct_vs_bf16_peak": round(100 * tf * 1e12 / PEAK_FLOPS_BF16, 2)}
 
@@ -259,12 +285,152 @@ def run_accuracy_bench(device: torch.device, kernel: str, dtype: str,
             "impl": impl, "epochs": epochs}
 
 
+def make_eval_program(reps: int):
+    """`reps` reference eval passes of the full test set, dropout off (the
+    JAX bench's `make_eval_program`): prog(params, x, y) -> (mean loss,
+    accuracy) per pass, each (reps,) float32 on x's device.
+
+    `x` may be raw uint8 pixels: each pass then normalises it on the
+    device (data/mnist.py `device_normalize`), as the reference's loader
+    does at eval time. Each pass's fc1 bias carries `+ 1e-30 * m`, m the
+    previous pass's mean loss: lost in f32 rounding at the bias's scale,
+    but every pass depends on the one before, as in the JAX program, where
+    it keeps XLA from hoisting the loop-invariant forward out of the
+    scan."""
+    from .data.mnist import device_normalize
+    from .models.mlp import mlp_apply
+
+    @torch.no_grad()
+    def prog(params, x, y):
+        labels = y.long()[:, None]
+        p = dict(params)
+        losses, accs = [], []
+        for _ in range(reps):
+            xf = device_normalize(x) if x.dtype == torch.uint8 else x
+            logits = mlp_apply(p, xf, train=False)
+            logz = torch.log_softmax(logits.float(), dim=-1)
+            m = (-torch.gather(logz, -1, labels)[:, 0]).mean()
+            correct = (torch.argmax(logits, dim=-1) == labels[:, 0]).float()
+            p["fc1"] = dict(p["fc1"], b=p["fc1"]["b"] + 1e-30 * m)
+            losses.append(m)
+            accs.append(correct.mean())
+        return torch.stack(losses), torch.stack(accs)
+
+    return prog
+
+
+def run_eval_bench(device: torch.device, *, epochs: int,
+                   windows: int = WINDOWS, n_test: int = 10000) -> dict:
+    """`--mode eval`: `epochs` eval passes of make_eval_program per window
+    over the uint8-resident synthetic test set, weights `init_params(0)`;
+    on a card the window is one CUDA graph (captured once, after one eager
+    pass warms cuBLAS on a side stream), replayed per window; best of
+    `windows`. The passes' losses must be finite."""
+    from .data.mnist import synthetic_mnist
+    from .models.mlp import init_params
+    from .train.scan import resident_images
+
+    split = synthetic_mnist(n_test, seed=1)
+    x = torch.from_numpy(resident_images(split.images)).to(device)
+    y = torch.from_numpy(split.labels.astype(np.int32)).to(device)
+    params = {n: {k: v.to(device) for k, v in layer.items()}
+              for n, layer in init_params(0).items()}
+    prog = make_eval_program(epochs)
+    if device.type == "cuda":
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            make_eval_program(1)(params, x, y)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = prog(params, x, y)
+
+        def window():
+            graph.replay()
+            torch.cuda.synchronize(device)
+            return outs
+    else:
+        def window():
+            return prog(params, x, y)
+    losses, accs = window()                    # warm
+    if not np.isfinite(losses.cpu().numpy()).all():
+        raise RuntimeError("eval bench passes gave non-finite losses")
+    best = float("inf")
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        window()
+        best = min(best, time.perf_counter() - t0)
+    per_chip = n_test * epochs / best
+    return {
+        "metric": "mnist_eval_images_per_sec_per_chip",
+        "value": round(per_chip, 1),
+        "unit": "images/sec/chip",
+        "vs_baseline": round(per_chip / NOMINAL_BASELINE_EVAL_IMGS_PER_SEC,
+                             4),
+        **perf_fields(per_chip, fwd_only=True),
+        "epochs": epochs,
+        "accuracy": round(float(accs[-1]), 4),
+    }
+
+
+def run_serve_bench(device: torch.device, *, offered_rps: float = 500.0,
+                    requests: int = 1000, max_batch: int = 64,
+                    max_delay_ms: float = 2.0, queue_depth: int = 256,
+                    fast: bool = True, shape: str = "poisson") -> dict:
+    """`--mode serve`: `requests` open-loop requests at `offered_rps` through
+    ServeService over an engine of `init_params(0)` on `device` (one CUDA
+    graph per bucket on a card), after one direct call per bucket; the
+    JAX bench's `_serve_bench` line."""
+    from .serve import InferenceEngine, ServeService
+    from .serve.loadgen import run_loadgen
+    from .telemetry import MetricsRegistry
+
+    # a registry of its own: the line reports THIS run's serve counters
+    reg = MetricsRegistry()
+    engine = InferenceEngine.from_seed(0, max_batch=max_batch, device=device)
+    service = ServeService(engine, max_delay_ms=max_delay_ms,
+                           max_depth=queue_depth, registry=reg, fast=fast)
+    for b in engine.buckets:
+        engine.predict(np.zeros((b, 784), np.float32))
+    out = run_loadgen(service, offered_rps=offered_rps, n_requests=requests,
+                      seed=0, shape=shape)
+    if engine.capture_count != len(engine.buckets):
+        raise RuntimeError(f"the engine captured {engine.capture_count} "
+                           f"graphs for {len(engine.buckets)} buckets")
+    lat, rps = out["latency_ms"], out["achieved_rps"]
+    answered = out["completed"] + out["failed"]
+    return {
+        "metric": "mnist_serve_requests_per_sec",
+        "value": rps,
+        "unit": "requests/sec",
+        "vs_baseline": (round(rps / NOMINAL_BASELINE_SERVE_RPS, 4)
+                        if rps else None),
+        "offered_rps": out["offered_rps"],
+        "shape": out["shape"],
+        "p50_ms": lat["p50"], "p95_ms": lat["p95"], "p99_ms": lat["p99"],
+        "availability": (round(out["completed"] / answered, 6)
+                         if answered else None),
+        "replicas": 1,
+        "retried_requests": 0,
+        "reloads": 0,
+        "front_door_overhead_ms": out["front_door_overhead_ms"],
+        "reject_rate": out["reject_rate"],
+        "rejected": reg.snapshot()["counters"]["serve.rejected"],
+        "batch_occupancy": out["batch_occupancy"],
+        "compile_count": engine.capture_count,
+        "fast_path": service.batcher.fast_path,
+        "staging_grown": engine.staging_grown,
+        "stage_attribution": service.metrics.attribution()["stages"],
+    }
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m pytorch_ddp_mnist_tpu_torch bench",
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--mode", default="train",
-                   choices=("train", "stream", "accuracy")
+                   choices=("train", "stream", "accuracy", "eval", "serve")
                    + tuple(NOT_YET_PORTED_MODES))
     p.add_argument("--kernel", default="auto",
                    choices=("auto", "xla", "pallas", "pallas_rng",
@@ -274,8 +440,10 @@ def main(argv=None) -> int:
     p.add_argument("--impl", default="rbg", choices=("threefry2x32", "rbg"))
     p.add_argument("--epochs", type=int, default=None,
                    help=f"train: epochs per timing window (default "
+                        f"{FUSED_EPOCHS}); eval: passes per window (default "
                         f"{FUSED_EPOCHS}); accuracy: epochs trained (default "
-                        f"{ACCURACY_EPOCHS}); never read by --mode stream")
+                        f"{ACCURACY_EPOCHS}); never read by --mode stream "
+                        f"or serve")
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--superstep", type=int, default=0,
                    choices=(0, 1, 2, 4, 8))
@@ -284,11 +452,44 @@ def main(argv=None) -> int:
     p.add_argument("--unroll", type=int, default=1)
     p.add_argument("--num_workers", type=int, default=0,
                    help="stream mode: read-ahead threads")
+    serve = p.add_argument_group("serve mode")
+    serve.add_argument("--offered_rps", type=float, default=500.0)
+    serve.add_argument("--requests", type=int, default=1000)
+    serve.add_argument("--max_batch", type=int, default=64)
+    serve.add_argument("--max_delay_ms", type=float, default=2.0)
+    serve.add_argument("--queue_depth", type=int, default=256)
+    serve.add_argument("--no_fast", dest="serve_fast", action="store_false",
+                       help="the legacy stack-at-flush batcher")
+    serve.add_argument("--replicas", type=int, default=1,
+                       help="engine replicas (the fleet; > 1 exits by name)")
+    serve.add_argument("--shape", choices=("poisson", "ramp", "spike"),
+                       default="poisson")
     a = p.parse_args(argv)
     if a.mode in NOT_YET_PORTED_MODES:
         raise SystemExit(f"--mode {a.mode} is not ported to the PyTorch "
                          f"package yet; see ROADMAP.md "
                          f"{NOT_YET_PORTED_MODES[a.mode]}")
+    serve_knobs = ("offered_rps", "requests", "max_batch", "max_delay_ms",
+                   "queue_depth", "serve_fast", "replicas", "shape")
+    if a.mode == "serve":
+        if a.epochs is not None:
+            p.error("--epochs is never read by --mode serve")
+        for dest in ("offered_rps", "requests", "max_batch", "queue_depth",
+                     "replicas"):
+            if getattr(a, dest) <= 0:
+                p.error(f"--{dest} must be > 0")
+        if a.max_delay_ms < 0:
+            p.error("--max_delay_ms must be >= 0")
+        if a.replicas > 1:
+            raise SystemExit(f"--replicas {a.replicas}: the replica fleet "
+                             f"(serve/fleet.py) is not ported to the PyTorch "
+                             f"package yet; see ROADMAP.md queue 1, item 9b")
+    else:
+        for dest in serve_knobs:
+            if getattr(a, dest) != p.get_default(dest):
+                flag = "no_fast" if dest == "serve_fast" else dest
+                p.error(f"--{flag} is a serve-mode knob; --mode {a.mode} "
+                        f"never reads it")
     if a.epochs is None:
         a.epochs = ACCURACY_EPOCHS if a.mode == "accuracy" else FUSED_EPOCHS
     if a.epochs < 1:
@@ -335,6 +536,14 @@ def main(argv=None) -> int:
     stamp = {"backend": "cuda", "device": torch.cuda.get_device_name(device)}
     if a.mode == "stream":
         out = {**run_stream_bench(a.num_workers), **stamp}
+    elif a.mode == "eval":
+        out = {**run_eval_bench(device, epochs=a.epochs), **stamp}
+    elif a.mode == "serve":
+        out = {**run_serve_bench(
+            device, offered_rps=a.offered_rps, requests=a.requests,
+            max_batch=a.max_batch, max_delay_ms=a.max_delay_ms,
+            queue_depth=a.queue_depth, fast=a.serve_fast, shape=a.shape),
+            **stamp}
     elif a.mode == "accuracy":
         out = {**run_accuracy_bench(device, kernel, dtype, superstep, a.impl,
                                     a.epochs), **stamp}

@@ -30,7 +30,9 @@ launcher (torchrun, SLURM srun, Open MPI or MPICH mpiexec, or plain
 RANK/WORLD_SIZE/MASTER_ADDR/MASTER_PORT; `--wireup_method`,
 parallel/wireup.py) it runs as one rank of a world of processes: rank r
 trains on cuda:(local_rank % device count) (the CPU under `--device cpu`)
-over its own shard of the sampler, the per-step gradient mean runs over
+over its own shard of the sampler (with `--cached`: its contiguous columns
+of each global batch of the global sampler, as the JAX CLI's resident
+path gives a process), the per-step gradient mean runs over
 the ranks in fixed global order, and only rank 0 prints the banner and
 the epoch lines and saves the checkpoint. `--kernel pallas_epoch` across
 processes exits by name (ROADMAP.md queue 2, item 6). With no launcher,
@@ -87,9 +89,9 @@ from ..train.loop import TrainState, fit, make_torch_dropout_train_step
 from ..train.scan import check_dp_run_args, check_run_args, fit_cached
 
 
-def resolve_device(spec: str) -> torch.device:
+def resolve_device(spec: str, what: str = "This trainer") -> torch.device:
     """`--device` -> torch.device: 'cpu', or a CUDA ordinal that must name
-    a card of this machine."""
+    a card of this machine (`what` names the program in the refusal)."""
     if spec == "cpu":
         return torch.device("cpu")
     try:
@@ -100,7 +102,7 @@ def resolve_device(spec: str) -> torch.device:
     if not torch.cuda.is_available():
         raise SystemExit(
             f"--device {index}: no CUDA card is available "
-            f"(torch.cuda.is_available() is False). This trainer runs on "
+            f"(torch.cuda.is_available() is False). {what} runs on "
             f"the card; pass --device cpu to run on the CPU instead")
     count = torch.cuda.device_count()
     if not 0 <= index < count:
@@ -192,9 +194,13 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
     data = load_data(dcfg, runtime, local_batch, tcfg["cached"], log)
     x_test = normalize_images(data["test_images"])
     y_test = data["test_labels"].astype(np.int32)
-    # a world's ranks each take their own shard of the sampler
-    sampler = ShardedSampler(data["n_train"], num_replicas=world, rank=rank,
-                             shuffle=True, seed=42,
+    # the streaming path: each rank takes its own shard of the sampler; the
+    # resident-dataset path: every rank builds the global sampler and takes
+    # its columns of each global batch (train/scan.py `epoch_rows`), as the
+    # JAX CLI's cached path does
+    shards = (1, 0) if tcfg["cached"] else (world, rank)
+    sampler = ShardedSampler(data["n_train"], num_replicas=shards[0],
+                             rank=shards[1], shuffle=True, seed=42,
                              permutation=tcfg["sampler_rng"])
     eval_perm = None
     if tcfg["eval_shuffle"]:

@@ -56,9 +56,11 @@ A 1-replica mesh runs the serial epoch kernel with the serial key chain
 (no ring, as in JAX).
 
 Across processes (a `WorldMesh`, parallel/mesh.py) every process holds the
-dataset on its device and takes its index rows from its own sampler
-shard: the idxs of `make_dp_run_fn` are then this process's, (E, S, L*B)
-for its L local replicas. The per-step kernels fold the GLOBAL replica
+dataset on its device and builds the same global sampler, and rank r takes
+the contiguous columns [r*L*B, (r+1)*L*B) of each step's global rows for
+its L local replicas (`epoch_rows`: the JAX path's P(None, DATA_AXIS)
+slicing of one global batch): the idxs of `make_dp_run_fn` are then this
+process's, (E, S, L*B). The per-step kernels fold the GLOBAL replica
 index into the key and take the world's fixed-order mean
 (parallel/ddp.py `world_mean`), so a world is bitwise the single-process
 mesh of as many replicas fed the world's rows in rank order. A world,
@@ -99,6 +101,7 @@ from .loop import (_to_device, epoch_summary, evaluate,
                    make_snapshot_eval_step, val_summary, xla_loss_and_grads)
 
 __all__ = ["device_normalize", "resident_images", "epoch_batch_indices",
+           "epoch_rows",
            "check_run_args", "CachedSteps", "make_run_fn", "make_epoch_fn",
            "check_ring", "make_dp_run_fn", "make_dp_epoch_fn", "fit_cached"]
 
@@ -136,6 +139,27 @@ def epoch_batch_indices(sampler, batch_size: int) -> np.ndarray:
     """(nbatches, batch_size) int32: this rank's epoch as full batches, the
     last one wrap-padded (the loaders' math)."""
     return np.stack(list(_batched_indices(sampler, batch_size))).astype(np.int32)
+
+
+def epoch_rows(sampler, batch_size: int, mesh=None) -> np.ndarray:
+    """(nbatches, rows) int32: this process's rows of each step of the
+    epoch on the resident-dataset path. `sampler` is the GLOBAL sampler
+    (num_replicas=1) and `batch_size` the global batch; in a world of W
+    processes with L local replicas, rank r takes the contiguous columns
+    [r*L*B, (r+1)*L*B) of each global batch, as the JAX path's
+    P(None, DATA_AXIS) gives a process its devices' rows."""
+    idx = epoch_batch_indices(sampler, batch_size)
+    world = 1 if mesh is None else world_size(mesh)
+    if world == 1:
+        return idx
+    if sampler.num_replicas != 1:
+        raise ValueError(
+            f"the resident-dataset path of a world of {world} processes "
+            f"takes the global sampler (num_replicas=1) and slices each "
+            f"step's rows by rank; got a sampler of {sampler.num_replicas} "
+            f"shards")
+    rows = batch_size // world
+    return np.ascontiguousarray(idx[:, mesh.rank * rows:(mesh.rank + 1) * rows])
 
 
 def check_run_args(kernel: str, dtype: str, unroll: int, superstep: int,
@@ -569,10 +593,12 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
     `mesh` (a tuple of replica devices, or a WorldMesh, parallel/mesh.py)
     trains data parallel (`make_dp_run_fn`): `batch_size` is then the
     GLOBAL batch, `n` replicas of `batch_size // n` rows each over the
-    world, and the model's device holds the dataset and the eval. In a
-    world of W processes `sampler` is this process's shard and gives
-    `batch_size // W` rows a step. `ring` picks K6's allreduce; `comm` must
-    be 'pmean' (the other strategies are refused by name).
+    world, and the model's device holds the dataset and the eval.
+    `sampler` is the global sampler (num_replicas=1) on every process; in
+    a world of W processes rank r trains on columns [r*b, (r+1)*b) of each
+    global batch, b = `batch_size // W` (`epoch_rows`). `ring` picks K6's
+    allreduce; `comm` must be 'pmean' (the other strategies are refused
+    by name).
 
     The per-step kernels run one captured step a step on a card, one
     capture a fit (`CachedSteps`; `fused=True`: one a run of
@@ -619,7 +645,7 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
         idxs = []
         for epoch in range(epochs):
             sampler.set_epoch(epoch)
-            idxs.append(epoch_batch_indices(sampler, rows))
+            idxs.append(epoch_rows(sampler, batch_size, mesh))
         run = (make_run_fn(lr, dtype=dtype, kernel=kernel, snapshots=True,
                            impl=impl) if mesh is None else
                make_dp_run_fn(mesh, lr, dtype=dtype, kernel=kernel,
@@ -643,7 +669,7 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
 
     steps = None     # the captured step, one for the whole fit
     if kernel != "pallas_epoch" and graphs.on_one_device(mesh, device):
-        nsteps = math.ceil(len(sampler) / rows)
+        nsteps = math.ceil(len(sampler) / batch_size)
         steps = CachedSteps(params, x_all, y_all, (nsteps, rows), lr, kernel,
                             _compute_dtype(dtype), mesh)
     else:
@@ -654,7 +680,7 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
     for epoch in range(epochs):
         t0 = time.perf_counter()
         sampler.set_epoch(epoch)
-        idx = epoch_batch_indices(sampler, rows)
+        idx = epoch_rows(sampler, batch_size, mesh)
         if steps is not None:
             key, losses = steps.epoch(key, idx)
         else:

@@ -77,7 +77,13 @@ world of one rank (a WorldMesh, over gloo and over NCCL), cached and
 streaming, on the eager loop with no capture, bitwise the captured
 1-replica mesh. The eager side of each pin is the loop built with
 `eager=True` (scan.CachedSteps, loop._captured_steps); no entry point
-takes it."""
+takes it. The serving engine (`-k serve`): one CUDA graph a bucket
+captured at construction and none after, f32 and uint8; served equals
+direct bitwise on the fast and the legacy batcher; the card's logits
+within rtol 1e-5 / atol 1e-6 of the CPU engine's, the preds equal; a
+staged dispatch raising no sync under set_sync_debug_mode("error"), its
+results bitwise the direct forward; an in-flight batch's results kept in
+its slab across later replays of the same graph."""
 
 import ctypes
 import re
@@ -1765,6 +1771,131 @@ def test_graph_capture_of_a_syncing_body_raises_by_name(cuda):
     assert graphs.counts["captures"] == before and loop.graph is None
     # the card is usable afterwards
     assert float(torch.ones(2, device=cuda).sum()) == 2.0
+
+
+# ---- the serving engine's bucket graphs (serve/engine.py; `-k serve`) ----
+
+def _serve_engine(cuda, dtype="float32"):
+    from pytorch_ddp_mnist_tpu_torch.serve import InferenceEngine
+    return InferenceEngine.from_seed(0, max_batch=64, device=cuda,
+                                     input_dtype=dtype)
+
+
+def _rows(n, dtype, seed):
+    from pytorch_ddp_mnist_tpu_torch.serve.loadgen import request_rows
+    return request_rows(n, dtype, seed=seed)
+
+
+class _Captures:
+    """Counts the CUDA-graph captures begun while it is open."""
+
+    def __enter__(self):
+        self.n, self._orig = 0, torch.cuda.CUDAGraph.capture_begin
+        orig = self._orig
+
+        def counting(graph, *a, **kw):
+            self.n += 1
+            return orig(graph, *a, **kw)
+
+        torch.cuda.CUDAGraph.capture_begin = counting
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.CUDAGraph.capture_begin = self._orig
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_serve_engine_captures_one_graph_a_bucket_and_never_again(cuda,
+                                                                  dtype):
+    from pytorch_ddp_mnist_tpu_torch.serve import ServeService
+    from pytorch_ddp_mnist_tpu_torch.serve.loadgen import run_loadgen
+    with _Captures() as built:
+        eng = _serve_engine(cuda, dtype)
+    assert eng.buckets == (1, 2, 4, 8, 16, 32, 64)
+    assert built.n == eng.capture_count == 7
+    with _Captures() as later:
+        eng.forward(_rows(150, dtype, 1))
+        out = run_loadgen(ServeService(eng, max_delay_ms=2.0),
+                          offered_rps=4000.0, n_requests=300, seed=2)
+    assert later.n == 0 and eng.capture_count == 7
+    assert out["completed"] == 300
+
+
+@pytest.mark.parametrize("fast", [True, False], ids=["fast", "legacy"])
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_serve_served_equals_direct_bitwise_on_the_card(cuda, dtype, fast):
+    import asyncio
+    from pytorch_ddp_mnist_tpu_torch.serve import ServeService
+    eng = _serve_engine(cuda, dtype)
+    svc = ServeService(eng, max_delay_ms=1000.0, max_depth=256, fast=fast)
+    groups = [_rows(n, dtype, 10 + n) for n in (1, 3, 8, 13, 33, 64)]
+
+    async def scenario():
+        out = []
+        for rows in groups:
+            subs = [asyncio.ensure_future(svc.handle(r)) for r in rows]
+            await asyncio.sleep(0)
+            svc.batcher.flush()
+            out.append(await asyncio.gather(*subs))
+        await svc.shutdown()
+        return out
+
+    for rows, served in zip(groups, asyncio.run(scenario())):
+        np.testing.assert_array_equal(np.asarray(served, np.int32),
+                                      eng.predict(rows))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_serve_card_logits_are_the_cpu_engines(cuda, dtype):
+    from pytorch_ddp_mnist_tpu_torch.serve import InferenceEngine
+    eng = _serve_engine(cuda, dtype)
+    cpu = InferenceEngine.from_seed(0, max_batch=64, device="cpu",
+                                    input_dtype=dtype)
+    for n in eng.buckets + (3, 150):
+        rows = _rows(n, dtype, 20 + n)
+        np.testing.assert_allclose(eng.forward(rows), cpu.forward(rows),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(eng.predict(rows), cpu.predict(rows))
+
+
+def test_serve_staged_dispatch_never_syncs_and_is_the_direct_forward(cuda):
+    from pytorch_ddp_mnist_tpu_torch.train.graphs import _set_sync_debug_mode
+    eng = _serve_engine(cuda)
+    handles, rows = [], []
+    mode = torch.cuda.get_sync_debug_mode()
+    for b in eng.buckets:                 # 7 in flight: the pool grows
+        n = max(1, b - 1)
+        rows.append(_rows(n, "float32", 30 + b))
+        eng.staging()[:n] = rows[-1]
+        _set_sync_debug_mode("error")
+        try:
+            handles.append(eng.dispatch_staged(n))
+        finally:
+            _set_sync_debug_mode(mode)
+    assert eng.inflight_count == 7 and eng.staging_grown == 6
+    for h, x in zip(handles, rows):
+        logits, preds = eng.fetch_staged(h)
+        assert torch.equal(torch.from_numpy(logits),
+                           torch.from_numpy(eng.forward(x)))
+        np.testing.assert_array_equal(preds, eng.predict(x))
+    assert eng.inflight_count == 0
+
+
+def test_serve_results_stay_in_their_slab_across_later_replays(cuda):
+    # each in-flight batch owns its output buffers: a later replay of the
+    # same bucket graph does not overwrite an earlier batch's results
+    eng = _serve_engine(cuda)
+    a, b = _rows(5, "float32", 40), _rows(5, "float32", 41)
+    eng.staging()[:5] = a
+    ha = eng.dispatch_staged(5)
+    eng.staging()[:5] = b
+    hb = eng.dispatch_staged(5)
+    lb, _ = eng.fetch_staged(hb)
+    la, _ = eng.fetch_staged(ha)
+    np.testing.assert_array_equal(la, eng.forward(a))
+    np.testing.assert_array_equal(lb, eng.forward(b))
+    assert not np.array_equal(la, lb)
+
 
 if __name__ == "__main__":
     import sys

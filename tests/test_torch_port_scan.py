@@ -288,7 +288,7 @@ def test_bench_kernel_policy_and_refusals(monkeypatch):
                                       unroll=2) == "pallas"
     assert bench.resolve_bench_kernel("auto", "float32", "cpu") == "xla"
     assert bench.resolve_bench_kernel("xla", "float32", "cuda") == "xla"
-    for argv, match in [(["--mode", "serve"], "--mode serve is not ported"),
+    for argv, match in [(["--mode", "ddp"], "--mode ddp is not ported"),
                         (["--dtype", "bfloat16", "--superstep", "8"],
                          "resolved kernel is 'xla'"),
                         (["--superstep", "2", "--kernel", "xla"],
@@ -316,4 +316,4 @@ def test_front_door_runs_bench(capsys):
     assert port_main.main(["--help"]) == 0
     assert "bench" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="not ported"):
-        port_main.main(["bench", "--mode", "eval"])
+        port_main.main(["bench", "--mode", "ddp"])

@@ -15,6 +15,10 @@ CLI's `--parallel` under a launcher) on the CPU, over gloo.
   * The CLI on 4 ranks: one `Epoch=0` line, from rank 0, and a rank-0
     checkpoint; `--cached` over 2 epochs with the loss falling; a 1-rank
     env world bitwise the serial `--parallel` run.
+  * A world's `--cached` rows: on 2 ranks (`xla`, `pallas`, `--fused`) the
+    epoch lines and the checkpoint bitwise the single-process 2-replica
+    mesh fed the global batches; each rank's rows those of the JAX cached
+    path's global sampler, sliced as P(None, DATA_AXIS) slices them.
   * The refusals by name.
 
 Every spawning test runs its world under a time limit of its own and kills
@@ -397,6 +401,86 @@ def test_four_rank_cached_cli_loss_falls_over_two_epochs(tmp_path):
     means = [float(re.search(r"mean_train=([0-9.]+|nan|inf)", ln).group(1))
              for ln in lines]
     assert np.isfinite(means).all() and means[1] < means[0], lines
+
+
+# ---- a world's --cached rows: the JAX cached path's global sampler ----
+
+def _strip_rate(line: str) -> str:
+    """An epoch line without its img/s (a wall-clock rate)."""
+    return re.sub(r" [0-9]+ img/s\]$", "]", line)
+
+
+@pytest.mark.parametrize("argv", [["--kernel", "xla"], ["--kernel", "pallas"],
+                                  ["--kernel", "pallas", "--fused"]],
+                         ids=["xla", "pallas", "pallas-fused"])
+def test_two_rank_cached_world_is_the_two_replica_mesh_bitwise(tmp_path,
+                                                                argv):
+    """`train --cached --parallel` over 2 gloo ranks: every rank builds the
+    global sampler and takes its half of each global batch, so the run is
+    bitwise the single-process 2-replica mesh fed the global batches (no
+    earlier test saw the per-rank shards it used to take)."""
+    from pytorch_ddp_mnist_tpu_torch.data.mnist import get_mnist
+    from pytorch_ddp_mnist_tpu_torch.train import scan
+    from pytorch_ddp_mnist_tpu_torch.train.checkpoint import load_checkpoint
+    ckpt = tmp_path / "model.pt"
+    outs = _run_world(_cli_argv("--cached", "--n_epochs", "2", "--checkpoint",
+                                str(ckpt), "--path", str(tmp_path / "no_mnist"),
+                                *argv), world=2, cwd=tmp_path)
+    lines = [_strip_rate(ln) for ln in outs[0][1].splitlines()
+             if ln.startswith("Epoch=")]
+    assert len(lines) == 2 and "Epoch=" not in outs[1][1]
+
+    quiet = str(tmp_path / "no_mnist")
+    train = get_mnist(quiet, train=True, quiet=True)
+    test = get_mnist(quiet, train=False, quiet=True)
+    model = MLP.from_seed(0)
+    want = []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        scan.fit_cached(
+            model, threefry.key_data(1), train.images[:1024],
+            train.labels[:1024].astype(np.int32),
+            ShardedSampler(1024, num_replicas=1, rank=0, seed=42),
+            normalize_images(test.images), test.labels.astype(np.int32),
+            epochs=2, batch_size=128, lr=0.01, kernel=argv[1],
+            fused="--fused" in argv, mesh=(torch.device("cpu"),) * 2,
+            log=lambda line: want.append(_strip_rate(line)))
+    finally:
+        torch.set_num_threads(threads)
+    assert lines == want
+    saved = load_checkpoint(str(ckpt))
+    for n, layer in model.params().items():
+        for k, v in layer.items():
+            assert torch.equal(saved[n][k], v.detach()), f"{n}.{k}"
+
+
+def test_a_world_ranks_cached_rows_are_the_jax_cached_paths():
+    """Rank r's rows at steps 0, 1 and the last are the JAX cached path's:
+    its global `ShardedSampler(n, num_replicas=1, rank=0, seed=42)`, each
+    global batch sliced over the mesh as P(None, DATA_AXIS) gives process
+    r its device's rows."""
+    from pytorch_ddp_mnist_tpu.parallel.sampler import ShardedSampler as JaxSampler
+    from pytorch_ddp_mnist_tpu.train import scan as jax_scan
+    from pytorch_ddp_mnist_tpu_torch.train import scan
+    n, batch, world = 1024, 128, 2
+    ours = ShardedSampler(n, num_replicas=1, rank=0, seed=42)
+    ref = JaxSampler(n, num_replicas=1, rank=0, seed=42)
+    for epoch in (0, 1):
+        ours.set_epoch(epoch)
+        ref.set_epoch(epoch)
+        glob = jax_scan.epoch_batch_indices(ref, batch)
+        for r in range(world):
+            mesh = WorldMesh(["cpu"], world_size=world, rank=r)
+            rows = scan.epoch_rows(ours, batch, mesh)
+            lo = r * batch // world
+            for step in (0, 1, len(glob) - 1):
+                np.testing.assert_array_equal(
+                    rows[step], glob[step, lo:lo + batch // world])
+            assert rows.shape == (n // batch, batch // world)
+    with pytest.raises(ValueError, match="takes the global sampler"):
+        scan.epoch_rows(ShardedSampler(n, num_replicas=2, rank=0), batch,
+                        WorldMesh(["cpu"], world_size=2, rank=0))
 
 
 def test_the_epoch_kernel_across_processes_exits_by_name(tmp_path):
