@@ -223,7 +223,27 @@ Phases (any failure exits non-zero; no phase is skipped):
                   through `serve --port 0`, drained on SIGTERM; `bench
                   --mode eval`, `bench --mode serve` (500 rps, 1000
                   requests) and one offered rate past saturation, each on
-                  a [serve] line.
+                  a [serve] line;
+               p. the input pipeline (phase_pipeline, after the golden):
+                  one streaming epoch of `train` at full width with 4
+                  decode workers and a slot ring of depth 3, f32 (keyed
+                  K1-split) and `--kernel pallas --dtype bfloat16` (keyed
+                  K1-mma), each bitwise its unpiped run, 469 launches in
+                  each; `--netcdf --num_workers 2` bitwise `--num_workers
+                  0`; the stale-input replay on the ring at depth 1, 2, 4;
+                  `bench --mode input` at the JAX defaults ([pipeline]
+                  lines: batches/s, data-wait shares, device syncs);
+               q. the comm strategies (phase_comm): 50 steps of fit_cached
+                  per strategy on a 4-replica mesh of the card (pmean,
+                  sharded, bf16 nearest and stochastic on keyed K1-split;
+                  pmean, int8 with and without error feedback, pmean +
+                  overlap on xla), sharded within rtol 1e-6 of pmean, bf16
+                  and int8 within JAX's drift bounds, each bitwise the same
+                  epoch eager and captured again; 2-rank gloo worlds under
+                  torchrun with `--ddp_comm sharded` and `int8`, each rank
+                  bitwise the 2-replica mesh on the same rows; `bench
+                  --mode ddp --ddp_comm all` at mlp@1 and deep_mlp@8
+                  ([comm] lines).
   5. timing  — CUDA-event times of each kernel and form and its plain
                version at the main path's shapes, torch.profiler's device
                time of K1 (both designs) and the cached epoch (f32 on K2-ws,
@@ -1667,24 +1687,25 @@ def phase_main_cached_variants(tmp: str) -> dict:
     of each path."""
     from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
     from pytorch_ddp_mnist_tpu_torch.ops import epoch_step
-    from pytorch_ddp_mnist_tpu_torch.train import scan
+    from pytorch_ddp_mnist_tpu_torch.train import loop
     argv = _cached_argv(tmp, "--kernel", "pallas_rng", "--n_epochs", "1",
                         "--checkpoint", "")
     drawn = []
-    draw = scan.keyed_dropout_mask
+    # the cached steps draw a mask outside a kernel through loop.keyed_keep
+    draw = loop.keyed_dropout_mask
 
     def watched(*a, **k):      # a mask drawn outside the kernel
         drawn.append(a)
         return draw(*a, **k)
 
-    scan.keyed_dropout_mask = watched
+    loop.keyed_dropout_mask = watched
     _reset_counts()
     try:
         t0 = time.perf_counter()
         _, history, out = _run_trainer(cli_train, argv)
         wall = time.perf_counter() - t0
     finally:
-        scan.keyed_dropout_mask = draw
+        loop.keyed_dropout_mask = draw
     rng = _counts()
     _check_epoch_lines(out, history, 1, "train --cached --kernel pallas_rng")
     expect_launches(rng, {"fused_split_rng_dev": EPOCH_STEPS},
@@ -4382,10 +4403,11 @@ class _PathRun:
     MLP.from_seed(0) and the train key 1 at B = 128 a replica: the cached
     paths on scan.CachedSteps (fit_cached's loop; a mesh of `n_rep`
     replicas of the card), the streaming paths on loop.fit's captured step
-    fed by device_prefetch. `eager` runs the same step without a graph."""
+    fed by the pipeline's slot ring at `depth` (depth 1: device_prefetch's
+    two slots). `eager` runs the same step without a graph."""
 
     def __init__(self, device, data, kind, kernel, dtype, n_rep, eager,
-                 x_all=None, y_all=None):
+                 x_all=None, y_all=None, depth=1):
         from pytorch_ddp_mnist_tpu_torch.data.loader import BatchLoader
         from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
         from pytorch_ddp_mnist_tpu_torch.ops import fused_step, threefry
@@ -4416,10 +4438,14 @@ class _PathRun:
                                       self.sampler, self.batch)
             self.nsteps = len(self.loader)
             self.loop, self.slots, self.keys = loop._captured_steps(
-                step, self.model, self.nsteps, self.batch, device, eager)
+                step, self.model, self.nsteps, self.batch, device, eager,
+                ring=depth + 1)
             self.pinned = tuple(torch.empty(s.shape, dtype=s.dtype,
                                             pin_memory=True)
                                 for s in self.slots)
+            from pytorch_ddp_mnist_tpu_torch.pipeline import SlotRing
+            self.ring = SlotRing(self.slots, self.pinned)
+        self.depth = depth
         self.epoch = 0
 
     def load(self) -> None:
@@ -4439,18 +4465,18 @@ class _PathRun:
 
     def run_steps(self, steps: int | None = None) -> None:
         """The epoch's steps (its first `steps` of them, if given)."""
-        from pytorch_ddp_mnist_tpu_torch.data.loader import device_prefetch
         steps = self.nsteps if steps is None else min(steps, self.nsteps)
         self.loop.start_epoch()
         if self.kind == "cached":
             for _ in range(steps):
                 self.loop.step()
             return
-        for k, _ in enumerate(device_prefetch(iter(self.loader), self.slots,
-                                              self.pinned)):
+        batches = self.ring.feed(iter(self.loader), self.depth)
+        for k, _ in enumerate(batches):
             self.loop.step()
             if k + 1 == steps:
                 break
+        batches.close()
 
     def fetch(self) -> np.ndarray:
         return self.loop.losses().cpu().numpy()
@@ -4562,20 +4588,27 @@ def _entry_run(device, data, kind, kernel, dtype, n_rep) -> tuple:
     return np.stack(history), params, graphs.counts["captures"] - caps
 
 
-def _stale_input_check(device, data) -> list:
+STALE_CASES = (("cached", "xla", 1), ("cached", "pallas", 1),
+               ("cached", "pallas_rng", 1), ("streaming", "pallas", 1))
+
+
+def _stale_input_check(device, data, cases=STALE_CASES) -> list:
     """A step captured on epoch 0's buffers, then replayed on epoch 1's
     new indices (or batches) and keys, against the same step run eagerly
-    on epoch 1 from the same state: the cached f32 paths of each kernel
-    and the streaming pallas path. Returns the paths checked."""
+    on epoch 1 from the same state: by default the cached f32 paths of
+    each kernel and the streaming pallas path; each case is (kind, kernel,
+    the streaming ring's prefetch depth). Returns the paths checked."""
     checked = []
-    for kind, kernel in (("cached", "xla"), ("cached", "pallas"),
-                         ("cached", "pallas_rng"), ("streaming", "pallas")):
-        what = f"{kind} {kernel} float32"
-        run = _PathRun(device, data, kind, kernel, "float32", None, False)
+    for kind, kernel, depth in cases:
+        what = f"{kind} {kernel} float32" + (f" depth {depth}"
+                                             if kind == "streaming" else "")
+        run = _PathRun(device, data, kind, kernel, "float32", None, False,
+                       depth=depth)
         run.one_epoch()
         if run.loop.graph is None:
             fail(f"stale-input check, {what}: epoch 0 captured no graph")
-        eager = _PathRun(device, data, kind, kernel, "float32", None, True)
+        eager = _PathRun(device, data, kind, kernel, "float32", None, True,
+                         depth=depth)
         with torch.no_grad():    # the eager run from the captured's state
             src = run.params if kind == "cached" else run.model.params()
             dst = eager.params if kind == "cached" else eager.model.params()
@@ -5550,6 +5583,316 @@ def phase_serve(device, tmp: str, card: str) -> dict:
     return report
 
 
+# ---- slice 18: the input pipeline and the comm strategies ----
+
+PIPE_ARGS = ("--input_workers", "4", "--prefetch_depth", "3")
+PIPE_NC_LIMIT = 16384
+COMM_REPLICAS = 4
+COMM_STEPS = 50
+COMM_LIMIT = COMM_STEPS * COMM_REPLICAS * MAIN_BATCH    # 25,600 rows
+# (label, kernel, knobs) of phase_comm's 4-replica fit_cached runs
+COMM_CASES = (
+    ("pmean", "pallas", dict(comm="pmean")),
+    ("sharded", "pallas", dict(comm="sharded")),
+    ("bf16", "pallas", dict(comm="bf16")),
+    ("bf16 stochastic", "pallas", dict(comm="bf16",
+                                       bf16_rounding="stochastic")),
+    ("pmean xla", "xla", dict(comm="pmean")),
+    ("int8", "xla", dict(comm="int8")),
+    ("int8 no feedback", "xla", dict(comm="int8", error_feedback=False)),
+    ("pmean overlap", "xla", dict(comm="pmean", overlap=True)),
+)
+# JAX's drift bounds of the compressed strategies against pmean
+# (tests/test_collectives.py, after 3 steps at lr 0.05; held here after
+# COMM_STEPS steps at lr 0.01)
+COMM_DRIFT = {"bf16": 1e-4, "int8": 1e-3}
+COMM_WORLD = 2
+COMM_WORLD_LIMIT = COMM_WORLD * MAIN_BATCH * COMM_STEPS   # 12,800 rows
+
+
+def _params_cpu(params) -> dict:
+    return {n: {k: v.detach().cpu().clone() for k, v in layer.items()}
+            for n, layer in params.items()}
+
+
+def _worst_diff(a, b) -> float:
+    return max(float((a[n][k] - b[n][k]).abs().max()) for n in a for k in a[n])
+
+
+def _pipe_twins(cli_train, base: list, piped: tuple, key: str, steps: int,
+                what: str) -> tuple:
+    """`train` with `base` and with `piped` added: per-step losses and
+    final params bitwise equal, `key` launched once a step in each.
+    Returns (the piped run's launches, both runs' epoch lines)."""
+    runs = []
+    for extra in ((), piped):
+        _reset_counts()
+        state, history, out = _run_trainer(cli_train, base + list(extra))
+        launches = _counts()
+        expect_launches(launches, {key: steps}, f"{what} {' '.join(extra)}")
+        lines = [ln for ln in out.splitlines() if ln.startswith("Epoch=")]
+        runs.append((np.stack(history), _params_cpu(state.model.params()),
+                     launches, lines[0]))
+    (h0, p0, _, l0), (h1, p1, launches, l1) = runs
+    if not (np.array_equal(h0, h1) and _equal_trees(p0, p1)):
+        fail(f"{what}: {' '.join(piped)} is not bitwise the unpiped run "
+             f"(losses or params)")
+    if h0.shape != (1, steps) or not np.isfinite(h0).all():
+        fail(f"{what}: losses {h0.shape}, finite {np.isfinite(h0).all()}")
+    return launches, (l0, l1)
+
+
+def phase_pipeline(device, data: dict, tmp: str, card: str) -> dict:
+    """The input pipeline (pipeline/) on the card:
+      a. one streaming epoch of `train` at full width (784-128-128-10,
+         B = 128, synthetic 60k/10k) with PIPE_ARGS (4 decode workers, a
+         slot ring of depth 3), bitwise the unpiped run's per-step losses
+         and final params, 469 keyed K1-split launches in each;
+      b. the same with `--kernel pallas --dtype bfloat16` (keyed K1-mma);
+      c. `--netcdf --num_workers 2` bitwise its `--num_workers 0` twin
+         (PIPE_NC_LIMIT rows of a converted synthetic file);
+      d. the stale-input replay at depth 1, 2 and 4;
+      e. `bench --mode input` at the JAX defaults: both variants'
+         batches/s, data-wait shares and device syncs.
+    Returns the launches of the piped paths."""
+    from pytorch_ddp_mnist_tpu_torch import bench
+    from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
+    from pytorch_ddp_mnist_tpu_torch.data.convert import main as convert
+    paths = {}
+    base = ["--device", "0", "--n_epochs", "1", "--batch_size",
+            str(MAIN_BATCH), "--lr", str(LR), "--seed", "0", "--path",
+            os.path.join(tmp, "no_mnist_here"), "--checkpoint", ""]
+    for extra, key, label in (
+            (["--kernel", "auto"], "fused_split_keyed", "train"),
+            (["--kernel", "pallas", "--dtype", "bfloat16"],
+             "fused_mma_keyed", "train --kernel pallas --dtype bfloat16")):
+        launches, lines = _pipe_twins(cli_train, base + extra, PIPE_ARGS,
+                                      key, EPOCH_STEPS, label)
+        paths[f"{label} {' '.join(PIPE_ARGS)}"] = launches
+        print(f"[pipeline] {label} {' '.join(PIPE_ARGS)}: {EPOCH_STEPS} "
+              f"steps bitwise the unpiped run (losses and params), "
+              f"{launches[key]} {key} launches in each [{card}]")
+        for tag, line in zip(("unpiped", "piped"), lines):
+            print(f"[pipeline]   {tag}: {line}")
+
+    nc_dir = os.path.join(tmp, "pipe_nc")
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert(["--synthetic", "60000:10000", "--out_dir", nc_dir])
+    nc = base[:-4] + ["--path", nc_dir, "--checkpoint", "", "--netcdf",
+                      "--limit", str(PIPE_NC_LIMIT), "--kernel", "auto"]
+    steps = PIPE_NC_LIMIT // MAIN_BATCH
+    launches, lines = _pipe_twins(cli_train, nc + ["--num_workers", "0"],
+                                  ("--num_workers", "2"), "fused_split_keyed",
+                                  steps, "train --netcdf")
+    paths["train --netcdf --num_workers 2"] = launches
+    print(f"[pipeline] train --netcdf --num_workers 2: {steps} steps bitwise "
+          f"its --num_workers 0 twin [{card}]")
+
+    checked = _stale_input_check(device, data, tuple(
+        ("streaming", "pallas", d) for d in (1, 2, 4)))
+    print(f"[pipeline] stale-input replay on the slot ring: {checked}")
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        bench.main(["--mode", "input"])
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    for tag in ("legacy", "pipeline"):
+        r = line[tag]
+        print(f"[pipeline] bench --mode input, {tag} (workers {r['workers']}, "
+              f"depth {r['prefetch_depth']}): {r['batches_per_sec']} "
+              f"batches/s, {r['images_per_sec']} images/s, data-wait share "
+              f"{r['data_wait_share']} ({r['data_wait_s']} s of waits, p95 "
+              f"{r['data_wait_p95_s']} s a batch), {r['syncs']} device "
+              f"syncs (budget {r['sync_budget']}) [{card}]")
+    print(f"[pipeline] bench --mode input: piped/legacy batches/s "
+          f"{line['vs_baseline']} at {line['read_latency_ms_per_batch']} ms "
+          f"a batch, {line['batches_per_epoch']} batches x {line['epochs']} "
+          f"epochs ({time.perf_counter() - t0:.1f} s of wall) [{card}]")
+    print(json.dumps({"bench_input": line}))
+    return paths
+
+
+def _comm_data():
+    """The synthetic train rows the CLI's stand-in gives (get_mnist),
+    cut to COMM_LIMIT, and its test split."""
+    from pytorch_ddp_mnist_tpu_torch.data.mnist import (get_mnist,
+                                                         normalize_images)
+    with contextlib.redirect_stdout(io.StringIO()):
+        train = get_mnist("/nonexistent", train=True)
+        test = get_mnist("/nonexistent", train=False)
+    return (train.images, train.labels.astype(np.int32),
+            normalize_images(test.images), test.labels.astype(np.int32))
+
+
+def _comm_fit(device, n: int, limit: int, kernel: str, kw: dict,
+              data) -> tuple:
+    """fit_cached on an n-replica mesh of the card, one epoch of `limit`
+    rows at MAIN_BATCH a replica: (losses, params on the CPU, launches,
+    the epoch's indices)."""
+    from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
+    from pytorch_ddp_mnist_tpu_torch.ops import threefry
+    from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
+    from pytorch_ddp_mnist_tpu_torch.train import scan
+    x_train, y_train, x_test, y_test = data
+    model = MLP.from_seed(0).to(device)
+    _reset_counts()
+    _, hist = scan.fit_cached(
+        model, threefry.key_data(1), x_train[:limit], y_train[:limit],
+        ShardedSampler(limit, seed=42), x_test, y_test, epochs=1,
+        batch_size=n * MAIN_BATCH, lr=LR, kernel=kernel,
+        mesh=(device,) * n, log=lambda _m: None, **kw)
+    torch.cuda.synchronize()
+    return hist[0], _params_cpu(model.params()), _counts()
+
+
+def _comm_turn(device, n, limit, kernel, kw, data, eager: bool) -> tuple:
+    """The same epoch on fit_cached's loop (scan.CachedSteps with the
+    strategy's DPComm), captured again or, with `eager`, the same step
+    without a graph."""
+    from pytorch_ddp_mnist_tpu_torch.models.mlp import MLP
+    from pytorch_ddp_mnist_tpu_torch.ops import threefry
+    from pytorch_ddp_mnist_tpu_torch.parallel import collectives
+    from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
+    from pytorch_ddp_mnist_tpu_torch.train import scan
+    mesh = (device,) * n
+    sampler = ShardedSampler(limit, seed=42)
+    sampler.set_epoch(0)
+    idx = scan.epoch_rows(sampler, n * MAIN_BATCH)
+    params = scan._clone(MLP.from_seed(0).to(device).params())
+    dp = collectives.DPComm(mesh, LR, **kw)
+    dp.place_state(params)
+    steps = scan.CachedSteps(
+        params, torch.from_numpy(scan.resident_images(data[0][:limit])).to(
+            device), torch.from_numpy(data[1][:limit]).to(device), idx.shape,
+        LR, kernel, torch.float32, mesh, eager=eager, comm=dp)
+    _, losses = steps.epoch(threefry.key_data(1), idx)
+    return losses.cpu().numpy(), _params_cpu(params)
+
+
+def phase_comm(device, tmp: str, card: str) -> dict:
+    """The gradient-communication strategies (parallel/collectives.py):
+      a. on a COMM_REPLICAS-replica mesh of the card, COMM_STEPS steps of
+         fit_cached per COMM_CASES entry (pmean, sharded and bf16 on the
+         keyed K1-split step, int8 and overlap on xla): sharded within
+         rtol 1e-6 of pmean, bf16 and int8 within COMM_DRIFT of pmean on
+         the same kernel, overlap within rtol 1e-6 of pmean; each run
+         bitwise the same epoch through make_dp_run_fn eager and captured
+         again (a rerun);
+      b. 2-rank gloo worlds under torchrun, `--parallel --cached
+         --ddp_comm sharded --kernel pallas` and `--ddp_comm int8`, each
+         rank bitwise the 2-replica mesh of the card fed the same rows;
+      c. `bench --mode ddp --ddp_comm all` at mlp@1 and deep_mlp@8.
+    Returns the launches of the mesh and world paths."""
+    paths = {}
+    data = _comm_data()
+    runs = {}
+    t0 = time.perf_counter()
+    for label, kernel, kw in COMM_CASES:
+        losses, params, launches = _comm_fit(device, COMM_REPLICAS,
+                                             COMM_LIMIT, kernel, kw, data)
+        want = ({"fused_split_keyed": COMM_REPLICAS * COMM_STEPS}
+                if kernel == "pallas" else
+                {"threefry_mask": COMM_REPLICAS * COMM_STEPS})
+        what = f"fit_cached mesh={COMM_REPLICAS} {label} --kernel {kernel}"
+        expect_launches(launches, want, what)
+        if losses.shape != (COMM_STEPS,) or not np.isfinite(losses).all():
+            fail(f"{what}: losses {losses.shape} not finite")
+        for eager in (True, False):
+            l2, p2 = _comm_turn(device, COMM_REPLICAS, COMM_LIMIT, kernel,
+                                kw, data, eager)
+            if not (np.array_equal(l2, losses) and _equal_trees(p2, params)):
+                fail(f"{what}: the {'eager' if eager else 'captured rerun'} "
+                     f"epoch is not bitwise the captured fit_cached run")
+        runs[label] = (losses, params)
+        paths[what] = launches
+    checks = []
+    for label, ref, kind in (("sharded", "pmean", "rtol"),
+                             ("pmean overlap", "pmean xla", "rtol"),
+                             ("bf16", "pmean", "bf16"),
+                             ("bf16 stochastic", "pmean", "bf16"),
+                             ("int8", "pmean xla", "int8"),
+                             ("int8 no feedback", "pmean xla", "int8")):
+        got, want = runs[label][1], runs[ref][1]
+        drift = _worst_diff(got, want)
+        if kind == "rtol":
+            ok = all(torch.allclose(got[n][k], want[n][k], rtol=1e-6,
+                                    atol=1e-7) for n in got for k in got[n])
+            bound = "rtol 1e-6"
+        else:
+            ok = 0 < drift < COMM_DRIFT[kind]
+            bound = f"(0, {COMM_DRIFT[kind]})"
+        if not ok:
+            fail(f"phase_comm: {label} drifts {drift:.3e} from {ref} "
+                 f"(bound {bound})")
+        checks.append(f"{label} vs {ref} {drift:.3e} ({bound})")
+    print(f"[comm] {COMM_STEPS} steps a strategy on a {COMM_REPLICAS}-replica "
+          f"mesh of the card, each captured bitwise eager and a rerun: "
+          f"{'; '.join(checks)} ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    outs = {}
+    cmds = []
+    for comm, kernel in (("sharded", "pallas"), ("int8", "xla")):
+        outs[comm] = tempfile.mkdtemp(dir=tmp)
+        cmds.append(_torchrun(COMM_WORLD, _world_cli_argv(
+            tmp, outs[comm], "--wireup_method", "env", "--cached",
+            "--ddp_comm", comm, "--kernel", kernel, "--limit",
+            str(COMM_WORLD_LIMIT), "--checkpoint", "")))
+    t0 = time.perf_counter()
+    _spawn(lambda attempt: [c for cmd in cmds for c in cmd(attempt)], tmp)
+    wall = time.perf_counter() - t0
+    steps = COMM_WORLD_LIMIT // (COMM_WORLD * MAIN_BATCH)
+    for comm, kernel in (("sharded", "pallas"), ("int8", "xla")):
+        what = (f"torchrun x{COMM_WORLD} train --parallel --cached "
+                f"--ddp_comm {comm} --kernel {kernel}")
+        ranks = [torch.load(os.path.join(outs[comm], f"rank{r}.pt"))
+                 for r in range(COMM_WORLD)]
+        losses, params, _ = _comm_fit(device, COMM_WORLD, COMM_WORLD_LIMIT,
+                                      kernel, {"comm": comm}, data)
+        for r, run in enumerate(ranks):
+            _expect_eager(run, f"{what}, rank {r}")
+            if not (np.array_equal(run["losses"].numpy(), losses)
+                    and _equal_trees(run["params"], params)):
+                fail(f"{what}: rank {r} is not bitwise the {COMM_WORLD}-"
+                     f"replica mesh of the card on the same rows")
+        key = "fused_split_keyed" if kernel == "pallas" else "threefry_mask"
+        expect_launches(ranks[0]["launches"], {key: steps}, f"{what}, rank 0")
+        paths[f"world n={COMM_WORLD} --cached --ddp_comm {comm} (torchrun), "
+              f"a rank"] = ranks[0]["launches"]
+        print(f"[comm] {what}: {steps} steps, every rank bitwise the "
+              f"{COMM_WORLD}-replica mesh of the card on the same rows; "
+              f"{ranks[0]['launches'][key]} {key} launches a rank")
+    print(f"[comm] the two worlds ran together in {wall:.1f} s of wall")
+
+    for argv in (["--mode", "ddp"],
+                 ["--mode", "ddp", "--model", "deep_mlp", "--param_scale",
+                  "8"]):
+        from pytorch_ddp_mnist_tpu_torch import bench
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            bench.main(argv)
+        rows = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                if ln.startswith("{")]
+        if [r["strategy"] for r in rows] != ["pmean", "sharded", "bf16",
+                                             "int8"]:
+            fail(f"bench {' '.join(argv)}: rows {rows}")
+        for r in rows:
+            print(f"[comm] bench {' '.join(argv)} {r['strategy']}: "
+                  f"{r['value']} images/s on {r['replicas']} replicas of the "
+                  f"card ({r['vs_one_replica']} x the 1-replica "
+                  f"{r['one_replica_images_per_sec']}), bytes on wire "
+                  f"{r['bytes_on_wire_per_step_per_replica']} (ring model) / "
+                  f"moved {r['bytes_moved_per_step_per_replica']} "
+                  f"(all-gathers) a step a replica, probe p50 "
+                  f"{r['collective_s_p50']} s, drift vs pmean "
+                  f"{r['parity_max_abs_diff_vs_pmean']:.3e} [{card}]")
+        print(f"[comm] bench {' '.join(argv)}: {time.perf_counter() - t0:.1f}"
+              f" s of wall")
+        print(json.dumps({"bench_ddp": " ".join(argv), "rows": rows}))
+    return paths
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -5599,6 +5942,11 @@ def main() -> int:
     elapsed("capture phase")
     golden = phase_golden(device, data, card)
     elapsed("golden phase")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(phase_pipeline(device, data, tmp, card))
+        elapsed("pipeline phase")
+        paths.update(phase_comm(device, tmp, card))
+        elapsed("comm phase")
     _, k2_launches["bench --epochs 5"] = phase_bench()
     ss = ("--kernel", "pallas_epoch", "--dtype", "bfloat16", "--superstep",
           "8")

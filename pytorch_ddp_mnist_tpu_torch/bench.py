@@ -57,9 +57,36 @@ attribution and `compile_count` (the engine's capture count);
 `retried_requests` and `reloads` are 0 (no fleet; `--replicas` > 1 exits
 by name, ROADMAP.md queue 1, item 9b).
 
-The JAX bench's other modes exit by name. The JAX bench's registry,
-statics and ledger stamps are telemetry (ROADMAP.md queue 1, item 12) and
-are left out. A run needs a card: no number is taken on the CPU.
+`--mode input` (the JAX bench's `_input_bench`): the same streaming `fit`
+over the same `SyntheticSource` (pipeline/synthetic.py; `--input_batches`
+batches of `--batch_size` rows an epoch, `--input_latency_ms` of read
+latency a batch, which makes the unpiped loop input-bound), once legacy (0
+workers, depth 1) and once piped (`--input_workers`, `--input_depth`),
+`--epochs` (default 4) epochs each after a warm run; one line,
+`mnist_input_pipeline_batches_per_sec`, with both runs' batches/s, their
+data-wait share of the run's wall time and the consumer's per-batch wait
+(`data.batch_wait_s` of a registry of their own), and the device syncs
+each run made, counted under `torch.cuda.set_sync_debug_mode("warn")` and
+held to the JAX mode's budget of 6 an epoch.
+
+`--mode ddp` (the JAX bench's `ddp_strategy_rows` / `_ddp_bench`): one
+line a gradient-communication strategy (`--ddp_comm`, default all four;
+`--overlap` for the bucketed form), `mnist_ddp_train_images_per_sec_per_chip`,
+on a mesh of `--replicas` (default 4) replicas of the card at `--batch_size`
+rows a replica, against a 1-replica mesh: the resident-dataset DP step
+(train/scan.py `CachedSteps`, one captured step a step) over `--epochs`
+(default 10) epochs of 8,192 synthetic rows, best of 3 windows after a
+warm epoch; `--model` / `--param_scale` the zoo model. Each line has the
+ring-model `bytes_on_wire_per_step_per_replica` and the port's all-gather
+`bytes_moved_per_step_per_replica` (parallel/collectives.py), the comm
+probe's p50, the schedule's collectives a step, and the drift of 3 steps
+at lr 0.05 against pmean. All the replicas share one card, so the rate
+per chip is the mesh's rate.
+
+The JAX bench's registry, statics and ledger stamps are telemetry
+(ROADMAP.md queue 1, item 12) and are left out, and so are the ddp rows'
+journal and dispatch-overhead stamps. A run needs a card: no number is
+taken on the CPU.
 """
 
 from __future__ import annotations
@@ -78,6 +105,14 @@ FUSED_EPOCHS = 400
 # --mode accuracy trains real epochs; the north-star acceptance names 10
 # (BASELINE.json / ddp_tutorial_multi_gpu.py:127)
 ACCURACY_EPOCHS = 10
+# the JAX bench's defaults of its input and ddp modes
+INPUT_EPOCHS = 4
+DDP_EPOCHS = 10
+DDP_REPLICAS = 4
+DDP_ROWS = 8192
+# the JAX input mode's host-sync budget (its no_host_sync pin): per epoch
+SYNCS_PER_EPOCH = 6
+NOMINAL_BASELINE_DDP_IMGS_PER_SEC = 1_000_000.0
 NOMINAL_BASELINE_IMGS_PER_SEC = 1_000_000.0
 NOMINAL_BASELINE_STREAM_IMGS_PER_SEC = 1_000_000.0
 # the JAX bench's nominals of its eval and serve lines (an inference-pass
@@ -93,19 +128,15 @@ PEAK_FLOPS_BF16 = 989e12
 PEAK_CARD = "NVIDIA H100 SXM"
 WINDOWS = 5
 
-# the JAX bench's other modes -> where ROADMAP.md queues them
-NOT_YET_PORTED_MODES = {
-    "ddp": "queue 1, item 11 (gradient communication)",
-    "input": "queue 1, item 10 (input pipeline)",
-}
-
 
 def perf_fields(per_chip_imgs_per_sec: float, *,
-                fwd_only: bool = False) -> dict:
+                fwd_only: bool = False,
+                macs_fwd: int = MACS_FWD_PER_IMG) -> dict:
     """{tflops, mfu_pct_vs_bf16_peak} for a measured per-card image rate;
     `fwd_only` for inference rates (eval mode): 2 FLOP a multiply-add, no
-    backward."""
-    tf = (per_chip_imgs_per_sec * (2 if fwd_only else 6) * MACS_FWD_PER_IMG
+    backward; `macs_fwd` the model's forward multiply-adds an image (a zoo
+    model's, in ddp mode)."""
+    tf = (per_chip_imgs_per_sec * (2 if fwd_only else 6) * macs_fwd
           / 1e12)
     return {"tflops": round(tf, 2),
             "mfu_pct_vs_bf16_peak": round(100 * tf * 1e12 / PEAK_FLOPS_BF16, 2)}
@@ -425,13 +456,222 @@ def run_serve_bench(device: torch.device, *, offered_rps: float = 500.0,
     }
 
 
+def count_syncs(fn, device: torch.device):
+    """(fn(), the device syncs it made): on a card `fn` runs under
+    `torch.cuda.set_sync_debug_mode("warn")`, whose warnings are counted
+    (each blocking copy, `.cpu()` fetch or device synchronize is one); on
+    the CPU there is no device to sync with (0)."""
+    import warnings
+    from .train.graphs import _set_sync_debug_mode
+    if device.type != "cuda":
+        return fn(), 0
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        _set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            _set_sync_debug_mode(mode)
+    syncs = sum(1 for w in seen if "synchroniz" in str(w.message))
+    return out, syncs
+
+
+def run_input_bench(device: torch.device, *, epochs: int = INPUT_EPOCHS,
+                    batch_size: int = 128, latency_ms: float = 5.0,
+                    batches: int = 48, workers: int = 4,
+                    depth: int = 2) -> dict:
+    """`--mode input`: the streaming `fit` (the captured keyed step of
+    `--kernel pallas` on a card, the plain step on the CPU) over
+    SyntheticSource, legacy then piped, each after the same warm run; see
+    the module docstring. A run over its sync budget raises."""
+    from .data.mnist import normalize_images, synthetic_mnist
+    from .models.mlp import MLP
+    from .ops.fused_step import make_fused_train_step
+    from .ops.threefry import key_data
+    from .pipeline import SyntheticSource
+    from .telemetry import MetricsRegistry
+    from .train.loop import TrainState, fit
+
+    test = synthetic_mnist(256, seed=1)
+    x_test = normalize_images(test.images)
+    y_test = test.labels.astype(np.int32)
+
+    def train(src, w, d, registry, n_epochs):
+        step = make_fused_train_step(0.01)
+        fit(TrainState(MLP.from_seed(0).to(device), key_data(1)), src,
+            x_test, y_test, epochs=n_epochs, batch_size=batch_size,
+            train_step=step, input_workers=w, prefetch_depth=d,
+            registry=registry, log=lambda _m: None)
+
+    # builds the kernels and warms the libraries outside both runs
+    train(SyntheticSource(2, batch_size, seed=0), 0, 1, MetricsRegistry(), 1)
+
+    def run(w, d):
+        reg = MetricsRegistry()
+        src = SyntheticSource(batches, batch_size,
+                              latency_s=latency_ms / 1e3, seed=0)
+        t0 = time.perf_counter()
+        _, syncs = count_syncs(lambda: train(src, w, d, reg, epochs), device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        budget = epochs * SYNCS_PER_EPOCH
+        if syncs > budget:
+            raise RuntimeError(f"the input bench's run (workers {w}, depth "
+                               f"{d}) made {syncs} device syncs, over the "
+                               f"budget of {budget}")
+        wait = reg.histogram("data.batch_wait_s")
+        return {
+            "workers": w, "prefetch_depth": d,
+            "batches_per_sec": round(epochs * batches / wall, 1),
+            "images_per_sec": round(epochs * batches * batch_size / wall, 1),
+            "data_wait_share": round(wait.total / wall, 4),
+            "data_wait_s": round(wait.total, 6),
+            "data_wait_p95_s": round(wait.percentile(95), 6),
+            "batches_seen": reg.counter("data.batches").value,
+            "syncs": syncs, "sync_budget": budget,
+        }
+
+    legacy = run(0, 1)
+    piped = run(workers, depth)
+    return {
+        "metric": "mnist_input_pipeline_batches_per_sec",
+        "value": piped["batches_per_sec"],
+        "unit": "batches/sec",
+        "vs_baseline": (round(piped["batches_per_sec"]
+                              / legacy["batches_per_sec"], 4)
+                        if legacy["batches_per_sec"] else None),
+        "epochs": epochs, "batch_size": batch_size,
+        "batches_per_epoch": batches,
+        "read_latency_ms_per_batch": latency_ms,
+        "legacy": legacy, "pipeline": piped,
+    }
+
+
+def run_ddp_rows(device: torch.device, *, strategies, replicas: int =
+                 DDP_REPLICAS, per_replica_batch: int = 128,
+                 epochs: int = DDP_EPOCHS, n_rows: int = DDP_ROWS,
+                 model: str = "mlp", param_scale: int = 1,
+                 overlap: bool = False, windows: int = 3,
+                 parity_steps: int = 3, parity_lr: float = 0.05) -> list:
+    """`--mode ddp`'s rows (see the module docstring): one dict a
+    strategy, measured on a mesh of `replicas` replicas of `device`
+    against a 1-replica mesh of it."""
+    from .data.mnist import synthetic_mnist
+    from .models.mlp import param_count
+    from .models.zoo import resolve_model
+    from .ops.threefry import key_data
+    from .parallel import collectives
+    from .parallel.ddp import make_dp_train_step
+    from .parallel.sampler import ShardedSampler
+    from .train.scan import (CachedSteps, _clone, epoch_batch_indices,
+                             resident_images)
+
+    spec = resolve_model(model, param_scale)
+    n_rows = max(n_rows, per_replica_batch * replicas)
+    split = synthetic_mnist(n_rows, seed=0)
+    x_host = resident_images(split.images)
+    y_host = split.labels.astype(np.int32)
+    x_all = torch.from_numpy(x_host).to(device)
+    y_all = torch.from_numpy(y_host).to(device)
+    init = spec.from_seed(0)
+    params_host = init.params()
+    n_params = param_count(params_host)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def measure(n, comm, ov=False):
+        mesh = (device,) * n
+        batch = per_replica_batch * n
+        sampler = ShardedSampler(n_rows, num_replicas=1, rank=0, seed=42)
+        idxs = []
+        for e in range(epochs):
+            sampler.set_epoch(e)
+            idxs.append(epoch_batch_indices(sampler, batch))
+        params = _clone({k: {kk: v.to(device) for kk, v in layer.items()}
+                         for k, layer in params_host.items()})
+        dp = collectives.DPComm(mesh, 0.01, comm, overlap=ov)
+        steps = CachedSteps(params, x_all, y_all, idxs[0].shape, 0.01, "xla",
+                            torch.float32, mesh, comm=dp, apply=spec.apply)
+        key = key_data(1)
+        key, ls = steps.epoch(key, idxs[0])        # capture + warm
+        if not np.isfinite(ls.cpu().numpy()).all():
+            raise RuntimeError(f"ddp bench {comm}: non-finite warm losses")
+        best = float("inf")
+        for _ in range(windows):
+            sync()
+            t0 = time.perf_counter()
+            for e in range(epochs):
+                key, ls = steps.epoch(key, idxs[e])
+            ls = ls.cpu().numpy()
+            best = min(best, time.perf_counter() - t0)
+            if not np.isfinite(ls).all():
+                raise RuntimeError(f"ddp bench {comm}: non-finite losses")
+        return sum(i.size for i in idxs) / best
+
+    def parity(comm, ov=False):
+        mesh = (device,) * replicas
+        step = make_dp_train_step(mesh, parity_lr, comm=comm, overlap=ov,
+                                  model=model, param_scale=param_scale)
+        m = spec.from_seed(0).to(device)
+        step.place_comm_state(m.params())
+        key, b = key_data(1), per_replica_batch * replicas
+        for s in range(parity_steps):
+            rows = np.arange(s * b, (s + 1) * b) % n_rows
+            x = torch.from_numpy(x_host[rows].astype(np.float32) / 255.0)
+            key, _ = step(m, key, x.to(device),
+                          torch.from_numpy(y_host[rows]).to(device))
+        return [v.detach().cpu().numpy() for v in
+                collectives.tree_leaves(m.params())]
+
+    one_rate = measure(1, "pmean")
+    ref = parity("pmean")
+    dev_params = {k: {kk: v.to(device) for kk, v in layer.items()}
+                  for k, layer in params_host.items()}
+    rows = []
+    for comm in strategies:
+        probe = collectives.make_comm_probe((device,) * replicas, comm)
+        secs = collectives.measure_collective_seconds(probe, dev_params)
+        rate = measure(replicas, comm, overlap)
+        got = parity(comm, overlap)
+        rel = max(float(np.max(np.abs(a - b) / (np.abs(b) + 1e-12)))
+                  for a, b in zip(got, ref))
+        absd = max(float(np.max(np.abs(a - b))) for a, b in zip(got, ref))
+        rows.append({
+            "strategy": comm, "overlap": bool(overlap),
+            "collectives_per_step": len(collectives.collective_schedule(
+                params_host, replicas, comm, overlap=overlap)),
+            "model": model, "param_scale": param_scale,
+            "n_params": n_params, "replicas": replicas, "chips": 1,
+            "macs_fwd_per_image": sum(int(layer["w"].numel())
+                                      for layer in params_host.values()),
+            "per_replica_batch": per_replica_batch,
+            "images_per_sec": round(rate, 1),
+            "per_chip_images_per_sec": round(rate, 1),
+            "one_replica_images_per_sec": round(one_rate, 1),
+            "vs_one_replica": round(rate / one_rate, 4),
+            "bytes_on_wire_per_step_per_replica":
+                collectives.bytes_on_wire(params_host, replicas, comm),
+            "bytes_moved_per_step_per_replica":
+                collectives.bytes_moved(params_host, replicas, comm,
+                                        overlap=overlap),
+            "collective_s_p50": round(sorted(secs)[len(secs) // 2], 6),
+            "parity_max_rel_diff_vs_pmean": rel,
+            "parity_max_abs_diff_vs_pmean": absd,
+        })
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m pytorch_ddp_mnist_tpu_torch bench",
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--mode", default="train",
-                   choices=("train", "stream", "accuracy", "eval", "serve")
-                   + tuple(NOT_YET_PORTED_MODES))
+                   choices=("train", "stream", "accuracy", "eval", "serve",
+                            "input", "ddp"))
     p.add_argument("--kernel", default="auto",
                    choices=("auto", "xla", "pallas", "pallas_rng",
                             "pallas_epoch"))
@@ -452,6 +692,23 @@ def main(argv=None) -> int:
     p.add_argument("--unroll", type=int, default=1)
     p.add_argument("--num_workers", type=int, default=0,
                    help="stream mode: read-ahead threads")
+    ddp = p.add_argument_group("ddp mode")
+    ddp.add_argument("--ddp_comm", default="all",
+                     choices=("all", "pmean", "sharded", "bf16", "int8"),
+                     help="the strategy(ies) to measure (default all four)")
+    ddp.add_argument("--overlap", action="store_true",
+                     help="measure the bucketed form of the strategies")
+    ddp.add_argument("--model", choices=("mlp", "deep_mlp"), default="mlp")
+    ddp.add_argument("--param_scale", type=int, default=1)
+    inp = p.add_argument_group("input mode")
+    inp.add_argument("--input_latency_ms", type=float, default=5.0,
+                     help="synthetic read latency a batch")
+    inp.add_argument("--input_batches", type=int, default=48,
+                     help="batches an epoch of the synthetic source")
+    inp.add_argument("--input_workers", type=int, default=4,
+                     help="decode workers of the piped run (legacy: 0)")
+    inp.add_argument("--input_depth", type=int, default=2,
+                     help="prefetch depth of the piped run (legacy: 1)")
     serve = p.add_argument_group("serve mode")
     serve.add_argument("--offered_rps", type=float, default=500.0)
     serve.add_argument("--requests", type=int, default=1000)
@@ -460,17 +717,20 @@ def main(argv=None) -> int:
     serve.add_argument("--queue_depth", type=int, default=256)
     serve.add_argument("--no_fast", dest="serve_fast", action="store_false",
                        help="the legacy stack-at-flush batcher")
-    serve.add_argument("--replicas", type=int, default=1,
-                       help="engine replicas (the fleet; > 1 exits by name)")
+    serve.add_argument("--replicas", type=int, default=None,
+                       help="serve: engine replicas (the fleet; > 1 exits by "
+                            "name; default 1); ddp: replicas of the card's "
+                            f"mesh (default {DDP_REPLICAS})")
     serve.add_argument("--shape", choices=("poisson", "ramp", "spike"),
                        default="poisson")
     a = p.parse_args(argv)
-    if a.mode in NOT_YET_PORTED_MODES:
-        raise SystemExit(f"--mode {a.mode} is not ported to the PyTorch "
-                         f"package yet; see ROADMAP.md "
-                         f"{NOT_YET_PORTED_MODES[a.mode]}")
     serve_knobs = ("offered_rps", "requests", "max_batch", "max_delay_ms",
-                   "queue_depth", "serve_fast", "replicas", "shape")
+                   "queue_depth", "serve_fast", "shape")
+    if a.replicas is None:
+        a.replicas = DDP_REPLICAS if a.mode == "ddp" else 1
+    elif a.mode not in ("serve", "ddp"):
+        p.error(f"--replicas is a serve- or ddp-mode knob; --mode {a.mode} "
+                f"never reads it")
     if a.mode == "serve":
         if a.epochs is not None:
             p.error("--epochs is never read by --mode serve")
@@ -490,14 +750,47 @@ def main(argv=None) -> int:
                 flag = "no_fast" if dest == "serve_fast" else dest
                 p.error(f"--{flag} is a serve-mode knob; --mode {a.mode} "
                         f"never reads it")
+    if a.mode != "input":
+        for dest in ("input_latency_ms", "input_batches", "input_workers",
+                     "input_depth"):
+            if getattr(a, dest) != p.get_default(dest):
+                p.error(f"--{dest} {getattr(a, dest)} is an input-mode "
+                        f"knob; --mode {a.mode} never reads it")
+    else:
+        if a.input_latency_ms < 0:
+            p.error("--input_latency_ms must be >= 0")
+        if a.input_batches < 1:
+            p.error("--input_batches must be >= 1")
+        if a.input_workers < 1:
+            p.error("--input_workers must be >= 1 (the legacy variant "
+                    "already measures 0)")
+        if a.input_depth < 1:
+            p.error("--input_depth must be >= 1")
+    if a.mode != "ddp":
+        for dest in ("ddp_comm", "overlap", "model", "param_scale"):
+            if getattr(a, dest) != p.get_default(dest):
+                p.error(f"--{dest} {getattr(a, dest)} is a ddp-mode knob; "
+                        f"--mode {a.mode} never reads it")
+    else:
+        from .models.zoo import validate_model
+        try:
+            validate_model(a.model, a.param_scale)
+        except ValueError as e:
+            p.error(str(e))
+        if a.replicas < 2:
+            p.error(f"--replicas {a.replicas}: the ddp mode measures a mesh "
+                    f"of 2 or more replicas against a 1-replica one")
     if a.epochs is None:
-        a.epochs = ACCURACY_EPOCHS if a.mode == "accuracy" else FUSED_EPOCHS
+        a.epochs = {"accuracy": ACCURACY_EPOCHS, "input": INPUT_EPOCHS,
+                    "ddp": DDP_EPOCHS}.get(a.mode, FUSED_EPOCHS)
     if a.epochs < 1:
         p.error("--epochs must be >= 1")
     # a knob the mode never reads would label a number with a configuration
     # it did not run: refused by name, as in the JAX bench
     blocked = (() if a.mode == "train" else
                ("unroll", "ring", "batch_size") if a.mode == "accuracy" else
+               ("kernel", "dtype", "impl", "superstep", "unroll", "ring")
+               if a.mode in ("input", "ddp") else
                ("kernel", "dtype", "impl", "superstep", "unroll", "ring",
                 "batch_size"))
     for dest in blocked:
@@ -544,6 +837,31 @@ def main(argv=None) -> int:
             max_batch=a.max_batch, max_delay_ms=a.max_delay_ms,
             queue_depth=a.queue_depth, fast=a.serve_fast, shape=a.shape),
             **stamp}
+    elif a.mode == "input":
+        out = {**run_input_bench(
+            device, epochs=a.epochs, batch_size=a.batch_size,
+            latency_ms=a.input_latency_ms, batches=a.input_batches,
+            workers=a.input_workers, depth=a.input_depth), **stamp}
+    elif a.mode == "ddp":
+        strategies = (("pmean", "sharded", "bf16", "int8")
+                      if a.ddp_comm == "all" else (a.ddp_comm,))
+        for r in run_ddp_rows(device, strategies=strategies,
+                              replicas=a.replicas,
+                              per_replica_batch=a.batch_size,
+                              epochs=a.epochs, model=a.model,
+                              param_scale=a.param_scale, overlap=a.overlap):
+            print(json.dumps({
+                "metric": "mnist_ddp_train_images_per_sec_per_chip",
+                "value": r["per_chip_images_per_sec"],
+                "unit": "images/sec/chip",
+                "vs_baseline": round(r["per_chip_images_per_sec"]
+                                     / NOMINAL_BASELINE_DDP_IMGS_PER_SEC, 4),
+                **{k: v for k, v in r.items()
+                   if k != "per_chip_images_per_sec"},
+                **perf_fields(r["per_chip_images_per_sec"],
+                              macs_fwd=r["macs_fwd_per_image"]),
+                **stamp}), flush=True)
+        return 0
     elif a.mode == "accuracy":
         out = {**run_accuracy_bench(device, kernel, dtype, superstep, a.impl,
                                     a.epochs), **stamp}

@@ -7,8 +7,11 @@ branches of `pytorch_ddp_mnist_tpu/cli/train.py`).
         [--impl threefry2x32|rbg] [--device 0|cpu] [--parallel
         [--wireup_method auto|single|slurm|openmpi|mpich|env|nccl-slurm|
         nccl-openmpi|nccl-mpich|gloo]] [--checkpoint model.pt] [--path data/]
-        [--netcdf] [--download] [--sampler_rng pcg64|torch]
-        [--dropout_rng jax|torch] [--eval_shuffle]
+        [--netcdf [--num_workers N]] [--download] [--sampler_rng pcg64|torch]
+        [--dropout_rng jax|torch] [--eval_shuffle] [--input_workers N]
+        [--prefetch_depth K] [--model mlp|deep_mlp] [--param_scale N]
+        [--ddp_comm pmean|sharded|bf16|int8] [--overlap] [--quant_block N]
+        [--error_feedback on|off] [--bf16_rounding nearest|stochastic]
 
 Trains the reference MLP on MNIST (or the synthetic stand-in), prints the
 reference epoch line every epoch and saves the reference `.pt` state_dict at
@@ -59,7 +62,17 @@ torch` shuffles with torch's CPU `randperm` (DistributedSampler's),
 Data: the IDX files under `--path` (`--download` fetches them first), the
 synthetic stand-in where there are none, or with `--netcdf` the converter's
 mnist_{train,test}_images.nc, read through the native reader core
-(csrc/reader.cc) where it builds; the `[data]` line names the core.
+(csrc/reader.cc) where it builds; the `[data]` line names the core. The
+streaming path feeds its batches through the input pipeline (pipeline/):
+`--input_workers` decode threads and `--prefetch_depth` batches of copy
+lookahead, bitwise the synchronous run; `--num_workers` is the NetCDF
+loader's own read-ahead.
+
+`--model` / `--param_scale` pick a zoo model (models/zoo.py; the plain
+autograd step), and `--ddp_comm` with `--overlap`, `--quant_block`,
+`--error_feedback` and `--bf16_rounding` the gradient-communication
+strategy of `--parallel` (parallel/collectives.py), with the JAX CLI's
+refusals of their combinations (train/config.py).
 """
 
 from __future__ import annotations
@@ -74,7 +87,8 @@ from ..data.download import download_mnist
 from ..data.loader import BatchLoader, NetCDFShardLoader, open_reader
 from ..data.mnist import get_mnist, normalize_images
 from ..data.native import native_available, native_build_error
-from ..models.mlp import MLP, param_count
+from ..models.mlp import param_count
+from ..models.zoo import is_default_model, resolve_model
 from ..ops import _build
 from ..ops.fused_step import make_fused_train_step, make_pallas_dp_train_step
 from ..ops.threefry import key_data
@@ -158,7 +172,9 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
         if tcfg["cached"]:
             try:   # the epoch kernel across processes, by name
                 check_dp_run_args(mesh, kernel, tcfg["dtype"], 1, 1,
-                                  tcfg["impl"], "auto", "pmean")
+                                  tcfg["impl"], "auto", **_comm_kw(tcfg),
+                                  model=tcfg["model"],
+                                  param_scale=tcfg["param_scale"])
             except ValueError as e:
                 raise SystemExit(f"--parallel --cached: {e}") from None
         if kernel == "pallas_epoch" and len(set(mesh)) > 1:
@@ -191,7 +207,8 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
     global_batch = tcfg["batch_size"] * n_rep
     local_batch = tcfg["batch_size"] * (len(mesh) if mesh is not None else 1)
 
-    data = load_data(dcfg, runtime, local_batch, tcfg["cached"], log)
+    data = load_data(dcfg, runtime, local_batch, tcfg["cached"], log,
+                     num_workers=tcfg["num_workers"])
     x_test = normalize_images(data["test_images"])
     y_test = data["test_labels"].astype(np.int32)
     # the streaming path: each rank takes its own shard of the sampler; the
@@ -210,7 +227,8 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
         n_test = len(y_test)
         eval_perm = lambda e: torch_randperm(n_test, tcfg["seed"] + e)  # noqa: E731
 
-    model = MLP.from_seed(tcfg["seed"]).to(device)
+    spec = resolve_model(tcfg["model"], tcfg["param_scale"])
+    model = spec.from_seed(tcfg["seed"]).to(device)
     if mesh is not None:
         try:
             check_replicated(mesh, model.params())
@@ -225,9 +243,15 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
     if runtime.initialized:
         mode += (f" world={world} rank={rank} backend={runtime.backend} "
                  f"wireup={runtime.method}")
-    for flag, default in (("sampler_rng", "pcg64"), ("dropout_rng", "jax")):
+    for flag, default in (("sampler_rng", "pcg64"), ("dropout_rng", "jax"),
+                          ("ddp_comm", "pmean"), ("bf16_rounding", "nearest"),
+                          ("overlap", False), ("quant_block", None),
+                          ("error_feedback", True), ("input_workers", 0),
+                          ("prefetch_depth", 1)):
         if tcfg[flag] != default:
             mode += f" {flag}={tcfg[flag]}"
+    if not is_default_model(tcfg["model"], tcfg["param_scale"]):
+        mode += f" model={tcfg['model']}@{tcfg['param_scale']}"
     log(f"pytorch_ddp_mnist_tpu_torch: device={device} ({name}) "
         f"params={param_count(model.params())} "
         f"batch={tcfg['batch_size']} kernel={kernel}{mode} "
@@ -241,8 +265,11 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
             epochs=tcfg["n_epochs"], batch_size=global_batch,
             lr=tcfg["lr"], kernel=kernel, impl=tcfg["impl"],
             fused=tcfg["fused"], dtype=tcfg["dtype"], mesh=mesh,
-            eval_perm=eval_perm, log=log)
-        state = TrainState(model, key)
+            eval_perm=eval_perm, prefetch_depth=tcfg["prefetch_depth"],
+            log=log, **(_comm_kw(tcfg) if mesh is not None else {}))
+        comm = fit_cached.comm
+        state = TrainState(model, key,
+                           comm.resid if comm is not None else None)
     else:
         loader = data["loader"]
         if loader is None:
@@ -253,10 +280,14 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
         # the JAX trainer's serial streaming `xla` step takes no dtype: it
         # trains in f32 under --dtype bfloat16, and so does this one; its DP
         # steps take the dtype
-        if mesh is not None:
-            make = (make_pallas_dp_train_step if kernel == "pallas"
-                    else make_dp_train_step)
-            step = make(mesh, tcfg["lr"], dtype=tcfg["dtype"])
+        if mesh is not None and kernel == "pallas":
+            step = make_pallas_dp_train_step(
+                mesh, tcfg["lr"], dtype=tcfg["dtype"], comm=tcfg["ddp_comm"],
+                bf16_rounding=tcfg["bf16_rounding"])
+        elif mesh is not None:
+            step = make_dp_train_step(mesh, tcfg["lr"], dtype=tcfg["dtype"],
+                                      **_comm_kw(tcfg), model=tcfg["model"],
+                                      param_scale=tcfg["param_scale"])
         elif tcfg["dropout_rng"] == "torch":
             step = make_torch_dropout_train_step(tcfg["lr"], tcfg["seed"])
         else:
@@ -266,7 +297,10 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
                              y_test, epochs=tcfg["n_epochs"],
                              batch_size=global_batch,
                              lr=None if step else tcfg["lr"], train_step=step,
-                             eval_perm=eval_perm, log=log)
+                             eval_perm=eval_perm,
+                             input_workers=tcfg["input_workers"],
+                             prefetch_depth=tcfg["prefetch_depth"],
+                             model_apply=spec.apply, log=log)
     if runtime.initialized and device.type == "cuda":
         # stderr: stdout stays the machine-parseable epoch lines
         print(f"[world] rank {rank}: peak device memory "
@@ -278,8 +312,16 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
     return state, history
 
 
+def _comm_kw(tcfg) -> dict:
+    """The gradient-communication knobs of the config, as the DP step makers
+    take them."""
+    return {"comm": tcfg["ddp_comm"], "bf16_rounding": tcfg["bf16_rounding"],
+            "overlap": tcfg["overlap"], "quant_block": tcfg["quant_block"],
+            "error_feedback": tcfg["error_feedback"]}
+
+
 def load_data(dcfg, runtime: Runtime, local_batch: int, cached: bool,
-              log) -> dict:
+              log, num_workers: int = 0) -> dict:
     """The run's data: {"n_train", "test_images", "test_labels", and either
     "loader" (the streaming --netcdf loader, its sampler still to assign)
     or "train_images"/"train_labels" (uint8 (n, 28, 28) and labels)}.
@@ -291,7 +333,8 @@ def load_data(dcfg, runtime: Runtime, local_batch: int, cached: bool,
     collective read does (mnist_pnetcdf_cpu.py:47). The `[data]` line names
     the reader core. Otherwise the IDX files under --path, fetched first
     with --download (in a world: rank 0 fetches, then every rank waits at a
-    barrier before it probes the path), else the synthetic stand-in."""
+    barrier before it probes the path), else the synthetic stand-in.
+    `num_workers` is the streaming NetCDF loader's read-ahead threads."""
     limit = dcfg["limit"] if dcfg["limit"] and dcfg["limit"] > 0 else None
     if dcfg["netcdf"]:
         train_nc, test_nc = (os.path.join(dcfg["path"], f"mnist_{s}_images.nc")
@@ -301,7 +344,8 @@ def load_data(dcfg, runtime: Runtime, local_batch: int, cached: bool,
                 raise SystemExit(
                     f"--netcdf: {path} not found; produce it with `python -m "
                     f"pytorch_ddp_mnist_tpu_torch convert`")
-        loader = NetCDFShardLoader(train_nc, batch_size=local_batch)
+        loader = NetCDFShardLoader(train_nc, batch_size=local_batch,
+                                   num_workers=num_workers)
         n_train = min(loader.num_samples, limit or loader.num_samples)
         test_reader, _ = open_reader(test_nc)
         out = {"n_train": n_train, "loader": loader,

@@ -1,13 +1,15 @@
 """Batch loaders, in memory and sharded from a NetCDF file, and their
 device prefetch (port of `pytorch_ddp_mnist_tpu/data/loader.py`'s
-`_batched_indices`, `BatchLoader`, `NetCDFShardLoader` and `device_prefetch`
-at depth 1).
+`_batched_indices`, `BatchLoader`, `NetCDFShardLoader` and
+`device_prefetch`).
 
 Every batch has the full batch size: the final partial batch is padded by
 wrapping to the shard's head, the same repetition trick DistributedSampler
-uses to pad the epoch. The loader yields numpy arrays; `device_prefetch`
-copies each into one of two static device slots, which the streaming
-loop's captured step reads (train/loop.py `fit`).
+uses to pad the epoch. The loaders yield numpy arrays and are
+pipeline-capable (pipeline/reader.py: `sampler`, `batch_size`,
+`read_batch(rows)`); `device_prefetch` copies each batch into one of two
+static device slots, which the streaming loop's captured step reads: the
+depth-1 case of pipeline/prefetch.py `SlotRing`.
 """
 
 from __future__ import annotations
@@ -46,9 +48,21 @@ class BatchLoader:
     def __len__(self) -> int:
         return math.ceil(len(self.sampler) / self.batch_size)
 
+    def read_batch(self, b: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """One index batch -> (x, y): the pipeline's load half, stateless
+        per batch, safe from worker threads (numpy gathers share no
+        cursor)."""
+        return self.images[b], self.labels[b].astype(np.int32)
+
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        for b in _batched_indices(self.sampler, self.batch_size):
-            yield self.images[b], self.labels[b].astype(np.int32)
+        return self.iter_from(0)
+
+    def iter_from(self, start: int) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """This epoch's batches from batch `start`: the skipped batches'
+        rows are dropped at the index level, never gathered."""
+        for i, b in enumerate(_batched_indices(self.sampler, self.batch_size)):
+            if i >= start:
+                yield self.read_batch(b)
 
 
 def open_reader(path: str):
@@ -172,42 +186,10 @@ def device_prefetch(batches: Iterable, slots: Tuple[torch.Tensor, ...],
     """Copy each host batch (a tuple of numpy arrays, as BatchLoader yields
     them) into device slot k % 2 of `slots` (a tuple of (2, ...) device
     tensors, one per array) and yield k % 2 once the copy is ordered before
-    the current stream's next work: the port of the JAX package's
-    `device_prefetch` (`pytorch_ddp_mnist_tpu/data/loader.py:214`) at depth
-    1, for a step that reads its batch from fixed addresses.
-
-    On a card the copy of batch k + 1 runs on a side stream while the step
-    of batch k runs: through `pinned` (a tuple of (2, ...) pinned host
-    tensors, reused; made here when None) it waits for the step that last
-    read slot (k + 1) % 2, and the current stream waits for it by a CUDA
-    event. No pinned slot is rewritten before the copy out of it has
-    finished. On the CPU the copy is a plain one."""
-    device = slots[0].device
-    if device.type != "cuda":
-        for k, batch in enumerate(batches):
-            for slot, a in zip(slots, batch):
-                slot[k % 2].copy_(torch.as_tensor(a))
-            yield k % 2
-        return
-    if pinned is None:
-        pinned = tuple(torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
-                       for s in slots)
-    compute = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    copied = [None, None]   # the copy into slot j has finished
-    read = [None, None]     # the step that read slot j has finished
-    for k, batch in enumerate(batches):
-        j = k % 2
-        if copied[j] is not None:
-            copied[j].synchronize()
-        for host, a in zip(pinned, batch):
-            host[j].copy_(torch.as_tensor(a))
-        with torch.cuda.stream(side):
-            if read[j] is not None:
-                side.wait_event(read[j])
-            for slot, host in zip(slots, pinned):
-                slot[j].copy_(host[j], non_blocking=True)
-            copied[j] = side.record_event()
-        compute.wait_event(copied[j])
-        yield j
-        read[j] = compute.record_event()
+    the current stream's next work: the JAX package's `device_prefetch`
+    (`pytorch_ddp_mnist_tpu/data/loader.py:214`), an alias of its
+    pipeline's prefetch at depth 1, here pipeline/prefetch.py `SlotRing`
+    of two slots at depth 1. `pinned` are the (2, ...) pinned host slabs
+    (made here when None, on a card)."""
+    from ..pipeline.prefetch import SlotRing
+    return SlotRing(slots, pinned).feed(batches, depth=1)

@@ -14,7 +14,9 @@ Init follows torch.nn.Linear: weight and bias from U(-1/sqrt(fan_in),
 draws them as the JAX package's `init_mlp(jax.random.key(seed))` does, bit
 for bit (`init_params`); `MLP(generator)` draws them from a
 `torch.Generator` instead, other weights for the same seed.
-`from_jax_params` loads a JAX params tree.
+`from_jax_params` loads a JAX params tree. `dims` widens the two hidden
+layers (the zoo's scaled `mlp`, models/zoo.py); the default is the
+reference model.
 """
 
 from __future__ import annotations
@@ -50,24 +52,27 @@ class Dense(nn.Module):
 
 
 class MLP(nn.Module):
-    """The reference 784-128-128-10 MLP: dropout 0.2 after fc1 only, no
-    bias on fc3. Parameters are float32 on CPU until moved with `.to()`."""
+    """The reference 784-128-128-10 MLP (or its widths `dims`): dropout 0.2
+    after fc1 only, no bias on fc3. Parameters are float32 on CPU until
+    moved with `.to()`."""
 
-    def __init__(self, generator: torch.Generator | None = None):
+    def __init__(self, generator: torch.Generator | None = None,
+                 dims=MLP_DIMS):
         super().__init__()
-        d0, d1, d2, d3 = MLP_DIMS
+        d0, d1, d2, d3 = dims
+        self.dims = tuple(dims)
         self.fc1 = Dense(d0, d1, bias=True, generator=generator)
         self.fc2 = Dense(d1, d2, bias=True, generator=generator)
         self.fc3 = Dense(d2, d3, bias=False, generator=generator)
 
     @classmethod
-    def from_seed(cls, seed: int) -> "MLP":
-        """The model `init_mlp(jax.random.key(seed))` gives in the JAX
-        package, bit for bit (see `init_params`)."""
-        model = cls()
+    def from_seed(cls, seed: int, dims=MLP_DIMS) -> "MLP":
+        """The model `init_mlp(jax.random.key(seed), dims=dims)` gives in
+        the JAX package, bit for bit (see `init_params`)."""
+        model = cls(dims=dims)
         params = model.params()
         with torch.no_grad():
-            for name, layer in init_params(seed).items():
+            for name, layer in init_params(seed, dims).items():
                 for k, t in layer.items():
                     params[name][k].copy_(t)
         return model
@@ -149,29 +154,41 @@ def _jax_uniform(key, shape, bound: float) -> torch.Tensor:
     return torch.maximum(lo, fused).reshape(shape)
 
 
-def init_params(seed: int) -> Params:
-    """The JAX package's `init_mlp(jax.random.key(seed))`, bit for bit, as
-    a params tree of f32 CPU tensors: `split(key, 3)` gives one key per
-    layer, each split again into (wkey, bkey), and each array is
-    `_jax_uniform` with bound 1/sqrt(fan_in)."""
+def linear_init(key, fan_in: int, fan_out: int, bias: bool) -> dict:
+    """The JAX package's `_torch_linear_init(key, fan_in, fan_out)`, bit for
+    bit: `split(key)` into (wkey, bkey), each array `_jax_uniform` with
+    bound 1/sqrt(fan_in)."""
     from ..ops import threefry
-    d0, d1, d2, d3 = MLP_DIMS
-    out = {}
-    for name, key, (fan_in, fan_out), bias in zip(
-            ("fc1", "fc2", "fc3"), threefry.split(threefry.key_data(seed), 3),
-            ((d0, d1), (d1, d2), (d2, d3)), (True, True, False)):
-        bound = 1.0 / math.sqrt(fan_in)
-        wkey, bkey = threefry.split(key)
-        out[name] = {"w": _jax_uniform(wkey, (fan_in, fan_out), bound)}
-        if bias:
-            out[name]["b"] = _jax_uniform(bkey, (fan_out,), bound)
-    return out
+    bound = 1.0 / math.sqrt(fan_in)
+    wkey, bkey = threefry.split(key)
+    layer = {"w": _jax_uniform(wkey, (fan_in, fan_out), bound)}
+    if bias:
+        layer["b"] = _jax_uniform(bkey, (fan_out,), bound)
+    return layer
+
+
+def init_params(seed: int, dims=MLP_DIMS) -> Params:
+    """The JAX package's `init_mlp(jax.random.key(seed), dims=dims)`, bit
+    for bit, as a params tree of f32 CPU tensors: `split(key, 3)` gives one
+    key per layer (`linear_init`)."""
+    from ..ops import threefry
+    d0, d1, d2, d3 = dims
+    return {name: linear_init(key, fan_in, fan_out, bias)
+            for name, key, (fan_in, fan_out), bias in zip(
+                ("fc1", "fc2", "fc3"),
+                threefry.split(threefry.key_data(seed), 3),
+                ((d0, d1), (d1, d2), (d2, d3)), (True, True, False))}
 
 
 def from_jax_params(tree, device="cpu") -> MLP:
     """A model holding exactly the weights of the JAX params tree
     `{"fc1": {"w","b"}, "fc2": {"w","b"}, "fc3": {"w"}}` (numpy arrays or
-    anything np.asarray takes), in the same (fan_in, fan_out) layout."""
+    anything np.asarray takes), in the same (fan_in, fan_out) layout; a
+    zoo model's tree (models/zoo.py `from_tree`) builds that model."""
+    if ("fc1" not in tree
+            or np.asarray(tree["fc1"]["w"]).shape[1] != MLP_DIMS[1]):
+        from .zoo import from_tree
+        return from_tree(tree, device)
     model = MLP()
     with torch.no_grad():
         for name, layer in model.params().items():
@@ -185,9 +202,9 @@ def from_jax_params(tree, device="cpu") -> MLP:
 
 
 def to_numpy_params(params: Params) -> Dict[str, Dict[str, np.ndarray]]:
-    """Params tree (or an MLP) -> the JAX-layout tree of float32 numpy
+    """Params tree (or a model) -> the JAX-layout tree of float32 numpy
     arrays: the inverse of `from_jax_params`."""
-    if isinstance(params, MLP):
+    if isinstance(params, nn.Module):
         params = params.params()
     return {name: {k: v.detach().cpu().numpy().astype(np.float32, copy=True)
                    for k, v in layer.items()}

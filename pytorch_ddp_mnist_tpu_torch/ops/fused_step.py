@@ -717,22 +717,33 @@ def make_fused_train_step(lr: float, *, dtype: str = "float32") -> KeyedStep:
 
 
 def make_pallas_dp_train_step(mesh, lr: float, *, dtype: str = "float32",
-                              comm: str = "pmean") -> KeyedStep:
+                              comm: str = "pmean",
+                              bf16_rounding: str = "nearest") -> KeyedStep:
     """The data-parallel `--kernel pallas` step (JAX
-    `make_pallas_dp_train_step`, comm='pmean') as a KeyedStep: the fused
-    step (K1-split, or K1-mma with `dtype='bfloat16'`) runs once per local
-    replica of `mesh` on that replica's shard of this process's batch x,
-    with the mask of `fold_in(sub, global replica index)` drawn in the
-    kernel (the key table's row (s, r)); the gradients' fixed-order mean
-    over the mesh's world (`world_mean`: the replicas of one process, or
-    of every process of a WorldMesh) then feeds SGD, and the loss is the
-    world's mean (parallel/ddp.py `dp_keyed_step`)."""
-    from ..parallel.ddp import dp_keyed_step, validate_comm
+    `make_pallas_dp_train_step`) as a KeyedStep: the fused step (K1-split,
+    or K1-mma with `dtype='bfloat16'`) runs once per local replica of
+    `mesh` on that replica's shard of this process's batch x, with the
+    mask of `fold_in(sub, global replica index)` drawn in the kernel (the
+    key table's row (s, r)); the gradients' mean over the mesh's world by
+    `comm`'s strategy (`pmean`, `sharded` or `bf16`; parallel/
+    collectives.py `DPComm`) then feeds SGD, and the loss is the world's
+    mean (parallel/ddp.py `dp_keyed_step`). `int8` carries error-feedback
+    state the fused DP step does not thread, and is refused by name, as
+    in JAX."""
+    from ..parallel import collectives
+    from ..parallel.ddp import dp_keyed_step
     from ..parallel.mesh import as_mesh
-    validate_comm(comm)
+    if comm == "int8":
+        raise ValueError(
+            "comm='int8' carries error-feedback state the fused Pallas DP "
+            "step does not thread; use kernel='xla' "
+            "(parallel.ddp.make_dp_train_step) for the int8 strategy")
     compute_dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    mesh = as_mesh(mesh)
 
     def loss_and_grads(params, x, y, words):
         return fused_loss_and_grads_keyed(params, x.to(compute_dt), y, words)
 
-    return dp_keyed_step(as_mesh(mesh), lr, loss_and_grads)
+    return dp_keyed_step(mesh, lr, loss_and_grads,
+                         collectives.DPComm(mesh, lr, comm,
+                                            bf16_rounding=bf16_rounding))

@@ -18,3 +18,10 @@ def sgd_step(params, grads, lr: float):
         for k, p in layer.items():
             p.sub_(grads[name][k].to(p.dtype) * lr)
     return params
+
+
+def sgd_step_flat(p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
+    """The update on one flat vector (a shard or a bucket of the sharded
+    and bucketed strategies, parallel/collectives.py), as a new tensor:
+    `p - (g * lr)`, JAX's `p - lr * g` bit for bit, as `sgd_step`."""
+    return p - g.to(p.dtype) * lr

@@ -160,3 +160,53 @@ def dropout_mask(key, batch: int, device="cpu", *, train: bool = True):
     if not train:
         return torch.ones((batch, HIDDEN1), dtype=torch.float32, device=device)
     return mask_block(key[0], key[1], batch, device)
+
+
+def _word_pair(words: torch.Tensor):
+    """An (..., 2) int tensor of key words -> (k0, k1) int64 tensors of
+    their uint32 values, on the words' device (no host round trip)."""
+    k = words.to(torch.int64) & M32
+    return k[..., 0], k[..., 1]
+
+
+def random_bits(words: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.bits(key, (n,), uint32)` for the key(s) in `words` (an
+    (..., 2) int tensor of key words, on any device): per element i the
+    counter words (0, i), bits = out0 ^ out1, as uint32 values in an int64
+    tensor of shape (..., n). Plain tensor ops on the words' device, so a
+    captured step can draw them from keys in device memory."""
+    k0, k1 = _word_pair(words)
+    idx = torch.arange(n, dtype=torch.int64, device=words.device)
+    o0, o1 = threefry2x32(k0[..., None], k1[..., None], torch.zeros_like(idx),
+                          idx)
+    return o0 ^ o1
+
+
+def keep_from_words(words: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """The (rows, cols) bool keep draw of jax's `bernoulli(key, 0.8,
+    (rows, cols))` for the key in `words` ((2,) int words on any device):
+    `uniform(bits) < f32(0.8)`, as `uniform_keep` computes it, in plain
+    tensor ops on the words' device (the zoo's hidden widths other than
+    the mask entry's 128)."""
+    bits = random_bits(words, rows * cols)
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    u = torch.clamp_min(u - 1.0, 0.0)
+    return (u < 1.0 - DROPOUT_RATE).reshape(rows, cols)
+
+
+def fold_in_words(words: torch.Tensor, data) -> torch.Tensor:
+    """`fold_in` of the key(s) in `words` (an (..., 2) int tensor) with
+    `data` (an int, or an int64 tensor broadcast against the keys), as
+    (..., 2) int64 words on the same device."""
+    k0, k1 = _word_pair(words)
+    d = data if isinstance(data, torch.Tensor) else torch.full(
+        (), int(data) & M32, dtype=torch.int64, device=words.device)
+    o0, o1 = threefry2x32(k0, k1, torch.zeros_like(d), d)
+    return torch.stack(torch.broadcast_tensors(o0, o1), dim=-1)
+
+
+def split_words(words: torch.Tensor, n: int) -> torch.Tensor:
+    """`split(key, n)` of the key(s) in `words` ((..., 2)) -> (..., n, 2)
+    int64 words on the same device."""
+    idx = torch.arange(n, dtype=torch.int64, device=words.device)
+    return fold_in_words(words[..., None, :], idx)

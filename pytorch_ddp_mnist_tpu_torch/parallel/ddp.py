@@ -1,6 +1,5 @@
 """Data-parallel training over a mesh of one process or of a world of
-processes: the DDP analog (port of the `comm="pmean"` subset of
-`pytorch_ddp_mnist_tpu/parallel/ddp.py`).
+processes: the DDP analog (port of `pytorch_ddp_mnist_tpu/parallel/ddp.py`).
 
 The reference semantics, as the JAX package reproduces them:
   * the params are replicated on every replica;
@@ -34,8 +33,14 @@ No gradient goes through `dist.all_reduce`, whose order the backend picks.
 Every process builds its params from the same seed; `check_replicated`
 holds them equal at start-up.
 
-The other gradient-communication strategies (`sharded`, `bf16`, `int8`,
-`overlap`) are refused by name (ROADMAP.md queue 1, item 11).
+The gradient-communication strategy is selectable (`comm=`, `--ddp_comm`):
+`pmean` above, `sharded`, `bf16` and `int8`, each optionally bucketed
+(`overlap`); parallel/collectives.py `DPComm` runs them on the mesh and
+across a world's ranks in the same fixed order. The step keeps JAX's key
+derivation: replica r's key is `fold_in(sub, r)` (the key table's row),
+and the bf16 strategy's stochastic-rounding key `fold_in(rkey, 7)`. The
+int8 strategy's residual is comm state: `step.place_comm_state(params)`
+makes it, and the step updates it in place.
 """
 
 from __future__ import annotations
@@ -47,32 +52,20 @@ import hashlib
 import numpy as np
 import torch
 
-from ..ops.fused_step import KeyedStep, keyed_dropout_mask
-from ..ops.sgd import sgd_step
+from ..ops.fused_step import KeyedStep
+from . import collectives
+from .collectives import validate_comm
 from .mesh import (DATA_AXIS, Mesh, WorldMesh, as_mesh, data_parallel_mesh,
                    first_replica, replicas, world_size)
 
 __all__ = ["DATA_AXIS", "dp_mesh", "shard_batch", "global_batch_from_local",
            "replicate_state", "check_replicated", "replica_mean",
            "world_mean", "validate_comm", "dp_step", "dp_keyed_step",
-           "make_dp_train_step"]
-
-COMMS = ("pmean", "sharded", "bf16", "int8")
+           "make_dp_train_step", "make_ddp_comm_recorder"]
 
 
 def dp_mesh(devices: Sequence | None = None) -> Mesh:
     return data_parallel_mesh(devices)
-
-
-def validate_comm(comm: str) -> None:
-    """Only the pmean strategy is ported; the others exit by name."""
-    if comm == "pmean":
-        return
-    if comm in COMMS:
-        raise ValueError(f"comm={comm!r} is not ported to the PyTorch package "
-                         f"yet; see ROADMAP.md queue 1, item 11 (gradient "
-                         f"communication). Use comm='pmean'")
-    raise ValueError(f"comm must be one of {COMMS}; got {comm!r}")
 
 
 def _check_batch_divisible(n_rows: int, n_shards: int, what: str) -> None:
@@ -243,79 +236,164 @@ def on_device(tree, device):
             for n, layer in tree.items()}
 
 
-def _dp_update(mesh: Mesh, lr: float, model, x, y, replica_step):
+def _dp_update(mesh: Mesh, comm, model, x, y, words, replica_step):
     """One DP step's body: local replica r takes shard r of this process's
     batch x and `replica_step(r, params on its device, x_r, y_r)` gives its
-    (loss, grads); then SGD in place on the model with the world's mean
-    gradient (`world_mean`). Returns the world's mean loss."""
+    (loss, grads); then `comm` (a collectives.DPComm) takes the world's
+    strategy mean and writes SGD into the model in place. Returns the
+    world's mean loss."""
     params = model.params()
     losses, grads = [], []
     for r, (xr, yr) in enumerate(shard_batch(mesh, (x, y))):
         loss, g = replica_step(r, on_device(params, mesh[r]), xr, yr)
         losses.append(loss)
         grads.append(g)
-    loss, mean = world_mean(mesh, losses, grads, x.device)
-    sgd_step(params, mean, lr)
-    return loss
+    return comm.update(params, losses, grads, words)
 
 
-def _tag(step, mesh: Mesh):
-    step.ddp_comm = "pmean"
+def _tag(step, mesh: Mesh, comm):
+    """The metadata the loops and the telemetry read off a DP step (the
+    JAX step's `ddp_*` attributes), and its comm state's placement."""
+    step.comm = comm
+    step.ddp_comm = comm.comm
     step.ddp_mesh = mesh
     step.ddp_devices = replicas(mesh)
+    step.ddp_quant_block = comm.quant_block
+    step.ddp_bucket_elems = comm.bucket_elems
+    step.ddp_overlap = comm.overlap
+    step.comm_state = comm.stateful
+    step.cost_label = collectives.step_cost_label(comm.comm, comm.overlap)
+    step.place_comm_state = comm.place_state
+
+    def collective_schedule(params):
+        return collectives.collective_schedule(
+            params, replicas(mesh), comm.comm, overlap=comm.overlap,
+            bucket_elems=comm.bucket_elems, quant_block=comm.quant_block)
+
+    step.collective_schedule = collective_schedule
     return step
 
 
-def dp_keyed_step(mesh: Mesh, lr: float, loss_and_grads: Callable):
+def dp_keyed_step(mesh: Mesh, lr: float, loss_and_grads: Callable,
+                  comm=None):
     """The streaming DP step whose replicas read their keys from the key
     table (the `pallas` step, and under `dp_step` the `xla` one), as an
     ops/fused_step.py `KeyedStep` whose table folds the local replicas'
     global indices into each step's key: row (s, r) is `fold_in(sub, g)`
     of step s's `sub`, g replica r's global index, and
     `loss_and_grads(params, x, y, words)` takes replica r's row (on its
-    device). Then SGD in place on the model with the world's mean gradient
-    (`world_mean`), and the loss is the world's mean. Every process splits
-    the same replicated key, so no key is exchanged."""
+    device). Then `comm` (a collectives.DPComm; default pmean) takes the
+    world's mean gradient by its strategy and writes SGD into the model in
+    place; the loss is the world's mean. Every process splits the same
+    replicated key, so no key is exchanged."""
     first = first_replica(mesh)
+    comm = comm if comm is not None else collectives.DPComm(mesh, lr)
 
     def run(model, words, x, y):
         def replica_step(r, params, xr, yr):
             return loss_and_grads(params, xr, yr, words[r].to(mesh[r]))
-        return _dp_update(mesh, lr, model, x, y, replica_step)
+        return _dp_update(mesh, comm, model, x, y, words, replica_step)
 
-    return _tag(KeyedStep(run, fold=range(first, first + len(mesh))), mesh)
+    return _tag(KeyedStep(run, fold=range(first, first + len(mesh))), mesh,
+                comm)
 
 
-def dp_step(mesh: Mesh, lr: float, loss_and_grads: Callable) -> KeyedStep:
+def dp_step(mesh: Mesh, lr: float, loss_and_grads: Callable,
+            comm=None, width: int = 128) -> KeyedStep:
     """The streaming DP step of a mask input (the `xla` step): as
-    `dp_keyed_step`, where replica r's mask is drawn by the mask entry
-    reading the key of its table row (s, r) from device memory
-    (`keyed_dropout_mask`, bitwise `dropout_mask(fold_in(sub, g))`) and
-    `loss_and_grads(params, x, y, mask)` gives its (loss, grads).
-    `step(model, key, x, y) -> (key', loss)` splits a host key as the JAX
-    step does."""
+    `dp_keyed_step`, where replica r's pre-scaled (B, `width`) mask is
+    drawn from the key of its table row (s, r) in device memory (the mask
+    entry `keyed_dropout_mask` at width 128, bitwise
+    `dropout_mask(fold_in(sub, g))`; a zoo model's other widths in plain
+    tensor ops, train/loop.py `keyed_keep`) and `loss_and_grads(params, x,
+    y, mask)` gives its (loss, grads). `step(model, key, x, y) -> (key',
+    loss)` splits a host key as the JAX step does."""
+    from ..ops.fused_step import keyed_dropout_mask
+    from ..train.loop import keyed_keep
+
+    def mask_of(words, batch, device):
+        if width == 128:
+            return keyed_dropout_mask(words, batch, device)
+        keep = keyed_keep(words, batch, width, device)
+        return torch.where(keep, torch.full((), 1.25, device=device),
+                           torch.zeros((), device=device))
+
     def masked(params, x, y, words):
         return loss_and_grads(params, x, y,
-                              keyed_dropout_mask(words, x.shape[0], x.device))
+                              mask_of(words, x.shape[0], x.device))
 
-    return dp_keyed_step(mesh, lr, masked)
+    return dp_keyed_step(mesh, lr, masked, comm)
 
 
 def make_dp_train_step(mesh: Mesh, lr: float, *, dtype: str = "float32",
-                       comm: str = "pmean") -> KeyedStep:
+                       comm: str = "pmean", bf16_rounding: str = "nearest",
+                       overlap: bool = False, quant_block: int | None = None,
+                       error_feedback: bool = True,
+                       bucket_elems: int | None = None,
+                       model: str = "mlp", param_scale: int = 1) -> KeyedStep:
     """The DP step with the plain autograd step per replica (JAX
-    `make_dp_train_step`, comm='pmean') as a KeyedStep (`dp_step`):
-    step(model, key, x, y) -> (key', loss as a 0-d tensor), x (this
-    process's batch, 784) on the model's device, split over the mesh's
-    local replicas (a WorldMesh: the world's replicas across processes).
-    Each replica's forward and backward run in `dtype` (the params cast to
-    it, f32 grads), with the keyed dropout of its `fold_in` key, read from
-    the key table; the update is SGD on the fixed-order mean."""
+    `make_dp_train_step`) as a KeyedStep (`dp_step`): step(model, key, x,
+    y) -> (key', loss as a 0-d tensor), x (this process's batch, 784) on
+    the model's device, split over the mesh's local replicas (a WorldMesh:
+    the world's replicas across processes). Each replica's forward and
+    backward run in `dtype` (the params cast to it, f32 grads), with the
+    keyed dropout of its `fold_in` key, read from the key table; the
+    update is SGD on the mean of `comm`'s strategy (parallel/
+    collectives.py `DPComm`; `bf16_rounding`, `overlap`, `quant_block`,
+    `error_feedback` and `bucket_elems` as there). `model` /
+    `param_scale` select the workload (models/zoo.py). With int8 error
+    feedback, `step.comm_state` is True and `step.place_comm_state(params,
+    host=None)` makes the residual before the first step."""
+    from ..models.zoo import resolve_model
     from ..train.loop import xla_loss_and_grads
-    validate_comm(comm)
+    spec = resolve_model(model, param_scale)
     compute_dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    mesh = as_mesh(mesh)
+    dp = collectives.DPComm(mesh, lr, comm, bf16_rounding=bf16_rounding,
+                            overlap=overlap, quant_block=quant_block,
+                            error_feedback=error_feedback,
+                            bucket_elems=bucket_elems)
 
     def loss_and_grads(params, x, y, mask):
-        return xla_loss_and_grads(params, x.to(compute_dt), y, mask > 0)
+        return xla_loss_and_grads(params, x.to(compute_dt), y, mask > 0,
+                                  apply=spec.apply)
 
-    return dp_step(as_mesh(mesh), lr, loss_and_grads)
+    return dp_step(mesh, lr, loss_and_grads, dp, width=spec.dims[1])
+
+
+def make_ddp_comm_recorder(mesh: Mesh, comm, params):
+    """The per-epoch recorder of the `ddp.*` metrics (JAX
+    `make_ddp_comm_recorder`) in the port's registry: `record(steps,
+    params)` adds `steps` steps' ring-model bytes to the
+    `ddp.bytes_on_wire` counter and the port's all-gather bytes to
+    `ddp.bytes_moved`; when the port's tracer is enabled it also times the
+    strategy's comm probe (`make_comm_probe`) into the `ddp.collective_s`
+    histogram, once an epoch. `comm` is the step's collectives.DPComm."""
+    from ..telemetry import get_registry
+    from ..telemetry.events import NullTracer, get_tracer
+    n = replicas(mesh)
+    kw = dict(bucket_elems=comm.bucket_elems, quant_block=comm.quant_block)
+    wire_step = collectives.bytes_on_wire(params, n, comm.comm, **kw)
+    moved_step = collectives.bytes_moved(params, n, comm.comm,
+                                         overlap=comm.overlap, **kw)
+    reg = get_registry()
+    wire = reg.counter("ddp.bytes_on_wire")
+    moved = reg.counter("ddp.bytes_moved")
+    hist = reg.histogram("ddp.collective_s")
+    box = {}
+
+    def record(steps: int, params) -> None:
+        wire.inc(steps * wire_step)
+        moved.inc(steps * moved_step)
+        tracer = get_tracer()
+        if isinstance(tracer, NullTracer):
+            return
+        if "probe" not in box:
+            box["probe"] = collectives.make_comm_probe(mesh, comm.comm, **kw)
+        secs = collectives.measure_collective_seconds(box["probe"], params)
+        for sec in secs:
+            hist.record(sec)
+        tracer.complete_span("ddp_comm_probe", sum(secs),
+                             strategy=comm.comm, reps=len(secs))
+
+    return record

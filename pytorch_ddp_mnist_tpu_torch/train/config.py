@@ -4,8 +4,14 @@
 combinations of `--cached`, `--fused` and `--kernel pallas_epoch`), with
 `--parallel` over the mesh of the local cards or over a world of processes
 (`--wireup_method`, parallel/wireup.py), the data plane's `--netcdf` and
-`--download`, and the reference's own random streams (`--sampler_rng
-torch`, `--dropout_rng torch`, `--eval_shuffle`).
+`--download`, the reference's own random streams (`--sampler_rng
+torch`, `--dropout_rng torch`, `--eval_shuffle`), the input pipeline
+(`--input_workers`, `--prefetch_depth`, `--num_workers`), the workload zoo
+(`--model`, `--param_scale`) and the gradient-communication strategies
+(`--ddp_comm`, `--overlap`, `--quant_block`, `--error_feedback`,
+`--bf16_rounding`), with the JAX CLI's refusals of their combinations,
+word for word, and its rule that resolves `--kernel auto` to `xla` for the
+`xla`-only options.
 
 The ported flags keep the JAX trainer's names and defaults, so launch lines
 carry over, except `--checkpoint`, which defaults to `model.pt` (the port
@@ -36,17 +42,6 @@ NOT_YET_PORTED = {
     "--ckpt_keep": "queue 1, item 8 (step checkpoints)",
     "--fault": "queue 1, item 8 (step checkpoints)",
     "--outage_retries": "queue 1, item 8 (step checkpoints)",
-    "--num_workers": "queue 1, item 10 (input pipeline)",
-    "--input_workers": "queue 1, item 10 (input pipeline)",
-    "--prefetch_depth": "queue 1, item 10 (input pipeline)",
-    "--model": "queue 1, item 11 (workload zoo)",
-    "--param_scale": "queue 1, item 11 (workload zoo)",
-    "--ddp_comm": "queue 1, item 11 (gradient communication)",
-    "--ddp-comm": "queue 1, item 11 (gradient communication)",
-    "--overlap": "queue 1, item 11 (gradient communication)",
-    "--quant_block": "queue 1, item 11 (gradient communication)",
-    "--error_feedback": "queue 1, item 11 (gradient communication)",
-    "--bf16_rounding": "queue 1, item 11 (gradient communication)",
     "--telemetry": "queue 1, item 12 (telemetry)",
     "--journal": "queue 1, item 12 (telemetry)",
     "--profile": "queue 1, item 12 (telemetry)",
@@ -78,6 +73,68 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
                         "1-replica mesh) or one CPU replica with --device "
                         "cpu: the per-rank batch is --batch_size, the "
                         "per-step gradient mean is in fixed replica order")
+    t.add_argument("--ddp-comm", "--ddp_comm", dest="ddp_comm",
+                   choices=("pmean", "sharded", "bf16", "int8"),
+                   default="pmean",
+                   help="gradient-communication strategy for --parallel "
+                        "(parallel/collectives.py): pmean (default, the "
+                        "reference DDP step: the f32 mean, SGD on every "
+                        "replica), sharded (bucketed reduce-scatter, SGD on "
+                        "each replica's 1/N shard, params all-gather; "
+                        "within rtol 1e-6 of pmean), bf16 (bf16 wire and "
+                        "sum, f32 mean and update) or int8 (block-scaled "
+                        "int8 on both phases with error-feedback residuals; "
+                        "--quant_block / --error_feedback tune it). Every "
+                        "mean is taken in fixed replica order")
+    t.add_argument("--overlap", action="store_true",
+                   help="bucket-pipeline the gradient collectives "
+                        "(--parallel): one collective a gradient bucket "
+                        "(arXiv:1711.00705). Composes with every --ddp_comm "
+                        "strategy (sharded/int8 are bucketed already); plain "
+                        "pmean without it stays the reference step. Needs "
+                        "the plain autograd step (--kernel xla)")
+    t.add_argument("--quant_block", type=int, default=None,
+                   help="--ddp_comm int8 only: elements per int8 scaling "
+                        "block (one f32 scale each; default 256). Refused "
+                        "by name on other strategies")
+    t.add_argument("--error_feedback", choices=("on", "off"), default="on",
+                   help="--ddp_comm int8 only: carry each replica's "
+                        "quantization error into the next step's gradients "
+                        "(on, default) or drop it (off). Refused by name on "
+                        "other strategies")
+    t.add_argument("--model", choices=("mlp", "deep_mlp"), default="mlp",
+                   help="model family (models/zoo.py): mlp (default, the "
+                        "reference 784-128-128-10 MLP at --param_scale 1) "
+                        "or deep_mlp (4 hidden layers). Other models than "
+                        "the reference run the plain autograd step (--kernel "
+                        "xla)")
+    t.add_argument("--param_scale", type=int, default=1,
+                   help="hidden-width multiplier for --model (128*N units)")
+    t.add_argument("--bf16_rounding", choices=("nearest", "stochastic"),
+                   default="nearest",
+                   help="--ddp_comm bf16 only: round the gradients into the "
+                        "bf16 cast to nearest even (default) or "
+                        "stochastically (jax's threefry bits of each "
+                        "replica's key). Refused by name on other "
+                        "strategies")
+    t.add_argument("--num_workers", type=int, default=0,
+                   help="read-ahead threads of the --netcdf streaming "
+                        "loader (the reference's DataLoader workers, "
+                        "mnist_pnetcdf_cpu.py:58-60). Superseded by "
+                        "--input_workers: passing both is refused by name")
+    t.add_argument("--input_workers", type=int, default=0,
+                   help="the staged input pipeline (pipeline/): N decode "
+                        "threads feed the streaming loop through a reorder "
+                        "buffer; batch order and the trained params stay "
+                        "bitwise those of the synchronous default (0). "
+                        "Refused by name with --cached")
+    t.add_argument("--prefetch_depth", type=int, default=1,
+                   help="the pipeline's copy lookahead: K batches' host-to-"
+                        "device copies in flight while the current step "
+                        "runs (1: the two-slot double buffer; the captured "
+                        "step's slots are a ring of K + 1). With --cached "
+                        "it makes the epochs' index arrays ahead instead; "
+                        "--fused refuses a depth other than 1 by name")
     t.add_argument("--wireup_method", choices=WIREUP_CHOICES, default="auto",
                    help="how --parallel finds its world: auto (SLURM, Open "
                         "MPI, MPICH, then RANK/WORLD_SIZE, else one "
@@ -215,10 +272,11 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
                 f"streamed masks; --kernel {a.kernel} draws its own masks "
                 f"in the kernel")
         a.kernel = "xla"
-    if a.checkpoint and not a.checkpoint.endswith((".pt", ".pth")):
+    check_comm_and_input_knobs(a)
+    if a.checkpoint and not a.checkpoint.endswith((".pt", ".pth", ".npz")):
         raise SystemExit(f"--checkpoint {a.checkpoint!r}: the PyTorch package "
-                         f"writes .pt/.pth state_dicts only (msgpack needs "
-                         f"flax)")
+                         f"writes .pt/.pth state_dicts and .npz params trees "
+                         f"only (msgpack needs flax)")
     return {
         "trainer": {
             "batch_size": a.batch_size, "n_epochs": a.n_epochs, "lr": a.lr,
@@ -227,12 +285,92 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
             "fused": a.fused, "impl": a.impl or "threefry2x32",
             "parallel": a.parallel, "wireup_method": a.wireup_method,
             "sampler_rng": a.sampler_rng, "dropout_rng": a.dropout_rng,
-            "eval_shuffle": a.eval_shuffle,
+            "eval_shuffle": a.eval_shuffle, "ddp_comm": a.ddp_comm,
+            "bf16_rounding": a.bf16_rounding, "overlap": a.overlap,
+            "quant_block": a.quant_block,
+            "error_feedback": a.error_feedback == "on",
+            "model": a.model, "param_scale": a.param_scale,
+            "num_workers": a.num_workers, "input_workers": a.input_workers,
+            "prefetch_depth": a.prefetch_depth,
         },
         "data": {"path": a.path, "limit": a.limit, "netcdf": a.netcdf,
                  "download": a.download, "hdf5": a.hdf5,
                  "label_map": a.label_map},
     }
+
+
+def check_comm_and_input_knobs(a) -> None:
+    """The JAX CLI's rules for the comm strategies, the zoo and the input
+    pipeline (`pytorch_ddp_mnist_tpu/cli/train.py:354-435`), word for word:
+    every knob some configuration would quietly ignore exits by name, and
+    `--kernel auto` resolves to xla where an option needs it."""
+    from ..models.zoo import is_default_model, validate_model
+    from ..parallel.collectives import validate_int8_options
+    if a.ddp_comm != "pmean":
+        if not a.parallel:
+            raise SystemExit(
+                f"--ddp_comm {a.ddp_comm} selects the DDP gradient "
+                f"collective; it needs --parallel")
+        if a.kernel == "pallas_epoch":
+            raise SystemExit(
+                f"--ddp_comm {a.ddp_comm} selects the per-step XLA "
+                f"gradient collective; --kernel pallas_epoch performs its "
+                f"allreduce IN-kernel (the ICI ring) and never reads it")
+    if a.bf16_rounding != "nearest" and a.ddp_comm != "bf16":
+        raise SystemExit(
+            f"--bf16_rounding {a.bf16_rounding} rounds the bf16 "
+            f"strategy's wire cast; --ddp_comm {a.ddp_comm} never "
+            f"casts — use --ddp_comm bf16")
+    try:
+        validate_model(a.model, a.param_scale)
+        validate_int8_options(a.quant_block, a.error_feedback == "on",
+                              a.ddp_comm)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    nondefault_model = not is_default_model(a.model, a.param_scale)
+    if a.overlap and not a.parallel:
+        raise SystemExit(
+            "--overlap bucket-pipelines the DDP gradient collectives; it "
+            "needs --parallel")
+    xla_only = []
+    if a.overlap:
+        xla_only.append("--overlap (bucket-pipelined XLA collectives)")
+    if a.ddp_comm == "int8":
+        xla_only.append("--ddp_comm int8 (error-feedback state threading)")
+    if nondefault_model:
+        xla_only.append(f"--model {a.model} --param_scale "
+                        f"{a.param_scale} (non-reference shapes)")
+    if xla_only:
+        if a.kernel in ("pallas", "pallas_rng", "pallas_epoch"):
+            raise SystemExit(
+                f"--kernel {a.kernel} hard-codes the reference MLP / "
+                f"owns its own comms; {'; '.join(xla_only)} need(s) "
+                f"--kernel xla")
+        if a.kernel == "auto":
+            a.kernel = "xla"
+    if nondefault_model and a.dropout_rng == "torch":
+        raise SystemExit(
+            "--dropout_rng torch streams masks sized for the reference "
+            "MLP's hidden layer; --model/--param_scale change that "
+            "geometry — use the default jax dropout stream")
+    if a.input_workers < 0:
+        raise SystemExit("--input_workers must be >= 0")
+    if a.prefetch_depth < 1:
+        raise SystemExit("--prefetch_depth must be >= 1")
+    if a.input_workers and a.cached:
+        raise SystemExit(
+            "--input_workers feeds the streaming loader through the input "
+            "pipeline; --cached holds the dataset in HBM with no loader to "
+            "feed — drop --cached (the streaming loop) to use it")
+    if a.input_workers and a.num_workers:
+        raise SystemExit(
+            "--input_workers (the staged pipeline) supersedes the NetCDF "
+            "loader's --num_workers readahead; pass one of the two")
+    if a.prefetch_depth != 1 and a.fused:
+        raise SystemExit(
+            "--prefetch_depth pipelines per-chunk/per-batch device "
+            "transfers; --fused places ONE index array for the whole run — "
+            "there is nothing to prefetch")
 
 
 def resolve_kernel(kernel: str, dtype: str, device_type: str) -> str:

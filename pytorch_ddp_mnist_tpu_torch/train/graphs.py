@@ -33,7 +33,9 @@ and a one-epoch run gains as much as a long one.
 
 The capture (`StepLoop._capture`):
   * warms the body up on a side stream on CLONES of the state, a scratch
-    cursor and a scratch loss buffer, so that warm-up trains nothing, and
+    cursor and a scratch loss buffer (and restores the `preserve` tensors
+    the body writes outside its state: the int8 strategy's residual), so
+    that warm-up trains nothing, and
     so that what a body sets up lazily (the kernel libraries, the
     tensor-map encoder, cuBLAS's handle, autograd's streams) exists before
     the capture;
@@ -138,16 +140,19 @@ class StepLoop:
     one on a card captures the body first); `losses()` is a copy of the
     epoch's loss buffer on the device; `epoch()` is the three for the
     loop's `nsteps` steps. `capture` (a card, and not a loop built with
-    `eager=True`) selects the graph; `what` names the path in errors."""
+    `eager=True`) selects the graph; `what` names the path in errors;
+    `preserve` are device tensors the body updates in place besides its
+    state, which the capture's warm-up leaves as it found them."""
 
     def __init__(self, body: Callable, state, nsteps: int, device, *,
-                 capture: bool, what: str):
+                 capture: bool, what: str, preserve=()):
         self.body, self.state, self.nsteps = body, state, int(nsteps)
         self.device = torch.device(device)
         if capture and self.device.type != "cuda":
             raise ValueError(f"{what}: a CUDA graph needs a CUDA device, "
                              f"not {self.device}")
         self.capture, self.what = capture, what
+        self.preserve = tuple(preserve)
         self.cursor = torch.zeros((), dtype=torch.int64, device=self.device)
         self._losses = torch.zeros(self.nsteps, dtype=torch.float32,
                                    device=self.device)
@@ -189,6 +194,7 @@ class StepLoop:
         scratch = copy.deepcopy(self.state)
         cursor = torch.zeros_like(self.cursor)
         losses = torch.zeros_like(self._losses)
+        kept = [t.clone() for t in self.preserve]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         try:
@@ -200,7 +206,9 @@ class StepLoop:
             raise RuntimeError(f"{self.what}: the step failed in its warm-up "
                                f"before capture: {e}") from e
         current.wait_stream(side)
-        del scratch, cursor, losses
+        for t, k in zip(self.preserve, kept):
+            t.copy_(k)
+        del scratch, cursor, losses, kept
         _restore(saved)
         graph = torch.cuda.CUDAGraph()
         mode = torch.cuda.get_sync_debug_mode()

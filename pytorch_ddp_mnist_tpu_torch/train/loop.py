@@ -16,12 +16,13 @@ step's mask is jax's `dropout_mask(sub, B)`, bit for bit. Both steps are
 it inside K1-split or K1-mma.
 
 JAX runs the streaming step as one `jax.jit` program fed by
-`device_prefetch`; here, on a card, `fit` captures the step as a CUDA
+`pipeline.feed`; here, on a card, `fit` captures the step as a CUDA
 graph and replays it once a batch (train/graphs.py `StepLoop`): the
 epoch's key table is loaded into a static buffer before its first step,
-each batch is copied by data/loader.py `device_prefetch` into one of two
-static batch slots on a side stream while the step before runs, and the
-step reads its slot and its key row through a device cursor. Serial, or
+each batch is copied by pipeline/prefetch.py `SlotRing` into one of
+`prefetch_depth + 1` static batch slots on a side stream while the steps
+before run, and the step reads its slot and its key row through a device
+cursor. Serial, or
 over a single-process mesh of the model's card; a world of processes (one
 rank too), a mesh across cards and a step that is not a `KeyedStep` keep
 the eager loop, a batch copied to the card a step. `_captured_steps` built
@@ -32,17 +33,32 @@ captured loop's step eagerly on its buffers.
 takes the reference's own mask stream instead: torch's CPU `bernoulli_` on
 a generator seeded `--seed` (parallel/torch_rng.py), drawn on the host a
 batch at a time in step order and handed to the plain autograd step as a
-(B, 128) mask. On a card the mask rides with its batch: `device_prefetch`
-copies it into a third pair of static slots on the same side stream as
-the batch, so the captured step reads slot s % 2 of the masks as it does
-of the rows, and every replay trains on its own batch's mask.
+(B, 128) mask. On a card the mask rides with its batch: the ring copies
+it into a third set of static slots on the same side stream as the
+batch, so the captured step reads the same slot of the masks as of the
+rows, and every replay trains on its own batch's mask.
 
 As in the JAX package, the per-step losses stay on the device and are
 fetched once per epoch: no per-step `.item()`. The printed train_loss keeps
 the reference accumulator quirk Σ(batch_mean / B), and mean loss, accuracy
 and throughput ride alongside; `eval_perm` (`--eval_shuffle`) segments the
 val loss's batches in a shuffled order, as the reference's shuffled test
-loader does. Telemetry, the input pipeline's workers, fault points, the
+loader does.
+
+The batches come through the staged input pipeline (pipeline/, the JAX
+`fit`'s `pipeline.feed`): `input_workers` decode threads behind a reorder
+buffer (0: synchronous reads) and `prefetch_depth` batches of copy
+lookahead. On a card the captured step's batch slots are a ring of
+`prefetch_depth + 1` (pipeline/prefetch.py `SlotRing`): step s reads slot
+s % (depth + 1). A `MaskedStep`'s masks are drawn on the consumer's side
+after the reorder buffer, in step order, so any worker count draws the
+same masks. Every configuration trains on the batches of the unpiped
+loop, in its order, bit for bit.
+
+A data-parallel step with comm state (`--ddp_comm int8` with error
+feedback, parallel/ddp.py) keeps its residual in a device tensor the step
+updates in place; the captured loop's warm-up restores it, and the
+TrainState carries it out (`resid`). Telemetry, fault points, the
 collective journal, the health watchdog and mid-epoch resume are not
 ported yet (ROADMAP.md queue 1).
 """
@@ -56,36 +72,52 @@ from typing import Callable, List
 import numpy as np
 import torch
 
-from ..data.loader import device_prefetch
 from ..models.mlp import DROPOUT_RATE, MLP, MLP_DIMS, mlp_apply
 from ..ops.fused_step import KeyedStep, dropout_mask, keyed_dropout_mask
 from ..ops.loss import cross_entropy
 from ..ops.sgd import sgd_step
+from ..ops.threefry import keep_from_words
 from ..parallel.torch_rng import MaskStream
+from ..pipeline import host_iter, prefetch
+from ..pipeline.prefetch import SlotRing
 from . import graphs
 
 
 @dataclass
 class TrainState:
-    """The model (its parameters are the trained state; SGD has no other)
-    and the train key: the (k0, k1) words of the threefry key whose split
-    chain keys the dropout masks."""
+    """The model (its parameters are the trained state; SGD has no other),
+    the train key: the (k0, k1) words of the threefry key whose split
+    chain keys the dropout masks, and the int8 strategy's error-feedback
+    residual (a device tensor, or None)."""
     model: MLP
     key: tuple
+    resid: object = None
 
 
-def xla_loss_and_grads(params, x, y, keep=None, *, dropout_mask=None):
+def keyed_keep(words, batch: int, width: int, device) -> torch.Tensor:
+    """The (batch, width) bool keep draw of jax's
+    `bernoulli(key, 0.8, (batch, width))` for the key in the table row
+    `words`, read from device memory: the mask entry (a kernel) at the
+    reference MLP's width 128, plain tensor ops on the device at the zoo's
+    other widths."""
+    if width == MLP_DIMS[1]:
+        return keyed_dropout_mask(words, batch, device) > 0
+    return keep_from_words(words.to(device), batch, width)
+
+
+def xla_loss_and_grads(params, x, y, keep=None, *, dropout_mask=None,
+                       apply=mlp_apply):
     """The plain autograd step's (mean loss, grads tree) on a params tree,
     with the forward's dropout from the bool keep draw `keep` (the keyed
     form) or from a streamed {0, 1} `dropout_mask` (the `--dropout_rng
     torch` form). The forward runs in x's dtype; the grads are f32, as the
-    params are."""
+    params are. `apply` is the model's forward (models/zoo.py)."""
     names = [(n, k) for n, layer in params.items() for k in layer]
     leaves = {n: {k: v.detach().requires_grad_(True) for k, v in layer.items()}
               for n, layer in params.items()}
     with torch.enable_grad():
-        loss = cross_entropy(mlp_apply(leaves, x, train=True, keep=keep,
-                                       dropout_mask=dropout_mask), y)
+        loss = cross_entropy(apply(leaves, x, train=True, keep=keep,
+                                   dropout_mask=dropout_mask), y)
         flat = torch.autograd.grad(loss, [leaves[n][k] for n, k in names])
     grads = {n: {} for n in params}
     for (n, k), g in zip(names, flat):
@@ -93,7 +125,7 @@ def xla_loss_and_grads(params, x, y, keep=None, *, dropout_mask=None):
     return loss.detach(), grads
 
 
-def make_train_step(lr: float) -> KeyedStep:
+def make_train_step(lr: float, apply=mlp_apply) -> KeyedStep:
     """The plain autograd step (`--kernel xla`) as a KeyedStep:
     step(model, key, x, y) -> (key', mean loss as a 0-d device tensor). As
     the JAX package's `make_train_step`: `key, sub = split(key)` (the key
@@ -101,11 +133,15 @@ def make_train_step(lr: float) -> KeyedStep:
     `sub`, drawn by the mask entry reading the row from device memory (the
     fused step's mask, so both steps see the same masks from the same
     key). It trains in f32, as the JAX trainer's streaming `xla` path does
-    whatever `--dtype` says."""
+    whatever `--dtype` says. `apply` is a zoo model's forward
+    (models/zoo.py); its keep draw has the model's hidden width
+    (`keyed_keep`)."""
+    from ..models.zoo import hidden_width
+
     def run(model, words, x, y):
-        keep = keyed_dropout_mask(words, x.shape[0], x.device) > 0
         params = model.params()
-        loss, grads = xla_loss_and_grads(params, x, y, keep)
+        keep = keyed_keep(words, x.shape[0], hidden_width(params), x.device)
+        loss, grads = xla_loss_and_grads(params, x, y, keep, apply=apply)
         sgd_step(params, grads, lr)
         return loss
 
@@ -252,19 +288,21 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _captured_steps(step, model: MLP, nsteps: int, batch: int, device,
-                    eager: bool = False):
+                    eager: bool = False, ring: int = 2):
     """The streaming loop's step (a KeyedStep or a MaskedStep) as a
-    train/graphs.py StepLoop: its static buffers are two batch slots (x (2,
-    B, 784) f32, y (2, B) int32; step s reads slot s % 2, which
-    `device_prefetch` fills) and the epoch's key table, or, for a
-    MaskedStep, two mask slots (2, B, 128) f32 filled with the batch.
-    `eager` runs the step without a graph on a card. Returns (the loop, its
-    slots, its key table's StaticInput or None)."""
-    x_slots = torch.zeros((2, batch, MLP_DIMS[0]), dtype=torch.float32,
+    train/graphs.py StepLoop: its static buffers are `ring` batch slots (x
+    (ring, B, 784) f32, y (ring, B) int32; step s reads slot s % ring,
+    which pipeline/prefetch.py `SlotRing` fills, `ring` = the prefetch
+    depth + 1) and the epoch's key table, or, for a MaskedStep, `ring`
+    mask slots (ring, B, 128) f32 filled with the batch. A step with comm
+    state (parallel/ddp.py) has its residual restored after the capture's
+    warm-up. `eager` runs the step without a graph on a card. Returns (the
+    loop, its slots, its key table's StaticInput or None)."""
+    x_slots = torch.zeros((ring, batch, MLP_DIMS[0]), dtype=torch.float32,
                           device=device)
-    y_slots = torch.zeros((2, batch), dtype=torch.int32, device=device)
+    y_slots = torch.zeros((ring, batch), dtype=torch.int32, device=device)
     if isinstance(step, MaskedStep):
-        m_slots = torch.zeros((2, batch, MLP_DIMS[1]), dtype=torch.float32,
+        m_slots = torch.zeros((ring, batch, MLP_DIMS[1]), dtype=torch.float32,
                               device=device)
         slots, keys = (x_slots, y_slots, m_slots), None
 
@@ -283,24 +321,27 @@ def _captured_steps(step, model: MLP, nsteps: int, batch: int, device,
 
     def body(model, cursor, losses):
         at = cursor.view(1)
-        slot = torch.remainder(at, 2)
+        slot = torch.remainder(at, ring)
         loss = step.run(model, inputs(at, slot),
                         x_slots.index_select(0, slot)[0],
                         y_slots.index_select(0, slot)[0])
         losses.index_copy_(0, at, loss.reshape(1))
         cursor.add_(1)
 
+    comm = getattr(step, "comm", None)
     loop = graphs.StepLoop(body, model, nsteps, device,
                            capture=device.type == "cuda" and not eager,
-                           what="the streaming step")
+                           what="the streaming step",
+                           preserve=comm.state_tensors() if comm else ())
     return loop, slots, keys
 
 
 def fit(state: TrainState, train_loader, x_test: np.ndarray,
         y_test: np.ndarray, *, epochs: int, batch_size: int,
         lr: float | None = None, train_step: Callable | None = None,
-        eval_perm: Callable | None = None,
-        log: Callable[[str], None] = print):
+        eval_perm: Callable | None = None, input_workers: int = 0,
+        prefetch_depth: int = 1, model_apply: Callable | None = None,
+        registry=None, log: Callable[[str], None] = print):
     """Run the reference training loop for `epochs` epochs on the model's
     device. Exactly one of `lr` (builds the plain autograd step) or
     `train_step` (e.g. ops.fused_step.make_fused_train_step) is given.
@@ -310,12 +351,27 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
     that prints on rank 0 only. A `KeyedStep` or `MaskedStep` on one
     device runs captured on a card (see the module docstring).
     `eval_perm(epoch)`, when given, is the order of the epoch's val-loss
-    segmentation (`--eval_shuffle`)."""
+    segmentation (`--eval_shuffle`). `input_workers` and `prefetch_depth`
+    are the input pipeline's (see the module docstring): the same batches
+    in the same order at any setting. `model_apply` is a zoo model's
+    forward for the `lr` step (models/zoo.py). The pipeline's `data.*`
+    metrics go to `registry` (default: the process's,
+    telemetry/registry.py)."""
     if (train_step is None) == (lr is None):
         raise ValueError("pass exactly one of lr= or train_step=")
-    step = train_step if train_step is not None else make_train_step(lr)
+    if input_workers < 0:
+        raise ValueError(f"input_workers must be >= 0; got {input_workers}")
+    if prefetch_depth < 1:
+        raise ValueError(f"prefetch_depth must be >= 1; got {prefetch_depth}")
+    step = (train_step if train_step is not None else
+            make_train_step(lr, model_apply or mlp_apply))
     model, key = state.model, state.key
     device = next(model.parameters()).device
+    comm, record = getattr(step, "comm", None), None
+    if comm is not None:
+        from ..parallel.ddp import make_ddp_comm_recorder
+        comm.place_state(model.params(), state.resid)
+        record = make_ddp_comm_recorder(step.ddp_mesh, comm, model.params())
     keyed = isinstance(step, KeyedStep)
     masked = isinstance(step, MaskedStep)
     nsteps = len(train_loader) if keyed or masked else None
@@ -324,9 +380,9 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
         getattr(step, "ddp_mesh", None), device))
     if captured:
         loop, slots, keys = _captured_steps(step, model, nsteps,
-                                            train_loader.batch_size, device)
-        pinned = (tuple(torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
-                        for s in slots) if device.type == "cuda" else None)
+                                            train_loader.batch_size, device,
+                                            ring=prefetch_depth + 1)
+        ring = SlotRing(slots)
     # the test set goes to the device once, not once per epoch
     x_test_dev = torch.as_tensor(x_test, device=device)
     y_test_dev = torch.as_tensor(y_test, device=device)
@@ -335,7 +391,8 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
         t0 = time.perf_counter()
         io_seconds = 0.0
         train_loader.sampler.set_epoch(epoch)
-        batches = iter(train_loader)
+        batches = host_iter(train_loader, workers=input_workers,
+                            registry=registry)
         if masked:   # each batch with its mask, drawn in step order
             batches = step.with_masks(batches)
         if keyed and captured:
@@ -345,13 +402,15 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
             epoch_key, table = step.key_table(key, nsteps, device)
         if captured:
             loop.start_epoch()
-            batches = device_prefetch(batches, slots, pinned)
+            batches = ring.feed(batches, prefetch_depth)
+        else:
+            batches = prefetch(batches, depth=prefetch_depth, device=device)
         losses, taken = [], 0
         while True:
             t_io = time.perf_counter()
             batch = next(batches, None)
             if batch is not None and not captured:
-                x, y = (_to_device(a, device) for a in batch)
+                x, y = batch
             io_seconds += time.perf_counter() - t_io
             if batch is None:
                 break
@@ -374,10 +433,12 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
         # the epoch's one fetch
         losses = (loop.losses() if captured else torch.stack(losses)) \
             .cpu().numpy()
+        if record is not None:
+            record(losses.size, model.params())
         val = evaluate(model, x_test_dev, y_test_dev, batch_size,
                        perm=eval_perm(epoch) if eval_perm else None)
         dt = time.perf_counter() - t0
         log(epoch_summary(epoch, losses, batch_size, val, dt,
                           io_seconds=io_seconds))
         history.append(losses)
-    return TrainState(model, key), history
+    return TrainState(model, key, comm.resid if comm else None), history

@@ -70,6 +70,16 @@ is a collective (over gloo through the host).
 `pallas_epoch` across processes is refused by name: K6's ring runs among
 the replicas of one cooperative launch (ROADMAP.md queue 2, item 6).
 
+The gradient-communication strategy of a DP run (`comm`, with
+`bf16_rounding`, `overlap`, `quant_block`, `error_feedback`; parallel/
+collectives.py `DPComm`) replaces the pmean mean in every per-step DP loop:
+the captured step on a one-card mesh (its int8 residual a device tensor
+the step updates in place, restored after the capture's warm-up; its
+rounding keys drawn on the device from the key table's rows), and the
+eager loop of a world or a mesh across cards. `pallas_epoch` refuses
+`comm` and `overlap` by name, as JAX does: K6 takes its mean in its ring.
+`model` / `param_scale` select a zoo model (models/zoo.py), on `xla` only.
+
 Keys are `(k0, k1)` tuples of the threefry key words (ops/threefry.py).
 The per-step losses stay on the device and are fetched once per epoch
 (once per run with `fused=True`), so `fit_cached` prints the reference
@@ -87,17 +97,20 @@ import torch
 
 from ..data.loader import _batched_indices
 from ..data.mnist import device_normalize
-from ..models.mlp import MLP
+from ..models.mlp import MLP, mlp_apply
+from ..models.zoo import hidden_width, is_default_model, model_apply
 from ..ops import threefry
 from ..ops.epoch_step import RINGS, epoch_fused_sgd
 from ..ops.fused_step import (fused_loss_and_grads_keyed,
-                              fused_loss_and_grads_rng, keyed_dropout_mask)
+                              fused_loss_and_grads_rng)
 from ..ops.sgd import sgd_step
-from ..parallel.ddp import (on_device, replica_mean, replicate_state,
-                            validate_comm, world_mean)
+from ..parallel import collectives
+from ..parallel.ddp import (make_ddp_comm_recorder, on_device, replica_mean,
+                            replicate_state)
 from ..parallel.mesh import as_mesh, first_replica, replicas, world_size
+from ..pipeline import prefetch
 from . import graphs
-from .loop import (_to_device, epoch_summary, evaluate,
+from .loop import (_to_device, epoch_summary, evaluate, keyed_keep,
                    make_snapshot_eval_step, val_summary, xla_loss_and_grads)
 
 __all__ = ["device_normalize", "resident_images", "epoch_batch_indices",
@@ -204,20 +217,22 @@ def _clone(params):
             for n, layer in params.items()}
 
 
-def _loss_and_grads(params, x_all, y_all, rows, key, kernel, compute_dt):
+def _loss_and_grads(params, x_all, y_all, rows, key, kernel, compute_dt,
+                    apply=mlp_apply):
     """One step's (loss, grads) on the gathered `rows` with the dropout of
     `key`, a row of the epoch's key table on the device, which every kernel
     reads there: `pallas` draws the mask in the kernel, `pallas_rng` takes
     word 0 as the kernel's seed, `xla` draws `dropout_mask` of the key with
-    the mask entry."""
+    the mask entry (train/loop.py `keyed_keep`: at a zoo model's other
+    hidden widths in plain tensor ops) for the forward `apply`."""
     x = _gathered_x(x_all, rows, compute_dt)
     y = y_all.index_select(0, rows)
     if kernel == "pallas":
         return fused_loss_and_grads_keyed(params, x, y, key)
     if kernel == "pallas_rng":
         return fused_loss_and_grads_rng(params, x, y, key)
-    mask = keyed_dropout_mask(key, rows.shape[0], x.device)
-    return xla_loss_and_grads(params, x, y, mask > 0)
+    keep = keyed_keep(key, rows.shape[0], hidden_width(params), x.device)
+    return xla_loss_and_grads(params, x, y, keep, apply=apply)
 
 
 class CachedSteps:
@@ -232,10 +247,14 @@ class CachedSteps:
     key table, (S, n, 2) on a mesh (the replicas' `fold_in(sub, g)`).
     `epoch(key, idx)` loads them, runs the S steps and returns (key after
     the epoch, the (S,) losses on the device: the replicas' mean on a
-    mesh)."""
+    mesh). On a mesh the mean and the update are `comm`'s (a
+    collectives.DPComm, default pmean), whose residual (int8 with error
+    feedback) is placed here if it is not yet; `apply` is a zoo model's
+    forward."""
 
     def __init__(self, params, x_all, y_all, idx_shape, lr: float,
-                 kernel: str, compute_dt, mesh=None, *, eager: bool = False):
+                 kernel: str, compute_dt, mesh=None, *, eager: bool = False,
+                 comm=None, apply=mlp_apply):
         device = x_all.device
         nsteps, rows = idx_shape
         self.params = params
@@ -246,35 +265,43 @@ class CachedSteps:
             (nsteps, 2) if mesh is None else (nsteps, len(mesh), 2),
             torch.int32, device)
         idx, keys = self.idx.buf, self.keys.buf
+        if mesh is not None and comm is None:
+            comm = collectives.DPComm(mesh, lr)
+        if comm is not None and comm.stateful and comm.resid is None:
+            comm.place_state(params)
+        self.comm = comm
 
-        def step_grads(params, step_rows, words):
+        def step(params, step_rows, words):
             if mesh is None:
-                return _loss_and_grads(params, x_all, y_all, step_rows, words,
-                                       kernel, compute_dt)
+                loss, grads = _loss_and_grads(params, x_all, y_all, step_rows,
+                                              words, kernel, compute_dt, apply)
+                sgd_step(params, grads, lr)
+                return loss
             batch = rows // len(mesh)
             losses, grads = [], []
             for r in range(len(mesh)):
                 loss, g = _loss_and_grads(
                     params, x_all, y_all,
                     step_rows[r * batch:(r + 1) * batch], words[r], kernel,
-                    compute_dt)
+                    compute_dt, apply)
                 losses.append(loss)
                 grads.append(g)
-            return world_mean(mesh, losses, grads, device)
+            return comm.update(params, losses, grads, words)
 
         def body(params, cursor, losses):
             at = cursor.view(1)
-            loss, grads = step_grads(params, idx.index_select(0, at)[0],
-                                     keys.index_select(0, at)[0])
-            sgd_step(params, grads, lr)
+            loss = step(params, idx.index_select(0, at)[0],
+                        keys.index_select(0, at)[0])
             losses.index_copy_(0, at, loss.reshape(1))
             cursor.add_(1)
 
-        where = "" if mesh is None else f" over {len(mesh)} replicas"
+        where = ("" if mesh is None else f" over {len(mesh)} replicas"
+                 f" ({comm.comm}{'+overlap' if comm.overlap else ''})")
         self.loop = graphs.StepLoop(
             body, params, nsteps, device,
             capture=device.type == "cuda" and not eager,
-            what=f"the cached {kernel} step ({compute_dt}){where}")
+            what=f"the cached {kernel} step ({compute_dt}){where}",
+            preserve=comm.state_tensors() if comm is not None else ())
 
     def epoch(self, key, idx):
         key, words = threefry.step_key_words(key, self.loop.nsteps, self.fold)
@@ -311,9 +338,33 @@ def _kernel_epoch(params, key, x_all, y_all, idx_e, lr, impl, compute_bf16,
     return params, key, losses
 
 
+def _host_indices(idxs, host: bool):
+    """A run's (E, S, rows) indices: int32 numpy, or a device tensor that
+    fit_cached's prefetch placed ahead (kept as it is unless the run needs
+    them on the host: the captured loop loads its static buffer from
+    them)."""
+    if isinstance(idxs, torch.Tensor):
+        return idxs.cpu().numpy().astype(np.int32) if host else idxs
+    return np.asarray(idxs, np.int32)
+
+
+def _one_epoch(idx):
+    """An epoch's indices as a run's (1, S, rows)."""
+    return (idx if isinstance(idx, torch.Tensor) else np.asarray(idx))[None]
+
+
+def _placed(idxs, device) -> torch.Tensor:
+    """The indices on `device`: copied there (pinned, non-blocking), or as
+    they are when already placed."""
+    if isinstance(idxs, torch.Tensor):
+        return idxs.to(device)
+    return _to_device(idxs, device)
+
+
 def make_run_fn(lr: float, *, dtype: str = "float32", kernel: str = "xla",
                 snapshots: bool = False, unroll: int = 1, superstep: int = 1,
-                impl: str = "threefry2x32") -> Callable:
+                impl: str = "threefry2x32", model: str = "mlp",
+                param_scale: int = 1) -> Callable:
     """The whole E-epoch run: run(params, key, x_all, y_all, idxs (E, S, B))
     -> (params', key', losses (E, S)) or, with `snapshots`, also
     (p_snaps with a leading (E,) axis on every leaf, [key after each
@@ -323,18 +374,22 @@ def make_run_fn(lr: float, *, dtype: str = "float32", kernel: str = "xla",
     type does there (see the module docstring). `superstep` (kernel
     'pallas_epoch' only; K in {1, 2, 4, 8}): K steps per epoch-kernel
     iteration, the same bits. The per-step kernels run one captured step a
-    step on a card, one capture a run (`CachedSteps`)."""
+    step on a card, one capture a run (`CachedSteps`). `model` /
+    `param_scale` select a zoo model (models/zoo.py; `xla` only)."""
+    from ..models.zoo import resolve_model
     check_run_args(kernel, dtype, unroll, superstep, impl)
+    check_model(model, param_scale, kernel)
     compute_dt = _compute_dtype(dtype)
+    apply = resolve_model(model, param_scale).apply
 
     def run(params, key, x_all, y_all, idxs):
         params = _clone(params)
-        idxs = np.asarray(idxs, np.int32)
+        idxs = _host_indices(idxs, kernel != "pallas_epoch")
         if kernel == "pallas_epoch":
-            idx_dev = _to_device(idxs, x_all.device)
+            idx_dev = _placed(idxs, x_all.device)
         else:
             steps = CachedSteps(params, x_all, y_all, idxs.shape[1:], lr,
-                                kernel, compute_dt)
+                                kernel, compute_dt, apply=apply)
         losses, p_snaps, k_snaps = [], [], []
         for e in range(idxs.shape[0]):
             if kernel == "pallas_epoch":
@@ -358,14 +413,16 @@ def make_run_fn(lr: float, *, dtype: str = "float32", kernel: str = "xla",
 
 
 def make_epoch_fn(lr: float, *, dtype: str = "float32", kernel: str = "xla",
-                  impl: str = "threefry2x32") -> Callable:
+                  impl: str = "threefry2x32", model: str = "mlp",
+                  param_scale: int = 1) -> Callable:
     """One epoch: epoch(params, key, x_all, y_all, idx (S, B)) -> (params',
     key', losses (S,)), the one-element case of make_run_fn."""
-    run = make_run_fn(lr, dtype=dtype, kernel=kernel, impl=impl)
+    run = make_run_fn(lr, dtype=dtype, kernel=kernel, impl=impl,
+                      model=model, param_scale=param_scale)
 
     def epoch(params, key, x_all, y_all, idx):
         params, key, losses = run(params, key, x_all, y_all,
-                                  np.asarray(idx)[None])
+                                  _one_epoch(idx))
         return params, key, losses[0]
 
     return epoch
@@ -386,14 +443,16 @@ def check_ring(ring: str, kernel: str, n_dev: int) -> None:
             f"multi-device mesh (got kernel={kernel!r}, {n_dev} device(s))")
 
 
-def _dp_steps_epoch(mesh, params, key, data, idx_e, lr, kernel, compute_dt):
+def _dp_steps_epoch(mesh, params, key, data, idx_e, lr, kernel, compute_dt,
+                    comm, apply=mlp_apply):
     """One epoch of per-step DP calls in an eager host loop, for a world of
     processes and a mesh across cards: per step `key, sub = split(key)`,
     local replica r takes shard r of the step's rows with the dropout of
     `fold_in(sub, g)`, g its global index, read from row (s, r) of the
-    epoch's (S, n, 2) key table, built before the first step; then SGD in
-    place on `params` with the world's fixed-order mean gradient. Returns
-    (key, losses (S,), the world's mean per step)."""
+    epoch's (S, n, 2) key table, built before the first step; then `comm`
+    (a collectives.DPComm) takes the world's mean by its strategy and
+    writes SGD into `params` in place. Returns (key, losses (S,), the
+    world's mean per step)."""
     n, first = len(mesh), first_replica(mesh)
     batch = idx_e.shape[1] // n
     shards = [data[d][2][:, r * batch:(r + 1) * batch]
@@ -409,12 +468,10 @@ def _dp_steps_epoch(mesh, params, key, data, idx_e, lr, kernel, compute_dt):
             x_all, y_all, _ = data[dev]
             loss, g = _loss_and_grads(on_device(params, dev), x_all, y_all,
                                       shards[r][s], table[s, r].to(dev),
-                                      kernel, compute_dt)
+                                      kernel, compute_dt, apply)
             step_losses.append(loss)
             grads.append(g)
-        loss, mean = world_mean(mesh, step_losses, grads, device)
-        sgd_step(params, mean, lr)
-        losses.append(loss)
+        losses.append(comm.update(params, step_losses, grads, table[s]))
     return key, torch.stack(losses)
 
 
@@ -453,11 +510,30 @@ def _dp_kernel_epoch(mesh, reps, key, data, idx_e, lr, impl, compute_bf16,
 
 def check_dp_run_args(mesh, kernel: str, dtype: str, unroll: int,
                       superstep: int, impl: str, ring: str,
-                      comm: str) -> None:
+                      comm: str, *, bf16_rounding: str = "nearest",
+                      overlap: bool = False, quant_block: int | None = None,
+                      error_feedback: bool = True, model: str = "mlp",
+                      param_scale: int = 1) -> None:
     """The DP scan layer's refusals, by name: those of `check_run_args`,
-    the ring's, the comm strategy's, a superstep on a multi-replica mesh
-    (JAX `make_dp_run_fn`), and the epoch kernel across processes."""
+    the ring's, the comm strategy's and its knobs', a comm strategy or
+    `overlap` on the epoch kernel, a zoo model off `xla`, a superstep on a
+    multi-replica mesh (JAX `make_dp_run_fn`), and the epoch kernel across
+    processes."""
     check_run_args(kernel, dtype, unroll, superstep, impl)
+    check_model(model, param_scale, kernel)
+    collectives.validate_comm(comm)
+    collectives.validate_bf16_rounding(bf16_rounding, comm)
+    collectives.validate_int8_options(quant_block, error_feedback, comm)
+    if comm != "pmean" and kernel == "pallas_epoch":
+        raise ValueError(
+            f"comm={comm!r} selects the per-step gradient collective; "
+            f"kernel 'pallas_epoch' performs its allreduce IN-kernel (the "
+            f"ring — pick it with ring=) and never reads comm")
+    if overlap and kernel == "pallas_epoch":
+        raise ValueError(
+            "overlap=True bucket-pipelines the per-step gradient "
+            "collectives; kernel 'pallas_epoch' owns its comms IN-kernel "
+            "and never reads it")
     if kernel == "pallas_epoch" and world_size(mesh) > 1:
         raise ValueError(
             f"kernel='pallas_epoch' across a world of {world_size(mesh)} "
@@ -467,12 +543,24 @@ def check_dp_run_args(mesh, kernel: str, dtype: str, unroll: int,
             f"(ROADMAP.md queue 2, item 6). Use kernel='pallas'")
     n = len(mesh)
     check_ring(ring, kernel, n)
-    validate_comm(comm)
     if superstep != 1 and n > 1:
         raise ValueError(
             f"superstep={superstep} is single-replica only (the DP ring's "
             f"per-iteration handshake); use superstep=1 on the {n}-device "
             f"mesh")
+
+
+def check_model(model: str, param_scale: int, kernel: str) -> None:
+    """A zoo model other than the reference MLP runs the plain autograd
+    step only: the fused kernels take the reference MLP's shapes (JAX's
+    refusal, by name)."""
+    from ..models.zoo import validate_model
+    validate_model(model, param_scale)
+    if not is_default_model(model, param_scale) and kernel != "xla":
+        raise ValueError(
+            f"model={model!r} param_scale={param_scale} needs the plain "
+            f"autograd step; kernel={kernel!r} hard-codes the reference "
+            f"MLP's shapes — use kernel='xla'")
 
 
 def _mesh_data(mesh, x_all, y_all, idxs):
@@ -489,7 +577,11 @@ def _mesh_data(mesh, x_all, y_all, idxs):
 def make_dp_run_fn(mesh, lr: float, *, dtype: str = "float32",
                    kernel: str = "xla", snapshots: bool = False,
                    unroll: int = 1, superstep: int = 1, ring: str = "auto",
-                   comm: str = "pmean",
+                   comm: str = "pmean", bf16_rounding: str = "nearest",
+                   overlap: bool = False, quant_block: int | None = None,
+                   error_feedback: bool = True,
+                   bucket_elems: int | None = None,
+                   model: str = "mlp", param_scale: int = 1,
                    impl: str = "threefry2x32") -> Callable:
     """The whole E-epoch DP run over `mesh` (a tuple of replica devices, or
     a WorldMesh of this process's): run(params, key, x_all, y_all, idxs
@@ -497,25 +589,42 @@ def make_dp_run_fn(mesh, lr: float, *, dtype: str = "float32",
     also (p_snaps, [keys]), as `make_run_fn`; n is the local replicas and
     idxs this process's rows. The losses are the world's mean per step;
     params' lies on x_all's device. `ring` (kernel 'pallas_epoch' on n > 1
-    replicas) picks K6's allreduce; `superstep` is single-replica only;
-    `comm` must be 'pmean'. The per-step kernels on a mesh whose replicas
-    share x_all's device run one captured step a step (`CachedSteps`; a
-    world and a mesh across cards, `_dp_steps_epoch`)."""
+    replicas) picks K6's allreduce; `superstep` is single-replica only.
+    `comm` and its knobs pick the gradient communication (parallel/
+    collectives.py `DPComm`, built fresh a run, its int8 residual zeros
+    or `run(..., resid=)`; `run.comm` is the last run's); `model` /
+    `param_scale` a zoo model (`xla` only). The per-step kernels on a mesh
+    whose replicas share x_all's device run one captured step a step
+    (`CachedSteps`; a world and a mesh across cards, `_dp_steps_epoch`)."""
+    from ..models.zoo import resolve_model
     mesh = as_mesh(mesh)
     check_dp_run_args(mesh, kernel, dtype, unroll, superstep, impl, ring,
-                      comm)
+                      comm, bf16_rounding=bf16_rounding, overlap=overlap,
+                      quant_block=quant_block,
+                      error_feedback=error_feedback, model=model,
+                      param_scale=param_scale)
     compute_dt = _compute_dtype(dtype)
+    apply = resolve_model(model, param_scale).apply
 
-    def run(params, key, x_all, y_all, idxs):
+    def run(params, key, x_all, y_all, idxs, resid=None):
         device = x_all.device
         params = _clone(params)
-        idxs = np.asarray(idxs, np.int32)
-        if kernel != "pallas_epoch" and graphs.on_one_device(mesh, device):
+        captured = (kernel != "pallas_epoch"
+                    and graphs.on_one_device(mesh, device))
+        idxs = _host_indices(idxs, captured)
+        dp = collectives.DPComm(mesh, lr, comm, bf16_rounding=bf16_rounding,
+                                overlap=overlap, quant_block=quant_block,
+                                error_feedback=error_feedback,
+                                bucket_elems=bucket_elems)
+        dp.place_state(params, resid)
+        run.comm = dp
+        if captured:
             steps = CachedSteps(params, x_all, y_all, idxs.shape[1:], lr,
-                                kernel, compute_dt, mesh)
+                                kernel, compute_dt, mesh, comm=dp,
+                                apply=apply)
         else:
             steps = None
-            idx_dev = _to_device(idxs, device)
+            idx_dev = _placed(idxs, device)
             data = _mesh_data(mesh, x_all, y_all, idx_dev)
         if kernel == "pallas_epoch":
             reps = replicate_state(mesh, params)
@@ -534,7 +643,8 @@ def make_dp_run_fn(mesh, lr: float, *, dtype: str = "float32",
                 step_data = {d: (xa, ya, ix[e])
                              for d, (xa, ya, ix) in data.items()}
                 key, ls = _dp_steps_epoch(mesh, params, key, step_data,
-                                          idx_dev[e], lr, kernel, compute_dt)
+                                          idx_dev[e], lr, kernel, compute_dt,
+                                          dp, apply)
             losses.append(ls)
             if snapshots:
                 p_snaps.append(_clone(params))
@@ -546,23 +656,29 @@ def make_dp_run_fn(mesh, lr: float, *, dtype: str = "float32",
                        for k in layer} for n, layer in params.items()}
         return params, key, losses, (stacked, k_snaps)
 
+    run.comm_state = collectives.carries_state(comm, error_feedback)
+    run.comm = None
     return run
 
 
 def make_dp_epoch_fn(mesh, lr: float, *, dtype: str = "float32",
                      kernel: str = "xla", ring: str = "auto",
-                     comm: str = "pmean",
-                     impl: str = "threefry2x32") -> Callable:
-    """One DP epoch: epoch(params, key, x_all, y_all, idx (S, n*B)) ->
-    (params', key', losses (S,)), the one-element case of make_dp_run_fn."""
+                     comm: str = "pmean", impl: str = "threefry2x32",
+                     **comm_kw) -> Callable:
+    """One DP epoch: epoch(params, key, x_all, y_all, idx (S, n*B),
+    resid=None) -> (params', key', losses (S,)), the one-element case of
+    make_dp_run_fn (`comm_kw`: its strategy and model knobs); `epoch.comm`
+    is the last epoch's DPComm, which holds its residual."""
     run = make_dp_run_fn(mesh, lr, dtype=dtype, kernel=kernel, ring=ring,
-                         comm=comm, impl=impl)
+                         comm=comm, impl=impl, **comm_kw)
 
-    def epoch(params, key, x_all, y_all, idx):
+    def epoch(params, key, x_all, y_all, idx, resid=None):
         params, key, losses = run(params, key, x_all, y_all,
-                                  np.asarray(idx)[None])
+                                  _one_epoch(idx), resid)
+        epoch.comm = run.comm
         return params, key, losses[0]
 
+    epoch.comm = None
     return epoch
 
 
@@ -577,13 +693,17 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
                epochs: int, batch_size: int, lr: float, kernel: str = "xla",
                impl: str = "threefry2x32", fused: bool = False,
                dtype: str = "float32", mesh=None, ring: str = "auto",
-               comm: str = "pmean", ckpt_every_steps: int = 0,
+               comm: str = "pmean", bf16_rounding: str = "nearest",
+               overlap: bool = False, quant_block: int | None = None,
+               error_feedback: bool = True, ckpt_every_steps: int = 0,
                step_hook=None, start_offset: int = 0, watchdog=None,
                dispatch_profiler=None, eval_perm: Callable | None = None,
+               prefetch_depth: int = 1, resid=None,
                log: Callable[[str], None] = print):
     """The `fit` loop with the dataset resident on the model's device.
     Prints the reference epoch line per epoch; writes the trained weights
     into `model`. Returns (key, per-epoch arrays of the per-step losses).
+    `model` may be a zoo model (models/zoo.py; `xla` only).
 
     `fused=True` runs ALL epochs with no host sync between them (one fetch
     at the end), keeping per-epoch params snapshots so the per-epoch val
@@ -597,18 +717,29 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
     `sampler` is the global sampler (num_replicas=1) on every process; in
     a world of W processes rank r trains on columns [r*b, (r+1)*b) of each
     global batch, b = `batch_size // W` (`epoch_rows`). `ring` picks K6's
-    allreduce; `comm` must be 'pmean' (the other strategies are refused
-    by name).
+    allreduce; `comm`, `bf16_rounding`, `overlap`, `quant_block` and
+    `error_feedback` the per-step strategy (parallel/collectives.py), whose
+    int8 residual starts from `resid` (or zeros) and is carried across the
+    epochs (`fit_cached.comm` holds the last one).
 
     The per-step kernels run one captured step a step on a card, one
     capture a fit (`CachedSteps`; `fused=True`: one a run of
     make_run_fn).
+
+    `prefetch_depth` (the input pipeline's host-to-device stage,
+    pipeline/prefetch.py) keeps that many epochs' index arrays made (and,
+    on the eager and epoch-kernel paths, copied to the device) ahead of the
+    epoch that trains: the JAX trainer's chunk prefetch, one chunk an epoch
+    (step checkpoints, which chunk an epoch, are ROADMAP.md queue 1, item
+    8). The values are the same at any depth. `fused=True` places one
+    index array for the run and refuses a depth other than 1 by name.
 
     `eval_perm(epoch)`, when given, is the order of the epoch's val-loss
     segmentation (`--eval_shuffle`), on every path.
 
     The JAX trainer's step-granular checkpoints, live watchdog and
     dispatch profiler are not ported yet and are refused by name."""
+    from ..models.zoo import spec_of
     refused = [
         (bool(ckpt_every_steps) or step_hook is not None or start_offset,
          "step-granular checkpoints (ckpt_every_steps/step_hook/"
@@ -621,6 +752,18 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
         if given:
             raise ValueError(f"{what} is not ported to the PyTorch package "
                              f"yet; see ROADMAP.md {where}")
+    if prefetch_depth < 1:
+        raise ValueError(f"prefetch_depth must be >= 1; got {prefetch_depth}")
+    if fused and prefetch_depth != 1:
+        raise ValueError(
+            "prefetch_depth pipelines per-epoch index placements; fused=True "
+            "places ONE index array for the whole run — there is nothing to "
+            "prefetch")
+    name, scale = spec_of(model)
+    apply = model_apply(model)
+    zoo_kw = dict(model=name, param_scale=scale)
+    comm_kw = dict(comm=comm, bf16_rounding=bf16_rounding, overlap=overlap,
+                   quant_block=quant_block, error_feedback=error_feedback)
     rows = batch_size     # this process's rows a step
     if mesh is not None:
         mesh = as_mesh(mesh)
@@ -629,10 +772,16 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
                 f"fit_cached: global batch {batch_size} does not divide over "
                 f"the {replicas(mesh)} replicas of the mesh — pass batch_size "
                 f"= per-replica batch x {replicas(mesh)}")
-        check_dp_run_args(mesh, kernel, dtype, 1, 1, impl, ring, comm)
+        check_dp_run_args(mesh, kernel, dtype, 1, 1, impl, ring, **comm_kw,
+                          **zoo_kw)
         rows = batch_size // world_size(mesh)
     else:
         check_ring(ring, kernel, 1)
+        check_model(name, scale, kernel)
+        if comm != "pmean" or overlap:
+            raise ValueError(
+                f"comm={comm!r} overlap={overlap} selects the DP gradient "
+                f"collective; it needs a mesh (mesh=, --parallel)")
     device = next(model.parameters()).device
     x_all = torch.from_numpy(resident_images(x_train)).to(device)
     y_all = torch.from_numpy(np.asarray(y_train, np.int32)).to(device)
@@ -640,6 +789,7 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
     y_test_dev = torch.as_tensor(np.asarray(y_test), device=device)
     params = _clone(model.params())
     history: List[np.ndarray] = []
+    fit_cached.comm = None
 
     if fused:
         idxs = []
@@ -647,17 +797,19 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
             sampler.set_epoch(epoch)
             idxs.append(epoch_rows(sampler, batch_size, mesh))
         run = (make_run_fn(lr, dtype=dtype, kernel=kernel, snapshots=True,
-                           impl=impl) if mesh is None else
+                           impl=impl, **zoo_kw) if mesh is None else
                make_dp_run_fn(mesh, lr, dtype=dtype, kernel=kernel,
-                              snapshots=True, ring=ring, impl=impl))
+                              snapshots=True, ring=ring, impl=impl,
+                              **comm_kw, **zoo_kw))
         t0 = time.perf_counter()
+        args = () if mesh is None else (resid,)
         params, key, losses, (p_snaps, _) = run(params, key, x_all, y_all,
-                                                np.stack(idxs))
+                                                np.stack(idxs), *args)
+        fit_cached.comm = getattr(run, "comm", None)
         losses = losses.cpu().numpy()      # the run's one fetch
         per_epoch_dt = (time.perf_counter() - t0) / max(epochs, 1)
-        per_sample, correct = make_snapshot_eval_step()(p_snaps, x_test_dev,
-                                                        y_test_dev)
-        per_sample, correct = per_sample.cpu().numpy(), correct.cpu().numpy()
+        per_sample, correct = _snapshot_eval(p_snaps, apply, x_test_dev,
+                                             y_test_dev)
         for epoch in range(epochs):
             val = val_summary(per_sample[epoch], correct[epoch], batch_size,
                               perm=eval_perm(epoch) if eval_perm else None)
@@ -668,24 +820,54 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
         return key, history
 
     steps = None     # the captured step, one for the whole fit
-    if kernel != "pallas_epoch" and graphs.on_one_device(mesh, device):
+    captured = kernel != "pallas_epoch" and graphs.on_one_device(mesh, device)
+    record = None
+    if captured:
         nsteps = math.ceil(len(sampler) / batch_size)
+        dp = None
+        if mesh is not None:
+            dp = collectives.DPComm(mesh, lr, **comm_kw)
+            dp.place_state(params, resid)
+            fit_cached.comm = dp
         steps = CachedSteps(params, x_all, y_all, (nsteps, rows), lr, kernel,
-                            _compute_dtype(dtype), mesh)
+                            _compute_dtype(dtype), mesh, comm=dp,
+                            apply=apply)
     else:
-        epoch_fn = (make_epoch_fn(lr, dtype=dtype, kernel=kernel, impl=impl)
+        epoch_fn = (make_epoch_fn(lr, dtype=dtype, kernel=kernel, impl=impl,
+                                  **zoo_kw)
                     if mesh is None else
                     make_dp_epoch_fn(mesh, lr, dtype=dtype, kernel=kernel,
-                                     ring=ring, impl=impl))
-    for epoch in range(epochs):
+                                     ring=ring, impl=impl, **comm_kw,
+                                     **zoo_kw))
+    if mesh is not None and kernel != "pallas_epoch":
+        record = make_ddp_comm_recorder(
+            mesh, collectives.DPComm(mesh, lr, **comm_kw), params)
+
+    def epoch_indices():
+        for epoch in range(epochs):
+            sampler.set_epoch(epoch)
+            yield epoch_rows(sampler, batch_size, mesh)
+
+    # the epochs' index arrays, `prefetch_depth` ahead: made on the host
+    # for the captured step (its static buffer takes them when the epoch
+    # starts), copied to the device for the other paths
+    placed = prefetch(epoch_indices(), depth=prefetch_depth,
+                      put=(lambda idx: idx) if captured else
+                      (lambda idx: _to_device(idx, device)))
+    for epoch, idx in enumerate(placed):
         t0 = time.perf_counter()
-        sampler.set_epoch(epoch)
-        idx = epoch_rows(sampler, batch_size, mesh)
         if steps is not None:
             key, losses = steps.epoch(key, idx)
-        else:
+        elif mesh is None:
             params, key, losses = epoch_fn(params, key, x_all, y_all, idx)
+        else:
+            prev = epoch_fn.comm.resid if epoch_fn.comm is not None else resid
+            params, key, losses = epoch_fn(params, key, x_all, y_all, idx,
+                                           prev)
+            fit_cached.comm = epoch_fn.comm
         losses = losses.cpu().numpy()      # the epoch's one fetch
+        if record is not None:
+            record(losses.size, params)
         _load_params(model, params)
         val = evaluate(model, x_test_dev, y_test_dev, batch_size,
                        perm=eval_perm(epoch) if eval_perm else None)
@@ -693,3 +875,29 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
                           time.perf_counter() - t0))
         history.append(losses)
     return key, history
+
+
+fit_cached.comm = None
+
+
+def _snapshot_eval(p_snaps, apply, x_test, y_test):
+    """Per-epoch eval of stacked params snapshots, fetched: the reference
+    MLP's batched program (loop.py `make_snapshot_eval_step`), a zoo
+    model's forward a snapshot at a time."""
+    if apply is mlp_apply and tuple(p_snaps["fc1"]["w"].shape[1:]) == (
+            784, 128):
+        per_sample, correct = make_snapshot_eval_step()(p_snaps, x_test,
+                                                        y_test)
+        return per_sample.cpu().numpy(), correct.cpu().numpy()
+    epochs = next(iter(next(iter(p_snaps.values())).values())).shape[0]
+    outs = []
+    for e in range(epochs):
+        params = {n: {k: v[e] for k, v in layer.items()}
+                  for n, layer in p_snaps.items()}
+        logits = apply(params, x_test, train=False)
+        logz = torch.log_softmax(logits.float(), dim=-1)
+        per = -torch.gather(logz, -1, y_test.long()[:, None])[:, 0]
+        outs.append((per, (torch.argmax(logits, dim=-1)
+                           == y_test.long()).float()))
+    return (torch.stack([o[0] for o in outs]).cpu().numpy(),
+            torch.stack([o[1] for o in outs]).cpu().numpy())

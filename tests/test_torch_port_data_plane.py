@@ -453,7 +453,7 @@ def test_bench_stream_and_accuracy_fields_on_a_tiny_run(core):
     (["--mode", "stream", "--kernel", "xla"], "--kernel xla is a train-mode"),
     (["--mode", "accuracy", "--batch_size", "64"], "--batch_size 64"),
     (["--mode", "train", "--num_workers", "2"], "stream-mode knob"),
-    (["--mode", "input"], "--mode input is not ported"),
+    (["--mode", "train", "--input_workers", "2"], "input-mode knob"),
 ])
 def test_bench_modes_refuse_knobs_they_never_read(argv, match, capsys):
     from pytorch_ddp_mnist_tpu_torch import bench

@@ -83,7 +83,16 @@ direct bitwise on the fast and the legacy batcher; the card's logits
 within rtol 1e-5 / atol 1e-6 of the CPU engine's, the preds equal; a
 staged dispatch raising no sync under set_sync_debug_mode("error"), its
 results bitwise the direct forward; an in-flight batch's results kept in
-its slab across later replays of the same graph."""
+its slab across later replays of the same graph. The input pipeline (`-k
+pipeline`): the streaming `fit` with decode workers and a slot ring of
+depth 1, 2 and 4 bitwise the unpiped run, captured, with a replay on new
+batches bitwise the eager epoch on them; a `--dropout_rng torch` run fed
+by workers bitwise the synchronous one; the input bench's device syncs
+within their budget. The gradient-communication strategies (`-k comm`):
+each strategy on a 4-replica mesh of the card captured bitwise the same
+step eager (the bf16 stochastic keys and the int8 residual on the
+device), a rerun bitwise, sharded bitwise pmean, the `pallas` mesh steps
+under sharded and bf16 launching keyed K1-split a replica a step."""
 
 import ctypes
 import re
@@ -1901,3 +1910,156 @@ if __name__ == "__main__":
     import sys
     if sys.argv[1] == "--rank":
         _world_rank(sys.argv[2], sys.argv[3])
+
+
+# ---- the input pipeline and the comm strategies (-k pipeline, -k comm) ----
+
+def _pipe_fit(device, workers, depth, kind="pallas", epochs=2, n=2048):
+    from pytorch_ddp_mnist_tpu_torch.data.loader import BatchLoader
+    from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
+    from pytorch_ddp_mnist_tpu_torch.train import loop
+    split = synthetic_mnist(n, seed=4)
+    test = synthetic_mnist(256, seed=5)
+    src = BatchLoader(normalize_images(split.images), split.labels,
+                      ShardedSampler(n, seed=42), 128)
+    step = (fused_step.make_fused_train_step(0.01) if kind == "pallas" else
+            loop.make_torch_dropout_train_step(0.01, 3))
+    state, hist = loop.fit(
+        loop.TrainState(MLP.from_seed(0).to(device), threefry.key_data(1)),
+        src, normalize_images(test.images), test.labels.astype(np.int32),
+        epochs=epochs, batch_size=128, train_step=step,
+        input_workers=workers, prefetch_depth=depth, log=lambda _m: None)
+    return np.stack(hist), {n: {k: v.detach().cpu() for k, v in l.items()}
+                            for n, l in state.model.params().items()}
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_pipeline_fit_on_a_slot_ring_is_the_unpiped_fit(cuda, depth):
+    from pytorch_ddp_mnist_tpu_torch.train import graphs
+    ref = _pipe_fit(cuda, 0, 1)
+    before = dict(fused_step.launch_count)
+    caps = graphs.counts["captures"]
+    got = _pipe_fit(cuda, 4, depth)
+    assert graphs.counts["captures"] == caps + 1
+    assert fused_step.launch_count["fused_split_keyed"] - \
+        before["fused_split_keyed"] == 2 * 16
+    np.testing.assert_array_equal(got[0], ref[0])
+    for n in ref[1]:
+        for k in ref[1][n]:
+            assert torch.equal(got[1][n][k], ref[1][n][k])
+
+
+def test_pipeline_torch_dropout_masks_ride_the_ring(cuda):
+    ref = _pipe_fit(cuda, 0, 1, kind="torch")
+    got = _pipe_fit(cuda, 3, 2, kind="torch")
+    np.testing.assert_array_equal(got[0], ref[0])
+
+
+@pytest.mark.parametrize("depth", [2, 4])
+def test_pipeline_ring_replay_on_new_batches_is_the_eager_epoch(cuda, depth):
+    """A step captured on epoch 0's ring, replayed on epoch 1's batches
+    through the ring, bitwise the same step eager from the same state."""
+    from pytorch_ddp_mnist_tpu_torch.data.loader import BatchLoader
+    from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
+    from pytorch_ddp_mnist_tpu_torch.pipeline import SlotRing, host_iter
+    from pytorch_ddp_mnist_tpu_torch.train import loop
+    split = synthetic_mnist(1024, seed=4)
+    runs = []
+    for eager in (False, True):
+        src = BatchLoader(normalize_images(split.images), split.labels,
+                          ShardedSampler(1024, seed=42), 128)
+        step = fused_step.make_fused_train_step(0.01)
+        model = MLP.from_seed(0).to(cuda)
+        lp, slots, keys = loop._captured_steps(step, model, len(src), 128,
+                                               cuda, eager, ring=depth + 1)
+        ring, key = SlotRing(slots), threefry.key_data(1)
+        for epoch in range(2):
+            src.sampler.set_epoch(epoch)
+            key, words = step.key_words(key, len(src))
+            keys.load(words)
+            lp.start_epoch()
+            for _ in ring.feed(host_iter(src, workers=2), depth):
+                lp.step()
+        runs.append((lp.losses().cpu(), {n: {k: v.detach().cpu()
+                                              for k, v in l.items()}
+                                          for n, l in model.params().items()}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for n in runs[0][1]:
+        for k in runs[0][1][n]:
+            assert torch.equal(runs[0][1][n][k], runs[1][1][n][k])
+
+
+def test_pipeline_input_bench_syncs_within_budget(cuda):
+    from pytorch_ddp_mnist_tpu_torch import bench
+    out = bench.run_input_bench(cuda, epochs=bench.INPUT_EPOCHS,
+                                batch_size=128, latency_ms=1, batches=8,
+                                workers=2, depth=2)
+    for run in ("legacy", "pipeline"):
+        assert 0 < out[run]["syncs"] <= out[run]["sync_budget"] == 24
+
+
+COMM_CASES = {
+    "pmean": dict(comm="pmean"),
+    "sharded": dict(comm="sharded"),
+    "bf16": dict(comm="bf16"),
+    "bf16_stochastic": dict(comm="bf16", bf16_rounding="stochastic"),
+    "int8": dict(comm="int8"),
+    "int8_no_feedback": dict(comm="int8", error_feedback=False),
+    "pmean_overlap": dict(comm="pmean", overlap=True),
+}
+
+
+def _comm_run(device, kernel, kw, eager):
+    """Two epochs of fit_cached's loop (scan.CachedSteps) on a 4-replica
+    mesh of the card with the strategy's DPComm, captured or eager."""
+    from pytorch_ddp_mnist_tpu_torch.parallel import collectives
+    from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
+    split = synthetic_mnist(2048, seed=2)
+    x_all = torch.from_numpy(scan.resident_images(split.images)).to(device)
+    y_all = torch.from_numpy(split.labels.astype(np.int32)).to(device)
+    sampler = ShardedSampler(2048, seed=42)
+    mesh = (device,) * 4
+    params = scan._clone(MLP.from_seed(0).to(device).params())
+    dp = collectives.DPComm(mesh, 0.01, **kw)
+    dp.place_state(params)
+    steps = scan.CachedSteps(params, x_all, y_all, (4, 512), 0.01, kernel,
+                             torch.float32, mesh, eager=eager, comm=dp)
+    key, losses = threefry.key_data(1), []
+    for e in range(2):
+        sampler.set_epoch(e)
+        key, ls = steps.epoch(key, scan.epoch_batch_indices(sampler, 512))
+        losses.append(ls)
+    return (torch.stack(losses).cpu(),
+            {n: {k: v.detach().cpu() for k, v in l.items()}
+             for n, l in params.items()}, key,
+            dp.resid.cpu() if dp.resid is not None else None)
+
+
+@pytest.mark.parametrize("case", list(COMM_CASES))
+def test_comm_strategy_captured_is_eager_bitwise(cuda, case):
+    from pytorch_ddp_mnist_tpu_torch.train import graphs
+    kw = COMM_CASES[case]
+    caps = graphs.counts["captures"]
+    cap = _comm_run(cuda, "xla", kw, False)
+    assert graphs.counts["captures"] == caps + 1
+    eag = _comm_run(cuda, "xla", kw, True)
+    again = _comm_run(cuda, "xla", kw, False)
+    for other in (eag, again):
+        assert torch.equal(cap[0], other[0]) and cap[2] == other[2]
+        for n in cap[1]:
+            for k in cap[1][n]:
+                assert torch.equal(cap[1][n][k], other[1][n][k])
+        if cap[3] is not None:
+            assert torch.equal(cap[3], other[3]) and cap[3].abs().max() > 0
+    assert torch.isfinite(cap[0]).all()
+
+
+@pytest.mark.parametrize("comm", ["sharded", "bf16"])
+def test_comm_pallas_mesh_launches_keyed_k1_split(cuda, comm):
+    before = fused_step.launch_count["fused_split_keyed"]
+    got = _comm_run(cuda, "pallas", {"comm": comm}, False)
+    assert fused_step.launch_count["fused_split_keyed"] - before == 4 * 8
+    ref = _comm_run(cuda, "pallas", {"comm": "pmean"}, False)
+    worst = max(float((got[1][n][k] - ref[1][n][k]).abs().max())
+                for n in ref[1] for k in ref[1][n])
+    assert worst == 0 if comm == "sharded" else worst < 1e-4

@@ -109,3 +109,44 @@ print(sorted(m for m in sys.modules
     names = {str(p.relative_to(REPO)) for p in _port_files()}
     for name in DATA_PLANE_MODULES:
         assert name.replace(".", "/") + ".py" in names
+
+
+# the input pipeline, the comm strategies and the zoo: each module on its
+# own, in a fresh interpreter, loads neither jax nor the JAX package; the
+# decode workers' modules import no torch at all (a worker makes numpy
+# arrays only and never touches the card)
+PIPELINE_COMM_MODULES = (
+    "pytorch_ddp_mnist_tpu_torch.pipeline",
+    "pytorch_ddp_mnist_tpu_torch.pipeline.reader",
+    "pytorch_ddp_mnist_tpu_torch.pipeline.synthetic",
+    "pytorch_ddp_mnist_tpu_torch.pipeline.workers",
+    "pytorch_ddp_mnist_tpu_torch.pipeline.prefetch",
+    "pytorch_ddp_mnist_tpu_torch.parallel.collectives",
+    "pytorch_ddp_mnist_tpu_torch.models.zoo",
+)
+NUMPY_ONLY = ("reader", "synthetic", "workers")
+
+
+def test_the_pipeline_comm_and_zoo_modules_stand_alone(tmp_path):
+    code = f"""
+import importlib, sys
+sys.path.insert(0, {str(REPO)!r})
+for name in {PIPELINE_COMM_MODULES!r}:
+    importlib.import_module(name)
+print(sorted(m for m in sys.modules
+             if any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r})))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    for name in NUMPY_ONLY:
+        path = PORT / "pipeline" / f"{name}.py"
+        tree = ast.parse(path.read_text(), str(path))
+        imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                    for a in n.names]
+        imported += [n.module or "" for n in ast.walk(tree)
+                     if isinstance(n, ast.ImportFrom) and n.level == 0]
+        assert not any(m == "torch" or m.startswith("torch.")
+                       for m in imported), (name, imported)

@@ -198,16 +198,17 @@ def test_fit_cached_prints_jax_epoch_lines(kernel, fused):
 
 
 @pytest.mark.parametrize("kw,where", [
-    ({"mesh": (torch.device("cpu"),) * 2, "comm": "int8"}, "item 11"),
-    ({"ckpt_every_steps": 5}, "item 8"),
-    ({"step_hook": print}, "item 8"),
-    ({"start_offset": 3}, "item 8"),
-    ({"watchdog": object()}, "item 12"),
-    ({"dispatch_profiler": object()}, "item 12"),
+    ({"mesh": (torch.device("cpu"),) * 2, "comm": "int8",
+      "kernel": "pallas_epoch"}, "IN-kernel"),
+    ({"ckpt_every_steps": 5}, "not ported.*item 8"),
+    ({"step_hook": print}, "not ported.*item 8"),
+    ({"start_offset": 3}, "not ported.*item 8"),
+    ({"watchdog": object()}, "not ported.*item 12"),
+    ({"dispatch_profiler": object()}, "not ported.*item 12"),
 ])
 def test_fit_cached_refuses_unported_options_by_name(kw, where):
     split = synthetic_mnist(32, seed=0)
-    with pytest.raises(ValueError, match=f"not ported.*{where}"):
+    with pytest.raises(ValueError, match=where):
         scan.fit_cached(from_jax_params(_jax_params()), (0, 1), split.images,
                         split.labels, ShardedSampler(32), split.images,
                         split.labels, epochs=1, batch_size=16, lr=0.01, **kw)
@@ -288,7 +289,8 @@ def test_bench_kernel_policy_and_refusals(monkeypatch):
                                       unroll=2) == "pallas"
     assert bench.resolve_bench_kernel("auto", "float32", "cpu") == "xla"
     assert bench.resolve_bench_kernel("xla", "float32", "cuda") == "xla"
-    for argv, match in [(["--mode", "ddp"], "--mode ddp is not ported"),
+    for argv, match in [(["--mode", "serve", "--replicas", "2"],
+                         "replica fleet"),
                         (["--dtype", "bfloat16", "--superstep", "8"],
                          "resolved kernel is 'xla'"),
                         (["--superstep", "2", "--kernel", "xla"],
@@ -315,5 +317,6 @@ def test_bench_fields_on_a_tiny_run():
 def test_front_door_runs_bench(capsys):
     assert port_main.main(["--help"]) == 0
     assert "bench" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not ported"):
-        port_main.main(["bench", "--mode", "ddp"])
+    with pytest.raises(SystemExit):
+        port_main.main(["bench", "--mode", "ddp", "--input_batches", "3"])
+    assert "input-mode knob" in capsys.readouterr().err

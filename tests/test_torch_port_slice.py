@@ -187,9 +187,9 @@ def test_cli_without_a_card_exits_naming_it(monkeypatch, capsys):
 @pytest.mark.parametrize("argv,name", [
     (["--outage_retries", "1"], "--outage_retries"),
     (["--ckpt_every_steps", "5"], "--ckpt_every_steps"),
-    (["--num_workers", "2"], "--num_workers"),
+    (["--health"], "--health"),
     (["--elastic"], "--elastic"),
-    (["--ddp_comm=int8"], "--ddp_comm"),
+    (["--reshape=2"], "--reshape"),
     (["--start_epoch", "1"], "--start_epoch"),
     (["--telemetry", "/tmp/t"], "--telemetry"),
     (["--resume=x.pt"], "--resume"),
@@ -210,7 +210,12 @@ def test_config_defaults_and_checkpoint_format():
                               "fused": False, "impl": "threefry2x32",
                               "parallel": False, "wireup_method": "auto",
                               "sampler_rng": "pcg64", "dropout_rng": "jax",
-                              "eval_shuffle": False}
+                              "eval_shuffle": False, "ddp_comm": "pmean",
+                              "bf16_rounding": "nearest", "overlap": False,
+                              "quant_block": None, "error_feedback": True,
+                              "model": "mlp", "param_scale": 1,
+                              "num_workers": 0, "input_workers": 0,
+                              "prefetch_depth": 1}
     assert cfg["data"] == {"path": "data/", "limit": -1, "netcdf": False,
                            "download": False, "hdf5": False,
                            "label_map": None}
