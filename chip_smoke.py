@@ -293,6 +293,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -5893,6 +5894,326 @@ def phase_comm(device, tmp: str, card: str) -> dict:
     return paths
 
 
+CHAOS_ROWS = 12800          # 100 steps an epoch at B = 128 (cut depth)
+CHAOS_EPOCHS = 2
+CHAOS_EVERY = 10
+CHAOS_KILL = 137            # mid-epoch 1: the streaming run's last save is
+                            # step 130, the resident run's step 140
+CHAOS_WORLD = 2
+CHAOS_COST_EPOCHS = 3       # the cost runs: full 60k epochs, 469 steps
+CHAOS_COST_EVERY = (0, 50, 10)
+CHAOS_TEST_ROWS = 10000
+
+
+def _write_idx(path: str, arr: np.ndarray) -> None:
+    """An IDX file (magic 2051 for (n, 28, 28) uint8 images, 2049 for (n,)
+    uint8 labels), as the MNIST files are."""
+    import struct
+    arr = np.ascontiguousarray(arr, np.uint8)
+    head = (struct.pack(">IIII", 2051, *arr.shape) if arr.ndim == 3
+            else struct.pack(">II", 2049, arr.shape[0]))
+    with open(path, "wb") as f:
+        f.write(head + arr.tobytes())
+
+
+def _chaos_data(tmp: str) -> str:
+    """A directory of IDX files: CHAOS_WORLD x CHAOS_ROWS synthetic train
+    rows and CHAOS_TEST_ROWS test rows (the trainers read them in a few
+    milliseconds instead of synthesising 60,000 rows each)."""
+    from pytorch_ddp_mnist_tpu_torch.data.mnist import synthetic_mnist
+    root = os.path.join(tmp, "chaos_idx")
+    os.makedirs(root, exist_ok=True)
+    for prefix, n, seed in (("train", CHAOS_WORLD * CHAOS_ROWS, 0),
+                            ("t10k", CHAOS_TEST_ROWS, 1)):
+        split = synthetic_mnist(n, seed=seed)
+        _write_idx(os.path.join(root, f"{prefix}-images-idx3-ubyte"),
+                   split.images)
+        _write_idx(os.path.join(root, f"{prefix}-labels-idx1-ubyte"),
+                   split.labels)
+    return root
+
+
+def _file_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _train_cmd(*argv) -> list:
+    return [sys.executable, "-m", "pytorch_ddp_mnist_tpu_torch", "train",
+            *argv]
+
+
+def _chaos_cost(cli_train, dev: str, tmp: str, card: str) -> dict:
+    """What a step checkpoint costs the captured cached `pallas` epoch: the
+    steady epochs' wall (epochs 1.. of CHAOS_COST_EPOCHS, full 60k, 469
+    steps) at --ckpt_every_steps 0, 50 and 10, in that order, and
+    `checkpoint.save_s` over this process's saves (the cost runs are the
+    first saves of the process)."""
+    from pytorch_ddp_mnist_tpu_torch.telemetry import get_registry
+    out, walls = {}, {}
+    for every in CHAOS_COST_EVERY:
+        ck = os.path.join(tmp, f"cost{every}.msgpack")
+        argv = ["--device", dev, "--cached", "--kernel", "pallas",
+                "--n_epochs", str(CHAOS_COST_EPOCHS), "--batch_size",
+                str(MAIN_BATCH), "--lr", str(LR), "--seed", "0", "--path",
+                os.path.join(tmp, "no_mnist_here"), "--checkpoint", ck,
+                "--ckpt_every_steps", str(every)]
+        _reset_counts()
+        _, history, text = _run_trainer(cli_train, argv)
+        expect_launches(_counts(), {"fused_split_keyed":
+                                    CHAOS_COST_EPOCHS * EPOCH_STEPS},
+                        f"chaos cost run at --ckpt_every_steps {every}")
+        lines = [ln for ln in text.splitlines() if ln.startswith("Epoch=")]
+        walls[every] = [_epoch_seconds(ln, EPOCH_STEPS, MAIN_BATCH)
+                        for ln in lines]
+        out[every] = lines
+    hist = get_registry().histogram("checkpoint.save_s").snapshot()
+    steady = {e: float(np.median(w[1:])) for e, w in walls.items()}
+    for every in CHAOS_COST_EVERY:
+        print(f"[chaos] cost: train --cached --kernel pallas "
+              f"--ckpt_every_steps {every}: steady epoch wall "
+              f"{steady[every] * 1e3:.1f} ms (epochs {walls[every]} s; "
+              f"{'no saves' if not every else f'{-(-EPOCH_STEPS // every)} saves an epoch'}), "
+              f"{steady[every] / steady[0]:.3f} x the run with none [{card}]")
+    print(f"[chaos] cost: checkpoint.save_s over the {hist['n']} saves of "
+          f"the cost runs: p50 {hist['p50'] * 1e3:.2f} ms, p95 "
+          f"{hist['p95'] * 1e3:.2f} ms, max {hist['max'] * 1e3:.2f} ms, "
+          f"mean {hist['mean'] * 1e3:.2f} ms [{card}]")
+    return {"steady_epoch_s": steady, "save_s": hist}
+
+
+def phase_chaos(device, tmp: str, card: str) -> dict:
+    """Step checkpoints, fault injection, resume and outage retry on the
+    card, each resumed run bitwise its unbroken run (every tensor
+    torch.equal, the final flax msgpack byte for byte):
+      a. the cost of a step checkpoint (`_chaos_cost`), first;
+      b. killed by `--fault kill:step=CHAOS_KILL` (subprocesses, at full
+         width, CHAOS_ROWS rows: 100 steps an epoch, 2 epochs, a save every
+         CHAOS_EVERY steps): streaming `train` (K1-split keyed), `--dtype
+         bfloat16` (K1-mma keyed), `--cached` (the captured keyed step
+         replayed in chunks), and piped (`--input_workers 2
+         --prefetch_depth 2`); each dies by SIGKILL with committed
+         checkpoints and `--resume <dir>` finishes it, in this process,
+         bitwise the unbroken (unpiped, unchunked) run;
+      c. K2-ws and K2-mma epoch-granular: 2 epochs of `--cached --kernel
+         pallas_epoch` against 1 epoch, then `--resume file --start_epoch
+         1` with the key chain in the `.rng.npz` sidecar;
+      d. a 2-rank torchrun world (`--parallel --cached`, gloo on the card):
+         rank 1 killed, the world reaped, resumed, bitwise the unbroken
+         world; `--outage_retries 1` with an injected `collective_timeout`
+         on an env world: every rank persists, re-execs, and finishes
+         bitwise the unbroken world;
+      e. `--fault ckpt_save_io`: the run finishes bitwise, its directory
+         has no torn or temporary file.
+    Returns the launches of the resumed runs."""
+    from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
+    from pytorch_ddp_mnist_tpu_torch.train import graphs
+    from pytorch_ddp_mnist_tpu_torch.train.ckpt_manager import \
+        CheckpointManager
+    t_start = time.perf_counter()
+    paths = {}
+    dev = "cpu" if device.type == "cpu" else str(device.index)
+    cost = _chaos_cost(cli_train, dev, tmp, card)
+    t_cost = time.perf_counter() - t_start
+    idx = _chaos_data(tmp)
+    work = os.path.join(tmp, "chaos")
+    os.makedirs(work, exist_ok=True)
+    base = ["--device", dev, "--batch_size", str(MAIN_BATCH), "--lr",
+            str(LR), "--seed", "0", "--path", idx, "--n_epochs",
+            str(CHAOS_EPOCHS)]
+    single = base + ["--limit", str(CHAOS_ROWS)]
+    every = ["--ckpt_every_steps", str(CHAOS_EVERY)]
+    kill = ["--fault", f"kill:step={CHAOS_KILL}"]
+    pipe = ["--input_workers", "2", "--prefetch_depth", "2"]
+    legs = {   # name: (extra flags, the resumed run's kernel, its golden)
+        "train": ([], "fused_split_keyed", "train"),
+        "train --dtype bfloat16": (["--kernel", "pallas", "--dtype",
+                                    "bfloat16"], "fused_mma_keyed",
+                                   "train --dtype bfloat16"),
+        "train --cached": (["--cached", "--kernel", "pallas"],
+                           "fused_split_keyed", "train --cached"),
+        "train " + " ".join(pipe): (pipe, "fused_split_keyed", "train"),
+    }
+    world = ["--parallel", "--cached", "--limit",
+             str(CHAOS_WORLD * CHAOS_ROWS)] + every
+
+    def ck(name):
+        return os.path.join(work, name.replace(" ", "_").replace("-", "")
+                            + ".msgpack")
+
+    # the subprocesses that die, and the worlds, started first: they run
+    # while this process trains the goldens
+    def wave_a(attempt):
+        cmds = [(_train_cmd(*single, *extra, *every, *kill, "--checkpoint",
+                            ck(name)), _rank_env())
+                for name, (extra, _, _) in legs.items()]
+        cmds.append(([sys.executable, "-m", "torch.distributed.run",
+                      "--standalone", "--nproc_per_node", str(CHAOS_WORLD),
+                      "-m", "pytorch_ddp_mnist_tpu_torch", "train", *base,
+                      *world, "--checkpoint", ck("world_golden")],
+                     _rank_env()))
+        cmds.append(([sys.executable, "-m", "torch.distributed.run",
+                      "--standalone", "--nproc_per_node", str(CHAOS_WORLD),
+                      "-m", "pytorch_ddp_mnist_tpu_torch", "train", *base,
+                      *world, "--checkpoint", ck("world_killed"), "--fault",
+                      f"kill:rank=1:step={CHAOS_KILL}"], _rank_env()))
+        port = _free_port()
+        cmds += [(_train_cmd(*base, *world, "--wireup_method", "env",
+                             "--checkpoint", ck("world_outage"),
+                             "--outage_retries", "1", "--fault",
+                             "collective_timeout:epoch=0"),
+                  _rank_env(RANK=r, WORLD_SIZE=CHAOS_WORLD, LOCAL_RANK=r,
+                            LOCAL_WORLD_SIZE=CHAOS_WORLD,
+                            MASTER_ADDR="127.0.0.1", MASTER_PORT=port))
+                 for r in range(CHAOS_WORLD)]
+        return cmds
+
+    box = {}
+    t0 = time.perf_counter()
+    runner = threading.Thread(
+        target=lambda: box.update(res=_spawn(wave_a, work, expect_ok=False)))
+    runner.start()
+    goldens = {}
+    for name in ("train", "train --dtype bfloat16", "train --cached"):
+        extra = legs[name][0]
+        state, _, _ = _run_trainer(cli_train, single + extra + [
+            "--checkpoint", ck(name + " golden")])
+        goldens[name] = (_params_cpu(state.model.params()),
+                         _file_bytes(ck(name + " golden")))
+    runner.join()
+    res = box["res"]
+    print(f"[chaos] the kills and the worlds ran in "
+          f"{time.perf_counter() - t0:.1f} s of wall")
+    names = list(legs)
+    # the killed world's resume runs while this process resumes the rest
+    k_rc, k_out, k_err = res[len(names) + 1]
+    if k_rc == 0 or not re.search(r"exitcode\s*:\s*-9|Signal 9", k_err):
+        fail(f"phase_chaos: the torchrun world under kill:rank=1 exited "
+             f"{k_rc} without a rank killed by SIGKILL:\n{k_err[-3000:]}")
+    world_steps = ck("world_killed") + ".steps"
+    world_committed = CheckpointManager(world_steps).steps()
+    resumed_world = threading.Thread(target=lambda: box.update(
+        world=_spawn(lambda attempt: [(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(CHAOS_WORLD), "-m",
+             "pytorch_ddp_mnist_tpu_torch", "train", *base, *world,
+             "--checkpoint", ck("world_killed"), "--resume", world_steps],
+            _rank_env())], work, expect_ok=False)))
+    resumed_world.start()
+    for i, name in enumerate(names):
+        rc, out, err = res[i]
+        if rc != -9:
+            fail(f"phase_chaos: {name} {' '.join(kill)} exited {rc}, not by "
+                 f"SIGKILL:\n{out[-2000:]}\n{err[-2000:]}")
+    for name, (extra, key, gold) in legs.items():
+        steps_dir = ck(name) + ".steps"
+        committed = CheckpointManager(steps_dir).steps()
+        if not committed:
+            fail(f"phase_chaos: {name}: no committed checkpoint in "
+                 f"{steps_dir}")
+        _reset_counts()
+        captures = graphs.counts["captures"]
+        state, _, text = _run_trainer(cli_train, single + extra + every + [
+            "--checkpoint", ck(name), "--resume", steps_dir])
+        launches = _counts()
+        resumed_steps = CHAOS_EPOCHS * CHAOS_ROWS // MAIN_BATCH - committed[-1]
+        expect_launches(launches, {key: resumed_steps},
+                        f"phase_chaos: {name} --resume")
+        if (device.type == "cuda"
+                and graphs.counts["captures"] - captures != 1):
+            fail(f"phase_chaos: {name} --resume captured "
+                 f"{graphs.counts['captures'] - captures} graphs, not 1")
+        params, blob = goldens[gold]
+        if not _equal_trees(_params_cpu(state.model.params()), params):
+            fail(f"phase_chaos: {name}: the resumed run's params are not "
+                 f"bitwise the unbroken run's")
+        if _file_bytes(ck(name)) != blob:
+            fail(f"phase_chaos: {name}: the resumed final msgpack differs "
+                 f"from the unbroken run's")
+        paths[f"{name} --resume <step dir> (chaos)"] = launches
+        print(f"[chaos] {name} {' '.join(kill)}: SIGKILL with checkpoints "
+              f"{committed}; --resume from step {committed[-1]}: "
+              f"{launches[key]} {key} launches, bitwise the unbroken "
+              f"{gold} run (params and msgpack) [{card}]")
+
+    for dtype, key in (("float32", "epoch_step_ws"),
+                       ("bfloat16", "epoch_step_mma")):
+        k2 = single + ["--cached", "--kernel", "pallas_epoch", "--dtype",
+                       dtype]
+        golden, part = ck(f"k2 {dtype} golden"), ck(f"k2 {dtype}")
+        two, _, _ = _run_trainer(cli_train, k2 + ["--checkpoint", golden])
+        one, _, _ = _run_trainer(cli_train, k2 + ["--n_epochs", "1",
+                                                  "--checkpoint", part])
+        np.savez(part + ".rng.npz", key=np.asarray(one.key, np.uint32),
+                 impl="threefry2x32")
+        _reset_counts()
+        resumed, _, _ = _run_trainer(cli_train, k2 + [
+            "--checkpoint", part, "--resume", part, "--start_epoch", "1"])
+        launches = _counts()
+        expect_launches(launches, {key: 1}, f"phase_chaos: K2 {dtype} resume")
+        if not (_equal_trees(_params_cpu(resumed.model.params()),
+                             _params_cpu(two.model.params()))
+                and _file_bytes(part) == _file_bytes(golden)
+                and resumed.key == two.key):
+            fail(f"phase_chaos: --cached --kernel pallas_epoch --dtype "
+                 f"{dtype}: 1 epoch + --resume --start_epoch 1 is not "
+                 f"bitwise 2 epochs")
+        if os.path.exists(part + ".rng.npz"):
+            fail("phase_chaos: the sidecar outlived the resume's first save")
+        paths[f"train --cached --kernel pallas_epoch --dtype {dtype} "
+              f"--resume file --start_epoch 1 (chaos)"] = launches
+        print(f"[chaos] --cached --kernel pallas_epoch --dtype {dtype}: 1 "
+              f"epoch, then --resume <file> --start_epoch 1 with the "
+              f"sidecar's key chain: {launches[key]} {key} launch, bitwise 2 "
+              f"unbroken epochs [{card}]")
+
+    io = ck("train save_io")
+    state, _, _ = _run_trainer(cli_train, single + every + [
+        "--checkpoint", io, "--ckpt_keep", "100", "--fault",
+        f"ckpt_save_io:step={3 * CHAOS_EVERY}"])
+    files = sorted(os.listdir(io + ".steps"))
+    saved = CheckpointManager(io + ".steps").steps()
+    if (any(".tmp." in n for n in files) or 3 * CHAOS_EVERY in saved
+            or not _equal_trees(_params_cpu(state.model.params()),
+                                goldens["train"][0])):
+        fail(f"phase_chaos: ckpt_save_io: {files}")
+    print(f"[chaos] --fault ckpt_save_io:step={3 * CHAOS_EVERY}: the save "
+          f"failed, the run finished bitwise the unbroken one, the directory "
+          f"holds {saved} and no temporary file [{card}]")
+    world_golden = _file_bytes(ck("world_golden"))
+    if res[len(names)][0] != 0:
+        fail(f"phase_chaos: the unbroken torchrun world exited "
+             f"{res[len(names)][0]}:\n{res[len(names)][2][-3000:]}")
+    resumed_world.join()
+    (rc, _, err), = box["world"]
+    if rc != 0:
+        fail(f"phase_chaos: the resumed torchrun world exited {rc}:\n"
+             f"{err[-3000:]}")
+    if _file_bytes(ck("world_killed")) != world_golden:
+        fail("phase_chaos: the resumed torchrun world differs from the "
+             "unbroken world")
+    print(f"[chaos] torchrun x{CHAOS_WORLD} train --parallel --cached, rank "
+          f"1 killed at step {CHAOS_KILL} (checkpoints {world_committed}), the "
+          f"world reaped and resumed: bitwise the unbroken world [{card}]")
+    outage = res[len(names) + 2:]
+    if any(rc != 0 for rc, _, _ in outage) or not all(
+            "coordinated parallel resume" in err for _, _, err in outage):
+        fail("phase_chaos: the outage world did not re-exec and finish:\n"
+             + "\n".join(err[-2000:] for _, _, err in outage))
+    if _file_bytes(ck("world_outage")) != world_golden:
+        fail("phase_chaos: the outage world's re-exec'd run differs from the "
+             "unbroken world")
+    print(f"[chaos] env x{CHAOS_WORLD} --outage_retries 1 --fault "
+          f"collective_timeout:epoch=0: every rank persisted, re-exec'd with "
+          f"--resume --start_epoch 1, finished bitwise the unbroken world "
+          f"[{card}]")
+
+    print(f"[chaos] phase_chaos: {time.perf_counter() - t_start:.1f} s "
+          f"({t_cost:.1f} s of it the cost runs) [{card}]")
+    print(json.dumps({"chaos": {"cost": cost, "card": card}}, default=str))
+    return paths
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -5947,6 +6268,12 @@ def main() -> int:
         elapsed("pipeline phase")
         paths.update(phase_comm(device, tmp, card))
         elapsed("comm phase")
+        chaos = phase_chaos(device, tmp, card)
+        paths.update(chaos)
+        # K2-ws's row reads its paths from k2_launches
+        k2_launches.update({k: v for k, v in chaos.items()
+                            if v.get("epoch_step_ws")})
+        elapsed("chaos phase")
     _, k2_launches["bench --epochs 5"] = phase_bench()
     ss = ("--kernel", "pallas_epoch", "--dtype", "bfloat16", "--superstep",
           "8")

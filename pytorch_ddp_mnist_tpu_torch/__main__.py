@@ -41,7 +41,13 @@ _NOT_YET_PORTED = {
 }
 
 
+# commands whose main() reads the process's command line itself when given
+# None: the trainer, whose outage retry may re-exec the process
+_READS_COMMAND_LINE = ("train",)
+
+
 def main(argv=None) -> int:
+    command_line = argv is None
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] in ("-h", "--help"):
         lines = [f"  {name:<10} {desc}  (python -m {mod})"
@@ -61,6 +67,8 @@ def main(argv=None) -> int:
         return 2
     import importlib
     mod = importlib.import_module(_COMMANDS[argv[0]][0])
+    if command_line and argv[0] in _READS_COMMAND_LINE:
+        return mod.main(None) or 0
     return mod.main(argv[1:]) or 0
 
 

@@ -38,10 +38,12 @@ JAX mesh is.
 
 Refused by name, each with the ROADMAP.md item that owns it: `--replicas`
 > 1, `--wedge_timeout_ms` and `--retry_budget` (the replica fleet, queue 1
-item 9b), `--reload_dir` (hot reload, item 9b after item 8), a msgpack
-`--checkpoint` and the `engine_crash` / `engine_wedge` fault points of
-`$PDMT_FAULT` (item 8), `--mesh` over more than one card (item 7, blocked
-on hardware).
+item 9b), `--reload_dir` (hot reload, item 9b), a `$PDMT_FAULT` (the serve
+fault points `engine_crash`, `engine_wedge` and `reload_torn` fire in the
+fleet and hot reload: item 9b), `--mesh` over more than one card (item 7,
+blocked on hardware). `--checkpoint` takes the reference's `.pt`/`.pth`,
+a `.npz` params tree or a flax `.msgpack` (the JAX package's or the
+trainer's).
 """
 
 from __future__ import annotations
@@ -153,18 +155,14 @@ def refusals(a) -> None:
             raise SystemExit(f"--{flag} is a knob of the replica fleet "
                              f"(serve/fleet.py), which is {where}, item 9b")
     if a.reload_dir:
-        raise SystemExit(f"--reload_dir: hot reload (serve/reload.py) needs "
-                         f"the checkpoint manager and is {where}, item 9b "
-                         f"after item 8")
-    if a.checkpoint and not a.checkpoint.endswith((".pt", ".pth")):
-        raise SystemExit(f"--checkpoint {a.checkpoint}: the port reads the "
-                         f"reference's .pt / .pth state_dict; msgpack "
-                         f"checkpoints are {where}, item 8")
+        raise SystemExit(f"--reload_dir: hot reload (serve/reload.py) is "
+                         f"{where}, item 9b")
     fault = os.environ.get("PDMT_FAULT", "")
     if fault:
-        raise SystemExit(f"PDMT_FAULT={fault!r}: the fault points "
+        raise SystemExit(f"PDMT_FAULT={fault!r}: the serve fault points "
                          f"(utils/faultpoints.py: engine_crash, engine_wedge, "
-                         f"...) are {where}, item 8")
+                         f"reload_torn) fire in the replica fleet and hot "
+                         f"reload, which are {where}, item 9b")
 
 
 def main(argv=None) -> int:
@@ -174,7 +172,8 @@ def main(argv=None) -> int:
         formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--checkpoint", default=None,
                    help="params checkpoint to serve (the reference's "
-                        ".pt/.pth); default: fresh --seed init")
+                        ".pt/.pth, a .npz params tree, or a flax .msgpack); "
+                        "default: fresh --seed init")
     p.add_argument("--seed", type=int, default=0,
                    help="init seed when no --checkpoint is given")
     p.add_argument("--device", default="0",

@@ -12,10 +12,12 @@ branches of `pytorch_ddp_mnist_tpu/cli/train.py`).
         [--prefetch_depth K] [--model mlp|deep_mlp] [--param_scale N]
         [--ddp_comm pmean|sharded|bf16|int8] [--overlap] [--quant_block N]
         [--error_feedback on|off] [--bf16_rounding nearest|stochastic]
+        [--ckpt_every_steps N [--ckpt_keep 3]] [--resume DIR|FILE
+        [--start_epoch K]] [--fault SPEC] [--outage_retries N]
 
 Trains the reference MLP on MNIST (or the synthetic stand-in), prints the
-reference epoch line every epoch and saves the reference `.pt` state_dict at
-the end. It runs on CUDA device `--device` (default 0); with no card it
+reference epoch line every epoch and saves `--checkpoint` (the reference's
+`.pt` state_dict by default) after every epoch and at the end. It runs on CUDA device `--device` (default 0); with no card it
 exits and names the missing card unless `--device cpu` asks for the CPU.
 Without `--cached` it streams batches from the host (train/loop.py); with
 it the dataset stays on the device (train/scan.py), `--kernel pallas_rng`
@@ -73,6 +75,19 @@ autograd step), and `--ddp_comm` with `--overlap`, `--quant_block`,
 `--error_feedback` and `--bf16_rounding` the gradient-communication
 strategy of `--parallel` (parallel/collectives.py), with the JAX CLI's
 refusals of their combinations (train/config.py).
+
+Checkpoints and faults (the JAX CLI's): rank 0 saves `--checkpoint` after
+every epoch and, with `--ckpt_every_steps N`, commits step checkpoints
+(params, key chain, sampler position, the int8 residual of a
+single-process mesh) under `<--checkpoint>.steps/`
+(train/ckpt_manager.py), every N steps of an epoch and at its end, each
+stamped with the run geometry (`_run_geometry`). `--resume DIR` restores
+the newest intact and finite one and continues bitwise; `--resume FILE
+--start_epoch K` restores params (and, from `FILE.rng.npz`, the key
+chain). `--fault` (and `$PDMT_FAULT`) installs the fault specs of
+utils/faultpoints.py; every epoch ends at the world's barrier, the
+`barrier` fault point. `--outage_retries N` retries a run that a lost
+card or peer interrupts (`_train_with_outage_retry`).
 """
 
 from __future__ import annotations
@@ -100,7 +115,8 @@ from ..parallel.wireup import Runtime, initialize_runtime
 from ..train.checkpoint import save_checkpoint
 from ..train.config import configure, resolve_kernel
 from ..train.loop import TrainState, fit, make_torch_dropout_train_step
-from ..train.scan import check_dp_run_args, check_run_args, fit_cached
+from ..train.scan import (_load_params, check_dp_run_args, check_run_args,
+                          fit_cached)
 
 
 def resolve_device(spec: str, what: str = "This trainer") -> torch.device:
@@ -139,12 +155,46 @@ def resolve_world(method: str, device: torch.device):
     return rt, WorldMesh([rt.device], world_size=rt.size, rank=rt.rank)
 
 
+# the outage stash of a run with no --checkpoint (rank 0's; the others
+# add .rank<r>); a finished resume removes it
+_DEFAULT_STASH = "outage_resume.msgpack"
+
+
+def _command_line_flags() -> list:
+    """The trainer's flags on this process's command line (after the
+    front door's `train`, when it is there)."""
+    args = sys.argv[1:]
+    return args[1:] if args[:1] == ["train"] else args
+
+
+def _run_geometry(tcfg, dcfg, global_batch: int) -> dict:
+    """The fields whose change would re-interpret a step checkpoint,
+    stamped into every manifest and checked at a directory resume (the
+    JAX CLI's): (epoch, offset) address the same batches only under the
+    same global batch, --limit and sampler, and the params fit only the
+    same model."""
+    return {"global_batch": int(global_batch), "limit": int(dcfg["limit"]),
+            "sampler_rng": tcfg["sampler_rng"], "model": tcfg["model"],
+            "param_scale": int(tcfg["param_scale"])}
+
+
 def train(argv=None):
     """Everything `main` does; returns (TrainState, per-epoch arrays of the
-    per-step losses) for callers that check the run. A world's process
-    group is torn down when it returns or raises."""
-    cfg = configure(argv)
+    per-step losses) for callers that check the run. `argv` None reads the
+    process's command line: the CLI context, the only one in which an
+    outage retry may re-exec the process. A world's process group is torn
+    down when it returns or raises."""
+    from ..telemetry import flight
+    from ..utils import faultpoints
+    cli = argv is None
+    cfg = configure(_command_line_flags() if cli else argv, cli=cli)
     tcfg = cfg["trainer"]
+    # the fault specs parse before any work (a misspelt chaos spec must
+    # not run fault-free); the rank binds after the wireup
+    try:
+        faultpoints.install(tcfg["fault"])
+    except faultpoints.FaultSpecError as e:
+        raise SystemExit(f"--fault: {e}") from None
     device = resolve_device(tcfg["device"])
     # true f32 products, as the JAX package's kernels accumulate, and bf16
     # products reduced in f32, as XLA's are
@@ -159,13 +209,24 @@ def train(argv=None):
     runtime, mesh = Runtime(method="single"), None
     if tcfg["parallel"]:
         runtime, mesh = resolve_world(tcfg["wireup_method"], device)
+        faultpoints.set_rank(runtime.rank)
+        flight.set_rank(runtime.rank)
     try:
-        return _train(cfg, kernel, runtime, mesh, device)
+        return _train(cfg, kernel, runtime, mesh, device, cli)
     finally:
         runtime.finalize()
 
 
-def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
+def _host_state(model, key) -> dict:
+    """Host copies of the state an outage retry resumes from."""
+    return {"params": {n: {k: v.detach().cpu().clone()
+                           for k, v in layer.items()}
+                       for n, layer in model.params().items()},
+            "key": np.asarray(key, np.uint32)}
+
+
+def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device,
+           cli: bool = False):
     tcfg, dcfg = cfg["trainer"], cfg["data"]
     if mesh is not None:
         device = mesh[0]
@@ -229,6 +290,10 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
 
     spec = resolve_model(tcfg["model"], tcfg["param_scale"])
     model = spec.from_seed(tcfg["seed"]).to(device)
+    key = key_data(tcfg["seed"] + 1)
+    resume = _resume(tcfg, dcfg, model, mesh, kernel, global_batch)
+    if resume["key"] is not None:
+        key = resume["key"]
     if mesh is not None:
         try:
             check_replicated(mesh, model.params())
@@ -256,20 +321,46 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
         f"params={param_count(model.params())} "
         f"batch={tcfg['batch_size']} kernel={kernel}{mode} "
         f"impl={tcfg['impl']} dtype={tcfg['dtype']}")
-    key = key_data(tcfg["seed"] + 1)
+
+    # rank 0 saves --checkpoint after every epoch (the JAX CLI's epoch
+    # checkpoint: a run killed in epoch k resumes from k - 1 with --resume
+    # and --start_epoch k); in a world every rank then meets at a barrier,
+    # which is the `barrier` fault point of the fit
+    def epoch_hook(epoch, st):
+        if stash is not None:
+            stash.update(epoch=epoch, **_host_state(st.model, st.key))
+        if rank == 0 and tcfg["checkpoint"]:
+            save_checkpoint(tcfg["checkpoint"], st.model.params())
+            resume["consume_sidecar"](tcfg["checkpoint"])
+        runtime.barrier(epoch=epoch)
+
+    # --outage_retries: host copies of the last completed epoch's state,
+    # seeded with the starting state (epoch start_epoch - 1)
+    stash = None
+    if tcfg["outage_retries"]:
+        stash = {"epoch": tcfg["start_epoch"] - 1,
+                 **_host_state(model, key)}
+    step_hook = _step_hook(tcfg, dcfg, global_batch, rank, world)
 
     if tcfg["cached"]:
-        key, history = fit_cached(
-            model, key, data["train_images"],
-            data["train_labels"].astype(np.int32), sampler, x_test, y_test,
-            epochs=tcfg["n_epochs"], batch_size=global_batch,
-            lr=tcfg["lr"], kernel=kernel, impl=tcfg["impl"],
-            fused=tcfg["fused"], dtype=tcfg["dtype"], mesh=mesh,
-            eval_perm=eval_perm, prefetch_depth=tcfg["prefetch_depth"],
-            log=log, **(_comm_kw(tcfg) if mesh is not None else {}))
-        comm = fit_cached.comm
-        state = TrainState(model, key,
-                           comm.resid if comm is not None else None)
+        def run_fit(st, start):
+            key, history = fit_cached(
+                st.model, st.key, data["train_images"],
+                data["train_labels"].astype(np.int32), sampler, x_test,
+                y_test, epochs=tcfg["n_epochs"], batch_size=global_batch,
+                lr=tcfg["lr"], kernel=kernel, impl=tcfg["impl"],
+                fused=tcfg["fused"], dtype=tcfg["dtype"], mesh=mesh,
+                eval_perm=eval_perm, prefetch_depth=tcfg["prefetch_depth"],
+                start_epoch=start,
+                start_offset=(resume["offset"]
+                              if start == tcfg["start_epoch"] else 0),
+                ckpt_every_steps=tcfg["ckpt_every_steps"],
+                step_hook=step_hook, epoch_hook=epoch_hook, resid=st.resid,
+                log=log, **(_comm_kw(tcfg) if mesh is not None else {}))
+            comm = fit_cached.comm
+            return TrainState(st.model, key,
+                              comm.resid if comm is not None else None), \
+                history
     else:
         loader = data["loader"]
         if loader is None:
@@ -289,18 +380,33 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
                                       **_comm_kw(tcfg), model=tcfg["model"],
                                       param_scale=tcfg["param_scale"])
         elif tcfg["dropout_rng"] == "torch":
-            step = make_torch_dropout_train_step(tcfg["lr"], tcfg["seed"])
+            # the mask stream's position is a function of the steps done:
+            # a resume skips start_epoch epochs and the offset's steps
+            step = make_torch_dropout_train_step(
+                tcfg["lr"], tcfg["seed"],
+                skip_steps=(tcfg["start_epoch"] * len(loader)
+                            + resume["offset"]),
+                batch_size=local_batch)
         else:
             step = (make_fused_train_step(tcfg["lr"], dtype=tcfg["dtype"])
                     if kernel == "pallas" else None)
-        state, history = fit(TrainState(model, key), loader, x_test,
-                             y_test, epochs=tcfg["n_epochs"],
-                             batch_size=global_batch,
-                             lr=None if step else tcfg["lr"], train_step=step,
-                             eval_perm=eval_perm,
-                             input_workers=tcfg["input_workers"],
-                             prefetch_depth=tcfg["prefetch_depth"],
-                             model_apply=spec.apply, log=log)
+
+        def run_fit(st, start):
+            return fit(st, loader, x_test, y_test, epochs=tcfg["n_epochs"],
+                       batch_size=global_batch,
+                       lr=None if step else tcfg["lr"], train_step=step,
+                       eval_perm=eval_perm,
+                       input_workers=tcfg["input_workers"],
+                       prefetch_depth=tcfg["prefetch_depth"],
+                       model_apply=spec.apply, start_epoch=start,
+                       start_offset=(resume["offset"]
+                                     if start == tcfg["start_epoch"] else 0),
+                       ckpt_every_steps=tcfg["ckpt_every_steps"],
+                       step_hook=step_hook, epoch_hook=epoch_hook, log=log)
+
+    state, history = _train_with_outage_retry(
+        run_fit, TrainState(model, key, resume["resid"]), tcfg, stash, cli,
+        rank, device)
     if runtime.initialized and device.type == "cuda":
         # stderr: stdout stays the machine-parseable epoch lines
         print(f"[world] rank {rank}: peak device memory "
@@ -308,8 +414,288 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device):
               f"{device} ({name})", file=sys.stderr, flush=True)
     if tcfg["checkpoint"] and rank == 0:
         save_checkpoint(tcfg["checkpoint"], state.model.params())
+        resume["consume_sidecar"](tcfg["checkpoint"])
         print(f"saved checkpoint to {tcfg['checkpoint']}")
+    _drop_stale_stash(tcfg, rank)
     return state, history
+
+
+def _resume(tcfg, dcfg, model, mesh, kernel: str, global_batch: int) -> dict:
+    """--resume: a step directory's newest intact checkpoint (params, key,
+    position, residual; the run geometry checked), or a file's params and,
+    from its `.rng.npz` sidecar, the key. Loads the params into `model`,
+    sets tcfg's start_epoch and impl from a directory, and returns
+    {"key" (None: the seed's), "offset", "resid", "consume_sidecar"}: the
+    last removes the sidecar at the first save to its checkpoint's path
+    (not at load: a resume that dies before its first save must leave the
+    pair for the next one)."""
+    from ..train.checkpoint import CheckpointError, load_checkpoint
+    from ..train.ckpt_manager import (CheckpointManager,
+                                      geometry_mismatch_message)
+    out = {"key": None, "offset": 0, "resid": None}
+    box = {"sidecar": None, "ckpt": None}
+
+    def consume_sidecar(saved: str) -> None:
+        if box["sidecar"] and (os.path.abspath(saved)
+                               == os.path.abspath(box["ckpt"])):
+            try:
+                os.remove(box["sidecar"])
+            except FileNotFoundError:
+                pass
+            box["sidecar"] = None
+
+    out["consume_sidecar"] = consume_sidecar
+    path = tcfg["resume"]
+    if not path:
+        return out
+    template = model.params()
+    if os.path.isdir(path):
+        if tcfg["start_epoch"]:
+            raise SystemExit(
+                "--start_epoch conflicts with a step-checkpoint directory "
+                "--resume: the manifest carries the exact resume position")
+        try:
+            restored = CheckpointManager(
+                path, keep=tcfg["ckpt_keep"]).restore_latest(template)
+        except CheckpointError as e:
+            raise SystemExit(f"--resume: {e}") from None
+        if restored.epoch > tcfg["n_epochs"]:
+            raise SystemExit(
+                f"--resume: checkpoint at epoch {restored.epoch} is past "
+                f"--n_epochs {tcfg['n_epochs']} (n_epochs is the TOTAL run "
+                f"length)")
+        geometry = _run_geometry(tcfg, dcfg, global_batch)
+        refusal = geometry_mismatch_message(
+            {k: v for k, v in restored.meta.items() if k in geometry},
+            geometry)
+        if refusal:
+            raise SystemExit("--resume: " + refusal)
+        absent = sorted(k for k in geometry if k not in restored.meta)
+        if absent:
+            print(f"[ckpt] warning: manifest carries no run-geometry stamp "
+                  f"for {absent}; cannot verify this run matches the "
+                  f"checkpoint's geometry", file=sys.stderr, flush=True)
+        if restored.offset and (tcfg["fused"] or kernel == "pallas_epoch"):
+            raise SystemExit(
+                f"--resume: checkpoint is MID-epoch (offset "
+                f"{restored.offset}) and needs step-granular replay; "
+                + ("--fused runs all epochs as ONE device program"
+                   if tcfg["fused"] else
+                   "--kernel pallas_epoch splits its dropout key once per "
+                   "EPOCH")
+                + " — resume with plain --cached / --kernel xla|pallas")
+        carries = tcfg["ddp_comm"] == "int8" and tcfg["error_feedback"]
+        if restored.resid is not None and not carries:
+            print(f"[ckpt] note: checkpoint carries an int8 error-feedback "
+                  f"residual this run's comm strategy never reads "
+                  f"(--ddp_comm {tcfg['ddp_comm']}); ignoring it",
+                  file=sys.stderr, flush=True)
+        if carries and restored.resid is not None and mesh is not None:
+            rows = int(restored.resid.shape[0])
+            if rows != replicas(mesh):
+                raise SystemExit(
+                    f"--resume: checkpoint's int8 error-feedback residual "
+                    f"was saved on {rows} replica(s); this run has "
+                    f"{replicas(mesh)} — per-replica residuals cannot be "
+                    f"re-sharded across a different mesh size (resume on "
+                    f"{rows} replica(s), or restart the run fresh and lose "
+                    f"one step's quantization error)")
+            out["resid"] = restored.resid
+        _load_params(model, restored.params)
+        out["key"] = tuple(int(w) for w in restored.key_data)
+        out["offset"] = restored.offset
+        tcfg["start_epoch"] = restored.epoch
+        # the manifest's engine describes the restored key: what follows
+        # (sidecars, new step checkpoints) describes that key too
+        tcfg["impl"] = restored.impl
+        print(f"[ckpt] resuming from {restored.path}: step {restored.step} "
+              f"(epoch {restored.epoch}, offset {restored.offset})",
+              file=sys.stderr, flush=True)
+        return out
+    try:
+        _load_params(model, load_checkpoint(path, template))
+    except (CheckpointError, ValueError, OSError) as e:
+        raise SystemExit(f"--resume {path}: {e}") from None
+    sidecar = path + ".rng.npz"
+    if os.path.exists(sidecar):
+        # the outage re-exec's key chain: the resumed dropout stream goes
+        # on from the stashed epoch, not from --seed
+        with np.load(sidecar) as z:
+            out["key"] = tuple(int(w) for w in z["key"].ravel())
+            tcfg["impl"] = str(z["impl"])
+        box.update(sidecar=sidecar, ckpt=path)
+    return out
+
+
+def _step_hook(tcfg, dcfg, global_batch: int, rank: int, world: int):
+    """Rank 0's step-checkpoint hook (--ckpt_every_steps): commit params,
+    key, position and the int8 residual under <--checkpoint>.steps/. A
+    failed save does not stop a healthy run: it becomes a flight record
+    and a stderr line. None where there is nothing to save."""
+    if not tcfg["ckpt_every_steps"] or rank != 0:
+        return None
+    from ..telemetry import flight
+    from ..train.checkpoint import CheckpointError
+    from ..train.ckpt_manager import CheckpointManager
+    mgr = CheckpointManager(tcfg["checkpoint"] + ".steps",
+                            keep=tcfg["ckpt_keep"])
+    meta = _run_geometry(tcfg, dcfg, global_batch)
+    warned = [False]
+
+    def hook(epoch, offset, step, st):
+        resid = st.resid
+        if resid is not None and world > 1:
+            # rank 0 holds its own replicas' rows only, and fetching the
+            # others' would take a collective that only rank 0 runs: the
+            # checkpoint commits without it (a resume restarts from zeros,
+            # losing one step's quantization error, never the run)
+            resid = None
+            if not warned[0]:
+                warned[0] = True
+                flight.record("checkpoint_resid_skipped", step=step)
+                print("[ckpt] int8 residual spans the ranks of a world; "
+                      "step checkpoints commit without it — a resume "
+                      "reseeds a zero residual", file=sys.stderr, flush=True)
+        try:
+            mgr.save(st.model.params(), np.asarray(st.key, np.uint32),
+                     tcfg["impl"], step=step, epoch=epoch, offset=offset,
+                     meta=meta, resid=resid)
+        except CheckpointError as e:
+            flight.record("checkpoint_save_failed", step=step,
+                          error=str(e)[:500])
+            print(f"[ckpt] step checkpoint save failed (training "
+                  f"continues): {e}", file=sys.stderr, flush=True)
+
+    return hook
+
+
+def _persist_and_reexec(tcfg, stash: dict, remaining: int, rank: int,
+                        why: str) -> None:
+    """Save the stash (rank r's params to its own file, rank 0's to
+    --checkpoint, with the key in a `.rng.npz` sidecar) and replace this
+    process with the trainer resuming at the next epoch, with the retries
+    left. Never returns."""
+    from ..train.checkpoint import save_checkpoint as save
+    ckpt = tcfg["checkpoint"] or _DEFAULT_STASH
+    mine = ckpt if rank == 0 else f"{ckpt}.rank{rank}"
+    save(mine, stash["params"])
+    np.savez(mine + ".rng.npz", key=stash["key"], impl=tcfg["impl"])
+    if not tcfg["parallel"]:
+        # a serial re-exec happens once (the marker survives execv); a
+        # world's re-exec is bounded by the retries it passes on
+        os.environ["PDMT_NO_REEXEC"] = "1"
+    print(f"[outage] {why}; re-exec'ing with --resume {mine} "
+          f"--start_epoch {stash['epoch'] + 1}", file=sys.stderr, flush=True)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.execv(sys.executable, [
+        sys.executable, "-m", "pytorch_ddp_mnist_tpu_torch", "train",
+        *_command_line_flags(), "--resume", mine,
+        "--start_epoch", str(stash["epoch"] + 1),
+        "--outage_retries", str(remaining)])
+
+
+def _train_with_outage_retry(run_fit, state, tcfg, stash, cli: bool,
+                             rank: int, device: torch.device):
+    """`run_fit(state, start_epoch)`, retried through a lost card or peer
+    when --outage_retries > 0 (the JAX CLI's `_train_with_outage_retry`).
+
+    Serial: an error with a backend-loss signature (parallel/wireup.py
+    `looks_like_backend_loss`), or any RuntimeError while a fresh process
+    cannot reach the card, waits for the card (`wait_for_backend`,
+    $PDMT_BACKEND_WAIT, default 1 h) and resumes in the process from the
+    stash (the last completed epoch's params and key) at the next epoch,
+    bitwise the unbroken run. A sticky CUDA error poisons this process's
+    context, and a card that answers only a fresh process is wedged: then
+    the stash is persisted and the process re-execs with --resume,
+    --start_epoch and the retries left (from the command line only, once).
+    A card that stays down exits by name.
+
+    A world (--parallel) retries on the signature only (the same verdict
+    on every rank), waits until a fresh process reaches the card, and
+    every rank persists its stash and re-execs; the new processes meet in
+    a new rendezvous. With no retries this is one plain call."""
+    import time
+
+    from ..parallel.wireup import (BackendUnavailableError,
+                                   BackendWedgedError,
+                                   _subprocess_backend_healthy,
+                                   backend_wait_env, is_sticky_cuda_error,
+                                   looks_like_backend_loss, wait_for_backend)
+    from ..telemetry import flight
+    retries, start, attempt = tcfg["outage_retries"], tcfg["start_epoch"], 0
+    while True:
+        try:
+            return run_fit(state, start)
+        except RuntimeError as e:
+            if attempt >= retries:
+                raise
+            if tcfg["parallel"]:
+                if not looks_like_backend_loss(e):
+                    raise
+            elif not looks_like_backend_loss(e) and \
+                    _subprocess_backend_healthy(30.0, device.type):
+                raise
+            attempt += 1
+            flight.record("train_outage", attempt=attempt, retries=retries,
+                          epoch_stash=stash["epoch"], error=str(e)[:500])
+            print(f"[outage] training interrupted mid-run: {e}; waiting for "
+                  f"the backend (retry {attempt}/{retries})",
+                  file=sys.stderr, flush=True)
+            if tcfg["parallel"]:
+                deadline = time.monotonic() + backend_wait_env(3600.0)
+                while not _subprocess_backend_healthy(45.0, device.type):
+                    if time.monotonic() > deadline:
+                        flight.dump(reason="parallel train outage: backend "
+                                           "never recovered")
+                        raise SystemExit(
+                            "[outage] backend did not recover within the "
+                            "wait budget after a mid-run interruption of the "
+                            "parallel run") from e
+                    time.sleep(10.0)
+                _persist_and_reexec(tcfg, stash, retries - attempt, rank,
+                                    "backend answers again; coordinated "
+                                    "parallel resume")
+            try:
+                if device.type == "cuda" and is_sticky_cuda_error(e):
+                    raise BackendWedgedError(
+                        f"a sticky CUDA error poisoned this process's "
+                        f"context: {e}")
+                wait_for_backend(max_wait_s=backend_wait_env(3600.0),
+                                 device_type=device.type)
+            except BackendWedgedError:
+                if not cli or os.environ.get("PDMT_NO_REEXEC") == "1":
+                    raise
+                _persist_and_reexec(tcfg, stash, retries - attempt, rank,
+                                    "the card answers a fresh process but "
+                                    "not this one")
+            except BackendUnavailableError as be:
+                flight.dump(reason="train outage: backend never recovered")
+                raise SystemExit(
+                    f"[outage] backend did not recover within the wait "
+                    f"budget after a mid-run interruption: {be}") from e
+            start = stash["epoch"] + 1
+            _load_params(state.model, stash["params"])
+            state = TrainState(state.model,
+                               tuple(int(w) for w in stash["key"]))
+
+
+def _drop_stale_stash(tcfg, rank: int) -> None:
+    """A run resumed from an outage stash that no save of its own replaces
+    (rank r's `.rank<r>` file; rank 0's default stash when --checkpoint is
+    empty) removes it and its sidecar once it has finished."""
+    path = tcfg["resume"]
+    if not path or os.path.isdir(path):
+        return
+    stale = ((rank > 0 and path.endswith(f".rank{rank}"))
+             or (rank == 0 and not tcfg["checkpoint"]
+                 and os.path.basename(path) == _DEFAULT_STASH))
+    if stale:
+        for f in (path, path + ".rng.npz"):
+            try:
+                os.remove(f)
+            except FileNotFoundError:
+                pass
 
 
 def _comm_kw(tcfg) -> dict:

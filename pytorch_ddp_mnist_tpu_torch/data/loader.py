@@ -20,6 +20,7 @@ from typing import Iterable, Iterator, Tuple
 import numpy as np
 import torch
 
+from ..utils import faultpoints
 from .mnist import normalize_images
 
 
@@ -59,9 +60,12 @@ class BatchLoader:
 
     def iter_from(self, start: int) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """This epoch's batches from batch `start`: the skipped batches'
-        rows are dropped at the index level, never gathered."""
+        rows are dropped at the index level, never gathered. The
+        `loader_next` fault point (utils/faultpoints.py, `loader_stall`)
+        fires before each load."""
         for i, b in enumerate(_batched_indices(self.sampler, self.batch_size)):
             if i >= start:
+                faultpoints.fire("loader_next", batch=i)
                 yield self.read_batch(b)
 
 
@@ -130,7 +134,8 @@ class NetCDFShardLoader:
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         batches = list(_batched_indices(self.sampler, self.batch_size))
         if self.num_workers <= 0 or len(batches) <= 1:
-            for b in batches:
+            for i, b in enumerate(batches):
+                faultpoints.fire("loader_next", batch=i)
                 yield self.read_batch(b)
             return
         yield from self._iter_readahead(batches)
@@ -147,6 +152,7 @@ class NetCDFShardLoader:
         def work(w: int) -> None:
             try:
                 for i in range(w, len(batches), nw):
+                    faultpoints.fire("loader_next", batch=i)
                     item = self.read_batch(batches[i])
                     while not stop.is_set():
                         try:

@@ -685,11 +685,11 @@ class KeyedStep:
         self.run = run
         self.fold = fold
 
-    def key_words(self, key, nsteps: int):
-        return threefry.step_key_words(key, nsteps, self.fold)
+    def key_words(self, key, nsteps: int, start: int = 0):
+        return threefry.step_key_words(key, nsteps, self.fold, start)
 
-    def key_table(self, key, nsteps: int, device):
-        return threefry.step_key_table(key, nsteps, device, self.fold)
+    def key_table(self, key, nsteps: int, device, start: int = 0):
+        return threefry.step_key_table(key, nsteps, device, self.fold, start)
 
     def __call__(self, model, key, x, y):
         key, table = self.key_table(key, 1, x.device)

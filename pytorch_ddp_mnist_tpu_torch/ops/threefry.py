@@ -101,23 +101,30 @@ def step_keys(key, nsteps: int, fold=None) -> tuple:
     return key, subs
 
 
-def step_key_words(key, nsteps: int, fold=None) -> tuple:
+def step_key_words(key, nsteps: int, fold=None, start: int = 0) -> tuple:
     """`step_keys` as the int32 words of a key table, on the host: (the key
     after the steps, an (nsteps, 2) table, or (nsteps, len(fold), 2) with
     `fold`). The per-step loops write it into the static key buffer their
     captured step reads (train/graphs.py `StaticInput`): step s reads row
-    s (its replica r: row (s, r))."""
-    key, subs = step_keys(key, nsteps, fold)
+    s (its replica r: row (s, r)). `start` > 0 is a resumed epoch: `key` is
+    the key after `start` steps, rows start.. are the steps from there,
+    the rows before it zero (never read)."""
+    key, subs = step_keys(key, nsteps - start, fold)
     shape = (nsteps, 2) if fold is None else (nsteps, len(fold), 2)
-    return key, to_int32_words(subs).reshape(shape)
+    words = torch.zeros((start,) + shape[1:], dtype=torch.int32)
+    if nsteps > start:
+        words = torch.cat([words, to_int32_words(subs).reshape(
+            (nsteps - start,) + shape[1:])])
+    return key, words
 
 
-def step_key_table(key, nsteps: int, device="cpu", fold=None) -> tuple:
+def step_key_table(key, nsteps: int, device="cpu", fold=None,
+                   start: int = 0) -> tuple:
     """`step_key_words` as a table on `device`, copied there once: (the key
     after the steps, the table). The loops that run eagerly (a world of
     processes, a mesh across cards, a step taken from a host key) read it;
     the captured loops load the words into their static buffer instead."""
-    key, table = step_key_words(key, nsteps, fold)
+    key, table = step_key_words(key, nsteps, fold, start)
     device = torch.device(device)
     if device.type == "cuda":
         # pinned + non_blocking: the copy queues on the stream the steps

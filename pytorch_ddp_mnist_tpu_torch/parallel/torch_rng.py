@@ -94,6 +94,14 @@ class TorchMT19937:
             filled += take
         return out
 
+    def skip(self, k: int) -> None:
+        """Advance the stream by `k` outputs without keeping them, a chunk
+        at a time (the fast-forward of a resumed mask stream)."""
+        while k > 0:
+            take = min(k, 1 << 20)
+            self.draws(take)
+            k -= take
+
 
 def torch_randperm_plain(n: int, seed: int) -> np.ndarray:
     """`torch.randperm(n, generator=manual_seed(seed))` on the CPU from the
@@ -142,3 +150,13 @@ class MaskStream:
         """The next `n` {0, 1} float32 values, each 1 with probability p."""
         return torch.empty(int(n), dtype=torch.float32).bernoulli_(
             p, generator=self._gen).numpy()
+
+    def skip(self, n: int) -> None:
+        """Pass over the next `n` values (2 n engine words: bitwise
+        `TorchMT19937.skip(2 n)`), drawn and dropped a chunk at a time:
+        the position of a resumed run's stream."""
+        buf = torch.empty(min(int(n), 1 << 20), dtype=torch.float32)
+        while n > 0:
+            take = min(n, buf.numel())
+            buf[:take].bernoulli_(0.5, generator=self._gen)
+            n -= take

@@ -21,18 +21,38 @@ devices cannot meet exits by name; no rank switches backend on its own.
 A launcher's world forms a process group even at one rank, so a 1-rank
 world runs the same collectives as a larger one; `single` (and `auto` with
 no launcher variables) forms none. The JAX package's `tpu` method (a Cloud
-TPU pod's metadata) has no counterpart and is refused by name, as are its
-backend probes and outage retries (ROADMAP.md queue 1, item 8).
+TPU pod's metadata) has no counterpart and is refused by name.
+
+Outages (the JAX module's backend probes, on CUDA): `looks_like_backend_loss`
+tells a lost peer or a failed card (a gloo peer's closed or reset
+connection, an NCCL error, the NCCL watchdog's collective timeout, a
+sticky CUDA error) from a program error; `wait_for_backend` polls the card
+with hang-bounded probes under a jittered backoff (`backoff_schedule`)
+until it answers, and raises `BackendWedgedError` when it answers only
+from a fresh process (`_subprocess_backend_healthy`): a sticky CUDA error
+(an illegal address, a launch failure) poisons this process's context for
+good, and the trainer then persists its state and re-execs
+(cli/train.py `_train_with_outage_retry`). `$PDMT_BACKEND_WAIT` and
+`$PDMT_HANG_TIMEOUT` (seconds) bound the waits, as in the JAX package.
+`Runtime.barrier` is the `barrier` fault point (utils/faultpoints.py,
+`collective_timeout`).
 """
 
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import re
+import subprocess
+import sys
+import threading
+import time
 from dataclasses import dataclass
 
 import torch
+
+from ..utils import faultpoints
 
 # seconds a rank waits in init_process_group and in any collective before
 # it raises, so a rank that died cannot hold the others forever
@@ -87,8 +107,13 @@ class Runtime:
         # NCCL moves CUDA tensors only; gloo's are staged on the host
         return self.device if self.backend == "nccl" else torch.device("cpu")
 
-    def barrier(self) -> None:
-        """Cross-process sync (reference barrier, mnist_cpu_mp.py:201-203)."""
+    def barrier(self, **ctx) -> None:
+        """Cross-process sync (reference barrier, mnist_cpu_mp.py:201-203).
+        The `barrier` fault point fires first, with the rank and `ctx`
+        (the trainer's epoch-end barrier passes its epoch):
+        `collective_timeout` raises the error a dead collective gives, on
+        any world size."""
+        faultpoints.fire("barrier", rank=self.rank, **ctx)
         if not self.initialized:
             return
         import torch.distributed as dist
@@ -248,8 +273,7 @@ def initialize_runtime(method: str = "auto", *,
             "wireup method 'tpu' reads a Cloud TPU pod's metadata; it has no "
             "counterpart on CUDA machines. Launch under torchrun, SLURM or "
             "MPI (--wireup_method auto), or use --wireup_method env with "
-            "RANK/WORLD_SIZE/MASTER_ADDR/MASTER_PORT (ROADMAP.md queue 1, "
-            "item 8)")
+            "RANK/WORLD_SIZE/MASTER_ADDR/MASTER_PORT")
     if method not in METHODS:
         raise ValueError(f"unknown wireup method {method!r}")
     if method == "auto":
@@ -286,3 +310,268 @@ def initialize_runtime(method: str = "auto", *,
             f"wireup {method}: expected {size} processes, the process group "
             f"formed {formed} — rendezvous failed")
     return rt
+
+
+# -- outages ------------------------------------------------------------------
+
+
+class BackendUnavailableError(RuntimeError):
+    """The card stayed unavailable for the whole wait budget."""
+
+
+class BackendWedgedError(BackendUnavailableError):
+    """The card answers again from a fresh process, but not from this one:
+    a sticky CUDA error poisoned this process's context (or a probe hung
+    inside CUDA's initialisation and holds it). Only a new process can use
+    the card: the caller re-execs or asks for a relaunch."""
+
+
+def env_seconds(name: str, default: float) -> float:
+    """Seconds from the environment variable `name`; unset, empty,
+    malformed, negative or non-finite values give `default` (with a
+    stderr note for the malformed ones)."""
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    try:
+        val = float(raw)
+    except ValueError:
+        print(f"{name}={raw!r} is not a number; using {default:.0f}s",
+              file=sys.stderr)
+        return default
+    if not math.isfinite(val) or val < 0:
+        print(f"{name}={raw!r} is not a non-negative finite number of "
+              f"seconds; using {default:.0f}s", file=sys.stderr)
+        return default
+    return val
+
+
+def backend_wait_env(default: float) -> float:
+    """$PDMT_BACKEND_WAIT (seconds), the JAX package's variable."""
+    return env_seconds("PDMT_BACKEND_WAIT", default)
+
+
+def backoff_schedule(base_s: float, cap_s: float, *, seed: int = 0,
+                     factor: float = 2.0):
+    """Endless jittered exponential backoff: attempt k waits jitter *
+    min(cap_s, base_s * factor**k), jitter in [0.5, 1.5) drawn from
+    `random.Random((seed << 20) ^ k)`: the JAX package's delays, the same
+    for the same (seed, attempt), and seeded by rank so a world's ranks do
+    not probe in lockstep."""
+    import random
+    if base_s <= 0 or cap_s < base_s or factor <= 1.0:
+        raise ValueError(f"need 0 < base_s <= cap_s and factor > 1; got "
+                         f"base_s={base_s}, cap_s={cap_s}, factor={factor}")
+    attempt = 0
+    while True:
+        raw = min(cap_s, base_s * factor ** attempt)
+        yield raw * (0.5 + random.Random((seed << 20) ^ attempt).random())
+        attempt += 1
+
+
+# lower-case substrings of the errors a lost peer or a failed card gives:
+# gloo's and NCCL's (through torch.distributed), the NCCL watchdog's, the
+# JAX package's gRPC status names (the `collective_timeout` fault raises
+# one), and the sticky CUDA errors below. Narrow on purpose: a shape or
+# dtype error must not match.
+STICKY_CUDA_SIGNATURES = (
+    "illegal memory access", "an illegal instruction",
+    "unspecified launch failure", "misaligned address",
+    "cudaerrorlaunchfailure", "cudaerrorillegaladdress",
+    "device-side assert triggered", "uncorrectable ecc error",
+    "cuda error: unknown error", "cudaerrordevicesunavailable",
+)
+BACKEND_LOSS_SIGNATURES = (
+    "unavailable", "deadline exceeded", "deadline_exceeded",
+    "connection closed by peer", "connection reset", "connection refused",
+    "socket closed", "broken pipe", "connectfullmesh failed",
+    "nccl error", "ncclremoteerror", "ncclsystemerror",
+    "nccl communicator was aborted", "watchdog caught collective operation "
+    "timeout", "collective operation timeout", "timed out waiting",
+    "heartbeat",
+) + STICKY_CUDA_SIGNATURES
+
+
+def looks_like_backend_loss(e: BaseException) -> bool:
+    """Whether the error reads as a lost peer or card (retrying may help),
+    not as a program error (it would fail again)."""
+    msg = str(e).lower()
+    return any(sig in msg for sig in BACKEND_LOSS_SIGNATURES)
+
+
+def is_sticky_cuda_error(e: BaseException) -> bool:
+    """Whether the error is one that poisons this process's CUDA context:
+    no call in this process can use the card again."""
+    msg = str(e).lower()
+    return any(sig in msg for sig in STICKY_CUDA_SIGNATURES)
+
+
+_PROBE = {
+    "cuda": ("import torch; torch.cuda.init(); "
+             "x = torch.ones(1, device='cuda'); x.add_(1); "
+             "torch.cuda.synchronize(); "
+             "assert float(x.cpu()[0]) == 2.0"),
+    "cpu": "import torch; assert float(torch.ones(1).add_(1)[0]) == 2.0",
+}
+
+
+def _probe_devices_bounded(timeout_s: float, device_type: str = "cuda"):
+    """Probe the card from this process on a daemon thread (init, one op,
+    a fetch), so a hung probe cannot hold the caller. Returns ('ok', the
+    device count), ('error', a RuntimeError: worth a retry), ('fatal',
+    another exception) or ('hang', wait_fn), where wait_fn(extra_s)
+    re-joins the same probe and returns a fresh (status, payload)."""
+    out = {}
+
+    def probe():
+        try:
+            if device_type == "cuda":
+                torch.cuda.init()
+                x = torch.ones(1, device="cuda").add_(1)
+                torch.cuda.synchronize()
+                if float(x.cpu()[0]) != 2.0:
+                    raise RuntimeError("the card's probe op gave a wrong "
+                                       "value")
+                out["devices"] = torch.cuda.device_count()
+            else:
+                out["devices"] = 1
+        except Exception as e:  # noqa: BLE001 — classified in wait()
+            out["error"] = e
+
+    t = threading.Thread(target=probe, name="pdmt-backend-probe",
+                         daemon=True)
+    t.start()
+
+    def wait(extra_s: float):
+        t.join(extra_s)
+        if t.is_alive():
+            return "hang", wait
+        if "error" in out:
+            e = out["error"]
+            return ("error" if isinstance(e, RuntimeError) else "fatal"), e
+        return "ok", out["devices"]
+
+    return wait(timeout_s)
+
+
+def _subprocess_backend_healthy(timeout_s: float,
+                                device_type: str = "cuda") -> bool:
+    """Whether a FRESH interpreter can initialise the card and run one op
+    within `timeout_s`: immune to this process's poisoned context."""
+    try:
+        return subprocess.run(
+            [sys.executable, "-c", _PROBE[device_type]], timeout=timeout_s,
+            capture_output=True).returncode == 0
+    except (subprocess.SubprocessError, OSError):
+        return False
+
+
+def wait_for_backend(max_wait_s: float = 300.0, poll_s: float = 10.0,
+                     hang_timeout_s: float | None = None,
+                     device_type: str = "cuda"):
+    """Poll the card until it answers (`_probe_devices_bounded`); returns
+    its device count. Retries an erroring probe under `backoff_schedule`
+    (capped at `poll_s`, seeded by $RANK) until `max_wait_s`, then raises
+    BackendUnavailableError; a probe that raises something other than a
+    RuntimeError re-raises at once. A probe that errors with a sticky CUDA
+    error, or hangs past `hang_timeout_s` ($PDMT_HANG_TIMEOUT, default
+    75 s), while a fresh process reaches the card, raises
+    BackendWedgedError: this process cannot use the card again. Every
+    attempt goes to the flight recorder."""
+    from ..telemetry import flight
+    if hang_timeout_s is None:
+        hang_timeout_s = env_seconds("PDMT_HANG_TIMEOUT", 75.0)
+    flight.record("backend_wait_start", max_wait_s=max_wait_s,
+                  poll_s=poll_s, hang_timeout_s=hang_timeout_s)
+    deadline = time.monotonic() + max_wait_s
+    try:
+        seed = int(os.environ.get("RANK", "0"))
+    except ValueError:
+        seed = 0
+    delays = backoff_schedule(min(1.0, poll_s), max(poll_s, 1.0), seed=seed)
+    attempt, waiter = 0, None
+
+    def left() -> float:
+        return deadline - time.monotonic()
+
+    def pause() -> None:
+        delay = min(next(delays), max(left(), 0.1))
+        flight.record("backend_retry_wait", wait_s=round(delay, 2),
+                      attempt=attempt)
+        time.sleep(delay)
+
+    while True:
+        if waiter is None:
+            status, payload = _probe_devices_bounded(
+                min(hang_timeout_s, max(left(), 1.0)), device_type)
+        else:
+            status, payload = waiter(0.0)
+        if status == "ok":
+            if attempt:
+                flight.record("backend_recovered", attempts=attempt,
+                              devices=payload)
+            return payload
+        if status == "fatal":
+            flight.record("backend_probe_fatal", error=str(payload)[:500])
+            raise payload
+        if status == "error":
+            waiter = None
+            attempt += 1
+            flight.record("backend_probe_error", attempt=attempt,
+                          remaining_s=round(max(left(), 0.0), 1),
+                          error=str(payload)[:500])
+            if is_sticky_cuda_error(payload) and \
+                    _subprocess_backend_healthy(hang_timeout_s, device_type):
+                flight.record("backend_wedged", attempts=attempt,
+                              mode="sticky")
+                raise BackendWedgedError(
+                    f"the card answers a fresh process, but this process's "
+                    f"CUDA context is poisoned ({payload}); only a new "
+                    f"process can use it") from payload
+            if left() <= 0:
+                flight.record("backend_unavailable", attempts=attempt,
+                              budget_s=max_wait_s)
+                raise BackendUnavailableError(
+                    f"backend unavailable after {attempt} attempts over "
+                    f"{max_wait_s:.0f}s: {payload}") from payload
+            print(f"wireup: backend unavailable (attempt {attempt}), "
+                  f"retrying for another {left():.0f}s: {payload}",
+                  file=sys.stderr, flush=True)
+            pause()
+            continue
+        # a hung probe: watch the card from fresh processes while the
+        # probe is re-checked at the top of the loop
+        if waiter is None:
+            waiter = payload
+            attempt += 1
+            flight.record("backend_probe_hang", attempt=attempt,
+                          hang_timeout_s=hang_timeout_s)
+            print(f"wireup: backend probe hung for {hang_timeout_s:.0f}s; "
+                  f"polling health out-of-process", file=sys.stderr,
+                  flush=True)
+        if left() <= 0:
+            flight.record("backend_unavailable", attempts=attempt,
+                          budget_s=max_wait_s, mode="hang")
+            raise BackendUnavailableError(
+                f"backend probe hung (> {hang_timeout_s:.0f}s) and "
+                f"out-of-process probes stayed unhealthy for the rest of the "
+                f"{max_wait_s:.0f}s budget")
+        healthy = _subprocess_backend_healthy(min(hang_timeout_s, left()),
+                                              device_type)
+        flight.record("backend_health_poll", healthy=healthy,
+                      remaining_s=round(max(left(), 0.0), 1))
+        if healthy:
+            status, payload = waiter(min(hang_timeout_s, max(left(), 1.0)))
+            if status == "ok":
+                flight.record("backend_recovered", attempts=attempt,
+                              devices=payload, mode="late_init")
+                return payload
+            if status in ("error", "fatal"):
+                waiter = None
+                continue
+            flight.record("backend_wedged", attempts=attempt, mode="hang")
+            raise BackendWedgedError(
+                "the card answers a fresh process, but this process's probe "
+                "hung inside CUDA's initialisation and still holds it; only "
+                "a new process can use the card")
+        pause()

@@ -143,7 +143,9 @@ class SlotRing:
     (made here when None, on a card). `feed(batches, depth)` yields each
     batch's slot index in order, at most `depth` = R - 1 copies ahead; an
     epoch's first batch goes to slot 0, as the step's cursor starts
-    there. One ring serves every epoch of a run."""
+    there, and a resumed epoch's first batch, step `start`, to slot
+    start % R, where the cursor reads it. One ring serves every epoch of
+    a run."""
 
     def __init__(self, slots, pinned=None):
         self.slots = tuple(slots)
@@ -191,10 +193,10 @@ class SlotRing:
         if self._cuda and self._copied[j] is not None:
             self._copied[j].synchronize()
 
-    def feed(self, batches, depth: int = 1):
+    def feed(self, batches, depth: int = 1, start: int = 0):
         if not 1 <= depth < self.size:
             raise ValueError(f"a ring of {self.size} slots takes a depth of "
                              f"1..{self.size - 1}; got {depth}")
-        self._n = 0
+        self._n = int(start)
         return prefetch(batches, depth=depth, put=self.put, ready=self.ready,
                         drain=self.drain)

@@ -64,9 +64,10 @@ class SyntheticSource:
 
     def iter_from(self, start: int) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Sequential iteration from batch `start`, skipping at the index
-        level. (The JAX source fires its `loader_next` fault point here;
-        utils/faultpoints.py is ROADMAP.md queue 1, item 8.)"""
+        level; the `loader_next` fault point fires before each load."""
+        from ..utils import faultpoints
         for i, b in enumerate(_batched_indices(self.sampler,
                                                self.batch_size)):
             if i >= start:
+                faultpoints.fire("loader_next", batch=i)
                 yield self.read_batch(b)

@@ -29,9 +29,10 @@ Contracts (the JAX docstring's):
     `data.batches` and `data.workers` in the port's registry
     (telemetry/registry.py). Host clock reads only: no device work.
 
-The JAX pool fires its `loader_next` fault point in the worker before
-each load; utils/faultpoints.py is ROADMAP.md queue 1, item 8, which adds
-it here.
+Chaos: each worker fires the `loader_next` fault point
+(utils/faultpoints.py, `loader_stall`) before each load, so a stall holds
+up production and the consumer waits on the bounded buffer, as on a slow
+disk.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import threading
 import time
 from typing import Optional
 
+from ..utils import faultpoints
 from .reader import ShardReader
 
 
@@ -116,6 +118,7 @@ class WorkerPool:
                         self._cv.notify_all()
                     return
             try:
+                faultpoints.fire("loader_next", batch=i)
                 item = self._reader.load(rows)
             except BaseException as e:  # noqa: BLE001 — parked in the
                 # reorder buffer and re-raised by the consumer in order

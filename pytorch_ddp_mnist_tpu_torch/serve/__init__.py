@@ -13,8 +13,9 @@ them into the one request path every front door (cli/serve.py's TCP
 server and selftest, bench.py --mode serve, tests) shares.
 
 The JAX package's replica fleet (`fleet.py`) and hot reload (`reload.py`)
-wait for the fault points and the checkpoint manager (ROADMAP.md queue 1,
-item 9b after item 8). Everything here runs on the CPU too
+are ROADMAP.md queue 1, item 9b; the fault points and the checkpoint
+manager they build on are ported (utils/faultpoints.py,
+train/ckpt_manager.py). Everything here runs on the CPU too
 (`device="cpu"`), the forward eagerly, which is how the tests drive it.
 """
 

@@ -46,7 +46,8 @@ replay the same graphs from slabs of their own, dispatching every
 Served equals direct, bitwise: a request's rows take the same bucket graph
 whether they arrive alone or coalesced into a flush of the same bucket,
 padded with zeros both ways. The JAX engine's mesh replication, fleet
-replica slot and fault points are not here (cli/serve.py names them).
+replica slot and serve fault points are not here (cli/serve.py names
+them).
 """
 
 from __future__ import annotations
@@ -229,14 +230,10 @@ class InferenceEngine:
     @classmethod
     def from_checkpoint(cls, path: str, **kw) -> "InferenceEngine":
         """Load params from a reference-layout `.pt` / `.pth` (the port's,
-        the JAX package's or the reference's own). The JAX package's
-        msgpack checkpoints need its checkpoint manager, not ported yet."""
-        if not str(path).endswith((".pt", ".pth")):
-            raise ValueError(
-                f"checkpoint {path!r}: the port reads the reference's .pt / "
-                f".pth state_dict; msgpack checkpoints are not ported yet "
-                f"(ROADMAP.md queue 1, item 8)")
-        return cls(load_checkpoint(path), **kw)
+        the JAX package's or the reference's own), a `.npz` params tree,
+        or a flax `.msgpack` (the JAX package's or the port's,
+        train/checkpoint.py)."""
+        return cls(load_checkpoint(path, init_params(0)), **kw)
 
     @classmethod
     def from_seed(cls, seed: int, **kw) -> "InferenceEngine":

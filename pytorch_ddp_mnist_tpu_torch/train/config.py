@@ -11,20 +11,26 @@ torch`, `--dropout_rng torch`, `--eval_shuffle`), the input pipeline
 (`--ddp_comm`, `--overlap`, `--quant_block`, `--error_feedback`,
 `--bf16_rounding`), with the JAX CLI's refusals of their combinations,
 word for word, and its rule that resolves `--kernel auto` to `xla` for the
-`xla`-only options.
+`xla`-only options; and the step checkpoints and their resume, fault
+injection and outage retry (`--resume`, `--start_epoch`,
+`--ckpt_every_steps`, `--ckpt_keep`, `--fault`, `--outage_retries`), with
+the JAX CLI's refusals of those (`check_resume_knobs`).
 
 The ported flags keep the JAX trainer's names and defaults, so launch lines
-carry over, except `--checkpoint`, which defaults to `model.pt` (the port
-writes the reference's torch state_dict; msgpack needs flax). `--hdf5` and
-`--label_map` are the dead keys of the reference's config that the JAX
-trainer keeps for launch-line parity, and so does this one. Every other
-flag of the JAX trainer is recognised and rejected by name, with the
-ROADMAP.md item that will port it.
+carry over, except `--checkpoint`, which defaults to `model.pt` (the
+reference's torch state_dict; `.npz` writes the params tree, and any other
+path the JAX package's flax msgpack). `--hdf5` and `--label_map` are the
+dead keys of the reference's config that the JAX trainer keeps for
+launch-line parity, and so does this one. Every other flag of the JAX
+trainer is recognised and rejected by name, with the ROADMAP.md item that
+will port it: telemetry, the health watchdog and metrics (item 12) and
+elastic training (item 13).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Any, Dict
 
 from ..ops.epoch_step import EPOCH_KERNEL_MAX_BATCH
@@ -36,12 +42,6 @@ WIREUP_CHOICES = METHODS + tuple(METHOD_ALIASES) + ("tpu",)
 
 # flag of the JAX trainer -> where ROADMAP.md queues its port
 NOT_YET_PORTED = {
-    "--resume": "queue 1, item 8 (step checkpoints)",
-    "--start_epoch": "queue 1, item 8 (step checkpoints)",
-    "--ckpt_every_steps": "queue 1, item 8 (step checkpoints)",
-    "--ckpt_keep": "queue 1, item 8 (step checkpoints)",
-    "--fault": "queue 1, item 8 (step checkpoints)",
-    "--outage_retries": "queue 1, item 8 (step checkpoints)",
     "--telemetry": "queue 1, item 12 (telemetry)",
     "--journal": "queue 1, item 12 (telemetry)",
     "--profile": "queue 1, item 12 (telemetry)",
@@ -53,9 +53,11 @@ NOT_YET_PORTED = {
 }
 
 
-def configure(argv=None) -> Dict[str, Dict[str, Any]]:
+def configure(argv=None, *, cli=None) -> Dict[str, Dict[str, Any]]:
     """Parse CLI args into the nested {trainer: {...}, data: {...}} config.
-    Exits by name on a flag or value that is not ported yet."""
+    Exits by name on a flag or value that is not ported yet. `cli` is
+    whether the trainer runs from the command line (default: `argv` is
+    None), where an outage retry may re-exec the process."""
     p = argparse.ArgumentParser(
         prog="python -m pytorch_ddp_mnist_tpu_torch train",
         description="MNIST trainer, PyTorch/CUDA port of pytorch_ddp_mnist_tpu "
@@ -145,8 +147,49 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
                    help="CUDA device ordinal (default 0), or 'cpu' to run "
                         "the plain PyTorch versions of the kernels on the CPU")
     t.add_argument("--checkpoint", type=str, default="model.pt",
-                   help="final save as the reference's torch state_dict "
-                        "(.pt/.pth); '' skips the save")
+                   help="the run's params, saved after every epoch (rank 0): "
+                        "the reference's torch state_dict (.pt/.pth), the "
+                        "params tree (.npz), or the JAX package's flax "
+                        "msgpack (any other path, e.g. model.msgpack); '' "
+                        "skips the save")
+    t.add_argument("--resume", type=str, default=None,
+                   help="a checkpoint to start from: a file (any --checkpoint "
+                        "format; pair with --start_epoch, and its .rng.npz "
+                        "sidecar, written by the outage re-exec, restores "
+                        "the key chain), or a step-checkpoint directory "
+                        "(<--checkpoint>.steps/), whose newest intact "
+                        "checkpoint gives params, key and position")
+    t.add_argument("--start_epoch", type=int, default=0,
+                   help="resume at this GLOBAL epoch: epochs [start_epoch, "
+                        "n_epochs) run with their own shuffles and numbers; "
+                        "pair with --resume of epoch start_epoch-1's "
+                        "checkpoint")
+    t.add_argument("--ckpt_every_steps", type=int, default=0,
+                   help="crash-consistent step checkpoints "
+                        "(train/ckpt_manager.py): every N steps of an epoch "
+                        "and at its end, rank 0 commits params, key and "
+                        "sampler position under <--checkpoint>.steps/ "
+                        "(atomic, CRC-stamped, the JAX package's files); "
+                        "--resume <that directory> continues bitwise. 0 "
+                        "(default): none. Needs --checkpoint; refused with "
+                        "--fused and --kernel pallas_epoch")
+    t.add_argument("--ckpt_keep", type=int, default=3,
+                   help="step checkpoints kept (the newest N; default 3)")
+    t.add_argument("--fault", type=str, default=None, metavar="SPEC",
+                   help="fault injection (utils/faultpoints.py), merged with "
+                        "$PDMT_FAULT: comma-separated specs such as "
+                        "'kill:rank=1:step=12', 'ckpt_save_io:step=3', "
+                        "'loader_stall:batch=3:delay_s=0.5', "
+                        "'collective_timeout', 'nan:step=5'")
+    t.add_argument("--outage_retries", type=int, default=0,
+                   help="retry a run that a lost card or peer interrupts, up "
+                        "to N times: wait for the card "
+                        "($PDMT_BACKEND_WAIT, default 1 h) and resume from "
+                        "the last completed epoch, in the process or, where "
+                        "its CUDA context is poisoned (and always with "
+                        "--parallel), by persisting that state and "
+                        "re-exec'ing with --resume/--start_epoch. 0 "
+                        "(default): fail fast")
     t.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                    help="bfloat16: bf16 operands of the products with f32 "
                         "master weights in the kernels (and the whole "
@@ -248,8 +291,7 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
         raise SystemExit(
             "--wireup_method tpu reads a Cloud TPU pod's metadata; it has no "
             "counterpart on CUDA machines. Launch under torchrun, SLURM or "
-            "MPI (--wireup_method auto), or use --wireup_method env "
-            "(ROADMAP.md queue 1, item 8)")
+            "MPI (--wireup_method auto), or use --wireup_method env")
     if a.wireup_method != "auto" and not a.parallel:
         raise SystemExit(f"--wireup_method {a.wireup_method} forms the world "
                          f"of --parallel; add --parallel")
@@ -271,12 +313,22 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
                 f"--dropout_rng torch uses the plain autograd step with "
                 f"streamed masks; --kernel {a.kernel} draws its own masks "
                 f"in the kernel")
+        if a.outage_retries:
+            raise SystemExit(
+                "--dropout_rng torch does not compose with "
+                "--outage_retries: the in-process retry would continue "
+                "the torch mask stream mid-epoch instead of at the resume "
+                "boundary; use --resume/--start_epoch (which re-seat the "
+                "stream exactly) or the default jax dropout stream")
+        if (a.resume and not a.start_epoch
+                and not os.path.isdir(a.resume)):
+            raise SystemExit(
+                "--dropout_rng torch with --resume needs --start_epoch "
+                "(it positions the mask stream at the resume boundary; "
+                "without it the stream would restart at epoch 0)")
         a.kernel = "xla"
     check_comm_and_input_knobs(a)
-    if a.checkpoint and not a.checkpoint.endswith((".pt", ".pth", ".npz")):
-        raise SystemExit(f"--checkpoint {a.checkpoint!r}: the PyTorch package "
-                         f"writes .pt/.pth state_dicts and .npz params trees "
-                         f"only (msgpack needs flax)")
+    check_resume_knobs(a, cli=argv is None if cli is None else cli)
     return {
         "trainer": {
             "batch_size": a.batch_size, "n_epochs": a.n_epochs, "lr": a.lr,
@@ -291,7 +343,11 @@ def configure(argv=None) -> Dict[str, Dict[str, Any]]:
             "error_feedback": a.error_feedback == "on",
             "model": a.model, "param_scale": a.param_scale,
             "num_workers": a.num_workers, "input_workers": a.input_workers,
-            "prefetch_depth": a.prefetch_depth,
+            "prefetch_depth": a.prefetch_depth, "resume": a.resume,
+            "start_epoch": a.start_epoch,
+            "ckpt_every_steps": a.ckpt_every_steps,
+            "ckpt_keep": a.ckpt_keep, "fault": a.fault,
+            "outage_retries": a.outage_retries,
         },
         "data": {"path": a.path, "limit": a.limit, "netcdf": a.netcdf,
                  "download": a.download, "hdf5": a.hdf5,
@@ -371,6 +427,57 @@ def check_comm_and_input_knobs(a) -> None:
             "--prefetch_depth pipelines per-chunk/per-batch device "
             "transfers; --fused places ONE index array for the whole run — "
             "there is nothing to prefetch")
+
+
+def check_resume_knobs(a, cli: bool) -> None:
+    """The JAX CLI's refusals of the checkpoint, resume and outage flags
+    (`pytorch_ddp_mnist_tpu/cli/train.py:436-489`), by name: a range or a
+    combination some path would ignore exits at parse time. `cli` is
+    whether the trainer runs from the command line (a re-exec replaces
+    the process, which only the command line may do)."""
+    if not 0 <= a.start_epoch <= a.n_epochs:
+        raise SystemExit(f"--start_epoch {a.start_epoch} outside "
+                         f"[0, {a.n_epochs}] (n_epochs is the TOTAL run "
+                         f"length; start_epoch resumes inside it)")
+    if a.outage_retries < 0:
+        raise SystemExit("--outage_retries must be >= 0")
+    if a.ckpt_every_steps < 0:
+        raise SystemExit("--ckpt_every_steps must be >= 0")
+    if a.ckpt_keep < 1:
+        raise SystemExit("--ckpt_keep must be >= 1")
+    if a.ckpt_every_steps:
+        if a.fused:
+            raise SystemExit(
+                "--ckpt_every_steps saves at chunk boundaries the host "
+                "controls; --fused runs all epochs as ONE device program "
+                "with no mid-run host control — use plain --cached")
+        if a.kernel == "pallas_epoch":
+            raise SystemExit(
+                "--ckpt_every_steps chunks the epoch scan; --kernel "
+                "pallas_epoch splits its dropout key once per EPOCH and "
+                "chunking would fork the RNG chain — use --kernel "
+                "xla/pallas")
+        if not a.checkpoint:
+            raise SystemExit(
+                "--ckpt_every_steps writes step checkpoints under "
+                "<--checkpoint>.steps/; pass a non-empty --checkpoint to "
+                "derive the directory from")
+    if a.outage_retries and a.parallel and not cli:
+        raise SystemExit(
+            "--outage_retries with --parallel resumes by re-exec'ing the "
+            "process and is only available from the CLI (argv=None); "
+            "programmatic callers should relaunch with --resume instead")
+    if a.outage_retries and a.fused:
+        raise SystemExit(
+            "--outage_retries needs per-epoch state to resume from; "
+            "--fused runs all epochs as one device program with no "
+            "mid-run state (use plain --cached)")
+    if a.fault:
+        from ..utils.faultpoints import FaultSpecError, parse_faults
+        try:
+            parse_faults(a.fault)
+        except FaultSpecError as e:
+            raise SystemExit(f"--fault: {e}") from None
 
 
 def resolve_kernel(kernel: str, dtype: str, device_type: str) -> str:

@@ -136,10 +136,14 @@ class StepLoop:
     place), reading its inputs from static buffers it closes over, writes
     its loss into `losses[cursor]` and adds 1 to `cursor`.
 
-    `start_epoch()` zeroes the cursor; `step()` runs one step (the first
-    one on a card captures the body first); `losses()` is a copy of the
-    epoch's loss buffer on the device; `epoch()` is the three for the
-    loop's `nsteps` steps. `capture` (a card, and not a loop built with
+    `start_epoch(at)` sets the cursor to step `at` (0: the epoch's start;
+    a resume's offset); `step()` runs one step (the first one on a card
+    captures the body first); `losses()` is a copy of the epoch's loss
+    buffer on the device; `epoch()` is the three for the loop's `nsteps`
+    steps; `run(c0, c1)` replays steps c0..c1-1 from a cursor set to c0
+    and returns a copy of their losses (a chunk of the epoch: its losses
+    are the chunk's one fetch; the captured graph stays the same, only
+    the cursor moves). `capture` (a card, and not a loop built with
     `eager=True`) selects the graph; `what` names the path in errors;
     `preserve` are device tensors the body updates in place besides its
     state, which the capture's warm-up leaves as it found them."""
@@ -159,8 +163,11 @@ class StepLoop:
         self.graph = None
         self._per_replay = None
 
-    def start_epoch(self) -> None:
-        self.cursor.zero_()
+    def start_epoch(self, at: int = 0) -> None:
+        if at:
+            self.cursor.fill_(int(at))
+        else:
+            self.cursor.zero_()
 
     def step(self) -> None:
         if not self.capture:
@@ -181,10 +188,16 @@ class StepLoop:
         return self._losses.clone()
 
     def epoch(self) -> torch.Tensor:
-        self.start_epoch()
-        for _ in range(self.nsteps):
+        return self.run(0, self.nsteps)
+
+    def run(self, c0: int, c1: int) -> torch.Tensor:
+        if not 0 <= c0 <= c1 <= self.nsteps:
+            raise ValueError(f"{self.what}: steps [{c0}, {c1}) outside the "
+                             f"epoch's {self.nsteps}")
+        self.start_epoch(c0)
+        for _ in range(c1 - c0):
             self.step()
-        return self.losses()
+        return self._losses[c0:c1].clone()
 
     def _capture(self) -> None:
         saved = [dict(c) for c in _COUNTERS]

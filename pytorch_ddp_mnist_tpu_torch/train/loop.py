@@ -58,9 +58,21 @@ loop, in its order, bit for bit.
 A data-parallel step with comm state (`--ddp_comm int8` with error
 feedback, parallel/ddp.py) keeps its residual in a device tensor the step
 updates in place; the captured loop's warm-up restores it, and the
-TrainState carries it out (`resid`). Telemetry, fault points, the
-collective journal, the health watchdog and mid-epoch resume are not
-ported yet (ROADMAP.md queue 1).
+TrainState carries it out (`resid`).
+
+Resume and step checkpoints (the JAX `fit`'s): `start_epoch` runs the
+epochs [start_epoch, epochs) with their own sampler shuffles, and
+`start_offset` starts the first of them at batch `start_offset`: the
+loader skips at the index level, the captured loop's cursor and the slot
+ring start at that step, and the key table holds the steps from there,
+split from the restored key (the key after `start_offset` steps, so the
+rows are the unbroken epoch's). `step_hook(epoch, offset, global_step,
+state)` fires every `ckpt_every_steps` steps of an epoch and at its end
+(`step_ckpt_positions`), with the key after that step; each step is the
+`step` fault point (utils/faultpoints.py, `kill`), fired after the hook,
+and each reported loss the `loss` poison point. `epoch_hook(epoch,
+state)` fires after each epoch's line. Telemetry, the collective journal
+and the health watchdog are not ported yet (ROADMAP.md queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -76,10 +88,12 @@ from ..models.mlp import DROPOUT_RATE, MLP, MLP_DIMS, mlp_apply
 from ..ops.fused_step import KeyedStep, dropout_mask, keyed_dropout_mask
 from ..ops.loss import cross_entropy
 from ..ops.sgd import sgd_step
+from ..ops import threefry
 from ..ops.threefry import keep_from_words
 from ..parallel.torch_rng import MaskStream
 from ..pipeline import host_iter, prefetch
 from ..pipeline.prefetch import SlotRing
+from ..utils import faultpoints
 from . import graphs
 
 
@@ -176,22 +190,80 @@ class MaskedStep:
             yield x, y, self.draw(len(x))
 
 
-def make_torch_dropout_train_step(lr: float, seed: int) -> MaskedStep:
+def make_torch_dropout_train_step(lr: float, seed: int, *,
+                                  skip_steps: int = 0,
+                                  batch_size: int | None = None) -> MaskedStep:
     """The `--dropout_rng torch` step (the JAX package's
     `make_torch_dropout_train_step`): the plain autograd step in f32 whose
     masks stream from torch's CPU `bernoulli_(0.8)` on a generator seeded
     `seed` (the nn.Dropout draw of ddp_tutorial_cpu.py:47), drawn on the
     host a step at a time. With `--sampler_rng torch` the serial run's
     shards, masks and SGD are a live torch run's that reseeds its global
-    generator with `seed` after the model's init. The resume fast-forward
-    of the stream belongs to `--start_epoch` (ROADMAP.md queue 1, item 8)."""
+    generator with `seed` after the model's init. `skip_steps` positions
+    the stream for a resumed run: every step draws `batch_size` x 128
+    masks (the loaders pad every batch to full size), so the stream skips
+    that many values a step done."""
     def run(model, mask, x, y):
         params = model.params()
         loss, grads = xla_loss_and_grads(params, x, y, dropout_mask=mask)
         sgd_step(params, grads, lr)
         return loss
 
-    return MaskedStep(run, MaskStream(seed))
+    stream = MaskStream(seed)
+    if skip_steps:
+        if batch_size is None:
+            raise ValueError("skip_steps needs batch_size (the rows of a "
+                             "step's mask)")
+        stream.skip(int(skip_steps) * int(batch_size) * MLP_DIMS[1])
+    return MaskedStep(run, stream)
+
+
+def step_ckpt_positions(nsteps: int, epoch: int, i: int) -> tuple:
+    """The sampler position a step checkpoint records after step `i`
+    (0-based) of an epoch of `nsteps` steps: (epoch, i + 1), except that
+    the epoch's last step gives (epoch + 1, 0): the state after it is the
+    state the next epoch starts from, so a resume never replays an empty
+    tail. The streaming and resident-dataset trainers share it."""
+    if i + 1 >= nsteps:
+        return epoch + 1, 0
+    return epoch, i + 1
+
+
+def _fire_step_hook(step_hook, every: int, nsteps: int, epoch: int, i: int,
+                    state) -> None:
+    """`step_hook(epoch', offset', global_step, state)` when step `i` of
+    the epoch lands on the cadence: (i + 1) a multiple of `every`, or the
+    epoch's last step. The cadence is epoch-local, so both trainers save
+    at the same global steps for any nsteps and every."""
+    if step_hook is None or not every:
+        return
+    if (i + 1) % every == 0 or i + 1 >= nsteps:
+        ep, off = step_ckpt_positions(nsteps, epoch, i)
+        step_hook(ep, off, epoch * nsteps + i + 1, state)
+
+
+def key_chain(key, n: int) -> list:
+    """The train key after each of `n` steps from `key` (`key, sub =
+    split(key)` a step): the key a step checkpoint records."""
+    out = []
+    for _ in range(n):
+        key = threefry.split(key)[0]
+        out.append(key)
+    return out
+
+
+def poison_losses(losses: np.ndarray, first_step: int,
+                  epoch: int) -> np.ndarray:
+    """The `loss` poison point over fetched per-step losses, a step at a
+    time (`values[j]` is global step first_step + j): what a `nan` spec
+    does to the JAX streaming loop's reported loss of each step."""
+    if not faultpoints.active():
+        return losses
+    losses = np.array(losses, copy=True)
+    for j in range(losses.size):
+        losses[j] = faultpoints.poison("loss", losses[j],
+                                       step=first_step + j, epoch=epoch)
+    return losses
 
 
 @torch.no_grad()
@@ -341,14 +413,17 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
         lr: float | None = None, train_step: Callable | None = None,
         eval_perm: Callable | None = None, input_workers: int = 0,
         prefetch_depth: int = 1, model_apply: Callable | None = None,
-        registry=None, log: Callable[[str], None] = print):
-    """Run the reference training loop for `epochs` epochs on the model's
-    device. Exactly one of `lr` (builds the plain autograd step) or
-    `train_step` (e.g. ops.fused_step.make_fused_train_step) is given.
-    Returns (state with the advanced key, per-epoch arrays of the per-step
-    losses). In a world of processes the train step's loss is the world's
-    mean, so every rank computes the same line; the CLI passes a `log`
-    that prints on rank 0 only. A `KeyedStep` or `MaskedStep` on one
+        registry=None, start_epoch: int = 0, start_offset: int = 0,
+        ckpt_every_steps: int = 0, step_hook: Callable | None = None,
+        epoch_hook: Callable | None = None,
+        log: Callable[[str], None] = print):
+    """Run the reference training loop for epochs [start_epoch, epochs) on
+    the model's device. Exactly one of `lr` (builds the plain autograd
+    step) or `train_step` (e.g. ops.fused_step.make_fused_train_step) is
+    given. Returns (state with the advanced key, per-epoch arrays of the
+    per-step losses). In a world of processes the train step's loss is the
+    world's mean, so every rank computes the same line; the CLI passes a
+    `log` that prints on rank 0 only. A `KeyedStep` or `MaskedStep` on one
     device runs captured on a card (see the module docstring).
     `eval_perm(epoch)`, when given, is the order of the epoch's val-loss
     segmentation (`--eval_shuffle`). `input_workers` and `prefetch_depth`
@@ -356,13 +431,22 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
     in the same order at any setting. `model_apply` is a zoo model's
     forward for the `lr` step (models/zoo.py). The pipeline's `data.*`
     metrics go to `registry` (default: the process's,
-    telemetry/registry.py)."""
+    telemetry/registry.py). `start_epoch`, `start_offset`,
+    `ckpt_every_steps`, `step_hook` and `epoch_hook` resume a run and
+    checkpoint it (see the module docstring): with the state saved after
+    `start_offset` steps of epoch `start_epoch`, the run from there is the
+    unbroken run's, bit for bit; the resumed epoch's line covers its
+    remaining steps."""
     if (train_step is None) == (lr is None):
         raise ValueError("pass exactly one of lr= or train_step=")
     if input_workers < 0:
         raise ValueError(f"input_workers must be >= 0; got {input_workers}")
     if prefetch_depth < 1:
         raise ValueError(f"prefetch_depth must be >= 1; got {prefetch_depth}")
+    if not 0 <= start_epoch <= epochs:
+        raise ValueError(f"start_epoch={start_epoch} outside [0, {epochs}]")
+    if start_offset < 0:
+        raise ValueError(f"start_offset={start_offset} must be >= 0")
     step = (train_step if train_step is not None else
             make_train_step(lr, model_apply or mlp_apply))
     model, key = state.model, state.key
@@ -374,7 +458,11 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
         record = make_ddp_comm_recorder(step.ddp_mesh, comm, model.params())
     keyed = isinstance(step, KeyedStep)
     masked = isinstance(step, MaskedStep)
-    nsteps = len(train_loader) if keyed or masked else None
+    nsteps = len(train_loader)
+    if start_epoch < epochs and start_offset >= nsteps:
+        raise ValueError(f"start_offset={start_offset} >= the epoch's "
+                         f"{nsteps} steps (a committed step checkpoint never "
+                         f"records a full-epoch offset)")
     # a MaskedStep is serial, so always on one device
     captured = masked or (keyed and graphs.on_one_device(
         getattr(step, "ddp_mesh", None), device))
@@ -387,25 +475,31 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
     x_test_dev = torch.as_tensor(x_test, device=device)
     y_test_dev = torch.as_tensor(y_test, device=device)
     history: List[np.ndarray] = []
-    for epoch in range(epochs):
+    hooked = step_hook is not None and ckpt_every_steps
+    for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         io_seconds = 0.0
+        offset = start_offset if epoch == start_epoch else 0
         train_loader.sampler.set_epoch(epoch)
         batches = host_iter(train_loader, workers=input_workers,
-                            registry=registry)
+                            start=offset, registry=registry)
         if masked:   # each batch with its mask, drawn in step order
             batches = step.with_masks(batches)
-        if keyed and captured:
-            epoch_key, words = step.key_words(key, nsteps)
+        chain = None
+        if keyed and hooked:    # the key after each step, for the saves
+            chain = key_chain(key, nsteps - offset)
+        if keyed and captured:   # rows offset.. of the epoch's table
+            epoch_key, words = step.key_words(key, nsteps, start=offset)
             keys.load(words)
         elif keyed:   # the epoch's step keys on the device, one copy
-            epoch_key, table = step.key_table(key, nsteps, device)
+            epoch_key, table = step.key_table(key, nsteps, device,
+                                              start=offset)
         if captured:
-            loop.start_epoch()
-            batches = ring.feed(batches, prefetch_depth)
+            loop.start_epoch(offset)
+            batches = ring.feed(batches, prefetch_depth, start=offset)
         else:
             batches = prefetch(batches, depth=prefetch_depth, device=device)
-        losses, taken = [], 0
+        losses, i = [], offset
         while True:
             t_io = time.perf_counter()
             batch = next(batches, None)
@@ -414,25 +508,35 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
             io_seconds += time.perf_counter() - t_io
             if batch is None:
                 break
-            if nsteps is not None and taken == nsteps:
+            if i == nsteps:
                 raise RuntimeError(f"the loader gave more than the {nsteps} "
                                    f"batches its len() said")
             if captured:
                 loop.step()
             elif keyed:
-                losses.append(step.run(model, table[taken], x, y))
+                losses.append(step.run(model, table[i], x, y))
             else:
                 key, loss = step(model, key, x, y)
                 losses.append(loss)
-            taken += 1
-        if nsteps is not None and taken != nsteps:
-            raise RuntimeError(f"the loader gave {taken} batches where its "
-                               f"len() said {nsteps}")
+            if hooked:
+                _fire_step_hook(step_hook, ckpt_every_steps, nsteps, epoch,
+                                i, TrainState(
+                                    model,
+                                    chain[i - offset] if chain else key,
+                                    comm.resid if comm else None))
+            # after the hook: a kill at step K never races step K's save
+            faultpoints.fire("step", step=epoch * nsteps + i + 1, epoch=epoch)
+            i += 1
+        if i != nsteps:
+            raise RuntimeError(f"the loader gave {i - offset} batches from "
+                               f"batch {offset} where its len() said "
+                               f"{nsteps}")
         if keyed:
             key = epoch_key
         # the epoch's one fetch
-        losses = (loop.losses() if captured else torch.stack(losses)) \
-            .cpu().numpy()
+        losses = (loop.losses()[offset:] if captured
+                  else torch.stack(losses)).cpu().numpy()
+        losses = poison_losses(losses, epoch * nsteps + offset + 1, epoch)
         if record is not None:
             record(losses.size, model.params())
         val = evaluate(model, x_test_dev, y_test_dev, batch_size,
@@ -441,4 +545,7 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
         log(epoch_summary(epoch, losses, batch_size, val, dt,
                           io_seconds=io_seconds))
         history.append(losses)
+        if epoch_hook is not None:
+            epoch_hook(epoch, TrainState(model, key,
+                                         comm.resid if comm else None))
     return TrainState(model, key, comm.resid if comm else None), history

@@ -303,10 +303,22 @@ class CachedSteps:
             what=f"the cached {kernel} step ({compute_dt}){where}",
             preserve=comm.state_tensors() if comm is not None else ())
 
-    def epoch(self, key, idx):
-        key, words = threefry.step_key_words(key, self.loop.nsteps, self.fold)
+    def load(self, key, idx, offset: int = 0):
+        """Load an epoch's (S, rows) indices and the keys of its steps
+        offset..S-1 (from `key`, the key after `offset` steps: a resume's),
+        into their rows of the table. Returns the key after the epoch."""
+        key, words = threefry.step_key_words(key, self.loop.nsteps, self.fold,
+                                             offset)
         self.idx.load(np.asarray(idx, np.int32))
         self.keys.load(words)
+        return key
+
+    def run(self, c0: int, c1: int) -> torch.Tensor:
+        """Steps c0..c1-1 of the loaded epoch; their losses on the device."""
+        return self.loop.run(c0, c1)
+
+    def epoch(self, key, idx):
+        key = self.load(key, idx)
         return key, self.loop.epoch()
 
 
@@ -689,21 +701,35 @@ def _load_params(model: MLP, params) -> None:
                 p.copy_(params[name][k])
 
 
+def _chunks(offset: int, nsteps: int, every: int) -> list:
+    """An epoch's steps from `offset`, cut at the epoch-local multiples of
+    `every` (0: one chunk): the boundaries of the unbroken run's chunks,
+    so a resumed run saves where the unbroken one does."""
+    bounds, c0 = [], offset
+    while c0 < nsteps:
+        c1 = min(nsteps, (c0 // every + 1) * every) if every else nsteps
+        bounds.append((c0, c1))
+        c0 = c1
+    return bounds
+
+
 def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
                epochs: int, batch_size: int, lr: float, kernel: str = "xla",
                impl: str = "threefry2x32", fused: bool = False,
                dtype: str = "float32", mesh=None, ring: str = "auto",
                comm: str = "pmean", bf16_rounding: str = "nearest",
                overlap: bool = False, quant_block: int | None = None,
-               error_feedback: bool = True, ckpt_every_steps: int = 0,
-               step_hook=None, start_offset: int = 0, watchdog=None,
+               error_feedback: bool = True, start_epoch: int = 0,
+               start_offset: int = 0, ckpt_every_steps: int = 0,
+               step_hook=None, epoch_hook=None, watchdog=None,
                dispatch_profiler=None, eval_perm: Callable | None = None,
                prefetch_depth: int = 1, resid=None,
                log: Callable[[str], None] = print):
-    """The `fit` loop with the dataset resident on the model's device.
-    Prints the reference epoch line per epoch; writes the trained weights
-    into `model`. Returns (key, per-epoch arrays of the per-step losses).
-    `model` may be a zoo model (models/zoo.py; `xla` only).
+    """The `fit` loop with the dataset resident on the model's device, over
+    epochs [start_epoch, epochs). Prints the reference epoch line per
+    epoch; writes the trained weights into `model`. Returns (key,
+    per-epoch arrays of the per-step losses). `model` may be a zoo model
+    (models/zoo.py; `xla` only).
 
     `fused=True` runs ALL epochs with no host sync between them (one fetch
     at the end), keeping per-epoch params snapshots so the per-epoch val
@@ -726,32 +752,61 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
     capture a fit (`CachedSteps`; `fused=True`: one a run of
     make_run_fn).
 
+    Step checkpoints (the JAX `fit_cached`'s): `ckpt_every_steps=N` cuts
+    each epoch into chunks at its multiples of N (`_chunks`); the captured
+    step replays a chunk from a cursor set to its first step (the same
+    graph: no capture mid-fit) and the chunk's losses are its one fetch,
+    and the other paths run the epoch function on the chunk's index rows
+    with the key the chain has reached. After each chunk `step_hook(epoch,
+    offset, global_step, state)` fires as in `fit` (train/loop.py
+    `_fire_step_hook`, the model loaded with the chunk's params, the key
+    after its last step, the residual), then the `step` fault point; each
+    fetched chunk is the `loss` poison point. `start_epoch` and
+    `start_offset` resume: the first epoch starts at step `start_offset`,
+    its key table holding the steps from there, split from the restored
+    key. The chunks are consecutive runs of the same steps, so a chunked or
+    resumed run is the unbroken one, bit for bit. `fused=True` has no
+    host control inside its run and `kernel='pallas_epoch'` splits its key
+    once an epoch: both refuse step checkpoints and `start_offset` by name,
+    as JAX does. `epoch_hook(epoch, state)` fires after each epoch's line.
+
     `prefetch_depth` (the input pipeline's host-to-device stage,
     pipeline/prefetch.py) keeps that many epochs' index arrays made (and,
     on the eager and epoch-kernel paths, copied to the device) ahead of the
-    epoch that trains: the JAX trainer's chunk prefetch, one chunk an epoch
-    (step checkpoints, which chunk an epoch, are ROADMAP.md queue 1, item
-    8). The values are the same at any depth. `fused=True` places one
-    index array for the run and refuses a depth other than 1 by name.
+    epoch that trains. The values are the same at any depth. `fused=True`
+    places one index array for the run and refuses a depth other than 1 by
+    name.
 
     `eval_perm(epoch)`, when given, is the order of the epoch's val-loss
     segmentation (`--eval_shuffle`), on every path.
 
-    The JAX trainer's step-granular checkpoints, live watchdog and
-    dispatch profiler are not ported yet and are refused by name."""
+    The JAX trainer's live watchdog and dispatch profiler are not ported
+    yet and are refused by name."""
     from ..models.zoo import spec_of
-    refused = [
-        (bool(ckpt_every_steps) or step_hook is not None or start_offset,
-         "step-granular checkpoints (ckpt_every_steps/step_hook/"
-         "start_offset)", "queue 1, item 8"),
-        (watchdog is not None, "the live health watchdog", "queue 1, item 12"),
-        (dispatch_profiler is not None, "the dispatch profiler",
-         "queue 1, item 12"),
-    ]
-    for given, what, where in refused:
+    from ..utils import faultpoints
+    from .loop import TrainState, _fire_step_hook, key_chain
+    for given, what in ((watchdog is not None, "the live health watchdog"),
+                        (dispatch_profiler is not None,
+                         "the dispatch profiler")):
         if given:
             raise ValueError(f"{what} is not ported to the PyTorch package "
-                             f"yet; see ROADMAP.md {where}")
+                             f"yet; see ROADMAP.md queue 1, item 12")
+    if not 0 <= start_epoch <= epochs:
+        raise ValueError(f"start_epoch={start_epoch} outside [0, {epochs}]")
+    if start_offset < 0:
+        raise ValueError(f"start_offset={start_offset} must be >= 0")
+    if fused and (ckpt_every_steps or step_hook is not None or start_offset):
+        raise ValueError(
+            "step-granular checkpointing (ckpt_every_steps/step_hook/"
+            "start_offset) needs per-chunk host control; fused=True runs "
+            "all epochs with no host control between them — use plain "
+            "cached mode")
+    if kernel == "pallas_epoch" and (ckpt_every_steps or start_offset):
+        raise ValueError(
+            "step-granular checkpointing chunks the epoch, but kernel "
+            "'pallas_epoch' derives its whole epoch's dropout stream from "
+            "ONE per-epoch key split — chunking would fork the RNG chain; "
+            "use kernel='xla'/'pallas' for step-granular checkpoints")
     if prefetch_depth < 1:
         raise ValueError(f"prefetch_depth must be >= 1; got {prefetch_depth}")
     if fused and prefetch_depth != 1:
@@ -790,10 +845,13 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
     params = _clone(model.params())
     history: List[np.ndarray] = []
     fit_cached.comm = None
+    run_epochs = range(start_epoch, epochs)
 
     if fused:
+        if not run_epochs:
+            return key, history
         idxs = []
-        for epoch in range(epochs):
+        for epoch in run_epochs:
             sampler.set_epoch(epoch)
             idxs.append(epoch_rows(sampler, batch_size, mesh))
         run = (make_run_fn(lr, dtype=dtype, kernel=kernel, snapshots=True,
@@ -803,27 +861,36 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
                               **comm_kw, **zoo_kw))
         t0 = time.perf_counter()
         args = () if mesh is None else (resid,)
-        params, key, losses, (p_snaps, _) = run(params, key, x_all, y_all,
-                                                np.stack(idxs), *args)
+        params, key, losses, (p_snaps, k_snaps) = run(
+            params, key, x_all, y_all, np.stack(idxs), *args)
         fit_cached.comm = getattr(run, "comm", None)
         losses = losses.cpu().numpy()      # the run's one fetch
-        per_epoch_dt = (time.perf_counter() - t0) / max(epochs, 1)
+        per_epoch_dt = (time.perf_counter() - t0) / len(run_epochs)
         per_sample, correct = _snapshot_eval(p_snaps, apply, x_test_dev,
                                              y_test_dev)
-        for epoch in range(epochs):
-            val = val_summary(per_sample[epoch], correct[epoch], batch_size,
+        for i, epoch in enumerate(run_epochs):
+            val = val_summary(per_sample[i], correct[i], batch_size,
                               perm=eval_perm(epoch) if eval_perm else None)
-            log(epoch_summary(epoch, losses[epoch], batch_size, val,
+            log(epoch_summary(epoch, losses[i], batch_size, val,
                               per_epoch_dt))
-            history.append(losses[epoch])
+            history.append(losses[i])
+            if epoch_hook is not None:
+                # this epoch's params and key (no per-epoch residual)
+                _load_params(model, {n: {k: v[i] for k, v in layer.items()}
+                                     for n, layer in p_snaps.items()})
+                epoch_hook(epoch, TrainState(model, k_snaps[i]))
         _load_params(model, params)
         return key, history
 
     steps = None     # the captured step, one for the whole fit
     captured = kernel != "pallas_epoch" and graphs.on_one_device(mesh, device)
     record = None
+    nsteps = math.ceil(len(sampler) / batch_size)
+    if start_epoch < epochs and start_offset >= nsteps:
+        raise ValueError(f"start_offset={start_offset} >= the epoch's "
+                         f"{nsteps} steps (a committed step checkpoint never "
+                         f"records a full-epoch offset)")
     if captured:
-        nsteps = math.ceil(len(sampler) / batch_size)
         dp = None
         if mesh is not None:
             dp = collectives.DPComm(mesh, lr, **comm_kw)
@@ -844,28 +911,53 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
             mesh, collectives.DPComm(mesh, lr, **comm_kw), params)
 
     def epoch_indices():
-        for epoch in range(epochs):
+        for epoch in run_epochs:
             sampler.set_epoch(epoch)
             yield epoch_rows(sampler, batch_size, mesh)
 
+    def current_resid():
+        comm_now = fit_cached.comm
+        return comm_now.resid if comm_now is not None else resid
+
+    hooked = step_hook is not None and ckpt_every_steps
     # the epochs' index arrays, `prefetch_depth` ahead: made on the host
     # for the captured step (its static buffer takes them when the epoch
     # starts), copied to the device for the other paths
     placed = prefetch(epoch_indices(), depth=prefetch_depth,
                       put=(lambda idx: idx) if captured else
                       (lambda idx: _to_device(idx, device)))
-    for epoch, idx in enumerate(placed):
+    for epoch, idx in zip(run_epochs, placed):
         t0 = time.perf_counter()
+        offset = start_offset if epoch == start_epoch else 0
         if steps is not None:
-            key, losses = steps.epoch(key, idx)
-        elif mesh is None:
-            params, key, losses = epoch_fn(params, key, x_all, y_all, idx)
-        else:
-            prev = epoch_fn.comm.resid if epoch_fn.comm is not None else resid
-            params, key, losses = epoch_fn(params, key, x_all, y_all, idx,
-                                           prev)
-            fit_cached.comm = epoch_fn.comm
-        losses = losses.cpu().numpy()      # the epoch's one fetch
+            chain = key_chain(key, nsteps - offset) if hooked else None
+            epoch_key = steps.load(key, idx, offset)
+        parts = []
+        for c0, c1 in _chunks(offset, nsteps, ckpt_every_steps):
+            if steps is not None:
+                part = steps.run(c0, c1)
+                key = chain[c1 - offset - 1] if chain else epoch_key
+            elif mesh is None:
+                params, key, part = epoch_fn(params, key, x_all, y_all,
+                                             idx[c0:c1])
+            else:
+                params, key, part = epoch_fn(params, key, x_all, y_all,
+                                             idx[c0:c1], current_resid())
+                fit_cached.comm = epoch_fn.comm
+            part = part.cpu().numpy()      # the chunk's one fetch
+            parts.append(faultpoints.poison_array(
+                "loss", part, first_step=epoch * nsteps + c0 + 1,
+                epoch=epoch))
+            if hooked:
+                _load_params(model, params)
+                _fire_step_hook(step_hook, ckpt_every_steps, nsteps, epoch,
+                                c1 - 1, TrainState(model, key,
+                                                   current_resid()))
+            # after the hook: a kill at step K never races step K's save
+            faultpoints.fire("step", step=epoch * nsteps + c1, epoch=epoch)
+        if steps is not None:
+            key = epoch_key
+        losses = np.concatenate(parts)
         if record is not None:
             record(losses.size, params)
         _load_params(model, params)
@@ -874,6 +966,8 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
         log(epoch_summary(epoch, losses, batch_size, val,
                           time.perf_counter() - t0))
         history.append(losses)
+        if epoch_hook is not None:
+            epoch_hook(epoch, TrainState(model, key, current_resid()))
     return key, history
 
 

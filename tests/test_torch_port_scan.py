@@ -200,9 +200,9 @@ def test_fit_cached_prints_jax_epoch_lines(kernel, fused):
 @pytest.mark.parametrize("kw,where", [
     ({"mesh": (torch.device("cpu"),) * 2, "comm": "int8",
       "kernel": "pallas_epoch"}, "IN-kernel"),
-    ({"ckpt_every_steps": 5}, "not ported.*item 8"),
-    ({"step_hook": print}, "not ported.*item 8"),
-    ({"start_offset": 3}, "not ported.*item 8"),
+    ({"ckpt_every_steps": 5, "fused": True}, "fused=True runs all epochs"),
+    ({"step_hook": print, "fused": True}, "needs per-chunk host control"),
+    ({"start_offset": 3, "kernel": "pallas_epoch"}, "fork the RNG chain"),
     ({"watchdog": object()}, "not ported.*item 12"),
     ({"dispatch_profiler": object()}, "not ported.*item 12"),
 ])

@@ -177,9 +177,13 @@ def test_a_jax_written_pt_serves_as_the_jax_engine_and_back(tmp_path,
     np.testing.assert_array_equal(
         JaxEngine.from_checkpoint(ours, max_batch=16).predict(rows),
         port.predict(rows))
-    with pytest.raises(ValueError, match="item 8"):
-        InferenceEngine.from_checkpoint(str(tmp_path / "m.msgpack"),
-                                        device=CPU)
+    # the JAX package's flax msgpack serves too, as the JAX engine serves it
+    blob = str(tmp_path / "jax.msgpack")
+    jax_ckpt.save_checkpoint(blob, jax_params)
+    np.testing.assert_array_equal(
+        InferenceEngine.from_checkpoint(blob, max_batch=16,
+                                        device=CPU).predict(rows),
+        JaxEngine.from_checkpoint(blob, max_batch=16).predict(rows))
 
 
 def test_from_seed_is_init_mlp_of_the_seed(jax_params, engines):

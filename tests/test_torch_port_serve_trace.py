@@ -18,8 +18,9 @@ the CPU.
     losses within rtol 1e-6, accuracies equal. The eval and serve bench
     lines' fields on a tiny CPU run (plumbing only: a CPU time is no
     device number).
-  * The refusals by name: `--replicas 2`, `--reload_dir`, a msgpack
-    `--checkpoint`, the fault points, `--mesh` over two cards, no card.
+  * The refusals by name: `--replicas 2`, `--reload_dir`,
+    `--retry_budget`, the serve fault points, `--mesh` over two cards, no
+    card.
 """
 
 import asyncio
@@ -294,8 +295,8 @@ def test_bench_eval_and_serve_need_a_card(monkeypatch):
 @pytest.mark.parametrize("argv,match", [
     (["--replicas", "2"], "replica fleet .* item 9b"),
     (["--wedge_timeout_ms", "100"], "replica fleet .* item 9b"),
-    (["--reload_dir", "ckpts"], "hot reload .* item 9b after item 8"),
-    (["--checkpoint", "model.msgpack"], "msgpack .* item 8"),
+    (["--reload_dir", "ckpts"], "hot reload .* item 9b"),
+    (["--retry_budget", "2"], "replica fleet .* item 9b"),
 ])
 def test_serve_refuses_the_unported_features_by_name(argv, match):
     with pytest.raises(SystemExit, match=match):
@@ -304,7 +305,7 @@ def test_serve_refuses_the_unported_features_by_name(argv, match):
 
 def test_serve_refuses_the_fault_points_by_name(monkeypatch):
     monkeypatch.setenv("PDMT_FAULT", "engine_crash:after=4:replica=0")
-    with pytest.raises(SystemExit, match="fault points .* item 8"):
+    with pytest.raises(SystemExit, match="fault points .* item 9b"):
         serve_cli.main(["--device", "cpu", "--selftest", "1"])
 
 

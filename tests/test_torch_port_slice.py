@@ -185,14 +185,14 @@ def test_cli_without_a_card_exits_naming_it(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["--outage_retries", "1"], "--outage_retries"),
-    (["--ckpt_every_steps", "5"], "--ckpt_every_steps"),
+    (["--journal"], "--journal"),
+    (["--profile", "/tmp/p"], "--profile"),
     (["--health"], "--health"),
     (["--elastic"], "--elastic"),
     (["--reshape=2"], "--reshape"),
-    (["--start_epoch", "1"], "--start_epoch"),
+    (["--metrics_port", "0"], "--metrics_port"),
     (["--telemetry", "/tmp/t"], "--telemetry"),
-    (["--resume=x.pt"], "--resume"),
+    (["--profile_dispatch=4"], "--profile_dispatch"),
 ])
 def test_unported_flags_exit_by_name(argv, name):
     with pytest.raises(SystemExit) as e:
@@ -215,12 +215,16 @@ def test_config_defaults_and_checkpoint_format():
                               "quant_block": None, "error_feedback": True,
                               "model": "mlp", "param_scale": 1,
                               "num_workers": 0, "input_workers": 0,
-                              "prefetch_depth": 1}
+                              "prefetch_depth": 1, "resume": None,
+                              "start_epoch": 0, "ckpt_every_steps": 0,
+                              "ckpt_keep": 3, "fault": None,
+                              "outage_retries": 0}
     assert cfg["data"] == {"path": "data/", "limit": -1, "netcdf": False,
                            "download": False, "hdf5": False,
                            "label_map": None}
-    with pytest.raises(SystemExit, match="msgpack"):
-        configure(["--checkpoint", "model.msgpack"])
+    # any other path is the JAX package's flax msgpack
+    assert configure(["--checkpoint", "model.msgpack"])["trainer"][
+        "checkpoint"] == "model.msgpack"
     with pytest.raises(SystemExit):
         configure(["--no_such_flag"])
 
