@@ -243,7 +243,22 @@ Phases (any failure exits non-zero; no phase is skipped):
                   torchrun with `--ddp_comm sharded` and `int8`, each rank
                   bitwise the 2-replica mesh on the same rows; `bench
                   --mode ddp --ddp_comm all` at mlp@1 and deep_mlp@8
-                  ([comm] lines).
+                  ([comm] lines);
+               r. the replica fleet and hot reload (phase_fleet, right after
+                  o, on the same checkpoint): a 2-replica fleet of max_batch
+                  64 captures 14 graphs at construction and 7 a restart; the
+                  survivor's preds bitwise the direct engine's while its
+                  sibling rebuilds under load, and its p50 / p99 against an
+                  undisturbed fleet in turns; serve_chaos.py's three legs
+                  (kill-mid-burst, wedge-then-watchdog, torn-checkpoint-swap)
+                  on the card with availability 1.0, preds bitwise direct,
+                  no replica dead or off the card, 7 captures an engine
+                  built and no other, and the record contract over the
+                  trace; `serve --replicas 2 --wedge_timeout_ms 250
+                  --retry_budget 2 --reload_dir DIR` over TCP reloading a
+                  step committed under DIR; `bench --mode serve --replicas
+                  2` and `--replicas 1` in turns; no hand-written kernel
+                  launched ([fleet] lines).
   5. timing  — CUDA-event times of each kernel and form and its plain
                version at the main path's shapes, torch.profiler's device
                time of K1 (both designs) and the cached epoch (f32 on K2-ws,
@@ -5381,15 +5396,22 @@ def _serve_cli(argv: list, what: str) -> tuple:
             time.perf_counter() - t0)
 
 
-def _serve_tcp_request(ckpt: str, row: np.ndarray) -> tuple:
-    """`serve --port 0 --checkpoint ckpt` in a session of its own: one
-    pixels request and one metrics request over TCP, then SIGTERM and the
-    drain. Returns (pred, the metrics answer, the final snapshot)."""
+def _ask(f, req: dict) -> dict:
+    """One JSON-lines request over the server connection `f`."""
+    f.write(json.dumps(req) + "\n")
+    f.flush()
+    return json.loads(f.readline())
+
+
+def _serve_tcp(argv: list, converse, what: str) -> tuple:
+    """`serve --port 0 <argv>` in a session of its own: `converse(f)` talks
+    over one connection (`f` a read-write file of JSON lines), then SIGTERM
+    and the drain. Returns (what converse returned, the final snapshot)."""
     import signal
     import socket
     proc = subprocess.Popen([sys.executable, "-m",
                              "pytorch_ddp_mnist_tpu_torch", "serve", "--port",
-                             "0", "--checkpoint", ckpt], cwd=REPO,
+                             "0", *argv], cwd=REPO,
                             env=_rank_env(), text=True, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, start_new_session=True)
     try:
@@ -5398,24 +5420,19 @@ def _serve_tcp_request(ckpt: str, row: np.ndarray) -> tuple:
         while time.monotonic() < deadline:
             line = proc.stderr.readline()
             if not line:
-                fail(f"serve --port 0 exited {proc.wait()} before serving: "
+                fail(f"{what} exited {proc.wait()} before serving: "
                      f"{''.join(err)[-3000:]}")
             err.append(line)
             if line.startswith("serving on "):
                 host, port = line.split()[-1].rsplit(":", 1)
                 break
         else:
-            fail("serve --port 0 did not start serving in time")
+            fail(f"{what} did not start serving in time")
         # the file object holds the socket open: close both before the
         # drain, which waits for every connection to end
         with socket.create_connection((host, int(port)), timeout=60) as sock, \
                 sock.makefile("rw") as f:
-            f.write(json.dumps({"pixels": row.tolist()}) + "\n")
-            f.flush()
-            pixels = json.loads(f.readline())
-            f.write(json.dumps({"op": "metrics"}) + "\n")
-            f.flush()
-            metrics = json.loads(f.readline())
+            result = converse(f)
         os.killpg(proc.pid, signal.SIGTERM)
         out, rest = proc.communicate(timeout=SERVE_LIMIT_S)
     finally:
@@ -5423,10 +5440,10 @@ def _serve_tcp_request(ckpt: str, row: np.ndarray) -> tuple:
             with contextlib.suppress(ProcessLookupError):
                 os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
-    if proc.returncode != 0 or not pixels.get("ok"):
-        fail(f"serve over TCP: rc {proc.returncode}, answer {pixels}: "
-             f"{''.join(err)[-2000:]}{rest[-2000:]}")
-    return pixels["pred"], metrics, json.loads(out.strip().splitlines()[-1])
+    if proc.returncode != 0:
+        fail(f"{what}: rc {proc.returncode}: {''.join(err)[-2000:]}"
+             f"{rest[-2000:]}")
+    return result, json.loads(out.strip().splitlines()[-1])
 
 
 def phase_serve(device, tmp: str, card: str) -> dict:
@@ -5560,7 +5577,11 @@ def phase_serve(device, tmp: str, card: str) -> dict:
         fail(f"serve --selftest 2000: {st}; {err[-1000:]}")
     print(f"[serve] serve --selftest 2000 ({dt:.1f}s): {json.dumps(st)} "
           f"[{card}]")
-    pred, metrics, final = _serve_tcp_request(ckpt, row)
+    (pixels, metrics), final = _serve_tcp(
+        ["--checkpoint", ckpt],
+        lambda f: (_ask(f, {"pixels": row.tolist()}),
+                   _ask(f, {"op": "metrics"})), "serve --port 0")
+    pred = pixels.get("pred")
     if pred != tcp_want or metrics.get("completed") != 1 \
             or final.get("completed") != 1:
         fail(f"serve over TCP: pred {pred} (direct {tcp_want}), metrics "
@@ -5581,6 +5602,256 @@ def phase_serve(device, tmp: str, card: str) -> dict:
         print(f"[serve] bench {' '.join(argv)} ({dt:.1f}s): "
               f"{json.dumps(line)} [{card}]")
     print(f"[serve] phase_serve: {time.perf_counter() - t0:.1f}s")
+    return report
+
+
+# ---- slice 20: the replica fleet and hot reload ----
+
+FLEET_REPLICAS = 2
+# the survivor's turns: requests a turn and their offered rate (the
+# restart turn also keeps sending until the rebuilt replica is back)
+FLEET_TURN = (400, 2000.0)
+FLEET_CHAOS = (200, 800.0)          # requests, offered rps a load leg
+FLEET_SETTLE_S = 60.0
+
+
+def _fleet_ready(fleet) -> bool:
+    return all(r.state == "healthy" for r in fleet.replicas)
+
+
+async def _survivor_turn(fleet, rows, restart: bool) -> dict:
+    """One turn of FLEET_TURN requests at their rate through `fleet`; with
+    `restart`, replica 0's engine crashes at its next launch (the first
+    request goes to it) and the turn goes on sending until the rebuilt
+    replica is back. Returns the preds, the latencies of the requests
+    sent while replica 0 was rebuilding (all of them when undisturbed),
+    and the rebuild's wall."""
+    import asyncio
+    from pytorch_ddp_mnist_tpu_torch.utils import faultpoints
+    n_min, rps = FLEET_TURN
+    if restart:
+        faultpoints.install("engine_crash:replica=0")
+    preds, lat, tasks = {}, [], []
+
+    async def one(i, during):
+        t = time.perf_counter()
+        preds[i] = await fleet.handle(rows[i % len(rows)])
+        if during or not restart:
+            lat.append(time.perf_counter() - t)
+
+    t0, i = time.perf_counter(), 0
+    try:
+        deadline = t0 + FLEET_SETTLE_S
+        while i < n_min or (restart and not _fleet_ready(fleet)):
+            if time.perf_counter() > deadline:
+                fail(f"fleet: replica 0 not rebuilt within "
+                     f"{FLEET_SETTLE_S:.0f}s: "
+                     f"{[r.state for r in fleet.replicas]}")
+            during = fleet.replicas[0].state != "healthy"
+            tasks.append(asyncio.ensure_future(one(i, during)))
+            i += 1
+            await asyncio.sleep(max(0.0, t0 + i / rps - time.perf_counter()))
+        await asyncio.gather(*tasks)
+    finally:
+        faultpoints.install("")
+    return {"n": i, "preds": preds, "lat": sorted(lat)}
+
+
+def _reload_conversation(row: np.ndarray, commit):
+    """The fleet server's conversation: a pixels request and a health
+    request, then `commit()` writes step 1 under the reload directory and
+    the health op is polled until every replica serves it; a pixels
+    request again. Returns (pred before, health before, pred after, health
+    after, seconds to the reload)."""
+    def converse(f):
+        before = _ask(f, {"pixels": row.tolist()})
+        health0 = _ask(f, {"op": "health"})
+        commit()
+        t0 = time.perf_counter()
+        while True:
+            # serving_step moves when the swap starts; the replicas'
+            # generations when each has swapped behind its drain
+            health1 = _ask(f, {"op": "health"})
+            if all(r["generation"] == 1 for r in
+                   health1["health"]["fleet"]["per_replica"]):
+                break
+            if time.perf_counter() - t0 > 60:
+                fail(f"serve --reload_dir: step 1 not served within 60s: "
+                     f"{health1}")
+            time.sleep(0.05)
+        reload_s = time.perf_counter() - t0
+        after = _ask(f, {"pixels": row.tolist()})
+        return (before.get("pred"), health0, after.get("pred"), health1,
+                reload_s)
+    return converse
+
+
+def phase_fleet(device, tmp: str, card: str) -> dict:
+    """The replica fleet and hot reload on the card (serve/fleet.py,
+    serve/reload.py, serve_chaos.py, `serve --replicas`, `bench --mode
+    serve --replicas`), from the checkpoint phase_main_streaming saved: a
+    2-replica fleet of max_batch 64 captures 14 graphs at construction and
+    7 a restart; the survivor's preds bitwise the direct engine's while
+    its sibling rebuilds under load, and its p50 / p99 against an
+    undisturbed turn, in turns; serve_chaos.py's three legs on the card
+    (availability 1.0, preds bitwise direct, no replica dead or off the
+    card, 7 captures an engine built and no other, the record contract);
+    `serve --replicas 2 --wedge_timeout_ms 250 --retry_budget 2
+    --reload_dir DIR` over TCP, reloading a step committed under DIR;
+    `bench --mode serve --replicas 2` and `--replicas 1`, in turns. No
+    hand-written kernel launched."""
+    import asyncio
+    from pytorch_ddp_mnist_tpu_torch import serve_chaos
+    from pytorch_ddp_mnist_tpu_torch.models.mlp import init_params
+    from pytorch_ddp_mnist_tpu_torch.serve import FleetService, InferenceEngine
+    from pytorch_ddp_mnist_tpu_torch.serve.loadgen import request_rows
+    from pytorch_ddp_mnist_tpu_torch.serve.metrics import nearest_rank
+    from pytorch_ddp_mnist_tpu_torch.telemetry import MetricsRegistry, flight
+    from pytorch_ddp_mnist_tpu_torch.train.checkpoint import load_checkpoint
+    from pytorch_ddp_mnist_tpu_torch.train.ckpt_manager import \
+        CheckpointManager
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "model.pt")
+    if not os.path.exists(ckpt):
+        fail(f"phase_fleet: no checkpoint at {ckpt}")
+    params = load_checkpoint(ckpt, init_params(0))
+    report = {}
+    _reset_counts()
+
+    def build(p):
+        return InferenceEngine(p, max_batch=SERVE_MAX_BATCH, device=device)
+
+    direct = build(params)
+    rows = request_rows(FLEET_TURN[0], "float32", seed=21)
+    want = direct.predict(rows)
+    t1 = time.perf_counter()
+    with _graph_captures() as built:
+        fleet = FleetService(build, params, n_replicas=FLEET_REPLICAS,
+                             max_batch=SERVE_MAX_BATCH, max_delay_ms=2.0,
+                             wedge_timeout_s=0.25, retry_budget=2,
+                             registry=MetricsRegistry())
+    construct_s = time.perf_counter() - t1
+    if built[0] != FLEET_REPLICAS * SERVE_BUCKETS:
+        fail(f"fleet: {built[0]} captures at construction, not "
+             f"{FLEET_REPLICAS} x {SERVE_BUCKETS}")
+
+    async def turns():
+        out = []
+        try:
+            for restart in (False, True, True, False):
+                out.append((restart, await _survivor_turn(fleet, rows,
+                                                          restart)))
+            return out, fleet.fleet_snapshot()
+        finally:
+            await fleet.shutdown()
+
+    with _graph_captures() as rebuilt:
+        results, snap = asyncio.run(turns())
+    restarts = [e for e in flight.get_flight_recorder().snapshot()
+                if e["kind"] == "fleet_event" and e.get("event") == "restart"]
+    if snap["restarts"] != 2 or rebuilt[0] != 2 * SERVE_BUCKETS \
+            or snap["healthy"] != FLEET_REPLICAS or len(restarts) < 2:
+        fail(f"fleet: 2 restarts should capture {2 * SERVE_BUCKETS} graphs "
+             f"and leave every replica healthy: {rebuilt[0]} captures, "
+             f"{snap}")
+    if any(rep.engine.device != device for rep in fleet.replicas):
+        fail(f"fleet: a rebuilt engine is off {device}")
+    stats = {True: [], False: []}
+    for restart, r in results:
+        got = np.asarray([r["preds"][i] for i in range(r["n"])], np.int32)
+        if not np.array_equal(got, want[np.arange(r["n"]) % len(want)]):
+            fail(f"fleet: the {'restart' if restart else 'undisturbed'} "
+                 f"turn's preds are not the direct engine's")
+        if r["lat"]:
+            stats[restart].append((nearest_rank(r["lat"], 0.5) * 1e3,
+                                   nearest_rank(r["lat"], 0.99) * 1e3,
+                                   len(r["lat"])))
+    if not stats[True]:
+        fail("fleet: no request was sent while a replica rebuilt")
+    dur = [e["dur_s"] for e in restarts[-2:]]
+    report.update(construct_s=construct_s, restart_dur_s=dur,
+                  survivor=stats[True], undisturbed=stats[False])
+    print(f"[fleet] {FLEET_REPLICAS} replicas of max_batch "
+          f"{SERVE_MAX_BATCH}: {built[0]} captures at construction "
+          f"({construct_s:.3f} s), {rebuilt[0]} for 2 restarts (restart wall "
+          f"dur_s {dur}); the survivor's preds bitwise the direct engine's "
+          f"while its sibling rebuilt [{card}]")
+    for restart in (False, True):
+        what = ("survivor during a restart" if restart
+                else "undisturbed fleet")
+        for p50, p99, n in stats[restart]:
+            print(f"[fleet] {what}: p50 {p50:.3f} ms, p99 {p99:.3f} ms over {n} requests at "
+                  f"{FLEET_TURN[1]:.0f} rps offered (turns undisturbed, "
+                  f"restart, restart, undisturbed) [{card}]")
+    n_req, rps = FLEET_CHAOS
+    with _graph_captures() as chaos_caps:
+        verdict = serve_chaos.run(device, requests=n_req, offered_rps=rps,
+                                  max_batch=SERVE_MAX_BATCH,
+                                  workdir=os.path.join(tmp, "serve_chaos"))
+    engines = 1 + sum(v["engines_built"] for v in verdict["legs"].values())
+    if verdict["serve_chaos"] != "ok" or verdict["availability"] != 1.0:
+        fail(f"serve_chaos on the card: {json.dumps(verdict)}")
+    if chaos_caps[0] != engines * SERVE_BUCKETS:
+        fail(f"serve_chaos: {chaos_caps[0]} captures for {engines} engines "
+             f"of {SERVE_BUCKETS} buckets")
+    legs = verdict["legs"]
+    report["serve_chaos"] = verdict
+    print(f"[fleet] serve_chaos.py on the card ({verdict['dur_s']} s): "
+          f"availability {verdict['availability']}, kill-mid-burst "
+          f"{json.dumps(legs['kill_mid_burst'])}, wedge-then-watchdog "
+          f"{json.dumps(legs['wedge_then_watchdog'])}, torn-checkpoint-swap "
+          f"{json.dumps(legs['torn_checkpoint_swap'])} (reload wall "
+          f"serve.reload.last_reload_s), record contract "
+          f"{verdict['record_contract']}; {chaos_caps[0]} captures for "
+          f"{engines} engines [{card}]")
+    reload_dir = os.path.join(tmp, "fleet_reload")
+    params_new = init_params(1)
+    row = request_rows(1, "float32", seed=22)[0]
+    want_before = int(direct.predict(row[None])[0])
+    new = build(params_new)
+    want_after = int(new.predict(row[None])[0])
+    new.close()
+    direct.close()
+
+    def commit():
+        CheckpointManager(reload_dir).save(
+            params_new, np.zeros(2, np.uint32), "threefry2x32", step=1,
+            epoch=0, offset=0)
+
+    (before, h0, after, h1, reload_s), _ = _serve_tcp(
+        ["--checkpoint", ckpt, "--replicas", str(FLEET_REPLICAS),
+         "--wedge_timeout_ms", "250", "--retry_budget", "2", "--reload_dir",
+         reload_dir], _reload_conversation(row, commit),
+        "serve --replicas 2 --reload_dir")
+    f0, f1 = h0["health"]["fleet"], h1["health"]["fleet"]
+    if (before, after) != (want_before, want_after) \
+            or (f0["replicas"], f0["healthy"], f0["serving_step"]) \
+            != (FLEET_REPLICAS, FLEET_REPLICAS, -1) \
+            or (f1["generation"], f1["serving_step"], f1["healthy"]) \
+            != (1, 1, FLEET_REPLICAS):
+        fail(f"serve --replicas 2 --reload_dir: preds {before}, {after} "
+             f"(direct {want_before}, {want_after}), fleet {f0} -> {f1}")
+    print(f"[fleet] serve --replicas 2 --wedge_timeout_ms 250 --retry_budget "
+          f"2 --reload_dir: a TCP request answered the direct pred, the "
+          f"health op's fleet block {json.dumps(f0)}; a step committed under "
+          f"the directory served by every replica {reload_s:.3f} s later "
+          f"(health polled every 50 ms), the next request answered the new "
+          f"weights' direct pred; drained on SIGTERM [{card}]")
+    for n in (FLEET_REPLICAS, 1):          # in turns: 2, then 1
+        what = f"bench --mode serve --replicas {n}"
+        line, _, dt = _serve_cli(what.split(), what)
+        if not (line["value"] and line["value"] > 0) or line["availability"] \
+                != 1.0 or line["replicas"] != n \
+                or line["compile_count"] != SERVE_BUCKETS:
+            fail(f"{what}: {line}")
+        report[what] = line
+        print(f"[fleet] {what} (500 rps poisson, 1000 requests, {dt:.1f}s): "
+              f"{line['value']} rps, p50 {line['p50_ms']} ms, p99 "
+              f"{line['p99_ms']} ms, availability {line['availability']}, "
+              f"retried {line['retried_requests']}, reloads "
+              f"{line['reloads']} [{card}]")
+    expect_launches(_counts(), {}, "the fleet phase")
+    print(f"[fleet] phase_fleet: {time.perf_counter() - t0:.1f}s")
     return report
 
 
@@ -6258,6 +6529,8 @@ def main() -> int:
         elapsed("the reference configurations")
         phase_serve(device, tmp, card)
         elapsed("serve phase")
+        phase_fleet(device, tmp, card)
+        elapsed("fleet phase")
     data = capture_data(device)
     capture = phase_capture(device, data, card)
     elapsed("capture phase")

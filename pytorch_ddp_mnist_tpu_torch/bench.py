@@ -53,9 +53,10 @@ generator (serve/loadgen.py) drives `--requests` single-row requests at
 engine's captured bucket graphs (`--max_batch`, `--max_delay_ms`,
 `--queue_depth`, `--no_fast`); the line reports the achieved rate, p50 /
 p95 / p99, batch occupancy, rejects, the front-door overhead, the stage
-attribution and `compile_count` (the engine's capture count);
-`retried_requests` and `reloads` are 0 (no fleet; `--replicas` > 1 exits
-by name, ROADMAP.md queue 1, item 9b).
+attribution and `compile_count` (the engine's capture count). With
+`--replicas N` > 1 the service is a `FleetService` of N engines sharing
+the card (serve/fleet.py), and `retried_requests` and `reloads` are read
+from its `serve.fleet.*` / `serve.reload.*` counters.
 
 `--mode input` (the JAX bench's `_input_bench`): the same streaming `fit`
 over the same `SyntheticSource` (pipeline/synthetic.py; `--input_batches`
@@ -408,20 +409,34 @@ def run_eval_bench(device: torch.device, *, epochs: int,
 def run_serve_bench(device: torch.device, *, offered_rps: float = 500.0,
                     requests: int = 1000, max_batch: int = 64,
                     max_delay_ms: float = 2.0, queue_depth: int = 256,
-                    fast: bool = True, shape: str = "poisson") -> dict:
+                    fast: bool = True, shape: str = "poisson",
+                    replicas: int = 1) -> dict:
     """`--mode serve`: `requests` open-loop requests at `offered_rps` through
     ServeService over an engine of `init_params(0)` on `device` (one CUDA
-    graph per bucket on a card), after one direct call per bucket; the
-    JAX bench's `_serve_bench` line."""
-    from .serve import InferenceEngine, ServeService
+    graph per bucket on a card), or through a FleetService of `replicas`
+    such engines, after one direct call per bucket; the JAX bench's
+    `_serve_bench` line."""
+    from .models.mlp import init_params
+    from .serve import FleetService, InferenceEngine, ServeService
     from .serve.loadgen import run_loadgen
     from .telemetry import MetricsRegistry
 
     # a registry of its own: the line reports THIS run's serve counters
     reg = MetricsRegistry()
-    engine = InferenceEngine.from_seed(0, max_batch=max_batch, device=device)
-    service = ServeService(engine, max_delay_ms=max_delay_ms,
-                           max_depth=queue_depth, registry=reg, fast=fast)
+    params = init_params(0)
+    if replicas > 1:
+        service = FleetService(
+            lambda p_: InferenceEngine(p_, max_batch=max_batch,
+                                       device=device), params,
+            n_replicas=replicas, max_batch=max_batch,
+            max_delay_ms=max_delay_ms, max_depth=queue_depth, registry=reg,
+            fast=fast)
+        engine = service.engine
+    else:
+        engine = InferenceEngine(params, max_batch=max_batch, device=device)
+        service = ServeService(engine, max_delay_ms=max_delay_ms,
+                               max_depth=queue_depth, registry=reg,
+                               fast=fast)
     for b in engine.buckets:
         engine.predict(np.zeros((b, 784), np.float32))
     out = run_loadgen(service, offered_rps=offered_rps, n_requests=requests,
@@ -431,6 +446,7 @@ def run_serve_bench(device: torch.device, *, offered_rps: float = 500.0,
                            f"graphs for {len(engine.buckets)} buckets")
     lat, rps = out["latency_ms"], out["achieved_rps"]
     answered = out["completed"] + out["failed"]
+    counters = reg.snapshot()["counters"]
     return {
         "metric": "mnist_serve_requests_per_sec",
         "value": rps,
@@ -442,12 +458,12 @@ def run_serve_bench(device: torch.device, *, offered_rps: float = 500.0,
         "p50_ms": lat["p50"], "p95_ms": lat["p95"], "p99_ms": lat["p99"],
         "availability": (round(out["completed"] / answered, 6)
                          if answered else None),
-        "replicas": 1,
-        "retried_requests": 0,
-        "reloads": 0,
+        "replicas": replicas,
+        "retried_requests": counters.get("serve.fleet.retried_requests", 0),
+        "reloads": counters.get("serve.reload.reloads", 0),
         "front_door_overhead_ms": out["front_door_overhead_ms"],
         "reject_rate": out["reject_rate"],
-        "rejected": reg.snapshot()["counters"]["serve.rejected"],
+        "rejected": counters["serve.rejected"],
         "batch_occupancy": out["batch_occupancy"],
         "compile_count": engine.capture_count,
         "fast_path": service.batcher.fast_path,
@@ -718,8 +734,9 @@ def main(argv=None) -> int:
     serve.add_argument("--no_fast", dest="serve_fast", action="store_false",
                        help="the legacy stack-at-flush batcher")
     serve.add_argument("--replicas", type=int, default=None,
-                       help="serve: engine replicas (the fleet; > 1 exits by "
-                            "name; default 1); ddp: replicas of the card's "
+                       help="serve: engine replicas on the card behind the "
+                            "shared admission layer (> 1: the fleet; default "
+                            "1); ddp: replicas of the card's "
                             f"mesh (default {DDP_REPLICAS})")
     serve.add_argument("--shape", choices=("poisson", "ramp", "spike"),
                        default="poisson")
@@ -740,10 +757,6 @@ def main(argv=None) -> int:
                 p.error(f"--{dest} must be > 0")
         if a.max_delay_ms < 0:
             p.error("--max_delay_ms must be >= 0")
-        if a.replicas > 1:
-            raise SystemExit(f"--replicas {a.replicas}: the replica fleet "
-                             f"(serve/fleet.py) is not ported to the PyTorch "
-                             f"package yet; see ROADMAP.md queue 1, item 9b")
     else:
         for dest in serve_knobs:
             if getattr(a, dest) != p.get_default(dest):
@@ -835,8 +848,8 @@ def main(argv=None) -> int:
         out = {**run_serve_bench(
             device, offered_rps=a.offered_rps, requests=a.requests,
             max_batch=a.max_batch, max_delay_ms=a.max_delay_ms,
-            queue_depth=a.queue_depth, fast=a.serve_fast, shape=a.shape),
-            **stamp}
+            queue_depth=a.queue_depth, fast=a.serve_fast, shape=a.shape,
+            replicas=a.replicas), **stamp}
     elif a.mode == "input":
         out = {**run_input_bench(
             device, epochs=a.epochs, batch_size=a.batch_size,

@@ -5,10 +5,12 @@ on the card (port of `pytorch_ddp_mnist_tpu/cli/serve.py`).
         [--device 0|cpu] [--max_batch 64] [--max_delay_ms 2]
         [--queue_depth 256] [--admit depth|predicted_p99] [--slo_p99_ms 50]
         [--input_dtype float32|uint8] [--telemetry DIR] [--no_fast]
-        [--mesh] [--host 127.0.0.1] [--port 0]
+        [--mesh] [--replicas 1] [--wedge_timeout_ms 250]
+        [--retry_budget 2] [--reload_dir DIR] [--host 127.0.0.1] [--port 0]
         [--selftest N [--offered_rps 500] [--shape poisson|ramp|spike]]
 
-Two front doors over the same `serve.ServeService` request path:
+Two front doors over the same request path (`serve.ServeService`, or
+`serve.FleetService` when `--replicas` > 1 or `--reload_dir` is set):
 
 * default: a newline-delimited-JSON TCP server. One request per line,
   `{"pixels": [784 numbers]}` -> `{"ok": true, "pred": k}`;
@@ -16,7 +18,9 @@ Two front doors over the same `serve.ServeService` request path:
   -> the telemetry registry snapshot (serve counters, latency and stage
   histograms, the engine's capture count) alongside the dashboard;
   `{"op": "health"}` -> the live SLO view (rolling-window p99, observed
-  service rate, predicted p99, queue depth). Backpressure rejections
+  service rate, predicted p99, queue depth; a fleet adds its `fleet`
+  block: replica states, degradation, the failover, restart and reload
+  counters). Backpressure rejections
   answer `{"ok": false, "error": ..., "retry_after_ms": ...}` without
   closing the connection. `--port 0` binds an ephemeral port and prints
   `serving on HOST:PORT` (stderr). SIGINT/SIGTERM triggers the graceful
@@ -36,14 +40,23 @@ request/batch spans under DIR and a flight-recorder dump at the drain.
 `--mesh` with one visible card is the single-card engine, as a one-device
 JAX mesh is.
 
-Refused by name, each with the ROADMAP.md item that owns it: `--replicas`
-> 1, `--wedge_timeout_ms` and `--retry_budget` (the replica fleet, queue 1
-item 9b), `--reload_dir` (hot reload, item 9b), a `$PDMT_FAULT` (the serve
-fault points `engine_crash`, `engine_wedge` and `reload_torn` fire in the
-fleet and hot reload: item 9b), `--mesh` over more than one card (item 7,
-blocked on hardware). `--checkpoint` takes the reference's `.pt`/`.pth`,
-a `.npz` params tree or a flax `.msgpack` (the JAX package's or the
-trainer's).
+`--replicas N` serves N engines on the card, each with its own stream
+and captured bucket graphs, behind the one admission layer (serve/
+fleet.py): least-inflight routing, a watchdog that quarantines a replica
+whose oldest in-flight batch ages past `--wedge_timeout_ms`, failover of
+its requests under `--retry_budget` extra attempts, and an off-loop
+restart. `--reload_dir DIR` (TCP mode only) runs the hot-reload watcher
+(serve/reload.py) beside the server: a step checkpoint newly committed
+under DIR (train/ckpt_manager.py's layout, either package's) is swapped
+in behind per-replica drains, and a torn or non-finite one is refused by
+name while the incumbent serves. `$PDMT_FAULT` arms the serve fault
+points (utils/faultpoints.py: `engine_crash`, `engine_wedge`,
+`reload_torn`); a spec that does not parse exits naming it.
+
+Refused by name: `--mesh` over more than one card (ROADMAP.md queue 1,
+item 7, blocked on hardware). `--checkpoint` takes the reference's
+`.pt`/`.pth`, a `.npz` params tree or a flax `.msgpack` (the JAX
+package's or the trainer's).
 """
 
 from __future__ import annotations
@@ -51,21 +64,31 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
-import os
 import sys
 
 import numpy as np
 import torch
 
-def build_engine(a, device: torch.device):
-    """The InferenceEngine of the CLI's geometry on `device`: the
-    --checkpoint's weights or --seed's."""
-    from ..serve import InferenceEngine
-    kw = dict(max_batch=a.max_batch, device=device,
-              input_dtype=a.input_dtype)
+def initial_params(a):
+    """The weights generation 0 serves: the --checkpoint file or a fresh
+    --seed init (the JAX package's `init_mlp(jax.random.key(seed))`)."""
+    from ..models.mlp import init_params
+    from ..train.checkpoint import load_checkpoint
     if a.checkpoint:
-        return InferenceEngine.from_checkpoint(a.checkpoint, **kw)
-    return InferenceEngine.from_seed(a.seed, **kw)
+        return load_checkpoint(a.checkpoint, init_params(0))
+    return init_params(a.seed)
+
+
+def engine_builder(a, device: torch.device):
+    """`build(params) -> InferenceEngine` with the CLI's geometry on
+    `device`: called once for a single-engine service, N times (and per
+    restart and reload generation) by `FleetService`."""
+    from ..serve import InferenceEngine
+
+    def build(params):
+        return InferenceEngine(params, max_batch=a.max_batch, device=device,
+                               input_dtype=a.input_dtype)
+    return build
 
 
 async def handle_request(service, req: dict) -> dict:
@@ -76,7 +99,8 @@ async def handle_request(service, req: dict) -> dict:
       {"op": "metrics"}        -> the serving dashboard snapshot
       {"op": "stats"}          -> {"registry": <registry snapshot>,
                                    "serve": <dashboard snapshot>}
-      {"op": "health"}         -> the live SLO view
+      {"op": "health"}         -> the live SLO view (and the `fleet`
+                                  block of a fleet)
     """
     op = req.get("op")
     if op == "metrics":
@@ -86,12 +110,17 @@ async def handle_request(service, req: dict) -> dict:
                 "serve": service.metrics.snapshot()}
     if op == "health":
         pred = service.metrics.predicted_p99()
-        return {"ok": True, "health": {
-            **service.metrics.slo.snapshot(),
-            "predicted_p99_ms": (round(pred * 1e3, 3) if pred is not None
-                                 else None),
-            "queue_depth": service.admission.depth,
-            "draining": service.admission.draining}}
+        health = {**service.metrics.slo.snapshot(),
+                  "predicted_p99_ms": (round(pred * 1e3, 3)
+                                       if pred is not None else None),
+                  "queue_depth": service.admission.depth,
+                  "draining": service.admission.draining}
+        # a fleet front door also answers replica states, degradation and
+        # the failover/restart/reload counters
+        fleet_snap = getattr(service, "fleet_snapshot", None)
+        if fleet_snap is not None:
+            health["fleet"] = fleet_snap()
+        return {"ok": True, "health": health}
     pixels = np.asarray(req["pixels"])
     return {"ok": True, "pred": await service.handle(pixels)}
 
@@ -114,9 +143,18 @@ async def _handle_conn(service, reader, writer):
     writer.close()
 
 
-async def _serve_tcp(service, host: str, port: int) -> None:
+async def _serve_tcp(service, host: str, port: int,
+                     reload_dir: str | None = None) -> None:
     import signal
 
+    watcher = None
+    if reload_dir:
+        from ..serve import ReloadWatcher
+        watcher = ReloadWatcher(service, reload_dir)
+        watcher.start()
+        print(f"reload watcher: polling {reload_dir} every "
+              f"{watcher.poll_interval_s}s (serving step "
+              f"{service.serving_step})", file=sys.stderr, flush=True)
     server = await asyncio.start_server(
         lambda r, w: _handle_conn(service, r, w), host, port)
     bound = server.sockets[0].getsockname()
@@ -131,6 +169,8 @@ async def _serve_tcp(service, host: str, port: int) -> None:
     await stop.wait()
     print("drain: refusing new requests, finishing in-flight ones",
           file=sys.stderr, flush=True)
+    if watcher is not None:   # no swap may start once the drain begins
+        await watcher.stop()
     await service.shutdown()
     server.close()
     await server.wait_closed()
@@ -141,28 +181,6 @@ async def _serve_tcp(service, host: str, port: int) -> None:
     dump = flight.dump(reason="serve drain")
     if dump:
         print(f"flight recorder: {dump}", file=sys.stderr, flush=True)
-
-
-def refusals(a) -> None:
-    """The JAX serve path's features that wait for unported modules, each
-    refused by name with its ROADMAP.md item."""
-    where = "not ported to the PyTorch package yet; see ROADMAP.md queue 1"
-    if a.replicas > 1:
-        raise SystemExit(f"--replicas {a.replicas}: the replica fleet "
-                         f"(serve/fleet.py) is {where}, item 9b")
-    for flag in ("wedge_timeout_ms", "retry_budget"):
-        if getattr(a, flag) is not None:
-            raise SystemExit(f"--{flag} is a knob of the replica fleet "
-                             f"(serve/fleet.py), which is {where}, item 9b")
-    if a.reload_dir:
-        raise SystemExit(f"--reload_dir: hot reload (serve/reload.py) is "
-                         f"{where}, item 9b")
-    fault = os.environ.get("PDMT_FAULT", "")
-    if fault:
-        raise SystemExit(f"PDMT_FAULT={fault!r}: the serve fault points "
-                         f"(utils/faultpoints.py: engine_crash, engine_wedge, "
-                         f"reload_torn) fire in the replica fleet and hot "
-                         f"reload, which are {where}, item 9b")
 
 
 def main(argv=None) -> int:
@@ -208,13 +226,22 @@ def main(argv=None) -> int:
                    help="force the legacy stack-at-flush batcher instead "
                         "of the staged fast path")
     p.add_argument("--replicas", type=int, default=1,
-                   help="engine replicas (the fleet; refused by name)")
+                   help="engine replicas on the card behind the shared "
+                        "admission layer; >1 enables SLO-aware routing, the "
+                        "wedge watchdog and bounded request failover")
     p.add_argument("--reload_dir", default=None, metavar="DIR",
-                   help="hot reload (refused by name)")
-    p.add_argument("--wedge_timeout_ms", type=float, default=None,
-                   help="fleet watchdog (refused by name)")
-    p.add_argument("--retry_budget", type=int, default=None,
-                   help="fleet failover budget (refused by name)")
+                   help="watch this checkpoint directory (train/"
+                        "ckpt_manager layout) and hot-swap replicas to "
+                        "newly committed steps behind per-replica drains; "
+                        "torn/non-finite candidates are refused by name "
+                        "while the incumbent keeps serving (TCP mode only)")
+    p.add_argument("--wedge_timeout_ms", type=float, default=250.0,
+                   help="fleet watchdog: a replica whose oldest in-flight "
+                        "batch ages past this is quarantined, its requests "
+                        "failed over to a survivor, and it is restarted")
+    p.add_argument("--retry_budget", type=int, default=2,
+                   help="failover attempts per admitted request before it "
+                        "errors out")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=0,
                    help="TCP port (0 = ephemeral; the bound port prints "
@@ -240,7 +267,18 @@ def main(argv=None) -> int:
         p.error("--selftest must be >= 1")
     if a.offered_rps <= 0:
         p.error("--offered_rps must be > 0")
-    refusals(a)
+    if a.wedge_timeout_ms <= 0:
+        p.error("--wedge_timeout_ms must be > 0")
+    if a.retry_budget < 0:
+        p.error("--retry_budget must be >= 0")
+    if a.reload_dir and a.selftest is not None:
+        p.error("--reload_dir needs the TCP server (the watcher lives on "
+                "its event loop); drop --selftest")
+    from ..utils import faultpoints
+    try:
+        faultpoints.install()          # $PDMT_FAULT, parsed before any work
+    except faultpoints.FaultSpecError as e:
+        raise SystemExit(f"{faultpoints.FAULT_ENV}: {e}") from None
     from .train import resolve_device
     device = resolve_device(a.device, "serve")
     if a.mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
@@ -251,7 +289,7 @@ def main(argv=None) -> int:
             f"the single-card engine")
 
     from .. import telemetry
-    from ..serve import ServeService
+    from ..serve import FleetService, ServeService
     from ..telemetry import flight
     reg = telemetry.get_registry()
     if a.telemetry:
@@ -259,20 +297,32 @@ def main(argv=None) -> int:
         # flight recorder's drain dump beside them
         telemetry.enable(a.telemetry)
         flight.set_dump_dir(a.telemetry)
+    common = dict(max_delay_ms=a.max_delay_ms, max_depth=a.queue_depth,
+                  registry=reg, admit_mode=a.admit,
+                  slo_p99_s=(a.slo_p99_ms / 1e3
+                             if a.admit == "predicted_p99" else None),
+                  fast=a.fast)
     try:
-        engine = build_engine(a, device)
+        params = initial_params(a)
+        if a.replicas > 1 or a.reload_dir:
+            # N replicas (or 1 + hot reload, which still needs the fleet's
+            # drain-and-swap) behind the same admission layer
+            service = FleetService(
+                engine_builder(a, device), params, n_replicas=a.replicas,
+                max_batch=a.max_batch,
+                wedge_timeout_s=a.wedge_timeout_ms / 1e3,
+                retry_budget=a.retry_budget, **common)
+            engine = service.engine
+        else:
+            engine = engine_builder(a, device)(params)
+            service = ServeService(engine, **common)
     except ValueError as e:
         raise SystemExit(str(e)) from None
-    service = ServeService(
-        engine, max_delay_ms=a.max_delay_ms, max_depth=a.queue_depth,
-        registry=reg, admit_mode=a.admit,
-        slo_p99_s=(a.slo_p99_ms / 1e3 if a.admit == "predicted_p99"
-                   else None),
-        fast=a.fast)
     reg.counter("serve.engine_captures").set_total(engine.capture_count)
     print(f"engine warm: device={device} buckets={list(engine.buckets)} "
           f"captures={engine.capture_count} "
           f"input_dtype={engine.input_dtype} admit={a.admit} "
+          f"replicas={a.replicas} "
           f"fast={'on' if service.batcher.fast_path else 'off'}",
           file=sys.stderr, flush=True)
 
@@ -299,7 +349,8 @@ def main(argv=None) -> int:
         print(json.dumps(out))
         return 0
 
-    asyncio.run(_serve_tcp(service, a.host, a.port))
+    asyncio.run(_serve_tcp(service, a.host, a.port,
+                           reload_dir=a.reload_dir))
     _close_telemetry("serve drain", dump=False)  # _serve_tcp just dumped
     print(json.dumps(service.metrics.snapshot()))
     return 0

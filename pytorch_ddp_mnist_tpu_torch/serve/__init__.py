@@ -10,12 +10,12 @@ metrics with per-stage attribution (`metrics.py`), request-scoped stage
 tracing (`tracing.py`) and an open-loop load generator with
 poisson/ramp/spike arrival shapes (`loadgen.py`). `ServeService` wires
 them into the one request path every front door (cli/serve.py's TCP
-server and selftest, bench.py --mode serve, tests) shares.
-
-The JAX package's replica fleet (`fleet.py`) and hot reload (`reload.py`)
-are ROADMAP.md queue 1, item 9b; the fault points and the checkpoint
-manager they build on are ported (utils/faultpoints.py,
-train/ckpt_manager.py). Everything here runs on the CPU too
+server and selftest, bench.py --mode serve, tests) shares;
+`FleetService` (`fleet.py`) replicates the engine N ways on the card
+behind the same admission layer with SLO-aware routing, a wedge watchdog,
+bounded request failover and supervised restarts, and `ReloadWatcher`
+(`reload.py`) hot-swaps the fleet to newly committed step checkpoints
+behind per-replica drains. Everything here runs on the CPU too
 (`device="cpu"`), the forward eagerly, which is how the tests drive it.
 """
 
@@ -26,7 +26,10 @@ import asyncio
 from .admission import ADMIT_MODES, AdmissionController, Rejected  # noqa: F401
 from .batcher import MicroBatcher  # noqa: F401
 from .engine import InferenceEngine, bucket_ladder  # noqa: F401
+from .fleet import (FleetService, FleetUnavailable, ReplicaCrashed,  # noqa: F401
+                    ReplicaFailure, ReplicaWedged)
 from .metrics import LatencyHistogram, ServeMetrics, SLOWindow  # noqa: F401
+from .reload import ReloadWatcher  # noqa: F401
 from .tracing import ServeTracer  # noqa: F401
 
 

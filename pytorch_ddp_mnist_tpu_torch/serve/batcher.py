@@ -33,9 +33,13 @@ deterministically under a fake clock instead of racing real timers.
 Threading contract: `submit`/`flush`/`drain` stay event-loop-only; the
 reply thread (`_reply_worker`) only fetches and enqueues the loop-side
 `_scatter` callback — futures, tracer spans, and metrics are touched
-exclusively on the loop. The JAX batcher's fleet supervision surface
-(`oldest_inflight_age`, `fail_all`) waits for the fleet (ROADMAP.md queue
-1, item 9b).
+exclusively on the loop.
+
+Fleet supervision (serve/fleet.py): every fast-path flush is journaled
+from dispatch to scatter; `oldest_inflight_age` is what the fleet's wedge
+watchdog ages, `fail_all` releases every waiter of a replica taken down,
+and `close(wait=False)` abandons a reply thread blocked in a wedged fetch.
+A late `_scatter` whose journal entry `fail_all` removed delivers nothing.
 """
 
 from __future__ import annotations
@@ -130,6 +134,11 @@ class MicroBatcher:
         self._outstanding: "set[asyncio.Future]" = set()
         self._reply_q: "queue.Queue" = queue.Queue()
         self._reply_thread: Optional[threading.Thread] = None
+        # In-flight journal for the fleet supervisor (serve/fleet.py):
+        # id(batch) -> (t_dispatch, batch) for every fast-path flush
+        # dispatched but not yet scattered. Loop-side only (opened in
+        # _flush_fast, closed in _scatter); `fail_all` empties it.
+        self._inflight_meta: "dict[int, tuple]" = {}
         if self.fast_path:
             # spawn eagerly: thread startup is construction-time cost,
             # never first-request latency (close() stops it; a later
@@ -262,6 +271,7 @@ class MicroBatcher:
                     fut.set_exception(e)
             return len(batch)
         self.flushes += 1
+        self._inflight_meta[id(batch)] = (self.clock(), batch)
         for _, fut, _, _ in batch:
             self._outstanding.add(fut)
             fut.add_done_callback(self._outstanding.discard)
@@ -286,8 +296,12 @@ class MicroBatcher:
         """
         handle, batch, bctx = item
         ewma = self._fetch_ewma.get(handle.bucket)
+        # inline_ok is False only for a deliberately wedged handle (fault
+        # injection): EWMA history must never vouch a hung fetch onto the
+        # loop, which would blind the fleet watchdog under test
         if handle.ready() or (ewma is not None
-                              and ewma <= self._inline_budget_s):
+                              and ewma <= self._inline_budget_s
+                              and getattr(handle, "inline_ok", True)):
             self.inline_replies += 1
             self._scatter(self._fetch_payload(handle, batch, bctx))
         else:
@@ -355,6 +369,16 @@ class MicroBatcher:
         legacy flush tail does, minus the fetch that already happened
         off-loop)."""
         batch, bctx, bucket, preds, err = payload
+        # a journal entry missing here means `fail_all` already failed this
+        # flush over (a quarantined replica's late fetch finally landing):
+        # end the batch span, but record no batch and fill no future; the
+        # requests were retried elsewhere
+        abandoned = (self._inflight_meta.pop(id(batch), None) is None
+                     and self.fast_path)
+        if abandoned:
+            if bctx is not None:
+                self.tracer.batch_end(bctx, n_real=len(batch))
+            return
         if err is not None:
             for _, fut, _, _ in batch:
                 if not fut.done():
@@ -379,13 +403,59 @@ class MicroBatcher:
         if self._outstanding:
             await asyncio.gather(*list(self._outstanding),
                                  return_exceptions=True)
+        # gather returns without yielding when every future was already
+        # done, before their discard callbacks ran: drop the answered ones
+        # here, so `_outstanding` after a drain counts only the unanswered
+        # (the fleet's `outstanding_at_swap`)
+        self._outstanding.difference_update(
+            [f for f in self._outstanding if f.done()])
 
-    def close(self) -> None:
+    # -- fleet supervision surface (serve/fleet.py) -------------------------
+
+    def oldest_inflight_age(self, now: float) -> float:
+        """Age (seconds) of the oldest dispatched-but-unscattered flush at
+        `now`, 0.0 when nothing is in flight: what the fleet supervisor
+        compares against its wedge timeout. Loop-side."""
+        if not self._inflight_meta:
+            return 0.0
+        return now - min(t for t, _ in self._inflight_meta.values())
+
+    def fail_all(self, exc: BaseException) -> int:
+        """Failover: deliver `exc` to every in-flight AND pending request
+        of this batcher and forget them; returns how many waiters were
+        released. Loop-side; a wedged flush's late `_scatter` then finds
+        its journal entry gone and delivers nothing twice."""
+        n = 0
+        if self._timer is not None:
+            self._timer.cancel()
+            self._timer = None
+        for _, batch in list(self._inflight_meta.values()):
+            for _, fut, _, _ in batch:
+                if not fut.done():
+                    fut.set_exception(exc)
+                    n += 1
+        self._inflight_meta.clear()
+        pending, self._pending = self._pending, []
+        for _, fut, _, _ in pending:
+            if not fut.done():
+                fut.set_exception(exc)
+                n += 1
+        return n
+
+    def close(self, wait: bool = True) -> None:
         """Stop the reply thread (sentinel + join). Call after `drain` —
         anything still queued is fetched and delivered first because the
         sentinel lands behind it. Idempotent; the next fast-path flush
-        would simply spawn a fresh thread."""
+        would simply spawn a fresh thread.
+
+        `wait=False` abandons instead of joining: the sentinel is queued
+        so a live thread exits once it finishes what it is on, but a
+        thread blocked inside a wedged fetch is left behind (daemon: it
+        cannot hold the process). That is the fleet's retirement path for
+        a wedged replica, where joining would block the supervisor for
+        exactly the hang being escaped."""
         if self._reply_thread is not None and self._reply_thread.is_alive():
             self._reply_q.put(None)
-            self._reply_thread.join(timeout=10.0)
+            if wait:
+                self._reply_thread.join(timeout=10.0)
         self._reply_thread = None

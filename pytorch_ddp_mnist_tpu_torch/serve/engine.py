@@ -45,14 +45,32 @@ replay the same graphs from slabs of their own, dispatching every
 
 Served equals direct, bitwise: a request's rows take the same bucket graph
 whether they arrive alone or coalesced into a flush of the same bucket,
-padded with zeros both ways. The JAX engine's mesh replication, fleet
-replica slot and serve fault points are not here (cli/serve.py names
-them).
+padded with zeros both ways. The JAX engine's mesh replication is not
+here (cli/serve.py names it).
+
+Fleet plumbing (serve/fleet.py): `replica` is the slot this engine fills
+(None outside a fleet), and every launch counts a per-engine ordinal. The
+`serve_engine` fault point fires with both before any device work, so
+`engine_crash:after=N:replica=R` kills exactly one replica at a set point
+in a burst and leaves the slab pool as it was. `dispatch_staged` claims
+the `serve_wedge` point: a claimed batch reports not-ready and its fetch
+sleeps out `delay_s`, a device that stopped answering in handle form, and
+the fleet watchdog's in-flight aging is what must notice.
+
+Several engines share one card in a fleet, and a restart or a reload
+builds an engine on an executor thread while its siblings serve. So every
+capture takes one process-wide lock and runs in the thread-local capture
+mode, directly on `torch.cuda.CUDAGraph` (not the `torch.cuda.graph`
+context, whose entry synchronizes the device and empties the allocator's
+cache): a sibling thread's event query, wait or allocation stays legal
+while a capture is open, and a sync in the capturing thread's own
+forward still fails its capture.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from bisect import bisect_left
 from typing import Optional, Sequence
 
@@ -62,6 +80,7 @@ import torch
 from ..data.mnist import device_normalize
 from ..models.mlp import MLP_DIMS, init_params, mlp_apply
 from ..train.checkpoint import load_checkpoint
+from ..utils import faultpoints
 
 IN_DIM = MLP_DIMS[0]
 OUT_DIM = MLP_DIMS[-1]
@@ -74,6 +93,10 @@ STAGING_SLOTS = 2
 # eager forwards of each rung on a side stream before its capture: cuBLAS's
 # handle and workspace exist before the graph is recorded
 WARMUP_CALLS = 2
+# one capture at a time in the process: the engines of a fleet build on
+# executor threads, and two open captures would contend for the
+# allocator's capture pools
+_CAPTURE_LOCK = threading.Lock()
 
 _DTYPES = {"float32": (np.float32, torch.float32),
            "uint8": (np.uint8, torch.uint8)}
@@ -113,18 +136,32 @@ class InflightBatch:
     slab its rows rode in on and its results land in, and the real row
     count to trim back to."""
 
-    __slots__ = ("event", "slab", "n", "bucket")
+    __slots__ = ("event", "slab", "n", "bucket", "wedged_until")
 
     def __init__(self, event, slab: _Slab, n: int, bucket: int):
         self.event = event
         self.slab = slab
         self.n = n
         self.bucket = bucket
+        # injected-wedge deadline (`engine_wedge`): until this monotonic
+        # instant the batch reports not-ready and its fetch blocks. 0.0
+        # (never) outside chaos runs.
+        self.wedged_until = 0.0
 
     def ready(self) -> bool:
         """Non-blocking: True when the results are in host memory, so a
         fetch would return without waiting (the batcher's inline reply)."""
+        if self.wedged_until and time.monotonic() < self.wedged_until:
+            return False
         return self.event is None or self.event.query()
+
+    @property
+    def inline_ok(self) -> bool:
+        """False while an injected wedge holds this batch: the reply router
+        must never take a wedged fetch inline, which would block the loop
+        and blind the watchdog the wedge exists to test."""
+        return not (self.wedged_until
+                    and time.monotonic() < self.wedged_until)
 
 
 def bucket_ladder(max_batch: int, multiple_of: int = 1) -> "tuple[int, ...]":
@@ -226,6 +263,10 @@ class InferenceEngine:
         # passes itself): two concurrent writers would silently corrupt
         # each other's batches, so the second one fails loudly instead
         self._staging_writer = None
+        # fleet plumbing: the replica slot this engine fills (None outside
+        # a fleet) and the launch ordinal the serve fault points match on
+        self.replica: Optional[int] = None
+        self._serve_calls = 0
 
     @classmethod
     def from_checkpoint(cls, path: str, **kw) -> "InferenceEngine":
@@ -250,29 +291,36 @@ class InferenceEngine:
         return logits, torch.argmax(logits, dim=-1).to(torch.int32)
 
     def _capture(self, rung: _Rung) -> None:
-        from ..train.graphs import _set_sync_debug_mode
+        """Warm the rung's forward on a side stream, then capture it there
+        in the thread-local mode, under the process-wide capture lock (see
+        the module docstring)."""
         dev = self.device
-        current = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(current)
-        with torch.cuda.device(dev), torch.cuda.stream(side):
-            for _ in range(WARMUP_CALLS):
-                self._fn(rung.x)
-        current.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        mode = torch.cuda.get_sync_debug_mode()
-        try:
-            with torch.cuda.device(dev), torch.cuda.graph(graph):
-                _set_sync_debug_mode("error")
+        with _CAPTURE_LOCK, torch.cuda.device(dev):
+            current = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(current)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_CALLS):
+                    self._fn(rung.x)
+                graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    rung.logits, rung.preds = self._fn(rung.x)
-                finally:
-                    _set_sync_debug_mode(mode)
-        except RuntimeError as e:
-            raise RuntimeError(f"serve engine: capturing bucket "
-                               f"{rung.bucket} as a CUDA graph failed: "
-                               f"{e}") from e
-        rung.graph = graph
+                    try:
+                        logits, preds = self._fn(rung.x)
+                    finally:
+                        graph.capture_end()
+                except RuntimeError as e:
+                    raise RuntimeError(
+                        f"serve engine: capturing bucket {rung.bucket} as "
+                        f"a CUDA graph failed: {e}") from e
+            current.wait_stream(side)
+        rung.logits, rung.preds, rung.graph = logits, preds, graph
+
+    def _fault_ctx(self) -> dict:
+        ctx = {"after": self._serve_calls}
+        if self.replica is not None:
+            ctx["replica"] = self.replica
+        return ctx
 
     def _launch(self, slab: _Slab, bucket: int, bctx=None):
         """Run `bucket`'s rung on the slab's leading rows; results land in
@@ -283,6 +331,10 @@ class InferenceEngine:
             raise KeyError(f"bucket {bucket} has no captured graph (ladder "
                            f"{self.buckets}); requests never capture one")
         with self._launch_lock:
+            # before any device work: an injected crash leaves the slab
+            # pool and the card as they were
+            self._serve_calls += 1
+            faultpoints.fire("serve_engine", **self._fault_ctx())
             if not self._cuda:
                 rung.x.copy_(slab.x[:bucket])
                 if bctx is not None:
@@ -384,6 +436,13 @@ class InferenceEngine:
             slab.x_np[n:bucket] = 0
         handle = InflightBatch(self._launch(slab, bucket, bctx), slab, n,
                                bucket)
+        # injected wedge (`engine_wedge:delay_s=S:replica=R`): the batch
+        # reports not-ready and its fetch blocks until the deadline, so
+        # the reply thread hangs off-loop as on a card that stopped
+        # answering
+        spec = faultpoints.claim("serve_wedge", **self._fault_ctx())
+        if spec is not None:
+            handle.wedged_until = time.monotonic() + spec.delay_s
         with self._staging_lock:
             self._inflight[id(handle)] = handle
             if self._staging_pool:
@@ -402,9 +461,22 @@ class InferenceEngine:
         to the real rows, copied out of the slab. The slab rides back into
         the staging pool EVEN when the wait raises (a failed flush's device
         work is over either way — leaking the slab per failure would bleed
-        the pool on a long-running server)."""
+        the pool on a long-running server). A wedged handle blocks here
+        until its deadline (on the reply thread: the router never inlines
+        it). A handle that `close()` abandoned meanwhile (a quarantined
+        replica's reply thread waking late) reads nothing: its slab is back
+        in the pool, and the fetch raises by name instead."""
+        if handle.wedged_until:
+            time.sleep(max(0.0, handle.wedged_until - time.monotonic()))
         try:
             self._wait(handle)
+            with self._staging_lock:
+                abandoned = id(handle) not in self._inflight
+            if abandoned:
+                raise RuntimeError(
+                    f"in-flight batch of {handle.n} rows (bucket "
+                    f"{handle.bucket}) was abandoned by close() before its "
+                    f"fetch; its slab is back in the pool")
             logits = handle.slab.logits_np[:handle.n].copy()
             preds = handle.slab.preds_np[:handle.n].copy()
         finally:

@@ -10,9 +10,10 @@ JAX package's `telemetry/` that the serve path imports:
     on drain, failure or SIGTERM.
 
 The JAX package's `telemetry/__init__` imports jax, so the port keeps its
-own copies. The rest of that package (runtime collectors, analysis,
-export, health, Prometheus, costs) is not ported yet (ROADMAP.md queue 1,
-item 12).
+own copies. `analysis.py` holds only the fleet/reload record contract the
+replica fleet answers to; the rest of that package (runtime collectors,
+analysis, export, health, Prometheus, costs) is not ported yet (ROADMAP.md
+queue 1, item 12).
 """
 
 from . import events, flight  # noqa: F401

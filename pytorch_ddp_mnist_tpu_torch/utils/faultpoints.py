@@ -40,9 +40,11 @@ spec that matches performs its failure there. Specs come from
                                            validation
 
 The trainer fires "step", "ckpt_save", "loader_next", "barrier" and
-"loss". The serve points belong to the replica fleet and hot reload, which
-the port does not have yet (ROADMAP.md queue 1, item 9b): every kind
-parses here, and cli/serve.py refuses a `$PDMT_FAULT` by name.
+"loss". The serve engine fires "serve_engine" before each launch and
+claims "serve_wedge" at each staged dispatch, with its launch ordinal
+(`after`) and its fleet replica (`replica`, serve/fleet.py); the reload
+watcher fires "reload_validate" in its executor-side validation
+(serve/reload.py).
 
 Matching: `step=K` and `after=N` fire at the FIRST crossing >= K (the
 resident-dataset trainer reports steps only at its chunk boundaries, so

@@ -150,3 +150,36 @@ print(sorted(m for m in sys.modules
                      if isinstance(n, ast.ImportFrom) and n.level == 0]
         assert not any(m == "torch" or m.startswith("torch.")
                        for m in imported), (name, imported)
+
+
+# the replica fleet and hot reload: each module on its own, in a fresh
+# interpreter, loads neither jax nor the JAX package (the record contract
+# is the port's own copy, not a file-load of the JAX package's analysis.py)
+FLEET_MODULES = (
+    "pytorch_ddp_mnist_tpu_torch.serve.fleet",
+    "pytorch_ddp_mnist_tpu_torch.serve.reload",
+    "pytorch_ddp_mnist_tpu_torch.serve_chaos",
+    "pytorch_ddp_mnist_tpu_torch.telemetry.analysis",
+)
+
+
+def test_the_fleet_and_reload_modules_stand_alone(tmp_path):
+    code = f"""
+import importlib, sys
+sys.path.insert(0, {str(REPO)!r})
+for name in {FLEET_MODULES!r}:
+    importlib.import_module(name)
+print(sorted(m for m in sys.modules
+             if any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r})))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    for name in FLEET_MODULES:
+        assert name.replace(".", "/") + ".py" in names
+    for name in ("serve_chaos.py", "telemetry/analysis.py"):
+        text = (PORT / name).read_text()
+        assert "spec_from_file_location" not in text, name

@@ -289,9 +289,7 @@ def test_bench_kernel_policy_and_refusals(monkeypatch):
                                       unroll=2) == "pallas"
     assert bench.resolve_bench_kernel("auto", "float32", "cpu") == "xla"
     assert bench.resolve_bench_kernel("xla", "float32", "cuda") == "xla"
-    for argv, match in [(["--mode", "serve", "--replicas", "2"],
-                         "replica fleet"),
-                        (["--dtype", "bfloat16", "--superstep", "8"],
+    for argv, match in [(["--dtype", "bfloat16", "--superstep", "8"],
                          "resolved kernel is 'xla'"),
                         (["--superstep", "2", "--kernel", "xla"],
                          "whole-epoch-kernel knob"),
@@ -301,6 +299,10 @@ def test_bench_kernel_policy_and_refusals(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA card"):
         bench.main(["--epochs", "1"])
+    # the serve fleet is ported: `--replicas 2` passes the checks and, like
+    # every mode, needs the card
+    with pytest.raises(SystemExit, match="no CUDA card"):
+        bench.main(["--mode", "serve", "--replicas", "2"])
 
 
 def test_bench_fields_on_a_tiny_run():
