@@ -258,7 +258,23 @@ Phases (any failure exits non-zero; no phase is skipped):
                   --retry_budget 2 --reload_dir DIR` over TCP reloading a
                   step committed under DIR; `bench --mode serve --replicas
                   2` and `--replicas 1` in turns; no hand-written kernel
-                  launched ([fleet] lines).
+                  launched ([fleet] lines);
+               s. the trainer's in-run telemetry (phase_telemetry, after
+                  the step checkpoints' phase): a full streaming epoch
+                  (K1-split keyed, captured) with `--telemetry --health
+                  warn --metrics_port 0 --profile_dispatch 16` bitwise the
+                  run without, the synchronising CUDA calls of both under
+                  set_sync_debug_mode("warn") differing by the profiler's
+                  drains alone; the same at bf16 (K1-mma keyed, 50 steps)
+                  and `--cached --kernel pallas_epoch --health warn` (one
+                  K2-ws launch); each flagged run's [telemetry] line
+                  reads its one capture; the nan round trip (a live
+                  /metrics scrape, /healthz 503, the fatal event in epoch
+                  1, the pinned rescue at epoch 0's end, step 100) and
+                  `--health abort`; a 2-rank gloo
+                  world with `--journal` bitwise its unjournaled twin, its
+                  journals read by cluster_report; check_telemetry.py over
+                  each trace ([telemetry] lines).
   5. timing  — CUDA-event times of each kernel and form and its plain
                version at the main path's shapes, torch.profiler's device
                time of K1 (both designs) and the cached epoch (f32 on K2-ws,
@@ -6485,6 +6501,424 @@ def phase_chaos(device, tmp: str, card: str) -> dict:
     return paths
 
 
+TEL_K = 16                  # --profile_dispatch: a drain every 16 steps
+TEL_EVERY = 10              # the nan round trip's step checkpoints
+TEL_ROWS = CHAOS_ROWS       # 100 steps an epoch at B = 128
+TEL_EPOCH = TEL_ROWS // MAIN_BATCH
+TEL_NAN_STEP = 135          # its poisoned loss, in epoch 1 of 3: the rescue
+                            # is epoch 0's trained end state, step 100
+TEL_STALL_S = 1.0           # the loader stall, at batch 3 of each epoch:
+                            # epoch 2's keeps the run alive after the fatal
+                            # event
+TEL_ABORT_STEP = 35         # --health abort's poisoned loss (epoch 0)
+TEL_WORLD_ROWS = CHAOS_WORLD * MAIN_BATCH * 20   # 20 steps an epoch a rank
+TEL_FLAGS = ("--health", "warn", "--metrics_port", "0",
+             "--profile_dispatch", str(TEL_K))
+
+
+def _check_trace(directory: str, require: str) -> None:
+    """scripts/check_telemetry.py (the JAX package's checker, pure stdlib)
+    over a trace directory, with a --require gate."""
+    out = subprocess.run([sys.executable,
+                          os.path.join(REPO, "scripts", "check_telemetry.py"),
+                          "--require", require, directory],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"check_telemetry.py --require {require} {directory}: "
+             f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+
+
+def _synced_run(cli_train, argv) -> tuple:
+    """The trainer in this process under torch.cuda.set_sync_debug_mode
+    ("warn"): (state, history, stdout, the synchronising CUDA calls it
+    made, the dispatch profiler's drains among them)."""
+    import warnings
+    from pytorch_ddp_mnist_tpu_torch.telemetry import dispatch
+    from pytorch_ddp_mnist_tpu_torch.train.graphs import _set_sync_debug_mode
+    drains = dispatch.counts["drains"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _set_sync_debug_mode("warn")
+        try:
+            state, history, out = _run_trainer(cli_train, argv)
+        finally:
+            _set_sync_debug_mode("default")
+    syncs = sum("synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    return state, history, out, syncs, dispatch.counts["drains"] - drains
+
+
+def _telemetry_line(out: str, what: str) -> dict:
+    m = re.search(r"^\[telemetry\] epochs=(\d+) xla_compiles=(\d+) "
+                  r"host_rss_mb=(\S+) device_peak_mb=(\S+) trace=(\S+)$",
+                  out, re.M)
+    if not m:
+        fail(f"{what}: no [telemetry] line in\n{out[-2000:]}")
+    return {"epochs": int(m[1]), "xla_compiles": int(m[2]),
+            "host_rss_mb": m[3], "device_peak_mb": m[4], "trace": m[5]}
+
+
+def _one_capture(out: str, what: str) -> None:
+    """The run's [telemetry] line counts its one CUDA-graph capture (the
+    process's earlier runs' captures not among them)."""
+    line = _telemetry_line(out, what)
+    if line["xla_compiles"] != 1:
+        fail(f"phase_telemetry: {what}: [telemetry] xla_compiles="
+             f"{line['xla_compiles']}, want the run's one capture")
+
+
+def _bitwise_twins(tag, a, b) -> None:
+    """a, b: (state, history, checkpoint path) of a run without and with
+    the telemetry flags: every per-step loss, every parameter and the
+    final checkpoint's bytes equal."""
+    if len(a[1]) != len(b[1]) or any(
+            not np.array_equal(x.view(np.uint32), y.view(np.uint32))
+            for x, y in zip(a[1], b[1])):
+        fail(f"phase_telemetry: {tag}: the per-step losses differ with the "
+             f"telemetry flags")
+    if not _equal_trees(_params_cpu(a[0].model.params()),
+                        _params_cpu(b[0].model.params())):
+        fail(f"phase_telemetry: {tag}: the params differ with the flags")
+    if _file_bytes(a[2]) != _file_bytes(b[2]):
+        fail(f"phase_telemetry: {tag}: the final checkpoint differs")
+
+
+def _nan_round_trip(dev: str, idx: str, work: str) -> dict:
+    """The health round trip in a subprocess (scripts/health_smoke.py's
+    promises): `/metrics` scraped while it trains, `/healthz` 503 after the
+    fatal event (a loader stall in epoch 2 keeps the run alive past it),
+    the fatal `nan` event in the trace, intact pre-NaN checkpoints, and
+    the pinned rescue at the last epoch boundary before the NaN (the
+    streaming watchdog observes once an epoch): a trained state, not the
+    run's starting one."""
+    import select
+    import urllib.error
+    import urllib.request
+    import zlib
+    from pytorch_ddp_mnist_tpu_torch.train.checkpoint import params_from_bytes
+    tel = os.path.join(work, "tel_nan")
+    ck = os.path.join(work, "nan.msgpack")
+    argv = _train_cmd(
+        "--device", dev, "--batch_size", str(MAIN_BATCH), "--lr", str(LR),
+        "--seed", "0", "--path", idx, "--limit", str(TEL_ROWS), "--n_epochs",
+        "3", "--checkpoint", ck, "--ckpt_every_steps", str(TEL_EVERY),
+        "--health", "checkpoint-and-warn", "--telemetry", tel,
+        "--metrics_port", "0", "--fault",
+        f"nan:step={TEL_NAN_STEP},loader_stall:batch=3:delay_s="
+        f"{TEL_STALL_S}:times=3")
+    proc = subprocess.Popen(argv, cwd=work, env=_rank_env(), text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    lines, url, scraped, statuses = [], None, None, []
+    deadline = time.monotonic() + WORLD_LIMIT_S
+    try:
+        while url is None and time.monotonic() < deadline:
+            ready, _, _ = select.select([proc.stderr], [], [], 1.0)
+            if not ready:
+                if proc.poll() is not None:
+                    break
+                continue
+            line = proc.stderr.readline()
+            if not line:
+                break
+            lines.append(line)
+            if line.startswith("metrics on "):
+                url = line.split("metrics on ", 1)[1].strip()
+        if url is None:
+            fail("phase_telemetry: the nan run never announced its "
+                 "--metrics_port endpoint:\n" + "".join(lines)[-3000:])
+        scraped = urllib.request.urlopen(url, timeout=10).read().decode()
+        healthz = url.rsplit("/", 1)[0] + "/healthz"
+        while proc.poll() is None and time.monotonic() < deadline:
+            try:
+                statuses.append(urllib.request.urlopen(
+                    healthz, timeout=5).status)
+            except urllib.error.HTTPError as e:
+                statuses.append(e.code)
+            except OSError:
+                break
+            if statuses[-1] == 503:
+                break
+            time.sleep(0.02)
+        out, err = proc.communicate(timeout=max(deadline - time.monotonic(),
+                                                1.0))
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    err = "".join(lines) + err
+    if proc.returncode != 0:
+        fail(f"phase_telemetry: the nan run exited {proc.returncode} "
+             f"(checkpoint-and-warn keeps it alive):\n{err[-3000:]}")
+    for needle in ("# TYPE", "health_worst_severity_level"):
+        if needle not in scraped:
+            fail(f"phase_telemetry: the live /metrics scrape lacks {needle!r}")
+    if 503 not in statuses:
+        fail(f"phase_telemetry: /healthz never answered 503 after the fatal "
+             f"event (statuses {sorted(set(statuses))})")
+    _check_trace(tel, "health.,mem.,checkpoint.")
+    events = []
+    with open(os.path.join(tel, "events.jsonl")) as f:
+        for raw in f:
+            rec = json.loads(raw)
+            if rec.get("kind") == "point" and rec.get("name") == "health":
+                events.append(rec["attrs"])
+    nans = [e for e in events if e["detector"] == "nan"]
+    if not nans or nans[0]["severity"] != "fatal":
+        fail(f"phase_telemetry: no fatal nan health event: {events}")
+    steps_dir = ck + ".steps"
+    pre = []
+    for name in sorted(os.listdir(steps_dir)):
+        if name.endswith(".json"):
+            with open(os.path.join(steps_dir, name)) as f:
+                man = json.load(f)
+            if man["step"] < TEL_NAN_STEP:
+                pre.append(man)
+    rescue = [m["step"] for m in pre if m.get("pinned")]
+    want = (TEL_NAN_STEP - 1) // TEL_EPOCH * TEL_EPOCH
+    if rescue != [want]:
+        fail(f"phase_telemetry: the pinned pre-NaN rescue checkpoints are at "
+             f"steps {rescue}, want [{want}] (the last epoch boundary before "
+             f"the NaN at step {TEL_NAN_STEP}); have "
+             f"{sorted(os.listdir(steps_dir))}")
+    for man in pre:
+        with open(os.path.join(steps_dir, man["payload"]), "rb") as f:
+            blob = f.read()
+        params = params_from_bytes(blob)
+        if (len(blob) != man["bytes"] or zlib.crc32(blob) != man["crc32"]
+                or not all(torch.isfinite(v).all() for layer in
+                           params.values() for v in layer.values())):
+            fail(f"phase_telemetry: pre-NaN checkpoint at step "
+                 f"{man['step']} is not intact")
+    return {"scrape_lines": len(scraped.splitlines()),
+            "healthz": sorted(set(statuses)), "nan_event_step":
+            nans[0].get("step"), "pre_nan_steps": [m["step"] for m in pre],
+            "rescue": rescue,
+            "metrics_url": url}
+
+
+def phase_telemetry(device, tmp: str, card: str) -> dict:
+    """The trainer's in-run telemetry on the card, each run bitwise its
+    twin without the flags (every per-step loss, every parameter, the
+    final flax msgpack byte for byte):
+      a. streaming `train` (K1-split keyed, captured), one full epoch,
+         without and with `--telemetry --health warn --metrics_port 0
+         --profile_dispatch 16`, both under set_sync_debug_mode("warn"):
+         the synchronising calls of the flagged run are the plain run's
+         plus the profiler's drains, one every 16 steps; its trace passes
+         check_telemetry.py --require health.,mem.,checkpoint.,dispatch.
+         and its [telemetry] line reads one capture and the card's peak;
+      b. the same at --dtype bfloat16 (K1-mma keyed), 50 steps, and with
+         --kernel xla (the health aux written inside the captured graph),
+         50 steps;
+      c. `--cached --kernel pallas_epoch --health warn --telemetry` (K2-ws,
+         one launch an epoch, the watchdog once an epoch);
+      d. the nan round trip (`_nan_round_trip`) at 12,800 rows, 3 epochs,
+         the NaN in epoch 1, and
+         `--health abort` exiting with `[health] …` and a flight dump;
+      e. a 2-rank gloo world on the card (`--parallel --kernel xla
+         --journal`) bitwise its unjournaled twin, its journals read by the
+         port's cluster_report: no desync, no hang, seq 0 the startup
+         barrier on both ranks.
+    Returns the launches of the flagged runs."""
+    from pytorch_ddp_mnist_tpu_torch.cli import train as cli_train
+    from pytorch_ddp_mnist_tpu_torch.telemetry import (cluster_report,
+                                                       format_cluster_report,
+                                                       load_journal)
+    t_start = time.perf_counter()
+    dev = "cpu" if device.type == "cpu" else str(device.index)
+    work = os.path.join(tmp, "telemetry")
+    os.makedirs(work, exist_ok=True)
+    idx = _chaos_data(tmp)
+    paths = {}
+
+    world = ["--parallel", "--wireup_method", "env", "--device", dev,
+             "--kernel", "xla", "--batch_size", str(MAIN_BATCH), "--lr",
+             str(LR), "--seed", "0", "--path", idx, "--limit",
+             str(TEL_WORLD_ROWS), "--n_epochs", "1"]
+    tel_world = os.path.join(work, "tel_world")
+
+    def world_cmds(attempt):
+        return (_env_world(CHAOS_WORLD, _train_cmd(
+                    *world, "--checkpoint", "world_plain.msgpack"))(attempt)
+                + _env_world(CHAOS_WORLD, _train_cmd(
+                    *world, "--checkpoint", "world_journal.msgpack",
+                    "--journal", "--telemetry", tel_world))(attempt))
+
+    box = {}
+    runner = threading.Thread(target=lambda: box.update(
+        res=_spawn(world_cmds, work, expect_ok=False)))
+    runner.start()
+
+    base = ["--device", dev, "--batch_size", str(MAIN_BATCH), "--lr",
+            str(LR), "--seed", "0", "--path",
+            os.path.join(tmp, "no_mnist_here"), "--n_epochs", "1"]
+    stream = base + ["--ckpt_every_steps", str(EPOCH_STEPS)]
+    tel_a = os.path.join(work, "tel_stream")
+    runs = {}
+    for tag, extra in (("plain", []),
+                       ("flags", [*TEL_FLAGS, "--telemetry", tel_a])):
+        ck = os.path.join(work, f"stream_{tag}.msgpack")
+        _reset_counts()
+        state, history, out, syncs, drains = _synced_run(
+            cli_train, stream + extra + ["--checkpoint", ck])
+        runs[tag] = (state, history, ck, out, syncs, drains, _counts())
+    _bitwise_twins("streaming", runs["plain"][:3], runs["flags"][:3])
+    launches = runs["flags"][6]
+    expect_launches(launches, {"fused_split_keyed": EPOCH_STEPS},
+                    "phase_telemetry: the flagged streaming epoch")
+    syncs_plain, syncs_flags, drains = (runs["plain"][4], runs["flags"][4],
+                                        runs["flags"][5])
+    want_drains = -(-EPOCH_STEPS // TEL_K)
+    if drains != want_drains or syncs_flags - syncs_plain != drains:
+        fail(f"phase_telemetry: synchronising calls {syncs_plain} without "
+             f"the flags, {syncs_flags} with them, {drains} profiler drains "
+             f"(want {want_drains}: one every {TEL_K} steps, and no other "
+             f"sync added)")
+    line = _telemetry_line(runs["flags"][3], "the flagged streaming run")
+    if line["xla_compiles"] != 1 or line["device_peak_mb"] in ("None", "0"):
+        fail(f"phase_telemetry: [telemetry] line {line}")
+    _check_trace(tel_a, "health.,mem.,checkpoint.,dispatch.")
+    paths["train " + " ".join(TEL_FLAGS) + " --telemetry (telemetry)"] = \
+        launches
+    print(f"[telemetry] streaming train, one epoch ({EPOCH_STEPS} captured "
+          f"K1-split keyed steps) with {' '.join(TEL_FLAGS)} --telemetry: "
+          f"bitwise the run without (losses, params, msgpack); "
+          f"synchronising CUDA calls {syncs_plain} -> {syncs_flags}, the "
+          f"difference the profiler's {drains} drains (one every {TEL_K} "
+          f"steps); [telemetry] xla_compiles={line['xla_compiles']} "
+          f"device_peak_mb={line['device_peak_mb']} "
+          f"host_rss_mb={line['host_rss_mb']}; check_telemetry.py --require "
+          f"health.,mem.,checkpoint.,dispatch. passes [{card}]")
+
+    bf16 = base + ["--kernel", "pallas", "--dtype", "bfloat16", "--limit",
+                   str(MAIN_STEPS * MAIN_BATCH)]
+    twins = []
+    for tag, extra in (("plain", []), ("flags", [
+            *TEL_FLAGS, "--telemetry", os.path.join(work, "tel_bf16")])):
+        ck = os.path.join(work, f"bf16_{tag}.msgpack")
+        _reset_counts()
+        state, history, out = _run_trainer(cli_train, bf16 + extra + [
+            "--checkpoint", ck])
+        twins.append((state, history, ck, _counts(), out))
+    _bitwise_twins("bf16 streaming", *[t[:3] for t in twins])
+    _one_capture(twins[1][4], "the flagged bf16 streaming run")
+    expect_launches(twins[1][3], {"fused_mma_keyed": MAIN_STEPS},
+                    "phase_telemetry: the flagged bf16 streaming run")
+    paths["train --dtype bfloat16 " + " ".join(TEL_FLAGS)
+          + " --telemetry (telemetry)"] = twins[1][3]
+    print(f"[telemetry] train --kernel pallas --dtype bfloat16, "
+          f"{MAIN_STEPS} K1-mma keyed steps with the flags: bitwise the run "
+          f"without [{card}]")
+
+    from pytorch_ddp_mnist_tpu_torch.telemetry import get_registry
+    xla = base + ["--kernel", "xla", "--limit", str(MAIN_STEPS * MAIN_BATCH)]
+    twins = []
+    for tag, extra in (("plain", []), ("flags", [
+            *TEL_FLAGS, "--telemetry", os.path.join(work, "tel_xla")])):
+        ck = os.path.join(work, f"xla_{tag}.msgpack")
+        _reset_counts()
+        state, history, out = _run_trainer(cli_train, xla + extra + [
+            "--checkpoint", ck])
+        twins.append((state, history, ck, _counts(), out))
+    _bitwise_twins("xla streaming with the health aux",
+                   *[t[:3] for t in twins])
+    _one_capture(twins[1][4], "the flagged xla streaming run")
+    expect_launches(twins[1][3], {"threefry_mask": MAIN_STEPS},
+                    "phase_telemetry: the flagged xla streaming run")
+    gauges = get_registry().snapshot()["gauges"]
+    if not (gauges.get("health.grad_norm") or 0) > 0 or not (
+            gauges.get("health.update_ratio") or 0) > 0:
+        fail(f"phase_telemetry: the captured xla step's health aux did not "
+             f"reach the watchdog: {gauges}")
+    paths["train --kernel xla " + " ".join(TEL_FLAGS)
+          + " --telemetry (telemetry)"] = twins[1][3]
+    print(f"[telemetry] train --kernel xla, {MAIN_STEPS} captured steps with "
+          f"the flags: bitwise the run without; the health aux written in "
+          f"the graph reached the watchdog (grad norm "
+          f"{gauges['health.grad_norm']:.4f}, update ratio "
+          f"{gauges['health.update_ratio']:.3e}) [{card}]")
+
+    k2 = base + ["--cached", "--kernel", "pallas_epoch"]
+    twins = []
+    tel_k2 = os.path.join(work, "tel_k2")
+    for tag, extra in (("plain", []), ("flags", [
+            "--health", "warn", "--telemetry", tel_k2])):
+        ck = os.path.join(work, f"k2_{tag}.msgpack")
+        _reset_counts()
+        state, history, _ = _run_trainer(cli_train, k2 + extra + [
+            "--checkpoint", ck])
+        twins.append((state, history, ck, _counts()))
+    _bitwise_twins("K2-ws", *[t[:3] for t in twins])
+    expect_launches(twins[1][3], {"epoch_step_ws": 1},
+                    "phase_telemetry: --cached --kernel pallas_epoch "
+                    "--health warn")
+    _check_trace(tel_k2, "health.,mem.")
+    paths["train --cached --kernel pallas_epoch --health warn --telemetry "
+          "(telemetry)"] = twins[1][3]
+    print(f"[telemetry] train --cached --kernel pallas_epoch --health warn "
+          f"--telemetry: one K2-ws launch, bitwise the run without; "
+          f"check_telemetry.py --require health.,mem. passes [{card}]")
+
+    t0 = time.perf_counter()
+    nan = _nan_round_trip(dev, idx, work)
+    print(f"[telemetry] nan round trip ({TEL_ROWS} rows, --fault "
+          f"nan:step={TEL_NAN_STEP} --health checkpoint-and-warn "
+          f"--ckpt_every_steps {TEL_EVERY} --metrics_port 0): /metrics "
+          f"served {nan['scrape_lines']} lines mid-run, /healthz "
+          f"{nan['healthz']}, the fatal nan event at step "
+          f"{nan['nan_event_step']}, intact pre-NaN checkpoints "
+          f"{nan['pre_nan_steps']} (rescue, pinned: {nan['rescue']}) in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    tel_abort = os.path.join(work, "tel_abort")
+    try:
+        _run_trainer(cli_train, base + [
+            "--limit", str(TEL_ROWS), "--checkpoint", "", "--health",
+            "abort", "--telemetry", tel_abort, "--fault",
+            f"nan:step={TEL_ABORT_STEP}"])
+        fail("phase_telemetry: --health abort did not stop the run")
+    except SystemExit as e:
+        if not str(e.code).startswith("[health] fatal health signal (nan"):
+            fail(f"phase_telemetry: --health abort exited {e.code!r}")
+    dumps = [n for n in os.listdir(tel_abort) if n.startswith("flight.")]
+    if not dumps:
+        fail("phase_telemetry: --health abort left no flight dump")
+    print(f"[telemetry] --health abort: exits by name ('[health] fatal "
+          f"health signal (nan …'), flight dump {dumps[0]} [{card}]")
+
+    runner.join()
+    res = box["res"]
+    for r, (rc, out, err) in enumerate(res):
+        if rc != 0:
+            fail(f"phase_telemetry: world process {r} exited {rc}:\n"
+                 f"{out[-2000:]}\n{err[-3000:]}")
+    if _file_bytes(os.path.join(work, "world_plain.msgpack")) != \
+            _file_bytes(os.path.join(work, "world_journal.msgpack")):
+        fail("phase_telemetry: the journaled world's checkpoint differs from "
+             "the unjournaled world's")
+    report = cluster_report(tel_world)
+    firsts = [load_journal(p)["records"][0] for p in report["files"]]
+    if (report["n_ranks"] != CHAOS_WORLD or not report["desync"]["ok"]
+            or report["hang"]["stuck"] is not None
+            or any(r["seq"] != 0 or r["k"] != "barrier" for r in firsts)):
+        fail(f"phase_telemetry: the world's journals: "
+             f"{format_cluster_report(report)}")
+    _check_trace(tel_world, "cluster.,mem.")
+    print(f"[telemetry] env x{CHAOS_WORLD} train --parallel --kernel xla "
+          f"--journal on the card: bitwise the unjournaled world; "
+          + format_cluster_report(report).replace("\n", "; ")
+          + f" [{card}]")
+    print(f"[telemetry] phase_telemetry: "
+          f"{time.perf_counter() - t_start:.1f} s [{card}]")
+    print(json.dumps({"telemetry": {
+        "syncs": {"plain": syncs_plain, "flags": syncs_flags,
+                  "drains": drains}, "line": line, "nan": nan,
+        "world": {"collectives": report["totals"]["collectives"],
+                  "skew_worst": report["skew"]["worst"]}, "card": card}},
+        default=str))
+    return paths
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -6543,10 +6977,13 @@ def main() -> int:
         elapsed("comm phase")
         chaos = phase_chaos(device, tmp, card)
         paths.update(chaos)
-        # K2-ws's row reads its paths from k2_launches
-        k2_launches.update({k: v for k, v in chaos.items()
-                            if v.get("epoch_step_ws")})
         elapsed("chaos phase")
+        tel = phase_telemetry(device, tmp, card)
+        paths.update(tel)
+        # K2-ws's row reads its paths from k2_launches
+        k2_launches.update({k: v for k, v in {**chaos, **tel}.items()
+                            if v.get("epoch_step_ws")})
+        elapsed("telemetry phase")
     _, k2_launches["bench --epochs 5"] = phase_bench()
     ss = ("--kernel", "pallas_epoch", "--dtype", "bfloat16", "--superstep",
           "8")

@@ -37,7 +37,7 @@ _COMMANDS = {
 }
 # the JAX package's commands still to port -> ROADMAP.md queue 1 item
 _NOT_YET_PORTED = {
-    "trace": 12, "ledger": 12, "lint": 14, "audit-program": 14,
+    "trace": "12c", "ledger": "12c", "lint": 14, "audit-program": 14,
 }
 
 

@@ -84,9 +84,9 @@ probe's p50, the schedule's collectives a step, and the drift of 3 steps
 at lr 0.05 against pmean. All the replicas share one card, so the rate
 per chip is the mesh's rate.
 
-The JAX bench's registry, statics and ledger stamps are telemetry
-(ROADMAP.md queue 1, item 12) and are left out, and so are the ddp rows'
-journal and dispatch-overhead stamps. A run needs a card: no number is
+The JAX bench's registry, statics and ledger stamps are the telemetry
+read side (ROADMAP.md queue 1, item 12c) and are left out, and so are the
+ddp rows' journal and dispatch-overhead stamps. A run needs a card: no number is
 taken on the CPU.
 """
 

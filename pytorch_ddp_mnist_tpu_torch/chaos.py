@@ -19,20 +19,22 @@ first failure:
      boundary >= K, the survivors, blocked in a collective, are reaped (a
      gang scheduler's view: one task dead, the job dead), and the step
      directory stays as the crash left it;
-  3. resume: a new world with `--resume <the step directory>` restores the
-     newest intact checkpoint on every rank and finishes;
+  3. resume: a new world with `--resume <the step directory>` and
+     `--telemetry <workdir>/telemetry` restores the newest intact
+     checkpoint on every rank and finishes;
   4. verdict: the resumed final checkpoint is byte for byte the golden
-     one's (flax msgpack);
+     one's (flax msgpack), and the resume's trace passes
+     `scripts/check_telemetry.py --require checkpoint.` (the JAX script's
+     telemetry gate, pure stdlib);
   5. piped leg (serial, streaming): an unpiped golden run; a run with
      `--input_workers 2 --prefetch_depth 2` killed mid-epoch with its
      decode workers live; the dead writer's `.tmp.<pid>` strays swept; the
      resume, piped, byte for byte the unpiped golden, with no stray left.
 
-The JAX script's telemetry gate (`check_telemetry --require checkpoint.`)
-needs `--telemetry` (ROADMAP.md queue 1, item 12) and its elastic leg
-needs `--elastic` (item 13): neither runs here. Exit code 0 when every
-leg holds, 1 otherwise (the failing processes' output on stderr); the
-last line of stdout is a JSON summary.
+The JAX script's elastic leg needs `--elastic` (ROADMAP.md queue 1, item
+13) and does not run here. Exit code 0 when every leg holds, 1 otherwise
+(the failing processes' output on stderr); the last line of stdout is a
+JSON summary.
 """
 
 from __future__ import annotations
@@ -207,8 +209,9 @@ def world_leg(work: str, *, device: str, world: int, seed: int, epochs: int,
     if not os.path.isdir(steps_dir) or not os.listdir(steps_dir):
         raise ChaosFailure(f"world chaos: no step checkpoints in {steps_dir}")
     committed = sorted(n for n in os.listdir(steps_dir) if n.endswith(".json"))
-    res = run_world(base + ["--checkpoint", flaky, "--resume", steps_dir],
-                    world, work, timeout)
+    tel = os.path.join(work, "telemetry")
+    res = run_world(base + ["--checkpoint", flaky, "--resume", steps_dir,
+                            "--telemetry", tel], world, work, timeout)
     _check_ok(res, "world resume")
     if "[ckpt] resuming from" not in res[0][2]:
         raise ChaosFailure(f"world resume printed no restore line\n"
@@ -218,7 +221,21 @@ def world_leg(work: str, *, device: str, world: int, seed: int, epochs: int,
                            "the unbroken run's")
     return {"world": world, "kill": fault, "steps_per_epoch": spe,
             "committed_at_kill": committed, "parity": "bitwise",
+            "telemetry_gate": telemetry_gate(tel, "checkpoint."),
             "wall_s": round(time.perf_counter() - t0, 1)}
+
+
+def telemetry_gate(directory: str, require: str) -> str:
+    """`scripts/check_telemetry.py --require <require> <directory>`; raises
+    ChaosFailure on a violation and returns what held."""
+    checker = os.path.join(REPO, "scripts", "check_telemetry.py")
+    out = subprocess.run([sys.executable, checker, "--require", require,
+                          directory], capture_output=True, text=True,
+                         timeout=120)
+    if out.returncode != 0:
+        raise ChaosFailure(f"telemetry gate: check_telemetry.py --require "
+                           f"{require} failed:\n{out.stdout}\n{out.stderr}")
+    return f"check_telemetry.py --require {require}: ok"
 
 
 def piped_leg(work: str, *, device: str, seed: int, timeout: float,
@@ -295,8 +312,7 @@ def main(argv=None) -> int:
         return 1
     print(json.dumps({"chaos": "ok", "chaos_seed": a.chaos_seed,
                       "world_leg": world, "piped_leg": piped,
-                      "telemetry_gate": "not run: --telemetry is ROADMAP.md "
-                                        "queue 1, item 12",
+                      "telemetry_gate": world["telemetry_gate"],
                       "elastic_leg": "not run: ROADMAP.md queue 1, item 13"}))
     if a.workdir is None:
         shutil.rmtree(work, ignore_errors=True)

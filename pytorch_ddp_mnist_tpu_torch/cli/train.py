@@ -14,6 +14,9 @@ branches of `pytorch_ddp_mnist_tpu/cli/train.py`).
         [--error_feedback on|off] [--bf16_rounding nearest|stochastic]
         [--ckpt_every_steps N [--ckpt_keep 3]] [--resume DIR|FILE
         [--start_epoch K]] [--fault SPEC] [--outage_retries N]
+        [--telemetry DIR [--profile_dispatch [K]] [--journal]]
+        [--health off|warn|checkpoint-and-warn|abort] [--metrics_port N]
+        [--profile LOGDIR]
 
 Trains the reference MLP on MNIST (or the synthetic stand-in), prints the
 reference epoch line every epoch and saves `--checkpoint` (the reference's
@@ -87,11 +90,29 @@ the newest intact and finite one and continues bitwise; `--resume FILE
 chain). `--fault` (and `$PDMT_FAULT`) installs the fault specs of
 utils/faultpoints.py; every epoch ends at the world's barrier, the
 `barrier` fault point. `--outage_retries N` retries a run that a lost
-card or peer interrupts (`_train_with_outage_retry`).
+card or peer interrupts (`_train_with_outage_retry`). A serial run with
+`$PDMT_BACKEND_WAIT` > 0 first waits that long for the card, probing it
+from fresh processes, before its own first CUDA call.
+
+In-run telemetry (the JAX CLI's): `--telemetry DIR` writes the JSONL
+event trace (`events.jsonl`, `events.rank<r>.jsonl`: the fit's spans, the
+capture counter `xla.compiles`, the memory watermarks, the final registry
+snapshot), dumps the flight recorder there, and prints rank 0's
+`[telemetry]` line, whose `xla_compiles` counts the run's CUDA-graph
+captures;
+`--health` runs the training-health watchdog (telemetry/health.py) with
+its fatal-signal policy; `--metrics_port` serves `/metrics` and
+`/healthz` on rank 0 (telemetry/prom.py); `--profile_dispatch K` splits
+the step boundary into named phases (telemetry/dispatch.py); `--journal`
+writes each rank's collective journal, opened by a startup barrier at seq
+0 (telemetry/cluster.py); `--profile LOGDIR` records the run with
+torch.profiler (utils/profiling.py). None of them changes what the run
+computes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
@@ -184,6 +205,7 @@ def train(argv=None):
     process's command line: the CLI context, the only one in which an
     outage retry may re-exec the process. A world's process group is torn
     down when it returns or raises."""
+    from .. import telemetry
     from ..telemetry import flight
     from ..utils import faultpoints
     cli = argv is None
@@ -195,26 +217,101 @@ def train(argv=None):
         faultpoints.install(tcfg["fault"])
     except faultpoints.FaultSpecError as e:
         raise SystemExit(f"--fault: {e}") from None
-    device = resolve_device(tcfg["device"])
-    # true f32 products, as the JAX package's kernels accumulate, and bf16
-    # products reduced in f32, as XLA's are
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    kernel = resolve_kernel(tcfg["kernel"], tcfg["dtype"], device.type)
-    try:   # the scan layer's refusals, by name, before any work
-        check_run_args(kernel, tcfg["dtype"], 1, 1, tcfg["impl"])
-    except ValueError as e:
-        raise SystemExit(str(e)) from None
-    runtime, mesh = Runtime(method="single"), None
-    if tcfg["parallel"]:
-        runtime, mesh = resolve_world(tcfg["wireup_method"], device)
-        faultpoints.set_rank(runtime.rank)
-        flight.set_rank(runtime.rank)
+    with contextlib.ExitStack() as closing:
+        if tcfg["telemetry"]:
+            # a run that raised leaves no trace, journal or dump directory
+            # armed in the process (a clean end has closed them already)
+            closing.callback(flight.set_dump_dir, None)
+            closing.callback(telemetry.disable)
+            closing.callback(telemetry.disable_journal, clean=False)
+            # armed before any capture; the memory probes never touch the
+            # card
+            telemetry.install_compile_listener()
+            telemetry.install_memory_watermarks()
+            os.makedirs(tcfg["telemetry"], exist_ok=True)
+            flight.set_dump_dir(tcfg["telemetry"])
+            if cli:   # the command line owns the signal dispositions
+                flight.install_sigterm_flush()
+            if not tcfg["parallel"]:
+                # a serial run is process 0; a world's trace opens after
+                # its rendezvous, with the rank
+                telemetry.enable(tcfg["telemetry"], process_index=0)
+        if not tcfg["parallel"]:
+            _wait_for_backend_at_start(tcfg["device"])
+        device = resolve_device(tcfg["device"])
+        # true f32 products, as the JAX package's kernels accumulate, and
+        # bf16 products reduced in f32, as XLA's are
+        matmul = torch.backends.cuda.matmul
+        matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        matmul.allow_bf16_reduced_precision_reduction = False
+        kernel = resolve_kernel(tcfg["kernel"], tcfg["dtype"], device.type)
+        try:   # the scan layer's refusals, by name, before any work
+            check_run_args(kernel, tcfg["dtype"], 1, 1, tcfg["impl"])
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        runtime, mesh, journal = Runtime(method="single"), None, None
+        if tcfg["parallel"]:
+            runtime, mesh = resolve_world(tcfg["wireup_method"], device)
+            closing.callback(runtime.finalize)
+            faultpoints.set_rank(runtime.rank)
+            flight.set_rank(runtime.rank)
+            if tcfg["telemetry"]:   # after the rendezvous: the rank is known
+                telemetry.enable(tcfg["telemetry"],
+                                 process_index=runtime.rank)
+        if tcfg["journal"]:
+            if kernel == "pallas":
+                raise SystemExit("--journal needs the XLA step program; "
+                                 "--kernel auto resolved to pallas here — "
+                                 "pass --kernel xla to journal this run")
+            journal = _open_journal(tcfg, runtime)
+        return _train(cfg, kernel, runtime, mesh, device, cli, journal,
+                      closing)
+
+
+def _wait_for_backend_at_start(spec: str) -> None:
+    """$PDMT_BACKEND_WAIT > 0 (a serial run): wait that many seconds for
+    the card before the run's first CUDA query, as the JAX CLI waits for
+    its backend, and exit by the JAX CLI's words if it never answers. The
+    probes run in fresh processes (parallel/wireup.py
+    `wait_for_fresh_backend`): a failed CUDA query would stay failed in
+    this one."""
+    from ..parallel.wireup import (BackendUnavailableError,
+                                   backend_wait_env, wait_for_fresh_backend)
+    wait_s = backend_wait_env(0.0)
+    if wait_s > 0:
+        try:
+            wait_for_fresh_backend(wait_s, device_type="cpu" if spec == "cpu"
+                                   else "cuda")
+        except BackendUnavailableError as e:
+            raise SystemExit(f"accelerator backend unavailable after "
+                             f"PDMT_BACKEND_WAIT={wait_s:.0f}s: {e}") from None
+
+
+def _open_journal(tcfg, runtime: Runtime):
+    """--journal: this rank's collective journal and hang watchdog, then
+    the startup barrier at seq 0, the anchor every cross-rank comparison
+    rides. A timeout there (an injected `collective_timeout` or a dead
+    peer) leaves the barrier's enter open and exits with the JAX CLI's
+    named hang report."""
+    from .. import telemetry
+    from ..parallel.wireup import looks_like_backend_loss
+    journal = telemetry.enable_journal(tcfg["telemetry"], rank=runtime.rank,
+                                       world=runtime.size)
     try:
-        return _train(cfg, kernel, runtime, mesh, device, cli)
-    finally:
-        runtime.finalize()
+        runtime.barrier()
+    except RuntimeError as e:
+        if not looks_like_backend_loss(e):
+            raise
+        entry = journal.open_entry() or {"seq": 0, "kind": "barrier"}
+        telemetry.cluster.report_hang(journal, entry)
+        telemetry.disable_journal(clean=False)
+        raise SystemExit(
+            f"[cluster] collective timeout in the startup barrier "
+            f"(seq {entry.get('seq')}): {e} — hang report in the "
+            f"flight dump under {tcfg['telemetry']}; read it with "
+            f"`trace report --cluster {tcfg['telemetry']}`") from None
+    return journal
 
 
 def _host_state(model, key) -> dict:
@@ -226,8 +323,13 @@ def _host_state(model, key) -> dict:
 
 
 def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device,
-           cli: bool = False):
+           cli: bool = False, journal=None, closing=None):
+    from .. import telemetry
+    from ..telemetry.health import TrainingHealthError
     tcfg, dcfg = cfg["trainer"], cfg["data"]
+    # the process's captures so far: the [telemetry] line counts this run's
+    captures0 = telemetry.get_registry().counter("xla.compiles").value \
+        if tcfg["telemetry"] else 0
     if mesh is not None:
         device = mesh[0]
         if tcfg["cached"]:
@@ -341,6 +443,25 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device,
         stash = {"epoch": tcfg["start_epoch"] - 1,
                  **_host_state(model, key)}
     step_hook = _step_hook(tcfg, dcfg, global_batch, rank, world)
+    nsteps = -(-len(sampler) // (global_batch if tcfg["cached"]
+                                 else local_batch))
+    watchdog = _watchdog(tcfg, dcfg, global_batch, rank,
+                         TrainState(model, key, resume["resid"]),
+                         resume["offset"], nsteps)
+    profiler = (telemetry.DispatchProfiler(
+        sample_every=int(tcfg["profile_dispatch"]))
+        if tcfg["profile_dispatch"] else None)
+    if tcfg["metrics_port"] is not None and rank == 0:
+        # after the watchdog, so the first scrape shows the health gauges;
+        # the memory watermarks without --telemetry too
+        telemetry.install_memory_watermarks()
+        server = telemetry.start_metrics_server(tcfg["metrics_port"])
+        closing.callback(server.server_close)
+        closing.callback(server.shutdown)
+        host, port = server.server_address[:2]
+        print(f"metrics on http://{host}:{port}/metrics", file=sys.stderr,
+              flush=True)
+    in_run = {"watchdog": watchdog, "dispatch_profiler": profiler}
 
     if tcfg["cached"]:
         def run_fit(st, start):
@@ -356,7 +477,8 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device,
                               if start == tcfg["start_epoch"] else 0),
                 ckpt_every_steps=tcfg["ckpt_every_steps"],
                 step_hook=step_hook, epoch_hook=epoch_hook, resid=st.resid,
-                log=log, **(_comm_kw(tcfg) if mesh is not None else {}))
+                log=log, **in_run,
+                **(_comm_kw(tcfg) if mesh is not None else {}))
             comm = fit_cached.comm
             return TrainState(st.model, key,
                               comm.resid if comm is not None else None), \
@@ -402,11 +524,22 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device,
                        start_offset=(resume["offset"]
                                      if start == tcfg["start_epoch"] else 0),
                        ckpt_every_steps=tcfg["ckpt_every_steps"],
-                       step_hook=step_hook, epoch_hook=epoch_hook, log=log)
+                       step_hook=step_hook, epoch_hook=epoch_hook, log=log,
+                       journal=journal, **in_run)
 
-    state, history = _train_with_outage_retry(
-        run_fit, TrainState(model, key, resume["resid"]), tcfg, stash, cli,
-        rank, device)
+    try:
+        state, history = _train_with_outage_retry(
+            run_fit, TrainState(model, key, resume["resid"]), tcfg, stash,
+            cli, rank, device, profile=tcfg["profile"])
+    except TrainingHealthError as e:
+        # --health abort: the watchdog has emitted its events and dumped
+        # the flight ring; a diverged model exits by name
+        raise SystemExit(f"[health] {e}") from None
+    if journal is not None:
+        # the clean trailer, before the final snapshot takes cluster.*
+        telemetry.disable_journal()
+    if tcfg["telemetry"]:
+        _close_trace(tcfg, log, captures0)
     if runtime.initialized and device.type == "cuda":
         # stderr: stdout stays the machine-parseable epoch lines
         print(f"[world] rank {rank}: peak device memory "
@@ -418,6 +551,61 @@ def _train(cfg, kernel: str, runtime: Runtime, mesh, device: torch.device,
         print(f"saved checkpoint to {tcfg['checkpoint']}")
     _drop_stale_stash(tcfg, rank)
     return state, history
+
+
+def _watchdog(tcfg, dcfg, global_batch: int, rank: int, state,
+              offset: int, nsteps: int):
+    """--health: the watchdog (telemetry/health.py), seeded with the run's
+    starting state; under checkpoint-and-warn rank 0's rescue saves the
+    last good state through the step-checkpoint manager, pinned, with the
+    run geometry. None with --health off."""
+    if tcfg["health"] == "off":
+        return None
+    from ..telemetry.health import HealthConfig, Watchdog
+    on_fatal = None
+    if tcfg["health"] == "checkpoint-and-warn" and rank == 0:
+        from ..train.ckpt_manager import CheckpointManager
+        rescue = CheckpointManager(tcfg["checkpoint"] + ".steps",
+                                   keep=tcfg["ckpt_keep"])
+
+        def on_fatal(stash):
+            # pinned: the run keeps training (warn semantics), and its
+            # routine saves must not rotate the one good state away
+            path = rescue.save(
+                stash["params"], stash["key"], tcfg["impl"],
+                step=stash["step"], epoch=stash["epoch"],
+                offset=stash["offset"],
+                meta=_run_geometry(tcfg, dcfg, global_batch), pin=True,
+                resid=stash.get("resid"))
+            print(f"[health] rescue checkpoint committed: {path}",
+                  file=sys.stderr, flush=True)
+    watchdog = Watchdog(HealthConfig(policy=tcfg["health"]), lr=tcfg["lr"],
+                        on_fatal=on_fatal, rank=rank)
+    watchdog.seed_good(state, epoch=tcfg["start_epoch"], offset=offset,
+                       step=tcfg["start_epoch"] * nsteps + offset)
+    return watchdog
+
+
+def _close_trace(tcfg, log, captures0: int) -> None:
+    """End of a --telemetry run: stamp the memory gauges, write the final
+    registry snapshot as the trace's last record, close the trace, and
+    print rank 0's `[telemetry]` line (`xla_compiles`: the CUDA-graph
+    captures of this run, the process's count less `captures0`;
+    `device_peak_mb`: the card's allocator peak, None on the CPU)."""
+    from .. import telemetry
+    reg = telemetry.get_registry()
+    telemetry.collect_memory(reg)
+    snap = reg.snapshot()
+    telemetry.get_tracer().snapshot(reg)
+    telemetry.disable()
+    rss = snap["gauges"].get("host.rss_bytes")
+    dev = snap["gauges"].get("device.peak_bytes_in_use")
+    captures = snap["counters"].get("xla.compiles", 0) - captures0
+    log(f"[telemetry] epochs={tcfg['n_epochs']} "
+        f"xla_compiles={captures} "
+        f"host_rss_mb={rss // 2**20 if rss else None} "
+        f"device_peak_mb={dev // 2**20 if dev is not None else None} "
+        f"trace={tcfg['telemetry']}")
 
 
 def _resume(tcfg, dcfg, model, mesh, kernel: str, global_batch: int) -> dict:
@@ -596,9 +784,12 @@ def _persist_and_reexec(tcfg, stash: dict, remaining: int, rank: int,
 
 
 def _train_with_outage_retry(run_fit, state, tcfg, stash, cli: bool,
-                             rank: int, device: torch.device):
+                             rank: int, device: torch.device, *,
+                             profile=None):
     """`run_fit(state, start_epoch)`, retried through a lost card or peer
     when --outage_retries > 0 (the JAX CLI's `_train_with_outage_retry`).
+    Each attempt runs, with `profile` (--profile LOGDIR), under a
+    torch.profiler session.
 
     Serial: an error with a backend-loss signature (parallel/wireup.py
     `looks_like_backend_loss`), or any RuntimeError while a fresh process
@@ -615,18 +806,19 @@ def _train_with_outage_retry(run_fit, state, tcfg, stash, cli: bool,
     on every rank), waits until a fresh process reaches the card, and
     every rank persists its stash and re-execs; the new processes meet in
     a new rendezvous. With no retries this is one plain call."""
-    import time
-
     from ..parallel.wireup import (BackendUnavailableError,
                                    BackendWedgedError,
                                    _subprocess_backend_healthy,
                                    backend_wait_env, is_sticky_cuda_error,
-                                   looks_like_backend_loss, wait_for_backend)
+                                   looks_like_backend_loss, wait_for_backend,
+                                   wait_for_fresh_backend)
     from ..telemetry import flight
+    from ..utils.profiling import trace
     retries, start, attempt = tcfg["outage_retries"], tcfg["start_epoch"], 0
     while True:
         try:
-            return run_fit(state, start)
+            with trace(profile):
+                return run_fit(state, start)
         except RuntimeError as e:
             if attempt >= retries:
                 raise
@@ -643,16 +835,16 @@ def _train_with_outage_retry(run_fit, state, tcfg, stash, cli: bool,
                   f"the backend (retry {attempt}/{retries})",
                   file=sys.stderr, flush=True)
             if tcfg["parallel"]:
-                deadline = time.monotonic() + backend_wait_env(3600.0)
-                while not _subprocess_backend_healthy(45.0, device.type):
-                    if time.monotonic() > deadline:
-                        flight.dump(reason="parallel train outage: backend "
-                                           "never recovered")
-                        raise SystemExit(
-                            "[outage] backend did not recover within the "
-                            "wait budget after a mid-run interruption of the "
-                            "parallel run") from e
-                    time.sleep(10.0)
+                try:
+                    wait_for_fresh_backend(backend_wait_env(3600.0),
+                                           device_type=device.type)
+                except BackendUnavailableError:
+                    flight.dump(reason="parallel train outage: backend "
+                                       "never recovered")
+                    raise SystemExit(
+                        "[outage] backend did not recover within the wait "
+                        "budget after a mid-run interruption of the "
+                        "parallel run") from e
                 _persist_and_reexec(tcfg, stash, retries - attempt, rank,
                                     "backend answers again; coordinated "
                                     "parallel resume")

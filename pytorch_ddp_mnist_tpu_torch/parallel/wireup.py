@@ -52,6 +52,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..telemetry import cluster
 from ..utils import faultpoints
 
 # seconds a rank waits in init_process_group and in any collective before
@@ -112,27 +113,35 @@ class Runtime:
         The `barrier` fault point fires first, with the rank and `ctx`
         (the trainer's epoch-end barrier passes its epoch):
         `collective_timeout` raises the error a dead collective gives, on
-        any world size."""
+        any world size. The collective journal (telemetry/cluster.py)
+        brackets it as a host-blocking collective: the fault fires inside
+        the bracket, so a timeout leaves the barrier's enter open, the
+        evidence the hang report reads."""
+        seq = cluster.get_journal().enter("barrier", axis="world")
         faultpoints.fire("barrier", rank=self.rank, **ctx)
-        if not self.initialized:
-            return
-        import torch.distributed as dist
-        if self.backend == "nccl":
-            dist.barrier(device_ids=[self.device.index])
-        else:
-            dist.barrier()
+        if self.initialized:
+            import torch.distributed as dist
+            if self.backend == "nccl":
+                dist.barrier(device_ids=[self.device.index])
+            else:
+                dist.barrier()
+        cluster.get_journal().exit(seq)
 
     def reduce_max(self, value: float) -> float:
         """Global max of a host scalar (reference reduceMAX,
         mnist_cpu_mp.py:193-199), delivered to every rank: an
-        all_reduce(MAX) of one f32."""
+        all_reduce(MAX) of one f32, journal-bracketed as `barrier` is."""
         if not self.initialized:
             return float(value)
         import torch.distributed as dist
+        seq = cluster.get_journal().enter("allreduce", axis="world",
+                                          nbytes=4)
         t = torch.tensor([value], dtype=torch.float32,
                          device=self._comm_device())
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
-        return float(t.item())
+        out = float(t.item())
+        cluster.get_journal().exit(seq)
+        return out
 
     def finalize(self) -> None:
         """Tear the process group down (reference finalize ->
@@ -464,6 +473,53 @@ def _subprocess_backend_healthy(timeout_s: float,
             capture_output=True).returncode == 0
     except (subprocess.SubprocessError, OSError):
         return False
+
+
+def wait_for_fresh_backend(max_wait_s: float, poll_s: float = 10.0,
+                           device_type: str = "cuda") -> int:
+    """Poll the card from FRESH interpreters (`_subprocess_backend_healthy`)
+    until one reaches it, without touching CUDA in this process; returns
+    the probes it took. A CUDA initialisation that fails in a process
+    stays failed there (the runtime keeps the device count it read at its
+    first query), so a trainer that has not yet touched the card waits
+    this way, and only then makes its own first CUDA call. Retries under
+    `backoff_schedule` (capped at `poll_s`, seeded by $RANK) until
+    `max_wait_s`, then raises BackendUnavailableError. Every probe goes to
+    the flight recorder."""
+    from ..telemetry import flight
+    flight.record("backend_wait_start", max_wait_s=max_wait_s,
+                  poll_s=poll_s, mode="fresh_process")
+    deadline = time.monotonic() + max_wait_s
+    try:
+        seed = int(os.environ.get("RANK", "0"))
+    except ValueError:
+        seed = 0
+    delays = backoff_schedule(min(1.0, poll_s), max(poll_s, 1.0), seed=seed)
+    attempt = 0
+    while True:
+        left = deadline - time.monotonic()
+        healthy = _subprocess_backend_healthy(min(45.0, max(left, 1.0)),
+                                              device_type)
+        attempt += 1
+        flight.record("backend_health_poll", healthy=healthy,
+                      attempt=attempt,
+                      remaining_s=round(max(left, 0.0), 1))
+        if healthy:
+            if attempt > 1:
+                flight.record("backend_recovered", attempts=attempt,
+                              mode="fresh_process")
+            return attempt
+        left = deadline - time.monotonic()
+        if left <= 0:
+            flight.record("backend_unavailable", attempts=attempt,
+                          budget_s=max_wait_s, mode="fresh_process")
+            raise BackendUnavailableError(
+                f"backend unavailable after {attempt} attempts over "
+                f"{max_wait_s:.0f}s: no fresh process could initialise the "
+                f"{device_type} backend and run one op")
+        print(f"wireup: backend unavailable (attempt {attempt}), retrying "
+              f"for another {left:.0f}s", file=sys.stderr, flush=True)
+        time.sleep(min(next(delays), max(left, 0.05)))
 
 
 def wait_for_backend(max_wait_s: float = 300.0, poll_s: float = 10.0,

@@ -1,7 +1,13 @@
-"""The fleet/reload record contract (port of the part of
-`pytorch_ddp_mnist_tpu/telemetry/analysis.py` that serve/fleet.py and
-serve/reload.py answer to; the rest of that module is ROADMAP.md queue 1,
-item 12).
+"""The fleet/reload record contract and the record names the port's
+writers share (port of the parts of
+`pytorch_ddp_mnist_tpu/telemetry/analysis.py` that serve/fleet.py,
+serve/reload.py, telemetry/dispatch.py and telemetry/health.py answer to;
+the read side's reports are ROADMAP.md queue 1, item 12c).
+
+`skew` is the straggler math the health watchdog's drift detector shares
+with the JAX read side's cross-process report. `dispatch_phase` /
+`dispatch_window` are the point records of the dispatch profiler's epoch
+flush; `scripts/check_telemetry.py` holds their contract.
 
 serve/fleet.py and serve/reload.py emit `point` events at every replica
 state transition and reload verdict. The names below are the JAX
@@ -28,6 +34,27 @@ FLEET_EVENTS = ("retry", "retry_exhausted", "quarantine", "dead",
                 "restart")
 RELOAD_EVENTS = ("swapped", "reloaded", "refused")
 QUARANTINE_CAUSES = ("wedge", "crash")
+
+DISPATCH_PHASE_POINT = "dispatch_phase"
+DISPATCH_WINDOW_POINT = "dispatch_window"
+DISPATCH_PHASES = ("python_prestep", "dispatch", "device_idle", "sync_wait")
+# device_idle observes the same wall interval python_prestep + dispatch
+# occupy on the host, so coverage counts each host interval once
+DISPATCH_COVERAGE_PHASES = ("python_prestep", "dispatch", "sync_wait")
+
+
+def skew(values) -> Tuple[float, float]:
+    """(spread, spread as % of mean) of a set of durations: max - min, and
+    that spread relative to the mean. The online drift detector
+    (telemetry/health.py) and the offline cross-process report use this
+    one function. Empty or zero-mean input reads as no skew."""
+    vals = list(values)
+    if not vals:
+        return 0.0, 0.0
+    lo, hi = min(vals), max(vals)
+    mean = sum(vals) / len(vals)
+    spread = hi - lo
+    return spread, (100.0 * spread / mean if mean > 0 else 0.0)
 
 
 def fleet_record_errors(segment: List[dict]) -> List[Tuple[int, str]]:

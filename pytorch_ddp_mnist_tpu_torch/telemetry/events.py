@@ -49,9 +49,9 @@ def _process_index() -> int:
         else 0
 
 
-def _synchronize(tree) -> None:
-    """Wait for the devices of every CUDA tensor in a (nested dict / list /
-    tuple) tree: the span's opt-in drain."""
+def cuda_devices(tree) -> set:
+    """The devices of every CUDA tensor in a (nested dict / list / tuple)
+    tree."""
     import torch
     stack, devices = [tree], set()
     while stack:
@@ -62,7 +62,14 @@ def _synchronize(tree) -> None:
             stack.extend(t)
         elif isinstance(t, torch.Tensor) and t.is_cuda:
             devices.add(t.device)
-    for d in devices:
+    return devices
+
+
+def _synchronize(tree) -> None:
+    """Wait for the devices of every CUDA tensor in a tree: the span's
+    opt-in drain."""
+    import torch
+    for d in cuda_devices(tree):
         torch.cuda.synchronize(d)
 
 

@@ -14,7 +14,10 @@ word for word, and its rule that resolves `--kernel auto` to `xla` for the
 `xla`-only options; and the step checkpoints and their resume, fault
 injection and outage retry (`--resume`, `--start_epoch`,
 `--ckpt_every_steps`, `--ckpt_keep`, `--fault`, `--outage_retries`), with
-the JAX CLI's refusals of those (`check_resume_knobs`).
+the JAX CLI's refusals of those (`check_resume_knobs`); and the in-run
+telemetry (`--telemetry`, `--health`, `--metrics_port`,
+`--profile_dispatch`, `--journal`, `--profile`), with the JAX CLI's
+refusals of those (`check_telemetry_knobs`, `check_resume_knobs`).
 
 The ported flags keep the JAX trainer's names and defaults, so launch lines
 carry over, except `--checkpoint`, which defaults to `model.pt` (the
@@ -23,8 +26,7 @@ path the JAX package's flax msgpack). `--hdf5` and `--label_map` are the
 dead keys of the reference's config that the JAX trainer keeps for
 launch-line parity, and so does this one. Every other flag of the JAX
 trainer is recognised and rejected by name, with the ROADMAP.md item that
-will port it: telemetry, the health watchdog and metrics (item 12) and
-elastic training (item 13).
+will port it: elastic training (item 13).
 """
 
 from __future__ import annotations
@@ -42,12 +44,6 @@ WIREUP_CHOICES = METHODS + tuple(METHOD_ALIASES) + ("tpu",)
 
 # flag of the JAX trainer -> where ROADMAP.md queues its port
 NOT_YET_PORTED = {
-    "--telemetry": "queue 1, item 12 (telemetry)",
-    "--journal": "queue 1, item 12 (telemetry)",
-    "--profile": "queue 1, item 12 (telemetry)",
-    "--profile_dispatch": "queue 1, item 12 (telemetry)",
-    "--health": "queue 1, item 12 (telemetry)",
-    "--metrics_port": "queue 1, item 12 (telemetry)",
     "--elastic": "queue 1, item 13 (elastic training)",
     "--reshape": "queue 1, item 13 (elastic training)",
 }
@@ -190,6 +186,54 @@ def configure(argv=None, *, cli=None) -> Dict[str, Dict[str, Any]]:
                         "--parallel), by persisting that state and "
                         "re-exec'ing with --resume/--start_epoch. 0 "
                         "(default): fail fast")
+    t.add_argument("--telemetry", type=str, default=None, metavar="DIR",
+                   help="write the JSONL event trace into DIR (per-epoch "
+                        "spans with data_wait/step_compute/eval children, "
+                        "the capture counter, memory watermarks, the "
+                        "end-of-run registry snapshot), dump the flight "
+                        "recorder there, and print a rank-0 [telemetry] "
+                        "line; validate with scripts/check_telemetry.py "
+                        "DIR. Adds no per-step host sync")
+    t.add_argument("--journal", action="store_true",
+                   help="write the per-rank collective journal beside the "
+                        "trace (telemetry/cluster.py: one record a payload "
+                        "collective of the DDP step, from its collective "
+                        "schedule, with host stamps; the barriers and the "
+                        "epoch's loss fetch bracketed) and run its hang "
+                        "watchdog. Needs --telemetry and --parallel on the "
+                        "streaming --kernel xla path; no device sync, "
+                        "bitwise the unjournaled run")
+    t.add_argument("--profile_dispatch", type=int, nargs="?", const=16,
+                   default=0, metavar="K",
+                   help="split the per-step host boundary into "
+                        "python_prestep / dispatch / device_idle / "
+                        "sync_wait (telemetry/dispatch.py) as dispatch.* "
+                        "histograms, flight samples and per-epoch trace "
+                        "points. K is the device-idle sampling period: "
+                        "the probe drains the card on 1-in-K steps "
+                        "(default 16). Needs --telemetry; refused with "
+                        "--fused")
+    t.add_argument("--health", choices=("off", "warn", "checkpoint-and-warn",
+                                        "abort"), default="off",
+                   help="live training-health watchdog "
+                        "(telemetry/health.py) over the values the loop "
+                        "already fetches (no extra per-step host sync): "
+                        "loss spikes, NaN/Inf, grad-norm explosion, "
+                        "update-ratio drift, throughput collapse, "
+                        "straggler drift. The choice is the fatal-signal "
+                        "policy: warn, checkpoint-and-warn (also save the "
+                        "last good state under <--checkpoint>.steps/) or "
+                        "abort (dump the flight ring and stop). Off by "
+                        "default")
+    t.add_argument("--metrics_port", type=int, default=None, metavar="PORT",
+                   help="serve GET /metrics (the registry in Prometheus "
+                        "text format) and GET /healthz (the health verdict, "
+                        "503 after a fatal event) from a stdlib HTTP thread "
+                        "on 127.0.0.1:PORT (rank 0; 0 = ephemeral, the "
+                        "bound address prints to stderr)")
+    t.add_argument("--profile", type=str, default=None, metavar="LOGDIR",
+                   help="record the training run with torch.profiler into "
+                        "LOGDIR as a Chrome trace (trace.<pid>.json)")
     t.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                    help="bfloat16: bf16 operands of the products with f32 "
                         "master weights in the kernels (and the whole "
@@ -281,6 +325,7 @@ def configure(argv=None, *, cli=None) -> Dict[str, Dict[str, Any]]:
             f"{a.batch_size} — use --kernel pallas instead")
     if a.fused and not a.cached:
         raise SystemExit("--fused fuses the epoch scan; add --cached")
+    check_telemetry_knobs(a)
     if a.impl == "rbg" and not a.cached:
         raise SystemExit(
             "--impl rbg selects the epoch kernel's Philox stream (--cached "
@@ -347,12 +392,51 @@ def configure(argv=None, *, cli=None) -> Dict[str, Dict[str, Any]]:
             "start_epoch": a.start_epoch,
             "ckpt_every_steps": a.ckpt_every_steps,
             "ckpt_keep": a.ckpt_keep, "fault": a.fault,
-            "outage_retries": a.outage_retries,
+            "outage_retries": a.outage_retries, "telemetry": a.telemetry,
+            "journal": a.journal, "profile_dispatch": a.profile_dispatch,
+            "health": a.health, "metrics_port": a.metrics_port,
+            "profile": a.profile,
         },
         "data": {"path": a.path, "limit": a.limit, "netcdf": a.netcdf,
                  "download": a.download, "hdf5": a.hdf5,
                  "label_map": a.label_map},
     }
+
+
+def check_telemetry_knobs(a) -> None:
+    """The JAX CLI's refusals of `--journal` and `--profile_dispatch`
+    (`pytorch_ddp_mnist_tpu/cli/train.py:321-352`), word for word: a
+    configuration that would record nothing exits by name. `--journal`
+    under `--kernel auto` that resolves to the fused step is refused after
+    the kernel is resolved (cli/train.py)."""
+    if a.journal:
+        if not a.telemetry:
+            raise SystemExit("--journal writes journal*.jsonl beside the "
+                             "JSONL trace; add --telemetry DIR")
+        if not a.parallel:
+            raise SystemExit("--journal records the DDP step's collectives "
+                             "over the 'dp' mesh; a serial run issues none "
+                             "— add --parallel")
+        if a.cached:
+            raise SystemExit("--journal needs the streaming path: --cached "
+                             "runs steps inside a jitted scan, so the host "
+                             "observes only chunk boundaries and the "
+                             "per-collective journal cannot stamp them — "
+                             "drop --cached (and --fused)")
+        if a.kernel in ("pallas", "pallas_rng", "pallas_epoch"):
+            raise SystemExit(f"--journal needs the XLA step program (it "
+                             f"declares its collective schedule); --kernel "
+                             f"{a.kernel} owns its own comms")
+    if a.profile_dispatch:
+        if not a.telemetry:
+            raise SystemExit("--profile_dispatch flushes dispatch_phase/"
+                             "dispatch_window points into the JSONL trace; "
+                             "add --telemetry DIR")
+        if a.fused:
+            raise SystemExit("--profile_dispatch decomposes the per-step/"
+                             "per-chunk host boundary; --fused runs all "
+                             "epochs as ONE device program with no such "
+                             "boundary — drop --fused")
 
 
 def check_comm_and_input_knobs(a) -> None:
@@ -430,8 +514,9 @@ def check_comm_and_input_knobs(a) -> None:
 
 
 def check_resume_knobs(a, cli: bool) -> None:
-    """The JAX CLI's refusals of the checkpoint, resume and outage flags
-    (`pytorch_ddp_mnist_tpu/cli/train.py:436-489`), by name: a range or a
+    """The JAX CLI's refusals of the checkpoint, resume, outage, health
+    and metrics flags (`pytorch_ddp_mnist_tpu/cli/train.py:436-489`), by
+    name: a range or a
     combination some path would ignore exits at parse time. `cli` is
     whether the trainer runs from the command line (a re-exec replaces
     the process, which only the command line may do)."""
@@ -445,6 +530,19 @@ def check_resume_knobs(a, cli: bool) -> None:
         raise SystemExit("--ckpt_every_steps must be >= 0")
     if a.ckpt_keep < 1:
         raise SystemExit("--ckpt_keep must be >= 1")
+    if a.metrics_port is not None and a.metrics_port < 0:
+        raise SystemExit("--metrics_port must be >= 0 (0 = ephemeral)")
+    if a.health != "off":
+        if a.fused:
+            raise SystemExit(
+                "--health observes at the chunk/epoch boundaries the host "
+                "controls; --fused runs all epochs as ONE device program "
+                "with no live host — use plain --cached")
+        if a.health == "checkpoint-and-warn" and not a.checkpoint:
+            raise SystemExit(
+                "--health checkpoint-and-warn saves the last known-good "
+                "state under <--checkpoint>.steps/; pass a non-empty "
+                "--checkpoint to derive the directory from")
     if a.ckpt_every_steps:
         if a.fused:
             raise SystemExit(

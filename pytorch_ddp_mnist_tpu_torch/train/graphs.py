@@ -58,12 +58,15 @@ reduction keeps its fixed order (the body is the eager step's ops, in its
 order), and no atomics are added.
 
 `counts["captures"]` counts this process's captures; chip_smoke.py reads
-it (one a run).
+it (one a run). Each capture, warm-up included, is also reported to
+telemetry/runtime.py `note_capture`, the `xla.compiles` counter and
+`xla.compile_s` histogram of a `--telemetry` run.
 """
 
 from __future__ import annotations
 
 import copy
+import time
 import warnings
 from typing import Callable
 
@@ -72,6 +75,7 @@ import torch
 
 from ..ops import fused_step
 from ..parallel.mesh import WorldMesh
+from ..telemetry.runtime import note_capture
 
 # steps the body runs on clones before its capture
 WARMUP_STEPS = 2
@@ -200,6 +204,7 @@ class StepLoop:
         return self._losses[c0:c1].clone()
 
     def _capture(self) -> None:
+        t0 = time.perf_counter()
         saved = [dict(c) for c in _COUNTERS]
         current = torch.cuda.current_stream(self.device)
         # warm-up on clones: it trains nothing and leaves the cursor and
@@ -241,6 +246,7 @@ class StepLoop:
         _restore(saved)
         self.graph = graph
         counts["captures"] += 1
+        note_capture(time.perf_counter() - t0)
 
 
 def on_one_device(mesh, device) -> bool:

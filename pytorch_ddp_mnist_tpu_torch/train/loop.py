@@ -71,8 +71,22 @@ state)` fires every `ckpt_every_steps` steps of an epoch and at its end
 (`step_ckpt_positions`), with the key after that step; each step is the
 `step` fault point (utils/faultpoints.py, `kill`), fired after the hook,
 and each reported loss the `loss` poison point. `epoch_hook(epoch,
-state)` fires after each epoch's line. Telemetry, the collective journal
-and the health watchdog are not ported yet (ROADMAP.md queue 1, item 12).
+state)` fires after each epoch's line.
+
+In-run telemetry (the JAX `fit`'s): each epoch is an `epoch` span of the
+process's tracer (telemetry/events.py; a no-op until `--telemetry`) with
+`data_wait`, `step_compute` and `eval` children timed by the loop's own
+timers, and a `mem_watermark` point. `watchdog` (telemetry/health.py)
+observes once an epoch over the fetched losses; the plain autograd step
+built for it (`make_train_step(health=True)`) also writes the health
+auxiliary vector of each step into a static (S, 3) buffer beside the
+loss buffer (inside the graph on a card), fetched with the losses in the
+epoch's one fetch. `journal` (telemetry/cluster.py) records each step's
+collectives from the DP step's schedule and brackets the epoch's fetch as
+a `flush`; `dispatch_profiler` (telemetry/dispatch.py) times the step
+boundary, `dispatch` being the step's launches or `graph.replay()`. None
+of them adds a host sync, except the profiler's sampled drain, one every
+K steps and never inside a capture.
 """
 
 from __future__ import annotations
@@ -93,7 +107,11 @@ from ..ops.threefry import keep_from_words
 from ..parallel.torch_rng import MaskStream
 from ..pipeline import host_iter, prefetch
 from ..pipeline.prefetch import SlotRing
+from ..telemetry.dispatch import NullProfiler
+from ..telemetry.events import get_tracer
+from ..telemetry.runtime import record_memory_point
 from ..utils import faultpoints
+from ..utils.profiling import CumulativeTimer
 from . import graphs
 
 
@@ -139,7 +157,8 @@ def xla_loss_and_grads(params, x, y, keep=None, *, dropout_mask=None,
     return loss.detach(), grads
 
 
-def make_train_step(lr: float, apply=mlp_apply) -> KeyedStep:
+def make_train_step(lr: float, apply=mlp_apply, *,
+                    health: bool = False) -> KeyedStep:
     """The plain autograd step (`--kernel xla`) as a KeyedStep:
     step(model, key, x, y) -> (key', mean loss as a 0-d device tensor). As
     the JAX package's `make_train_step`: `key, sub = split(key)` (the key
@@ -149,17 +168,28 @@ def make_train_step(lr: float, apply=mlp_apply) -> KeyedStep:
     key). It trains in f32, as the JAX trainer's streaming `xla` path does
     whatever `--dtype` says. `apply` is a zoo model's forward
     (models/zoo.py); its keep draw has the model's hidden width
-    (`keyed_keep`)."""
+    (`keyed_keep`).
+
+    `health=True` (the JAX step's) makes `run` return (loss, aux), aux the
+    watchdog's 3-vector `telemetry.health.device_health_aux(loss, grads,
+    params after SGD)`, computed on the device from what the step holds;
+    the step carries `health_aux = True`. The loss and the update are the
+    plain step's, bit for bit."""
     from ..models.zoo import hidden_width
+    from ..telemetry.health import device_health_aux
 
     def run(model, words, x, y):
         params = model.params()
         keep = keyed_keep(words, x.shape[0], hidden_width(params), x.device)
         loss, grads = xla_loss_and_grads(params, x, y, keep, apply=apply)
         sgd_step(params, grads, lr)
+        if health:
+            return loss, device_health_aux(loss, grads, params)
         return loss
 
-    return KeyedStep(run)
+    step = KeyedStep(run)
+    step.health_aux = health
+    return step
 
 
 class MaskedStep:
@@ -368,8 +398,10 @@ def _captured_steps(step, model: MLP, nsteps: int, batch: int, device,
     depth + 1) and the epoch's key table, or, for a MaskedStep, `ring`
     mask slots (ring, B, 128) f32 filled with the batch. A step with comm
     state (parallel/ddp.py) has its residual restored after the capture's
-    warm-up. `eager` runs the step without a graph on a card. Returns (the
-    loop, its slots, its key table's StaticInput or None)."""
+    warm-up. A step with `health_aux` writes its aux vector into row s of
+    the loop's `aux` buffer (S, 3) f32 (None otherwise). `eager` runs the
+    step without a graph on a card. Returns (the loop, its slots, its key
+    table's StaticInput or None)."""
     x_slots = torch.zeros((ring, batch, MLP_DIMS[0]), dtype=torch.float32,
                           device=device)
     y_slots = torch.zeros((ring, batch), dtype=torch.int32, device=device)
@@ -391,12 +423,18 @@ def _captured_steps(step, model: MLP, nsteps: int, batch: int, device,
         def inputs(at, slot):
             return table.index_select(0, at)[0]
 
+    aux = (torch.zeros((nsteps, 3), dtype=torch.float32, device=device)
+           if getattr(step, "health_aux", False) else None)
+
     def body(model, cursor, losses):
         at = cursor.view(1)
         slot = torch.remainder(at, ring)
         loss = step.run(model, inputs(at, slot),
                         x_slots.index_select(0, slot)[0],
                         y_slots.index_select(0, slot)[0])
+        if aux is not None:
+            loss, row = loss
+            aux.index_copy_(0, at, row.reshape(1, 3))
         losses.index_copy_(0, at, loss.reshape(1))
         cursor.add_(1)
 
@@ -405,6 +443,7 @@ def _captured_steps(step, model: MLP, nsteps: int, batch: int, device,
                            capture=device.type == "cuda" and not eager,
                            what="the streaming step",
                            preserve=comm.state_tensors() if comm else ())
+    loop.aux = aux
     return loop, slots, keys
 
 
@@ -415,8 +454,8 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
         prefetch_depth: int = 1, model_apply: Callable | None = None,
         registry=None, start_epoch: int = 0, start_offset: int = 0,
         ckpt_every_steps: int = 0, step_hook: Callable | None = None,
-        epoch_hook: Callable | None = None,
-        log: Callable[[str], None] = print):
+        epoch_hook: Callable | None = None, watchdog=None, journal=None,
+        dispatch_profiler=None, log: Callable[[str], None] = print):
     """Run the reference training loop for epochs [start_epoch, epochs) on
     the model's device. Exactly one of `lr` (builds the plain autograd
     step) or `train_step` (e.g. ops.fused_step.make_fused_train_step) is
@@ -436,7 +475,16 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
     checkpoint it (see the module docstring): with the state saved after
     `start_offset` steps of epoch `start_epoch`, the run from there is the
     unbroken run's, bit for bit; the resumed epoch's line covers its
-    remaining steps."""
+    remaining steps.
+
+    `watchdog` (telemetry.health.Watchdog) observes once an epoch, after
+    its line, over the fetched losses, the epoch's wall time and, on the
+    `lr` path (whose step this loop then builds with `health=True`), the
+    steps' aux vectors; it may raise TrainingHealthError (`--health
+    abort`). `journal` (telemetry.cluster.CollectiveJournal) needs a step
+    that declares its `collective_schedule` (the DP step does; any other
+    is refused by name). `dispatch_profiler` (telemetry.dispatch) defaults
+    to the no-op NullProfiler."""
     if (train_step is None) == (lr is None):
         raise ValueError("pass exactly one of lr= or train_step=")
     if input_workers < 0:
@@ -448,7 +496,9 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
     if start_offset < 0:
         raise ValueError(f"start_offset={start_offset} must be >= 0")
     step = (train_step if train_step is not None else
-            make_train_step(lr, model_apply or mlp_apply))
+            make_train_step(lr, model_apply or mlp_apply,
+                            health=watchdog is not None))
+    step_health = bool(getattr(step, "health_aux", False))
     model, key = state.model, state.key
     device = next(model.parameters()).device
     comm, record = getattr(step, "comm", None), None
@@ -456,6 +506,23 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
         from ..parallel.ddp import make_ddp_comm_recorder
         comm.place_state(model.params(), state.resid)
         record = make_ddp_comm_recorder(step.ddp_mesh, comm, model.params())
+    if journal is not None:
+        schedule = getattr(step, "collective_schedule", None)
+        if schedule is None:
+            raise ValueError(
+                "journal= needs a train step that declares its collective "
+                "schedule (parallel.ddp.make_dp_train_step does); this "
+                "step carries none — the journal cannot attribute "
+                "collectives it cannot enumerate")
+        journal.bind_program(getattr(step, "ddp_comm", "?"),
+                             bool(getattr(step, "ddp_overlap", False)),
+                             schedule(model.params()))
+    tracer = get_tracer()     # a NullTracer unless --telemetry enabled it
+    prof = (dispatch_profiler if dispatch_profiler is not None
+            else NullProfiler())
+    # the tensors every step writes in place: the profiler's sampled drain
+    # waits for their devices
+    live = model.params()
     keyed = isinstance(step, KeyedStep)
     masked = isinstance(step, MaskedStep)
     nsteps = len(train_loader)
@@ -477,75 +544,124 @@ def fit(state: TrainState, train_loader, x_test: np.ndarray,
     history: List[np.ndarray] = []
     hooked = step_hook is not None and ckpt_every_steps
     for epoch in range(start_epoch, epochs):
-        t0 = time.perf_counter()
-        io_seconds = 0.0
-        offset = start_offset if epoch == start_epoch else 0
-        train_loader.sampler.set_epoch(epoch)
-        batches = host_iter(train_loader, workers=input_workers,
-                            start=offset, registry=registry)
-        if masked:   # each batch with its mask, drawn in step order
-            batches = step.with_masks(batches)
-        chain = None
-        if keyed and hooked:    # the key after each step, for the saves
-            chain = key_chain(key, nsteps - offset)
-        if keyed and captured:   # rows offset.. of the epoch's table
-            epoch_key, words = step.key_words(key, nsteps, start=offset)
-            keys.load(words)
-        elif keyed:   # the epoch's step keys on the device, one copy
-            epoch_key, table = step.key_table(key, nsteps, device,
-                                              start=offset)
-        if captured:
-            loop.start_epoch(offset)
-            batches = ring.feed(batches, prefetch_depth, start=offset)
-        else:
-            batches = prefetch(batches, depth=prefetch_depth, device=device)
-        losses, i = [], offset
-        while True:
-            t_io = time.perf_counter()
-            batch = next(batches, None)
-            if batch is not None and not captured:
-                x, y = batch
-            io_seconds += time.perf_counter() - t_io
-            if batch is None:
-                break
-            if i == nsteps:
-                raise RuntimeError(f"the loader gave more than the {nsteps} "
-                                   f"batches its len() said")
+        with tracer.span("epoch", epoch=epoch):
+            t0 = time.perf_counter()
+            io_timer = CumulativeTimer("loader-wait")
+            step_timer = CumulativeTimer("step-dispatch")
+            offset = start_offset if epoch == start_epoch else 0
+            train_loader.sampler.set_epoch(epoch)
+            batches = host_iter(train_loader, workers=input_workers,
+                                start=offset, registry=registry)
+            if masked:   # each batch with its mask, drawn in step order
+                batches = step.with_masks(batches)
+            chain = None
+            if keyed and hooked:    # the key after each step, for the saves
+                chain = key_chain(key, nsteps - offset)
+            if keyed and captured:   # rows offset.. of the epoch's table
+                epoch_key, words = step.key_words(key, nsteps, start=offset)
+                keys.load(words)
+            elif keyed:   # the epoch's step keys on the device, one copy
+                epoch_key, table = step.key_table(key, nsteps, device,
+                                                  start=offset)
             if captured:
-                loop.step()
-            elif keyed:
-                losses.append(step.run(model, table[i], x, y))
+                loop.start_epoch(offset)
+                batches = ring.feed(batches, prefetch_depth, start=offset)
             else:
-                key, loss = step(model, key, x, y)
-                losses.append(loss)
-            if hooked:
-                _fire_step_hook(step_hook, ckpt_every_steps, nsteps, epoch,
-                                i, TrainState(
-                                    model,
-                                    chain[i - offset] if chain else key,
-                                    comm.resid if comm else None))
-            # after the hook: a kill at step K never races step K's save
-            faultpoints.fire("step", step=epoch * nsteps + i + 1, epoch=epoch)
-            i += 1
-        if i != nsteps:
-            raise RuntimeError(f"the loader gave {i - offset} batches from "
-                               f"batch {offset} where its len() said "
-                               f"{nsteps}")
-        if keyed:
-            key = epoch_key
-        # the epoch's one fetch
-        losses = (loop.losses()[offset:] if captured
-                  else torch.stack(losses)).cpu().numpy()
-        losses = poison_losses(losses, epoch * nsteps + offset + 1, epoch)
-        if record is not None:
-            record(losses.size, model.params())
-        val = evaluate(model, x_test_dev, y_test_dev, batch_size,
-                       perm=eval_perm(epoch) if eval_perm else None)
-        dt = time.perf_counter() - t0
-        log(epoch_summary(epoch, losses, batch_size, val, dt,
-                          io_seconds=io_seconds))
-        history.append(losses)
-        if epoch_hook is not None:
-            epoch_hook(epoch, TrainState(model, key,
-                                         comm.resid if comm else None))
+                batches = prefetch(batches, depth=prefetch_depth,
+                                   device=device)
+            losses, aux, i = [], [], offset
+            while True:
+                with io_timer:   # host time blocked on the input pipeline
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                if not captured:
+                    x, y = batch
+                if i == nsteps:
+                    raise RuntimeError(f"the loader gave more than the "
+                                       f"{nsteps} batches its len() said")
+                # python_prestep opens here: the batch is in hand
+                prof.mark_prestep()
+                jt0, jt0w = ((time.perf_counter(), time.time())
+                             if journal is not None else (0.0, 0.0))
+                prof.begin_dispatch(live)
+                with step_timer:
+                    if captured:
+                        loop.step()
+                    elif keyed:
+                        loss = step.run(model, table[i], x, y)
+                        if step_health:
+                            loss, row = loss
+                            aux.append(row)
+                        losses.append(loss)
+                    else:
+                        key, loss = step(model, key, x, y)
+                        losses.append(loss)
+                prof.end_dispatch(epoch * nsteps + i)
+                if journal is not None:
+                    journal.record_step(epoch * nsteps + i, jt0,
+                                        time.perf_counter(), jt0w)
+                if hooked:
+                    _fire_step_hook(step_hook, ckpt_every_steps, nsteps,
+                                    epoch, i, TrainState(
+                                        model,
+                                        chain[i - offset] if chain else key,
+                                        comm.resid if comm else None))
+                # after the hook: a kill at step K never races step K's save
+                faultpoints.fire("step", step=epoch * nsteps + i + 1,
+                                 epoch=epoch)
+                i += 1
+            if i != nsteps:
+                raise RuntimeError(f"the loader gave {i - offset} batches "
+                                   f"from batch {offset} where its len() "
+                                   f"said {nsteps}")
+            if keyed:
+                key = epoch_key
+            # the epoch's one fetch, the aux rows riding in it; the journal
+            # brackets it: it waits for every step's collectives
+            t_fetch = time.perf_counter()
+            fseq = (journal.enter("flush", axis="dp", steps=i - offset)
+                    if journal is not None else -1)
+            if captured:
+                dev = loop.losses()[offset:]
+                aux = loop.aux[offset:] if loop.aux is not None else None
+            else:
+                dev = torch.stack(losses)
+                aux = torch.stack(aux) if aux else None
+            if aux is not None:
+                both = torch.cat([dev.reshape(-1, 1), aux], 1).cpu().numpy()
+                losses, aux = both[:, 0].copy(), both[:, 1:]
+            else:
+                losses = dev.cpu().numpy()
+            if journal is not None:
+                journal.exit(fseq)
+            fetch_s = time.perf_counter() - t_fetch
+            prof.note_sync_wait(fetch_s)
+            losses = poison_losses(losses, epoch * nsteps + offset + 1,
+                                   epoch)
+            tracer.complete_span("data_wait", io_timer.total,
+                                 batches=step_timer.count)
+            tracer.complete_span("step_compute", step_timer.total + fetch_s,
+                                 steps=step_timer.count, fetch_s=fetch_s)
+            prof.flush_epoch(epoch, steps=step_timer.count,
+                             step_total_s=step_timer.total)
+            if record is not None:
+                record(losses.size, model.params())
+            t_eval = time.perf_counter()
+            val = evaluate(model, x_test_dev, y_test_dev, batch_size,
+                           perm=eval_perm(epoch) if eval_perm else None)
+            tracer.complete_span("eval", time.perf_counter() - t_eval)
+            record_memory_point(tracer)
+            dt = time.perf_counter() - t0
+            log(epoch_summary(epoch, losses, batch_size, val, dt,
+                              io_seconds=io_timer.total))
+            history.append(losses)
+            now = TrainState(model, key, comm.resid if comm else None)
+            if watchdog is not None:
+                watchdog.observe(losses, aux=aux, state=now, epoch=epoch,
+                                 step=(epoch + 1) * nsteps,
+                                 ckpt_epoch=epoch + 1, ckpt_offset=0,
+                                 dt_s=dt, imgs=losses.size * batch_size)
+            if epoch_hook is not None:
+                epoch_hook(epoch, now)
     return TrainState(model, key, comm.resid if comm else None), history

@@ -780,17 +780,32 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
     `eval_perm(epoch)`, when given, is the order of the epoch's val-loss
     segmentation (`--eval_shuffle`), on every path.
 
-    The JAX trainer's live watchdog and dispatch profiler are not ported
-    yet and are refused by name."""
+    Telemetry (the JAX `fit_cached`'s): each epoch is an `epoch` span with
+    `step_compute` and `eval` children and a `mem_watermark` point, and a
+    fused run one `fused_run` span. `watchdog` (telemetry.health.Watchdog)
+    observes once a chunk (once an epoch with no step checkpoints, and on
+    `pallas_epoch`) over the chunk's fetched losses, with the positions a
+    step checkpoint after it would record; `dispatch_profiler` times the
+    chunk boundary, `dispatch` being the chunk's replays or its epoch
+    function, `sync_wait` the chunk's fetch. `fused=True` refuses both by
+    name, as JAX does."""
     from ..models.zoo import spec_of
+    from ..telemetry.dispatch import NullProfiler
+    from ..telemetry.events import get_tracer
+    from ..telemetry.runtime import record_memory_point
     from ..utils import faultpoints
-    from .loop import TrainState, _fire_step_hook, key_chain
-    for given, what in ((watchdog is not None, "the live health watchdog"),
-                        (dispatch_profiler is not None,
-                         "the dispatch profiler")):
-        if given:
-            raise ValueError(f"{what} is not ported to the PyTorch package "
-                             f"yet; see ROADMAP.md queue 1, item 12")
+    from .loop import (TrainState, _fire_step_hook, key_chain,
+                       step_ckpt_positions)
+    if fused and watchdog is not None:
+        raise ValueError(
+            "live health monitoring (watchdog) observes at chunk/epoch "
+            "boundaries the host controls; fused=True runs all epochs as "
+            "ONE device program with no live host — use plain cached mode")
+    if fused and getattr(dispatch_profiler, "armed", False):
+        raise ValueError(
+            "dispatch profiling decomposes the per-step/per-chunk host "
+            "boundary; fused=True runs all epochs as ONE device program "
+            "with no such boundary — use plain cached or streaming mode")
     if not 0 <= start_epoch <= epochs:
         raise ValueError(f"start_epoch={start_epoch} outside [0, {epochs}]")
     if start_offset < 0:
@@ -846,6 +861,7 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
     history: List[np.ndarray] = []
     fit_cached.comm = None
     run_epochs = range(start_epoch, epochs)
+    tracer = get_tracer()     # a NullTracer unless --telemetry enabled it
 
     if fused:
         if not run_epochs:
@@ -866,6 +882,8 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
         fit_cached.comm = getattr(run, "comm", None)
         losses = losses.cpu().numpy()      # the run's one fetch
         per_epoch_dt = (time.perf_counter() - t0) / len(run_epochs)
+        tracer.complete_span("fused_run", time.perf_counter() - t0,
+                             epochs=len(run_epochs), steps=int(losses.size))
         per_sample, correct = _snapshot_eval(p_snaps, apply, x_test_dev,
                                              y_test_dev)
         for i, epoch in enumerate(run_epochs):
@@ -920,6 +938,8 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
         return comm_now.resid if comm_now is not None else resid
 
     hooked = step_hook is not None and ckpt_every_steps
+    prof = (dispatch_profiler if dispatch_profiler is not None
+            else NullProfiler())
     # the epochs' index arrays, `prefetch_depth` ahead: made on the host
     # for the captured step (its static buffer takes them when the epoch
     # starts), copied to the device for the other paths
@@ -927,47 +947,74 @@ def fit_cached(model: MLP, key, x_train, y_train, sampler, x_test, y_test, *,
                       put=(lambda idx: idx) if captured else
                       (lambda idx: _to_device(idx, device)))
     for epoch, idx in zip(run_epochs, placed):
-        t0 = time.perf_counter()
-        offset = start_offset if epoch == start_epoch else 0
-        if steps is not None:
-            chain = key_chain(key, nsteps - offset) if hooked else None
-            epoch_key = steps.load(key, idx, offset)
-        parts = []
-        for c0, c1 in _chunks(offset, nsteps, ckpt_every_steps):
+        with tracer.span("epoch", epoch=epoch):
+            t0 = time.perf_counter()
+            offset = start_offset if epoch == start_epoch else 0
             if steps is not None:
-                part = steps.run(c0, c1)
-                key = chain[c1 - offset - 1] if chain else epoch_key
-            elif mesh is None:
-                params, key, part = epoch_fn(params, key, x_all, y_all,
-                                             idx[c0:c1])
-            else:
-                params, key, part = epoch_fn(params, key, x_all, y_all,
-                                             idx[c0:c1], current_resid())
-                fit_cached.comm = epoch_fn.comm
-            part = part.cpu().numpy()      # the chunk's one fetch
-            parts.append(faultpoints.poison_array(
-                "loss", part, first_step=epoch * nsteps + c0 + 1,
-                epoch=epoch))
-            if hooked:
-                _load_params(model, params)
-                _fire_step_hook(step_hook, ckpt_every_steps, nsteps, epoch,
-                                c1 - 1, TrainState(model, key,
-                                                   current_resid()))
-            # after the hook: a kill at step K never races step K's save
-            faultpoints.fire("step", step=epoch * nsteps + c1, epoch=epoch)
-        if steps is not None:
-            key = epoch_key
-        losses = np.concatenate(parts)
-        if record is not None:
-            record(losses.size, params)
-        _load_params(model, params)
-        val = evaluate(model, x_test_dev, y_test_dev, batch_size,
-                       perm=eval_perm(epoch) if eval_perm else None)
-        log(epoch_summary(epoch, losses, batch_size, val,
-                          time.perf_counter() - t0))
-        history.append(losses)
-        if epoch_hook is not None:
-            epoch_hook(epoch, TrainState(model, key, current_resid()))
+                chain = (key_chain(key, nsteps - offset)
+                         if hooked or watchdog is not None else None)
+                epoch_key = steps.load(key, idx, offset)
+            parts = []
+            for c0, c1 in _chunks(offset, nsteps, ckpt_every_steps):
+                # the chunk boundary is this trainer's step boundary
+                prof.mark_prestep()
+                t_chunk = time.perf_counter()
+                prof.begin_dispatch(params)
+                if steps is not None:
+                    part = steps.run(c0, c1)
+                    key = chain[c1 - offset - 1] if chain else epoch_key
+                elif mesh is None:
+                    params, key, part = epoch_fn(params, key, x_all, y_all,
+                                                 idx[c0:c1])
+                else:
+                    params, key, part = epoch_fn(params, key, x_all, y_all,
+                                                 idx[c0:c1], current_resid())
+                    fit_cached.comm = epoch_fn.comm
+                prof.end_dispatch(epoch * nsteps + c0)
+                t_sync = time.perf_counter()
+                part = part.cpu().numpy()      # the chunk's one fetch
+                prof.note_sync_wait(time.perf_counter() - t_sync)
+                part = faultpoints.poison_array(
+                    "loss", part, first_step=epoch * nsteps + c0 + 1,
+                    epoch=epoch)
+                parts.append(part)
+                if hooked or watchdog is not None:
+                    _load_params(model, params)
+                if hooked:
+                    _fire_step_hook(step_hook, ckpt_every_steps, nsteps,
+                                    epoch, c1 - 1,
+                                    TrainState(model, key, current_resid()))
+                # after the hook: a kill at step K never races step K's save
+                faultpoints.fire("step", step=epoch * nsteps + c1,
+                                 epoch=epoch)
+                if watchdog is not None:
+                    ck_ep, ck_off = step_ckpt_positions(nsteps, epoch,
+                                                        c1 - 1)
+                    watchdog.observe(
+                        part, state=TrainState(model, key, current_resid()),
+                        epoch=epoch, step=epoch * nsteps + c1,
+                        ckpt_epoch=ck_ep, ckpt_offset=ck_off,
+                        dt_s=time.perf_counter() - t_chunk,
+                        imgs=part.size * batch_size)
+            if steps is not None:
+                key = epoch_key
+            losses = np.concatenate(parts)
+            tracer.complete_span("step_compute", time.perf_counter() - t0,
+                                 steps=int(losses.size))
+            prof.flush_epoch(epoch, steps=len(parts))
+            if record is not None:
+                record(losses.size, params)
+            _load_params(model, params)
+            t_eval = time.perf_counter()
+            val = evaluate(model, x_test_dev, y_test_dev, batch_size,
+                           perm=eval_perm(epoch) if eval_perm else None)
+            tracer.complete_span("eval", time.perf_counter() - t_eval)
+            record_memory_point(tracer)
+            log(epoch_summary(epoch, losses, batch_size, val,
+                              time.perf_counter() - t0))
+            history.append(losses)
+            if epoch_hook is not None:
+                epoch_hook(epoch, TrainState(model, key, current_resid()))
     return key, history
 
 

@@ -454,7 +454,11 @@ def test_the_record_contract_is_the_jax_packages():
 
 # ---- the front doors ----
 
-def test_serve_replicas_2_selftest_runs_the_fleet(capsys):
+def test_serve_replicas_2_selftest_runs_the_fleet(capsys, monkeypatch):
+    # the selftest's snapshot reads the process's registry: a fresh one,
+    # so an earlier selftest in this process does not add its requests
+    from pytorch_ddp_mnist_tpu_torch.telemetry import registry
+    monkeypatch.setattr(registry, "_GLOBAL", registry.MetricsRegistry())
     assert serve_cli.main(["--device", "cpu", "--replicas", "2",
                            "--selftest", "60", "--max_batch", "8",
                            "--offered_rps", "3000"]) == 0

@@ -183,3 +183,45 @@ print(sorted(m for m in sys.modules
     for name in ("serve_chaos.py", "telemetry/analysis.py"):
         text = (PORT / name).read_text()
         assert "spec_from_file_location" not in text, name
+
+
+# the trainer's in-run telemetry: each module on its own, in a fresh
+# interpreter, loads neither jax nor the JAX package, and the copies of
+# the JAX package's stdlib/numpy telemetry modules import torch only
+# inside their functions (the JAX modules' import-time contract)
+TELEMETRY_MODULES = (
+    "pytorch_ddp_mnist_tpu_torch.telemetry.runtime",
+    "pytorch_ddp_mnist_tpu_torch.telemetry.health",
+    "pytorch_ddp_mnist_tpu_torch.telemetry.prom",
+    "pytorch_ddp_mnist_tpu_torch.telemetry.dispatch",
+    "pytorch_ddp_mnist_tpu_torch.telemetry.cluster",
+    "pytorch_ddp_mnist_tpu_torch.utils.profiling",
+)
+
+
+def test_the_telemetry_modules_stand_alone(tmp_path):
+    code = f"""
+import importlib, sys
+sys.path.insert(0, {str(REPO)!r})
+for name in {TELEMETRY_MODULES!r}:
+    importlib.import_module(name)
+print(sorted(m for m in sys.modules
+             if any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r})))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    for name in TELEMETRY_MODULES:
+        rel = name.replace(".", "/") + ".py"
+        assert rel in names
+        tree = ast.parse((REPO / rel).read_text(), rel)
+        top = [a.name for n in tree.body if isinstance(n, ast.Import)
+               for a in n.names]
+        top += [n.module or "" for n in tree.body
+                if isinstance(n, ast.ImportFrom) and n.level == 0]
+        assert not any(m == "torch" or m.startswith("torch.")
+                       for m in top), (name, top)
+        assert "spec_from_file_location" not in (REPO / rel).read_text()

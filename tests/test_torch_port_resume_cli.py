@@ -94,6 +94,9 @@ def test_a_two_rank_world_killed_at_a_seeded_step_resumes_bitwise(tmp_path,
                           timeout=LIMIT_S, extra=("--path", mnist))
     assert leg["kill"] == "kill:rank=1:step=5"      # the seed's draw
     assert leg["parity"] == "bitwise" and leg["committed_at_kill"]
+    # the resume ran with --telemetry and its trace passed the JAX checker
+    assert leg["telemetry_gate"] == \
+        "check_telemetry.py --require checkpoint.: ok"
 
 
 @pytest.mark.parametrize("mode", [[], ["--cached", "--kernel",

@@ -30,6 +30,7 @@ from pytorch_ddp_mnist_tpu_torch.data.mnist import normalize_images, synthetic_m
 from pytorch_ddp_mnist_tpu_torch.models.mlp import from_jax_params, to_numpy_params
 from pytorch_ddp_mnist_tpu_torch.ops import epoch_step, fused_step, threefry
 from pytorch_ddp_mnist_tpu_torch.parallel.sampler import ShardedSampler
+from pytorch_ddp_mnist_tpu_torch.telemetry.dispatch import DispatchProfiler
 from pytorch_ddp_mnist_tpu_torch.train import loop, scan
 from pytorch_ddp_mnist_tpu_torch.train.config import configure
 
@@ -203,8 +204,9 @@ def test_fit_cached_prints_jax_epoch_lines(kernel, fused):
     ({"ckpt_every_steps": 5, "fused": True}, "fused=True runs all epochs"),
     ({"step_hook": print, "fused": True}, "needs per-chunk host control"),
     ({"start_offset": 3, "kernel": "pallas_epoch"}, "fork the RNG chain"),
-    ({"watchdog": object()}, "not ported.*item 12"),
-    ({"dispatch_profiler": object()}, "not ported.*item 12"),
+    ({"watchdog": object(), "fused": True}, "live health monitoring"),
+    ({"dispatch_profiler": DispatchProfiler(), "fused": True},
+     "dispatch profiling decomposes"),
 ])
 def test_fit_cached_refuses_unported_options_by_name(kw, where):
     split = synthetic_mnist(32, seed=0)

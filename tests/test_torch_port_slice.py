@@ -185,14 +185,8 @@ def test_cli_without_a_card_exits_naming_it(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["--journal"], "--journal"),
-    (["--profile", "/tmp/p"], "--profile"),
-    (["--health"], "--health"),
     (["--elastic"], "--elastic"),
     (["--reshape=2"], "--reshape"),
-    (["--metrics_port", "0"], "--metrics_port"),
-    (["--telemetry", "/tmp/t"], "--telemetry"),
-    (["--profile_dispatch=4"], "--profile_dispatch"),
 ])
 def test_unported_flags_exit_by_name(argv, name):
     with pytest.raises(SystemExit) as e:
@@ -218,7 +212,10 @@ def test_config_defaults_and_checkpoint_format():
                               "prefetch_depth": 1, "resume": None,
                               "start_epoch": 0, "ckpt_every_steps": 0,
                               "ckpt_keep": 3, "fault": None,
-                              "outage_retries": 0}
+                              "outage_retries": 0, "telemetry": None,
+                              "journal": False, "profile_dispatch": 0,
+                              "health": "off", "metrics_port": None,
+                              "profile": None}
     assert cfg["data"] == {"path": "data/", "limit": -1, "netcdf": False,
                            "download": False, "hdf5": False,
                            "label_map": None}
