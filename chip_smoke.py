@@ -274,7 +274,23 @@ Phases (any failure exits non-zero; no phase is skipped):
                   `--health abort`; a 2-rank gloo
                   world with `--journal` bitwise its unjournaled twin, its
                   journals read by cluster_report; check_telemetry.py over
-                  each trace ([telemetry] lines).
+                  each trace ([telemetry] lines);
+               t. the telemetry read side (phase_trace, after the benches,
+                  on what phase_telemetry wrote): `trace report` on the
+                  profiled streaming epoch (step_compute p50, --overhead
+                  coverage >= 0.90, --baseline exit 0 on itself and 3 on a
+                  copy with step_compute doubled), `--cluster` on the
+                  journaled world (and a copy with a rank's last
+                  collective left open: the stuck seq named), `trace
+                  export` (collective tracks, cross-rank arrows); `trace
+                  cost --form both` at 8 replicas x 16 rows (every program
+                  captured bitwise its eager step, peak and capture time
+                  measured, K1-split keyed and mask-entry launches counted)
+                  with the mlp@1 ddp lines as its artifact; the ledger
+                  over this run's own bench, ddp and cost lines (report,
+                  gate 0, a halved run gate 3, a future schema refused,
+                  one export track a series); the bench lines' registry
+                  and ledger stamps ([trace] lines).
   5. timing  — CUDA-event times of each kernel and form and its plain
                version at the main path's shapes, torch.profiler's device
                time of K1 (both designs) and the cached epoch (f32 on K2-ws,
@@ -6178,9 +6194,13 @@ def phase_comm(device, tmp: str, card: str) -> dict:
         print(f"[comm] bench {' '.join(argv)}: {time.perf_counter() - t0:.1f}"
               f" s of wall")
         print(json.dumps({"bench_ddp": " ".join(argv), "rows": rows}))
+        if argv == ["--mode", "ddp"]:
+            with open(os.path.join(tmp, DDP_LINES), "w") as f:
+                f.write("".join(json.dumps(r) + "\n" for r in rows))
     return paths
 
 
+DDP_LINES = "bench_ddp_mlp1.jsonl"   # phase_comm's mlp@1 lines, for phase_trace
 CHAOS_ROWS = 12800          # 100 steps an epoch at B = 128 (cut depth)
 CHAOS_EPOCHS = 2
 CHAOS_EVERY = 10
@@ -6919,6 +6939,309 @@ def phase_telemetry(device, tmp: str, card: str) -> dict:
     return paths
 
 
+# phase_trace: `trace cost` at the JAX defaults, each DP program run
+# captured and eagerly (its bitwise check), STEP and RUN forms
+TRACE_COST_REPLICAS = 8
+TRACE_COST_BATCH = 16
+TRACE_COST_STEPS = 1 + 2    # a step-form program's steps + a run-form's
+TRACE_KEYED = ("pmean", "sharded", "bf16")      # K1-split keyed at B = 16
+TRACE_XLA = 5               # int8, int8+overlap and the three +overlap
+
+
+def _cli(main, argv) -> tuple:
+    """(exit code, stdout, stderr) of a CLI's main(argv) in this process."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = main(argv)
+        except SystemExit as e:
+            rc = e.code
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _expect_rc(got: tuple, want: int, what: str) -> None:
+    if got[0] != want:
+        fail(f"phase_trace: {what} exited {got[0]}, want {want}:\n"
+             f"{got[1][-2000:]}\n{got[2][-2000:]}")
+
+
+def _check_stamps(line: dict, what: str) -> None:
+    """The bench line's registry and ledger stamps, present and typed."""
+    ok = (isinstance(line.get("xla_compiles"), int)
+          and isinstance(line.get("peak_hbm_bytes"), int)
+          and line["peak_hbm_bytes"] > 0
+          and isinstance(line.get("health_summary"), dict)
+          and line.get("schema_version") == 2
+          and isinstance(line.get("run_ord"), int)
+          and "statics" not in line)
+    if not ok:
+        fail(f"phase_trace: {what}: stamps {line}")
+
+
+def phase_trace(tmp: str, card: str, bench_line: dict) -> dict:
+    """The telemetry read side on the card (cli/trace.py, cli/ledger.py,
+    telemetry/costs.py), over what phase_telemetry and phase_comm wrote
+    under `tmp` and the bench train line `bench_line`:
+      a. `trace report` on the profiled streaming epoch: one epoch,
+         step_compute p50 > 0; `--overhead` coverage >= 0.90 and a worst
+         phase; `--baseline` itself exits 0, a copy with its step_compute
+         spans doubled exits 3 naming the phase;
+      b. `trace report --cluster` on the journaled 2-rank world: no
+         desync, 2 ranks, no stuck seq; a copy with rank 1's last
+         collective left open names that seq;
+      c. `trace export` of the world: collective tracks, cross-rank flow
+         arrows;
+      d. `trace cost --form both --telemetry` at 8 replicas x 16 rows,
+         the mlp@1 ddp lines its artifact: every program captured, bitwise
+         its eager step, peak and capture time measured, analytic_flops
+         the JAX formula, the K1-split keyed and mask-entry launches
+         counted; check_telemetry.py over its trace; every strategy's
+         attribution shares sum to 1; `--cost` against itself exits 0;
+      e. the ledger over this run's own lines (BENCH_r01, MULTICHIP_r01,
+         COST_r01): report ingests all, gate 0; a halved MULTICHIP_r02
+         gates 3 naming the series; a future schema_version refused by
+         name; `trace export --ledger` one counter track a series;
+      f. the registry and ledger stamps of the bench lines.
+    Returns the launches of `trace cost`."""
+    import shutil
+    from pytorch_ddp_mnist_tpu_torch.cli import ledger as ledger_cli
+    from pytorch_ddp_mnist_tpu_torch.cli import trace as trace_cli
+    from pytorch_ddp_mnist_tpu_torch.telemetry import analysis, cluster
+    t_start = time.perf_counter()
+    work = os.path.join(tmp, "trace")
+    os.makedirs(work, exist_ok=True)
+    tel = os.path.join(tmp, "telemetry")
+    stream, world = (os.path.join(tel, "tel_stream"),
+                     os.path.join(tel, "tel_world"))
+
+    # a. the phase report and its gates
+    rep = analysis.analyze(analysis.trace_files(stream))
+    p50 = rep["phases"].get("step_compute", {}).get("p50_s", 0.0)
+    if rep["epochs"]["count"] != 1 or not p50 > 0:
+        fail(f"phase_trace: trace report {stream}: epochs "
+             f"{rep['epochs']}, step_compute p50 {p50}")
+    over = analysis.overhead_report(analysis.trace_files(stream))
+    row = over["rows"][0] if over["rows"] else {}
+    if not (row.get("coverage", 0) >= analysis.OVERHEAD_COVERAGE_MIN
+            and row.get("worst_phase")):
+        fail(f"phase_trace: --overhead {stream}: {over}")
+    _expect_rc(_cli(trace_cli.main, ["report", "--overhead", stream]), 0,
+               "trace report --overhead")
+    _expect_rc(_cli(trace_cli.main, ["report", stream, "--baseline",
+                                     stream]), 0, "trace report --baseline "
+                                                  "itself")
+    slow = os.path.join(work, "slow")
+    os.makedirs(slow)
+    for name in os.listdir(stream):
+        if not name.endswith(".jsonl"):
+            continue
+        with open(os.path.join(stream, name)) as f, \
+                open(os.path.join(slow, name), "w") as g:
+            for raw in f:
+                rec = json.loads(raw)
+                if rec.get("kind") == "span" \
+                        and rec.get("name") == "step_compute":
+                    rec["dur_s"] = 2 * rec["dur_s"]
+                g.write(json.dumps(rec) + "\n")
+    got = _cli(trace_cli.main, ["report", slow, "--baseline", stream])
+    _expect_rc(got, 3, "trace report on the doubled step_compute copy")
+    if not any("step_compute" in ln and "REGRESSION" in ln
+               for ln in got[1].splitlines()):
+        fail(f"phase_trace: the doubled copy's gate names no step_compute "
+             f"regression:\n{got[1]}")
+    print(f"[trace] a. trace report {os.path.basename(stream)}: 1 epoch, "
+          f"step_compute p50 {p50 * 1e3:.3f} ms; --overhead coverage "
+          f"{row['coverage']:.4f} (worst {row['worst_phase']}, share "
+          f"{row['worst_share']:.4f}); --baseline itself exit 0, step_compute "
+          f"doubled exit 3 [{card}]")
+
+    # b. the cluster report, and a rank's last collective left open
+    got = _cli(trace_cli.main, ["report", "--cluster", world, "--json"])
+    _expect_rc(got, 0, "trace report --cluster")
+    crep = json.loads(got[1])
+    if not (crep["desync"]["ok"] and crep["n_ranks"] == 2
+            and crep["hang"]["stuck"] is None):
+        fail(f"phase_trace: --cluster {world}: "
+             f"{cluster.format_cluster_report(crep)}")
+    cut = os.path.join(work, "cut")
+    shutil.copytree(world, cut)
+    path = cluster.journal_path(cut, 1)
+    with open(path) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()]
+    last = max(i for i, r in enumerate(recs) if r.get("kind") == "coll")
+    stuck_seq = recs[last]["seq"]
+    recs = recs[:last] + [{**{k: v for k, v in recs[last].items()
+                              if k not in ("kind", "t_exit")},
+                           "kind": "coll_enter"}]
+    with open(path, "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in recs))
+    got = _cli(trace_cli.main, ["report", "--cluster", cut])
+    _expect_rc(got, 0, "trace report --cluster on the cut journal")
+    want = f"HANG: rank 1 entered collective seq {stuck_seq}"
+    if want not in got[1]:
+        fail(f"phase_trace: the cut journal's report does not say "
+             f"{want!r}:\n{got[1]}")
+    print(f"[trace] b. trace report --cluster: {crep['n_ranks']} ranks, "
+          f"{crep['totals']['collectives']} collectives, no desync, no "
+          f"hang; rank 1's journal cut inside its last collective: '{want} "
+          f"...' [{card}]")
+
+    # c. the Chrome export of the world
+    chrome = os.path.join(work, "world.chrome.json")
+    _expect_rc(_cli(trace_cli.main, ["export", world, "-o", chrome]), 0,
+               "trace export")
+    with open(chrome) as f:
+        events = json.load(f)["traceEvents"]
+    coll = [e for e in events if e.get("cat") == "collective"]
+    flows = [e for e in events if e.get("cat") == "collective_flow"]
+    if not coll or {e["pid"] for e in coll} != {0, 1} or not any(
+            e["ph"] == "f" for e in flows):
+        fail(f"phase_trace: trace export {world}: {len(coll)} collective "
+             f"events, {len(flows)} flow events")
+    print(f"[trace] c. trace export: {len(events)} events, {len(coll)} on "
+          f"the 2 ranks' collective tracks, "
+          f"{sum(e['ph'] == 's' for e in flows)} cross-rank arrows [{card}]")
+
+    # d. the program cost harvest on the card
+    with open(os.path.join(tmp, DDP_LINES)) as f:
+        ddp = [json.loads(ln) for ln in f if ln.strip()]
+    for line in [bench_line] + ddp:
+        _check_stamps(line, line["metric"] + " " + line.get("strategy", ""))
+    ledger_dir = os.path.join(work, "ledger")
+    os.makedirs(ledger_dir)
+    multichip = {"n_devices": ddp[0]["n_devices"], "backend": "cuda",
+                 "device_kind": ddp[0]["device"], "model": "mlp",
+                 "param_scale": 1, "strategies": ddp, "schema_version": 2,
+                 "run_ord": 1}
+    mc_path = os.path.join(ledger_dir, "MULTICHIP_r01.json")
+    with open(mc_path, "w") as f:
+        json.dump(multichip, f)
+    with open(os.path.join(ledger_dir, "BENCH_r01.json"), "w") as f:
+        json.dump(bench_line, f)
+    cost_path = os.path.join(ledger_dir, "COST_r01.json")
+    tel_cost = os.path.join(work, "tel_cost")
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = _cli(trace_cli.main, [
+        "cost", "-o", cost_path, "--telemetry", tel_cost, "--form", "both",
+        "--artifact", mc_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    _expect_rc(got, 0, "trace cost")
+    n = TRACE_COST_REPLICAS * TRACE_COST_STEPS * 2
+    expect_launches(launches, {"fused_split_keyed": len(TRACE_KEYED) * n,
+                               "threefry_mask": TRACE_XLA * n},
+                    "trace cost --form both")
+    with open(cost_path) as f:
+        cost = json.load(f)
+    macs = 784 * 128 + 128 * 128 + 128 * 10
+    for r in cost["records"]:
+        steps = 2 if r.get("form") == "run" else 1
+        flops = (6 * macs * TRACE_COST_BATCH * steps if r["kind"] == "ddp"
+                 else 2 * macs * r["batch_per_device"])
+        if (r.get("error") or not r["compiled"]
+                or not r.get("peak_bytes", 0) > 0
+                or not r.get("compile_s", 0) > 0
+                or r["analytic_flops"] != flops
+                or any(k in r for k in ("flops", "bytes_accessed"))):
+            fail(f"phase_trace: trace cost record {r}")
+    labels = [r["program"] for r in cost["records"]]
+    if len(labels) != 24 or sum(lb.startswith("serve.bucket")
+                                for lb in labels) != 8:
+        fail(f"phase_trace: trace cost labels {labels}")
+    _check_trace(tel_cost, "xla.,mem.")
+    att = cost["attribution"]
+    if sorted(a["strategy"] for a in att) != sorted(
+            r["strategy"] for r in ddp) or any(
+            abs(sum(a["shares"].values()) - 1) > 1e-3 for a in att):
+        fail(f"phase_trace: trace cost attribution {att}")
+    _expect_rc(_cli(trace_cli.main, ["report", "--cost", cost_path,
+                                     "--baseline", cost_path]), 0,
+               "trace report --cost --baseline itself")
+    for r in cost["records"]:
+        print(f"[trace] d. {r['program']}: captured in {r.get('compile_s')} "
+              f"s, peak {r.get('peak_bytes')} B over its build, capture and "
+              f"one replay, graph pool {r.get('temp_bytes')} B, arguments "
+              f"{r['argument_bytes']} B, analytic {r['analytic_flops']} "
+              f"FLOP, wire {r['wire_bytes']} B [{card}]")
+    for a in att:
+        sh = a["shares"]
+        print(f"[trace] d. attribution {a['program']}: measured step "
+              f"{a['measured_step_s'] * 1e3:.3f} ms on {a['n_devices']} "
+              f"replicas of the card, compute {sh['compute']:.4f}, exposed "
+              f"comm {sh['comm_exposed']:.4f}, overhead {sh['overhead']:.4f} "
+              f"[{card}]")
+    print(f"[trace] d. trace cost --form both: {len(labels)} programs in "
+          f"{wall:.1f} s, launches {launches}, compile_s_total "
+          f"{cost['summary']['compile_s_total']} s, peak "
+          f"{cost['summary']['peak_hbm_bytes']} B [{card}]")
+
+    # e. the ledger over this run's own card lines
+    got = _cli(ledger_cli.main, ["ingest", ledger_dir, "--json"])
+    _expect_rc(got, 0, "ledger ingest")
+    ing = json.loads(got[1])
+    if ing["artifacts"] != 3 or ing["skipped"] or {
+            r["source"] for r in ing["rows"]} != {
+            "BENCH_r01.json", "MULTICHIP_r01.json", "COST_r01.json"}:
+        fail(f"phase_trace: ledger ingest {ing['artifacts']} artifacts, "
+             f"skipped {ing['skipped']}")
+    got = _cli(ledger_cli.main, ["report", ledger_dir, "--json"])
+    _expect_rc(got, 0, "ledger report")
+    n_series = json.loads(got[1])["n_series"]
+    _expect_rc(_cli(ledger_cli.main, ["gate", ledger_dir]), 0, "ledger gate")
+    chrome = os.path.join(work, "ledger.chrome.json")
+    _expect_rc(_cli(trace_cli.main, ["export", ledger_dir, "-o", chrome,
+                                     "--ledger", ledger_dir]), 0,
+               "trace export --ledger")
+    with open(chrome) as f:
+        tracks = {e["name"] for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "C"}
+    if len(tracks) != n_series:
+        fail(f"phase_trace: trace export --ledger drew {len(tracks)} "
+             f"counter tracks for {n_series} series")
+    halved = json.loads(json.dumps(multichip))
+    halved["run_ord"] = 2
+    for r in halved["strategies"]:
+        for k in ("value", "images_per_sec"):
+            r[k] = r[k] / 2
+    r02 = os.path.join(ledger_dir, "MULTICHIP_r02.json")
+    with open(r02, "w") as f:
+        json.dump(halved, f)
+    got = _cli(ledger_cli.main, ["gate", ledger_dir])
+    _expect_rc(got, 3, "ledger gate with the halved run")
+    series = (f"ddp.images_per_sec/pmean/mlp x1/{ddp[0]['n_devices']}dev/"
+              f"b{ddp[0]['per_chip_batch']}/cuda")
+    if series not in got[2]:
+        fail(f"phase_trace: the halved run's gate does not name {series}:"
+             f"\n{got[2]}")
+    os.remove(r02)
+    future = dict(multichip, schema_version=3, run_ord=3)
+    with open(os.path.join(ledger_dir, "MULTICHIP_r03.json"), "w") as f:
+        json.dump(future, f)
+    got = _cli(ledger_cli.main, ["gate", ledger_dir])
+    _expect_rc(got, 1, "ledger gate with a future schema")
+    if "schema_version 3 is newer" not in got[2]:
+        fail(f"phase_trace: the future schema is not refused by name:\n"
+             f"{got[2]}")
+    print(f"[trace] e. ledger over this run's card lines: "
+          f"{len(ing['rows'])} rows in {n_series} series, gate 0; halved "
+          f"MULTICHIP_r02 gate 3 naming {series}; schema_version 3 "
+          f"refused by name; trace export --ledger {len(tracks)} counter "
+          f"tracks [{card}]")
+    print(f"[trace] f. stamps: bench train line xla_compiles "
+          f"{bench_line['xla_compiles']}, peak_hbm_bytes "
+          f"{bench_line['peak_hbm_bytes']}, compile_s_total "
+          f"{bench_line['compile_s_total']}, health_summary "
+          f"{bench_line['health_summary']}, run_ord {bench_line['run_ord']}; "
+          f"{len(ddp)} ddp lines stamped alike [{card}]")
+    print(f"[trace] phase_trace: {time.perf_counter() - t_start:.1f} s "
+          f"[{card}]")
+    print(json.dumps({"trace": {"cost_summary": cost["summary"],
+                                "attribution": att, "card": card}}))
+    return {"trace cost --form both (8 replicas x 16 rows)": launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -6984,18 +7307,20 @@ def main() -> int:
         k2_launches.update({k: v for k, v in {**chaos, **tel}.items()
                             if v.get("epoch_step_ws")})
         elapsed("telemetry phase")
-    _, k2_launches["bench --epochs 5"] = phase_bench()
-    ss = ("--kernel", "pallas_epoch", "--dtype", "bfloat16", "--superstep",
-          "8")
-    _, paths["bench " + " ".join(ss)] = phase_bench(
-        ss, key="epoch_step_mma", bf16=True, superstep=8, design="mma")
-    # past MMA_MAX_BATCH the rows design's superstep
-    ss = ss[:-1] + (str(ROWS_SUPERSTEP), "--batch_size", str(ROWS_BATCH))
-    _, paths["bench " + " ".join(ss)] = phase_bench(
-        ss, key="epoch_step_superstep_bf16", bf16=True,
-        superstep=ROWS_SUPERSTEP,
-        design="rows")
-    elapsed("benches")
+        bench_line, k2_launches["bench --epochs 5"] = phase_bench()
+        ss = ("--kernel", "pallas_epoch", "--dtype", "bfloat16",
+              "--superstep", "8")
+        _, paths["bench " + " ".join(ss)] = phase_bench(
+            ss, key="epoch_step_mma", bf16=True, superstep=8, design="mma")
+        # past MMA_MAX_BATCH the rows design's superstep
+        ss = ss[:-1] + (str(ROWS_SUPERSTEP), "--batch_size", str(ROWS_BATCH))
+        _, paths["bench " + " ".join(ss)] = phase_bench(
+            ss, key="epoch_step_superstep_bf16", bf16=True,
+            superstep=ROWS_SUPERSTEP,
+            design="rows")
+        elapsed("benches")
+        paths.update(phase_trace(tmp, card, bench_line))
+        elapsed("trace phase")
     prof, busy = phase_profile(device, data)
     elapsed("profiler session")
     capture_summary = report_capture(capture, busy, card)

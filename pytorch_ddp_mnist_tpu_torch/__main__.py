@@ -13,9 +13,15 @@
                (data/download.py)
     serve      the micro-batching inference server on the card: TCP
                JSON lines or --selftest N (cli/serve.py)
+    trace      report / gate / Perfetto-export the JSONL traces a
+               --telemetry run writes, and harvest the program cost
+               records on the card (cli/trace.py)
+    ledger     the performance ledger: every artifact as one
+               direction-aware history, the trajectory report, the trend
+               gate (cli/ledger.py; exit 3 names the regressed series)
 
-The JAX package's other commands (trace, ledger, lint, audit-program) are
-not ported yet; naming one exits with a pointer to ROADMAP.md.
+The JAX package's other commands (lint, audit-program) are not ported yet;
+naming one exits with a pointer to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -34,11 +40,15 @@ _COMMANDS = {
                  "fetch the MNIST IDX files, checksum-verified"),
     "serve": ("pytorch_ddp_mnist_tpu_torch.cli.serve",
               "the micro-batching inference server"),
+    "trace": ("pytorch_ddp_mnist_tpu_torch.cli.trace",
+              "telemetry trace report / regression gate / Perfetto export "
+              "/ program cost harvest"),
+    "ledger": ("pytorch_ddp_mnist_tpu_torch.cli.ledger",
+               "performance ledger: artifact history, trajectory report, "
+               "trend gate"),
 }
 # the JAX package's commands still to port -> ROADMAP.md queue 1 item
-_NOT_YET_PORTED = {
-    "trace": "12c", "ledger": "12c", "lint": 14, "audit-program": 14,
-}
+_NOT_YET_PORTED = {"lint": 14, "audit-program": 14}
 
 
 # commands whose main() reads the process's command line itself when given

@@ -75,19 +75,36 @@ line a gradient-communication strategy (`--ddp_comm`, default all four;
 `--overlap` for the bucketed form), `mnist_ddp_train_images_per_sec_per_chip`,
 on a mesh of `--replicas` (default 4) replicas of the card at `--batch_size`
 rows a replica, against a 1-replica mesh: the resident-dataset DP step
-(train/scan.py `CachedSteps`, one captured step a step) over `--epochs`
-(default 10) epochs of 8,192 synthetic rows, best of 3 windows after a
-warm epoch; `--model` / `--param_scale` the zoo model. Each line has the
-ring-model `bytes_on_wire_per_step_per_replica` and the port's all-gather
+(train/scan.py `dp_steps`: `CachedSteps`, one captured step a step, the
+trainer's `--kernel auto` for the strategy, named in the line's `kernel`)
+over `--epochs` (default 10) epochs of 8,192 synthetic rows, best of 3
+windows after a warm epoch; `--model` / `--param_scale` the zoo model.
+`dp_steps` is also the builder whose programs `trace cost` prices
+(telemetry/costs.py). Each line has the ring-model
+`bytes_on_wire_per_step_per_replica` and the port's all-gather
 `bytes_moved_per_step_per_replica` (parallel/collectives.py), the comm
 probe's p50, the schedule's collectives a step, and the drift of 3 steps
 at lr 0.05 against pmean. All the replicas share one card, so the rate
 per chip is the mesh's rate.
 
-The JAX bench's registry, statics and ledger stamps are the telemetry
-read side (ROADMAP.md queue 1, item 12c) and are left out, and so are the
-ddp rows' journal and dispatch-overhead stamps. A run needs a card: no number is
-taken on the CPU.
+The ddp lines also carry the JAX field names the read side joins on
+(telemetry/costs.py `attribution_from_artifact`, analysis.py
+`efficiency_report`, the ledger's strategy metrics): `n_devices` (the
+replicas), `per_chip_batch` (rows a replica),
+`bytes_on_wire_per_step_per_device` and `scaling_efficiency_vs_1dev`. On
+one card the last is the mesh's per-chip rate over the 1-replica mesh's
+rate, which equals `vs_one_replica` (chips = 1: the per-chip rate is the
+mesh's). The attribution's compute C = efficiency x T is then the serial
+compute of the n replicas on the one card, which is what the card does.
+
+Every line carries `registry_stamp`: `xla_compiles` (the process's
+CUDA-graph captures, the listener armed before any work), `host_rss_mb`,
+`device_peak_bytes` / `peak_hbm_bytes` (the allocator's peak on the card),
+`compile_s_total` (the captures' seconds), `health_summary`, and the
+ledger stamps `schema_version` / `run_ord` (`ledger_stamp_fields`). The
+JAX bench's `statics` stamp and the ddp rows' journal and
+dispatch-overhead stamps are left out (ROADMAP.md queue 1, item 14). A
+run needs a card: no number is taken on the CPU.
 """
 
 from __future__ import annotations
@@ -128,6 +145,46 @@ MACS_FWD_PER_IMG = 784 * 128 + 128 * 128 + 128 * 10
 PEAK_FLOPS_BF16 = 989e12
 PEAK_CARD = "NVIDIA H100 SXM"
 WINDOWS = 5
+
+
+def ledger_stamp_fields() -> dict:
+    """The performance-ledger stamp of every line (telemetry/ledger.py
+    reads it): the schema generation, and the run ordinal its series sorts
+    under, `$PDMT_RUN_ORD` when set, else the wall-clock second."""
+    import os
+
+    from .telemetry.ledger import SCHEMA_VERSION
+    try:
+        run_ord = int(os.environ.get("PDMT_RUN_ORD", ""))
+    except ValueError:
+        run_ord = int(time.time())
+    return {"schema_version": SCHEMA_VERSION, "run_ord": run_ord}
+
+
+def registry_stamp() -> dict:
+    """Capture-count and memory fields of a bench line, read from the
+    telemetry registry (main() arms the capture listener before any work,
+    so `xla_compiles` covers the process), plus `health_summary` and the
+    ledger stamps. `device_peak_bytes` is absent off the card."""
+    from . import telemetry
+    reg = telemetry.get_registry()
+    telemetry.collect_memory(reg)
+    snap = reg.snapshot()
+    out = {"xla_compiles": snap["counters"].get("xla.compiles")}
+    rss = snap["gauges"].get("host.rss_bytes")
+    out["host_rss_mb"] = round(rss / 2**20, 1) if rss else None
+    dev = snap["gauges"].get("device.peak_bytes_in_use")
+    if dev is not None:
+        out["device_peak_bytes"] = dev
+    out["peak_hbm_bytes"] = snap["gauges"].get("mem.device_peak_bytes")
+    ch = snap["histograms"].get("xla.compile_s")
+    out["compile_s_total"] = (round(ch["total"], 3)
+                              if isinstance(ch, dict)
+                              and isinstance(ch.get("total"), (int, float))
+                              else None)
+    out["health_summary"] = telemetry.health_summary(reg)
+    out.update(ledger_stamp_fields())
+    return out
 
 
 def perf_fields(per_chip_imgs_per_sec: float, *,
@@ -581,8 +638,8 @@ def run_ddp_rows(device: torch.device, *, strategies, replicas: int =
     from .parallel import collectives
     from .parallel.ddp import make_dp_train_step
     from .parallel.sampler import ShardedSampler
-    from .train.scan import (CachedSteps, _clone, epoch_batch_indices,
-                             resident_images)
+    from .train.scan import (_clone, dp_kernel, dp_steps,
+                             epoch_batch_indices, resident_images)
 
     spec = resolve_model(model, param_scale)
     n_rows = max(n_rows, per_replica_batch * replicas)
@@ -600,7 +657,6 @@ def run_ddp_rows(device: torch.device, *, strategies, replicas: int =
             torch.cuda.synchronize(device)
 
     def measure(n, comm, ov=False):
-        mesh = (device,) * n
         batch = per_replica_batch * n
         sampler = ShardedSampler(n_rows, num_replicas=1, rank=0, seed=42)
         idxs = []
@@ -609,9 +665,9 @@ def run_ddp_rows(device: torch.device, *, strategies, replicas: int =
             idxs.append(epoch_batch_indices(sampler, batch))
         params = _clone({k: {kk: v.to(device) for kk, v in layer.items()}
                          for k, layer in params_host.items()})
-        dp = collectives.DPComm(mesh, 0.01, comm, overlap=ov)
-        steps = CachedSteps(params, x_all, y_all, idxs[0].shape, 0.01, "xla",
-                            torch.float32, mesh, comm=dp, apply=spec.apply)
+        steps = dp_steps(params, x_all, y_all, comm, ov, replicas=n,
+                         nsteps=idxs[0].shape[0], batch=per_replica_batch,
+                         model=model, param_scale=param_scale)
         key = key_data(1)
         key, ls = steps.epoch(key, idxs[0])        # capture + warm
         if not np.isfinite(ls.cpu().numpy()).all():
@@ -656,21 +712,27 @@ def run_ddp_rows(device: torch.device, *, strategies, replicas: int =
         rel = max(float(np.max(np.abs(a - b) / (np.abs(b) + 1e-12)))
                   for a, b in zip(got, ref))
         absd = max(float(np.max(np.abs(a - b))) for a, b in zip(got, ref))
+        wire = collectives.bytes_on_wire(params_host, replicas, comm)
         rows.append({
             "strategy": comm, "overlap": bool(overlap),
+            "kernel": dp_kernel(comm, overlap, model, param_scale,
+                                device.type),
             "collectives_per_step": len(collectives.collective_schedule(
                 params_host, replicas, comm, overlap=overlap)),
             "model": model, "param_scale": param_scale,
             "n_params": n_params, "replicas": replicas, "chips": 1,
+            "n_devices": replicas,
             "macs_fwd_per_image": sum(int(layer["w"].numel())
                                       for layer in params_host.values()),
             "per_replica_batch": per_replica_batch,
+            "per_chip_batch": per_replica_batch,
             "images_per_sec": round(rate, 1),
             "per_chip_images_per_sec": round(rate, 1),
             "one_replica_images_per_sec": round(one_rate, 1),
             "vs_one_replica": round(rate / one_rate, 4),
-            "bytes_on_wire_per_step_per_replica":
-                collectives.bytes_on_wire(params_host, replicas, comm),
+            "scaling_efficiency_vs_1dev": round(rate / one_rate, 4),
+            "bytes_on_wire_per_step_per_replica": wire,
+            "bytes_on_wire_per_step_per_device": wire,
             "bytes_moved_per_step_per_replica":
                 collectives.bytes_moved(params_host, replicas, comm,
                                         overlap=overlap),
@@ -679,6 +741,22 @@ def run_ddp_rows(device: torch.device, *, strategies, replicas: int =
             "parity_max_abs_diff_vs_pmean": absd,
         })
     return rows
+
+
+def ddp_lines(rows, stamp: dict) -> list:
+    """`--mode ddp`'s output lines: one a `run_ddp_rows` row, the metric
+    its per-chip rate, with the perf fields and `stamp` (the backend, the
+    device and the registry stamps)."""
+    return [{
+        "metric": "mnist_ddp_train_images_per_sec_per_chip",
+        "value": r["per_chip_images_per_sec"],
+        "unit": "images/sec/chip",
+        "vs_baseline": round(r["per_chip_images_per_sec"]
+                             / NOMINAL_BASELINE_DDP_IMGS_PER_SEC, 4),
+        **{k: v for k, v in r.items() if k != "per_chip_images_per_sec"},
+        **perf_fields(r["per_chip_images_per_sec"],
+                      macs_fwd=r["macs_fwd_per_image"]),
+        **stamp} for r in rows]
 
 
 def main(argv=None) -> int:
@@ -838,6 +916,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from .telemetry import install_compile_listener
+    install_compile_listener()
     device = torch.device("cuda", 0)
     stamp = {"backend": "cuda", "device": torch.cuda.get_device_name(device)}
     if a.mode == "stream":
@@ -858,22 +938,13 @@ def main(argv=None) -> int:
     elif a.mode == "ddp":
         strategies = (("pmean", "sharded", "bf16", "int8")
                       if a.ddp_comm == "all" else (a.ddp_comm,))
-        for r in run_ddp_rows(device, strategies=strategies,
-                              replicas=a.replicas,
-                              per_replica_batch=a.batch_size,
-                              epochs=a.epochs, model=a.model,
-                              param_scale=a.param_scale, overlap=a.overlap):
-            print(json.dumps({
-                "metric": "mnist_ddp_train_images_per_sec_per_chip",
-                "value": r["per_chip_images_per_sec"],
-                "unit": "images/sec/chip",
-                "vs_baseline": round(r["per_chip_images_per_sec"]
-                                     / NOMINAL_BASELINE_DDP_IMGS_PER_SEC, 4),
-                **{k: v for k, v in r.items()
-                   if k != "per_chip_images_per_sec"},
-                **perf_fields(r["per_chip_images_per_sec"],
-                              macs_fwd=r["macs_fwd_per_image"]),
-                **stamp}), flush=True)
+        rows = run_ddp_rows(device, strategies=strategies,
+                            replicas=a.replicas,
+                            per_replica_batch=a.batch_size,
+                            epochs=a.epochs, model=a.model,
+                            param_scale=a.param_scale, overlap=a.overlap)
+        for line in ddp_lines(rows, {**stamp, **registry_stamp()}):
+            print(json.dumps(line), flush=True)
         return 0
     elif a.mode == "accuracy":
         out = {**run_accuracy_bench(device, kernel, dtype, superstep, a.impl,
@@ -884,7 +955,7 @@ def main(argv=None) -> int:
                               impl=a.impl, dtype=dtype, superstep=superstep)
         out.update({**stamp, "kernel": kernel, "impl": a.impl,
                     "epochs": a.epochs, "peak_bf16_of": PEAK_CARD})
-    print(json.dumps(out), flush=True)
+    print(json.dumps({**out, **registry_stamp()}), flush=True)
     return 0
 
 

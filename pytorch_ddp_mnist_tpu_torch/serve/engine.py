@@ -79,7 +79,9 @@ import torch
 
 from ..data.mnist import device_normalize
 from ..models.mlp import MLP_DIMS, init_params, mlp_apply
+from ..telemetry.runtime import label_compiles, note_capture
 from ..train.checkpoint import load_checkpoint
+from ..train.graphs import side_stream
 from ..utils import faultpoints
 
 IN_DIM = MLP_DIMS[0]
@@ -122,12 +124,14 @@ class _Rung:
     """One bucket: its static device input and outputs and, on a card, the
     graph captured over them."""
 
-    __slots__ = ("bucket", "x", "logits", "preds", "graph")
+    __slots__ = ("bucket", "x", "logits", "preds", "graph", "capture_s",
+                 "pool_bytes")
 
     def __init__(self, bucket: int, dtype: torch.dtype, device):
         self.bucket = bucket
         self.x = torch.zeros((bucket, IN_DIM), dtype=dtype, device=device)
         self.logits = self.preds = self.graph = None
+        self.capture_s = self.pool_bytes = None
 
 
 class InflightBatch:
@@ -293,16 +297,21 @@ class InferenceEngine:
     def _capture(self, rung: _Rung) -> None:
         """Warm the rung's forward on a side stream, then capture it there
         in the thread-local mode, under the process-wide capture lock (see
-        the module docstring)."""
+        the module docstring). The capture is one `xla.compiles` of label
+        `serve.bucket<N>` (telemetry/runtime.py `note_capture`); the rung
+        keeps its seconds and its graph pool's bytes."""
         dev = self.device
-        with _CAPTURE_LOCK, torch.cuda.device(dev):
+        t0 = time.perf_counter()
+        with _CAPTURE_LOCK, torch.cuda.device(dev), \
+                label_compiles(f"serve.bucket{rung.bucket}"):
             current = torch.cuda.current_stream(dev)
-            side = torch.cuda.Stream(dev)
+            side = side_stream(dev)
             side.wait_stream(current)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.stream(side):
                 for _ in range(WARMUP_CALLS):
                     self._fn(rung.x)
+                reserved = torch.cuda.memory_reserved(dev)
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     try:
@@ -313,8 +322,17 @@ class InferenceEngine:
                     raise RuntimeError(
                         f"serve engine: capturing bucket {rung.bucket} as "
                         f"a CUDA graph failed: {e}") from e
+                rung.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
             current.wait_stream(side)
+            rung.capture_s = time.perf_counter() - t0
+            note_capture(rung.capture_s)
         rung.logits, rung.preds, rung.graph = logits, preds, graph
+
+    def capture_stats(self) -> dict:
+        """{bucket: {"capture_s", "pool_bytes"}} of the rungs captured on
+        the card (empty on the CPU, where nothing is captured)."""
+        return {b: {"capture_s": r.capture_s, "pool_bytes": r.pool_bytes}
+                for b, r in self._rungs.items() if r.graph is not None}
 
     def _fault_ctx(self) -> dict:
         ctx = {"after": self._serve_calls}

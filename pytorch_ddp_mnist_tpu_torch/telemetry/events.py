@@ -38,15 +38,10 @@ import threading
 import time
 from typing import Any, Optional
 
+from .runtime import process_index_cached
+
 SCHEMA_VERSION = 1
 KINDS = ("meta", "span", "point", "snapshot")
-
-
-def _process_index() -> int:
-    """This process's rank in a torch.distributed world, else 0."""
-    import torch.distributed as dist
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
-        else 0
 
 
 def cuda_devices(tree) -> set:
@@ -134,7 +129,7 @@ class EventTrace:
     def __init__(self, path: str, *, process_index: Optional[int] = None):
         self.path = str(path)
         if process_index is None:
-            process_index = _process_index()
+            process_index = process_index_cached()
         self.process_index = int(process_index)
         self._f = open(self.path, "a", buffering=1)  # line-buffered
         self._ids = 0
@@ -298,7 +293,7 @@ def enable(out_dir: str, *, process_index: Optional[int] = None) -> EventTrace:
     directory."""
     global _tracer
     if process_index is None:
-        process_index = _process_index()
+        process_index = process_index_cached()
     os.makedirs(out_dir, exist_ok=True)
     name = ("events.jsonl" if process_index == 0
             else f"events.rank{process_index}.jsonl")

@@ -1,6 +1,6 @@
-"""Runtime collectors: capture counts, memory (the port
-of `pytorch_ddp_mnist_tpu/telemetry/runtime.py`, with the JAX package's
-metric and record names).
+"""Runtime collectors: process identity, capture counts and their
+attribution, memory (the port of `pytorch_ddp_mnist_tpu/telemetry/runtime.py`,
+with the JAX package's metric and record names).
 
 Everything here observes state other subsystems already produce: no
 collector forces device work, and every probe degrades to None or a no-op
@@ -12,7 +12,11 @@ train/graphs.py `StepLoop` captures the training step once a fit and
 reports each capture here (`note_capture`). The counter keeps the JAX
 name, `xla.compiles`, and its durations go to `xla.compile_s`, so the
 `[telemetry]` line's `xla_compiles` field and the JAX read side need no
-change; in the port the field counts captures.
+change; in the port the field counts captures. A capture made inside a
+`label_compiles(label)` block is also attributed to `label`
+(`compile_attribution`, the per-program table of telemetry/costs.py):
+the step loops capture under their loop's label, the serve engine each
+rung under `serve.bucket<N>`.
 """
 
 from __future__ import annotations
@@ -21,14 +25,35 @@ import os
 import threading
 from typing import Optional
 
-# guards the one-target-a-process install of the capture listener
+_process_index: Optional[int] = None
+# guards this module's lazy singletons (the process index, the capture
+# listener's one target, the attribution table)
 _LOCK = threading.Lock()
+
+
+def process_index_cached() -> int:
+    """This process's rank in a torch.distributed world, resolved once and
+    cached. Before the world is up it reads as rank 0 and is not cached,
+    so the first call after `init_process_group` resolves the real rank."""
+    global _process_index
+    if _process_index is None:
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()):
+            return 0
+        with _LOCK:
+            if _process_index is None:
+                _process_index = int(dist.get_rank())
+    return _process_index
 
 
 # -- capture counting --------------------------------------------------------
 
 _compile_counter = None  # the one counter note_capture feeds
 _compile_hist = None     # its sibling duration histogram
+# label -> {"count": int, "total_s": float}: captures made while a
+# `label_compiles` block was active on the capturing thread
+_compile_attr: dict = {}
+_compile_label = threading.local()
 
 
 def install_compile_listener(registry=None,
@@ -52,14 +77,56 @@ def install_compile_listener(registry=None,
 
 
 def note_capture(seconds: float) -> None:
-    """One CUDA-graph capture of `seconds` (train/graphs.py calls it): the
-    counter and the histogram, where the listener is installed; nothing
-    otherwise."""
+    """One CUDA-graph capture of `seconds` (train/graphs.py and
+    serve/engine.py call it): the counter, the histogram and, inside a
+    `label_compiles` block, the label's row of the attribution table,
+    where the listener is installed; nothing otherwise."""
     counter, hist = _compile_counter, _compile_hist
     if counter is None:
         return
     counter.inc()
     hist.record(float(seconds))
+    label = getattr(_compile_label, "value", None)
+    if label:
+        with _LOCK:
+            slot = _compile_attr.setdefault(label,
+                                            {"count": 0, "total_s": 0.0})
+            slot["count"] += 1
+            slot["total_s"] += float(seconds)
+
+
+class label_compiles:
+    """Context manager naming the program whose captures are about to run
+    on THIS thread: each one is attributed to `label` in
+    `compile_attribution()`. Nestable (the inner label wins, the outer is
+    restored); costs nothing when the listener is not installed."""
+
+    def __init__(self, label: str):
+        self.label = str(label)
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = getattr(_compile_label, "value", None)
+        _compile_label.value = self.label
+        return self
+
+    def __exit__(self, *exc):
+        _compile_label.value = self._prev
+        return None
+
+
+def current_compile_label() -> Optional[str]:
+    """The innermost `label_compiles` label active on this thread (None
+    outside any block): the OOM forensics name it."""
+    return getattr(_compile_label, "value", None)
+
+
+def compile_attribution() -> dict:
+    """{label: {"count": n, "total_s": s}} of every labelled capture the
+    listener has seen. Unlabelled captures are in the `xla.compiles` /
+    `xla.compile_s` metrics only."""
+    with _LOCK:
+        return {k: dict(v) for k, v in _compile_attr.items()}
 
 
 # -- memory ------------------------------------------------------------------

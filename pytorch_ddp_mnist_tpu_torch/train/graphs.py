@@ -60,7 +60,9 @@ order), and no atomics are added.
 `counts["captures"]` counts this process's captures; chip_smoke.py reads
 it (one a run). Each capture, warm-up included, is also reported to
 telemetry/runtime.py `note_capture`, the `xla.compiles` counter and
-`xla.compile_s` histogram of a `--telemetry` run.
+`xla.compile_s` histogram of a `--telemetry` run (and the row of the
+`label_compiles` label active on the capturing thread); the loop keeps its
+capture's seconds and its graph pool's bytes (`capture_s`, `pool_bytes`).
 """
 
 from __future__ import annotations
@@ -85,6 +87,21 @@ counts = {"captures": 0}
 
 # the launch counters a captured step adds to on every replay
 _COUNTERS = (fused_step.launch_count,)
+
+# one warm-up stream a device for every capture of the process (the step
+# loops' and the serve engines'): cuBLAS keeps a workspace for each stream
+# it has run on (32 MiB on an H100), which a fresh stream a capture would
+# add again and again
+_SIDE_STREAMS: dict = {}
+
+
+def side_stream(device) -> "torch.cuda.Stream":
+    """The process's warm-up stream on `device`, made on first use."""
+    device = torch.device(device)
+    stream = _SIDE_STREAMS.get(device)
+    if stream is None:
+        stream = _SIDE_STREAMS.setdefault(device, torch.cuda.Stream(device))
+    return stream
 
 
 class StaticInput:
@@ -166,6 +183,11 @@ class StepLoop:
                                    device=self.device)
         self.graph = None
         self._per_replay = None
+        # the capture's wall time (its warm-up included) and the growth of
+        # the allocator's reserved bytes while the graph was captured: the
+        # graph's private memory pool (telemetry/costs.py reads both)
+        self.capture_s = None
+        self.pool_bytes = None
 
     def start_epoch(self, at: int = 0) -> None:
         if at:
@@ -213,7 +235,7 @@ class StepLoop:
         cursor = torch.zeros_like(self.cursor)
         losses = torch.zeros_like(self._losses)
         kept = [t.clone() for t in self.preserve]
-        side = torch.cuda.Stream(self.device)
+        side = side_stream(self.device)
         side.wait_stream(current)
         try:
             with torch.cuda.device(self.device), torch.cuda.stream(side):
@@ -232,6 +254,7 @@ class StepLoop:
         mode = torch.cuda.get_sync_debug_mode()
         try:
             with torch.cuda.device(self.device), torch.cuda.graph(graph):
+                reserved = torch.cuda.memory_reserved(self.device)
                 _set_sync_debug_mode("error")
                 try:
                     self.body(self.state, self.cursor, self._losses)
@@ -241,12 +264,14 @@ class StepLoop:
             _restore(saved)
             raise RuntimeError(f"{self.what}: capturing the step as a CUDA "
                                f"graph failed: {e}") from e
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self._per_replay = [{k: c[k] - s[k] for k in c if c[k] != s[k]}
                             for c, s in zip(_COUNTERS, saved)]
         _restore(saved)
         self.graph = graph
         counts["captures"] += 1
-        note_capture(time.perf_counter() - t0)
+        self.capture_s = time.perf_counter() - t0
+        note_capture(self.capture_s)
 
 
 def on_one_device(mesh, device) -> bool:

@@ -322,6 +322,40 @@ class CachedSteps:
         return key, self.loop.epoch()
 
 
+def dp_kernel(comm: str, overlap: bool = False, model: str = "mlp",
+              param_scale: int = 1, device_type: str = "cuda") -> str:
+    """The kernel of a DP step under the trainer's `--kernel auto`
+    (train/config.py `resolve_kernel`, `check_comm_and_input_knobs`): the
+    fused step (K1 keyed) on a card at the reference model; `xla` for
+    int8, --overlap, a zoo model's other shapes, and on the CPU."""
+    if overlap or comm == "int8" or not is_default_model(model, param_scale):
+        return "xla"
+    from .config import resolve_kernel
+    return resolve_kernel("auto", "float32", device_type)
+
+
+def dp_steps(params, x_all, y_all, comm: str, overlap: bool = False, *,
+             replicas: int, nsteps: int, batch: int, lr: float = 0.01,
+             model: str = "mlp", param_scale: int = 1, kernel: str = "auto",
+             eager: bool = False) -> CachedSteps:
+    """The data-parallel step program: `CachedSteps` over a mesh of
+    `replicas` replicas of the dataset's device, `batch` rows a replica,
+    `nsteps` steps an epoch, its mean and update those of a
+    collectives.DPComm of `comm` (`overlap`: the bucketed form), the
+    kernel `dp_kernel`'s unless named. The one builder of the programs
+    that bench.py `--mode ddp` times and telemetry/costs.py prices, so the
+    cost records are of the programs the bench measures."""
+    device = x_all.device
+    if kernel == "auto":
+        kernel = dp_kernel(comm, overlap, model, param_scale, device.type)
+    mesh = (device,) * replicas
+    dp = collectives.DPComm(mesh, lr, comm, overlap=overlap)
+    from ..models.zoo import resolve_model
+    return CachedSteps(params, x_all, y_all, (nsteps, replicas * batch), lr,
+                       kernel, torch.float32, mesh, eager=eager, comm=dp,
+                       apply=resolve_model(model, param_scale).apply)
+
+
 def _kernel_epoch(params, key, x_all, y_all, idx_e, lr, impl, compute_bf16,
                   superstep):
     """One epoch through the whole-epoch kernel. Returns (new params, key,

@@ -225,3 +225,39 @@ print(sorted(m for m in sys.modules
         assert not any(m == "torch" or m.startswith("torch.")
                        for m in top), (name, top)
         assert "spec_from_file_location" not in (REPO / rel).read_text()
+
+
+# the telemetry read side: each module on its own, in a fresh interpreter,
+# loads neither jax, the JAX package nor torch (the JAX read side's
+# stdlib-at-import contract: reports and gates run wherever the files land;
+# `trace cost` imports torch inside its harvest)
+READ_SIDE_MODULES = (
+    "pytorch_ddp_mnist_tpu_torch.telemetry.analysis",
+    "pytorch_ddp_mnist_tpu_torch.telemetry.export",
+    "pytorch_ddp_mnist_tpu_torch.telemetry.ledger",
+    "pytorch_ddp_mnist_tpu_torch.telemetry.costs",
+    "pytorch_ddp_mnist_tpu_torch.cli.trace",
+    "pytorch_ddp_mnist_tpu_torch.cli.ledger",
+)
+
+
+def test_the_read_side_modules_stand_alone_without_torch(tmp_path):
+    code = f"""
+import importlib, sys
+sys.path.insert(0, {str(REPO)!r})
+for name in {READ_SIDE_MODULES!r}:
+    importlib.import_module(name)
+print(sorted(m for m in sys.modules
+             if any(m == f or m.startswith(f + ".")
+                    for f in {FORBIDDEN + ("torch",)!r})))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    for name in READ_SIDE_MODULES:
+        rel = name.replace(".", "/") + ".py"
+        assert rel in names
+        assert "spec_from_file_location" not in (REPO / rel).read_text()

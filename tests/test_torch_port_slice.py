@@ -234,7 +234,7 @@ def test_kernel_auto_policy():
 
 
 def test_front_door_names_unported_commands(capsys):
-    assert port_main.main(["trace"]) == 2
+    assert port_main.main(["lint"]) == 2
     assert "not ported" in capsys.readouterr().err
     assert port_main.main(["frobnicate"]) == 2
     assert port_main.main(["--help"]) == 0
